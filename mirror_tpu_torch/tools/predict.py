@@ -1,0 +1,192 @@
+#!/usr/bin/env python
+"""Batch inference from a trained downstream checkpoint to a CSV.
+
+Counterpart of ``mirror_tpu/tools/predict.py``, with the same CLI and CSV
+columns, reading the reference's ``.pth.tar`` payload:
+
+    python -m mirror_tpu_torch.tools.predict --checkpoint model_best.pth.tar \\
+        --task subtyping --wsi-feature-dir feats/ --rna-feature-csv rna.csv \\
+        --output predictions.csv --device cuda
+
+The model is rebuilt from the checkpoint's embedded run args. Output columns:
+``slide_id`` plus ``pred`` and per-class ``prob_{i}`` softmax probabilities
+(subtyping) or the ``risk`` score -sum(cumprod(1 - hazards)) (survival).
+Slides are every feature file in the directory (or in its class
+subdirectories); RNA rows are matched by the 15-char "Sample ID" prefix.
+Each slide is scored on ``num_wsi_feature_tokens`` patches drawn with the
+same numpy generator as the JAX tool, so the two CSVs agree row for row.
+"""
+
+import argparse
+import logging
+import os
+
+import numpy as np
+import pandas as pd
+import torch
+
+from mirror_tpu_torch.data.formats import list_feature_files, load_feature_file
+from mirror_tpu_torch.registry import create_model
+from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args as _run_args
+
+_logger = logging.getLogger("predict")
+
+
+def survival_risk(logits: torch.Tensor) -> torch.Tensor:
+    """-sum(cumprod(1 - sigmoid(logits))) over the bins."""
+    survival = torch.cumprod(1.0 - torch.sigmoid(logits.float()), dim=1)
+    return -survival.sum(dim=1)
+
+
+def _rebuild_model(payload, rna_dim, task, device):
+    run_args = _run_args(payload)
+    model_name = payload.get("arch") or run_args.get("model", "mirror_classifier")
+    mk = dict(run_args.get("model_kwargs") or {})
+    if task == "survival":
+        mk["num_classes"] = run_args.get("num_bins") or run_args.get("num_classes", 4)
+    else:
+        # train_subtyping: num_classes = args.num_classes or len(args.classes)
+        mk["num_classes"] = (
+            run_args.get("num_classes")
+            or len(run_args.get("classes") or [])
+            or mk.get("num_classes", 2)
+        )
+    if rna_dim is not None:
+        mk["rna_embed_dim"] = rna_dim
+    if run_args.get("amp", True):
+        mk.setdefault("dtype", run_args.get("amp_dtype", "bfloat16"))
+    if run_args.get("wsi_feature_only"):
+        mk.setdefault("fusion", "add")
+    model = create_model(model_name, device=device, **mk)
+    num_tokens = int(run_args.get("num_wsi_feature_tokens", 2048))
+    wsi_only = bool(run_args.get("wsi_feature_only", False))
+    return model, num_tokens, wsi_only
+
+
+def _list_slides(wsi_feature_dir, rna_df, wsi_only):
+    files = [os.path.join(wsi_feature_dir, f) for f in list_feature_files(wsi_feature_dir)]
+    if not files:
+        # subtyping cohorts live in a class layout ({root}/{class}/{slide})
+        for sub in sorted(os.listdir(wsi_feature_dir)):
+            subdir = os.path.join(wsi_feature_dir, sub)
+            if os.path.isdir(subdir):
+                files += [os.path.join(subdir, f) for f in list_feature_files(subdir)]
+    if rna_df is not None and not wsi_only:
+        kept = [f for f in files if os.path.basename(f).split(".")[0][:15] in rna_df.index]
+        if len(kept) < len(files):
+            _logger.warning("%d slides have no RNA row; skipped", len(files) - len(kept))
+        files = kept
+    if not files:
+        raise SystemExit(f"no usable feature files under {wsi_feature_dir}")
+    return files
+
+
+@torch.no_grad()
+def predict(
+    checkpoint: str,
+    task: str,
+    wsi_feature_dir: str,
+    output: str,
+    rna_feature_csv: str = "",
+    batch_size: int = 16,
+    use_ema: bool = False,
+    seed: int = 42,
+    whole_slide: bool = False,
+    device: str = "cuda",
+) -> list:
+    """Score every slide under ``wsi_feature_dir`` on ``device`` and write
+    the CSV. Returns the rows."""
+    if whole_slide:
+        raise SystemExit(
+            "--whole-slide needs the context-parallel encoder, which the "
+            "PyTorch port does not have yet; score the token subsample instead"
+        )
+    device = torch.device(device)
+    payload = load_checkpoint_file(checkpoint)
+    state_dict = payload.get("state_dict_ema") if use_ema else None
+    if use_ema and not state_dict:
+        _logger.warning(
+            "--use-ema requested but the checkpoint has no state_dict_ema; "
+            "scoring the raw state_dict"
+        )
+    if not state_dict:
+        state_dict = payload["state_dict"]
+
+    rna_df = None
+    rna_dim = None
+    if rna_feature_csv:
+        rna_df = pd.read_csv(rna_feature_csv, index_col=0)
+        rna_df.index = [str(i)[:15] for i in rna_df.index]
+        rna_df = rna_df.loc[~rna_df.index.duplicated(keep="first")]
+        rna_dim = rna_df.shape[1]
+
+    model, num_tokens, wsi_only = _rebuild_model(payload, rna_dim, task, device)
+    model.load_state_dict(state_dict)
+    if rna_df is None and not wsi_only:
+        raise SystemExit(
+            "this checkpoint's model fuses RNA (wsi_feature_only was off at "
+            "training time) — pass --rna-feature-csv"
+        )
+    files = _list_slides(wsi_feature_dir, rna_df, wsi_only)
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(0, len(files), batch_size):
+        chunk = files[i : i + batch_size]
+        wsi, rna = [], []
+        for f in chunk:
+            feats = np.asarray(load_feature_file(f), np.float32)
+            idx = rng.choice(feats.shape[0], num_tokens, replace=feats.shape[0] < num_tokens)
+            wsi.append(feats[idx])
+            if rna_df is not None and not wsi_only:
+                sid = os.path.basename(f).split(".")[0][:15]
+                rna.append(rna_df.loc[sid].to_numpy(np.float32))
+        n_valid = len(chunk)
+        if n_valid < batch_size:  # keep one batch shape: repeat the last slide
+            wsi += [wsi[-1]] * (batch_size - n_valid)
+            if rna:
+                rna += [rna[-1]] * (batch_size - n_valid)
+        wsi_t = torch.from_numpy(np.stack(wsi)).to(device)
+        rna_t = torch.from_numpy(np.stack(rna)).to(device) if rna else None
+        logits = model(wsi_t, rna_t).float()[:n_valid].cpu()
+        risks = survival_risk(logits) if task == "survival" else None
+        for j, (f, lg) in enumerate(zip(chunk, logits.numpy())):
+            sid = os.path.basename(f).split(".")[0]
+            if task == "survival":
+                rows.append({"slide_id": sid, "risk": float(risks[j])})
+            else:
+                p = np.exp(lg - lg.max())
+                p = p / p.sum()
+                row = {"slide_id": sid, "pred": int(np.argmax(p))}
+                row.update({f"prob_{c}": float(v) for c, v in enumerate(p)})
+                rows.append(row)
+        _logger.info("scored %d/%d slides", min(i + batch_size, len(files)), len(files))
+
+    pd.DataFrame(rows).to_csv(output, index=False)
+    _logger.info("wrote %d predictions -> %s", len(rows), output)
+    return rows
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--task", required=True, choices=["subtyping", "survival"])
+    p.add_argument("--wsi-feature-dir", required=True)
+    p.add_argument("--rna-feature-csv", default="")
+    p.add_argument("--output", required=True)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--use-ema", action="store_true", default=False)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--whole-slide", action="store_true", default=False,
+                   help="score EVERY patch (not in the PyTorch port yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the kernels run on cuda, cpu runs "
+                   "their plain versions")
+    a = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    predict(a.checkpoint, a.task, a.wsi_feature_dir, a.output, a.rna_feature_csv,
+            a.batch_size, a.use_ema, a.seed, whole_slide=a.whole_slide, device=a.device)
+
+
+if __name__ == "__main__":
+    main()
