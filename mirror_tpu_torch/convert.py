@@ -4,7 +4,10 @@ Counterpart of ``mirror_tpu/tools/import_torch_checkpoint.py::
 to_torch_state_dict``, with the same keys and values, and numpy only (no jax
 in the import chain). The port's modules are named after the original
 reference, so the result loads with ``load_state_dict`` once its values are
-tensors (``train.checkpoint.to_tensors``).
+tensors (``train.checkpoint.to_tensors``). It covers the classifier and
+every ``MIRROR`` parameter: the bare leaves (``logit_scale``, mask tokens,
+``retention_gene_embed``) keep their names, the prototypes' [D, P] kernel
+becomes the [P, D] weight.
 
 Layout conventions (flax -> torch):
 - ``kernel`` [in, out] -> ``weight`` [out, in]; 4-d HWIO conv ``kernel``

@@ -25,6 +25,14 @@ def load_feature_file(path: str) -> np.ndarray:
     raise ValueError(f"Unsupported feature file: {path}")
 
 
+def find_feature_file(directory: str, slide_id: str) -> str:
+    for ext in _FEATURE_EXTS:
+        p = os.path.join(directory, slide_id + ext)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"No feature file for {slide_id} in {directory}")
+
+
 def list_feature_files(directory: str) -> List[str]:
     """One file per slide id, sorted; a slide present in several formats is
     listed once, preferring the _FEATURE_EXTS order (.npy first)."""

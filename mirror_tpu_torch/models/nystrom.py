@@ -21,6 +21,13 @@ One module, two paths, and the device alone picks between them:
   is materialised, the attention matrices are built, and the output is
   trimmed to the last n rows.
 
+Both paths are differentiable. The kernel path's gradients are the kernels'
+own backward passes (each op is a ``torch.autograd.Function``), and the
+pinv takes the implicit gradient by default (``pinv_grad``, as the JAX
+train step does). ``xavier_init`` marks to_qkv and to_out for xavier-uniform
+init with zero bias (the hybrid WSI encoder's); the output dropout is live
+in training.
+
 Parameter names are the reference's: ``to_qkv`` (no bias), ``to_out.0``,
 and ``res_conv.weight`` [h, 1, 33, 1] (the JAX param ``res_conv_kernel``).
 """
@@ -39,22 +46,26 @@ from ..ops.nystrom_attn import (
     softmax_matmul_landmark_q,
 )
 from ..ops.pinv import moore_penrose_pinv
-from .layers import Dense
+from .layers import Dense, Dropout
 
 
 class NystromAttention(nn.Module):
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  num_landmarks: int = 256, pinv_iterations: int = 6,
                  residual: bool = True, residual_conv_kernel: int = 33,
-                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.0, pinv_grad: str = "implicit",
+                 xavier_init: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.num_landmarks = num_landmarks
         self.pinv_iterations = pinv_iterations
+        self.pinv_grad = pinv_grad
         self.dtype = dtype
         inner = heads * dim_head
-        self.to_qkv = Dense(dim, inner * 3, bias=False, dtype=dtype)
-        self.to_out = nn.Sequential(Dense(inner, dim, dtype=dtype), nn.Dropout(dropout))
+        init = "xavier" if xavier_init else "torch"
+        self.to_qkv = Dense(dim, inner * 3, bias=False, dtype=dtype, init=init)
+        self.to_out = nn.Sequential(Dense(inner, dim, dtype=dtype, init=init),
+                                    Dropout(dropout))
         self.res_conv = None
         if residual:
             k = residual_conv_kernel
@@ -81,7 +92,7 @@ class NystromAttention(nn.Module):
         q, k, v = (t.contiguous() for t in qkv.unbind(0))  # each [b, h, n, dh]
         q = q * dh ** -0.5
         q_l, k_l, attn2 = landmark_softmax(q, k, m, pad)
-        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations)
+        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations, self.pinv_grad)
         r3 = softmax_matmul_landmark_kv(q_l, k, v, pad)
         w = torch.matmul(attn2_inv, r3).to(q.dtype)
         if self.res_conv is not None:
@@ -109,7 +120,7 @@ class NystromAttention(nn.Module):
         k_l = k.reshape(b, m, l, h, dh).mean(2)
         sim2 = torch.einsum("bihd,bjhd->bhij", q_l.float(), k_l.float())
         attn2 = torch.softmax(sim2, dim=-1).to(cdt)
-        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations)
+        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations, self.pinv_grad)
         sim1 = torch.einsum("bihd,bjhd->bhij", q.float(), k_l.float())
         sim3 = torch.einsum("bihd,bjhd->bhij", q_l.float(), k.float())
         attn1 = torch.softmax(sim1, dim=-1).to(cdt)

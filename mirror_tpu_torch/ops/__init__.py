@@ -1,12 +1,23 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-| kernel | source | TPU kernel it replaces (mirror_tpu/ops/) |
+Every op is a ``torch.autograd.Function``; its forward and backward are
+kernels on CUDA tensors and plain PyTorch on CPU tensors.
+
+| kernel (launch count) | source | TPU kernel it replaces (mirror_tpu/ops/) |
 | --- | --- | --- |
-| landmark_softmax | csrc/landmark.cu | landmark_pallas.py::landmark_softmax |
-| moore_penrose_pinv | csrc/pinv.cu | pinv_pallas.py::moore_penrose_pinv_pallas |
-| softmax_attn | csrc/softmax_attn.cu | nystrom_pallas.py::softmax_matmul_landmark_kv / _q |
-| softmax_attn_conv | csrc/softmax_attn.cu | nystrom_pallas.py::fused_softmax_attn_conv |
-| ppeg | csrc/ppeg.cu | ppeg_pallas.py::ppeg_fused |
+| landmark_softmax | csrc/landmark.cu | landmark_pallas.py::landmark_softmax fwd |
+| landmark_softmax_bwd | csrc/landmark.cu | the same, bwd (_bwd_call) |
+| moore_penrose_pinv | csrc/pinv.cu | pinv_pallas.py::moore_penrose_pinv_pallas fwd |
+| softmax_attn | csrc/softmax_attn.cu | nystrom_pallas.py::softmax_matmul_landmark_kv fwd |
+| softmax_attn_q | csrc/softmax_attn.cu | nystrom_pallas.py::softmax_matmul_landmark_q fwd |
+| softmax_attn_bwd | csrc/softmax_attn_bwd.cu | nystrom_pallas.py::fused_softmax_attn bwd |
+| softmax_attn_conv | csrc/softmax_attn.cu | nystrom_pallas.py::fused_softmax_attn_conv fwd |
+| softmax_attn_conv_bwd | csrc/softmax_attn_bwd.cu | the same, bwd (_bwd_conv_call) |
+| ppeg | csrc/ppeg.cu | ppeg_pallas.py::ppeg_fused fwd |
+| ppeg_bwd | csrc/ppeg.cu | the same, bwd (_bwd_call) |
+
+The pinv's implicit gradient is two matrix products outside any kernel, as
+in the JAX package; its exact backward (pinv_pallas.py:171) is not ported.
 """
 
 from ._common import launch_counts, reset_launch_counts

@@ -2,13 +2,16 @@
 
 Counterpart of ``mirror_tpu/ops/_common.py``. It holds three things:
 
-- the build and load of the kernel library: every ``csrc/*.cu`` is compiled
-  by ``nvcc`` for ``sm_90a`` into one ``build/kernels/libmirror_kernels.so``
-  at first use and loaded with ``ctypes`` (plain C entry points, no PyTorch
+- the build and load of the kernel library: each ``csrc/*.cu`` is compiled
+  by its own ``nvcc`` for ``sm_90a`` (all started together), the objects are
+  linked into one ``build/kernels/libmirror_kernels.so`` at first use, and
+  the library is loaded with ``ctypes`` (plain C entry points, no PyTorch
   headers, so the build takes seconds);
 - the device check every wrapper goes through: a CUDA tensor goes to the
   kernel, a CPU tensor goes to the plain PyTorch version. There is no other
-  switch and no fallback: a kernel that fails to build or launch raises;
+  switch and no fallback: a kernel that fails to build or launch raises.
+  Only the ``torch.autograd.Function`` of each op launches a kernel, forward
+  and backward, so no output of a kernel is ever cut off from autograd;
 - a launch counter per kernel, so a run can show which kernels its main
   path went through.
 
@@ -32,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmirror_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,14 +45,33 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, q_l, k_l, attn2, bh, n, dh, m, l, pad, stream
     "mirror_landmark_softmax": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, gql, gkl, ga2, dq, dk, q_l, k_l, dsim (scratch), bh, n, dh, m, l,
+    # pad, stream
+    "mirror_landmark_softmax_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _P),
     # x, s, z, bh, m, stream
     "mirror_pinv_init": (_P, _P, _P, _I, _I, _P),
     # a, b, c, c2, bh, M, N, K, c0, c1, d0, d1, stream
     "mirror_pinv_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     # q, k, w, v, kern, out, bh, heads, r, c, dh, pad, ksize, stream
     "mirror_softmax_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, w, v, kern, g, dq, dk, dw, dv, dkern (fp32), stats, partial
+    # (scratch), bh, heads, r, c, dh, pad, ksize, stream
+    "mirror_softmax_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _P),
     # img, kern, bias, out, b, H, W, C, stream
     "mirror_ppeg": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # img, kern, g, dimg, dkb (fp32 [50, C]: 49 taps then the bias),
+    # partial (scratch), b, H, W, C, stream
+    "mirror_ppeg_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+# Scratch sizes, in elements, as the kernels' own tilings need them (so the
+# tile sizes are known only in csrc/); each returns a 64-bit count
+_SCRATCH_SIZES = {
+    # bh, r, ksize
+    "mirror_softmax_attn_bwd_partial_elems": (_I, _I, _I),
+    # b, H, C
+    "mirror_ppeg_bwd_partial_elems": (_I, _I, _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -74,8 +96,22 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once and raise on the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build_library(force: bool = False) -> Path:
-    """Compile csrc/*.cu into build/kernels/libmirror_kernels.so.
+    """Compile csrc/*.cu into build/kernels/libmirror_kernels.so: one nvcc
+    per source, all at once, then one link.
 
     Rebuilds when the sources or flags changed since the last build (a
     digest is kept beside the library), or when ``force``."""
@@ -86,15 +122,15 @@ def build_library(force: bool = False) -> Path:
             and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    nvcc, tag = _nvcc(), os.getpid()
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objects)])
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return lib
@@ -110,6 +146,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+            for name, argtypes in _SCRATCH_SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int64
             _LIB = lib
         return _LIB
 
@@ -124,8 +164,14 @@ def launch(entry: str, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
+def scratch_elems(entry: str, *args: int) -> int:
+    """Elements of the scratch buffer that a kernel's tiling needs, from
+    the library's own ``entry`` (one of ``_SCRATCH_SIZES``)."""
+    return getattr(library(), entry)(*args)
+
+
 def count_launch(kernel: str) -> None:
-    """Called by a wrapper once per call that launched its kernel(s)."""
+    """Called by a Function once per call that launched its kernel(s)."""
     _LAUNCHES[kernel] += 1
 
 
@@ -150,13 +196,8 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 def check_kernel_input(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16) -> None:
     """Raise unless ``t`` is what the CUDA kernels take: the given shape,
-    dtype, contiguous, 16-byte aligned (the kernels load 16 bytes a thread),
-    and no gradient asked for (the backward kernels are not ported yet, and
-    a kernel's output carries no autograd history)."""
-    if t.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels are forward only; run under torch.no_grad()"
-        )
+    dtype, contiguous, 16-byte aligned (the kernels load 16 bytes a
+    thread)."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.dtype != dtype:
@@ -165,3 +206,11 @@ def check_kernel_input(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16) 
         raise ValueError(f"{name}: must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def grad_or_zeros(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    """An incoming gradient in ``like``'s dtype, contiguous; zeros for an
+    output that nothing downstream used (autograd passes None)."""
+    if g is None:
+        return torch.zeros_like(like)
+    return g.to(like.dtype).contiguous()

@@ -1,9 +1,20 @@
 """Moore-Penrose pseudo-inverse iteration of the Nystrom attention.
 
-Counterpart of ``mirror_tpu/ops/pinv_pallas.py::moore_penrose_pinv_pallas``
-(forward only). The global scale is reduced by torch here, outside the
-kernel, as the TPU package leaves it to XLA. On a CUDA tensor the
-iterations run ``csrc/pinv.cu``; on a CPU tensor :func:`pinv_iterations_ref`.
+Counterpart of ``mirror_tpu/ops/pinv_pallas.py::moore_penrose_pinv_pallas``.
+The global scale is reduced by torch here, outside the kernel, as the TPU
+package leaves it to XLA. On a CUDA tensor the iterations run
+``csrc/pinv.cu``; on a CPU tensor :func:`pinv_iterations_ref`.
+
+Gradients:
+
+- ``grad="implicit"`` (the train step's default): :class:`PinvImplicit`,
+  the implicit-function gradient -z^T (g z^T) of the converged inverse, two
+  matrix products in the compute dtype; the TPU package computes it outside
+  any kernel too (pinv_pallas.py:223-233). The scale gets no gradient.
+- ``grad="exact"``: autograd through the iterations. On the CPU the plain
+  iterations (and the global scale) are differentiated as the JAX dense
+  path does; on the card it needs the exact backward kernel (TPU kernel 2b,
+  ``pinv_pallas.py:171``), which is not ported yet, so it raises.
 """
 
 import torch
@@ -40,12 +51,7 @@ def pinv_iterations_ref(x: torch.Tensor, s: torch.Tensor, iters: int = 6):
     return z
 
 
-def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
-    """Iterative pseudo-inverse of [b, h, m, m] matrices:
-    z <- 0.25 z (13I - xz (15I - xz (7I - xz))), z0 = x^T / global_scale(x)."""
-    s = global_scale(x)
-    if not _common.on_cuda(x):
-        return pinv_iterations_ref(x, s, iters)
+def _pinv_kernel(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
     b, h, m, _ = x.shape
     _common.check_kernel_input("x", x, (b, h, m, m))
     bh = b * h
@@ -70,3 +76,38 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
         z, t1 = z_next, z
     _common.count_launch(KERNEL)
     return z
+
+
+class PinvImplicit(torch.autograd.Function):
+    """z = pinv(x) by the iterations; dL/dx = -z^T (g z^T)."""
+
+    @staticmethod
+    def forward(ctx, x, iters: int):
+        s = global_scale(x.detach())
+        z = _pinv_kernel(x, s, iters) if _common.on_cuda(x) else pinv_iterations_ref(x, s, iters)
+        ctx.save_for_backward(z)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        zt = z.transpose(-1, -2)
+        return -torch.matmul(zt, torch.matmul(g.to(z.dtype), zt)), None
+
+
+def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, grad: str = "implicit") -> torch.Tensor:
+    """Iterative pseudo-inverse of [b, h, m, m] matrices:
+    z <- 0.25 z (13I - xz (15I - xz (7I - xz))), z0 = x^T / global_scale(x)."""
+    if grad == "implicit":
+        return PinvImplicit.apply(x, iters)
+    if grad != "exact":
+        raise ValueError(f"pinv grad must be 'exact' or 'implicit', got {grad!r}")
+    if not _common.on_cuda(x):
+        return pinv_iterations_ref(x, global_scale(x), iters)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "pinv_grad='exact' on CUDA needs the exact pinv backward kernel "
+            "(TPU kernel 2b, mirror_tpu/ops/pinv_pallas.py:171), which is not "
+            "ported yet; use pinv_grad='implicit'"
+        )
+    return _pinv_kernel(x, global_scale(x), iters)

@@ -59,15 +59,16 @@ def load_checkpoint_file(path: str) -> Dict[str, Any]:
 
 
 def save_checkpoint_file(path: str, state_dict: Mapping[str, Any],
-                         args: Mapping[str, Any], arch: str = "mirror_classifier") -> None:
-    """Write the payload (run ``args`` stored as yaml) with a tmp file and a
-    rename."""
+                         args: Mapping[str, Any], arch: str = "mirror_classifier",
+                         epoch: int = 0, metric: Any = None) -> None:
+    """Write the payload (CPU tensors, run ``args`` stored as yaml) with a
+    tmp file and a rename."""
     payload = {
-        "epoch": 0,
+        "epoch": epoch,
         "arch": arch,
-        "state_dict": to_tensors(state_dict),
+        "state_dict": {k: v.detach().cpu() for k, v in to_tensors(state_dict).items()},
         "args": yaml.safe_dump(dict(args), default_flow_style=False),
-        "metric": None,
+        "metric": metric,
         "version": 2,
     }
     tmp = path + ".tmp"

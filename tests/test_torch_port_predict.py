@@ -122,8 +122,8 @@ def test_cli_scores_a_port_checkpoint(cohort, tmp_path):
 
     args = dict(model="mirror_classifier", model_kwargs=dict(TINY), amp=False,
                 num_classes=3, num_wsi_feature_tokens=N_TOKENS)
-    model = create_model("mirror_classifier", generator=torch.Generator().manual_seed(0),
-                         num_classes=3, **TINY)
+    model = create_model("mirror_classifier", device="cpu",
+                         generator=torch.Generator().manual_seed(0), num_classes=3, **TINY)
     ckpt = str(tmp_path / "port.pth.tar")
     save_checkpoint_file(ckpt, model.state_dict(), args=args)
     out = str(tmp_path / "cli.csv")
