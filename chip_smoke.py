@@ -12,7 +12,9 @@ Phases, each printed as it finishes:
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
    decoder's 2049 rows with pad 255; the pad-0 q variant at its own shapes;
-   PPEG on [16, 46, 46, 768]), bf16: max abs error, relative
+   PPEG on [16, 46, 46, 768]; the ViT half-blocks and the natural-layout
+   attention at Phikon's batch of 256: x [256, 197, 768], 12 heads, MLP
+   3072, eps 1e-12), bf16: max abs error, relative
    Frobenius error, the bound, the median time of kernel, plain version and
    (where one PyTorch call computes the same function) that call;
 3b. backward kernels: each against its plain version fed the same inputs
@@ -35,7 +37,18 @@ Phases, each printed as it finishes:
    the peak device memory on one resident batch, a ``torch.profiler`` split
    of one step by kernel, and one step at batch 2 on the card against the
    CPU's plain path (loss and the gradients that only the backward kernels
-   feed).
+   feed);
+6. feature extraction: 8 synthetic slides of 2,048 224x224 JPEG patches in
+   all (``{root}/{class}/{slide}/``), run through
+   ``mirror_tpu_torch.tools.gen_patch_feature.main`` three times at batch
+   256 on the card (``--model phikon``, ``--model phikon --quant int8``,
+   ``--model custom_resnet50``; random weights from a seed), launch counts
+   read around each run (12 of each half-block kernel per Phikon batch, 12
+   attention launches per int8 batch), every file [n, 768] or [n, 1024] and
+   finite, patches/s on the host clock; then each backbone's median ms on
+   one resident uint8 batch of 256, Phikon's peak device memory and a
+   ``torch.profiler`` split of its batch; then 8 patches on the card against
+   the CPU's plain path in fp32 (cosine), and int8 against bf16 (cosine).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -72,6 +85,11 @@ MODEL_KWARGS = dict(
 N_SLIDES = 48
 PRETRAIN_YAML = REPO / "configs" / "pretrain" / "mirror.template.yaml"
 N_PRETRAIN_SLIDES, TRAIN_STEPS = 64, 4
+# feature extraction: Phikon ViT-B/16 at 224 px (patch 16: 197 tokens), d 768,
+# 12 heads of 64, MLP 3072, depth 12, LN eps 1e-12, batch 256 (the CLI's
+# default); 8 synthetic slides of 2,048 patches in all
+VIT_B, VIT_N, VIT_D, VIT_HEADS, VIT_MLP, VIT_DEPTH, VIT_EPS = 256, 197, 768, 12, 3072, 12, 1e-12
+FEATGEN_SLIDE_SIZES = (200, 312, 256, 180, 300, 264, 240, 296)  # 2048 patches, tails
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): bf16
 # tensor cores dense, fp32 outside the tensor cores, HBM bandwidth. A
@@ -107,10 +125,17 @@ BOUND_LOGITS = 5e-2
 # (res_conv, to_qkv, the PPEG convs) at cosine >= 0.99 with norms within 5 %.
 # A lost dkern, pad or head order moves them by O(1).
 BOUND_STEP_LOSS, BOUND_GRAD_COS, BOUND_GRAD_NORM = 2e-2, 0.99, 5e-2
+# Patch features of the card (kernels, bf16) against the CPU's plain path in
+# fp32, same weights and patches: cosine >= 0.99 per patch (bf16 drift
+# through 12 blocks; a wrong head, pad or rounding point moves it by O(1));
+# the int8 path against bf16 on the card: cosine >= 0.995 per patch, the bar
+# of tests/test_tools.py::test_vit_int8_features_match_bf16.
+BOUND_FEAT_COS, BOUND_INT8_COS = 0.99, 0.995
 
 FORWARD = ("landmark_softmax", "moore_penrose_pinv", "softmax_attn", "softmax_attn_conv",
            "ppeg")
 BACKWARD = ("landmark_softmax_bwd", "softmax_attn_bwd", "softmax_attn_conv_bwd", "ppeg_bwd")
+VIT = ("vit_attn_block", "vit_mlp_block", "vit_mha_natural")
 
 
 def fail(msg: str) -> None:
@@ -198,6 +223,8 @@ class Case:
 
     def __init__(self, name, src, replaces, shape, kernel, plain, tol, outputs,
                  work, library=None, check=None):
+        # src: the kernel's csrc file, or a tuple of them (the first is its
+        # "source" in the JSON, all are its "sources")
         self.name, self.src, self.replaces, self.shape = name, src, replaces, shape
         self.kernel, self.plain, self.tol, self.outputs = kernel, plain, tol, outputs
         self.work, self.library, self.check = work, library, check
@@ -221,7 +248,9 @@ def run_case(torch, case: Case) -> dict:
         f"bound {bound_ms:.4f} ms by {bound_by} (medians of warm launches)")
     if not ok:
         fail(f"{case.name} ({case.shape}) disagrees with its plain version beyond its bound")
-    return dict(name=case.name, route="cuda", source=f"mirror_tpu_torch/csrc/{case.src}",
+    sources = [f"mirror_tpu_torch/csrc/{f}"
+               for f in (case.src if isinstance(case.src, tuple) else (case.src,))]
+    return dict(name=case.name, route="cuda", source=sources[0], sources=sources,
                 replaces=case.replaces, shape=case.shape,
                 max_abs_err=max(a for a, _ in errs), rel_fro_err=max(r for _, r in errs),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -247,6 +276,11 @@ def forward_cases(torch, randn):
         kern = randn(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
         attn_mma = 4 * bh * n * M * DH  # S = q k^T and P w
         conv_fp32 = 2 * bh * n * DH * CONV_TAPS
+        # kernel 3's function as one PyTorch call: its pad columns are
+        # zero logits with zero w rows, so SDPA on explicitly zero-padded k
+        # and w (built here, outside the timed call) computes it
+        k_pad = torch.cat([k.new_zeros(B, HEADS, pad, DH), k], dim=2)
+        v_pad = torch.cat([v.new_zeros(B, HEADS, pad, DH), v], dim=2)
         cases.append(Case(
             "landmark_softmax", "landmark.cu", "mirror_tpu/ops/landmark_pallas.py:183", shape,
             lambda q=q, k=k, pad=pad: landmark.landmark_softmax(q, k, M, pad),
@@ -261,7 +295,9 @@ def forward_cases(torch, randn):
             lambda q_l=q_l, k=k, v=v, pad=pad:
                 nystrom_attn.softmax_attn_ref(q_l, k, v, pad).to(bf16),
             BOUND_SINGLE_ROUNDING, ("out",),
-            dict(bytes=nbytes(q_l, k, v, q_l), mma=attn_mma)))
+            dict(bytes=nbytes(q_l, k, v, q_l), mma=attn_mma),
+            library=lambda q_l=q_l, k_pad=k_pad, v_pad=v_pad:
+                F.scaled_dot_product_attention(q_l, k_pad, v_pad, scale=1.0)))
         cases.append(Case(
             "softmax_attn_conv", "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:354",
             shape,
@@ -312,7 +348,70 @@ def forward_cases(torch, randn):
         lambda: ppeg.ppeg_ref(img, ppeg_k, ppeg_b), BOUND_SINGLE_ROUNDING, ("out",),
         dict(bytes=nbytes(img, ppeg_k, ppeg_b, img), mma=0, fp32=(2 * 49 + 2) * img.numel()),
         library=lambda: F.conv2d(img_nchw, conv_w, ppeg_b, padding=3, groups=EMBED)))
-    return cases
+    return cases + vit_cases(torch, randn)
+
+
+def vit_cases(torch, randn):
+    """The ViT half-block kernels at Phikon's shapes: x [256, 197, 768] bf16,
+    weights bf16 [in, out], LN and biases fp32, eps 1e-12."""
+    import torch.nn.functional as F
+
+    from mirror_tpu_torch.ops import vit_attn
+
+    b, n, d, h, m = VIT_B, VIT_N, VIT_D, VIT_HEADS, VIT_MLP
+    dh, rows = d // h, VIT_B * VIT_N
+
+    def f32(*shape, scale=1.0):
+        return randn(*shape, scale=scale).float()
+
+    x = randn(b, n, d)
+    ln_s, ln_b = 1.0 + f32(d, scale=0.1), f32(d, scale=0.1)
+    wq, wk, wv, wo = (randn(d, d, scale=d ** -0.5) for _ in range(4))
+    attn_args = (x, ln_s, ln_b, wq, wk, wv, f32(3 * d, scale=0.1), wo, f32(d, scale=0.1))
+    mlp_args = (x, ln_s, ln_b, randn(d, m, scale=d ** -0.5), f32(m, scale=0.1),
+                randn(m, d, scale=m ** -0.5), f32(d, scale=0.1))
+    q, k, v = randn(b, n, d), randn(b, n, d), randn(b, n, d)
+
+    def by_head(t):  # the [b, h, n, dh] view SDPA takes
+        return t.view(b, n, h, dh).transpose(1, 2)
+
+    def added_term(name):
+        """Holds what a half-block adds to x, out - x, against the plain
+        version's: x passes through unchanged and is ~8x the added term at
+        these scales, so the whole output alone would dilute a fault there."""
+        def check(out, ref):
+            xf = x.float()
+            got, want = out.float() - xf, ref.float() - xf
+            rel = ((got - want).norm() / want.norm()).item()
+            say(f"[kernel] {name}: out - x rel Frobenius err {rel:.4g} "
+                f"(bound {BOUND_SINGLE_ROUNDING:g})")
+            return rel <= BOUND_SINGLE_ROUNDING
+        return check
+
+    attn_mma = 4 * b * h * n * n * dh  # q k^T and P v
+    softmax_fp32 = 5 * b * h * n * n  # scale, max, exp, sum, divide
+    ln_fp32 = 10 * rows * d  # statistics and the affine, the residual add
+    shape = f"b {b}, n {n}, d {d}, heads {h}"
+    return [
+        Case("vit_attn_block", ("vit_gemm.cu", "vit_attn.cu"),
+             "mirror_tpu/ops/vit_attn_pallas.py:255", shape,
+             lambda: vit_attn.attn_block(*attn_args, h, VIT_EPS),
+             lambda: vit_attn.attn_block_ref(*attn_args, h, VIT_EPS),
+             BOUND_SINGLE_ROUNDING, ("out",),
+             dict(bytes=nbytes(*attn_args, x), mma=2 * rows * d * 4 * d + attn_mma,
+                  fp32=softmax_fp32 + ln_fp32), check=added_term("vit_attn_block")),
+        Case("vit_mlp_block", "vit_gemm.cu", "mirror_tpu/ops/vit_attn_pallas.py:276",
+             f"{shape}, mlp {m}", lambda: vit_attn.mlp_block(*mlp_args, VIT_EPS),
+             lambda: vit_attn.mlp_block_ref(*mlp_args, VIT_EPS), BOUND_SINGLE_ROUNDING, ("out",),
+             dict(bytes=nbytes(*mlp_args, x), mma=4 * rows * d * m,
+                  fp32=10 * rows * m + ln_fp32),  # bias and the erf GELU
+             check=added_term("vit_mlp_block")),
+        Case("vit_mha_natural", "vit_attn.cu", "mirror_tpu/ops/vit_attn_pallas.py:242", shape,
+             lambda: vit_attn.mha_natural(q, k, v, h),
+             lambda: vit_attn.mha_natural_ref(q, k, v, h), BOUND_SINGLE_ROUNDING, ("out",),
+             dict(bytes=4 * nbytes(q), mma=attn_mma, fp32=softmax_fp32),
+             library=lambda: F.scaled_dot_product_attention(by_head(q), by_head(k), by_head(v))),
+    ]
 
 
 def autograd_kernel(torch, fn, inputs, grads):
@@ -326,6 +425,8 @@ def autograd_kernel(torch, fn, inputs, grads):
 
 
 def backward_cases(torch, randn):
+    import torch.nn.functional as F
+
     from mirror_tpu_torch.ops import landmark, nystrom_attn, ppeg
 
     bh = B * HEADS
@@ -348,6 +449,10 @@ def backward_cases(torch, randn):
             dict(bytes=nbytes(q, k, gql, gkl, ga2, dq, dq), mma=3 * 2 * bh * M * M * DH)))
 
         g3 = randn(B, HEADS, M, DH)
+        # the same SDPA on zero-padded k and w (built outside the timed
+        # call), its backward through autograd: kernel 3c's function
+        k_pad = torch.cat([k.new_zeros(B, HEADS, pad, DH), k], dim=2)
+        v_pad = torch.cat([v.new_zeros(B, HEADS, pad, DH), v], dim=2)
         cases.append(Case(
             "softmax_attn_bwd", "softmax_attn_bwd.cu", "mirror_tpu/ops/nystrom_pallas.py:152",
             f"kv: r {M}, c {n}, pad {pad}",
@@ -357,7 +462,10 @@ def backward_cases(torch, randn):
             lambda q_l=q_l, k=k, v=v, g3=g3, pad=pad: nystrom_attn.softmax_attn_bwd_ref(
                 q_l, k, v, g3, pad),
             BOUND_BWD, ("dq_l", "dk", "dv"),
-            dict(bytes=2 * nbytes(q_l, k, v) + nbytes(g3), mma=5 * 2 * bh * M * n * DH)))
+            dict(bytes=2 * nbytes(q_l, k, v) + nbytes(g3), mma=5 * 2 * bh * M * n * DH),
+            library=autograd_kernel(
+                torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, scale=1.0),
+                (q_l, k_pad, v_pad), (g3,))))
 
         w = randn(B, HEADS, M, DH)
         kern = randn(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
@@ -373,8 +481,6 @@ def backward_cases(torch, randn):
             BOUND_BWD, ("dq", "dk_l", "dw", "dv", "dkern"),
             dict(bytes=2 * nbytes(q, k_l, w, v, kern) + nbytes(g4),
                  mma=5 * 2 * bh * n * M * DH, fp32=2 * 2 * bh * n * DH * CONV_TAPS)))
-
-    import torch.nn.functional as F
 
     img = randn(B, SIDE, SIDE, EMBED)
     kern, bias = randn(7, 7, EMBED, scale=0.1), randn(EMBED, scale=0.1)
@@ -544,7 +650,7 @@ class _Lines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def profile_step(torch, train_step, batch, step_ms):
+def profile_step(torch, train_step, batch, step_ms, tag="train", what="step"):
     """One step under torch.profiler: device time by kernel, top 12."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -561,12 +667,12 @@ def profile_step(torch, train_step, batch, step_ms):
               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in events) / 1e3
     if total == 0:
-        say("[train] profiler: no device time recorded (time with CUDA events instead)")
+        say(f"[{tag}] profiler: no device time recorded (time with CUDA events instead)")
         return
-    say(f"[train] profiler, one step: {total:.3f} ms of device time against a step of "
+    say(f"[{tag}] profiler, one {what}: {total:.3f} ms of device time against a {what} of "
         f"{step_ms:.3f} ms (busy {100 * total / step_ms:.1f} %); by kernel:")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
-        say(f"[train]   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / total:5.1f} % "
+        say(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / total:5.1f} % "
             f"x{e.count:<4d} {e.key[:90]}")
 
 
@@ -731,6 +837,141 @@ def phase_train(torch, root: Path):
                           step_loss_rel=rel)
 
 
+def write_patches(root: Path):
+    """8 slides of 224x224 RGB JPEG patches ({root}/{class}/{slide}/), 2,048
+    in all: 14x14 random colour blocks of 16 px plus noise, from SEED."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    slides = []
+    for i, count in enumerate(FEATGEN_SLIDE_SIZES):
+        slide = Path(("LUAD", "LUSC")[i % 2]) / f"TCGA-FG-{i:04d}-01Z-00-DX1"
+        (root / slide).mkdir(parents=True)
+        for j in range(count):
+            blocks = rng.integers(0, 256, (14, 14, 3), dtype=np.uint8).repeat(16, 0).repeat(16, 1)
+            noise = rng.integers(-12, 13, blocks.shape)
+            img = np.clip(blocks.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+            cv2.imwrite(str(root / slide / f"{j:05d}.jpeg"), img)
+        slides.append((str(slide), count))
+    return slides
+
+
+def time_backbone(torch, fn, images, label):
+    """Median ms of the backbone on one resident uint8 batch: CUDA events
+    around each of 10 calls after 2 warm ones."""
+    for _ in range(2):
+        fn(images)
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(images)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    say(f"[featgen] {label} backbone, batch {images.shape[0]} resident uint8: median {ms:.3f} ms "
+        f"over 10 (min {min(times):.3f}, max {max(times):.3f}), "
+        f"{1000 * images.shape[0] / ms:.1f} patches/s")
+    return ms
+
+
+def cosines(torch, a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def phase_featgen(torch, root: Path):
+    """Feature extraction through its CLI entry point: Phikon (bf16 kernels),
+    Phikon --quant int8 and the truncated ResNet50, then the Phikon backbone
+    timed and profiled on one resident batch, then 8 patches checked
+    against the CPU's plain path."""
+    import cv2
+    import numpy as np
+
+    from mirror_tpu_torch.data.formats import load_feature_file
+    from mirror_tpu_torch.models.feature_extractors import ViTB16, device_normalize
+    from mirror_tpu_torch.ops import _common
+    from mirror_tpu_torch.tools import gen_patch_feature
+
+    t0 = time.perf_counter()
+    patches = root / "patches"
+    slides = write_patches(patches)
+    n_batches = sum(-(-count // VIT_B) for _, count in slides)
+    say(f"[featgen] {len(slides)} slides, {sum(c for _, c in slides)} JPEG patches written in "
+        f"{time.perf_counter() - t0:.1f} s ({n_batches} batches of {VIT_B} with the tails); "
+        f"decoder: cv2 {cv2.__version__}")
+
+    runs = {"phikon": ([], 768, {"vit_attn_block": VIT_DEPTH, "vit_mlp_block": VIT_DEPTH}),
+            "phikon_int8": (["--quant", "int8"], 768, {"vit_mha_natural": VIT_DEPTH}),
+            "custom_resnet50": ([], 1024, {})}
+    launches = {}
+    for run, (extra, dim, per_batch) in runs.items():
+        out = root / run
+        model = "custom_resnet50" if run == "custom_resnet50" else "phikon"
+        argv = [str(patches), str(out), "--model", model, "--batch-size", str(VIT_B),
+                "--device", "cuda", *extra]
+        torch.cuda.synchronize()
+        _common.reset_launch_counts()
+        stats = gen_patch_feature.main(argv)
+        torch.cuda.synchronize()
+        counts = _common.launch_counts()
+        say(f"[featgen] gen_patch_feature {' '.join(argv[2:])}: {stats['patches']} patches in "
+            f"{stats['seconds']:.2f} s, {stats['patches_per_sec']:.1f} patches/s (host clock, "
+            f"decode and writes included, model build not); launches {json.dumps(counts)}")
+        want = {k: per * n_batches for k, per in per_batch.items()}
+        if counts != want:
+            fail(f"{run}: kernel launches {counts}, expected {want}")
+        for kname in want:
+            launches[kname] = launches.get(kname, 0) + counts.get(kname, 0)
+        for slide, count in slides:
+            feats = np.asarray(load_feature_file(str(out / f"{slide}.npy")))
+            if feats.shape != (count, dim) or not np.isfinite(feats).all():
+                fail(f"{run}: {slide} features {feats.shape}, expected ({count}, {dim}) finite")
+        say(f"[featgen]   {len(slides)} files, each [n, {dim}] and finite")
+
+    # the backbones on one resident batch of 256 (decode and copies out of the
+    # way): ms per batch and peak memory; a profile of the Phikon batch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images = torch.randint(0, 256, (VIT_B, 224, 224, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    fn, _ = gen_patch_feature.build_extractor("phikon", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms = time_backbone(torch, fn, images, "phikon (bf16 kernels)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[featgen] phikon peak device memory {peak_gib:.2f} GiB")
+    profile_step(torch, fn, images, batch_ms, tag="featgen", what="batch")
+    fn_int8, _ = gen_patch_feature.build_extractor("phikon", quant="int8", device="cuda")
+    time_backbone(torch, fn_int8, images, "phikon --quant int8")
+    fn_resnet, _ = gen_patch_feature.build_extractor("custom_resnet50", device="cuda")
+    time_backbone(torch, fn_resnet, images, "custom_resnet50")
+    del fn_resnet
+    torch.cuda.empty_cache()
+
+    # 8 patches: card (bf16 kernels) against the CPU's plain path in fp32,
+    # and int8 against bf16 on the card, all on the same weights
+    first = patches / slides[0][0]
+    files = sorted(first.iterdir())[:8]
+    batch = np.stack([gen_patch_feature.decode_patch(str(f)) for f in files])
+    cpu_model = ViTB16().eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in fn.model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu_model(device_normalize(torch.from_numpy(batch)))
+    got, got_int8 = fn(batch), fn_int8(batch)
+    cos, cos_int8 = cosines(torch, got, want), cosines(torch, got_int8, got)
+    say(f"[featgen] 8 patches, card kernels (bf16) vs CPU plain path (fp32): cosine min "
+        f"{cos.min().item():.6f} (bound {BOUND_FEAT_COS}); int8 vs bf16 on the card: cosine "
+        f"min {cos_int8.min().item():.6f} (bound {BOUND_INT8_COS})")
+    if not (cos >= BOUND_FEAT_COS).all():
+        fail("the card's patch features disagree with the CPU reference")
+    if not (cos_int8 >= BOUND_INT8_COS).all():
+        fail("the int8 patch features disagree with the bf16 ones")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -747,14 +988,16 @@ def main() -> int:
         serve = phase_slice(torch, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
         train, _ = phase_train(torch, Path(tmp))
-    # the main path's launches: predict's and the train step's, each counted
-    # from 0 just before its run; softmax_attn_q is the pad-0 entry of the
-    # softmax_attn kernel, which neither path calls (its callers all have the
-    # residual conv)
+    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
+        featgen = phase_featgen(torch, Path(tmp))
+    # the main paths' launches: predict's, the train step's and feature
+    # extraction's (its three runs), each counted from 0 just before its run;
+    # softmax_attn_q is the pad-0 entry of the softmax_attn kernel, which no
+    # path calls (its callers all have the residual conv)
+    paths = {"predict": serve, "train": train, "featgen": featgen}
     for k in kernels:
-        k["launches"] = serve.get(k["name"], 0) + train.get(k["name"], 0)
-        k["launches_by_path"] = {"predict": serve.get(k["name"], 0),
-                                 "train": train.get(k["name"], 0)}
+        k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     say(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

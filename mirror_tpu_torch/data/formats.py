@@ -52,3 +52,16 @@ def _ext_rank(fname: str) -> int:
         if fname.endswith(ext):
             return i
     return len(_FEATURE_EXTS)
+
+
+def save_feature_file(path: str, array: np.ndarray) -> None:
+    """``.npy`` (native) or the reference's torch ``.pt`` tensor."""
+    if path.endswith(".npy"):
+        np.save(path, array)
+    elif path.endswith(".pt"):
+        import torch
+
+        # torch.from_numpy needs a writable, contiguous array (not an mmap)
+        torch.save(torch.from_numpy(np.array(array, copy=True, order="C")), path)
+    else:
+        raise ValueError(f"Unsupported feature file: {path}")

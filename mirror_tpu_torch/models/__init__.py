@@ -1,7 +1,8 @@
-"""Model definitions of the port: the downstream classifier and the MIRROR
-pretraining model."""
+"""Model definitions of the port: the downstream classifier, the MIRROR
+pretraining model, and the patch feature extractors."""
 
 from .classifier import MIRRORClassifier
+from .feature_extractors import TruncatedResNet50, ViTB16
 from .mirror import MIRROR, MirrorOutput
 from .nystrom import NystromAttention
 from .rna_transformer import TransFormer, TransFormerHybrid
@@ -18,4 +19,6 @@ __all__ = [
     "TransFormer",
     "TransFormerHybrid",
     "TransLayer",
+    "TruncatedResNet50",
+    "ViTB16",
 ]

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-Every op is a ``torch.autograd.Function``; its forward and backward are
-kernels on CUDA tensors and plain PyTorch on CPU tensors.
+Every op of the slide model is a ``torch.autograd.Function``; its forward
+and backward are kernels on CUDA tensors and plain PyTorch on CPU tensors.
+The ViT ops of feature extraction are inference-only functions, as on the
+TPU.
 
 | kernel (launch count) | source | TPU kernel it replaces (mirror_tpu/ops/) |
 | --- | --- | --- |
@@ -15,6 +17,9 @@ kernels on CUDA tensors and plain PyTorch on CPU tensors.
 | softmax_attn_conv_bwd | csrc/softmax_attn_bwd.cu | the same, bwd (_bwd_conv_call) |
 | ppeg | csrc/ppeg.cu | ppeg_pallas.py::ppeg_fused fwd |
 | ppeg_bwd | csrc/ppeg.cu | the same, bwd (_bwd_call) |
+| vit_attn_block | csrc/vit_gemm.cu + csrc/vit_attn.cu | vit_attn_pallas.py::attn_block |
+| vit_mlp_block | csrc/vit_gemm.cu | vit_attn_pallas.py::mlp_block |
+| vit_mha_natural | csrc/vit_attn.cu | vit_attn_pallas.py::mha_natural |
 
 The pinv's implicit gradient is two matrix products outside any kernel, as
 in the JAX package; its exact backward (pinv_pallas.py:171) is not ported.
@@ -30,12 +35,16 @@ from .nystrom_attn import (
 )
 from .pinv import moore_penrose_pinv
 from .ppeg import ppeg_fused
+from .vit_attn import attn_block, mha_natural, mlp_block
 
 __all__ = [
+    "attn_block",
     "fused_softmax_attn",
     "fused_softmax_attn_conv",
     "landmark_softmax",
     "launch_counts",
+    "mha_natural",
+    "mlp_block",
     "moore_penrose_pinv",
     "ppeg_fused",
     "reset_launch_counts",

@@ -10,8 +10,11 @@ Counterpart of ``mirror_tpu/ops/_common.py``. It holds three things:
 - the device check every wrapper goes through: a CUDA tensor goes to the
   kernel, a CPU tensor goes to the plain PyTorch version. There is no other
   switch and no fallback: a kernel that fails to build or launch raises.
-  Only the ``torch.autograd.Function`` of each op launches a kernel, forward
-  and backward, so no output of a kernel is ever cut off from autograd;
+  The training ops launch their kernels only from their
+  ``torch.autograd.Function``, forward and backward, so no output of a
+  kernel is ever cut off from autograd. The ViT entries (``vit_attn``) are
+  inference-only plain functions, like their TPU kernels, which have no
+  VJP: they refuse a call that autograd would record;
 - a launch counter per kernel, so a run can show which kernels its main
   path went through.
 
@@ -64,6 +67,13 @@ _SIGNATURES = {
     # img, kern, g, dimg, dkb (fp32 [50, C]: 49 taps then the bias),
     # partial (scratch), b, H, W, C, stream
     "mirror_ppeg_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, mu, rstd, rows, d, eps, stream
+    "mirror_vit_ln_stats": (_P, _P, _P, _I, _I, _F, _P),
+    # a, mu, rstd, ln_s, ln_b (LN prologue when mu is not null), b, bias,
+    # resid, c, M, N, K, epilogue, stream
+    "mirror_vit_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, out, b, n, heads, dh, ld_in, ld_out, scale, stream
+    "mirror_vit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 # Scratch sizes, in elements, as the kernels' own tilings need them (so the
 # tile sizes are known only in csrc/); each returns a 64-bit count

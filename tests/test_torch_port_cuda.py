@@ -262,3 +262,149 @@ def test_pinv_gradients_on_the_card(dev):
     _assert_rel(xg.grad, -(zt @ (gz @ zt)), bound=1e-6, name="dx")
     with pytest.raises(NotImplementedError, match="2b"):
         moore_penrose_pinv(x.clone().requires_grad_(), grad="exact")
+
+
+# --- the ViT half-block kernels of feature extraction (inference only) ---
+# Bound: relative Frobenius error <= 1e-2 against the plain version on the
+# same bf16 inputs (each output rounded once to bf16 after fp32 sums taken in
+# another order; the probabilities, q|k|v and the GELU hidden are rounded
+# too, at the same points in both).
+BOUND_VIT = 1e-2
+
+
+def _vit_attn_inputs(g, b, n, heads, dh, dev):
+    d = heads * dh
+    x = _randn(g, b, n, d, dev=dev)
+    ln_s = (1.0 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    ln_b = (0.1 * torch.randn(d, generator=g)).to(dev)
+    ws = [_randn(g, d, d, dev=dev, scale=d ** -0.5) for _ in range(4)]
+    bqkv, bo = (0.1 * torch.randn(3 * d, generator=g)).to(dev), (0.1 * torch.randn(d, generator=g)).to(dev)
+    return x, ln_s, ln_b, ws[0], ws[1], ws[2], bqkv, ws[3], bo
+
+
+# n 197 (Phikon) and odd small n; batch 1 and 3; dh 64 and 32
+VIT_SHAPES = [(1, 197, 12, 64), (3, 37, 4, 32), (3, 197, 2, 32), (1, 29, 4, 64)]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", VIT_SHAPES)
+def test_vit_mha_natural_kernel(dev, b, n, heads, dh):
+    from mirror_tpu_torch.ops.vit_attn import mha_natural, mha_natural_ref
+
+    g = torch.Generator().manual_seed(20)
+    q, k, v = (_randn(g, b, n, heads * dh, dev=dev) for _ in range(3))
+    _common.reset_launch_counts()
+    out = mha_natural(q, k, v, heads)
+    assert _common.launch_counts() == {"vit_mha_natural": 1}
+    _assert_rel(out, mha_natural_ref(q, k, v, heads), BOUND_VIT)
+
+
+@pytest.mark.parametrize("eps", [1e-12, 1e-6])
+@pytest.mark.parametrize("b,n,heads,dh", VIT_SHAPES)
+def test_vit_attn_block_kernel(dev, b, n, heads, dh, eps):
+    from mirror_tpu_torch.ops.vit_attn import attn_block, attn_block_ref
+
+    g = torch.Generator().manual_seed(21)
+    args = _vit_attn_inputs(g, b, n, heads, dh, dev)
+    _common.reset_launch_counts()
+    out = attn_block(*args, heads, eps)
+    assert _common.launch_counts() == {"vit_attn_block": 1}
+    _assert_rel(out, attn_block_ref(*args, heads, eps), BOUND_VIT)
+    # the attention half alone (out - x), where a wrong head or pad shows most
+    x = args[0].float()
+    _assert_rel(out.float() - x, attn_block_ref(*args, heads, eps).float() - x, 2e-2)
+
+
+@pytest.mark.parametrize("b,n,d,m", [(1, 197, 768, 3072), (3, 37, 64, 256), (3, 23, 128, 512)])
+def test_vit_mlp_block_kernel(dev, b, n, d, m):
+    from mirror_tpu_torch.ops.vit_attn import mlp_block, mlp_block_ref
+
+    g = torch.Generator().manual_seed(22)
+    x = _randn(g, b, n, d, dev=dev)
+    ln_s = (1.0 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    ln_b = (0.1 * torch.randn(d, generator=g)).to(dev)
+    w1, w2 = _randn(g, d, m, dev=dev, scale=d ** -0.5), _randn(g, m, d, dev=dev, scale=m ** -0.5)
+    b1, b2 = torch.randn(m, generator=g).to(dev), (0.1 * torch.randn(d, generator=g)).to(dev)
+    _common.reset_launch_counts()
+    out = mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12)
+    assert _common.launch_counts() == {"vit_mlp_block": 1}
+    ref = mlp_block_ref(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12)
+    _assert_rel(out, ref, BOUND_VIT)
+    _assert_rel(out.float() - x.float(), ref.float() - x.float(), 2e-2)
+
+
+def test_vit_kernels_eps_reaches_the_kernel(dev):
+    """Rows of variance ~1e-6: eps 1e-6 against 1e-12 moves the LN output by
+    ~30 %, so a kernel that dropped eps would miss the plain version."""
+    from mirror_tpu_torch.ops.vit_attn import mlp_block, mlp_block_ref
+
+    g = torch.Generator().manual_seed(23)
+    d, m = 64, 256
+    x = _randn(g, 2, 9, d, dev=dev, scale=1e-3)
+    ln_s, ln_b = torch.ones(d, device=dev), torch.zeros(d, device=dev)
+    w1, w2 = _randn(g, d, m, dev=dev, scale=d ** -0.5), _randn(g, m, d, dev=dev, scale=m ** -0.5)
+    b1, b2 = torch.zeros(m, device=dev), torch.zeros(d, device=dev)
+    out = mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, 1e-6)
+    _assert_rel(out, mlp_block_ref(x, ln_s, ln_b, w1, b1, w2, b2, 1e-6), BOUND_VIT)
+    other = mlp_block_ref(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12)
+    assert ((out.float() - other.float()).norm() / other.float().norm()).item() > 0.1
+
+
+def test_vit_kernels_refuse_bad_inputs(dev):
+    from mirror_tpu_torch.ops.vit_attn import attn_block, mha_natural, mlp_block
+
+    g = torch.Generator().manual_seed(24)
+    args = list(_vit_attn_inputs(g, 2, 9, 4, 16, dev))
+    with pytest.raises(ValueError, match="not divisible"):
+        attn_block(*args, heads=5)
+    q = args[0]
+    with pytest.raises(ValueError, match="not divisible"):
+        mha_natural(q, q, q, heads=7)
+    # inference only: an input that autograd would track is refused, not
+    # detached; under no_grad the same call runs
+    xg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        mha_natural(xg, q, q, 4)
+    with torch.no_grad():
+        mha_natural(xg, q, q, 4)
+    with pytest.raises(TypeError):  # dtype
+        mha_natural(q.float(), q.float(), q.float(), 4)
+    with pytest.raises(TypeError):  # LN scale must be fp32
+        attn_block(args[0], args[1].bfloat16(), *args[2:], heads=4)
+    with pytest.raises(ValueError):  # shape: wq is [d, d]
+        attn_block(*args[:3], args[3][:, :32].contiguous(), *args[4:], heads=4)
+    with pytest.raises(ValueError):  # contiguity
+        mha_natural(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1), 4)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    misaligned = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        mha_natural(misaligned, q, q, 4)
+    long = _randn(g, 1, 300, 64, dev=dev)
+    with pytest.raises(ValueError, match="at most"):
+        mha_natural(long, long, long, 4)
+    w1 = _randn(g, 64, 256, dev=dev)
+    with pytest.raises(ValueError):  # mixed devices
+        mlp_block(q, args[1], args[2], w1.cpu(), torch.zeros(256, device=dev), w1.t().contiguous(),
+                  torch.zeros(64, device=dev))
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_vit_kernel_path_matches_cpu_plain_path(dev, quant):
+    """A small ViTB16 (image 64, patch 16: 17 tokens; hidden 128, 4 heads of
+    32, depth 2) on the card's kernels in bf16 against the CPU's plain path
+    in fp32, same weights: cosine >= 0.99 per image (bf16 drift; a wrong
+    head, pad or rounding point moves it by O(1))."""
+    from mirror_tpu_torch.models.feature_extractors import ViTB16, init_weights
+
+    kw = dict(image_size=64, patch_size=16, hidden_size=128, depth=2, num_heads=4, quant=quant)
+    cpu = init_weights(ViTB16(**kw).eval(), torch.Generator().manual_seed(30))
+    gpu = ViTB16(**kw, dtype=torch.bfloat16).to(dev).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(31))
+    _common.reset_launch_counts()
+    with torch.no_grad():
+        got = gpu(x.to(dev)).float().cpu()
+        want = cpu(x)
+    expect = {"vit_mha_natural": 2} if quant else {"vit_attn_block": 2, "vit_mlp_block": 2}
+    assert _common.launch_counts() == expect
+    cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
+    assert (cos >= 0.99).all(), cos
