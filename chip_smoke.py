@@ -20,7 +20,9 @@ Phases, each printed as it finishes:
 3b. backward kernels: each against its plain version fed the same inputs
    and incoming gradient, at the train slice's shapes (the encoder's 2117
    rows with pad 187 and the retention decoder's 2049 rows with pad 255;
-   PPEG on [16, 46, 46, 768]), error per output, and the same times;
+   PPEG on [16, 46, 46, 768]; the exact pinv backward, kernel 2b, at
+   [16, 8, 384, 384] and 6 iterations on a softmax-like input), error per
+   output, and the same times;
 4. serving slice: a full-width ``mirror_classifier`` (the subtyping
    configuration: 768-d Phikon features, embed 768, RNA 10234, 2048 tokens,
    bf16) with random weights from a seeded generator, saved as a reference
@@ -37,7 +39,9 @@ Phases, each printed as it finishes:
    the peak device memory on one resident batch, a ``torch.profiler`` split
    of one step by kernel, and one step at batch 2 on the card against the
    CPU's plain path (loss and the gradients that only the backward kernels
-   feed);
+   feed); then 2 steps at batch 16 with ``--pinv-grad exact`` through
+   ``train_mirror.main`` (kernel 2b's launches read around it), and that
+   step timed (ms, peak memory) and profiled;
 6. feature extraction: 8 synthetic slides of 2,048 224x224 JPEG patches in
    all (``{root}/{class}/{slide}/``), run through
    ``mirror_tpu_torch.tools.gen_patch_feature.main`` three times at batch
@@ -48,7 +52,18 @@ Phases, each printed as it finishes:
    finite, patches/s on the host clock; then each backbone's median ms on
    one resident uint8 batch of 256, Phikon's peak device memory and a
    ``torch.profiler`` split of its batch; then 8 patches on the card against
-   the CPU's plain path in fp32 (cosine), and int8 against bf16 (cosine).
+   the CPU's plain path in fp32 (cosine), and int8 against bf16 (cosine);
+7. downstream slice: a synthetic cohort of 48 slides (32 train, 16 val) at
+   the templates' full width, in the subtyping class layout, with a split
+   and a survival CSV; ``mirror_tpu_torch.train_subtyping.main`` with the
+   subtyping template (2 classes, linear probe, warm-started from phase 5's
+   ``last.pth.tar``) and ``mirror_tpu_torch.train_survival.main`` with the
+   survival template set to fine-tune and ``--pinv-grad exact``, 2 epochs
+   of 2 steps each: launch counts read around each run, every logged loss
+   finite, the eval metrics finite and in range; each run's step timed on
+   one resident batch (ms, peak memory) and profiled; one classifier step
+   at batch 2 with the exact gradient on the card against the CPU's plain
+   path; ``predict`` scoring the subtyping checkpoint.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -84,7 +99,12 @@ MODEL_KWARGS = dict(
 )
 N_SLIDES = 48
 PRETRAIN_YAML = REPO / "configs" / "pretrain" / "mirror.template.yaml"
-N_PRETRAIN_SLIDES, TRAIN_STEPS = 64, 4
+SUBTYPING_YAML = REPO / "configs" / "subtyping" / "mirror.template.yaml"
+SURVIVAL_YAML = REPO / "configs" / "survival" / "mirror.template.yaml"
+# downstream: 48 slides, 32 train (2 steps of 16 an epoch) and 16 val
+N_DOWN_SLIDES, N_DOWN_TRAIN, DOWN_EPOCHS = 48, 32, 2
+CLASSES = ("LUAD", "LUSC")
+N_PRETRAIN_SLIDES, TRAIN_STEPS, TRAIN_STEPS_EXACT = 64, 4, 2
 # feature extraction: Phikon ViT-B/16 at 224 px (patch 16: 197 tokens), d 768,
 # 12 heads of 64, MLP 3072, depth 12, LN eps 1e-12, batch 256 (the CLI's
 # default); 8 synthetic slides of 2,048 patches in all
@@ -113,6 +133,16 @@ BOUND_PINV = 1e-1
 # and plain version compute one fp32 ulp apart can round dsim to the next
 # bf16 value; dq and dk are sums of such terms with cancellation, so 2e-2.
 BOUND_BWD = 2e-2
+# The exact pinv backward (2b) against its plain version on the same bf16
+# inputs: gx (relative Frobenius) and gs (relative) within 5e-2. The replay
+# chains 4 x 6 bf16 products and the sweep 8 x 6 more; a one-ulp difference
+# of an fp32 sum taken in another order rounds a product to its bf16
+# neighbour and the unconverged iterations carry it on (the plain version in
+# bf16 sits 8.6e-3 from the fp32 backward at m 384 on the CPU). Held by
+# function too: gx at cosine >= 0.999 of the fp32 autograd of the plain
+# iterations (the bf16 plain version reads 0.99995 there).
+BOUND_PINV_BWD, BOUND_PINV_BWD_COS = 5e-2, 0.999
+PINV_ITERS = 6
 # The slide scores of the card (kernels, bf16) against the CPU's plain path
 # (bf16): a relative error of the logits up to 5e-2, the drift of bf16
 # rounding through two Nystrom layers and their pinvs; a wiring fault (a
@@ -135,6 +165,7 @@ BOUND_FEAT_COS, BOUND_INT8_COS = 0.99, 0.995
 FORWARD = ("landmark_softmax", "moore_penrose_pinv", "softmax_attn", "softmax_attn_conv",
            "ppeg")
 BACKWARD = ("landmark_softmax_bwd", "softmax_attn_bwd", "softmax_attn_conv_bwd", "ppeg_bwd")
+PINV_BWD = "moore_penrose_pinv_bwd"  # kernel 2b: --pinv-grad exact only
 VIT = ("vit_attn_block", "vit_mlp_block", "vit_mha_natural")
 
 
@@ -427,7 +458,7 @@ def autograd_kernel(torch, fn, inputs, grads):
 def backward_cases(torch, randn):
     import torch.nn.functional as F
 
-    from mirror_tpu_torch.ops import landmark, nystrom_attn, ppeg
+    from mirror_tpu_torch.ops import landmark, nystrom_attn, pinv, ppeg
 
     bh = B * HEADS
     cases = []
@@ -481,6 +512,29 @@ def backward_cases(torch, randn):
             BOUND_BWD, ("dq", "dk_l", "dw", "dv", "dkern"),
             dict(bytes=2 * nbytes(q, k_l, w, v, kern) + nbytes(g4),
                  mma=5 * 2 * bh * n * M * DH, fp32=2 * 2 * bh * n * DH * CONV_TAPS)))
+
+    # kernel 2b on a softmax-like x (softmax of unit-normal logits, the CUDA
+    # tests' pinv input) at the slice's b, h and m
+    x = torch.softmax(randn(B, HEADS, M, M).float(), -1).to(torch.bfloat16)
+    s = pinv.global_scale(x)
+    g2 = randn(B, HEADS, M, M)
+
+    def pinv_bwd_check(out, ref, x=x, s=s, g2=g2):
+        x32 = x.float().requires_grad_()
+        pinv.pinv_iterations_ref(x32, s, PINV_ITERS).backward(g2.float())
+        a, b = out[0].float().ravel(), x32.grad.ravel()
+        cos = (a @ b / (a.norm() * b.norm())).item()
+        say(f"[kernel] {PINV_BWD}: gx cosine {cos:.6f} against the fp32 autograd of the "
+            f"plain iterations (bound {BOUND_PINV_BWD_COS})")
+        return cos >= BOUND_PINV_BWD_COS
+
+    cases.append(Case(
+        PINV_BWD, "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171", f"b {B}, h {HEADS}, m {M}",
+        lambda: pinv._pinv_exact_bwd_kernel(x, s, g2, PINV_ITERS),
+        lambda: pinv.pinv_exact_bwd_ref(x, s, g2, PINV_ITERS), BOUND_PINV_BWD, ("gx", "gs"),
+        # the replay (its last z product skipped) and the sweep: 4 + 8 a step
+        dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * M ** 3),
+        check=pinv_bwd_check))
 
     img = randn(B, SIDE, SIDE, EMBED)
     kern, bias = randn(7, 7, EMBED, scale=0.1), randn(EMBED, scale=0.1)
@@ -676,39 +730,25 @@ def profile_step(torch, train_step, batch, step_ms, tag="train", what="step"):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def train_step_card_vs_cpu(torch, model_kwargs, args, wsi, rna):
+def step_card_vs_cpu(torch, tag, make_step, batch, n_leaves):
     """One train step at batch 2: the card's kernels against the CPU's plain
-    path, same weights, same masking noise and VAE eps, dropout 0."""
+    path, same weights and draws, dropout 0. ``make_step(device, generator)``
+    builds the model (its weights drawn from ``generator`` when one is
+    given) and returns (model, step); ``step(batch)`` runs on ``batch`` moved
+    to the device. Holds the loss and the gradients that only the backward
+    kernels feed (res_conv, to_qkv, the PPEG convs: ``n_leaves`` of them)."""
     import numpy as np
 
-    from mirror_tpu_torch.registry import create_model
-    from mirror_tpu_torch.train.optim import make_optimizer
-    from mirror_tpu_torch.train.steps import make_mirror_train_step
-    from mirror_tpu_torch.train_mirror import loss_weights_from_args
-
     t0 = time.perf_counter()
-    kw = dict(model_kwargs, wsi_dropout=0.0, rna_proj_drop_rate=0.0)
-    rng = np.random.default_rng(SEED)
-    noise = dict(wsi_noise=rng.random((2, N_TOKENS), dtype=np.float32),
-                 rna_noise=rng.random((2, EMBED), dtype=np.float32),
-                 wsi_eps=rng.standard_normal((2, 128), dtype=np.float32),
-                 rna_eps=rng.standard_normal((2, 128), dtype=np.float32))
-    batch = dict(wsi=torch.from_numpy(wsi[:2]), rna=torch.from_numpy(rna[:2]))
     state = None
     results = {}
     for device in ("cuda", "cpu"):
-        model = create_model("mirror", device=device,
-                             generator=None if state else torch.Generator().manual_seed(SEED),
-                             **kw)
+        model, step = make_step(device, None if state else torch.Generator().manual_seed(SEED))
         if state is None:
             state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
         else:
             model.load_state_dict(state)
-        step = make_mirror_train_step(model, make_optimizer(args, model, 2e-5),
-                                      loss_weights_from_args(args), args.wsi_mask_ratio,
-                                      args.rna_mask_ratio)
-        metrics = step({k: v.to(device) for k, v in batch.items()},
-                       noise={k: torch.from_numpy(v).to(device) for k, v in noise.items()})
+        metrics = step({k: v.to(device) for k, v in batch.items()})
         grads = {name: p.grad.detach().float().cpu() for name, p in model.named_parameters()
                  if p.grad is not None and ("res_conv.weight" in name or "to_qkv.weight" in name
                                             or "pos_layer.proj" in name)}
@@ -717,23 +757,105 @@ def train_step_card_vs_cpu(torch, model_kwargs, args, wsi, rna):
     loss_gpu, g_gpu = results["cuda"]
     loss_cpu, g_cpu = results["cpu"]
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    say(f"[train] one step at batch 2, card kernels vs CPU plain path (bf16): loss "
+    say(f"[{tag}] one step at batch 2, card kernels vs CPU plain path (bf16): loss "
         f"{loss_gpu:.6g} vs {loss_cpu:.6g}, relative error {rel:.4g} (bound "
         f"{BOUND_STEP_LOSS:g}); {time.perf_counter() - t0:.1f} s")
     if not np.isfinite(loss_gpu) or rel > BOUND_STEP_LOSS:
-        fail("the card's train-step loss disagrees with the CPU reference")
-    if set(g_gpu) != set(g_cpu) or len(g_gpu) != 3 * 2 + 6:
-        fail(f"kernel-fed gradient leaves differ: {sorted(g_gpu)} vs {sorted(g_cpu)}")
+        fail(f"[{tag}] the card's train-step loss disagrees with the CPU reference")
+    if set(g_gpu) != set(g_cpu) or len(g_gpu) != n_leaves:
+        fail(f"[{tag}] kernel-fed gradient leaves differ: {sorted(g_gpu)} vs {sorted(g_cpu)}")
     worst = []
     for name in sorted(g_cpu):
         a, b = g_gpu[name].ravel(), g_cpu[name].ravel()
         cos = (a @ b / (a.norm() * b.norm())).item()
         ratio = (a.norm() / b.norm()).item()
-        say(f"[train]   grad {name}: cosine {cos:.6f}, norm ratio {ratio:.5f}")
+        say(f"[{tag}]   grad {name}: cosine {cos:.6f}, norm ratio {ratio:.5f}")
         worst.append(cos)
         if not (cos >= BOUND_GRAD_COS and abs(ratio - 1.0) <= BOUND_GRAD_NORM):
-            fail(f"gradient of {name} on the card disagrees with the CPU reference")
+            fail(f"[{tag}] gradient of {name} on the card disagrees with the CPU reference")
     return min(worst), rel
+
+
+def train_step_card_vs_cpu(torch, model_kwargs, args, wsi, rna):
+    """The MIRROR train step at batch 2, card against CPU, with the same
+    masking noise and VAE eps."""
+    import numpy as np
+
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_mirror_train_step
+    from mirror_tpu_torch.train_mirror import loss_weights_from_args
+
+    kw = dict(model_kwargs, wsi_dropout=0.0, rna_proj_drop_rate=0.0)
+    rng = np.random.default_rng(SEED)
+    noise = dict(wsi_noise=rng.random((2, N_TOKENS), dtype=np.float32),
+                 rna_noise=rng.random((2, EMBED), dtype=np.float32),
+                 wsi_eps=rng.standard_normal((2, 128), dtype=np.float32),
+                 rna_eps=rng.standard_normal((2, 128), dtype=np.float32))
+    batch = dict(wsi=torch.from_numpy(wsi[:2]), rna=torch.from_numpy(rna[:2]))
+
+    def make_step(device, generator):
+        model = create_model("mirror", device=device, generator=generator, **kw)
+        step = make_mirror_train_step(model, make_optimizer(args, model, 2e-5),
+                                      loss_weights_from_args(args), args.wsi_mask_ratio,
+                                      args.rna_mask_ratio)
+        dev_noise = {k: torch.from_numpy(v).to(device) for k, v in noise.items()}
+        return model, lambda b: step(b, noise=dev_noise)
+
+    return step_card_vs_cpu(torch, "train", make_step, batch, 3 * 2 + 6)
+
+
+def time_steps(torch, step, batch, reps=10, warm=2):
+    """``step(batch)`` timed by CUDA events around each of ``reps`` calls
+    after ``warm`` warm ones. Returns (median ms, min, max, peak device GiB
+    over all the calls, the last call's output)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warm):
+        step(batch)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return statistics.median(times), min(times), max(times), peak, out
+
+
+def run_entry_point(torch, tag, main_fn, argv, steps_expected):
+    """Run a training entry point with every launch count set to 0 just
+    before and read just after; hold its train log lines (count, finite)."""
+    from mirror_tpu_torch.ops import _common
+
+    lines = _Lines()
+    logging.getLogger("train").addHandler(lines)
+    torch.cuda.synchronize()
+    _common.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        results = main_fn(argv)
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger("train").removeHandler(lines)
+    seconds = time.perf_counter() - t0
+    launches = _common.launch_counts()
+    steps = [ln for ln in lines.lines if ln.startswith("Train:")]
+    say(f"[{tag}] {main_fn.__module__}.main: {len(steps)} steps at batch {B} in {seconds:.2f} s "
+        f"(model build, data reads, eval and checkpoint saves included); kernel launches "
+        f"{json.dumps(launches)}")
+    if len(steps) != steps_expected:
+        fail(f"[{tag}] {len(steps)} train log lines, expected {steps_expected}")
+    if any(bad in ln.lower() for ln in steps for bad in ("nan", "inf")):
+        fail(f"[{tag}] a logged loss is not finite: {steps}")
+    for ln in lines.lines:
+        if ln.startswith("Eval:"):
+            say(f"[{tag}] {ln}")
+    say(f"[{tag}] every logged loss finite; last line: {steps[-1]}")
+    return results, launches
 
 
 def phase_train(torch, root: Path):
@@ -744,13 +866,13 @@ def phase_train(torch, root: Path):
     from mirror_tpu_torch.config import parse_args, resolve_lr
     from mirror_tpu_torch.data.datasets import PretrainDataset
     from mirror_tpu_torch.data.loader import Loader
-    from mirror_tpu_torch.ops import _common
     from mirror_tpu_torch.registry import create_model
     from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
     from mirror_tpu_torch.train.optim import make_optimizer
     from mirror_tpu_torch.train.steps import make_mirror_train_step
 
     t0 = time.perf_counter()
+    root.mkdir(parents=True)
     feat_dir, rna_csv, split_dir = write_pretrain_cohort(root)
     argv = ["--config", str(PRETRAIN_YAML), "--wsi-feature-dir", str(feat_dir),
             "--rna-feature-csv", str(rna_csv), "--split-dir", str(split_dir), "--fold-nb", "0",
@@ -759,25 +881,7 @@ def phase_train(torch, root: Path):
             "--workers", "8"]
     say(f"[train] {N_PRETRAIN_SLIDES} slides written, set-up {time.perf_counter() - t0:.1f} s")
 
-    lines = _Lines()
-    logging.getLogger("train").addHandler(lines)
-    torch.cuda.synchronize()
-    _common.reset_launch_counts()
-    t0 = time.perf_counter()
-    results = train_mirror.main(argv)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _common.launch_counts()
-    logging.getLogger("train").removeHandler(lines)
-    say(f"[train] train_mirror: {TRAIN_STEPS} steps at batch {B} in {seconds:.2f} s (model "
-        f"build, data reads and checkpoint save included); kernel launches "
-        f"{json.dumps(launches)}")
-
-    steps = [ln for ln in lines.lines if ln.startswith("Train:")]
-    if len(steps) != TRAIN_STEPS:
-        fail(f"{len(steps)} train log lines, expected {TRAIN_STEPS}")
-    if any(bad in ln.lower() for ln in steps for bad in ("nan", "inf")):
-        fail(f"a logged loss is not finite: {steps}")
+    results, launches = run_entry_point(torch, "train", train_mirror.main, argv, TRAIN_STEPS)
     run_dir = root / "runs" / "pretrain" / "smoke"
     summary = pd.read_csv(run_dir / "summary.csv")
     names = ["loss", "alignment_loss", "wsi_retention_loss", "rna_retention_loss",
@@ -786,7 +890,6 @@ def phase_train(torch, root: Path):
         fail("a loss in summary.csv is not finite")
     if results.get("metric_name") != "loss" or not np.isfinite(results["best_metric"]):
         fail(f"--result is not what a finished run prints: {results}")
-    say(f"[train] every logged loss finite; last line: {steps[-1]}")
     missing = [k for k in FORWARD + BACKWARD if launches.get(k, 0) == 0]
     if missing:
         fail(f"the train step never launched: {missing}")
@@ -810,31 +913,204 @@ def phase_train(torch, root: Path):
         model, make_optimizer(args, model, resolve_lr(args, B)),
         train_mirror.loss_weights_from_args(args), args.wsi_mask_ratio, args.rna_mask_ratio,
         generator=torch.Generator(device="cuda").manual_seed(SEED))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        train_step(batch)
-    times = []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = train_step(batch)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    step_ms = statistics.median(times)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms, lo, hi, peak_gib, metrics = time_steps(torch, train_step, batch)
     say(f"[train] train step at batch {B}, full width, bf16: median {step_ms:.3f} ms over 10 "
-        f"(min {min(times):.3f}, max {max(times):.3f}), {1000 * B / step_ms:.1f} samples/s; "
+        f"(min {lo:.3f}, max {hi:.3f}), {1000 * B / step_ms:.1f} samples/s; "
         f"peak device memory {peak_gib:.2f} GiB; loss {float(metrics['loss']):.6g}")
     profile_step(torch, train_step, batch, step_ms)
-    del model, train_step, batch
+    del model, train_step
     torch.cuda.empty_cache()
 
     cos, rel = train_step_card_vs_cpu(torch, model_kwargs, args, host["wsi"], host["rna"])
-    return launches, dict(step_ms=step_ms, peak_gib=peak_gib, worst_grad_cos=cos,
-                          step_loss_rel=rel)
+
+    # --pinv-grad exact (kernel 2b): 2 steps through train_mirror.main on 32
+    # of the slides, then the step timed on the resident batch
+    exact_split = root / "splits_exact"
+    exact_split.mkdir()
+    train_ids = pd.read_csv(split_dir / "splits_0.csv", index_col=0)["train"].tolist()
+    pd.DataFrame({"train": train_ids[:TRAIN_STEPS_EXACT * B],
+                  "val": [None] * (TRAIN_STEPS_EXACT * B)}).to_csv(exact_split / "splits_0.csv")
+    argv_exact = [*argv, "--split-dir", str(exact_split), "--experiment", "smoke_exact",
+                  "--pinv-grad", "exact"]
+    _, launches_exact = run_entry_point(torch, "train exact", train_mirror.main, argv_exact,
+                                        TRAIN_STEPS_EXACT)
+    # one 2b launch per Nystrom layer (3) and step
+    if launches_exact.get(PINV_BWD, 0) != 3 * TRAIN_STEPS_EXACT:
+        fail(f"train_mirror --pinv-grad exact launched {PINV_BWD} "
+             f"{launches_exact.get(PINV_BWD, 0)} times, expected {3 * TRAIN_STEPS_EXACT}")
+    model = create_model("mirror", device="cuda", generator=torch.Generator().manual_seed(SEED),
+                         **dict(model_kwargs, pinv_grad="exact"))
+    train_step = make_mirror_train_step(
+        model, make_optimizer(args, model, resolve_lr(args, B)),
+        train_mirror.loss_weights_from_args(args), args.wsi_mask_ratio, args.rna_mask_ratio,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    exact_ms, lo, hi, exact_gib, metrics = time_steps(torch, train_step, batch, reps=5)
+    say(f"[train exact] train step at batch {B}, --pinv-grad exact: median {exact_ms:.3f} ms "
+        f"over 5 (min {lo:.3f}, max {hi:.3f}), {1000 * B / exact_ms:.1f} samples/s; peak "
+        f"device memory {exact_gib:.2f} GiB; loss {float(metrics['loss']):.6g}")
+    profile_step(torch, train_step, batch, exact_ms, tag="train exact")
+    del model, train_step, batch
+    torch.cuda.empty_cache()
+    return launches, launches_exact, dict(step_ms=step_ms, peak_gib=peak_gib,
+                                          worst_grad_cos=cos, step_loss_rel=rel,
+                                          exact_step_ms=exact_ms, exact_peak_gib=exact_gib)
+
+
+def write_downstream_cohort(root: Path):
+    """48 slides (fp16 Phikon-width patches, a 10234-gene RNA CSV) in the
+    subtyping class layout ({root}/classes/{class}/, links to the flat
+    {root}/features/ that survival reads), a fold-0 split of 32 train and
+    16 val patients, and a survival CSV in the cBioPortal columns (about a
+    quarter censored), all from SEED."""
+    import numpy as np
+    import pandas as pd
+
+    feat_dir, rna_csv, ids = write_cohort(root, N_DOWN_SLIDES, "DS")
+    classes = root / "classes"
+    for i, sid in enumerate(ids):
+        cls_dir = classes / CLASSES[i % 2]
+        cls_dir.mkdir(parents=True, exist_ok=True)
+        (cls_dir / f"{sid}.npy").symlink_to(feat_dir / f"{sid}.npy")
+    split_dir = root / "splits"
+    split_dir.mkdir()
+    patients = [s[:12] for s in ids]
+    pd.DataFrame({"train": pd.Series(patients[:N_DOWN_TRAIN]),
+                  "val": pd.Series(patients[N_DOWN_TRAIN:])}).to_csv(split_dir / "splits_0.csv")
+    rng = np.random.default_rng(SEED + 7)
+    surv_csv = root / "survival.csv"
+    pd.DataFrame({
+        "Patient ID": patients, "Sample ID": [s[:15] for s in ids],
+        "Overall Survival (Months)": np.round(rng.uniform(1, 120, len(ids)), 2),
+        "Overall Survival Status": np.where(rng.random(len(ids)) < 0.25, "0:LIVING",
+                                            "1:DECEASED"),
+    }).to_csv(surv_csv, index=False)
+    return feat_dir, classes, rna_csv, split_dir, surv_csv
+
+
+def downstream_step(torch, task, argv):
+    """The entry point's own model, loader and train step, built as its
+    ``main`` builds them, and the first host batch of its loader."""
+    from mirror_tpu_torch.config import parse_args
+    from mirror_tpu_torch.data.datasets import SubtypingDataset, SurvivalDataset
+    from mirror_tpu_torch.train.steps import make_classifier_train_step, make_survival_train_step
+    from mirror_tpu_torch.train_subtyping import (
+        build_classifier,
+        setup,
+        train_loader_and_optimizer,
+    )
+
+    args, _ = parse_args(argv, task=task)
+    device = setup(args)
+    if task == "subtyping":
+        dataset = SubtypingDataset(args.wsi_feature_dir, args.rna_feature_csv, args.classes,
+                                   args.num_wsi_feature_tokens, splits=args.split_dir)
+        model = build_classifier(args, dataset, len(args.classes), device)
+    else:
+        dataset = SurvivalDataset(args.wsi_feature_dir, args.rna_feature_csv,
+                                  args.survival_csv, args.num_wsi_feature_tokens,
+                                  splits=args.split_dir, num_bins=args.num_bins)
+        model = build_classifier(args, dataset, args.num_bins, device)
+    loader, optimizer, _ = train_loader_and_optimizer(args, dataset, model)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if task == "subtyping":
+        step = make_classifier_train_step(model, optimizer, smoothing=args.smoothing,
+                                          generator=gen)
+    else:
+        step = make_survival_train_step(model, optimizer, loss_name=args.loss,
+                                        loss_alpha=args.loss_alpha, generator=gen)
+    return args, model, step, next(iter(loader))
+
+
+def phase_downstream(torch, root: Path, pretrain_ckpt: Path):
+    """Subtyping (linear probe, warm-started from phase 5's checkpoint) and
+    survival (fine-tuning, --pinv-grad exact) through their entry points at
+    the templates' full width; their steps timed; a batch-2 exact classifier
+    step held against the CPU; predict scoring the subtyping checkpoint."""
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch import train_subtyping, train_survival
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.tools.predict import predict
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_classifier_train_step
+
+    t0 = time.perf_counter()
+    root.mkdir(parents=True)
+    feat_dir, classes, rna_csv, split_dir, surv_csv = write_downstream_cohort(root)
+    say(f"[downstream] {N_DOWN_SLIDES} slides written ({N_DOWN_TRAIN} train), set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    common = ["--rna-feature-csv", str(rna_csv), "--split-dir", str(split_dir), "--fold-nb",
+              "0", "--output", str(root / "runs"), "--epochs", str(DOWN_EPOCHS), "--batch-size",
+              str(B), "--log-interval", "1", "--seed", str(SEED), "--workers", "8"]
+    argv_sub = ["--config", str(SUBTYPING_YAML), "--wsi-feature-dir", str(classes),
+                "--classes", *CLASSES, "--initial-checkpoint", str(pretrain_ckpt),
+                "--experiment", "subtyping", *common]
+    survival_yaml = root / "survival.yaml"
+    survival_yaml.write_text(SURVIVAL_YAML.read_text().replace("linear_probe: true",
+                                                               "linear_probe: false"))
+    argv_surv = ["--config", str(survival_yaml), "--wsi-feature-dir", str(feat_dir),
+                 "--survival-csv", str(surv_csv), "--pinv-grad", "exact",
+                 "--experiment", "survival", *common]
+    steps = DOWN_EPOCHS * (N_DOWN_TRAIN // B)
+    launches = {}
+    for task, main_fn, argv, metric_ranges in (
+            ("subtyping", train_subtyping.main, argv_sub,
+             {"acc": (0, 100), "auc": (0, 1), "f1": (0, 1)}),
+            ("survival", train_survival.main, argv_surv, {"c-index": (0, 1)})):
+        results, launches[task] = run_entry_point(torch, task, main_fn, argv, steps)
+        summary = pd.read_csv(root / "runs" / task / task / "summary.csv")
+        for name, (lo, hi) in metric_ranges.items():
+            vals = summary[f"eval_{name}"].to_numpy()
+            if not (np.isfinite(vals).all() and (vals >= lo).all() and (vals <= hi).all()):
+                fail(f"[{task}] eval {name} {vals} not finite in [{lo}, {hi}]")
+        if not np.isfinite(summary[["train_loss", "eval_loss"]].to_numpy()).all():
+            fail(f"[{task}] a loss in summary.csv is not finite")
+        say(f"[{task}] --result {json.dumps(results)}")
+        wanted = FORWARD + BACKWARD + ((PINV_BWD,) if task == "survival" else ())
+        missing = [k for k in wanted if launches[task].get(k, 0) == 0]
+        if missing:
+            fail(f"[{task}] never launched: {missing}")
+
+        args, model, step, host = downstream_step(torch, task, argv)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        ms, lo, hi, peak, metrics = time_steps(torch, step, batch, reps=5)
+        mode = "linear probe" if args.linear_probe else "fine-tuning"
+        say(f"[{task}] train step at batch {B} ({mode}, --pinv-grad {args.pinv_grad}): "
+            f"median {ms:.3f} ms over 5 (min "
+            f"{lo:.3f}, max {hi:.3f}), {1000 * B / ms:.1f} samples/s; peak device memory "
+            f"{peak:.2f} GiB; loss {float(metrics['loss']):.6g}")
+        profile_step(torch, step, batch, ms, tag=task)
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+    # one classifier step at batch 2 with the exact pinv gradient, card
+    # against CPU (the subtyping run's arguments and widths)
+    args, model, _, host = downstream_step(torch, "subtyping", argv_sub)
+    kw = dict(args.model_kwargs, pinv_grad="exact", wsi_dropout=0.0, rna_proj_drop_rate=0.0)
+    del model
+    batch = {k: torch.from_numpy(host[k][:2]) for k in ("wsi", "rna", "label")}
+
+    def make_step(device, generator):
+        model = create_model("mirror_classifier", device=device, generator=generator, **kw)
+        return model, make_classifier_train_step(model, make_optimizer(args, model, args.lr),
+                                                 smoothing=args.smoothing)
+
+    step_card_vs_cpu(torch, "downstream", make_step, batch, 2 * 2 + 6)
+
+    # predict scores with the subtyping checkpoint
+    ckpt = root / "runs" / "subtyping" / "subtyping" / "last.pth.tar"
+    out_csv = root / "predictions.csv"
+    predict(str(ckpt), "subtyping", str(classes), str(out_csv), rna_feature_csv=str(rna_csv),
+            batch_size=B, seed=SEED, device="cuda")
+    df = pd.read_csv(out_csv)
+    probs = df[["prob_0", "prob_1"]].to_numpy()
+    if len(df) != N_DOWN_SLIDES or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1.0).max() > 1e-5:
+        fail(f"predict on the subtyping checkpoint: {len(df)} rows or bad probabilities")
+    say(f"[downstream] predict scored the subtyping checkpoint: {len(df)} rows, "
+        f"probabilities finite, rows sum to 1")
+    return launches
 
 
 def write_patches(root: Path):
@@ -858,23 +1134,10 @@ def write_patches(root: Path):
 
 
 def time_backbone(torch, fn, images, label):
-    """Median ms of the backbone on one resident uint8 batch: CUDA events
-    around each of 10 calls after 2 warm ones."""
-    for _ in range(2):
-        fn(images)
-    times = []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(images)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = statistics.median(times)
+    """Median ms of the backbone on one resident uint8 batch."""
+    ms, lo, hi, _, _ = time_steps(torch, fn, images)
     say(f"[featgen] {label} backbone, batch {images.shape[0]} resident uint8: median {ms:.3f} ms "
-        f"over 10 (min {min(times):.3f}, max {max(times):.3f}), "
-        f"{1000 * images.shape[0] / ms:.1f} patches/s")
+        f"over 10 (min {lo:.3f}, max {hi:.3f}), {1000 * images.shape[0] / ms:.1f} patches/s")
     return ms
 
 
@@ -938,8 +1201,6 @@ def phase_featgen(torch, root: Path):
     images = torch.randint(0, 256, (VIT_B, 224, 224, 3), generator=gen, device="cuda",
                            dtype=torch.uint8)
     fn, _ = gen_patch_feature.build_extractor("phikon", device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     batch_ms = time_backbone(torch, fn, images, "phikon (bf16 kernels)")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     say(f"[featgen] phikon peak device memory {peak_gib:.2f} GiB")
@@ -987,17 +1248,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
         serve = phase_slice(torch, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
-        train, _ = phase_train(torch, Path(tmp))
-    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
-        featgen = phase_featgen(torch, Path(tmp))
-    # the main paths' launches: predict's, the train step's and feature
-    # extraction's (its three runs), each counted from 0 just before its run;
+        train, train_exact, _ = phase_train(torch, Path(tmp) / "train")
+        with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp_fg:
+            featgen = phase_featgen(torch, Path(tmp_fg))
+        pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
+        down = phase_downstream(torch, Path(tmp) / "downstream", pretrain_ckpt)
+    # the main paths' launches: predict's, the train step's (implicit and
+    # exact pinv gradient), feature extraction's (its three runs) and the
+    # two downstream entry points', each counted from 0 just before its run;
     # softmax_attn_q is the pad-0 entry of the softmax_attn kernel, which no
     # path calls (its callers all have the residual conv)
-    paths = {"predict": serve, "train": train, "featgen": featgen}
+    paths = {"predict": serve, "train": train, "train_exact": train_exact,
+             "featgen": featgen, "subtyping": down["subtyping"],
+             "survival": down["survival"]}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+    unlaunched = [k["name"] for k in kernels
+                  if k["launches"] == 0 and k["name"] != "softmax_attn_q"]
+    if unlaunched:
+        fail(f"kernels no main path launched: {unlaunched}")
     say(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,16 +1,17 @@
-"""Two-stage YAML + CLI configuration of the pretrain entry point.
+"""Two-stage YAML + CLI configuration of the training entry points.
 
-The port's copy of ``mirror_tpu/config.py``'s pretrain surface (the
-reference's train_mirror.py:76-88, 625-639): a mini-parser takes ``--config
-<yaml>``, the YAML keys become argparse defaults, and the full parser reads
-the rest of argv, so CLI flags override YAML. The flags and dest names are
-the JAX package's, so its YAML templates parse unchanged.
+The port's copy of ``mirror_tpu/config.py``'s three surfaces (pretrain,
+subtyping, survival; the reference's train_*.py argument groups): a
+mini-parser takes ``--config <yaml>``, the YAML keys become argparse
+defaults, and the full parser reads the rest of argv, so CLI flags override
+YAML. The flags and dest names are the JAX package's, so its YAML templates
+parse unchanged.
 
 What differs: ``--device`` defaults to ``cuda`` (a YAML ``device: tpu``, the
 JAX package's accelerator, means the card here); ``use_pallas`` is accepted
 and ignored (the device alone picks the kernel path); and
 :func:`refuse_unported` stops at start on any flag that this port does not
-implement when it is set away from its default, naming it.
+implement for the task when it is set away from its default, naming it.
 """
 
 import argparse
@@ -35,8 +36,13 @@ class ParseKwargs(argparse.Action):
         setattr(namespace, self.dest, kw)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="MIRROR pretraining (PyTorch port)")
+TASKS = ("pretrain", "subtyping", "survival")
+
+
+def build_parser(task: str = "pretrain") -> argparse.ArgumentParser:
+    if task not in TASKS:
+        raise ValueError(f"unknown task {task!r}; one of {TASKS}")
+    p = argparse.ArgumentParser(description=f"MIRROR {task} (PyTorch port)")
     g = p.add_argument_group("Dataset")
     g.add_argument("--wsi-feature-dir", type=str, default=None)
     g.add_argument("--rna-feature-csv", type=str, default=None)
@@ -68,9 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-use-pallas", action="store_false", dest="use_pallas")
     g.add_argument("--pinv-grad", type=str, default="implicit",
                    choices=["exact", "implicit"],
-                   help="Nystrom pinv backward: 'implicit' (-Z^T g Z^T); 'exact' "
-                        "(through the 6 iterations) runs on the CPU only until "
-                        "its backward kernel is ported")
+                   help="Nystrom pinv backward: 'implicit' (-Z^T g Z^T) or 'exact' "
+                        "(through the 6 iterations)")
 
     g = p.add_argument_group("Device")
     g.add_argument("--device", type=str, default="cuda",
@@ -161,12 +166,39 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--epoch-repeats", type=float, default=0.0)
     g.add_argument("--in-chans", type=int, default=None)
 
-    p.add_argument("--wsi-mask-ratio", type=float, default=0.75)
-    p.add_argument("--rna-mask-ratio", type=float, default=0.75)
-    p.add_argument("--loss", type=str, default="mirror_loss")
-    p.add_argument("--loss-kwargs", nargs="*", default={}, action=ParseKwargs)
-    p.add_argument("--temperature", type=float, default=0.1)
-    p.add_argument("--eval-metric", type=str, default="loss")
+    if task == "pretrain":
+        p.add_argument("--wsi-mask-ratio", type=float, default=0.75)
+        p.add_argument("--rna-mask-ratio", type=float, default=0.75)
+        p.add_argument("--loss", type=str, default="mirror_loss")
+        p.add_argument("--loss-kwargs", nargs="*", default={}, action=ParseKwargs)
+        p.add_argument("--temperature", type=float, default=0.1)
+        p.add_argument("--eval-metric", type=str, default="loss")
+        return p
+    if task == "subtyping":
+        p.add_argument("--classes", type=str, nargs="+", default=None)
+        p.add_argument("--num-classes", type=int, default=None)
+        p.add_argument("--loss", type=str, default="ce_loss")
+        p.add_argument("--smoothing", type=float, default=0.1)
+    else:
+        p.add_argument("--survival-csv", type=str, default=None)
+        p.add_argument("--num-bins", type=int, default=4)
+        p.add_argument("--num-classes", type=int, default=4)
+        p.add_argument("--loss", type=str, default="nll_surv")
+        p.add_argument("--loss-alpha", type=float, default=0.0)
+    p.add_argument("--wsi-feature-only", action="store_true", default=False)
+    p.add_argument("--init-head", action="store_true", default=False)
+    p.add_argument("--head-init-scale", type=float, default=None)
+    p.add_argument("--head-init-bias", type=float, default=None)
+    # "--linear_probe" is the reference's own spelling, kept as an alias
+    p.add_argument("--linear-probe", "--linear_probe", action="store_true", default=False)
+    p.add_argument("--drop-last", action="store_true", default=True)
+    p.add_argument("--no-drop-last", action="store_false", dest="drop_last")
+    p.add_argument("--weighted-sampler", action="store_true", default=False)
+    if task == "subtyping":
+        p.add_argument("--eval-metric", type=str, default="acc")
+        p.add_argument("--eval-metric-average", type=str, default="macro")
+    else:
+        p.add_argument("--eval-metric", type=str, default="c-index")
     return p
 
 
@@ -179,26 +211,31 @@ _IGNORED_KEYS = {
 # flags this port does not implement: (dest, what it would need)
 _UNPORTED = (
     ("resume", "resume"), ("no_resume_opt", "resume"), ("start_epoch", "resume"),
-    ("initial_checkpoint", "warm start from a checkpoint"),
     ("recovery_interval", "recovery checkpoints"), ("checkpoint_hist", "best-k history"),
     ("log_wandb", "wandb"), ("wandb_watch", "wandb"),
     ("grad_accum_steps", "gradient accumulation"),
     ("grad_checkpointing", "activation checkpointing"),
     ("model_parallel", "tensor parallelism"), ("distributed", "multi-process training"),
     ("optimizer_sharding", "ZeRO-1"), ("ckpt_format", "the JAX package's checkpoints"),
-    ("profile", "the profiler hook"), ("loss", "the other losses"),
-    ("model", "the other models"),
+    ("profile", "the profiler hook"),
 )
+# what each task's port runs of --model and --loss
+_PORTED_VALUES = {
+    "pretrain": {"model": ("mirror",), "loss": ("mirror_loss",)},
+    "subtyping": {"model": ("mirror", "mirror_classifier"), "loss": ("ce_loss",)},
+    "survival": {"model": ("mirror", "mirror_classifier"), "loss": ("nll_surv", "ce_surv")},
+}
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> Tuple[argparse.Namespace, str]:
-    """Returns (args, resolved-yaml-text). CLI overrides YAML overrides
-    defaults."""
+def parse_args(argv: Optional[Sequence[str]] = None,
+               task: str = "pretrain") -> Tuple[argparse.Namespace, str]:
+    """Returns (args, resolved-yaml-text) for ``task``. CLI overrides YAML
+    overrides defaults."""
     config_parser = argparse.ArgumentParser(add_help=False)
     config_parser.add_argument("-c", "--config", type=str, default="")
     cfg_args, remaining = config_parser.parse_known_args(argv)
 
-    parser = build_parser()
+    parser = build_parser(task)
     if cfg_args.config:
         with open(cfg_args.config) as f:
             cfg: Dict[str, Any] = yaml.safe_load(f) or {}
@@ -216,7 +253,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> Tuple[argparse.Namespace
         parser.set_defaults(**defaults)
 
     args = parser.parse_args(remaining)
-    args.defaults = vars(build_parser().parse_args([]))
+    args.defaults = vars(build_parser(task).parse_args([]))
+    args.task = task
     for dest in sorted(_IGNORED_KEYS):
         if getattr(args, dest, None) != args.defaults.get(dest):
             _logger.warning("Ignoring --%s=%r (no meaning in the PyTorch port)",
@@ -228,21 +266,25 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> Tuple[argparse.Namespace
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise SystemExit on the first unported flag set away from its
-    default, naming it."""
-    for dest, what in _UNPORTED:
+    """Raise SystemExit on the first flag that the port does not implement
+    for ``args.task``, set away from its default, naming it."""
+    unported = _UNPORTED
+    if args.task == "pretrain":
+        unported += (("initial_checkpoint", "warm start from a checkpoint"),)
+    for dest, what in unported:
         value = getattr(args, dest)
         if value != args.defaults[dest]:
             raise SystemExit(
                 f"--{dest.replace('_', '-')}={value!r}: {what} is not ported to the "
                 "PyTorch port yet (ROADMAP items 8-10); leave it at its default"
             )
-    if args.pinv_grad == "exact" and args.device.split(":")[0] == "cuda":
-        raise SystemExit(
-            "--pinv-grad exact: its CUDA backward kernel (TPU kernel 2b, "
-            "mirror_tpu/ops/pinv_pallas.py:171) is not ported yet; use --pinv-grad "
-            "implicit, or --device cpu"
-        )
+    for dest, ported in _PORTED_VALUES[args.task].items():
+        value = getattr(args, dest)
+        if value not in ported:
+            raise SystemExit(
+                f"--{dest}={value!r}: the port's {args.task} runs {' or '.join(ported)} only; "
+                "the other models and losses are not ported yet"
+            )
 
 
 def resolve_lr(args: argparse.Namespace, global_batch_size: int) -> float:

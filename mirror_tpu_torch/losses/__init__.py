@@ -1,5 +1,7 @@
 """Losses of the port."""
 
 from .mirror_loss import MirrorLossWeights, clip_loss, mirror_loss
+from .surv import ce_surv_loss, nll_surv_loss
 
-__all__ = ["MirrorLossWeights", "clip_loss", "mirror_loss"]
+__all__ = ["MirrorLossWeights", "ce_surv_loss", "clip_loss", "mirror_loss",
+           "nll_surv_loss"]

@@ -3,6 +3,12 @@
 Counterpart of ``mirror_tpu/models/classifier.py::MIRRORClassifier``:
 FeatureTransMIL (cls vector) + TransFormer (RNA vector), add or concat
 fusion, a linear head. The RNA branch is optional at call time (WSI-only).
+
+Training mode (fine-tuning and the linear probe): ``pinv_grad`` picks the
+Nystrom pinv's backward ("exact", the JAX default, or "implicit"); the
+dropout of the two TransLayers' attention output (``wsi_dropout``, fixed at
+0.1 in the reference) and of the RNA encoder (``rna_proj_drop_rate``) draws
+from the generator that ``models.layers.set_generator`` hands it.
 """
 
 from typing import Optional
@@ -22,13 +28,15 @@ class MIRRORClassifier(nn.Module):
                  rna_pos_drop_rate: float = 0.0, rna_proj_drop_rate: float = 0.1,
                  rna_attn_drop_rate: float = 0.0, rna_drop_path_rate: float = 0.0,
                  rna_norm_eps: float = 1e-6, fusion: str = "concat",
+                 pinv_grad: str = "exact", wsi_dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if fusion not in ("add", "concat"):
             raise ValueError(f"fusion must be add or concat, got {fusion!r}")
         self.fusion = fusion
         self.dtype = dtype
-        self.wsi_encoder = FeatureTransMIL(wsi_embed_dim, embed_dim, dtype)
+        self.wsi_encoder = FeatureTransMIL(wsi_embed_dim, embed_dim, dtype,
+                                           dropout=wsi_dropout, pinv_grad=pinv_grad)
         self.rna_encoder = TransFormer(
             input_dim=rna_embed_dim, embed_dim=embed_dim, depth=rna_encoder_depth,
             gene_embed=rna_gene_embed, mlp_ratio=rna_mlp_ratio,

@@ -54,8 +54,14 @@ _SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _P),
     # x, s, z, bh, m, stream
     "mirror_pinv_init": (_P, _P, _P, _I, _I, _P),
-    # a, b, c, c2, bh, M, N, K, c0, c1, d0, d1, stream
-    "mirror_pinv_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    # a, b, c, c2, prev, acc (fp32), bh, M, N, K, layout, epilogue, c0, c1,
+    # d0, d1, stream
+    "mirror_pinv_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _P),
+    # in, out, bh, m, c0, c1, stream
+    "mirror_pinv_eye_axpby": (_P, _P, _I, _I, _F, _F, _P),
+    # gx32, gz, z0, s, gx, gs_partial (fp32 [bh]), bh, m, stream
+    "mirror_pinv_bwd_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # q, k, w, v, kern, out, bh, heads, r, c, dh, pad, ksize, stream
     "mirror_softmax_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, w, v, kern, g, dq, dk, dw, dv, dkern (fp32), stats, partial

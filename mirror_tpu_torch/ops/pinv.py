@@ -11,10 +11,13 @@ Gradients:
   the implicit-function gradient -z^T (g z^T) of the converged inverse, two
   matrix products in the compute dtype; the TPU package computes it outside
   any kernel too (pinv_pallas.py:223-233). The scale gets no gradient.
-- ``grad="exact"``: autograd through the iterations. On the CPU the plain
-  iterations (and the global scale) are differentiated as the JAX dense
-  path does; on the card it needs the exact backward kernel (TPU kernel 2b,
-  ``pinv_pallas.py:171``), which is not ported yet, so it raises.
+- ``grad="exact"``: :class:`PinvExact`, the gradient through the
+  iterations (TPU kernel 2b, ``pinv_pallas.py:171``): the backward kernel
+  of ``csrc/pinv.cu`` on the card, :func:`pinv_exact_bwd_ref` on the CPU,
+  with the Pallas body's rounding points. The scale is an input of the
+  Function, computed by :func:`global_scale` outside it, so its gradient
+  reaches x through the two ``max()`` reductions by autograd, as the TPU
+  package leaves it to XLA (pinv_pallas.py:259-262).
 """
 
 import torch
@@ -22,6 +25,7 @@ import torch
 from . import _common
 
 KERNEL = "moore_penrose_pinv"
+KERNEL_BWD = "moore_penrose_pinv_bwd"
 
 
 def global_scale(x: torch.Tensor) -> torch.Tensor:
@@ -38,6 +42,16 @@ def _dot(a, b):
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
+def _dot_nt(a, b):
+    """a @ b^T with fp32 accumulation, rounded to a's dtype."""
+    return torch.matmul(a.float(), b.float().transpose(-1, -2)).to(a.dtype)
+
+
+def _dot_tn(a, b):
+    """a^T @ b with fp32 accumulation, rounded to a's dtype."""
+    return torch.matmul(a.float().transpose(-1, -2), b.float()).to(a.dtype)
+
+
 def pinv_iterations_ref(x: torch.Tensor, s: torch.Tensor, iters: int = 6):
     """Plain version, with the TPU kernel's rounding points (_iter_body)."""
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
@@ -51,31 +65,117 @@ def pinv_iterations_ref(x: torch.Tensor, s: torch.Tensor, iters: int = 6):
     return z
 
 
+# the batched GEMM's operand layouts and epilogues (csrc/pinv.cu)
+_NN, _NT, _TN = 0, 1, 2
+_EYE, _ADD, _ACC32 = 0, 1, 2
+
+
+def _gemm(a, b, c=None, c2=None, prev=None, acc=None, layout=_NN, epilogue=_EYE, c0=0.0,
+          c1=1.0, d0=0.0, d1=0.0):
+    """One launch of the batched [m, m] GEMM P = op(a) op(b): EYE writes
+    c = bf16(c0 I + c1 bf16(P)) (and c2 = bf16(d0 I + d1 c)), ADD
+    c = bf16(prev + c1 bf16(P)), ACC32 acc += P in fp32."""
+    m = a.shape[-1]
+    ptrs = [t.data_ptr() if t is not None else None for t in (a, b, c, c2, prev, acc)]
+    _common.launch("mirror_pinv_gemm", *ptrs, a.numel() // (m * m), m, m, m, layout, epilogue,
+                   c0, c1, d0, d1)
+
+
+def _iterations_kernel(x, s, iters, slots, last_z=True):
+    """The iterations on the card: z0 = bf16(x^T / s) into ``slots(0)[0]``;
+    at each t, with (z, xz, t3, a) = ``slots(t)``, xz = x z (and
+    t1 = 7I - xz in a scratch buffer), t3 = 15I - xz t1, a = 13I - xz t3 and
+    z' = 0.25 z a into ``slots(t + 1)[0]`` (the last one only if ``last_z``)."""
+    m = x.shape[-1]
+    _common.launch("mirror_pinv_init", x.data_ptr(), s.data_ptr(), slots(0)[0].data_ptr(),
+                   x.numel() // (m * m), m)
+    t1 = torch.empty_like(x)
+    for t in range(iters):
+        z, xz, t3, a = slots(t)
+        _gemm(x, z, xz, t1, d0=7.0, d1=-1.0)
+        _gemm(xz, t1, t3, c0=15.0, c1=-1.0)
+        _gemm(xz, t3, a, c0=13.0, c1=-1.0)
+        if last_z or t + 1 < iters:
+            _gemm(z, a, slots(t + 1)[0], c1=0.25)
+
+
 def _pinv_kernel(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
     b, h, m, _ = x.shape
     _common.check_kernel_input("x", x, (b, h, m, m))
-    bh = b * h
-    z = torch.empty_like(x)
-    xz, t1, t3, a = (torch.empty_like(x) for _ in range(4))
-    gemm = "mirror_pinv_gemm"
-    _common.launch("mirror_pinv_init", x.data_ptr(), s.data_ptr(), z.data_ptr(), bh, m)
-    for _ in range(iters):
-        # xz = x z, and t1 = 7I - xz from the same epilogue
-        _common.launch(gemm, x.data_ptr(), z.data_ptr(), xz.data_ptr(), t1.data_ptr(),
-                       bh, m, m, m, 0.0, 1.0, 7.0, -1.0)
-        # t3 = 15I - xz t1
-        _common.launch(gemm, xz.data_ptr(), t1.data_ptr(), t3.data_ptr(), None,
-                       bh, m, m, m, 15.0, -1.0, 0.0, 0.0)
-        # a = 13I - xz t3
-        _common.launch(gemm, xz.data_ptr(), t3.data_ptr(), a.data_ptr(), None,
-                       bh, m, m, m, 13.0, -1.0, 0.0, 0.0)
-        # z = 0.25 z a, written to a fresh buffer (z is an operand)
-        z_next = t1
-        _common.launch(gemm, z.data_ptr(), a.data_ptr(), z_next.data_ptr(), None,
-                       bh, m, m, m, 0.0, 0.25, 0.0, 0.0)
-        z, t1 = z_next, z
+    zs = (torch.empty_like(x), torch.empty_like(x))  # z_t and z_{t+1} alternate
+    xz, t3, a = (torch.empty_like(x) for _ in range(3))
+    _iterations_kernel(x, s, iters, lambda t: (zs[t % 2], xz, t3, a))
     _common.count_launch(KERNEL)
-    return z
+    return zs[iters % 2]
+
+
+def pinv_exact_bwd_ref(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int = 6):
+    """Plain version of the exact backward (_bwd_kernel of the TPU
+    package, its rounding points): replay the forward stashing z_t, B_t =
+    x z_t, t3_t, A_t, then sweep back. Returns (gx in x's dtype, gs an fp32
+    scalar)."""
+    dt = x.dtype
+    eye = torch.eye(x.shape[-1], dtype=dt, device=x.device)
+    z = (x.transpose(-1, -2).float() / s).to(dt)
+    z0 = z
+    stash = []
+    for _ in range(iters):
+        xz = _dot(x, z)
+        t1 = 7.0 * eye - xz
+        t3 = 15.0 * eye - _dot(xz, t1)
+        a = 13.0 * eye - _dot(xz, t3)
+        stash.append((z, xz, t3, a))
+        z = (0.25 * _dot(z, a)).to(dt)
+    gz = g.to(dt)
+    gx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for z, b_, t3, a in reversed(stash):
+        t1 = 7.0 * eye - b_
+        gt4 = -(0.25 * _dot_tn(z, gz))
+        gz_next = 0.25 * _dot_nt(gz, a)
+        gb = _dot_nt(gt4, t3)
+        gt2 = -_dot_tn(b_, gt4)
+        gb = gb + _dot_nt(gt2, t1)
+        gb = gb - _dot_tn(b_, gt2)
+        gx = gx + torch.matmul(gb.float(), z.float().transpose(-1, -2))
+        gz = (gz_next + _dot_tn(x, gb)).to(dt)
+    gx = gx + gz.transpose(-1, -2).float() / s
+    gs = -(gz.float() * z0.float()).sum(dim=(-1, -2)) / s
+    return gx.to(dt), gs.sum()
+
+
+def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int):
+    """The replay and the reverse sweep on the card: 4 + 8 launches of the
+    batched GEMM per iteration (the replay's last z product, which the sweep
+    never reads, skipped), the stash in device memory for the call."""
+    b, h, m, _ = x.shape
+    _common.check_kernel_input("x", x, (b, h, m, m))
+    _common.check_kernel_input("g", g, (b, h, m, m))
+    bh = b * h
+    stash = x.new_empty(iters, 4, bh, m, m)  # (z_t, x z_t, t3_t, a_t) for each t
+    z0 = stash[0, 0] if iters else torch.empty_like(x)
+    _iterations_kernel(x, s, iters, lambda t: stash[t] if iters else (z0,), last_z=False)
+
+    gz = g.clone()
+    gz_next, gt4, gt2, gb = (torch.empty_like(x) for _ in range(4))
+    gx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    t1 = torch.empty_like(x)
+    for t in range(iters - 1, -1, -1):
+        z, xz, t3, a = stash[t]
+        _gemm(z, gz, gt4, layout=_TN, c1=-0.25)  # gt4 = -gA = -0.25 z^T gz
+        _gemm(gz, a, gz_next, layout=_NT, c1=0.25)  # gz' = 0.25 gz a^T
+        _gemm(gt4, t3, gb, layout=_NT)  # gb = gt4 t3^T
+        _gemm(xz, gt4, gt2, layout=_TN, c1=-1.0)  # gt2 = -B^T gt4
+        _common.launch("mirror_pinv_eye_axpby", xz.data_ptr(), t1.data_ptr(), bh, m, 7.0, -1.0)
+        _gemm(gt2, t1, gb, prev=gb, layout=_NT, epilogue=_ADD)  # gb += gt2 t1^T
+        _gemm(xz, gt2, gb, prev=gb, layout=_TN, epilogue=_ADD, c1=-1.0)  # gb -= B^T gt2
+        _gemm(gb, z, acc=gx32, layout=_NT, epilogue=_ACC32)  # gx += gb z^T (fp32)
+        _gemm(x, gb, gz, prev=gz_next, layout=_TN, epilogue=_ADD)  # gz = gz' + x^T gb
+    gx = torch.empty_like(x)
+    gs = torch.empty(bh, dtype=torch.float32, device=x.device)
+    _common.launch("mirror_pinv_bwd_finish", gx32.data_ptr(), gz.data_ptr(), z0.data_ptr(),
+                   s.data_ptr(), gx.data_ptr(), gs.data_ptr(), bh, m)
+    _common.count_launch(KERNEL_BWD)
+    return gx, gs.sum()
 
 
 class PinvImplicit(torch.autograd.Function):
@@ -95,6 +195,26 @@ class PinvImplicit(torch.autograd.Function):
         return -torch.matmul(zt, torch.matmul(g.to(z.dtype), zt)), None
 
 
+class PinvExact(torch.autograd.Function):
+    """z = pinv(x) by the iterations from the scale s; the backward returns
+    dL/dx through the iterations and dL/ds (kernel 2b on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, s, iters: int):
+        z = _pinv_kernel(x, s, iters) if _common.on_cuda(x, s) else pinv_iterations_ref(x, s, iters)
+        ctx.save_for_backward(x, s)
+        ctx.iters = iters
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        g = _common.grad_or_zeros(g, x)
+        bwd = _pinv_exact_bwd_kernel if _common.on_cuda(x, s) else pinv_exact_bwd_ref
+        gx, gs = bwd(x, s, g, ctx.iters)
+        return gx, gs.to(s.dtype), None
+
+
 def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, grad: str = "implicit") -> torch.Tensor:
     """Iterative pseudo-inverse of [b, h, m, m] matrices:
     z <- 0.25 z (13I - xz (15I - xz (7I - xz))), z0 = x^T / global_scale(x)."""
@@ -102,12 +222,4 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, grad: str = "implicit") 
         return PinvImplicit.apply(x, iters)
     if grad != "exact":
         raise ValueError(f"pinv grad must be 'exact' or 'implicit', got {grad!r}")
-    if not _common.on_cuda(x):
-        return pinv_iterations_ref(x, global_scale(x), iters)
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "pinv_grad='exact' on CUDA needs the exact pinv backward kernel "
-            "(TPU kernel 2b, mirror_tpu/ops/pinv_pallas.py:171), which is not "
-            "ported yet; use pinv_grad='implicit'"
-        )
-    return _pinv_kernel(x, global_scale(x), iters)
+    return PinvExact.apply(x, global_scale(x), iters)

@@ -140,7 +140,7 @@ def mirror_classifier(**kwargs: Any) -> MIRRORClassifier:
         "wsi_embed_dim", "rna_embed_dim", "embed_dim", "rna_encoder_depth",
         "rna_gene_embed", "rna_mlp_ratio", "rna_pos_drop_rate",
         "rna_proj_drop_rate", "rna_attn_drop_rate", "rna_drop_path_rate",
-        "rna_norm_eps", "num_classes", "fusion", "dtype",
+        "rna_norm_eps", "num_classes", "fusion", "pinv_grad", "wsi_dropout", "dtype",
     }
     return MIRRORClassifier(**_filter(_resolve_common(kwargs), accepted))
 

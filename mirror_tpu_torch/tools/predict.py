@@ -28,14 +28,9 @@ import torch
 from mirror_tpu_torch.data.formats import list_feature_files, load_feature_file
 from mirror_tpu_torch.registry import create_model
 from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args as _run_args
+from mirror_tpu_torch.train.steps import survival_risk
 
 _logger = logging.getLogger("predict")
-
-
-def survival_risk(logits: torch.Tensor) -> torch.Tensor:
-    """-sum(cumprod(1 - sigmoid(logits))) over the bins."""
-    survival = torch.cumprod(1.0 - torch.sigmoid(logits.float()), dim=1)
-    return -survival.sum(dim=1)
 
 
 def _rebuild_model(payload, rna_dim, task, device):

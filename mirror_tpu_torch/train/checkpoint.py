@@ -6,15 +6,21 @@ arguments: a yaml string, a dict, or the reference's argparse Namespace),
 ``epoch``, ``metric`` and ``version``. The JAX package's flax msgpack files
 are not read here: ``convert.state_dict_from_jax`` turns their params into
 this payload's ``state_dict``.
+
+:func:`load_pretrained` warm-starts a downstream model from a pretrain
+checkpoint, non-strict (``mirror_tpu/train/checkpoint.py:318-361``).
 """
 
 import argparse
+import logging
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 import yaml
+
+_logger = logging.getLogger(__name__)
 
 # torch state_dict wrapper prefixes (DDP, torch.compile)
 _WRAP_PREFIXES = ("module.", "_orig_mod.")
@@ -74,3 +80,27 @@ def save_checkpoint_file(path: str, state_dict: Mapping[str, Any],
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def load_pretrained(model: torch.nn.Module, path: str,
+                    use_ema: bool = False) -> Tuple[List[str], List[str]]:
+    """Copy into ``model`` every tensor of the checkpoint whose key and shape
+    match one of its own; the rest of ``model`` keeps its init (torch's
+    ``strict=False`` alone raises on a shape mismatch, so the keys are
+    filtered first). ``use_ema`` reads the EMA weights when the payload has
+    them (``state_dict_ema``, or the JAX package's ``ema_state_dict``).
+    Returns (loaded keys, skipped keys of the model)."""
+    payload = load_checkpoint_file(path)
+    source = None
+    if use_ema:
+        source = payload.get("state_dict_ema") or payload.get("ema_state_dict")
+    source = to_tensors(source) if source else payload["state_dict"]
+    target = model.state_dict()
+    matched = {k: v for k, v in source.items()
+               if k in target and tuple(v.shape) == tuple(target[k].shape)}
+    model.load_state_dict(matched, strict=False)
+    loaded = sorted(matched)
+    skipped = sorted(k for k in target if k not in matched)
+    _logger.info("Loaded %d param tensors from %s (%d target entries kept their init)",
+                 len(loaded), path, len(skipped))
+    return loaded, skipped

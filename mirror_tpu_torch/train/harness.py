@@ -1,0 +1,151 @@
+"""What the port's three training entry points share.
+
+The port's counterpart of ``mirror_tpu/train/harness.py``, for one process
+on one device: the device check, the run directory with ``args.yaml``, the
+epoch loop with its log lines, ``summary.csv``, the reference's ``.pth.tar``
+saves (``last`` every epoch, ``model_best`` when the eval metric improves,
+in the metric's direction: decreasing only for ``loss``), the downstream
+evaluation gather, and the ``--result`` JSON on stdout.
+"""
+
+import csv
+import json
+import logging
+import math
+import os
+import time
+from datetime import datetime
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..data.loader import Loader
+from .checkpoint import save_checkpoint_file
+
+_logger = logging.getLogger("train")
+
+
+def device_from_arg(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA card is available; pass --device cpu to "
+                         "train on the CPU with the kernels' plain versions")
+    return device
+
+
+def to_device(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def output_dir(args, task: str, args_text: str) -> Optional[str]:
+    """``{output}/{task}/{experiment or time-model-fold}``, with the run's
+    resolved arguments in ``args.yaml``; None without ``--output``."""
+    if not args.output:
+        return None
+    name = args.experiment or "-".join(
+        [datetime.now().strftime("%Y%m%d-%H%M%S"), args.model, f"fold_{args.fold_nb}"])
+    out_dir = os.path.join(args.output, task, name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "args.yaml"), "w") as f:
+        f.write(args_text)
+    return out_dir
+
+
+def update_summary(path: str, epoch: int, train: Dict[str, float],
+                   evals: Optional[Dict[str, float]]) -> None:
+    row = {"epoch": epoch, **{f"train_{k}": v for k, v in train.items()},
+           **{f"eval_{k}": v for k, v in (evals or {}).items()}}
+    header = not os.path.exists(path) or os.path.getsize(path) == 0
+    with open(path, "a") as f:
+        writer = csv.DictWriter(f, fieldnames=list(row))
+        if header:
+            writer.writeheader()
+        writer.writerow(row)
+
+
+def train_one_epoch(args, epoch, train_step, loader, device) -> Dict[str, float]:
+    """One pass over the loader; the metrics are summed on the device and
+    pulled to the host at log lines and once at the end of the epoch."""
+    loader.set_epoch(epoch)
+    num_batches = len(loader)
+    sums: Dict[str, torch.Tensor] = {}
+    count = 0
+    end = time.time()
+    for batch_idx, host_batch in enumerate(loader):
+        metrics = train_step(to_device(host_batch, device))
+        for k, v in metrics.items():
+            sums[k] = sums[k] + v if k in sums else v.clone()
+        count += 1
+        if batch_idx % args.log_interval == 0 or batch_idx == num_batches - 1:
+            vals = {k: float(v) for k, v in metrics.items()}
+            rate = host_batch["wsi"].shape[0] / max(time.time() - end, 1e-9)
+            _logger.info(
+                "Train: %d [%4d/%d] Loss: %.4g (%.4g)  %s %.1f samples/s", epoch, batch_idx,
+                num_batches, vals["loss"], float(sums["loss"]) / count,
+                " ".join(f"{k}: {v:.4g}" for k, v in vals.items() if k != "loss"), rate)
+        end = time.time()
+    return {k: float(v) / count for k, v in sums.items()} if count else {}
+
+
+def gather_eval_outputs(eval_step: Callable, dataset, batch_size: int, args, epoch: int,
+                        device, extra_keys: Sequence[str] = ()
+                        ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:
+    """The downstream eval over the whole validation split: the tail batch
+    padded (``pad_last``), a fresh token draw per epoch, and only the valid
+    rows kept. Returns (logits, labels, {key: values for extra_keys})."""
+    loader = Loader(dataset.val(), batch_size, shuffle=False, drop_last=False,
+                    pad_last=True, seed=args.seed, workers=args.workers)
+    loader.set_epoch(epoch)
+    logits, labels = [], []
+    extras = {k: [] for k in extra_keys}
+    for host_batch in loader:
+        keep = host_batch.pop("valid") > 0
+        out = eval_step(to_device(host_batch, device)).cpu().numpy()
+        logits.append(out[keep])
+        labels.append(host_batch["label"][keep])
+        for k in extra_keys:
+            extras[k].append(host_batch[k][keep])
+    dataset.train()
+    return (np.concatenate(logits), np.concatenate(labels),
+            {k: np.concatenate(v) for k, v in extras.items()})
+
+
+def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
+        out_dir: Optional[str], decreasing: bool) -> Dict:
+    """The epoch loop: train, evaluate (``eval_fn(epoch)``), summary,
+    checkpoints; then the ``--result`` JSON on stdout. A NaN eval metric
+    (a c-index over an all-censored split) is logged and not ranked."""
+    saved_args = {k: v for k, v in vars(args).items() if k != "defaults"}
+    best_metric, best_epoch = None, None
+    for epoch in range(args.epochs):
+        t0 = time.time()
+        train_metrics = train_one_epoch(args, epoch, train_step, loader, device)
+        eval_metrics = None
+        if eval_fn is not None:
+            eval_metrics = eval_fn(epoch)
+            _logger.info("Eval: %d  %s", epoch,
+                         " ".join(f"{k}: {v:.4f}" for k, v in eval_metrics.items()))
+        metric = (eval_metrics or train_metrics).get(args.eval_metric)
+        if metric is not None and math.isnan(metric):
+            _logger.warning("eval metric %s is NaN at epoch %d; skipping ranking",
+                            args.eval_metric, epoch)
+            metric = None
+        if out_dir:
+            update_summary(os.path.join(out_dir, "summary.csv"), epoch, train_metrics,
+                           eval_metrics)
+            save_checkpoint_file(os.path.join(out_dir, "last.pth.tar"), model.state_dict(),
+                                 saved_args, arch=args.model, epoch=epoch, metric=metric)
+        if metric is not None and (best_metric is None or (
+                metric < best_metric if decreasing else metric > best_metric)):
+            best_metric, best_epoch = metric, epoch
+            if out_dir:
+                save_checkpoint_file(os.path.join(out_dir, "model_best.pth.tar"),
+                                     model.state_dict(), saved_args, arch=args.model,
+                                     epoch=epoch, metric=metric)
+        _logger.info("Epoch %d done in %.1fs", epoch, time.time() - t0)
+
+    results = {"best_metric": best_metric, "best_epoch": best_epoch,
+               "metric_name": args.eval_metric}
+    print(f"--result\n{json.dumps(results, indent=4)}", flush=True)
+    return results

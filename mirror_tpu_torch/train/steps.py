@@ -1,7 +1,8 @@
-"""The MIRROR pretrain train step.
+"""The train and eval steps: MIRROR pretraining, subtyping, survival.
 
-Counterpart of ``mirror_tpu/train/steps.py::make_mirror_train_step`` and its
-two in-step updates, in the JAX step's order (steps.py:211-248):
+Counterpart of ``mirror_tpu/train/steps.py``. The pretrain step
+(``make_mirror_train_step``) runs its two in-step updates in the JAX step's
+order (steps.py:211-248):
 
 1. renorm the prototypes (L2 over each prototype; the torch weight is
    [P, D], so over dim 1, where the flax kernel [D, P] renorms axis 0);
@@ -10,7 +11,12 @@ two in-step updates, in the JAX step's order (steps.py:211-248):
 4. optimizer step;
 5. clamp ``logit_scale`` to [0, ln 100].
 
-The step runs eagerly: metrics come back as device tensors and the caller
+The downstream steps (steps.py:382-505) take the classifier's fp32 logits
+to label-smoothed cross-entropy (subtyping) or a discrete survival loss,
+each over the batch's ``valid`` rows. Their eval steps return the fp32
+logits; the caller takes metrics over the valid rows of the whole set.
+
+The steps run eagerly: metrics come back as device tensors and the caller
 pulls them to the host only when it logs.
 """
 
@@ -20,7 +26,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from ..losses import MirrorLossWeights, mirror_loss
+from ..losses import MirrorLossWeights, ce_surv_loss, mirror_loss, nll_surv_loss
 from ..models.layers import set_generator
 
 LOG_100 = math.log(100.0)
@@ -90,3 +96,99 @@ def mirror_eval_losses(model: nn.Module, batch: Dict[str, torch.Tensor],
     out = model(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio,
                 generator=generator)
     return dict(zip(LOSS_NAMES, mirror_loss(*out, weights=loss_weights)))
+
+
+def smoothed_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 0.0,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy with label smoothing (timm's LabelSmoothingCrossEntropy),
+    in fp32; ``valid`` ([B] 0/1) drops padded rows from the mean."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+    if smoothing > 0:
+        nll = (1.0 - smoothing) * nll - smoothing * logp.mean(-1)
+    if valid is not None:
+        valid = valid.to(nll.dtype)
+        return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _make_downstream_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                                loss_fn: Callable, wsi_only: bool,
+                                generator: Optional[torch.Generator]) -> Callable:
+    """``train_step(batch) -> {"loss", "grad_norm", "param_norm"}``: the
+    whole model is differentiated, as in the JAX step, and ``optimizer``
+    updates what it holds (every parameter, or the head alone under the
+    linear probe, where the JAX step discards the trunk's updates); the
+    norms are over every parameter."""
+    set_generator(model, generator)
+    params = list(model.parameters())
+
+    def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.train()
+        logits = model(batch["wsi"], None if wsi_only else batch["rna"]).float()
+        loss = loss_fn(logits, batch)
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        with torch.no_grad():
+            metrics = {
+                "loss": loss.detach(),
+                "grad_norm": _global_norm([p.grad for p in params if p.grad is not None]),
+                "param_norm": _global_norm(params),
+            }
+        optimizer.step()
+        return metrics
+
+    return train_step
+
+
+def make_classifier_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                               smoothing: float = 0.0, wsi_only: bool = False,
+                               generator: Optional[torch.Generator] = None) -> Callable:
+    def loss_fn(logits, batch):
+        return smoothed_xent(logits, batch["label"], smoothing, valid=batch.get("valid"))
+
+    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator)
+
+
+def survival_loss(loss_name: str, logits: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  alpha: float = 0.0) -> torch.Tensor:
+    """``nll_surv`` (with ``alpha``) or ``ce_surv`` of the batch's labels and
+    censorship, over its ``valid`` rows."""
+    valid = batch.get("valid")
+    if loss_name == "ce_surv":
+        return ce_surv_loss(logits, batch["label"], batch["censorship"], valid=valid)
+    if loss_name != "nll_surv":
+        raise ValueError(f"unknown survival loss {loss_name!r}")
+    return nll_surv_loss(logits, batch["label"], batch["censorship"], alpha=alpha,
+                         valid=valid)
+
+
+def make_survival_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                             loss_name: str = "nll_surv", loss_alpha: float = 0.0,
+                             wsi_only: bool = False,
+                             generator: Optional[torch.Generator] = None) -> Callable:
+    def loss_fn(logits, batch):
+        return survival_loss(loss_name, logits, batch, loss_alpha)
+
+    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator)
+
+
+def make_classifier_eval_step(model: nn.Module, wsi_only: bool = False) -> Callable:
+    """``eval_step(batch) -> fp32 logits``, dropout off (the survival eval
+    step is the same function: ``make_survival_eval_step``)."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        model.eval()
+        return model(batch["wsi"], None if wsi_only else batch["rna"]).float()
+
+    return eval_step
+
+
+make_survival_eval_step = make_classifier_eval_step
+
+
+def survival_risk(logits) -> torch.Tensor:
+    """risk = -sum_t S(t), S(t) = prod_{j<=t} (1 - sigmoid(logit_j))."""
+    hazards = torch.sigmoid(torch.as_tensor(logits, dtype=torch.float32))
+    return -torch.cumprod(1.0 - hazards, dim=1).sum(dim=1)

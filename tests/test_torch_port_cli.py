@@ -122,9 +122,22 @@ def test_train_mirror_refuses_unported_flags(cohort, flag):
         train_mirror.main(_argv(cohort, "--device", "cpu", *flag))
 
 
-def test_train_mirror_refuses_exact_pinv_grad_on_the_card(cohort):
-    with pytest.raises(SystemExit, match="--pinv-grad exact.*2b"):
-        train_mirror.main(_argv(cohort, "--pinv-grad", "exact"))
+def test_train_mirror_refuses_exact_pinv_grad_on_the_card(cohort, capsys):
+    """--pinv-grad exact is no longer refused for itself: with --device cpu
+    it trains and saves (the exact backward's plain version), and on a
+    machine without a card the default --device cuda run ends on the
+    --device cpu message, as every run there does."""
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="--device cpu"):
+            train_mirror.main(_argv(cohort, "--pinv-grad", "exact"))
+    results = train_mirror.main(_argv(cohort, "--device", "cpu", "--pinv-grad", "exact",
+                                      "--experiment", "tiny_exact"))
+    assert np.isfinite(results["best_metric"]) and "--result" in capsys.readouterr().out
+    payload = load_checkpoint_file(str(cohort / "runs" / "pretrain" / "tiny_exact"
+                                       / "last.pth.tar"))
+    assert run_args(payload)["model_kwargs"]["pinv_grad"] == "exact"
+    model = create_model("mirror", device="cpu", **run_args(payload)["model_kwargs"])
+    model.load_state_dict(payload["state_dict"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without a card")
