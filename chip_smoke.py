@@ -14,15 +14,25 @@ Phases, each printed as it finishes:
    decoder's 2049 rows with pad 255; the pad-0 q variant at its own shapes;
    PPEG on [16, 46, 46, 768]; the ViT half-blocks and the natural-layout
    attention at Phikon's batch of 256: x [256, 197, 768], 12 heads, MLP
-   3072, eps 1e-12), bf16: max abs error, relative
-   Frobenius error, the bound, the median time of kernel, plain version and
-   (where one PyTorch call computes the same function) that call;
+   3072, eps 1e-12; the standalone conv at [16, 8, 2117, 96] with bf16
+   taps and at the self-test's [8, 8, 2117, 96] with fp32 taps; the fused
+   LN + q/k/v projection at x [16, 2117, 768], 8 heads of 96), and the
+   Nystrom kernels and PPEG again at the self-test's shapes (batch 8, dh 64,
+   256 landmarks, n 2117, pad 187; PPEG on [8, 46, 46, 512]), bf16: max
+   abs error, relative Frobenius error, the bound, the median time of
+   kernel, plain version and (where one PyTorch call computes the same
+   function, or two for the LN + q/k/v projection) that call, each also
+   as single calls between two events;
 3b. backward kernels: each against its plain version fed the same inputs
    and incoming gradient, at the train slice's shapes (the encoder's 2117
    rows with pad 187 and the retention decoder's 2049 rows with pad 255;
    PPEG on [16, 46, 46, 768]; the exact pinv backward, kernel 2b, at
-   [16, 8, 384, 384] and 6 iterations on a softmax-like input), error per
-   output, and the same times;
+   [16, 8, 384, 384] and 6 iterations on a softmax-like input; the conv
+   and the LN + q/k/v projection at phase 3's shapes; the Nystrom
+   backwards, 2b ([8, 8, 256, 256]) and PPEG's at the self-test's shapes
+   as in phase 3), error per output
+   (the batch sums dkern, gw, gs and gb also against their largest
+   magnitude), and the same times;
 4. serving slice: a full-width ``mirror_classifier`` (the subtyping
    configuration: 768-d Phikon features, embed 768, RNA 10234, 2048 tokens,
    bf16) with random weights from a seeded generator, saved as a reference
@@ -63,7 +73,14 @@ Phases, each printed as it finishes:
    finite, the eval metrics finite and in range; each run's step timed on
    one resident batch (ms, peak memory) and profiled; one classifier step
    at batch 2 with the exact gradient on the card against the CPU's plain
-   path; ``predict`` scoring the subtyping checkpoint.
+   path; ``predict`` scoring the subtyping checkpoint;
+8. the kernel self-test: ``mirror_tpu_torch.selftest.main()`` at
+   ``bench.py --selftest``'s shapes (NystromAttention dim 512, dh 64, 256
+   landmarks on [8, 2117, 512] with the exact and the implicit pinv
+   gradient, PPEG on [8, 46, 46, 512], the conv on [8, 8, 2117, 96] with
+   fp32 taps), its JSON line printed, every mode true, launch counts read
+   around it; then that NystromAttention at batch 2, card against the CPU's
+   plain path, in both gradient modes (loss and kernel-fed gradients).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -72,6 +89,7 @@ The script imports nothing of JAX.
 
 import json
 import logging
+import math
 import statistics
 import subprocess
 import sys
@@ -161,12 +179,32 @@ BOUND_STEP_LOSS, BOUND_GRAD_COS, BOUND_GRAD_NORM = 2e-2, 0.99, 5e-2
 # the int8 path against bf16 on the card: cosine >= 0.995 per patch, the bar
 # of tests/test_tools.py::test_vit_int8_features_match_bf16.
 BOUND_FEAT_COS, BOUND_INT8_COS = 0.99, 0.995
+# Sums over a whole batch (dkern of the conv; gw, gs and gb of the LN +
+# q/k/v projection), held beside the relative Frobenius error by their max
+# abs error against the plain version's largest magnitude: 1e-2 where the
+# kernel rounds the sum to bf16 (gw, dkern for bf16 taps), 1e-4 where it
+# stays fp32 (the same bf16 products summed in another order).
+BOUND_SUM_BF16, BOUND_SUM_FP32 = 1e-2, 1e-4
+# the self-test's shapes (bench.py::selftest): NystromAttention dim 512, 8
+# heads of 64, 256 landmarks on x [8, 2117, 512] (front pad 187, groups of
+# 9); PPEG on [8, 46, 46, 512]; the conv on [8, 8, 2117, 96]
+SELFTEST_B, SELFTEST_DIM, SELFTEST_DH, SELFTEST_M = 8, 512, 64, 256
+SELFTEST_PAD = (SELFTEST_M - N % SELFTEST_M) % SELFTEST_M  # 187
+CONV_SELFTEST = (SELFTEST_B, HEADS, N, 96)
+# the Nystrom kernels' shapes in phases 3 and 3b, (b, n, pad, dh, m): the
+# encoder's (the first: it gives the times), the retention decoder's and
+# the self-test's
+NYSTROM_SHAPES = ((B, N, PAD, DH, M), (B, N_DEC, PAD_DEC, DH, M),
+                  (SELFTEST_B, N, SELFTEST_PAD, SELFTEST_DH, SELFTEST_M))
+# PPEG's, (b, C): the slices' and the self-test's
+PPEG_SHAPES = ((B, EMBED), (SELFTEST_B, SELFTEST_DIM))
 
 FORWARD = ("landmark_softmax", "moore_penrose_pinv", "softmax_attn", "softmax_attn_conv",
            "ppeg")
 BACKWARD = ("landmark_softmax_bwd", "softmax_attn_bwd", "softmax_attn_conv_bwd", "ppeg_bwd")
 PINV_BWD = "moore_penrose_pinv_bwd"  # kernel 2b: --pinv-grad exact only
 VIT = ("vit_attn_block", "vit_mlp_block", "vit_mha_natural")
+SELFTEST_PATH = FORWARD[:4] + BACKWARD[:3] + ("ppeg", "ppeg_bwd", "conv1d", "conv1d_bwd")
 
 
 def fail(msg: str) -> None:
@@ -206,19 +244,35 @@ def phase_build():
         f"in {time.perf_counter() - t0:.1f} s")
 
 
+def _events_ms(torch, fn, runs=1):
+    """ms of the card's time from before the first of ``runs`` back-to-back
+    calls of ``fn`` to after the last (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def median_ms(torch, fn, reps=20, warmup=3):
+    """(ms, single-call ms): medians of one call over ``reps`` samples each.
+    For the first, a sample is a run of back-to-back calls that lasts about
+    2 ms (1 to 50 calls, divided out): for a short kernel the card then
+    works through its queue while the host prepares the next launch, and
+    the wrapper's host time is not timed as the kernel's. For the second, a
+    sample is one call between two events, the wrapper's host work included
+    (how the rows were timed before runs of calls). A call of 2 ms or more
+    is timed alone, and both are that reading."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    single = statistics.median(_events_ms(torch, fn) for _ in range(reps))
+    runs = max(1, min(50, math.ceil(2.0 / max(single, 1e-3))))
+    if runs == 1:
+        return single, single
+    return statistics.median(_events_ms(torch, fn, runs) / runs for _ in range(reps)), single
 
 
 def errors(torch, out, ref):
@@ -269,14 +323,17 @@ def run_case(torch, case: Case) -> dict:
     ok = all(rel <= case.tol for _, rel in errs)
     if case.check is not None:
         ok = case.check(out, ref) and ok
-    ms, plain_ms = median_ms(torch, case.kernel), median_ms(torch, case.plain, reps=10)
-    library_ms = median_ms(torch, case.library) if case.library else None
+    (ms, ms_1), (plain_ms, plain_ms_1) = (median_ms(torch, case.kernel),
+                                          median_ms(torch, case.plain, reps=10))
+    library_ms, library_ms_1 = median_ms(torch, case.library) if case.library else (None, None)
     bound_ms, bound_by = bound(case.work["bytes"], case.work["mma"], case.work.get("fp32", 0))
     per_output = ", ".join(f"{o} {a:.4g}/{r:.4g}" for o, (a, r) in zip(case.outputs, errs))
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+    lib_1 = f", library {library_ms_1:.4f}" if library_ms is not None else ""
     say(f"[kernel] {case.name} ({case.shape}): max abs / rel Frobenius err {per_output} "
         f"(bound {case.tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-        f"bound {bound_ms:.4f} ms by {bound_by} (medians of warm launches)")
+        f"bound {bound_ms:.4f} ms by {bound_by} (medians of warm calls, runs of calls under "
+        f"2 ms; single calls: kernel {ms_1:.4f}, plain {plain_ms_1:.4f}{lib_1})")
     if not ok:
         fail(f"{case.name} ({case.shape}) disagrees with its plain version beyond its bound")
     sources = [f"mirror_tpu_torch/csrc/{f}"
@@ -285,7 +342,8 @@ def run_case(torch, case: Case) -> dict:
                 replaces=case.replaces, shape=case.shape,
                 max_abs_err=max(a for a, _ in errs), rel_fro_err=max(r for _, r in errs),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                library_ms=library_ms, ms_single_call=ms_1, plain_ms_single_call=plain_ms_1,
+                library_ms_single_call=library_ms_1)
 
 
 def forward_cases(torch, randn):
@@ -294,33 +352,31 @@ def forward_cases(torch, randn):
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
-    bh = B * HEADS
     cases = []
-    # the encoder's shape first (it gives the pinv its input and the q
-    # variant its shape), then the retention decoder's
-    for n, pad in ((N, PAD), (N_DEC, PAD_DEC)):
-        shape = f"b {B}, h {HEADS}, n {n}, pad {pad}"
-        q = randn(B, HEADS, n, DH, scale=DH ** -0.5)
-        k, v = randn(B, HEADS, n, DH), randn(B, HEADS, n, DH)
-        q_l, k_l, attn2 = landmark.landmark_softmax_ref(q, k, M, pad)
-        w = randn(B, HEADS, M, DH)
+    for b, n, pad, dh, m in NYSTROM_SHAPES:
+        bh = b * HEADS
+        shape = f"b {b}, h {HEADS}, n {n}, pad {pad}, dh {dh}, m {m}"
+        q = randn(b, HEADS, n, dh, scale=dh ** -0.5)
+        k, v = randn(b, HEADS, n, dh), randn(b, HEADS, n, dh)
+        q_l, k_l, attn2 = landmark.landmark_softmax_ref(q, k, m, pad)
+        w = randn(b, HEADS, m, dh)
         kern = randn(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
-        attn_mma = 4 * bh * n * M * DH  # S = q k^T and P w
-        conv_fp32 = 2 * bh * n * DH * CONV_TAPS
+        attn_mma = 4 * bh * n * m * dh  # S = q k^T and P w
+        conv_fp32 = 2 * bh * n * dh * CONV_TAPS
         # kernel 3's function as one PyTorch call: its pad columns are
         # zero logits with zero w rows, so SDPA on explicitly zero-padded k
         # and w (built here, outside the timed call) computes it
-        k_pad = torch.cat([k.new_zeros(B, HEADS, pad, DH), k], dim=2)
-        v_pad = torch.cat([v.new_zeros(B, HEADS, pad, DH), v], dim=2)
+        k_pad = torch.cat([k.new_zeros(b, HEADS, pad, dh), k], dim=2)
+        v_pad = torch.cat([v.new_zeros(b, HEADS, pad, dh), v], dim=2)
         cases.append(Case(
             "landmark_softmax", "landmark.cu", "mirror_tpu/ops/landmark_pallas.py:183", shape,
-            lambda q=q, k=k, pad=pad: landmark.landmark_softmax(q, k, M, pad),
-            lambda q=q, k=k, pad=pad: landmark.landmark_softmax_ref(q, k, M, pad),
+            lambda q=q, k=k, m=m, pad=pad: landmark.landmark_softmax(q, k, m, pad),
+            lambda q=q, k=k, m=m, pad=pad: landmark.landmark_softmax_ref(q, k, m, pad),
             BOUND_SINGLE_ROUNDING, ("q_l", "k_l", "attn2"),
-            dict(bytes=nbytes(q, k, q_l, k_l, attn2), mma=2 * bh * M * M * DH)))
+            dict(bytes=nbytes(q, k, q_l, k_l, attn2), mma=2 * bh * m * m * dh)))
         cases.append(Case(
             "softmax_attn", "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:202",
-            f"kv: r {M}, c {n}, pad {pad}",
+            f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}",
             lambda q_l=q_l, k=k, v=v, pad=pad:
                 nystrom_attn.softmax_matmul_landmark_kv(q_l, k, v, pad),
             lambda q_l=q_l, k=k, v=v, pad=pad:
@@ -343,23 +399,26 @@ def forward_cases(torch, randn):
             continue
         s = pinv.global_scale(attn2)
 
-        def pinv_check(z, z_ref, x=attn2):
+        def pinv_check(z, z_ref, x=attn2, m=m):
             # held by function too: |x z - I| no worse than 1.5x the plain
             # version's (or 0.05)
-            eye = torch.eye(M, device=x.device)
+            eye = torch.eye(m, device=x.device)
             err = (x.float() @ z.float() - eye).abs().max().item()
             err_ref = (x.float() @ z_ref.float() - eye).abs().max().item()
-            say(f"[kernel] moore_penrose_pinv: |x z - I| max {err:.4g} (plain {err_ref:.4g})")
+            say(f"[kernel] moore_penrose_pinv (m {m}): |x z - I| max {err:.4g} "
+                f"(plain {err_ref:.4g})")
             return err <= max(1.5 * err_ref, 0.05)
 
         cases.append(Case(
             "moore_penrose_pinv", "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:239",
-            f"b {B}, h {HEADS}, m {M}", lambda x=attn2: pinv.moore_penrose_pinv(x),
+            f"b {b}, h {HEADS}, m {m}", lambda x=attn2: pinv.moore_penrose_pinv(x),
             lambda x=attn2, s=s: pinv.pinv_iterations_ref(x, s), BOUND_PINV, ("z",),
-            dict(bytes=2 * nbytes(attn2), mma=6 * 4 * 2 * bh * M ** 3), check=pinv_check))
+            dict(bytes=2 * nbytes(attn2), mma=6 * 4 * 2 * bh * m ** 3), check=pinv_check))
+        if dh != DH:  # the q variant has no caller: the slices' shape only
+            continue
         cases.append(Case(
             "softmax_attn_q", "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:208",
-            f"q: r {n}, c {M}, pad 0",
+            f"q: r {n}, c {m}, pad 0",
             lambda q=q, k_l=k_l, w=w: nystrom_attn.softmax_matmul_landmark_q(q, k_l, w),
             lambda q=q, k_l=k_l, w=w: nystrom_attn.softmax_attn_ref(q, k_l, w).to(bf16),
             BOUND_SINGLE_ROUNDING, ("out",),
@@ -367,19 +426,127 @@ def forward_cases(torch, randn):
             library=lambda q=q, k_l=k_l, w=w:
                 F.scaled_dot_product_attention(q, k_l, w, scale=1.0)))
 
-    img = randn(B, SIDE, SIDE, EMBED)
-    ppeg_k, ppeg_b = randn(7, 7, EMBED, scale=0.1), randn(EMBED, scale=0.1)
-    # PPEG as one depthwise conv: the identity folded into the centre tap
-    conv_w = ppeg_k.permute(2, 0, 1).unsqueeze(1).clone()  # [C, 1, 7, 7]
-    conv_w[:, 0, 3, 3] += 1
-    img_nchw = img.permute(0, 3, 1, 2)  # a channels-last view
-    cases.append(Case(
-        "ppeg", "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:179",
-        f"[{B}, {SIDE}, {SIDE}, {EMBED}]", lambda: ppeg.ppeg_fused(img, ppeg_k, ppeg_b),
-        lambda: ppeg.ppeg_ref(img, ppeg_k, ppeg_b), BOUND_SINGLE_ROUNDING, ("out",),
-        dict(bytes=nbytes(img, ppeg_k, ppeg_b, img), mma=0, fp32=(2 * 49 + 2) * img.numel()),
-        library=lambda: F.conv2d(img_nchw, conv_w, ppeg_b, padding=3, groups=EMBED)))
-    return cases + vit_cases(torch, randn)
+    for b, c in PPEG_SHAPES:
+        img = randn(b, SIDE, SIDE, c)
+        ppeg_k, ppeg_b = randn(7, 7, c, scale=0.1), randn(c, scale=0.1)
+        # PPEG as one depthwise conv: the identity folded into the centre tap
+        conv_w = ppeg_k.permute(2, 0, 1).unsqueeze(1).clone()  # [C, 1, 7, 7]
+        conv_w[:, 0, 3, 3] += 1
+        img_nchw = img.permute(0, 3, 1, 2)  # a channels-last view
+        cases.append(Case(
+            "ppeg", "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:179", f"[{b}, {SIDE}, {SIDE}, {c}]",
+            lambda img=img, k=ppeg_k, bias=ppeg_b: ppeg.ppeg_fused(img, k, bias),
+            lambda img=img, k=ppeg_k, bias=ppeg_b: ppeg.ppeg_ref(img, k, bias),
+            BOUND_SINGLE_ROUNDING, ("out",),
+            dict(bytes=nbytes(img, ppeg_k, ppeg_b, img), mma=0, fp32=(2 * 49 + 2) * img.numel()),
+            library=lambda img_nchw=img_nchw, conv_w=conv_w, bias=ppeg_b, c=c: F.conv2d(
+                img_nchw, conv_w, bias, padding=3, groups=c)))
+    return cases + vit_cases(torch, randn) + conv_cases(torch, randn, False) \
+        + [ln_qkv_case(torch, randn, False)]
+
+
+def sum_check(torch, name, outputs, indices):
+    """A ``check`` that holds outputs ``indices`` (batch sums) by max abs
+    error against the plain version's largest magnitude."""
+    def check(out, ref):
+        ok = True
+        for i in indices:
+            o, r = out[i], ref[i]
+            bound = BOUND_SUM_BF16 if o.dtype == torch.bfloat16 else BOUND_SUM_FP32
+            rel = ((o.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            say(f"[kernel] {name}: {outputs[i]} max abs err / largest magnitude {rel:.4g} "
+                f"(bound {bound:g})")
+            ok = ok and rel <= bound
+        return ok
+    return check
+
+
+def conv_cases(torch, randn, backward: bool):
+    """Kernel 9 (9b) at the slice's [16, 8, 2117, 96] with bf16 taps and at
+    the self-test's [8, 8, 2117, 96] with fp32 taps."""
+    import torch.nn.functional as F
+
+    from mirror_tpu_torch.ops import conv1d
+
+    cases = []
+    for shape, taps in (((B, HEADS, N, DH), torch.bfloat16), (CONV_SELFTEST, torch.float32)):
+        v = randn(*shape)
+        h, ksize = shape[1], CONV_TAPS
+        kern = randn(h, ksize, scale=0.1, dtype=taps)
+        kern16 = kern.to(torch.bfloat16)  # the taps the kernel takes
+        weight = kern16.view(h, 1, ksize, 1)
+        label = f"v {list(shape)}, K {ksize}, {str(taps).split('.')[-1]} taps"
+        fmas = 2 * ksize * v.numel()
+        if not backward:
+            cases.append(Case(
+                "conv1d", "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:258", label,
+                lambda v=v, kern=kern: conv1d.depthwise_conv1d_seq(v, kern),
+                lambda v=v, kern16=kern16: conv1d.depthwise_conv_seq_ref(v, kern16).to(v.dtype),
+                BOUND_SINGLE_ROUNDING, ("out",),
+                dict(bytes=nbytes(v, kern, v), mma=0, fp32=fmas),
+                library=lambda v=v, weight=weight, h=h: F.conv2d(
+                    v, weight, padding=(CONV_TAPS // 2, 0), groups=h)))
+            continue
+        g = randn(*shape)
+        cases.append(Case(
+            "conv1d_bwd", "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:224", label,
+            autograd_kernel(torch, conv1d.depthwise_conv1d_seq, (v, kern), (g,)),
+            lambda v=v, kern16=kern16, g=g: conv1d.depthwise_conv_seq_bwd_ref(v, kern16, g),
+            BOUND_BWD, ("dv", "dkern"),
+            dict(bytes=nbytes(v, kern, g, v, kern), mma=0, fp32=2 * fmas),
+            library=lambda v=v, weight=weight, g=g, h=h: torch.ops.aten.convolution_backward(
+                g, v, weight, None, [1, 1], [CONV_TAPS // 2, 0], [1, 1], False, [0, 0], h,
+                [True, True, False]),
+            check=sum_check(torch, "conv1d_bwd", ("dv", "dkern"), (1,))))
+    return cases
+
+
+def ln_qkv_case(torch, randn, backward: bool):
+    """Kernel 10 (10b) at x [16, 2117, 768], 8 heads of 96, eps 1e-5; the
+    library yardstick is two calls, ``layer_norm`` and a cuBLAS ``matmul``
+    with the head-major view (autograd for the backward)."""
+    import torch.nn.functional as F
+
+    from mirror_tpu_torch.ops import ln_qkv
+
+    f32 = torch.float32
+    x = randn(B, N, EMBED)
+    ln_s, ln_b = 1.0 + randn(EMBED, scale=0.1, dtype=f32), randn(EMBED, scale=0.1, dtype=f32)
+    w = randn(EMBED, 3 * HEADS * DH, scale=EMBED ** -0.5)
+    s16, b16 = ln_s.to(torch.bfloat16), ln_b.to(torch.bfloat16)
+    rows, n3 = B * N, 3 * HEADS * DH
+    label = f"x [{B}, {N}, {EMBED}], heads {HEADS}, dh {DH}"
+
+    def two_calls(x, s, b, w):
+        y = F.layer_norm(x, (EMBED,), s, b, 1e-5) @ w
+        return y.view(B, N, 3, HEADS, DH).permute(2, 0, 3, 1, 4).unbind(0)
+
+    def fused(x, s, b, w):
+        return ln_qkv.ln_qkv_fused(x, s, b, w, HEADS)
+
+    qkv_bytes = 3 * nbytes(x) // EMBED * HEADS * DH
+    if not backward:
+        return Case(
+            "ln_qkv", "ln_qkv.cu", "mirror_tpu/ops/ln_qkv_pallas.py:213", label,
+            lambda: fused(x, ln_s, ln_b, w), lambda: ln_qkv.ln_qkv_ref(x, ln_s, ln_b, w, HEADS),
+            BOUND_SINGLE_ROUNDING, ("q", "k", "v"),
+            dict(bytes=nbytes(x, ln_s, ln_b, w) + qkv_bytes, mma=2 * rows * EMBED * n3,
+                 fp32=8 * rows * EMBED),
+            library=lambda: two_calls(x, s16, b16, w))
+    g = tuple(randn(B, HEADS, N, DH) for _ in range(3))
+
+    def plain():  # in the Function's gradient order: x, s, b, w
+        gx, gw, gs, gb = ln_qkv.ln_qkv_bwd_ref(x, ln_s, ln_b, w, *g, HEADS)
+        return gx, gs, gb, gw
+
+    return Case(
+        "ln_qkv_bwd", "ln_qkv.cu", "mirror_tpu/ops/ln_qkv_pallas.py:157", label,
+        autograd_kernel(torch, fused, (x, ln_s, ln_b, w), g), plain, BOUND_BWD,
+        ("gx", "gs", "gb", "gw"),
+        dict(bytes=2 * nbytes(x, ln_s, ln_b, w) + qkv_bytes, mma=4 * rows * EMBED * n3,
+             fp32=16 * rows * EMBED),
+        library=autograd_kernel(torch, two_calls, (x, s16, b16, w), g),
+        check=sum_check(torch, "ln_qkv_bwd", ("gx", "gs", "gb", "gw"), (1, 2, 3)))
 
 
 def vit_cases(torch, randn):
@@ -460,49 +627,51 @@ def backward_cases(torch, randn):
 
     from mirror_tpu_torch.ops import landmark, nystrom_attn, pinv, ppeg
 
-    bh = B * HEADS
     cases = []
-    for n, pad in ((N, PAD), (N_DEC, PAD_DEC)):
-        shape = f"b {B}, h {HEADS}, n {n}, pad {pad}"
-        q = randn(B, HEADS, n, DH, scale=DH ** -0.5)
-        k, v = randn(B, HEADS, n, DH), randn(B, HEADS, n, DH)
-        q_l, k_l, _ = landmark.landmark_softmax_ref(q, k, M, pad)
-        gql, gkl, ga2 = randn(B, HEADS, M, DH), randn(B, HEADS, M, DH), randn(B, HEADS, M, M)
-        dq = landmark.landmark_softmax_bwd_ref(q, k, M, pad, gql, gkl, ga2)[0]
+    for b, n, pad, dh, m in NYSTROM_SHAPES:
+        bh = b * HEADS
+        shape = f"b {b}, h {HEADS}, n {n}, pad {pad}, dh {dh}, m {m}"
+        q = randn(b, HEADS, n, dh, scale=dh ** -0.5)
+        k, v = randn(b, HEADS, n, dh), randn(b, HEADS, n, dh)
+        q_l, k_l, _ = landmark.landmark_softmax_ref(q, k, m, pad)
+        gql, gkl, ga2 = randn(b, HEADS, m, dh), randn(b, HEADS, m, dh), randn(b, HEADS, m, m)
+        dq = landmark.landmark_softmax_bwd_ref(q, k, m, pad, gql, gkl, ga2)[0]
         cases.append(Case(
             "landmark_softmax_bwd", "landmark.cu", "mirror_tpu/ops/landmark_pallas.py:148",
             shape,
-            autograd_kernel(torch, lambda q, k, pad=pad: landmark.landmark_softmax(q, k, M, pad),
-                            (q, k), (gql, gkl, ga2)),
-            lambda q=q, k=k, pad=pad, g=(gql, gkl, ga2): landmark.landmark_softmax_bwd_ref(
-                q, k, M, pad, *g),
+            autograd_kernel(torch, lambda q, k, m=m, pad=pad: landmark.landmark_softmax(
+                q, k, m, pad), (q, k), (gql, gkl, ga2)),
+            lambda q=q, k=k, m=m, pad=pad, g=(gql, gkl, ga2): landmark.landmark_softmax_bwd_ref(
+                q, k, m, pad, *g),
             BOUND_BWD, ("dq", "dk"),
-            dict(bytes=nbytes(q, k, gql, gkl, ga2, dq, dq), mma=3 * 2 * bh * M * M * DH)))
+            dict(bytes=nbytes(q, k, gql, gkl, ga2, dq, dq), mma=3 * 2 * bh * m * m * dh)))
 
-        g3 = randn(B, HEADS, M, DH)
+        g3 = randn(b, HEADS, m, dh)
         # the same SDPA on zero-padded k and w (built outside the timed
         # call), its backward through autograd: kernel 3c's function
-        k_pad = torch.cat([k.new_zeros(B, HEADS, pad, DH), k], dim=2)
-        v_pad = torch.cat([v.new_zeros(B, HEADS, pad, DH), v], dim=2)
+        k_pad = torch.cat([k.new_zeros(b, HEADS, pad, dh), k], dim=2)
+        v_pad = torch.cat([v.new_zeros(b, HEADS, pad, dh), v], dim=2)
         cases.append(Case(
             "softmax_attn_bwd", "softmax_attn_bwd.cu", "mirror_tpu/ops/nystrom_pallas.py:152",
-            f"kv: r {M}, c {n}, pad {pad}",
+            f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}",
             autograd_kernel(torch, lambda a, b, c, pad=pad:
                             nystrom_attn.softmax_matmul_landmark_kv(a, b, c, pad),
                             (q_l, k, v), (g3,)),
             lambda q_l=q_l, k=k, v=v, g3=g3, pad=pad: nystrom_attn.softmax_attn_bwd_ref(
                 q_l, k, v, g3, pad),
             BOUND_BWD, ("dq_l", "dk", "dv"),
-            dict(bytes=2 * nbytes(q_l, k, v) + nbytes(g3), mma=5 * 2 * bh * M * n * DH),
+            dict(bytes=2 * nbytes(q_l, k, v) + nbytes(g3), mma=5 * 2 * bh * m * n * dh),
             library=autograd_kernel(
                 torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, scale=1.0),
                 (q_l, k_pad, v_pad), (g3,))))
 
-        w = randn(B, HEADS, M, DH)
+        w = randn(b, HEADS, m, dh)
         kern = randn(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
-        g4 = randn(B, HEADS, n, DH)
+        g4 = randn(b, HEADS, n, dh)
+        # the conv's backward is conv1d.cu's (kernel 9b), launched by the
+        # attention backward's C entry
         cases.append(Case(
-            "softmax_attn_conv_bwd", "softmax_attn_bwd.cu",
+            "softmax_attn_conv_bwd", ("softmax_attn_bwd.cu", "conv1d.cu"),
             "mirror_tpu/ops/nystrom_pallas.py:318", shape,
             autograd_kernel(torch, nystrom_attn.fused_softmax_attn_conv,
                             (q, k_l, w, v, kern), (g4,)),
@@ -511,58 +680,64 @@ def backward_cases(torch, randn):
                 *nystrom_attn.depthwise_conv_seq_bwd_ref(v, kern, g4)),
             BOUND_BWD, ("dq", "dk_l", "dw", "dv", "dkern"),
             dict(bytes=2 * nbytes(q, k_l, w, v, kern) + nbytes(g4),
-                 mma=5 * 2 * bh * n * M * DH, fp32=2 * 2 * bh * n * DH * CONV_TAPS)))
+                 mma=5 * 2 * bh * n * m * dh, fp32=2 * 2 * bh * n * dh * CONV_TAPS)))
 
     # kernel 2b on a softmax-like x (softmax of unit-normal logits, the CUDA
-    # tests' pinv input) at the slice's b, h and m
-    x = torch.softmax(randn(B, HEADS, M, M).float(), -1).to(torch.bfloat16)
-    s = pinv.global_scale(x)
-    g2 = randn(B, HEADS, M, M)
+    # tests' pinv input) at the slices' b, h and m, and the self-test's
+    for b, m in ((B, M), (SELFTEST_B, SELFTEST_M)):
+        bh = b * HEADS
+        x = torch.softmax(randn(b, HEADS, m, m).float(), -1).to(torch.bfloat16)
+        s = pinv.global_scale(x)
+        g2 = randn(b, HEADS, m, m)
 
-    def pinv_bwd_check(out, ref, x=x, s=s, g2=g2):
-        x32 = x.float().requires_grad_()
-        pinv.pinv_iterations_ref(x32, s, PINV_ITERS).backward(g2.float())
-        a, b = out[0].float().ravel(), x32.grad.ravel()
-        cos = (a @ b / (a.norm() * b.norm())).item()
-        say(f"[kernel] {PINV_BWD}: gx cosine {cos:.6f} against the fp32 autograd of the "
-            f"plain iterations (bound {BOUND_PINV_BWD_COS})")
-        return cos >= BOUND_PINV_BWD_COS
+        def pinv_bwd_check(out, ref, x=x, s=s, g2=g2, m=m):
+            x32 = x.float().requires_grad_()
+            pinv.pinv_iterations_ref(x32, s, PINV_ITERS).backward(g2.float())
+            u, w = out[0].float().ravel(), x32.grad.ravel()
+            cos = (u @ w / (u.norm() * w.norm())).item()
+            say(f"[kernel] {PINV_BWD} (m {m}): gx cosine {cos:.6f} against the fp32 autograd "
+                f"of the plain iterations (bound {BOUND_PINV_BWD_COS})")
+            return cos >= BOUND_PINV_BWD_COS
 
-    cases.append(Case(
-        PINV_BWD, "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171", f"b {B}, h {HEADS}, m {M}",
-        lambda: pinv._pinv_exact_bwd_kernel(x, s, g2, PINV_ITERS),
-        lambda: pinv.pinv_exact_bwd_ref(x, s, g2, PINV_ITERS), BOUND_PINV_BWD, ("gx", "gs"),
-        # the replay (its last z product skipped) and the sweep: 4 + 8 a step
-        dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * M ** 3),
-        check=pinv_bwd_check))
+        cases.append(Case(
+            PINV_BWD, "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171", f"b {b}, h {HEADS}, m {m}",
+            lambda x=x, s=s, g2=g2: pinv._pinv_exact_bwd_kernel(x, s, g2, PINV_ITERS),
+            lambda x=x, s=s, g2=g2: pinv.pinv_exact_bwd_ref(x, s, g2, PINV_ITERS),
+            BOUND_PINV_BWD, ("gx", "gs"),
+            # the replay (its last z product skipped) and the sweep: 4 + 8 a step
+            dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * m ** 3),
+            check=pinv_bwd_check))
 
-    img = randn(B, SIDE, SIDE, EMBED)
-    kern, bias = randn(7, 7, EMBED, scale=0.1), randn(EMBED, scale=0.1)
-    g5 = randn(B, SIDE, SIDE, EMBED)
-    conv_w = kern.permute(2, 0, 1).unsqueeze(1).clone()
-    conv_w[:, 0, 3, 3] += 1
-    img_nchw, g5_nchw = img.permute(0, 3, 1, 2), g5.permute(0, 3, 1, 2)
-    cases.append(Case(
-        "ppeg_bwd", "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:137",
-        f"[{B}, {SIDE}, {SIDE}, {EMBED}]",
-        autograd_kernel(torch, ppeg.ppeg_fused, (img, kern, bias), (g5,)),
-        lambda: ppeg.ppeg_bwd_ref(img, kern, g5), BOUND_BWD, ("dimg", "dk", "db"),
-        dict(bytes=3 * nbytes(img) + 2 * nbytes(kern) + nbytes(bias), mma=0,
-             fp32=(2 * 49 * 2 + 2) * img.numel()),
-        # dinput, dweight and dbias of the depthwise conv with the identity
-        # folded into its centre tap: one PyTorch call
-        library=lambda: torch.ops.aten.convolution_backward(
-            g5_nchw, img_nchw, conv_w, [EMBED], [1, 1], [3, 3], [1, 1], False, [0, 0],
-            EMBED, [True, True, True])))
-    return cases
+    for b, c in PPEG_SHAPES:
+        img = randn(b, SIDE, SIDE, c)
+        kern, bias = randn(7, 7, c, scale=0.1), randn(c, scale=0.1)
+        g5 = randn(b, SIDE, SIDE, c)
+        conv_w = kern.permute(2, 0, 1).unsqueeze(1).clone()
+        conv_w[:, 0, 3, 3] += 1
+        img_nchw, g5_nchw = img.permute(0, 3, 1, 2), g5.permute(0, 3, 1, 2)
+        cases.append(Case(
+            "ppeg_bwd", "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:137",
+            f"[{b}, {SIDE}, {SIDE}, {c}]",
+            autograd_kernel(torch, ppeg.ppeg_fused, (img, kern, bias), (g5,)),
+            lambda img=img, kern=kern, g5=g5: ppeg.ppeg_bwd_ref(img, kern, g5), BOUND_BWD,
+            ("dimg", "dk", "db"),
+            dict(bytes=3 * nbytes(img) + 2 * nbytes(kern) + nbytes(bias), mma=0,
+                 fp32=(2 * 49 * 2 + 2) * img.numel()),
+            # dinput, dweight and dbias of the depthwise conv with the identity
+            # folded into its centre tap: one PyTorch call
+            library=lambda g5_nchw=g5_nchw, img_nchw=img_nchw, conv_w=conv_w, c=c:
+                torch.ops.aten.convolution_backward(
+                    g5_nchw, img_nchw, conv_w, [c], [1, 1], [3, 3], [1, 1], False, [0, 0],
+                    c, [True, True, True])))
+    return cases + conv_cases(torch, randn, True) + [ln_qkv_case(torch, randn, True)]
 
 
 def phase_kernels(torch, backward: bool):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + int(backward))
 
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
     cases = backward_cases(torch, randn) if backward else forward_cases(torch, randn)
     results = []
@@ -1233,6 +1408,47 @@ def phase_featgen(torch, root: Path):
     return launches
 
 
+def phase_selftest(torch):
+    """The self-test's entry point at bench.py's shapes, its launches read
+    around it; then its NystromAttention at batch 2, card against CPU."""
+    from mirror_tpu_torch import selftest
+    from mirror_tpu_torch.ops import _common
+
+    torch.cuda.synchronize()
+    _common.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = selftest.main([])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _common.launch_counts()
+    say(f"[selftest] mirror_tpu_torch.selftest.main(): exit {rc} in {seconds:.2f} s (host "
+        f"clock, weight draws included); kernel launches {json.dumps(launches)}")
+    if rc != 0:
+        fail("the self-test reported a mode that is not finite")
+    # one forward and one backward of each Nystrom kernel per gradient mode,
+    # the exact pinv backward once, PPEG and the conv once each
+    want = {k: 1 if k in ("ppeg", "ppeg_bwd", "conv1d", "conv1d_bwd") else 2
+            for k in SELFTEST_PATH}
+    want[PINV_BWD] = 1
+    if launches != want:
+        fail(f"the self-test's kernel launches {launches}, expected {want}")
+
+    rng = torch.Generator().manual_seed(SEED)
+    batch = {"x": torch.randn(2, N, SELFTEST_DIM, generator=rng)}
+    for mode in ("exact", "implicit"):
+        def make_step(device, generator, mode=mode):
+            model = selftest.attention(SELFTEST_DIM, mode).to(device)
+
+            def step(b):
+                loss = model(b["x"]).float().square().mean()
+                loss.backward()
+                return {"loss": loss.detach()}
+            return model, step
+
+        step_card_vs_cpu(torch, f"selftest {mode}", make_step, batch, 2)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1253,19 +1469,23 @@ def main() -> int:
             featgen = phase_featgen(torch, Path(tmp_fg))
         pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
         down = phase_downstream(torch, Path(tmp) / "downstream", pretrain_ckpt)
+    selftest_launches = phase_selftest(torch)
     # the main paths' launches: predict's, the train step's (implicit and
-    # exact pinv gradient), feature extraction's (its three runs) and the
-    # two downstream entry points', each counted from 0 just before its run;
-    # softmax_attn_q is the pad-0 entry of the softmax_attn kernel, which no
-    # path calls (its callers all have the residual conv)
+    # exact pinv gradient), feature extraction's (its three runs), the two
+    # downstream entry points' and the self-test's, each counted from 0 just
+    # before its run. Exempt: softmax_attn_q, the pad-0 entry of the
+    # softmax_attn kernel, which no path calls (its callers all have the
+    # residual conv); ln_qkv and ln_qkv_bwd, library-only as in the JAX
+    # package, which wires the kernel to nothing (mirror_tpu/ops/__init__.py)
+    # and whose self-test does not run it: phases 3 and 3b launch and hold it
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
              "featgen": featgen, "subtyping": down["subtyping"],
-             "survival": down["survival"]}
+             "survival": down["survival"], "selftest": selftest_launches}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-    unlaunched = [k["name"] for k in kernels
-                  if k["launches"] == 0 and k["name"] != "softmax_attn_q"]
+    exempt = ("softmax_attn_q", "ln_qkv", "ln_qkv_bwd")
+    unlaunched = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in exempt]
     if unlaunched:
         fail(f"kernels no main path launched: {unlaunched}")
     say(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")

@@ -56,3 +56,36 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+namespace {
+
+// out[j] = sum over p of parts[p * count + j] for j < count, in a fixed
+// order, so the result is the same from run to run: a block of 32 x 8
+// threads takes 32 columns, lane j a column, warp w the rows w, w + 8, ...
+// in order; then the 8 warp sums are added in order. Launch with
+// column_sum_blocks(count) blocks of dim3(32, 8).
+template <typename T>
+__global__ void __launch_bounds__(256)
+    column_sum_kernel(const float* __restrict__ parts, int nparts, long long count,
+                      T* __restrict__ out) {
+  __shared__ float sums[8][32];
+  const long long j = (long long)blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (j < count)
+    for (int p = threadIdx.y; p < nparts; p += 8) acc += parts[(size_t)p * count + j];
+  sums[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < count) {
+    float total = 0.f;
+    for (int w = 0; w < 8; ++w) total += sums[w][threadIdx.x];
+    if constexpr (sizeof(T) == sizeof(float))
+      out[j] = total;
+    else
+      out[j] = __float2bfloat16(total);
+  }
+}
+
+inline unsigned column_sum_blocks(long long count) { return (unsigned)((count + 31) / 32); }
+
+}  // namespace
+

@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(CB * TH)
 // band of img with its 3-pixel halo, and thread (c, ty) sums, for its
 // channel, the taps t = ty, ty + 8, ... of the 50 "taps" (49 conv taps,
 // then the bias: the plain sum of g) over the band's positions in fp32.
-// Each block writes its partial; ppeg_reduce_kernel sums them over batch
+// Each block writes its partial; column_sum_kernel sums them over batch
 // and bands in a fixed order (deterministic, no atomics).
 constexpr int NT = KS * KS + 1;  // 49 taps and the bias
 
@@ -133,15 +133,6 @@ __global__ void __launch_bounds__(CB * TH)
   }
 }
 
-__global__ void ppeg_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ dkb, int parts, int C) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // t * C + c
-  if (idx >= NT * C) return;
-  float acc = 0.f;
-  for (int p = 0; p < parts; ++p) acc += partial[(size_t)p * NT * C + idx];
-  dkb[idx] = acc;
-}
-
 }  // namespace
 
 // Elements of the fp32 `partial` scratch that mirror_ppeg_bwd needs: one
@@ -171,8 +162,9 @@ MIRROR_EXPORT int mirror_ppeg_bwd(const void* img, const void* kern, const void*
       static_cast<const bf16*>(img), gp, static_cast<float*>(partial), H, W, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ppeg_reduce_kernel<<<(NT * C + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dkb), b * bands, C);
+  const long long outs = (long long)NT * C;
+  column_sum_kernel<float><<<column_sum_blocks(outs), dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(partial), b * bands, outs, static_cast<float*>(dkb));
   return (int)cudaGetLastError();
 }
 

@@ -33,19 +33,19 @@
 // the row tiles, forming P and dsim for its columns from the statistics and
 // accumulating dw = P^T g and dk = dsim^T q in registers. Every sum is
 // taken inside one block in a fixed order, so the result is deterministic.
-// WITH_CONV adds (3) one block per 64 rows that writes dv from a window of g
-// and one partial of dkern per tap from the g rows and a window of v, and
-// (4) a second pass that sums the partials over batch and row tiles in a
-// fixed order (no float atomics).
+// WITH_CONV adds the standalone conv's backward (csrc/conv1d.cu, through
+// conv1d.cuh): dv from a window of g, and dkern from fixed-order partials
+// per (batch, row tile) and tap (no float atomics).
 #include <mma.h>
 
 #include "common.cuh"
+#include "conv1d.cuh"
 
 namespace {
 
 using namespace nvcuda;
 
-constexpr int BM = 64;  // rows per tile (also the conv kernel's rows)
+constexpr int BM = 64;  // rows per tile
 constexpr int BN = 64;  // columns per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -333,65 +333,6 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<DT>(acc_dk, wstage, L.ldo, dk + (size_t)bh * C * dh, c0 + wcol, C, dh, lane);
 }
 
-// (3) conv: dv for 64 rows, and this tile's partial of dkern per tap.
-__global__ void __launch_bounds__(kThreads)
-    conv_bwd_kernel(const bf16* __restrict__ v, const bf16* __restrict__ kern,
-                    const bf16* __restrict__ g, bf16* __restrict__ dv,
-                    float* __restrict__ partial, int heads, int n, int dh, int ksize) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldb = dh + 8, half = ksize / 2, rows = BM + ksize - 1;
-  bf16* sG = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + smem_align((size_t)rows * ldb * sizeof(bf16)));
-  float* sTap = reinterpret_cast<float*>(smem + 2 * smem_align((size_t)rows * ldb * sizeof(bf16)));
-  const int bh = blockIdx.y, r0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // windows of g and v: rows r0 - half .. r0 + BM + half - 1, zeros outside
-  load_rows(sG, g + (size_t)bh * n * dh, r0 - half, rows, n, dh, ldb);
-  load_rows(sV, v + (size_t)bh * n * dh, r0 - half, rows, n, dh, ldb);
-  const int head = bh % heads;
-  for (int t = threadIdx.x; t < ksize; t += kThreads)
-    sTap[t] = __bfloat162float(kern[head * ksize + t]);
-  __syncthreads();
-
-  // dv[j] = sum_t kern[t] g[j - t + half]; window row of g[j + s] is j + s + half
-  bf16* dvb = dv + (size_t)bh * n * dh;
-  for (int idx = threadIdx.x; idx < BM * dh; idx += kThreads) {
-    const int i = idx / dh, d = idx % dh;
-    if (r0 + i >= n) continue;
-    float acc = 0.f;
-    for (int t = 0; t < ksize; ++t)
-      acc = fmaf(sTap[ksize - 1 - t], __bfloat162float(sG[(i + t) * ldb + d]), acc);
-    dvb[(size_t)(r0 + i) * dh + d] = __float2bfloat16(acc);
-  }
-
-  // partial[t] = sum over this tile's rows i and d of g[i, d] v[i + t - half, d]
-  const int valid = min(BM, n - r0);
-  for (int t = warp; t < ksize; t += kWarps) {
-    float acc = 0.f;
-    for (int idx = lane; idx < valid * dh; idx += 32) {
-      const int i = idx / dh, d = idx % dh;
-      acc = fmaf(__bfloat162float(sG[(i + half) * ldb + d]),
-                 __bfloat162float(sV[(i + t) * ldb + d]), acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) partial[((size_t)bh * gridDim.x + blockIdx.x) * ksize + t] = acc;
-  }
-}
-
-// (4) dkern[h, t] = sum over batch and row tiles of the partials, in order.
-__global__ void dkern_reduce_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ dkern, int batch, int heads,
-                                    int tiles, int ksize) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= heads * ksize) return;
-  const int h = idx / ksize, t = idx % ksize;
-  float acc = 0.f;
-  for (int b = 0; b < batch; ++b)
-    for (int i = 0; i < tiles; ++i)
-      acc += partial[((size_t)(b * heads + h) * tiles + i) * ksize + t];
-  dkern[idx] = acc;
-}
-
 template <int DT>
 cudaError_t launch_attn(const bf16* q, const bf16* k, const bf16* w, const bf16* g, bf16* dq,
                         bf16* dk, bf16* dw, float* stats, int bh, int R, int C, int pad,
@@ -412,15 +353,9 @@ cudaError_t launch_attn(const bf16* q, const bf16* k, const bf16* w, const bf16*
 
 }  // namespace
 
-// Elements of the fp32 `partial` scratch that mirror_softmax_attn_bwd needs:
-// one dkern partial per (batch-head, row tile, tap).
-MIRROR_EXPORT long long mirror_softmax_attn_bwd_partial_elems(int bh, int r, int ksize) {
-  return (long long)bh * ((r + BM - 1) / BM) * ksize;
-}
-
 // ksize == 0: no conv (v, kern, dv, dkern and partial unused, may be null).
 // stats: fp32 [bh, r, 3] scratch; partial: fp32 scratch of
-// mirror_softmax_attn_bwd_partial_elems(bh, r, ksize) elements.
+// mirror_conv1d_bwd_partial_elems(bh, r, ksize) elements.
 MIRROR_EXPORT int mirror_softmax_attn_bwd(const void* q, const void* k, const void* w,
                                           const void* v, const void* kern, const void* g,
                                           void* dq, void* dk, void* dw, void* dv,
@@ -448,20 +383,7 @@ MIRROR_EXPORT int mirror_softmax_attn_bwd(const void* q, const void* k, const vo
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || ksize == 0) return (int)err;
-
-  const int tiles = (r + BM - 1) / BM;
-  const size_t win = smem_align((size_t)(BM + ksize - 1) * (dh + 8) * sizeof(bf16));
-  const size_t smem = 2 * win + smem_align((size_t)ksize * sizeof(float));
-  err = allow_smem(conv_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  conv_bwd_kernel<<<dim3(tiles, bh), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(v), static_cast<const bf16*>(kern), gp,
-      static_cast<bf16*>(dv), static_cast<float*>(partial), heads, r, dh, ksize);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int outs = heads * ksize;
-  dkern_reduce_kernel<<<(outs + 127) / 128, 128, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dkern), bh / heads, heads,
-      tiles, ksize);
-  return (int)cudaGetLastError();
+  return (int)conv1d_bwd(static_cast<const bf16*>(v), static_cast<const bf16*>(kern), gp,
+                         static_cast<bf16*>(dv), static_cast<float*>(dkern),
+                         static_cast<float*>(partial), bh, heads, r, dh, ksize, stream);
 }

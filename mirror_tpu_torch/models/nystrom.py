@@ -38,9 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv1d import depthwise_conv_seq_ref
 from ..ops.landmark import landmark_softmax
 from ..ops.nystrom_attn import (
-    depthwise_conv_seq_ref,
     fused_softmax_attn_conv,
     softmax_matmul_landmark_kv,
     softmax_matmul_landmark_q,

@@ -80,14 +80,28 @@ _SIGNATURES = {
     "mirror_vit_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, out, b, n, heads, dh, ld_in, ld_out, scale, stream
     "mirror_vit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # v, kern, out, bh, heads, n, d, ksize, stream
+    "mirror_conv1d": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # v, kern, g, dv, dkern (fp32), partial (scratch), bh, heads, n, d, ksize,
+    # stream
+    "mirror_conv1d_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, ln_s, ln_b, w, q, k, v, stats (fp32 [2, b n]), b, n, d, heads, dh,
+    # eps, stream
+    "mirror_ln_qkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # x, ln_s, ln_b, w, gq, gk, gv, gx, gw, gsb (fp32 [2, d]), scratch, b, n,
+    # d, heads, dh, eps, stream
+    "mirror_ln_qkv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                          _P),
 }
 # Scratch sizes, in elements, as the kernels' own tilings need them (so the
 # tile sizes are known only in csrc/); each returns a 64-bit count
 _SCRATCH_SIZES = {
-    # bh, r, ksize
-    "mirror_softmax_attn_bwd_partial_elems": (_I, _I, _I),
     # b, H, C
     "mirror_ppeg_bwd_partial_elems": (_I, _I, _I),
+    # bh, n, ksize (the standalone conv's backward, and kernel 4b's conv)
+    "mirror_conv1d_bwd_partial_elems": (_I, _I, _I),
+    # b, n, d, heads, dh
+    "mirror_ln_qkv_bwd_scratch_elems": (_I, _I, _I, _I, _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

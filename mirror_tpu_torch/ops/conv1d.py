@@ -1,0 +1,108 @@
+"""The standalone depthwise conv along the sequence, with its backward.
+
+Counterpart of ``mirror_tpu/ops/conv1d_pallas.py::depthwise_conv1d_seq`` and
+its custom VJP. :class:`DepthwiseConv1dSeq` is the only caller of the
+kernels: on CUDA tensors its forward and backward run ``csrc/conv1d.cu``; on
+CPU tensors :func:`depthwise_conv_seq_ref` and
+:func:`depthwise_conv_seq_bwd_ref`, which are also the plain versions of the
+conv that kernel 4 (``nystrom_attn.fused_softmax_attn_conv``) carries.
+
+Dtypes, as on the TPU: the taps are rounded to v's dtype before the forward
+(the TPU kernel builds its band in ``v.dtype``), the incoming gradient is
+cast to v's dtype, dv takes v's dtype and dkern the taps' (fp32 taps with
+bf16 v, as ``bench.py --selftest`` passes them, get an fp32 gradient).
+"""
+
+import torch
+import torch.nn.functional as F
+
+from . import _common
+
+KERNEL = "conv1d"
+KERNEL_BWD = "conv1d_bwd"
+MAX_TAPS = 65
+MAX_DIM = 128
+
+
+def depthwise_conv_seq_ref(v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """fp32 depthwise conv along the sequence of v [b, h, n, d] with one
+    K-tap filter per head (kern [h, K]), zero SAME padding, no bias: the
+    reference's Conv2d(h, h, (K, 1), groups=h)."""
+    h, ksize = kern.shape
+    weight = kern.float().reshape(h, 1, ksize, 1)
+    return F.conv2d(v.float(), weight, padding=(ksize // 2, 0), groups=h)
+
+
+def depthwise_conv_seq_bwd_ref(v, kern, g):
+    """(dv, dkern) of the conv in fp32, before their rounding, as the TPU
+    kernel computes them (conv1d_pallas): dv is the conv of g with the
+    flipped taps (taps rounded to g's dtype, the banded matrix's);
+    dkern[h, t] = sum over batch, rows and features of g[i] v[i + t - K/2]."""
+    ksize = kern.shape[1]
+    half = ksize // 2
+    dv = depthwise_conv_seq_ref(g, kern.to(g.dtype).flip(-1))
+    n = v.shape[2]
+    g32, vp = g.float(), F.pad(v.float(), (0, 0, half, half))
+    dkern = torch.stack([(g32 * vp[:, :, t:t + n]).sum((0, 2, 3)) for t in range(ksize)],
+                        dim=1)
+    return dv, dkern
+
+
+def _check(v, kern):
+    """The kernels' inputs: v bf16 [b, h, n, d], d a multiple of 8 up to
+    128; kern bf16 [h, K], K odd up to 65."""
+    _common.check_kernel_input("v", v, v.shape)
+    b, h, n, d = v.shape
+    ksize = kern.shape[-1]
+    _common.check_kernel_input("kern", kern, (h, ksize))
+    if d % 8 or d > MAX_DIM:
+        raise ValueError(f"feature dim {d}: the kernel takes multiples of 8 up to {MAX_DIM}")
+    if ksize % 2 == 0 or ksize > MAX_TAPS:
+        raise ValueError(f"conv taps = {ksize}: the kernel takes odd K up to {MAX_TAPS}")
+
+
+class DepthwiseConv1dSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, kern):
+        ctx.save_for_backward(v, kern)
+        taps = kern.to(v.dtype)
+        if not _common.on_cuda(v, kern):
+            return depthwise_conv_seq_ref(v, taps).to(v.dtype)
+        taps = taps.contiguous()
+        _check(v, taps)
+        b, h, n, d = v.shape
+        out = torch.empty_like(v)
+        _common.launch("mirror_conv1d", v.data_ptr(), taps.data_ptr(), out.data_ptr(), b * h,
+                       h, n, d, taps.shape[1])
+        _common.count_launch(KERNEL)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        v, kern = ctx.saved_tensors
+        g = _common.grad_or_zeros(g, v)
+        taps = kern.to(v.dtype)
+        if not _common.on_cuda(v, kern, g):
+            dv, dkern = depthwise_conv_seq_bwd_ref(v, taps, g)
+            return dv.to(v.dtype), dkern.to(kern.dtype)
+        taps = taps.contiguous()
+        _check(v, taps)
+        _common.check_kernel_input("g", g, v.shape)
+        b, h, n, d = v.shape
+        ksize = taps.shape[1]
+        dv = torch.empty_like(v)
+        dkern = torch.empty(h, ksize, dtype=torch.float32, device=v.device)
+        elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, ksize)
+        partial = torch.empty(elems, dtype=torch.float32, device=v.device)
+        _common.launch("mirror_conv1d_bwd", v.data_ptr(), taps.data_ptr(), g.data_ptr(),
+                       dv.data_ptr(), dkern.data_ptr(), partial.data_ptr(), b * h, h, n, d,
+                       ksize)
+        _common.count_launch(KERNEL_BWD)
+        return dv, dkern.to(kern.dtype)
+
+
+def depthwise_conv1d_seq(v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """SAME zero-padded depthwise conv along axis 2: out[..., i, :] =
+    sum_j kern[h, j] * v[..., i + j - K//2, :]. v [b, h, n, d]; kern [h, K]
+    (K odd, any n >= 1). Differentiable in v and kern."""
+    return DepthwiseConv1dSeq.apply(v, kern)

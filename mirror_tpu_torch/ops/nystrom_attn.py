@@ -7,15 +7,16 @@ Functions here are the only callers of the kernels: on CUDA tensors the
 forward runs ``csrc/softmax_attn.cu`` and the backward
 ``csrc/softmax_attn_bwd.cu`` (each with a WITH_CONV variant for the fused
 residual conv); on CPU tensors they run :func:`softmax_attn_ref`,
-:func:`depthwise_conv_seq_ref` and the plain backward versions.
+:func:`depthwise_conv_seq_ref` (``conv1d.py``, the plain conv of kernel 9
+too) and the plain backward versions.
 """
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from . import _common
+from .conv1d import depthwise_conv_seq_bwd_ref, depthwise_conv_seq_ref
 
 KERNEL = "softmax_attn"
 KERNEL_Q = "softmax_attn_q"
@@ -58,30 +59,6 @@ def softmax_attn_bwd_ref(q, k, w, g, pad: int = 0):
     dq = torch.matmul(dsim, k.float())
     dk = torch.matmul(dsim.transpose(-1, -2), q.float())
     return dq, dk, dw
-
-
-def depthwise_conv_seq_ref(v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
-    """fp32 depthwise conv along the sequence of v [b, h, n, d] with one
-    K-tap filter per head (kern [h, K]), zero SAME padding, no bias: the
-    reference's Conv2d(h, h, (K, 1), groups=h)."""
-    h, ksize = kern.shape
-    weight = kern.float().reshape(h, 1, ksize, 1)
-    return F.conv2d(v.float(), weight, padding=(ksize // 2, 0), groups=h)
-
-
-def depthwise_conv_seq_bwd_ref(v, kern, g):
-    """(dv, dkern) of the residual conv in fp32, before their rounding, as
-    the TPU kernel computes them (conv1d_pallas): dv is the conv of g with
-    the flipped taps (taps rounded to g's dtype, the banded matrix's);
-    dkern[h, t] = sum over batch, rows and features of g[i] v[i + t - K/2]."""
-    ksize = kern.shape[1]
-    half = ksize // 2
-    dv = depthwise_conv_seq_ref(g, kern.to(g.dtype).flip(-1))
-    n = v.shape[2]
-    g32, vp = g.float(), F.pad(v.float(), (0, 0, half, half))
-    dkern = torch.stack([(g32 * vp[:, :, t:t + n]).sum((0, 2, 3)) for t in range(ksize)],
-                        dim=1)
-    return dv, dkern
 
 
 def _check(q, k, w, r, c):
@@ -135,7 +112,7 @@ def _launch_bwd(q, k, w, g, v, kern, pad: int):
         ksize = kern.shape[1]
         dv = torch.empty_like(v)
         dkern = torch.empty(h, ksize, dtype=torch.float32, device=q.device)
-        elems = _common.scratch_elems("mirror_softmax_attn_bwd_partial_elems", b * h, r, ksize)
+        elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, r, ksize)
         partial = torch.empty(elems, dtype=torch.float32, device=q.device)
 
     def ptr(t):

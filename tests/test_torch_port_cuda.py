@@ -20,13 +20,19 @@ Inputs are bf16, the kernels' type. Bounds, with their reasons:
   output. Each output is rounded once to bf16 (2^-9 relative), but dsim is
   rounded too before its products, and a probability that the kernel and
   the plain version compute one fp32 ulp apart can round dsim to the next
-  bf16 value; dk and dq are sums of such terms with cancellation.
+  bf16 value; dk and dq are sums of such terms with cancellation;
+- the sums over a whole batch (dkern of the standalone conv; gw, gs and gb
+  of the fused LN + q/k/v projection): max abs error <= 1e-2 of the
+  reference's largest magnitude where the output is rounded to bf16 (gw,
+  dkern for bf16 taps), 1e-4 where it stays fp32 (the same bf16 products
+  summed in another order).
 """
 
 import pytest
 import torch
 
 from mirror_tpu_torch.ops import _common
+from mirror_tpu_torch.ops.conv1d import depthwise_conv1d_seq
 from mirror_tpu_torch.ops.landmark import (
     landmark_softmax,
     landmark_softmax_bwd_ref,
@@ -47,6 +53,7 @@ from mirror_tpu_torch.ops.pinv import (
     pinv_exact_bwd_ref,
     pinv_iterations_ref,
 )
+from mirror_tpu_torch.ops.ln_qkv import ln_qkv_bwd_ref, ln_qkv_fused, ln_qkv_ref
 from mirror_tpu_torch.ops.ppeg import ppeg_bwd_ref, ppeg_fused, ppeg_ref
 
 pytestmark = pytest.mark.cuda
@@ -73,7 +80,8 @@ def _assert_close(out, ref, rel=1e-2):
 
 
 @pytest.mark.parametrize("b,h,n,dh,m", [(1, 2, 20, 16, 8), (1, 2, 45, 16, 8),
-                                        (2, 8, 2117, 96, 384), (2, 8, 2049, 96, 384)])
+                                        (2, 8, 2117, 96, 384), (2, 8, 2049, 96, 384),
+                                        (2, 8, 2117, 64, 256)])
 def test_landmark_softmax_kernel(dev, b, h, n, dh, m):
     g = torch.Generator().manual_seed(0)
     q, k = _randn(g, b, h, n, dh, dev=dev), _randn(g, b, h, n, dh, dev=dev)
@@ -82,7 +90,7 @@ def test_landmark_softmax_kernel(dev, b, h, n, dh, m):
         _assert_close(o, r)
 
 
-@pytest.mark.parametrize("b,h,m", [(1, 2, 32), (2, 8, 384), (1, 1, 100)])
+@pytest.mark.parametrize("b,h,m", [(1, 2, 32), (2, 8, 384), (1, 1, 100), (2, 8, 256)])
 def test_pinv_kernel(dev, b, h, m):
     g = torch.Generator().manual_seed(1)
     x = torch.softmax(torch.randn(b, h, m, m, generator=g), -1).to(dev, torch.bfloat16)
@@ -97,7 +105,8 @@ def test_pinv_kernel(dev, b, h, m):
 
 @pytest.mark.parametrize("b,h,r,c,dh,pad", [(1, 2, 8, 40, 16, 24), (2, 3, 70, 130, 32, 0),
                                             (1, 8, 384, 2117, 96, 187),
-                                            (1, 8, 384, 2049, 96, 255)])
+                                            (1, 8, 384, 2049, 96, 255),
+                                            (1, 8, 256, 2117, 64, 187)])
 def test_softmax_attn_kernel(dev, b, h, r, c, dh, pad):
     g = torch.Generator().manual_seed(2)
     q = _randn(g, b, h, r, dh, dev=dev, scale=dh ** -0.5)
@@ -107,7 +116,8 @@ def test_softmax_attn_kernel(dev, b, h, r, c, dh, pad):
 
 
 @pytest.mark.parametrize("b,h,n,m,dh", [(1, 2, 10, 8, 16), (2, 3, 70, 16, 32),
-                                        (1, 8, 2117, 384, 96), (1, 8, 2049, 384, 96)])
+                                        (1, 8, 2117, 384, 96), (1, 8, 2049, 384, 96),
+                                        (1, 8, 2117, 256, 64)])
 def test_softmax_attn_conv_kernel(dev, b, h, n, m, dh):
     g = torch.Generator().manual_seed(3)
     q = _randn(g, b, h, n, dh, dev=dev, scale=dh ** -0.5)
@@ -119,7 +129,7 @@ def test_softmax_attn_conv_kernel(dev, b, h, n, m, dh):
     _assert_close(out, ref.to(q.dtype))
 
 
-@pytest.mark.parametrize("b,H,W,C", [(1, 5, 7, 40), (2, 46, 46, 768)])
+@pytest.mark.parametrize("b,H,W,C", [(1, 5, 7, 40), (2, 46, 46, 768), (2, 46, 46, 512)])
 def test_ppeg_kernel(dev, b, H, W, C):
     g = torch.Generator().manual_seed(4)
     img = _randn(g, b, H, W, C, dev=dev)
@@ -193,11 +203,13 @@ def _assert_rel(out, ref, bound=BOUND_BWD, name=""):
     assert err <= bound, f"{name}: relative Frobenius error {err} > {bound}"
 
 
-# (b, h, n, dh, m): pad 4 (group 0 all pad), pad 3, and the slice's two
+# (b, h, n, dh, m): pad 4 (group 0 all pad), pad 3, the slice's two
 # Nystrom shapes: the encoder (2117 rows, pad 187: groups 0-30 all pad) and
-# the retention decoder (2049 rows, pad 255: groups 0-41 all pad)
+# the retention decoder (2049 rows, pad 255: groups 0-41 all pad), and the
+# self-test's (dh 64, 256 landmarks, pad 187)
 @pytest.mark.parametrize("b,h,n,dh,m", [(1, 2, 20, 16, 8), (1, 2, 45, 16, 8),
-                                        (2, 8, 2117, 96, 384), (2, 8, 2049, 96, 384)])
+                                        (2, 8, 2117, 96, 384), (2, 8, 2049, 96, 384),
+                                        (2, 8, 2117, 64, 256)])
 def test_landmark_softmax_bwd_kernel(dev, b, h, n, dh, m):
     g = torch.Generator().manual_seed(10)
     q = _randn(g, b, h, n, dh, dev=dev, scale=dh ** -0.5)
@@ -213,7 +225,8 @@ def test_landmark_softmax_bwd_kernel(dev, b, h, n, dh, m):
 
 @pytest.mark.parametrize("b,h,r,c,dh,pad", [(1, 2, 8, 40, 16, 24), (2, 3, 70, 130, 32, 0),
                                             (2, 8, 384, 2117, 96, 187),
-                                            (2, 8, 384, 2049, 96, 255)])
+                                            (2, 8, 384, 2049, 96, 255),
+                                            (2, 8, 256, 2117, 64, 187)])
 def test_softmax_attn_bwd_kernel(dev, b, h, r, c, dh, pad):
     g = torch.Generator().manual_seed(11)
     q = _randn(g, b, h, r, dh, dev=dev, scale=dh ** -0.5)
@@ -227,7 +240,8 @@ def test_softmax_attn_bwd_kernel(dev, b, h, r, c, dh, pad):
 
 
 @pytest.mark.parametrize("b,h,n,m,dh", [(1, 2, 10, 8, 16), (2, 3, 70, 16, 32),
-                                        (2, 8, 2117, 384, 96), (2, 8, 2049, 384, 96)])
+                                        (2, 8, 2117, 384, 96), (2, 8, 2049, 384, 96),
+                                        (2, 8, 2117, 256, 64)])
 def test_softmax_attn_conv_bwd_kernel(dev, b, h, n, m, dh):
     g = torch.Generator().manual_seed(12)
     q = _randn(g, b, h, n, dh, dev=dev, scale=dh ** -0.5)
@@ -242,7 +256,8 @@ def test_softmax_attn_conv_bwd_kernel(dev, b, h, n, m, dh):
         _assert_rel(got, ref.to(got.dtype), name=name)
 
 
-@pytest.mark.parametrize("b,H,W,C", [(1, 5, 7, 40), (2, 46, 46, 768), (1, 9, 3, 64)])
+@pytest.mark.parametrize("b,H,W,C", [(1, 5, 7, 40), (2, 46, 46, 768), (1, 9, 3, 64),
+                                     (2, 46, 46, 512)])
 def test_ppeg_bwd_kernel(dev, b, H, W, C):
     g = torch.Generator().manual_seed(13)
     img = _randn(g, b, H, W, C, dev=dev)
@@ -295,7 +310,7 @@ BOUND_PINV_BWD, BOUND_PINV_BWD_COS = 5e-2, 0.999
 # (--embed_dim 1024, whose stash the TPU needed a wider VMEM limit for), no
 # iteration (z0 alone), and m not a multiple of the 64-wide tiles
 @pytest.mark.parametrize("b,h,m,iters", [(1, 2, 32, 6), (2, 8, 384, 6), (1, 2, 512, 6),
-                                         (1, 2, 384, 0), (1, 1, 100, 6)])
+                                         (1, 2, 384, 0), (1, 1, 100, 6), (2, 8, 256, 6)])
 def test_pinv_exact_bwd_kernel(dev, b, h, m, iters):
     g = torch.Generator().manual_seed(15)
     x = torch.softmax(torch.randn(b, h, m, m, generator=g), -1).to(dev, torch.bfloat16)
@@ -466,3 +481,87 @@ def test_vit_kernel_path_matches_cpu_plain_path(dev, quant):
     assert _common.launch_counts() == expect
     cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
     assert (cos >= 0.99).all(), cos
+
+
+def _assert_max_rel(out, ref, name=""):
+    """Max abs error within 1e-2 (a bf16 output) or 1e-4 (fp32) of the
+    reference's largest magnitude."""
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all(), name
+    bound = (1e-2 if out.dtype == torch.bfloat16 else 1e-4) * ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
+# (b, h, n, d, K): a short last tile (140 rows = 132 + 8), n <= K // 2, the
+# self-test's shape, d 8 with K 7, and K 65 at d 128
+@pytest.mark.parametrize("taps_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,n,d,ksize", [(2, 3, 140, 32, 33), (1, 2, 10, 16, 33),
+                                           (8, 8, 2117, 96, 33), (2, 2, 300, 8, 7),
+                                           (1, 2, 200, 128, 65)])
+def test_conv1d_kernel(dev, b, h, n, d, ksize, taps_dtype):
+    g = torch.Generator().manual_seed(20)
+    v = _randn(g, b, h, n, d, dev=dev)
+    kern = (torch.randn(h, ksize, generator=g) * 0.1).to(dev, taps_dtype)
+    _common.reset_launch_counts()
+    taps = kern.to(torch.bfloat16)
+    _assert_close(depthwise_conv1d_seq(v, kern), depthwise_conv_seq_ref(v, taps).to(v.dtype))
+    (gout,), (dv, dkern) = _grads(depthwise_conv1d_seq, v, kern)
+    assert _common.launch_counts() == {"conv1d": 2, "conv1d_bwd": 1}
+    assert (dv.dtype, dkern.dtype) == (v.dtype, taps_dtype)
+    dv_ref, dkern_ref = depthwise_conv_seq_bwd_ref(v, taps, gout)
+    _assert_rel(dv, dv_ref, name="dv")
+    _assert_max_rel(dkern, dkern_ref, name="dkern")
+
+
+# (b, n, d, heads, dh): the slice's x [2, 2117, 768] with 8 heads of 96;
+# h dh != d (4 heads of 40 at d 64); ragged rows and columns; d 8
+@pytest.mark.parametrize("b,n,d,heads,dh", [(2, 2117, 768, 8, 96), (3, 37, 64, 4, 40),
+                                            (1, 5, 8, 1, 8), (2, 300, 256, 2, 24)])
+def test_ln_qkv_kernel(dev, b, n, d, heads, dh):
+    g = torch.Generator().manual_seed(21)
+    x = _randn(g, b, n, d, dev=dev)
+    s = (1.0 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    lb = (0.1 * torch.randn(d, generator=g)).to(dev)
+    w = _randn(g, d, 3 * heads * dh, dev=dev, scale=d ** -0.5)
+    _common.reset_launch_counts()
+    for o, r in zip(ln_qkv_fused(x, s, lb, w, heads), ln_qkv_ref(x, s, lb, w, heads)):
+        assert o.shape == (b, heads, n, dh)
+        _assert_close(o, r)
+    gouts, (gx, gs, gb, gw) = _grads(lambda *a: ln_qkv_fused(*a, heads), x, s, lb, w)
+    assert _common.launch_counts() == {"ln_qkv": 2, "ln_qkv_bwd": 1}
+    assert (gx.dtype, gw.dtype, gs.dtype, gb.dtype) == (x.dtype, w.dtype, s.dtype, lb.dtype)
+    gx_ref, gw_ref, gs_ref, gb_ref = ln_qkv_bwd_ref(x, s, lb, w, *gouts, heads)
+    _assert_rel(gx, gx_ref, name="gx")
+    for name, got, ref in (("gw", gw, gw_ref), ("gs", gs, gs_ref), ("gb", gb, gb_ref)):
+        _assert_max_rel(got, ref, name=name)
+
+
+def test_conv1d_and_ln_qkv_backward_repeat_bitwise(dev):
+    """The batch sums (dkern; gw, gs, gb) are reduced in a fixed order with
+    no atomics: two backward passes on the same inputs agree bit for bit."""
+    g = torch.Generator().manual_seed(22)
+    v = _randn(g, 4, 8, 2117, 96, dev=dev)
+    kern = (0.1 * torch.randn(8, 33, generator=g)).to(dev)
+    x = _randn(g, 2, 2117, 256, dev=dev)
+    s, lb = torch.ones(256, device=dev), torch.zeros(256, device=dev)
+    w = _randn(g, 256, 3 * 4 * 32, dev=dev, scale=256 ** -0.5)
+    for fn, inputs in ((depthwise_conv1d_seq, (v, kern)),
+                       (lambda *a: ln_qkv_fused(*a, 4), (x, s, lb, w))):
+        first, second = (_grads(fn, *inputs)[1] for _ in range(2))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_conv1d_and_ln_qkv_refuse_bad_inputs(dev):
+    x = torch.zeros(1, 2, 20, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # d not a multiple of 8
+        depthwise_conv1d_seq(x, x.new_zeros(2, 33))
+    with pytest.raises(ValueError):  # an even number of taps
+        depthwise_conv1d_seq(x[..., :8].contiguous(), x.new_zeros(2, 32))
+    y = torch.zeros(1, 5, 64, device=dev, dtype=torch.bfloat16)
+    s, lb = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(TypeError):  # the kernel takes bf16 x and w
+        ln_qkv_fused(y.float(), s, lb, y.new_zeros(64, 96).float(), 2)
+    with pytest.raises(ValueError):  # dh 12
+        ln_qkv_fused(y, s, lb, y.new_zeros(64, 72), 2)
