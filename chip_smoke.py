@@ -80,7 +80,19 @@ Phases, each printed as it finishes:
    gradient, PPEG on [8, 46, 46, 512], the conv on [8, 8, 2117, 96] with
    fp32 taps), its JSON line printed, every mode true, launch counts read
    around it; then that NystromAttention at batch 2, card against the CPU's
-   plain path, in both gradient modes (loss and kernel-fed gradients).
+   plain path, in both gradient modes (loss and kernel-fed gradients);
+9. the TPU probes: each ``mirror_tpu_torch.scripts.exp_*`` module's
+   ``main`` at its script's default shapes (the copy floor on [64, 8, 2304,
+   96] and d 128, the conv's passes at [64, 8, 2304, 96] K 33, the LN +
+   q/k/v projection at [64, 2117, 768], the exact pinv backward's stash
+   variants at [64, 8, 384, 384], the ViT attention layouts at [512, 197,
+   768]) with fewer reps, its rows and JSON line printed, launch counts
+   read around the five, and the new kernels' results held again: every
+   copy bit for bit, the conv's dv alone bit for bit the fused dv, the
+   attention layouts within 1e-2 of the plain version, the stash variants
+   within 2b's bars of the full stash. Phases 3 and 3b also hold and time
+   each new kernel at these shapes, and give kernels 2 and 2b a library
+   time: their products as batched bf16 cuBLAS calls.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -99,6 +111,17 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
+sys.path.insert(0, str(REPO))
+try:
+    # the roofline peaks and bound, the error bars and the errors: one copy,
+    # the probes' (mirror_tpu_torch/scripts), so both read alike
+    from mirror_tpu_torch.scripts._timing import (
+        BOUND_BWD, BOUND_PINV_BWD, BOUND_PINV_BWD_COS, BOUND_SINGLE_ROUNDING, bound,
+        events_ms, nbytes, rel_err, sum_bound, sum_err)
+except ModuleNotFoundError as e:
+    print(f"chip_smoke: FAIL: {e}: run it from a checkout of the repository",
+          file=sys.stderr)
+    sys.exit(1)
 
 # the slices' shapes (configs/subtyping/ and configs/pretrain/mirror.template.yaml)
 B, HEADS, DH, M = 16, 8, 96, 384
@@ -129,37 +152,12 @@ N_PRETRAIN_SLIDES, TRAIN_STEPS, TRAIN_STEPS_EXACT = 64, 4, 2
 VIT_B, VIT_N, VIT_D, VIT_HEADS, VIT_MLP, VIT_DEPTH, VIT_EPS = 256, 197, 768, 12, 3072, 12, 1e-12
 FEATGEN_SLIDE_SIZES = (200, 312, 256, 180, 300, 264, 240, 296)  # 2048 patches, tails
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): bf16
-# tensor cores dense, fp32 outside the tensor cores, HBM bandwidth. A
-# kernel's bound is the larger of its bytes (each input read once, each
-# output written once) over the bandwidth and its operations over the peak
-# of their kind: the matrix products at the bf16 tensor-core rate, the
-# conv taps and the other fp32 arithmetic at the fp32 rate.
-PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
-
-# Bounds on the relative Frobenius error of a kernel against its plain
-# version. Outputs rounded once to bf16 after an fp32 sum taken in another
-# order: a bf16 rounding is at most 2^-9 = 2e-3 relative, and the attention
-# also rounds its unnormalised probabilities before the product, so 1e-2
-# leaves 5x room. The pinv chains 24 bf16 products whose one-ulp
-# differences the 6 unconverged iterations amplify: 1e-1, and it is also
-# held by function, |x z - I| no worse than 1.5x the plain version's.
-BOUND_SINGLE_ROUNDING = 1e-2
+# The pinv forward's bar on the relative Frobenius error against its plain
+# version (the other kernels' bars are the probes', imported above): it
+# chains 24 bf16 products whose one-ulp differences the 6 unconverged
+# iterations amplify, so 1e-1, and it is also held by function, |x z - I| no
+# worse than 1.5x the plain version's.
 BOUND_PINV = 1e-1
-# The backward kernels: each output is rounded once to bf16 (2^-9), but
-# dsim is rounded too before its products, and a probability that kernel
-# and plain version compute one fp32 ulp apart can round dsim to the next
-# bf16 value; dq and dk are sums of such terms with cancellation, so 2e-2.
-BOUND_BWD = 2e-2
-# The exact pinv backward (2b) against its plain version on the same bf16
-# inputs: gx (relative Frobenius) and gs (relative) within 5e-2. The replay
-# chains 4 x 6 bf16 products and the sweep 8 x 6 more; a one-ulp difference
-# of an fp32 sum taken in another order rounds a product to its bf16
-# neighbour and the unconverged iterations carry it on (the plain version in
-# bf16 sits 8.6e-3 from the fp32 backward at m 384 on the CPU). Held by
-# function too: gx at cosine >= 0.999 of the fp32 autograd of the plain
-# iterations (the bf16 plain version reads 0.99995 there).
-BOUND_PINV_BWD, BOUND_PINV_BWD_COS = 5e-2, 0.999
 PINV_ITERS = 6
 # The slide scores of the card (kernels, bf16) against the CPU's plain path
 # (bf16): a relative error of the logits up to 5e-2, the drift of bf16
@@ -179,18 +177,16 @@ BOUND_STEP_LOSS, BOUND_GRAD_COS, BOUND_GRAD_NORM = 2e-2, 0.99, 5e-2
 # the int8 path against bf16 on the card: cosine >= 0.995 per patch, the bar
 # of tests/test_tools.py::test_vit_int8_features_match_bf16.
 BOUND_FEAT_COS, BOUND_INT8_COS = 0.99, 0.995
-# Sums over a whole batch (dkern of the conv; gw, gs and gb of the LN +
-# q/k/v projection), held beside the relative Frobenius error by their max
-# abs error against the plain version's largest magnitude: 1e-2 where the
-# kernel rounds the sum to bf16 (gw, dkern for bf16 taps), 1e-4 where it
-# stays fp32 (the same bf16 products summed in another order).
-BOUND_SUM_BF16, BOUND_SUM_FP32 = 1e-2, 1e-4
 # the self-test's shapes (bench.py::selftest): NystromAttention dim 512, 8
 # heads of 64, 256 landmarks on x [8, 2117, 512] (front pad 187, groups of
 # 9); PPEG on [8, 46, 46, 512]; the conv on [8, 8, 2117, 96]
 SELFTEST_B, SELFTEST_DIM, SELFTEST_DH, SELFTEST_M = 8, 512, 64, 256
 SELFTEST_PAD = (SELFTEST_M - N % SELFTEST_M) % SELFTEST_M  # 187
 CONV_SELFTEST = (SELFTEST_B, HEADS, N, 96)
+# the TPU probes' default shapes (scripts/exp_*.py): the conv and the copy
+# on [64, 8, 2304, 96], the ViT attention at batch 512
+PROBE_CONV = (64, HEADS, 2304, 96)
+PROBE_VIT_B = 512
 # the Nystrom kernels' shapes in phases 3 and 3b, (b, n, pad, dh, m): the
 # encoder's (the first: it gives the times), the retention decoder's and
 # the self-test's
@@ -244,20 +240,7 @@ def phase_build():
         f"in {time.perf_counter() - t0:.1f} s")
 
 
-def _events_ms(torch, fn, runs=1):
-    """ms of the card's time from before the first of ``runs`` back-to-back
-    calls of ``fn`` to after the last (CUDA events)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
-def median_ms(torch, fn, reps=20, warmup=3):
+def median_ms(fn, reps=20, warmup=3):
     """(ms, single-call ms): medians of one call over ``reps`` samples each.
     For the first, a sample is a run of back-to-back calls that lasts about
     2 ms (1 to 50 calls, divided out): for a short kernel the card then
@@ -268,11 +251,11 @@ def median_ms(torch, fn, reps=20, warmup=3):
     is timed alone, and both are that reading."""
     for _ in range(warmup):
         fn()
-    single = statistics.median(_events_ms(torch, fn) for _ in range(reps))
+    single = statistics.median(events_ms(fn) for _ in range(reps))
     runs = max(1, min(50, math.ceil(2.0 / max(single, 1e-3))))
     if runs == 1:
         return single, single
-    return statistics.median(_events_ms(torch, fn, runs) / runs for _ in range(reps)), single
+    return statistics.median(events_ms(fn, runs) for _ in range(reps)), single
 
 
 def errors(torch, out, ref):
@@ -284,21 +267,8 @@ def errors(torch, out, ref):
     for o, r in zip(outs, refs, strict=True):
         if o.shape != r.shape or not torch.isfinite(o.float()).all():
             fail(f"kernel output shape {tuple(o.shape)} vs {tuple(r.shape)}, or not finite")
-        d = o.float() - r.float()
-        result.append((d.abs().max().item(), (d.norm() / r.float().norm()).item()))
+        result.append(((o.float() - r.float()).abs().max().item(), rel_err(o, r)))
     return result
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes: float, mma_flops: float, fp32_flops: float = 0.0):
-    """(least ms the card could take, what bounds it)."""
-    ops = max(mma_flops / PEAK_BF16_FLOPS, fp32_flops / PEAK_FP32_FLOPS)
-    if n_bytes / PEAK_BYTES >= ops:
-        return n_bytes / PEAK_BYTES * 1e3, "bytes"
-    return ops * 1e3, "operations"
 
 
 class Case:
@@ -323,9 +293,9 @@ def run_case(torch, case: Case) -> dict:
     ok = all(rel <= case.tol for _, rel in errs)
     if case.check is not None:
         ok = case.check(out, ref) and ok
-    (ms, ms_1), (plain_ms, plain_ms_1) = (median_ms(torch, case.kernel),
-                                          median_ms(torch, case.plain, reps=10))
-    library_ms, library_ms_1 = median_ms(torch, case.library) if case.library else (None, None)
+    (ms, ms_1), (plain_ms, plain_ms_1) = (median_ms(case.kernel),
+                                          median_ms(case.plain, reps=10))
+    library_ms, library_ms_1 = median_ms(case.library) if case.library else (None, None)
     bound_ms, bound_by = bound(case.work["bytes"], case.work["mma"], case.work.get("fp32", 0))
     per_output = ", ".join(f"{o} {a:.4g}/{r:.4g}" for o, (a, r) in zip(case.outputs, errs))
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
@@ -413,7 +383,8 @@ def forward_cases(torch, randn):
             "moore_penrose_pinv", "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:239",
             f"b {b}, h {HEADS}, m {m}", lambda x=attn2: pinv.moore_penrose_pinv(x),
             lambda x=attn2, s=s: pinv.pinv_iterations_ref(x, s), BOUND_PINV, ("z",),
-            dict(bytes=2 * nbytes(attn2), mma=6 * 4 * 2 * bh * m ** 3), check=pinv_check))
+            dict(bytes=2 * nbytes(attn2), mma=6 * 4 * 2 * bh * m ** 3), check=pinv_check,
+            library=lambda x=attn2, s=s: pinv_library(torch, x, s, PINV_ITERS)))
         if dh != DH:  # the q variant has no caller: the slices' shape only
             continue
         cases.append(Case(
@@ -442,7 +413,7 @@ def forward_cases(torch, randn):
             library=lambda img_nchw=img_nchw, conv_w=conv_w, bias=ppeg_b, c=c: F.conv2d(
                 img_nchw, conv_w, bias, padding=3, groups=c)))
     return cases + vit_cases(torch, randn) + conv_cases(torch, randn, False) \
-        + [ln_qkv_case(torch, randn, False)]
+        + [ln_qkv_case(torch, randn, False)] + probe_cases(torch, randn, False)
 
 
 def sum_check(torch, name, outputs, indices):
@@ -451,9 +422,7 @@ def sum_check(torch, name, outputs, indices):
     def check(out, ref):
         ok = True
         for i in indices:
-            o, r = out[i], ref[i]
-            bound = BOUND_SUM_BF16 if o.dtype == torch.bfloat16 else BOUND_SUM_FP32
-            rel = ((o.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            bound, rel = sum_bound(out[i]), sum_err(out[i], ref[i])
             say(f"[kernel] {name}: {outputs[i]} max abs err / largest magnitude {rel:.4g} "
                 f"(bound {bound:g})")
             ok = ok and rel <= bound
@@ -612,6 +581,119 @@ def vit_cases(torch, randn):
     ]
 
 
+def pinv_library(torch, x, s, iters):
+    """Kernel 2's products as batched bf16 cuBLAS calls (fp32 accumulation),
+    the eye terms in their epilogues (``baddbmm``): the yardstick of R1."""
+    m = x.shape[-1]
+    xb = x.reshape(-1, m, m)
+    eye = torch.eye(m, dtype=x.dtype, device=x.device)
+    z = (xb.mT.float() / s).to(x.dtype)
+    for _ in range(iters):
+        xz = torch.bmm(xb, z)
+        t1 = 7.0 * eye - xz
+        t3 = torch.baddbmm(15.0 * eye, xz, t1, alpha=-1.0)
+        a = torch.baddbmm(13.0 * eye, xz, t3, alpha=-1.0)
+        z = torch.bmm(z, a) * 0.25
+    return z.view_as(x)
+
+
+def pinv_bwd_library(torch, x, s, g, iters):
+    """Kernel 2b's 71 products (the replay, its last z product skipped, and
+    the sweep) as batched bf16 cuBLAS calls on transposed views, gx summed in
+    fp32 from bf16 products."""
+    m = x.shape[-1]
+    xb, gz = x.reshape(-1, m, m), g.reshape(-1, m, m)
+    eye = torch.eye(m, dtype=x.dtype, device=x.device)
+    z = (xb.mT.float() / s).to(x.dtype)
+    z0, kept = z, []
+    for t in range(iters):
+        xz = torch.bmm(xb, z)
+        t1 = 7.0 * eye - xz
+        t3 = torch.baddbmm(15.0 * eye, xz, t1, alpha=-1.0)
+        a = torch.baddbmm(13.0 * eye, xz, t3, alpha=-1.0)
+        kept.append((z, xz, t1, t3, a))
+        if t + 1 < iters:
+            z = torch.bmm(z, a) * 0.25
+    gx = torch.zeros(xb.shape, dtype=torch.float32, device=x.device)
+    for z, xz, t1, t3, a in reversed(kept):
+        gt4 = torch.bmm(z.mT, gz) * -0.25
+        gz_next = torch.bmm(gz, a.mT) * 0.25
+        gb = torch.bmm(gt4, t3.mT)
+        gt2 = -torch.bmm(xz.mT, gt4)
+        gb = torch.baddbmm(gb, gt2, t1.mT)
+        gb = torch.baddbmm(gb, xz.mT, gt2, alpha=-1.0)
+        gx += torch.bmm(gb, z.mT)
+        gz = torch.baddbmm(gz_next, xb.mT, gb)
+    gs = -(gz.float() * z0.float()).sum() / s
+    return (gx + gz.mT.float() / s).to(x.dtype).view_as(x), gs
+
+
+def probe_cases(torch, randn, backward: bool):
+    """The kernels the TPU probes added (mirror_tpu_torch/scripts), at the
+    probes' default shapes: the copy floor ([64, 8, 2304, 96], gb 8), the
+    ViT attention on head-major pairs (8 a block) and on the natural layout
+    (2 images a block) at [512, 197, 768]; backward: the conv backward's dv
+    alone and its column sum alone ([64, 8, 2304, 96], K 33). The exact
+    pinv backward's stash variants are 2b's neighbours in
+    ``backward_cases``."""
+    import torch.nn.functional as F
+
+    from mirror_tpu_torch.ops import conv1d, copy_floor, vit_attn
+
+    cases = []
+    if not backward:
+        v = randn(*PROBE_CONV)
+        dst = torch.empty_like(v)
+        cases.append(Case(
+            "copy_floor", "copy_floor.cu", "scripts/exp_hbm_floor.py:54", f"{list(v.shape)}, gb 8",
+            lambda: copy_floor.copy_floor(v, 8), lambda: copy_floor.copy_floor_ref(v), 0.0,
+            ("out",), dict(bytes=2 * nbytes(v), mma=0), library=lambda: dst.copy_(v),
+            check=lambda out, ref: bool(torch.equal(out, ref))))
+        b, n, h, dh = PROBE_VIT_B, VIT_N, VIT_HEADS, VIT_D // VIT_HEADS
+        q, k, w = (randn(b, n, VIT_D) for _ in range(3))
+        qz, kz, wz = (t.view(b, n, h, dh).transpose(1, 2).reshape(b * h, n, dh) for t in (q, k, w))
+        work = dict(bytes=4 * nbytes(q), mma=4 * b * h * n * n * dh, fp32=5 * b * h * n * n)
+        cases.append(Case(
+            "vit_mha_headmajor", "vit_attn.cu", "scripts/exp_vit_attn_kernel.py:101",
+            f"[{b * h}, {n}, {dh}], 8 pairs a block", lambda: vit_attn.mha_headmajor(qz, kz, wz, 8),
+            lambda: vit_attn.mha_headmajor_ref(qz, kz, wz), BOUND_SINGLE_ROUNDING, ("out",), work,
+            library=lambda: F.scaled_dot_product_attention(
+                *(t.view(b, h, n, dh) for t in (qz, kz, wz)))))
+        cases.append(Case(
+            "vit_mha_natural_grouped", "vit_attn.cu", "scripts/exp_vit_attn_kernel.py:149",
+            f"[{b}, {n}, {VIT_D}], heads {h}, 2 images a block",
+            lambda: vit_attn.mha_natural(q, k, w, h, 2),
+            lambda: vit_attn.mha_natural_ref(q, k, w, h), BOUND_SINGLE_ROUNDING, ("out",), work,
+            library=lambda: F.scaled_dot_product_attention(
+                *(t.view(b, n, h, dh).transpose(1, 2) for t in (q, k, w)))))
+        return cases
+    v, g = randn(*PROBE_CONV), randn(*PROBE_CONV)
+    h = PROBE_CONV[1]
+    taps = randn(h, CONV_TAPS, scale=0.1)
+    dv, dkern = torch.empty_like(v), torch.empty(h, CONV_TAPS, device=v.device)
+    partial = conv1d.conv1d_bwd_scratch(v, CONV_TAPS)
+    conv1d.conv1d_bwd_into(v, taps, g, dv, dkern, partial)  # the fused pass's dv and partials
+    label = f"{list(v.shape)}, K {CONV_TAPS}"
+    cases.append(Case(
+        "conv1d_bwd_dv", "conv1d.cu", "scripts/exp_conv_parts.py:55", label,
+        lambda: conv1d.conv1d_bwd_dv(g, taps), lambda: conv1d.conv1d_bwd_dv_ref(g, taps),
+        BOUND_BWD, ("dv",), dict(bytes=2 * nbytes(v), mma=0, fp32=2 * CONV_TAPS * v.numel()),
+        library=lambda: torch.ops.aten.convolution_backward(
+            g, v, taps.view(h, 1, CONV_TAPS, 1), None, [1, 1], [CONV_TAPS // 2, 0], [1, 1],
+            False, [0, 0], h, [True, False, False])[0],
+        # bit for bit the fused kernel's dv
+        check=lambda out, ref: bool(torch.equal(out, dv))))
+    cases.append(Case(
+        "column_sum", "conv1d.cu", "scripts/exp_conv_parts.py:55",
+        f"{list(partial.shape)} fp32 partials of {label}", lambda: conv1d.column_sum(partial),
+        lambda: conv1d.column_sum_ref(partial), BOUND_SINGLE_ROUNDING, ("dkern",),
+        dict(bytes=nbytes(partial) + 4 * partial.shape[1], mma=0, fp32=partial.numel()),
+        library=lambda: partial.sum(0),
+        # bit for bit the fused kernel's dkern
+        check=lambda out, ref: bool(torch.equal(out, dkern.reshape(-1)))))
+    return cases
+
+
 def autograd_kernel(torch, fn, inputs, grads):
     """A callable that runs only the backward of ``fn`` (the kernel behind
     its autograd Function) for the incoming ``grads``: the forward runs
@@ -706,7 +788,25 @@ def backward_cases(torch, randn):
             BOUND_PINV_BWD, ("gx", "gs"),
             # the replay (its last z product skipped) and the sweep: 4 + 8 a step
             dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * m ** 3),
-            check=pinv_bwd_check))
+            check=pinv_bwd_check,
+            library=lambda x=x, s=s, g2=g2: pinv_bwd_library(torch, x, s, g2, PINV_ITERS)))
+        if b != B:
+            continue
+        # the probe exp_pinv_stash's variants: z (and x z) kept, the rest
+        # recomputed by the replay's own launches (3 or 2 more products a step)
+        for stash, extra in ((1, 3), (2, 2)):
+            cases.append(Case(
+                f"{PINV_BWD}_stash{stash}", "pinv.cu", "scripts/exp_pinv_stash.py:99",
+                f"b {b}, h {HEADS}, m {m}, stash {stash}",
+                lambda x=x, s=s, g2=g2, st=stash: pinv._pinv_exact_bwd_kernel(
+                    x, s, g2, PINV_ITERS, st),
+                lambda x=x, s=s, g2=g2, st=stash: pinv.pinv_exact_bwd_stash_ref(
+                    x, s, g2, PINV_ITERS, st),
+                BOUND_PINV_BWD, ("gx", "gs"),
+                dict(bytes=3 * nbytes(x) + nbytes(s),
+                     mma=((12 + extra) * PINV_ITERS - 1) * 2 * bh * m ** 3),
+                check=pinv_bwd_check,
+                library=lambda x=x, s=s, g2=g2: pinv_bwd_library(torch, x, s, g2, PINV_ITERS)))
 
     for b, c in PPEG_SHAPES:
         img = randn(b, SIDE, SIDE, c)
@@ -729,7 +829,8 @@ def backward_cases(torch, randn):
                 torch.ops.aten.convolution_backward(
                     g5_nchw, img_nchw, conv_w, [c], [1, 1], [3, 3], [1, 1], False, [0, 0],
                     c, [True, True, True])))
-    return cases + conv_cases(torch, randn, True) + [ln_qkv_case(torch, randn, True)]
+    return cases + conv_cases(torch, randn, True) + [ln_qkv_case(torch, randn, True)] \
+        + probe_cases(torch, randn, True)
 
 
 def phase_kernels(torch, backward: bool):
@@ -1449,11 +1550,84 @@ def phase_selftest(torch):
     return launches
 
 
+# the probes of mirror_tpu_torch/scripts at their scripts' default shapes,
+# their reps cut to keep phase 9 short (never their shapes)
+PROBES = (
+    ("exp_hbm_floor", ["--steps", "10", "--reps", "3"]),
+    ("exp_conv_parts", ["--steps", "10", "--reps", "3"]),
+    ("exp_ln_qkv", ["--chain", "4", "--reps", "3"]),
+    ("exp_pinv_stash", ["--chain", "2", "--reps", "3"]),
+    ("exp_vit_attn_kernel", ["--steps", "8", "--reps", "3"]),
+)
+
+
+def phase_probes(torch):
+    """Each probe's ``main`` at its script's shapes, its rows and JSON line
+    printed, its own checks held again here; the launches read around the
+    five."""
+    import contextlib
+    import importlib
+    import io
+
+    from mirror_tpu_torch.ops import _common
+
+    torch.cuda.synchronize()
+    _common.reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = {}
+    for name, argv in PROBES:
+        module = importlib.import_module(f"mirror_tpu_torch.scripts.{name}")
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = module.main(argv)
+        torch.cuda.synchronize()
+        text = out.getvalue()
+        sys.stdout.write(text)
+        say(f"[probe] {name} {' '.join(argv)}: exit {rc} in {time.perf_counter() - t1:.1f} s")
+        if rc != 0:
+            fail(f"probe {name} exited {rc}")
+        lines[name] = {r["name"]: r for r in json.loads(text.strip().splitlines()[-1])["variants"]}
+    launches = _common.launch_counts()
+    say(f"[probes] {time.perf_counter() - t0:.1f} s; kernel launches {json.dumps(launches)}")
+
+    copies = [r for r in lines["exp_hbm_floor"].values() if r["kind"] == "kernel"]
+    if not all(r["bit_exact"] for r in copies):
+        fail("a copy_floor launch shape is not bit for bit its input")
+    # kernels 9, 9b and 10, 10b at the probes' shapes (b 64), and 2b below
+    conv = lines["exp_conv_parts"]
+    if conv["bwd dv only"]["err"] != 0.0:
+        fail("the conv backward's dv alone is not the fused kernel's dv bit for bit")
+    fused = conv["bwd fused dv+dk"]
+    held = [("conv1d fwd", conv["fwd"]["err"], BOUND_SINGLE_ROUNDING),
+            ("conv1d_bwd dv+dkern", fused["err"], BOUND_BWD),
+            ("conv1d_bwd dkern sum", fused["dkern_sum_err"], fused["dkern_sum_bar"]),
+            ("ln_qkv", lines["exp_ln_qkv"]["fwd fused|bigg"]["err"], BOUND_SINGLE_ROUNDING)]
+    both = lines["exp_ln_qkv"]["fwd+bwd fused|bigg"]
+    held.append(("ln_qkv_bwd", both["err"], BOUND_BWD))
+    held += [(f"ln_qkv_bwd {g} sum", e, both["sum_bar"][g]) for g, e in both["sum_err"].items()]
+    for what, err, bar in held:
+        if not err <= bar:
+            fail(f"{what} at the probes' shape: err {err} > {bar} against its plain version")
+    for name, r in lines["exp_vit_attn_kernel"].items():
+        if name.startswith("k") and not r["err"] <= BOUND_SINGLE_ROUNDING:
+            fail(f"vit_attn.cu {name}: rel Frobenius err {r['err']} > {BOUND_SINGLE_ROUNDING}")
+    full = lines["exp_pinv_stash"]["full"]["vs_plain"]
+    if not (full["err_gx"] <= BOUND_PINV_BWD and full["err_gs"] <= BOUND_PINV_BWD
+            and full["cosine_gx"] >= BOUND_PINV_BWD_COS):
+        fail(f"moore_penrose_pinv_bwd (2b) at b 64 disagrees with its plain version: {full}")
+    for name in ("z+xz", "z"):
+        r = lines["exp_pinv_stash"][name]
+        if not (r["err_gx"] <= BOUND_PINV_BWD and r["err_gs"] <= BOUND_PINV_BWD
+                and r["grad_cosine_small"] >= BOUND_PINV_BWD_COS):
+            fail(f"pinv stash variant {name} disagrees with the full stash: {r}")
+    return launches
+
+
 def main() -> int:
     import torch
 
     phase_device(torch)
-    sys.path.insert(0, str(REPO))
     torch.set_num_threads(8)
     t_start = time.perf_counter()
     phase_build()
@@ -1470,21 +1644,23 @@ def main() -> int:
         pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
         down = phase_downstream(torch, Path(tmp) / "downstream", pretrain_ckpt)
     selftest_launches = phase_selftest(torch)
+    probe_launches = phase_probes(torch)
     # the main paths' launches: predict's, the train step's (implicit and
     # exact pinv gradient), feature extraction's (its three runs), the two
     # downstream entry points' and the self-test's, each counted from 0 just
     # before its run. Exempt: softmax_attn_q, the pad-0 entry of the
     # softmax_attn kernel, which no path calls (its callers all have the
-    # residual conv); ln_qkv and ln_qkv_bwd, library-only as in the JAX
-    # package, which wires the kernel to nothing (mirror_tpu/ops/__init__.py)
-    # and whose self-test does not run it: phases 3 and 3b launch and hold it
+    # residual conv). ln_qkv and ln_qkv_bwd, library-only as in the JAX
+    # package, run on the probes' path (exp_ln_qkv), as do the kernels the
+    # probes added
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
              "featgen": featgen, "subtyping": down["subtyping"],
-             "survival": down["survival"], "selftest": selftest_launches}
+             "survival": down["survival"], "selftest": selftest_launches,
+             "probes": probe_launches}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-    exempt = ("softmax_attn_q", "ln_qkv", "ln_qkv_bwd")
+    exempt = ("softmax_attn_q",)
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in exempt]
     if unlaunched:
         fail(f"kernels no main path launched: {unlaunched}")

@@ -8,10 +8,12 @@ YAML. The flags and dest names are the JAX package's, so its YAML templates
 parse unchanged.
 
 What differs: ``--device`` defaults to ``cuda`` (a YAML ``device: tpu``, the
-JAX package's accelerator, means the card here); ``use_pallas`` is accepted
-and ignored (the device alone picks the kernel path); and
-:func:`refuse_unported` stops at start on any flag that this port does not
-implement for the task when it is set away from its default, naming it.
+JAX package's accelerator, means the card here); ``--use-pallas`` (the
+default here, on every device) runs the card's kernels on a CUDA device
+and ``--no-use-pallas`` the plain path on any device, as the JAX package's
+dense branch (:func:`model_kwargs_from_args`); and :func:`refuse_unported`
+stops at start on any flag that this port does not implement for the task
+when it is set away from its default, naming it.
 """
 
 import argparse
@@ -69,8 +71,9 @@ def build_parser(task: str = "pretrain") -> argparse.ArgumentParser:
     g.add_argument("--grad-checkpointing", action="store_true", default=False)
     g.add_argument("--model-kwargs", nargs="*", default={}, action=ParseKwargs)
     g.add_argument("--use-pallas", action="store_true", default=None,
-                   help="accepted for the JAX package's configs; ignored: the "
-                        "device picks the kernel path")
+                   help="the hand-written CUDA kernels of the Nystrom attention and "
+                        "PPEG on a CUDA device (the default); --no-use-pallas runs "
+                        "their plain versions on any device")
     g.add_argument("--no-use-pallas", action="store_false", dest="use_pallas")
     g.add_argument("--pinv-grad", type=str, default="implicit",
                    choices=["exact", "implicit"],
@@ -205,13 +208,13 @@ def build_parser(task: str = "pretrain") -> argparse.ArgumentParser:
 _IGNORED_KEYS = {
     "fuser", "torchscript", "torchcompile", "fast_norm", "amp_impl", "no_ddp_bb",
     "local_rank", "device_modules", "sync_bn", "dist_bn", "pin_mem",
-    "model_ema_force_cpu", "worker_seeding", "epoch_repeats", "in_chans", "use_pallas",
+    "model_ema_force_cpu", "worker_seeding", "epoch_repeats", "in_chans",
 }
 
 # flags this port does not implement: (dest, what it would need)
 _UNPORTED = (
     ("resume", "resume"), ("no_resume_opt", "resume"), ("start_epoch", "resume"),
-    ("recovery_interval", "recovery checkpoints"), ("checkpoint_hist", "best-k history"),
+    ("recovery_interval", "recovery checkpoints"),
     ("log_wandb", "wandb"), ("wandb_watch", "wandb"),
     ("grad_accum_steps", "gradient accumulation"),
     ("grad_checkpointing", "activation checkpointing"),
@@ -285,6 +288,19 @@ def refuse_unported(args: argparse.Namespace) -> None:
                 f"--{dest}={value!r}: the port's {args.task} runs {' or '.join(ported)} only; "
                 "the other models and losses are not ported yet"
             )
+
+
+def model_kwargs_from_args(args: argparse.Namespace) -> Dict[str, Any]:
+    """The model kwargs that every entry point derives from its flags:
+    ``--model-kwargs``, then, unless it set them, the compute dtype
+    (``--amp``), the pinv gradient and the kernel path (``--use-pallas``,
+    on by default)."""
+    kwargs = dict(args.model_kwargs or {})
+    if args.amp:
+        kwargs.setdefault("dtype", args.amp_dtype)
+    kwargs.setdefault("pinv_grad", args.pinv_grad)
+    kwargs.setdefault("use_pallas", args.use_pallas is not False)
+    return kwargs
 
 
 def resolve_lr(args: argparse.Namespace, global_batch_size: int) -> float:

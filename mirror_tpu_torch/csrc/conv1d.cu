@@ -3,7 +3,9 @@
 //
 // Replaces: mirror_tpu/ops/conv1d_pallas.py::depthwise_conv1d_seq, the
 // forward pallas_call of _fwd_call (_banded_kernel) and the backward one of
-// _bwd_call (_bwd_kernel).
+// _bwd_call (_bwd_kernel). For the probe scripts/exp_conv_parts.py (K11f),
+// which times those two, the backward's dv alone (an instance without the
+// dkern slide) and its second pass alone (mirror_column_sum) are entries too.
 //
 // What it computes, per (batch, head) of v [b, h, n, d] bf16 with one filter
 // of K taps per head (kern [h, K], K odd, bf16: the wrapper rounds fp32 taps
@@ -166,25 +168,33 @@ __global__ void __launch_bounds__(kThreads)
   conv_tile(sV, sTap, out + base, r0, n, d, L.ld, ksize);
 }
 
-// dv for the block's rows, and its partial of dkern per tap:
+// dv for the block's rows, and (kDkern) its partial of dkern per tap:
 // partial[(b, tile), (h, t)] = sum over the tile's rows i and features of
-// g[i] v[i + t - K/2].
+// g[i] v[i + t - K/2]. The instance without kDkern is dv alone (the probe
+// exp_conv_parts times it apart): the same window of g and the same slide,
+// so its dv is the fused instance's bit for bit.
+template <bool kDkern>
 __global__ void __launch_bounds__(kThreads)
     conv1d_bwd_kernel(const bf16* __restrict__ v, const bf16* __restrict__ kern,
                       const bf16* __restrict__ g, bf16* __restrict__ dv,
                       float* __restrict__ partial, int heads, int n, int d, int ksize) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(d, ksize, true);
+  const Layout L = make_layout(d, ksize, kDkern);
   bf16* sG = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L.win);
   float* sTap = reinterpret_cast<float*>(smem + L.tap);
-  float* red = reinterpret_cast<float*>(smem + L.red);  // [kThreads][padded taps]
   const int bh = blockIdx.y, r0 = blockIdx.x * kTile, half = ksize / 2;
-  const int kpad = padded_taps(ksize);
   const size_t base = (size_t)bh * n * d;
   load_window(sG, g + base, r0 - half, kTile + ksize - 1, window_rows(ksize), n, d, L.ld);
-  load_window(sV, v + base, r0 - half, kTile + ksize - 1, window_rows(ksize), n, d, L.ld);
   load_taps(sTap, kern, bh % heads, ksize, true);
+  if constexpr (!kDkern) {
+    __syncthreads();
+    conv_tile(sG, sTap, dv + base, r0, n, d, L.ld, ksize);
+    return;
+  }
+  bf16* sV = reinterpret_cast<bf16*>(smem + L.win);
+  float* red = reinterpret_cast<float*>(smem + L.red);  // [kThreads][padded taps]
+  const int kpad = padded_taps(ksize);
+  load_window(sV, v + base, r0 - half, kTile + ksize - 1, window_rows(ksize), n, d, L.ld);
   for (int t = 0; t < kpad; ++t) red[threadIdx.x * kpad + t] = 0.f;
   __syncthreads();
 
@@ -233,11 +243,11 @@ cudaError_t conv1d_bwd(const bf16* v, const bf16* kern, const bf16* g, bf16* dv,
                        cudaStream_t stream) {
   if (!valid(bh, heads, n, d, ksize)) return cudaErrorInvalidValue;
   const size_t smem = make_layout(d, ksize, true).total;
-  cudaError_t err = allow_smem(conv1d_bwd_kernel, smem);
+  cudaError_t err = allow_smem(conv1d_bwd_kernel<true>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (n + kTile - 1) / kTile;
-  conv1d_bwd_kernel<<<dim3(tiles, bh), kThreads, smem, stream>>>(v, kern, g, dv, partial, heads,
-                                                                   n, d, ksize);
+  conv1d_bwd_kernel<true><<<dim3(tiles, bh), kThreads, smem, stream>>>(v, kern, g, dv, partial,
+                                                                         heads, n, d, ksize);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // dkern[h, t] = the sum over batch and row tiles of the partials
@@ -276,4 +286,29 @@ MIRROR_EXPORT int mirror_conv1d_bwd(const void* v, const void* kern, const void*
                          static_cast<const bf16*>(g), static_cast<bf16*>(dv),
                          static_cast<float*>(dkern), static_cast<float*>(partial), bh, heads, n,
                          d, ksize, stream);
+}
+
+// dv alone (the backward's first half, no dkern): g, dv bf16 [bh, n, d];
+// kern bf16 [heads, ksize].
+MIRROR_EXPORT int mirror_conv1d_bwd_dv(const void* kern, const void* g, void* dv, int bh,
+                                       int heads, int n, int d, int ksize, cudaStream_t stream) {
+  if (!valid(bh, heads, n, d, ksize)) return (int)cudaErrorInvalidValue;
+  const size_t smem = make_layout(d, ksize, false).total;
+  cudaError_t err = allow_smem(conv1d_bwd_kernel<false>, smem);
+  if (err != cudaSuccess) return (int)err;
+  conv1d_bwd_kernel<false><<<dim3((n + kTile - 1) / kTile, bh), kThreads, smem, stream>>>(
+      nullptr, static_cast<const bf16*>(kern), static_cast<const bf16*>(g),
+      static_cast<bf16*>(dv), nullptr, heads, n, d, ksize);
+  return (int)cudaGetLastError();
+}
+
+// out[j] = sum over p < nparts of parts[p * count + j], fp32, in a fixed
+// order: the backward's second pass (dkern from its partials), launched
+// alone so the probe can time it.
+MIRROR_EXPORT int mirror_column_sum(const void* parts, int nparts, long long count, void* out,
+                                    cudaStream_t stream) {
+  if (nparts <= 0 || count <= 0) return (int)cudaErrorInvalidValue;
+  column_sum_kernel<float><<<column_sum_blocks(count), dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(parts), nparts, count, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }

@@ -3,7 +3,10 @@
 //
 // Replaces: mirror_tpu/ops/pinv_pallas.py::moore_penrose_pinv_pallas
 // (forward pallas_call in _fwd_call, :151) and, for grad="exact", the
-// backward pallas_call in _bwd_call (:171, body _bwd_kernel at :76).
+// backward pallas_call in _bwd_call (:171, body _bwd_kernel at :76); and
+// the probe scripts/exp_pinv_stash.py (make_variant._bwd_call, :99), whose
+// variants keep z (and x z) of the replay and recompute the rest: the same
+// launches of this file's GEMM, ordered by ops/pinv.py (K11d).
 //
 // What the forward computes: 6 iterations of
 // z <- 0.25 z (13I - xz (15I - xz (7I - xz))) on [b, h, m, m] bf16, from

@@ -28,6 +28,12 @@
 // the same score rows, and multiplies them by V_h. At n 197 the block holds
 // 114 KB, so two blocks share an SM. n is at most 256 (the registers of a
 // score row).
+//
+// For the probe scripts/exp_vit_attn_kernel.py (K11c; make_headmajor :101,
+// make_natural :149): a head-major [b h, n, dh] tensor is the same call with
+// b h images of one head and ld_in = ld_out = dh; with `group` G > 1 a
+// second kernel lets a block walk G consecutive (image, head) pairs in turn,
+// reusing its shared memory (G = N heads is N whole images).
 #include <mma.h>
 
 #include "common.cuh"
@@ -76,17 +82,20 @@ __device__ inline void load_head_rows(bf16* dst, const bf16* src, int rows, int 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, int n, int dh,
-                    int ld_in, int ld_out, float scale) {
+// The block's 64 queries of one (image, head) pair: K_h, V_h and the queries
+// into shared memory (every thread reaches the one block barrier), then each
+// warp's 16 rows.
+__device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                                       int n, int dh, int ld_in, int ld_out, float scale,
+                                       int img, int head) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout(n, dh);
   bf16* sK = reinterpret_cast<bf16*>(smem + L.k);
   bf16* sV = reinterpret_cast<bf16*>(smem + L.v);
   float* sS = reinterpret_cast<float*>(smem + L.s);
   const int ldk = L.ldk, ls = L.ls, npad = L.npad;
-  const int q0 = blockIdx.x * BQ, head = blockIdx.y, img = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int dtiles = dh / 16;
 
@@ -101,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
   __syncthreads();
   // the last block of an image holds n mod 64 queries (5 at n 197): a warp
-  // whose 16 rows all lie past n has nothing to do (no block barrier follows)
+  // whose 16 rows all lie past n has nothing more to do
   const int rows = n - (q0 + warp * 16);
   if (rows <= 0) return;
 
@@ -198,21 +207,57 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out, int n, int dh,
+                    int ld_in, int ld_out, float scale) {
+  attend(q, k, v, out, n, dh, ld_in, ld_out, scale, blockIdx.z, blockIdx.y);
+}
+
+// A block walks `group` consecutive (image, head) pairs of `pairs` in turn;
+// the barrier after each keeps the next pair's loads off the tiles in use.
+__global__ void __launch_bounds__(kThreads)
+    vit_attn_grouped_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ out, int pairs,
+                            int heads, int group, int n, int dh, int ld_in, int ld_out,
+                            float scale) {
+  const int first = (int)blockIdx.y * group, last = min(pairs, first + group);
+  for (int pair = first; pair < last; ++pair) {
+    attend(q, k, v, out, n, dh, ld_in, ld_out, scale, pair / heads, pair % heads);
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // q, k, v: [b, n, *] bf16 with row stride ld_in, head h at columns
 // [h dh, (h+1) dh); out: [b, n, *] with row stride ld_out. n <= 256,
-// dh a multiple of 16 up to 128, ld_in and ld_out multiples of 8.
+// dh a multiple of 16 up to 128, ld_in and ld_out multiples of 8. A block
+// takes `group` consecutive (image, head) pairs (1 on the model's path).
 MIRROR_EXPORT int mirror_vit_attn(const void* q, const void* k, const void* v, void* out,
                                   int b, int n, int heads, int dh, int ld_in, int ld_out,
-                                  float scale, cudaStream_t stream) {
-  if (n > kMaxCols || dh % 16 != 0 || dh / 16 > kMaxDhTiles) return (int)cudaErrorInvalidValue;
+                                  int group, float scale, cudaStream_t stream) {
+  if (n > kMaxCols || dh % 16 != 0 || dh / 16 > kMaxDhTiles || group <= 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = make_layout(n, dh).total;
-  cudaError_t err = allow_smem(vit_attn_kernel, smem);
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* kb = static_cast<const bf16*>(k);
+  const auto* vb = static_cast<const bf16*>(v);
+  auto* ob = static_cast<bf16*>(out);
+  cudaError_t err;
+  if (group == 1) {
+    err = allow_smem(vit_attn_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((n + BQ - 1) / BQ, heads, b);
+    vit_attn_kernel<<<grid, kThreads, smem, stream>>>(qb, kb, vb, ob, n, dh, ld_in, ld_out,
+                                                      scale);
+    return (int)cudaGetLastError();
+  }
+  const int pairs = b * heads, blocks = (pairs + group - 1) / group;
+  if (blocks > 65535) return (int)cudaErrorInvalidValue;
+  err = allow_smem(vit_attn_grouped_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + BQ - 1) / BQ, heads, b);
-  vit_attn_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), n, dh, ld_in, ld_out, scale);
+  vit_attn_grouped_kernel<<<dim3((n + BQ - 1) / BQ, blocks), kThreads, smem, stream>>>(
+      qb, kb, vb, ob, pairs, heads, group, n, dh, ld_in, ld_out, scale);
   return (int)cudaGetLastError();
 }

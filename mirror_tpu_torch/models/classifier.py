@@ -29,14 +29,15 @@ class MIRRORClassifier(nn.Module):
                  rna_attn_drop_rate: float = 0.0, rna_drop_path_rate: float = 0.0,
                  rna_norm_eps: float = 1e-6, fusion: str = "concat",
                  pinv_grad: str = "exact", wsi_dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_pallas: bool = True):
         super().__init__()
         if fusion not in ("add", "concat"):
             raise ValueError(f"fusion must be add or concat, got {fusion!r}")
         self.fusion = fusion
         self.dtype = dtype
         self.wsi_encoder = FeatureTransMIL(wsi_embed_dim, embed_dim, dtype,
-                                           dropout=wsi_dropout, pinv_grad=pinv_grad)
+                                           dropout=wsi_dropout, pinv_grad=pinv_grad,
+                                           use_pallas=use_pallas)
         self.rna_encoder = TransFormer(
             input_dim=rna_embed_dim, embed_dim=embed_dim, depth=rna_encoder_depth,
             gene_embed=rna_gene_embed, mlp_ratio=rna_mlp_ratio,

@@ -11,15 +11,19 @@ algorithm of the reference's ``nystrom_attention`` package:
 5. out = attn1 pinv(attn2) (attn3 v) + a depthwise 33-tap conv of v along
    the sequence (one filter per head, no bias).
 
-One module, two paths, and the device alone picks between them:
+One module, two paths:
 
-- on CUDA, the pad-aware kernel path of the JAX package's ``use_pallas``
-  branch: nothing is padded (the pad's contributions have closed forms
-  inside the kernels), head-major q/k/v go through the landmark, pinv,
-  landmark-softmax and conv-fused attention kernels of ``ops``;
-- on CPU, the plain path of the JAX package's dense branch: the front pad
-  is materialised, the attention matrices are built, and the output is
-  trimmed to the last n rows.
+- on CUDA with ``use_pallas`` (the default), the pad-aware kernel path of
+  the JAX package's ``use_pallas`` branch: nothing is padded (the pad's
+  contributions have closed forms inside the kernels), head-major q/k/v go
+  through the landmark, pinv, landmark-softmax and conv-fused attention
+  kernels of ``ops``. The kernels take what :func:`kernel_refusal` accepts;
+  ``registry.create_model`` refuses the rest at start;
+- on CPU, or with ``use_pallas=False`` on any device, the plain path of the
+  JAX package's dense branch: the front pad is materialised, the attention
+  matrices are built, and the output is trimmed to the last n rows. With
+  ``use_pallas=False`` the pinv is :func:`moore_penrose_pinv_ref`, so no
+  kernel runs on the card either.
 
 Both paths are differentiable. The kernel path's gradients are the kernels'
 own backward passes (each op is a ``torch.autograd.Function``), and the
@@ -45,8 +49,28 @@ from ..ops.nystrom_attn import (
     softmax_matmul_landmark_kv,
     softmax_matmul_landmark_q,
 )
-from ..ops.pinv import moore_penrose_pinv
+from ..ops.pinv import moore_penrose_pinv, moore_penrose_pinv_ref
 from .layers import Dense, Dropout
+
+KERNEL_DTYPE = torch.bfloat16
+
+
+def kernel_refusal(dim_head: int, num_landmarks: int,
+                   dtype: Optional[torch.dtype]) -> Optional[str]:
+    """What of a NystromAttention configuration the CUDA kernels do not
+    take, or None: they take the compute dtype bf16 only, dh a multiple of
+    16 up to 128 and a landmark count that is a multiple of 8
+    (``ops/landmark.py``, ``ops/nystrom_attn.py``)."""
+    dtype = dtype or torch.float32
+    problems = []
+    if dtype != KERNEL_DTYPE:
+        problems.append(f"compute dtype {dtype} (the kernels take {KERNEL_DTYPE}: --no-amp, or "
+                        "a checkpoint whose args say amp: false, computes in float32)")
+    if dim_head % 16 or dim_head > 128:
+        problems.append(f"head dim {dim_head} (the kernels take a multiple of 16 up to 128)")
+    if num_landmarks % 8:
+        problems.append(f"{num_landmarks} landmarks (the kernels take a multiple of 8)")
+    return "; ".join(problems) or None
 
 
 class NystromAttention(nn.Module):
@@ -54,8 +78,10 @@ class NystromAttention(nn.Module):
                  num_landmarks: int = 256, pinv_iterations: int = 6,
                  residual: bool = True, residual_conv_kernel: int = 33,
                  dropout: float = 0.0, pinv_grad: str = "implicit",
-                 xavier_init: bool = False, dtype: Optional[torch.dtype] = None):
+                 xavier_init: bool = False, dtype: Optional[torch.dtype] = None,
+                 use_pallas: bool = True):
         super().__init__()
+        self.use_pallas = use_pallas
         self.heads, self.dim_head = heads, dim_head
         self.num_landmarks = num_landmarks
         self.pinv_iterations = pinv_iterations
@@ -76,7 +102,7 @@ class NystromAttention(nn.Module):
         return self.res_conv.weight.reshape(self.heads, -1).to(cdt)  # [h, K]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.is_cuda:
+        if x.is_cuda and self.use_pallas:
             return self._forward_kernels(x)
         return self._forward_plain(x)
 
@@ -120,7 +146,8 @@ class NystromAttention(nn.Module):
         k_l = k.reshape(b, m, l, h, dh).mean(2)
         sim2 = torch.einsum("bihd,bjhd->bhij", q_l.float(), k_l.float())
         attn2 = torch.softmax(sim2, dim=-1).to(cdt)
-        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations, self.pinv_grad)
+        pinv = moore_penrose_pinv if self.use_pallas else moore_penrose_pinv_ref
+        attn2_inv = pinv(attn2, self.pinv_iterations, self.pinv_grad)
         sim1 = torch.einsum("bihd,bjhd->bhij", q.float(), k_l.float())
         sim3 = torch.einsum("bihd,bjhd->bhij", q_l.float(), k.float())
         attn1 = torch.softmax(sim1, dim=-1).to(cdt)

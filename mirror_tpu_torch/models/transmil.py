@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.ppeg import ppeg_fused
+from ..ops.ppeg import ppeg_fused, ppeg_ref
 from .layers import Dense, LayerNorm, l2_normalize
 from .nystrom import NystromAttention
 
@@ -30,11 +30,14 @@ class PPEG(nn.Module):
     """Pyramid position encoding: depthwise 7/5/3 convs over the token grid
     plus the identity; the cls token bypasses. The pyramid is merged into
     one 7x7 conv, which runs with the identity and bias as one pass
-    (``ops.ppeg_fused``) on NHWC."""
+    (``ops.ppeg_fused``) on NHWC; with ``use_pallas=False`` its plain
+    version on any device (``ops.ppeg.ppeg_ref``, autograd)."""
 
-    def __init__(self, dim: int = 512, dtype: Optional[torch.dtype] = None):
+    def __init__(self, dim: int = 512, dtype: Optional[torch.dtype] = None,
+                 use_pallas: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.proj = nn.Conv2d(dim, dim, 7, 1, 7 // 2, groups=dim)
         self.proj1 = nn.Conv2d(dim, dim, 5, 1, 5 // 2, groups=dim)
         self.proj2 = nn.Conv2d(dim, dim, 3, 1, 3 // 2, groups=dim)
@@ -49,7 +52,7 @@ class PPEG(nn.Module):
         )
         kern = k_eff[:, 0].permute(1, 2, 0).contiguous().to(cdt)  # [7, 7, C]
         img = feat.reshape(b, h, w, c).to(cdt).contiguous()  # NHWC
-        out = ppeg_fused(img, kern, b_eff.to(cdt))
+        out = (ppeg_fused if self.use_pallas else ppeg_ref)(img, kern, b_eff.to(cdt))
         return torch.cat([cls_token.to(out.dtype), out.reshape(b, h * w, c)], dim=1)
 
 
@@ -61,13 +64,13 @@ class TransLayer(nn.Module):
 
     def __init__(self, dim: int = 512, dtype: Optional[torch.dtype] = None,
                  xavier_init: bool = False, dropout: float = 0.1,
-                 pinv_grad: str = "implicit"):
+                 pinv_grad: str = "implicit", use_pallas: bool = True):
         super().__init__()
         self.norm = LayerNorm(dim, 1e-5, dtype)
         self.attn = NystromAttention(
             dim=dim, dim_head=dim // 8, heads=8, num_landmarks=dim // 2,
             pinv_iterations=6, residual=True, dropout=dropout, pinv_grad=pinv_grad,
-            xavier_init=xavier_init, dtype=dtype,
+            xavier_init=xavier_init, dtype=dtype, use_pallas=use_pallas,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +96,7 @@ class FeatureTransMIL(nn.Module):
     def __init__(self, input_dim: int = 1024, embed_dim: int = 512,
                  dtype: Optional[torch.dtype] = None, xavier_init: bool = False,
                  cls_token_std: float = 1.0, dropout: float = 0.1,
-                 pinv_grad: str = "implicit"):
+                 pinv_grad: str = "implicit", use_pallas: bool = True):
         super().__init__()
         self.embed_dim = embed_dim
         self.dtype = dtype
@@ -102,9 +105,9 @@ class FeatureTransMIL(nn.Module):
         self._fc1 = nn.Sequential(Dense(input_dim, embed_dim, dtype=dtype, init=init),
                                   nn.ReLU())
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
-        self.layer1 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad)
-        self.layer2 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad)
-        self.pos_layer = PPEG(embed_dim, dtype)
+        self.layer1 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas)
+        self.layer2 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas)
+        self.pos_layer = PPEG(embed_dim, dtype, use_pallas)
         self.norm = LayerNorm(embed_dim, 1e-5, dtype)
 
     def encode(self, h: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -151,16 +154,16 @@ class FeatureTransMILHybrid(FeatureTransMIL):
     def __init__(self, input_dim: int = 1024, embed_dim: int = 512, num_tokens: int = 2048,
                  retention_decoder_depth: int = 1, dtype: Optional[torch.dtype] = None,
                  xavier_init: bool = True, cls_token_std: float = 0.02,
-                 dropout: float = 0.1, pinv_grad: str = "implicit"):
+                 dropout: float = 0.1, pinv_grad: str = "implicit", use_pallas: bool = True):
         super().__init__(input_dim, embed_dim, dtype, xavier_init, cls_token_std, dropout,
-                         pinv_grad)
+                         pinv_grad, use_pallas)
         init = "xavier" if xavier_init else "torch"
         self.alignment_head = Dense(embed_dim, embed_dim, dtype=dtype, init=init)
         self.retention_embed = Dense(embed_dim, embed_dim, dtype=dtype, init=init)
         self.mask_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.retention_gene_embed = nn.Parameter(torch.empty(1, num_tokens + 1, embed_dim))
         self.retention_blocks = nn.ModuleList(
-            TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad)
+            TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas)
             for _ in range(retention_decoder_depth)
         )
         self.retention_norm = LayerNorm(embed_dim, 1e-5, dtype)

@@ -26,6 +26,16 @@ TPU.
 | ln_qkv | csrc/ln_qkv.cu | ln_qkv_pallas.py::ln_qkv_fused fwd |
 | ln_qkv_bwd | csrc/ln_qkv.cu | the same, bwd (_bwd_call) |
 
+The TPU probes of ``scripts/`` (``mirror_tpu_torch.scripts``) add kernel
+instances beside these, each counted under its own name:
+
+| kernel (launch count) | source | TPU probe it replaces (scripts/) |
+| --- | --- | --- |
+| copy_floor | csrc/copy_floor.cu | exp_hbm_floor.py (copy_floor, run_flat, run_ntile) |
+| conv1d_bwd_dv, column_sum | csrc/conv1d.cu | exp_conv_parts.py (9b's parts) |
+| vit_mha_headmajor, vit_mha_natural_grouped | csrc/vit_attn.cu | exp_vit_attn_kernel.py (make_headmajor, make_natural) |
+| moore_penrose_pinv_bwd_stash1, _stash2 | csrc/pinv.cu | exp_pinv_stash.py (make_variant) |
+
 The pinv's implicit gradient is two matrix products outside any kernel, as
 in the JAX package; ``grad="exact"`` runs its exact backward kernel.
 ``ln_qkv_fused`` is library-only, as in the JAX package: no model calls it.

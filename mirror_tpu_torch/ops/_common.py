@@ -44,6 +44,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point in csrc/ (all return cudaError_t as int)
 _SIGNATURES = {
     # q, k, q_l, k_l, attn2, bh, n, dh, m, l, pad, stream
@@ -78,13 +79,19 @@ _SIGNATURES = {
     # a, mu, rstd, ln_s, ln_b (LN prologue when mu is not null), b, bias,
     # resid, c, M, N, K, epilogue, stream
     "mirror_vit_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, k, v, out, b, n, heads, dh, ld_in, ld_out, scale, stream
-    "mirror_vit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, out, b, n, heads, dh, ld_in, ld_out, group, scale, stream
+    "mirror_vit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # v, kern, out, bh, heads, n, d, ksize, stream
     "mirror_conv1d": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # v, kern, g, dv, dkern (fp32), partial (scratch), bh, heads, n, d, ksize,
     # stream
     "mirror_conv1d_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # kern, g, dv, bh, heads, n, d, ksize, stream (the backward's dv alone)
+    "mirror_conv1d_bwd_dv": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # parts (fp32), nparts, count, out (fp32), stream
+    "mirror_column_sum": (_P, _I, _L, _P, _P),
+    # src, dst, b, h, n, d, gb, tile, stream
+    "mirror_copy_floor": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, ln_s, ln_b, w, q, k, v, stats (fp32 [2, b n]), b, n, d, heads, dh,
     # eps, stream
     "mirror_ln_qkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),

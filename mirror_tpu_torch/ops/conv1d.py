@@ -13,6 +13,8 @@ cast to v's dtype, dv takes v's dtype and dkern the taps' (fp32 taps with
 bf16 v, as ``bench.py --selftest`` passes them, get an fp32 gradient).
 """
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -20,6 +22,8 @@ from . import _common
 
 KERNEL = "conv1d"
 KERNEL_BWD = "conv1d_bwd"
+KERNEL_BWD_DV = "conv1d_bwd_dv"
+KERNEL_COLUMN_SUM = "column_sum"
 MAX_TAPS = 65
 MAX_DIM = 128
 
@@ -61,6 +65,43 @@ def _check(v, kern):
         raise ValueError(f"conv taps = {ksize}: the kernel takes odd K up to {MAX_TAPS}")
 
 
+def conv1d_fwd_into(v, taps, out) -> None:
+    """Launch the forward kernel into ``out`` (CUDA tensors, taps bf16)."""
+    _check(v, taps)
+    b, h, n, d = v.shape
+    _common.check_kernel_input("out", out, v.shape)
+    _common.launch("mirror_conv1d", v.data_ptr(), taps.data_ptr(), out.data_ptr(), b * h, h, n,
+                   d, taps.shape[1])
+    _common.count_launch(KERNEL)
+
+
+def conv1d_bwd_scratch(v: torch.Tensor, ksize: int) -> torch.Tensor:
+    """The fp32 scratch of the backward kernel's dkern partials, as its
+    tiling sizes it: [nparts, h K], the rows summed by the second pass."""
+    b, h, n, _ = v.shape
+    elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, ksize)
+    return torch.empty(elems // (h * ksize), h * ksize, dtype=torch.float32, device=v.device)
+
+
+def conv1d_bwd_into(v, taps, g, dv, dkern, partial) -> None:
+    """Launch the backward kernel (dv and the dkern partials, then their
+    column sum) into ``dv``, ``dkern`` (fp32 [h, K]) and ``partial``
+    (:func:`conv1d_bwd_scratch`)."""
+    _check(v, taps)
+    _common.check_kernel_input("g", g, v.shape)
+    _common.check_kernel_input("dv", dv, v.shape)
+    b, h, n, d = v.shape
+    ksize = taps.shape[1]
+    _common.check_kernel_input("dkern", dkern, (h, ksize), torch.float32)
+    elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, ksize)
+    if partial.numel() != elems:
+        raise ValueError(f"partial: {partial.numel()} elements, the kernel needs {elems}")
+    _common.check_kernel_input("partial", partial, partial.shape, torch.float32)
+    _common.launch("mirror_conv1d_bwd", v.data_ptr(), taps.data_ptr(), g.data_ptr(),
+                   dv.data_ptr(), dkern.data_ptr(), partial.data_ptr(), b * h, h, n, d, ksize)
+    _common.count_launch(KERNEL_BWD)
+
+
 class DepthwiseConv1dSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, kern):
@@ -68,13 +109,8 @@ class DepthwiseConv1dSeq(torch.autograd.Function):
         taps = kern.to(v.dtype)
         if not _common.on_cuda(v, kern):
             return depthwise_conv_seq_ref(v, taps).to(v.dtype)
-        taps = taps.contiguous()
-        _check(v, taps)
-        b, h, n, d = v.shape
         out = torch.empty_like(v)
-        _common.launch("mirror_conv1d", v.data_ptr(), taps.data_ptr(), out.data_ptr(), b * h,
-                       h, n, d, taps.shape[1])
-        _common.count_launch(KERNEL)
+        conv1d_fwd_into(v, taps.contiguous(), out)
         return out
 
     @staticmethod
@@ -85,19 +121,10 @@ class DepthwiseConv1dSeq(torch.autograd.Function):
         if not _common.on_cuda(v, kern, g):
             dv, dkern = depthwise_conv_seq_bwd_ref(v, taps, g)
             return dv.to(v.dtype), dkern.to(kern.dtype)
-        taps = taps.contiguous()
-        _check(v, taps)
-        _common.check_kernel_input("g", g, v.shape)
-        b, h, n, d = v.shape
-        ksize = taps.shape[1]
+        h, ksize = taps.shape
         dv = torch.empty_like(v)
         dkern = torch.empty(h, ksize, dtype=torch.float32, device=v.device)
-        elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, ksize)
-        partial = torch.empty(elems, dtype=torch.float32, device=v.device)
-        _common.launch("mirror_conv1d_bwd", v.data_ptr(), taps.data_ptr(), g.data_ptr(),
-                       dv.data_ptr(), dkern.data_ptr(), partial.data_ptr(), b * h, h, n, d,
-                       ksize)
-        _common.count_launch(KERNEL_BWD)
+        conv1d_bwd_into(v, taps.contiguous(), g, dv, dkern, conv1d_bwd_scratch(v, ksize))
         return dv, dkern.to(kern.dtype)
 
 
@@ -106,3 +133,49 @@ def depthwise_conv1d_seq(v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     sum_j kern[h, j] * v[..., i + j - K//2, :]. v [b, h, n, d]; kern [h, K]
     (K odd, any n >= 1). Differentiable in v and kern."""
     return DepthwiseConv1dSeq.apply(v, kern)
+
+
+def conv1d_bwd_dv_ref(g: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward's dv alone: the conv of g with the
+    flipped taps (rounded to g's dtype), in fp32, rounded once."""
+    return depthwise_conv_seq_ref(g, kern.to(g.dtype).flip(-1)).to(g.dtype)
+
+
+def conv1d_bwd_dv(g: torch.Tensor, kern: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dv of :func:`depthwise_conv1d_seq` alone, for g [b, h, n, d] and kern
+    [h, K], into ``out`` when given: on the card ``conv1d.cu``'s backward
+    without its dkern slide (the probe ``exp_conv_parts`` times the two
+    halves apart), bit for bit the fused kernel's dv. Not differentiable."""
+    taps = kern.to(g.dtype)
+    dv = torch.empty_like(g) if out is None else out
+    if not _common.on_cuda(g, kern, dv):
+        return dv.copy_(conv1d_bwd_dv_ref(g, taps))
+    taps = taps.contiguous()
+    _check(g, taps)
+    _common.check_kernel_input("out", dv, g.shape)
+    b, h, n, d = g.shape
+    _common.launch("mirror_conv1d_bwd_dv", taps.data_ptr(), g.data_ptr(), dv.data_ptr(), b * h,
+                   h, n, d, taps.shape[1])
+    _common.count_launch(KERNEL_BWD_DV)
+    return dv
+
+
+def column_sum_ref(parts: torch.Tensor) -> torch.Tensor:
+    return parts.float().sum(0)
+
+
+def column_sum(parts: torch.Tensor) -> torch.Tensor:
+    """The sum over the rows of fp32 ``parts`` [nparts, count], in a fixed
+    order on the card: the second pass of the conv's backward (and of
+    PPEG's, 10b's), which turns per-block partials into dkern."""
+    if not _common.on_cuda(parts):
+        return column_sum_ref(parts)
+    _common.check_kernel_input("parts", parts, parts.shape, torch.float32)
+    if parts.dim() != 2:
+        raise ValueError(f"parts {tuple(parts.shape)}: expected [nparts, count]")
+    out = torch.empty(parts.shape[1], dtype=torch.float32, device=parts.device)
+    _common.launch("mirror_column_sum", parts.data_ptr(), parts.shape[0], parts.shape[1],
+                   out.data_ptr())
+    _common.count_launch(KERNEL_COLUMN_SUM)
+    return out

@@ -109,26 +109,20 @@ def _pinv_kernel(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
     return zs[iters % 2]
 
 
-def pinv_exact_bwd_ref(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int = 6):
-    """Plain version of the exact backward (_bwd_kernel of the TPU
-    package, its rounding points): replay the forward stashing z_t, B_t =
-    x z_t, t3_t, A_t, then sweep back. Returns (gx in x's dtype, gs an fp32
-    scalar)."""
+def _step_ref(x, z, eye, xz=None):
+    """One iteration's (z, B = x z, t3, a), B recomputed unless given."""
+    xz = _dot(x, z) if xz is None else xz
+    t3 = 15.0 * eye - _dot(xz, 7.0 * eye - xz)
+    return z, xz, t3, 13.0 * eye - _dot(xz, t3)
+
+
+def _sweep_ref(x, s, g, z0, eye, steps):
+    """The reverse sweep over ``steps``, (z_t, B_t, t3_t, a_t) from the last
+    iteration back, then the finish: (gx in x's dtype, gs an fp32 scalar)."""
     dt = x.dtype
-    eye = torch.eye(x.shape[-1], dtype=dt, device=x.device)
-    z = (x.transpose(-1, -2).float() / s).to(dt)
-    z0 = z
-    stash = []
-    for _ in range(iters):
-        xz = _dot(x, z)
-        t1 = 7.0 * eye - xz
-        t3 = 15.0 * eye - _dot(xz, t1)
-        a = 13.0 * eye - _dot(xz, t3)
-        stash.append((z, xz, t3, a))
-        z = (0.25 * _dot(z, a)).to(dt)
     gz = g.to(dt)
     gx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for z, b_, t3, a in reversed(stash):
+    for z, b_, t3, a in steps:
         t1 = 7.0 * eye - b_
         gt4 = -(0.25 * _dot_tn(z, gz))
         gz_next = 0.25 * _dot_nt(gz, a)
@@ -143,29 +137,84 @@ def pinv_exact_bwd_ref(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters:
     return gx.to(dt), gs.sum()
 
 
-def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int):
+def _replay_ref(x, s, iters, eye):
+    """z0 and the replay's (z_t, B_t, t3_t, a_t) for each t."""
+    z0 = z = (x.transpose(-1, -2).float() / s).to(x.dtype)
+    steps = []
+    for _ in range(iters):
+        steps.append(_step_ref(x, z, eye))
+        z = (0.25 * _dot(z, steps[-1][3])).to(x.dtype)
+    return z0, steps
+
+
+def pinv_exact_bwd_ref(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int = 6):
+    """Plain version of the exact backward (_bwd_kernel of the TPU
+    package, its rounding points): replay the forward stashing z_t, B_t =
+    x z_t, t3_t, A_t, then sweep back. Returns (gx in x's dtype, gs an fp32
+    scalar)."""
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    z0, steps = _replay_ref(x, s, iters, eye)
+    return _sweep_ref(x, s, g, z0, eye, reversed(steps))
+
+
+def pinv_exact_bwd_stash_ref(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
+                             iters: int = 6, stash: int = 1):
+    """Plain version of the exact backward that keeps z_t (``stash`` 1) or
+    z_t and B_t = x z_t (``stash`` 2) from the replay and recomputes the
+    rest in the sweep, with the products and rounding points of
+    ``scripts/exp_pinv_stash.py::_bwd_kernel_stash``. The recomputed
+    products are the replay's, so the result is :func:`pinv_exact_bwd_ref`'s."""
+    if stash not in (1, 2):
+        raise ValueError(f"stash must be 1 (z) or 2 (z and x z), got {stash}")
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    z0, steps = _replay_ref(x, s, iters, eye)
+    kept = [(z, xz if stash == 2 else None) for z, xz, _, _ in steps]
+    return _sweep_ref(x, s, g, z0, eye, (_step_ref(x, z, eye, xz) for z, xz in reversed(kept)))
+
+
+def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int,
+                           stash: int = 4):
     """The replay and the reverse sweep on the card: 4 + 8 launches of the
     batched GEMM per iteration (the replay's last z product, which the sweep
-    never reads, skipped), the stash in device memory for the call."""
+    never reads, skipped). The replay stashes ``stash`` of (z_t, x z_t,
+    t3_t, a_t) per iteration in device memory for the call: all 4 (kernel
+    2b), or z_t (1) or z_t and x z_t (2), as the probe
+    ``scripts/exp_pinv_stash.py`` asks; the sweep then recomputes the rest
+    with the replay's launches (3 or 2 more GEMMs per iteration), so every
+    variant gives the same gradient."""
+    if stash not in (1, 2, 4):
+        raise ValueError(f"stash must be 1, 2 or 4, got {stash}")
     b, h, m, _ = x.shape
     _common.check_kernel_input("x", x, (b, h, m, m))
     _common.check_kernel_input("g", g, (b, h, m, m))
     bh = b * h
-    stash = x.new_empty(iters, 4, bh, m, m)  # (z_t, x z_t, t3_t, a_t) for each t
-    z0 = stash[0, 0] if iters else torch.empty_like(x)
-    _iterations_kernel(x, s, iters, lambda t: stash[t] if iters else (z0,), last_z=False)
+    kept = x.new_empty(iters, stash, bh, m, m)  # the first `stash` of (z, xz, t3, a) for each t
+    rest = [torch.empty_like(x) for _ in range(4 - stash)]  # the others, recomputed
+    z0 = kept[0, 0] if iters else torch.empty_like(x)
+
+    def slots(t):
+        return (*kept[t], *rest) if iters else (z0,)
+
+    _iterations_kernel(x, s, iters, slots, last_z=False)
 
     gz = g.clone()
     gz_next, gt4, gt2, gb = (torch.empty_like(x) for _ in range(4))
     gx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     t1 = torch.empty_like(x)
     for t in range(iters - 1, -1, -1):
-        z, xz, t3, a = stash[t]
+        z, xz, t3, a = slots(t)
+        if stash == 1:  # xz = x z and t1 = 7I - xz in one launch
+            _gemm(x, z, xz, t1, d0=7.0, d1=-1.0)
+        else:
+            _common.launch("mirror_pinv_eye_axpby", xz.data_ptr(), t1.data_ptr(), bh, m, 7.0,
+                           -1.0)
+        if stash < 4:
+            _gemm(xz, t1, t3, c0=15.0, c1=-1.0)
+            _gemm(xz, t3, a, c0=13.0, c1=-1.0)
         _gemm(z, gz, gt4, layout=_TN, c1=-0.25)  # gt4 = -gA = -0.25 z^T gz
         _gemm(gz, a, gz_next, layout=_NT, c1=0.25)  # gz' = 0.25 gz a^T
         _gemm(gt4, t3, gb, layout=_NT)  # gb = gt4 t3^T
         _gemm(xz, gt4, gt2, layout=_TN, c1=-1.0)  # gt2 = -B^T gt4
-        _common.launch("mirror_pinv_eye_axpby", xz.data_ptr(), t1.data_ptr(), bh, m, 7.0, -1.0)
         _gemm(gt2, t1, gb, prev=gb, layout=_NT, epilogue=_ADD)  # gb += gt2 t1^T
         _gemm(xz, gt2, gb, prev=gb, layout=_TN, epilogue=_ADD, c1=-1.0)  # gb -= B^T gt2
         _gemm(gb, z, acc=gx32, layout=_NT, epilogue=_ACC32)  # gx += gb z^T (fp32)
@@ -174,7 +223,7 @@ def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, it
     gs = torch.empty(bh, dtype=torch.float32, device=x.device)
     _common.launch("mirror_pinv_bwd_finish", gx32.data_ptr(), gz.data_ptr(), z0.data_ptr(),
                    s.data_ptr(), gx.data_ptr(), gs.data_ptr(), bh, m)
-    _common.count_launch(KERNEL_BWD)
+    _common.count_launch(KERNEL_BWD if stash == 4 else f"{KERNEL_BWD}_stash{stash}")
     return gx, gs.sum()
 
 
@@ -195,24 +244,40 @@ class PinvImplicit(torch.autograd.Function):
         return -torch.matmul(zt, torch.matmul(g.to(z.dtype), zt)), None
 
 
-class PinvExact(torch.autograd.Function):
-    """z = pinv(x) by the iterations from the scale s; the backward returns
-    dL/dx through the iterations and dL/ds (kernel 2b on the card)."""
+class PinvImplicitRef(PinvImplicit):
+    """:class:`PinvImplicit` over the plain iterations on any device."""
 
     @staticmethod
-    def forward(ctx, x, s, iters: int):
+    def forward(ctx, x, iters: int):
+        z = pinv_iterations_ref(x, global_scale(x.detach()), iters)
+        ctx.save_for_backward(z)
+        return z
+
+
+class PinvExact(torch.autograd.Function):
+    """z = pinv(x) by the iterations from the scale s; the backward returns
+    dL/dx through the iterations and dL/ds (kernel 2b on the card). With
+    ``stash`` 1 or 2 the backward keeps less of the replay and recomputes
+    the rest (the probe ``exp_pinv_stash``'s variants): the same gradient."""
+
+    @staticmethod
+    def forward(ctx, x, s, iters: int, stash: int = 4):
         z = _pinv_kernel(x, s, iters) if _common.on_cuda(x, s) else pinv_iterations_ref(x, s, iters)
         ctx.save_for_backward(x, s)
-        ctx.iters = iters
+        ctx.iters, ctx.stash = iters, stash
         return z
 
     @staticmethod
     def backward(ctx, g):
         x, s = ctx.saved_tensors
         g = _common.grad_or_zeros(g, x)
-        bwd = _pinv_exact_bwd_kernel if _common.on_cuda(x, s) else pinv_exact_bwd_ref
-        gx, gs = bwd(x, s, g, ctx.iters)
-        return gx, gs.to(s.dtype), None
+        if _common.on_cuda(x, s):
+            gx, gs = _pinv_exact_bwd_kernel(x, s, g, ctx.iters, ctx.stash)
+        elif ctx.stash == 4:
+            gx, gs = pinv_exact_bwd_ref(x, s, g, ctx.iters)
+        else:
+            gx, gs = pinv_exact_bwd_stash_ref(x, s, g, ctx.iters, ctx.stash)
+        return gx, gs.to(s.dtype), None, None
 
 
 def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, grad: str = "implicit") -> torch.Tensor:
@@ -223,3 +288,23 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, grad: str = "implicit") 
     if grad != "exact":
         raise ValueError(f"pinv grad must be 'exact' or 'implicit', got {grad!r}")
     return PinvExact.apply(x, global_scale(x), iters)
+
+
+def moore_penrose_pinv_stash(x: torch.Tensor, iters: int = 6, stash: int = 1) -> torch.Tensor:
+    """:func:`moore_penrose_pinv` with the exact gradient, its backward
+    keeping ``stash`` of the four replay products per iteration (4 is
+    ``grad="exact"``)."""
+    return PinvExact.apply(x, global_scale(x), iters, stash)
+
+
+def moore_penrose_pinv_ref(x: torch.Tensor, iters: int = 6, grad: str = "implicit") -> torch.Tensor:
+    """:func:`moore_penrose_pinv` by its plain version on any device, for a
+    caller that asks for the plain path by name (``use_pallas=False``), as
+    the JAX package's dense branch does (``models/nystrom.py:258-261``
+    there): ``implicit`` the same gradient as :class:`PinvImplicit`,
+    ``exact`` autograd through the iterations and the global scale."""
+    if grad == "implicit":
+        return PinvImplicitRef.apply(x, iters)
+    if grad != "exact":
+        raise ValueError(f"pinv grad must be 'exact' or 'implicit', got {grad!r}")
+    return pinv_iterations_ref(x, global_scale(x), iters)

@@ -6,7 +6,11 @@ argument order:
 - :func:`attn_block`: x + W_o MHA(LN(x) W_qkv + b_qkv) + b_o (K6);
 - :func:`mlp_block`: x + fc2(GELU_erf(fc1(LN(x)))) (K7);
 - :func:`mha_natural`: softmax(q k^T / sqrt(dh)) v on the natural [b, n, d]
-  layout, head h in columns [h dh, (h+1) dh) (K8).
+  layout, head h in columns [h dh, (h+1) dh) (K8);
+- :func:`mha_headmajor`: the same on head-major [b h, n, dh] pairs, with G
+  pairs a block, and :func:`mha_natural` with ``images`` whole images a
+  block: the layouts of the probe ``scripts/exp_vit_attn_kernel.py`` (K11c),
+  one kernel instance (``vit_attn.cu``) for all of them.
 
 On CUDA tensors they launch ``csrc/vit_gemm.cu`` (the projections, with the
 LN prologue and the bias, GELU and residual epilogues) and
@@ -23,6 +27,8 @@ shape with d (or 3d, or the MLP width) elements, as ``[1, d]`` or ``[d]``;
 ``bqkv`` is q|k|v concatenated.
 """
 
+from typing import Optional
+
 import torch
 
 from . import _common
@@ -30,6 +36,8 @@ from . import _common
 KERNEL_ATTN_BLOCK = "vit_attn_block"
 KERNEL_MLP_BLOCK = "vit_mlp_block"
 KERNEL_MHA = "vit_mha_natural"
+KERNEL_MHA_GROUPED = "vit_mha_natural_grouped"
+KERNEL_MHA_HEADMAJOR = "vit_mha_headmajor"
 MAX_TOKENS = 256  # vit_attn.cu keeps a score row in registers
 # the epilogues of mirror_vit_gemm
 _EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESIDUAL = 0, 1, 2
@@ -131,9 +139,27 @@ def _ln_stats(x, eps):
     return mu, rstd
 
 
-def mha_natural(q, k, v, heads: int):
+def mha_headmajor_ref(q, k, v):
+    """Plain version of :func:`mha_headmajor`, the rounding points of
+    :func:`mha_natural_ref`."""
+    sim = q.float() @ k.float().transpose(-1, -2)
+    attn = torch.softmax(sim * q.shape[-1] ** -0.5, dim=-1)
+    return (attn.to(q.dtype).float() @ v.float()).to(q.dtype)
+
+
+def _attention(q, k, v, images, heads, dh, ld, group, kernel):
+    out = torch.empty_like(q)
+    _common.launch("mirror_vit_attn", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   images, q.shape[1], heads, dh, ld, ld, group, dh ** -0.5)
+    _common.count_launch(kernel)
+    return out
+
+
+def mha_natural(q, k, v, heads: int, images: Optional[int] = None):
     """softmax(q k^T / sqrt(dh)) v over ``heads`` head slices of the last
-    dim of q, k, v [b, n, d]; the output in q's dtype."""
+    dim of q, k, v [b, n, d]; the output in q's dtype. On the card a block
+    owns one (image, head) pair (the model's path), or with ``images`` N
+    walks the heads of N whole images in turn."""
     _check_heads("mha_natural", q.shape[-1], heads)
     if not _common.on_cuda(q, k, v):
         return mha_natural_ref(q, k, v, heads)
@@ -143,11 +169,23 @@ def mha_natural(q, k, v, heads: int):
     _check_attention(n, d // heads)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _common.check_kernel_input(name, t, (b, n, d))
-    out = torch.empty_like(q)
-    _common.launch("mirror_vit_attn", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, n, heads, d // heads, d, d, (d // heads) ** -0.5)
-    _common.count_launch(KERNEL_MHA)
-    return out
+    if images is None:
+        return _attention(q, k, v, b, heads, d // heads, d, 1, KERNEL_MHA)
+    return _attention(q, k, v, b, heads, d // heads, d, images * heads, KERNEL_MHA_GROUPED)
+
+
+def mha_headmajor(q, k, v, group: int = 1):
+    """softmax(q k^T / sqrt(dh)) v for each of the b h pairs of head-major
+    q, k, v [b h, n, dh]; the output in q's dtype. On the card a block takes
+    ``group`` pairs in turn."""
+    if not _common.on_cuda(q, k, v):
+        return mha_headmajor_ref(q, k, v)
+    _refuse_grad("mha_headmajor", q, k, v)
+    z, n, dh = q.shape
+    _check_attention(n, dh)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _common.check_kernel_input(name, t, (z, n, dh))
+    return _attention(q, k, v, z, 1, dh, dh, group, KERNEL_MHA_HEADMAJOR)
 
 
 def attn_block(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads: int, eps: float = 1e-12):
@@ -172,7 +210,7 @@ def attn_block(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads: int, eps: float =
     att = torch.empty_like(x)
     elem = qkv.element_size()
     _common.launch("mirror_vit_attn", qkv.data_ptr(), qkv.data_ptr() + d * elem,
-                   qkv.data_ptr() + 2 * d * elem, att.data_ptr(), b, n, heads, dh, 3 * d, d,
+                   qkv.data_ptr() + 2 * d * elem, att.data_ptr(), b, n, heads, dh, 3 * d, d, 1,
                    dh ** -0.5)
     out = torch.empty_like(x)
     _gemm(att, wo, _vector("bo", bo, d), out, _EPI_BIAS_RESIDUAL, resid=x)

@@ -10,7 +10,9 @@ reference's registry functions. Config conveniences:
 
 The model is built on ``device`` (the card by default) without drawing any
 weights. With a ``generator`` it gets the reference's init drawn from it;
-without one its weights are left for ``load_state_dict``.
+without one its weights are left for ``load_state_dict``. On the card with
+``use_pallas`` (the default) it is refused first when a Nystrom attention
+of the configuration is beyond the kernels (:func:`check_kernel_config`).
 """
 
 import logging
@@ -21,6 +23,7 @@ import torch
 from torch import nn
 
 from .models import MIRROR, MIRRORClassifier
+from .models.nystrom import NystromAttention, kernel_refusal
 from .models.layers import (
     Dense,
     LayerScale,
@@ -49,10 +52,36 @@ def create_model(name: str, device="cuda", generator: Optional[torch.Generator] 
         raise ValueError(f"Unknown model '{name}'; available: {list_models()}")
     with torch.device("meta"):
         model = _REGISTRY[name](**kwargs)
+    if torch.device(device).type == "cuda":
+        _refuse_kernel_path(model)
     model = model.to_empty(device=device).eval()
     if generator is not None:
         init_weights(model, generator)
     return model
+
+
+def _refuse_kernel_path(model: nn.Module) -> None:
+    for mod in model.modules():
+        if isinstance(mod, NystromAttention) and mod.use_pallas:
+            why = kernel_refusal(mod.dim_head, mod.num_landmarks, mod.dtype)
+            if why:
+                raise ValueError(
+                    f"the Nystrom attention's CUDA kernels do not take {why}; run the plain "
+                    "path on the card with --no-use-pallas (use_pallas=False)")
+
+
+def check_kernel_config(name: str, device="cuda", **kwargs: Any) -> None:
+    """Raise ValueError, naming --no-use-pallas, when ``create_model(name,
+    device, **kwargs)`` would give the card's kernels what they do not take.
+    A pure function of the configuration: the model is built on the meta
+    device, nothing is allocated, and ``device`` may be a string."""
+    if name not in _REGISTRY:
+        raise ValueError(f"Unknown model '{name}'; available: {list_models()}")
+    if torch.device(device).type != "cuda":
+        return
+    with torch.device("meta"):
+        model = _REGISTRY[name](**kwargs)
+    _refuse_kernel_path(model)
 
 
 @torch.no_grad()
@@ -141,6 +170,7 @@ def mirror_classifier(**kwargs: Any) -> MIRRORClassifier:
         "rna_gene_embed", "rna_mlp_ratio", "rna_pos_drop_rate",
         "rna_proj_drop_rate", "rna_attn_drop_rate", "rna_drop_path_rate",
         "rna_norm_eps", "num_classes", "fusion", "pinv_grad", "wsi_dropout", "dtype",
+        "use_pallas",
     }
     return MIRRORClassifier(**_filter(_resolve_common(kwargs), accepted))
 
@@ -154,6 +184,6 @@ def mirror(**kwargs: Any) -> MIRROR:
         "rna_attn_drop_rate", "rna_drop_path_rate", "rna_norm_eps",
         "rna_retention_decoder_depth", "init_logit_scale", "style_mlp_hidden_dim",
         "style_mlp_out_dim", "style_latent_dim", "num_prototypes", "pinv_grad",
-        "wsi_dropout", "dtype",
+        "wsi_dropout", "dtype", "use_pallas",
     }
     return MIRROR(**_filter(_resolve_common(kwargs), accepted))

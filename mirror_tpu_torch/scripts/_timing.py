@@ -1,0 +1,170 @@
+"""What the probes and ``chip_smoke.py`` share: the device, the timing, the
+roofline bound, the bars and errors of a kernel against its plain version,
+and the JSON line.
+
+The TPU scripts chain R reps inside one ``jit`` (``lax.scan``) and divide
+the host time by R. Here a sample is a run of R back-to-back calls between
+two CUDA events, divided by R, and the time is the median of the samples.
+On the CPU nothing is timed: the plain versions run once each and their
+time is reported as not measured (null). ``chip_smoke.py`` imports the
+peaks, :func:`bound`, :func:`nbytes`, :func:`events_ms`, the bars and the
+errors from here, so that the probes' rows and its kernels line are read
+against one copy.
+"""
+
+import json
+import statistics
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from ..ops import _common
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): bf16
+# tensor cores dense, fp32 outside the tensor cores, HBM bandwidth. A
+# kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over the bandwidth and its operations over the peak
+# of their kind: the matrix products at the bf16 tensor-core rate, the
+# conv taps and the other fp32 arithmetic at the fp32 rate.
+PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+# Bounds on the relative Frobenius error of a kernel against its plain
+# version. Outputs rounded once to bf16 after an fp32 sum taken in another
+# order: a bf16 rounding is at most 2^-9 = 2e-3 relative, and the attention
+# also rounds its unnormalised probabilities before the product, so 1e-2
+# leaves 5x room.
+BOUND_SINGLE_ROUNDING = 1e-2
+# The backward kernels: each output is rounded once to bf16 (2^-9), but
+# dsim is rounded too before its products, and a probability that kernel
+# and plain version compute one fp32 ulp apart can round dsim to the next
+# bf16 value; dq and dk are sums of such terms with cancellation, so 2e-2.
+BOUND_BWD = 2e-2
+# The exact pinv backward (2b) against its plain version on the same bf16
+# inputs: gx (relative Frobenius) and gs (relative) within 5e-2. The replay
+# chains 4 x 6 bf16 products and the sweep 8 x 6 more; a one-ulp difference
+# of an fp32 sum taken in another order rounds a product to its bf16
+# neighbour and the unconverged iterations carry it on (the plain version in
+# bf16 sits 8.6e-3 from the fp32 backward at m 384 on the CPU). Held by
+# function too: gx at cosine >= 0.999 of the fp32 autograd of the plain
+# iterations (the bf16 plain version reads 0.99995 there).
+BOUND_PINV_BWD, BOUND_PINV_BWD_COS = 5e-2, 0.999
+# Sums over a whole batch (dkern of the conv; gw, gs and gb of the LN +
+# q/k/v projection), held beside the relative Frobenius error by their max
+# abs error against the plain version's largest magnitude: 1e-2 where the
+# kernel rounds the sum to bf16 (gw, dkern for bf16 taps), 1e-4 where it
+# stays fp32 (the same bf16 products summed in another order).
+BOUND_SUM_BF16, BOUND_SUM_FP32 = 1e-2, 1e-4
+
+
+def device_from_arg(name: str) -> torch.device:
+    """``cuda`` runs the kernels and needs a card (no CPU fallback); ``cpu``
+    runs the plain versions."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA card is available; the kernels have no "
+                           "CPU mode (pass --device cpu for the plain versions)")
+    if device.type == "cuda":
+        # the plain versions are fp32 references: no TF32 in their products
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def randn(device: torch.device, *shape, scale: float = 1.0, dtype=torch.bfloat16, seed: int = 0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(*shape, generator=g, device=device) * scale).to(dtype)
+
+
+def events_ms(fn: Callable, runs: int = 1) -> float:
+    """ms of the card's time per call over ``runs`` back-to-back calls of
+    ``fn``, from before the first to after the last (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def median_ms(fn: Callable, device: torch.device, runs: int, reps: int = 5,
+              warmup: int = 2) -> Optional[float]:
+    """Median over ``reps`` samples of the ms per call of ``runs``
+    back-to-back calls between two CUDA events; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return statistics.median(events_ms(fn, runs) for _ in range(reps))
+
+
+def bound(n_bytes: float, mma_flops: float = 0.0, fp32_flops: float = 0.0):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the bandwidth and the operations over their peak."""
+    ops = max(mma_flops / PEAK_BF16_FLOPS, fp32_flops / PEAK_FP32_FLOPS)
+    if n_bytes / PEAK_BYTES >= ops:
+        return n_bytes / PEAK_BYTES * 1e3, "bytes"
+    return ops * 1e3, "operations"
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Relative Frobenius error of ``out`` against ``ref``."""
+    d = out.float() - ref.float()
+    return (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
+
+
+def sum_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max abs error of a batch sum against the plain version's largest
+    magnitude."""
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def sum_bound(out: torch.Tensor) -> float:
+    """The bar of :func:`sum_err`: the kernel rounds the sum to bf16, or
+    keeps it fp32."""
+    return BOUND_SUM_BF16 if out.dtype == torch.bfloat16 else BOUND_SUM_FP32
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float().ravel(), b.float().ravel()
+    return (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+
+
+class Launches:
+    """The kernels a piece of work launched, read from the ops' counters
+    without resetting them (the caller may be counting too)."""
+
+    def __enter__(self):
+        self._before = _common.launch_counts()
+        self.counts: Dict[str, int] = {}
+        return self
+
+    def __exit__(self, *exc):
+        after = _common.launch_counts()
+        self.counts = {k: v - self._before.get(k, 0) for k, v in after.items()
+                       if v != self._before.get(k, 0)}
+        return False
+
+
+def fmt(value: Optional[float], spec: str = ".4f") -> str:
+    return "not measured" if value is None else format(value, spec)
+
+
+def emit(probe: str, device: torch.device, shape: dict, variants: Sequence[dict],
+         **extra) -> dict:
+    """Print the probe's JSON line (its last line) and return it."""
+    line = dict(probe=probe, device=device_name(device), shape=shape, variants=list(variants),
+                **extra)
+    print(json.dumps(line), flush=True)
+    return line

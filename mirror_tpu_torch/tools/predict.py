@@ -20,6 +20,7 @@ same numpy generator as the JAX tool, so the two CSVs agree row for row.
 import argparse
 import logging
 import os
+from typing import Optional
 
 import numpy as np
 import pandas as pd
@@ -33,7 +34,7 @@ from mirror_tpu_torch.train.steps import survival_risk
 _logger = logging.getLogger("predict")
 
 
-def _rebuild_model(payload, rna_dim, task, device):
+def _rebuild_model(payload, rna_dim, task, device, use_pallas=None):
     run_args = _run_args(payload)
     model_name = payload.get("arch") or run_args.get("model", "mirror_classifier")
     mk = dict(run_args.get("model_kwargs") or {})
@@ -52,6 +53,11 @@ def _rebuild_model(payload, rna_dim, task, device):
         mk.setdefault("dtype", run_args.get("amp_dtype", "bfloat16"))
     if run_args.get("wsi_feature_only"):
         mk.setdefault("fusion", "add")
+    # the flag, where given, over the training run's choice; else the run's,
+    # and the kernels on a checkpoint that does not say
+    if use_pallas is not None:
+        mk["use_pallas"] = use_pallas
+    mk.setdefault("use_pallas", True)
     model = create_model(model_name, device=device, **mk)
     num_tokens = int(run_args.get("num_wsi_feature_tokens", 2048))
     wsi_only = bool(run_args.get("wsi_feature_only", False))
@@ -88,9 +94,13 @@ def predict(
     seed: int = 42,
     whole_slide: bool = False,
     device: str = "cuda",
+    use_pallas: Optional[bool] = None,
 ) -> list:
     """Score every slide under ``wsi_feature_dir`` on ``device`` and write
-    the CSV. Returns the rows."""
+    the CSV. Returns the rows. On the card the kernels run unless
+    ``use_pallas`` is False, or is None and the checkpoint was trained with
+    them off; a checkpoint beyond them (``amp: false``, a head dim above
+    128) is refused before any slide is read."""
     if whole_slide:
         raise SystemExit(
             "--whole-slide needs the context-parallel encoder, which the "
@@ -115,7 +125,7 @@ def predict(
         rna_df = rna_df.loc[~rna_df.index.duplicated(keep="first")]
         rna_dim = rna_df.shape[1]
 
-    model, num_tokens, wsi_only = _rebuild_model(payload, rna_dim, task, device)
+    model, num_tokens, wsi_only = _rebuild_model(payload, rna_dim, task, device, use_pallas)
     model.load_state_dict(state_dict)
     if rna_df is None and not wsi_only:
         raise SystemExit(
@@ -177,10 +187,17 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device; the kernels run on cuda, cpu runs "
                    "their plain versions")
+    p.add_argument("--use-pallas", action="store_true", default=None,
+                   help="the CUDA kernels on a CUDA device (the default, unless the "
+                   "checkpoint was trained with --no-use-pallas)")
+    p.add_argument("--no-use-pallas", action="store_false", dest="use_pallas",
+                   help="the plain path on any device (the default for a checkpoint "
+                   "trained with it)")
     a = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     predict(a.checkpoint, a.task, a.wsi_feature_dir, a.output, a.rna_feature_csv,
-            a.batch_size, a.use_ema, a.seed, whole_slide=a.whole_slide, device=a.device)
+            a.batch_size, a.use_ema, a.seed, whole_slide=a.whole_slide, device=a.device,
+            use_pallas=a.use_pallas)
 
 
 if __name__ == "__main__":

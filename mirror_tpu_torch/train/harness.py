@@ -4,7 +4,8 @@ The port's counterpart of ``mirror_tpu/train/harness.py``, for one process
 on one device: the device check, the run directory with ``args.yaml``, the
 epoch loop with its log lines, ``summary.csv``, the reference's ``.pth.tar``
 saves (``last`` every epoch, ``model_best`` when the eval metric improves,
-in the metric's direction: decreasing only for ``loss``), the downstream
+in the metric's direction: decreasing only for ``loss``, and the best
+``--checkpoint-hist`` epochs as ``checkpoint-<epoch>``), the downstream
 evaluation gather, and the ``--result`` JSON on stdout.
 """
 
@@ -15,7 +16,7 @@ import math
 import os
 import time
 from datetime import datetime
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +112,39 @@ def gather_eval_outputs(eval_step: Callable, dataset, batch_size: int, args, epo
             {k: np.concatenate(v) for k, v in extras.items()})
 
 
+class CheckpointHistory:
+    """The best-k rule of the JAX package's ``CheckpointSaver.save_checkpoint``
+    (``mirror_tpu/train/checkpoint.py:241-279``): a ranked epoch enters a
+    list of ``checkpoint-<epoch>.pth.tar`` files sorted best first by its
+    metric (a stable sort: of equal metrics the earlier epoch ranks first),
+    the list is cut to ``max_history`` by dropping the worst, whose file is
+    removed, and a file that falls out of the window on entry is never
+    written. An unranked epoch (metric None) writes only ``last``."""
+
+    def __init__(self, out_dir: str, max_history: int, decreasing: bool):
+        self.out_dir, self.decreasing = out_dir, decreasing
+        self.max_history = max(max_history, 1)
+        self.files: List[Tuple[str, float]] = []
+
+    def paths(self, epoch: int, metric: Optional[float]) -> List[str]:
+        """The files to write for this epoch (after removing those that
+        fell out of the window)."""
+        last = os.path.join(self.out_dir, "last.pth.tar")
+        if metric is None:
+            return [last]
+        path = os.path.join(self.out_dir, f"checkpoint-{epoch}.pth.tar")
+        writes = [path, last]
+        self.files.append((path, metric))
+        self.files.sort(key=lambda t: t[1], reverse=not self.decreasing)
+        while len(self.files) > self.max_history:
+            dropped, _ = self.files.pop()
+            if dropped == path:
+                writes.remove(path)
+            elif os.path.exists(dropped):
+                os.remove(dropped)
+        return writes
+
+
 def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
         out_dir: Optional[str], decreasing: bool) -> Dict:
     """The epoch loop: train, evaluate (``eval_fn(epoch)``), summary,
@@ -118,6 +152,7 @@ def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
     (a c-index over an all-censored split) is logged and not ranked."""
     saved_args = {k: v for k, v in vars(args).items() if k != "defaults"}
     best_metric, best_epoch = None, None
+    history = CheckpointHistory(out_dir, args.checkpoint_hist, decreasing) if out_dir else None
     for epoch in range(args.epochs):
         t0 = time.time()
         train_metrics = train_one_epoch(args, epoch, train_step, loader, device)
@@ -134,8 +169,9 @@ def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
         if out_dir:
             update_summary(os.path.join(out_dir, "summary.csv"), epoch, train_metrics,
                            eval_metrics)
-            save_checkpoint_file(os.path.join(out_dir, "last.pth.tar"), model.state_dict(),
-                                 saved_args, arch=args.model, epoch=epoch, metric=metric)
+            for path in history.paths(epoch, metric):
+                save_checkpoint_file(path, model.state_dict(), saved_args, arch=args.model,
+                                     epoch=epoch, metric=metric)
         if metric is not None and (best_metric is None or (
                 metric < best_metric if decreasing else metric > best_metric)):
             best_metric, best_epoch = metric, epoch

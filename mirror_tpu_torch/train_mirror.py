@@ -10,11 +10,13 @@ reference's CLI), with its flags and YAML:
         --output runs/
 
 It trains on the card (``--device cuda``, the default) through the port's
-kernels, forward and backward; ``--device cpu`` runs their plain versions.
+kernels, forward and backward; ``--device cpu`` or ``--no-use-pallas`` runs
+their plain versions. A configuration beyond the kernels (``--no-amp``, a
+head dim above 128) is refused at start unless ``--no-use-pallas``.
 Per epoch: one log line per ``--log-interval`` steps with the six loss terms
 and the grad / param norms, an optional validation pass, ``summary.csv``,
-and the reference's ``.pth.tar`` checkpoints (``last`` and
-``model_best``). At the end the ``--result`` JSON goes to stdout. Flags of
+and the reference's ``.pth.tar`` checkpoints (``last``, ``model_best`` and
+the best ``--checkpoint-hist`` ``checkpoint-<epoch>``). At the end the ``--result`` JSON goes to stdout. Flags of
 the JAX entry point that the port does not implement are refused at start
 when set away from their defaults (``config.refuse_unported``).
 """
@@ -24,11 +26,16 @@ from typing import Dict
 
 import torch
 
-from mirror_tpu_torch.config import parse_args, refuse_unported, resolve_lr
+from mirror_tpu_torch.config import (
+    model_kwargs_from_args,
+    parse_args,
+    refuse_unported,
+    resolve_lr,
+)
 from mirror_tpu_torch.data.datasets import PretrainDataset
 from mirror_tpu_torch.data.loader import Loader
 from mirror_tpu_torch.losses import MirrorLossWeights
-from mirror_tpu_torch.registry import create_model
+from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.optim import make_optimizer
 from mirror_tpu_torch.train.steps import make_mirror_train_step, mirror_eval_losses
@@ -68,6 +75,7 @@ def main(argv=None) -> Dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     refuse_unported(args)
     device = harness.device_from_arg(args.device)
+    check_kernel_config(args.model, device, **model_kwargs_from_args(args))
     torch.manual_seed(args.seed)
 
     dataset = PretrainDataset(args.wsi_feature_dir, args.rna_feature_csv,
@@ -75,12 +83,9 @@ def main(argv=None) -> Dict:
                               splits=args.split_dir, k=args.k, cache=args.cache)
     dataset.update_fold_nb(args.fold_nb)
 
-    model_kwargs = dict(args.model_kwargs or {})
+    model_kwargs = model_kwargs_from_args(args)
     model_kwargs["rna_embed_dim"] = dataset.rna_dim
     model_kwargs.setdefault("wsi_num_tokens", args.num_wsi_feature_tokens)
-    if args.amp:
-        model_kwargs.setdefault("dtype", args.amp_dtype)
-    model_kwargs.setdefault("pinv_grad", args.pinv_grad)
     args.model_kwargs = model_kwargs  # the checkpoint's args rebuild this model
     model = create_model(args.model, device=device,
                          generator=torch.Generator().manual_seed(args.seed), **model_kwargs)

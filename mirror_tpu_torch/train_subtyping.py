@@ -27,10 +27,15 @@ from typing import Dict
 
 import torch
 
-from mirror_tpu_torch.config import parse_args, refuse_unported, resolve_lr
+from mirror_tpu_torch.config import (
+    model_kwargs_from_args,
+    parse_args,
+    refuse_unported,
+    resolve_lr,
+)
 from mirror_tpu_torch.data.datasets import SubtypingDataset
 from mirror_tpu_torch.data.loader import Loader
-from mirror_tpu_torch.registry import create_model
+from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
 from mirror_tpu_torch.train.metrics import accuracy, multiclass_auroc, multiclass_f1
@@ -62,6 +67,7 @@ def setup(args) -> torch.device:
         args.model = "mirror_classifier"
     refuse_unported(args)
     device = harness.device_from_arg(args.device)
+    check_kernel_config(args.model, device, **model_kwargs_from_args(args))
     torch.manual_seed(args.seed)
     return device
 
@@ -69,12 +75,9 @@ def setup(args) -> torch.device:
 def build_classifier(args, dataset, num_classes: int, device) -> torch.nn.Module:
     """The classifier at the run's width, its init drawn from the seed, then
     the warm start, then the linear probe's or ``--init-head``'s head."""
-    model_kwargs = dict(args.model_kwargs or {})
+    model_kwargs = model_kwargs_from_args(args)
     model_kwargs["num_classes"] = num_classes
     model_kwargs["rna_embed_dim"] = dataset.rna_dim
-    if args.amp:
-        model_kwargs.setdefault("dtype", args.amp_dtype)
-    model_kwargs.setdefault("pinv_grad", args.pinv_grad)
     if args.wsi_feature_only:
         model_kwargs.setdefault("fusion", "add")
     args.model_kwargs = model_kwargs  # the checkpoint's args rebuild this model

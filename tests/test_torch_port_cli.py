@@ -111,7 +111,7 @@ def test_train_mirror_trains_on_the_cpu_and_its_checkpoint_reloads(cohort, capsy
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--checkpoint-hist", "3"],
+    ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--start-epoch", "3"],
     ["--log-wandb"], ["--grad-accum-steps", "2"], ["--model-parallel", "2"],
     ["--distributed"], ["--opt", "sgd"], ["--use-sched"], ["--clip-grad", "1.0"],
     ["--layer-decay", "0.7"], ["--model-ema"],
@@ -159,3 +159,92 @@ def test_train_mirror_imports_with_jax_blocked():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--no-amp"], "compute dtype torch.float32"),
+    (["--model-kwargs", "embed_dim=1536"], "head dim 192"),
+])
+def test_train_mirror_refuses_what_the_kernels_do_not_take(cohort, monkeypatch, flags, why):
+    """On the card (the device check passed), a configuration beyond the
+    kernels stops at start, before the cohort is read, naming
+    --no-use-pallas."""
+    from mirror_tpu_torch.train import harness
+
+    monkeypatch.setattr(harness, "device_from_arg", lambda name: torch.device("cuda"))
+    argv = ["--config", TEMPLATE, "--wsi-feature-dir", str(cohort / "missing"), *flags]
+    with pytest.raises(ValueError, match="--no-use-pallas") as err:
+        train_mirror.main(argv)
+    assert why in str(err.value)
+
+
+def test_predict_refuses_a_float32_checkpoint_on_the_card(tmp_path):
+    """A checkpoint whose args say amp: false is refused by predict on the
+    card before any slide is read; --no-use-pallas is the way through."""
+    from mirror_tpu_torch.tools.predict import predict
+    from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
+
+    path = str(tmp_path / "fp32.pth.tar")
+    save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier",
+                                    "model_kwargs": {"wsi_embed_dim": 768}})
+    with pytest.raises(ValueError, match="--no-use-pallas"):
+        predict(path, "subtyping", str(tmp_path / "none"), str(tmp_path / "out.csv"),
+                device="cuda")
+
+
+def test_predict_keeps_the_checkpoints_use_pallas(tmp_path, monkeypatch):
+    """A checkpoint trained with --no-use-pallas --no-amp keeps the plain
+    path by default (as the JAX tool's setdefault does); --use-pallas, given,
+    overrides it and is refused for the float32 checkpoint. The card's
+    refusal is checked as create_model makes it; the model is built on the
+    CPU."""
+    from mirror_tpu_torch import registry
+    from mirror_tpu_torch.tools import predict as predict_mod
+    from mirror_tpu_torch.tools.predict import _rebuild_model
+    from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
+
+    def create_on_cpu(name, device="cuda", **kwargs):
+        registry.check_kernel_config(name, device, **kwargs)
+        return registry.create_model(name, device="cpu", **kwargs)
+    monkeypatch.setattr(predict_mod, "create_model", create_on_cpu)
+
+    path = str(tmp_path / "plain.pth.tar")
+    save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier", "model_kwargs": {
+        "wsi_embed_dim": 48, "rna_embed_dim": 16, "embed_dim": 48, "rna_encoder_depth": 1,
+        "use_pallas": False}})
+    payload = load_checkpoint_file(path)
+    model, _, _ = _rebuild_model(payload, None, "subtyping", "cuda")
+    assert model.wsi_encoder.layer1.attn.use_pallas is False
+    with pytest.raises(ValueError, match="--no-use-pallas"):
+        _rebuild_model(payload, None, "subtyping", "cuda", use_pallas=True)
+
+
+def test_train_mirror_no_use_pallas_runs_the_plain_path(cohort, monkeypatch):
+    """--no-use-pallas reaches the model (and its saved args), and the run
+    calls no kernel wrapper of the Nystrom attention or PPEG."""
+    from mirror_tpu_torch.models import nystrom, transmil
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel wrapper was called on the plain path")
+    for mod, attr in ((nystrom, "moore_penrose_pinv"), (transmil, "ppeg_fused")):
+        monkeypatch.setattr(mod, attr, refuse)
+    results = train_mirror.main(_argv(cohort, "--device", "cpu", "--no-use-pallas",
+                                      "--pinv-grad", "exact", "--experiment", "tiny_plain"))
+    assert np.isfinite(results["best_metric"])
+    payload = load_checkpoint_file(str(cohort / "runs" / "pretrain" / "tiny_plain"
+                                       / "last.pth.tar"))
+    assert run_args(payload)["model_kwargs"]["use_pallas"] is False
+
+
+def test_train_mirror_keeps_the_best_checkpoints(cohort):
+    """--checkpoint-hist 2 over 4 epochs: checkpoint-<epoch> for the two
+    lowest eval losses (the JAX saver's rule), beside last and model_best."""
+    train_mirror.main(_argv(cohort, "--device", "cpu", "--epochs", "4", "--checkpoint-hist",
+                            "2", "--experiment", "tiny_hist"))
+    run_dir = cohort / "runs" / "pretrain" / "tiny_hist"
+    losses = pd.read_csv(run_dir / "summary.csv")["eval_loss"].tolist()
+    best = sorted(range(4), key=lambda e: losses[e])[:2]
+    names = sorted(p.name for p in run_dir.glob("*.pth.tar"))
+    assert names == sorted([f"checkpoint-{e}.pth.tar" for e in best]
+                           + ["last.pth.tar", "model_best.pth.tar"])
+    assert load_checkpoint_file(str(run_dir / "model_best.pth.tar"))["epoch"] == best[0]

@@ -565,3 +565,100 @@ def test_conv1d_and_ln_qkv_refuse_bad_inputs(dev):
         ln_qkv_fused(y.float(), s, lb, y.new_zeros(64, 96).float(), 2)
     with pytest.raises(ValueError):  # dh 12
         ln_qkv_fused(y, s, lb, y.new_zeros(64, 72), 2)
+
+
+# --- the kernels of the TPU probes (mirror_tpu_torch/scripts) ---
+
+
+# (b, h, n, d, gb, tile): gb 8 / 4 / 1 / the whole batch, gb not dividing b,
+# n not a multiple of the 384-row tile, d 96 and 128
+@pytest.mark.parametrize("b,h,n,d,gb,tile", [(5, 3, 777, 96, 2, None), (3, 2, 100, 128, 8, None),
+                                             (4, 8, 2304, 96, 4, None), (7, 2, 770, 96, 1, 384),
+                                             (9, 3, 1000, 128, 8, 384), (6, 2, 50, 96, 6, None)])
+def test_copy_floor_kernel_bit_exact(dev, b, h, n, d, gb, tile):
+    from mirror_tpu_torch.ops.copy_floor import copy_floor
+
+    g = torch.Generator().manual_seed(30)
+    x = _randn(g, b, h, n, d, dev=dev)
+    _common.reset_launch_counts()
+    out = copy_floor(x, gb, tile)
+    torch.cuda.synchronize()
+    assert _common.launch_counts() == {"copy_floor": 1}
+    assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("b,h,n,d,ksize", [(2, 3, 140, 32, 33), (8, 8, 2304, 96, 33),
+                                           (2, 2, 300, 8, 7), (1, 2, 10, 16, 33)])
+def test_conv1d_bwd_dv_only_and_column_sum(dev, b, h, n, d, ksize):
+    """dv alone is the fused backward's dv bit for bit; the column sum
+    alone, on the fused pass's partials, is its dkern bit for bit."""
+    from mirror_tpu_torch.ops import conv1d
+
+    g = torch.Generator().manual_seed(31)
+    v, gr = _randn(g, b, h, n, d, dev=dev), _randn(g, b, h, n, d, dev=dev)
+    taps = _randn(g, h, ksize, dev=dev, scale=0.1)
+    dv, dkern = torch.empty_like(v), torch.empty(h, ksize, device=dev)
+    partial = conv1d.conv1d_bwd_scratch(v, ksize)
+    conv1d.conv1d_bwd_into(v, taps, gr, dv, dkern, partial)
+    _common.reset_launch_counts()
+    dv_only = conv1d.conv1d_bwd_dv(gr, taps)
+    col = conv1d.column_sum(partial)
+    torch.cuda.synchronize()
+    assert _common.launch_counts() == {"conv1d_bwd_dv": 1, "column_sum": 1}
+    assert torch.equal(dv_only, dv)
+    assert torch.equal(col, dkern.reshape(-1))
+    _assert_rel(dv_only, conv1d.conv1d_bwd_dv_ref(gr, taps), BOUND_BWD)
+
+
+# (b, n, heads, dh, group): G pairs a block dividing b h or not, at Phikon's
+# n and at small odd n
+@pytest.mark.parametrize("b,n,heads,dh,group", [(2, 197, 12, 64, 8), (3, 37, 4, 32, 5),
+                                                (1, 197, 12, 64, 32), (2, 29, 4, 64, 1)])
+def test_vit_mha_headmajor_kernel(dev, b, n, heads, dh, group):
+    from mirror_tpu_torch.ops.vit_attn import mha_headmajor, mha_headmajor_ref
+
+    g = torch.Generator().manual_seed(32)
+    q, k, v = (_randn(g, b * heads, n, dh, dev=dev) for _ in range(3))
+    _common.reset_launch_counts()
+    out = mha_headmajor(q, k, v, group)
+    assert _common.launch_counts() == {"vit_mha_headmajor": 1}
+    _assert_rel(out, mha_headmajor_ref(q, k, v), BOUND_VIT)
+
+
+@pytest.mark.parametrize("images", [1, 2, 3, 8])
+def test_vit_mha_natural_images_per_block(dev, images):
+    """N whole images a block against the plain version, and bit for bit
+    kernel 8's one (image, head) pair a block (the same arithmetic per
+    pair)."""
+    from mirror_tpu_torch.ops.vit_attn import mha_natural, mha_natural_ref
+
+    g = torch.Generator().manual_seed(33)
+    b, n, heads, dh = 5, 197, 12, 64
+    q, k, v = (_randn(g, b, n, heads * dh, dev=dev) for _ in range(3))
+    _common.reset_launch_counts()
+    one = mha_natural(q, k, v, heads)
+    assert _common.launch_counts() == {"vit_mha_natural": 1}
+    _common.reset_launch_counts()
+    out = mha_natural(q, k, v, heads, images)
+    assert _common.launch_counts() == {"vit_mha_natural_grouped": 1}
+    _assert_rel(out, mha_natural_ref(q, k, v, heads), BOUND_VIT)
+    assert torch.equal(out, one)
+
+
+@pytest.mark.parametrize("stash", [1, 2])
+def test_pinv_exact_bwd_stash_variants(dev, stash):
+    """The backward that keeps z (and x z) and recomputes the rest with the
+    replay's own launches: kernel 2b's gradient, within 2b's bars against
+    its plain version, and bit for bit against 2b itself."""
+    g = torch.Generator().manual_seed(34)
+    x = torch.softmax(torch.randn(2, 2, 384, 384, generator=g), -1).to(dev, torch.bfloat16)
+    gz = _randn(g, 2, 2, 384, 384, dev=dev)
+    s = global_scale(x)
+    full = _pinv_exact_bwd_kernel(x, s, gz, 6)
+    _common.reset_launch_counts()
+    gx, gs = _pinv_exact_bwd_kernel(x, s, gz, 6, stash)
+    assert _common.launch_counts() == {f"moore_penrose_pinv_bwd_stash{stash}": 1}
+    gx_ref, gs_ref = pinv_exact_bwd_ref(x, s, gz, 6)
+    _assert_rel(gx, gx_ref, bound=BOUND_PINV_BWD, name="gx")
+    assert abs(gs.item() - gs_ref.item()) <= BOUND_PINV_BWD * abs(gs_ref.item())
+    assert torch.equal(gx, full[0]) and torch.equal(gs, full[1])

@@ -597,7 +597,7 @@ def test_gen_few_shot_files_writes_the_jax_tools_files(cohort, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume", "x.pth.tar"], ["--checkpoint-hist", "3"], ["--grad-accum-steps", "2"],
+    ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--grad-accum-steps", "2"],
     ["--use-sched"], ["--model-ema"], ["--loss", "focal"], ["--model", "mirror_clip"],
 ])
 @pytest.mark.parametrize("task", ["subtyping", "survival"])
