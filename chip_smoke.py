@@ -21,8 +21,9 @@ Phases, each printed as it finishes:
    256 landmarks, n 2117, pad 187; PPEG on [8, 46, 46, 512]), bf16: max
    abs error, relative Frobenius error, the bound, the median time of
    kernel, plain version and (where one PyTorch call computes the same
-   function, or two for the LN + q/k/v projection) that call, each also
-   as single calls between two events;
+   function, or two for the LN + q/k/v projection, or the few the probe's
+   ``library_*`` variants make for the fused ViT sub-layers) that call,
+   each also as single calls between two events;
 3b. backward kernels: each against its plain version fed the same inputs
    and incoming gradient, at the train slice's shapes (the encoder's 2117
    rows with pad 187 and the retention decoder's 2049 rows with pad 255;
@@ -85,14 +86,16 @@ Phases, each printed as it finishes:
    ``main`` at its script's default shapes (the copy floor on [64, 8, 2304,
    96] and d 128, the conv's passes at [64, 8, 2304, 96] K 33, the LN +
    q/k/v projection at [64, 2117, 768], the exact pinv backward's stash
-   variants at [64, 8, 384, 384], the ViT attention layouts at [512, 197,
-   768]) with fewer reps, its rows and JSON line printed, launch counts
-   read around the five, and the new kernels' results held again: every
-   copy bit for bit, the conv's dv alone bit for bit the fused dv, the
-   attention layouts within 1e-2 of the plain version, the stash variants
-   within 2b's bars of the full stash. Phases 3 and 3b also hold and time
-   each new kernel at these shapes, and give kernels 2 and 2b a library
-   time: their products as batched bf16 cuBLAS calls.
+   variants at [64, 8, 384, 384], the ViT attention layouts and the fused
+   ViT sub-layers k5, k7, k8 and k9 at [512, 197, 768]) with fewer reps,
+   its rows and JSON line printed, launch counts read around the six, and
+   the new kernels' results held again: every copy bit for bit, the conv's
+   dv alone bit for bit the fused dv, the attention layouts and the fused
+   sub-layers (k8 and k9 also on out - x) within 1e-2 of the plain
+   version, the stash variants within 2b's bars of the full stash. Phases
+   3 and 3b also hold and time each new kernel at these shapes, and give
+   kernels 2 and 2b a library time: their products as batched bf16 cuBLAS
+   calls.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -518,6 +521,20 @@ def ln_qkv_case(torch, randn, backward: bool):
         check=sum_check(torch, "ln_qkv_bwd", ("gx", "gs", "gb", "gw"), (1, 2, 3)))
 
 
+def added_term(name, x):
+    """A check that holds what a half-block adds to x, out - x, against the
+    plain version's: x passes through unchanged and dominates the output
+    (~8x the added term at phase 3's ViT scales, ~50x at the fused probe's),
+    so the whole output alone would dilute a fault there."""
+    def check(out, ref):
+        xf = x.float()
+        rel = rel_err(out.float() - xf, ref.float() - xf)
+        say(f"[kernel] {name}: out - x rel Frobenius err {rel:.4g} "
+            f"(bound {BOUND_SINGLE_ROUNDING:g})")
+        return rel <= BOUND_SINGLE_ROUNDING
+    return check
+
+
 def vit_cases(torch, randn):
     """The ViT half-block kernels at Phikon's shapes: x [256, 197, 768] bf16,
     weights bf16 [in, out], LN and biases fp32, eps 1e-12."""
@@ -542,19 +559,6 @@ def vit_cases(torch, randn):
     def by_head(t):  # the [b, h, n, dh] view SDPA takes
         return t.view(b, n, h, dh).transpose(1, 2)
 
-    def added_term(name):
-        """Holds what a half-block adds to x, out - x, against the plain
-        version's: x passes through unchanged and is ~8x the added term at
-        these scales, so the whole output alone would dilute a fault there."""
-        def check(out, ref):
-            xf = x.float()
-            got, want = out.float() - xf, ref.float() - xf
-            rel = ((got - want).norm() / want.norm()).item()
-            say(f"[kernel] {name}: out - x rel Frobenius err {rel:.4g} "
-                f"(bound {BOUND_SINGLE_ROUNDING:g})")
-            return rel <= BOUND_SINGLE_ROUNDING
-        return check
-
     attn_mma = 4 * b * h * n * n * dh  # q k^T and P v
     softmax_fp32 = 5 * b * h * n * n  # scale, max, exp, sum, divide
     ln_fp32 = 10 * rows * d  # statistics and the affine, the residual add
@@ -566,13 +570,13 @@ def vit_cases(torch, randn):
              lambda: vit_attn.attn_block_ref(*attn_args, h, VIT_EPS),
              BOUND_SINGLE_ROUNDING, ("out",),
              dict(bytes=nbytes(*attn_args, x), mma=2 * rows * d * 4 * d + attn_mma,
-                  fp32=softmax_fp32 + ln_fp32), check=added_term("vit_attn_block")),
+                  fp32=softmax_fp32 + ln_fp32), check=added_term("vit_attn_block", x)),
         Case("vit_mlp_block", "vit_gemm.cu", "mirror_tpu/ops/vit_attn_pallas.py:276",
              f"{shape}, mlp {m}", lambda: vit_attn.mlp_block(*mlp_args, VIT_EPS),
              lambda: vit_attn.mlp_block_ref(*mlp_args, VIT_EPS), BOUND_SINGLE_ROUNDING, ("out",),
              dict(bytes=nbytes(*mlp_args, x), mma=4 * rows * d * m,
                   fp32=10 * rows * m + ln_fp32),  # bias and the erf GELU
-             check=added_term("vit_mlp_block")),
+             check=added_term("vit_mlp_block", x)),
         Case("vit_mha_natural", "vit_attn.cu", "mirror_tpu/ops/vit_attn_pallas.py:242", shape,
              lambda: vit_attn.mha_natural(q, k, v, h),
              lambda: vit_attn.mha_natural_ref(q, k, v, h), BOUND_SINGLE_ROUNDING, ("out",),
@@ -666,7 +670,7 @@ def probe_cases(torch, randn, backward: bool):
             lambda: vit_attn.mha_natural_ref(q, k, w, h), BOUND_SINGLE_ROUNDING, ("out",), work,
             library=lambda: F.scaled_dot_product_attention(
                 *(t.view(b, n, h, dh).transpose(1, 2) for t in (q, k, w)))))
-        return cases
+        return cases + fused_cases(torch)
     v, g = randn(*PROBE_CONV), randn(*PROBE_CONV)
     h = PROBE_CONV[1]
     taps = randn(h, CONV_TAPS, scale=0.1)
@@ -691,6 +695,34 @@ def probe_cases(torch, randn, backward: bool):
         library=lambda: partial.sum(0),
         # bit for bit the fused kernel's dkern
         check=lambda out, ref: bool(torch.equal(out, dkern.reshape(-1)))))
+    return cases
+
+
+def fused_cases(torch):
+    """The fused ViT sub-layers of the probe exp_vit_fused_sublayer (k5, k7,
+    k8, k9) at its shapes, x [512, 197, 768], 12 heads, MLP 3072, with its
+    weights, G 1: against their plain versions (and k8, k9 on out - x),
+    beside the PyTorch calls for the same function (matmul, SDPA, gelu,
+    layer_norm)."""
+    from mirror_tpu_torch.scripts import exp_vit_fused_sublayer as probe
+
+    dev = torch.device("cuda")
+    wts = probe.make_weights(dev, SEED)
+    x = probe.T.randn(dev, PROBE_VIT_B, probe.N, probe.D, seed=SEED + 1)
+    shape = f"[{PROBE_VIT_B}, {probe.N}, {probe.D}], heads {probe.H}"
+    cases = []
+    for name, group, variant, line in (("vit_fused_attn", "attn", "k5g1", 111),
+                                       ("vit_fused_mlp", "mlp", "k7g1", 167),
+                                       ("vit_fused_attn_block", "attn_blk", "k8g1", 256),
+                                       ("vit_fused_mlp_block", "mlp_blk", "k9g1", 300)):
+        fn = probe.VARIANTS[variant][1]
+        cases.append(Case(
+            name, "vit_fused.cu", f"scripts/exp_vit_fused_sublayer.py:{line}",
+            shape if group.startswith("attn") else f"{shape}, mlp {probe.MLP}",
+            lambda fn=fn: fn(x, wts), lambda group=group: probe.PLAIN[group](x, wts),
+            BOUND_SINGLE_ROUNDING, ("out",), probe.work(group, PROBE_VIT_B, wts),
+            library=lambda group=group: probe.VARIANTS[f"library_{group}"][1](x, wts),
+            check=added_term(name, x) if group.endswith("_blk") else None))
     return cases
 
 
@@ -1558,13 +1590,14 @@ PROBES = (
     ("exp_ln_qkv", ["--chain", "4", "--reps", "3"]),
     ("exp_pinv_stash", ["--chain", "2", "--reps", "3"]),
     ("exp_vit_attn_kernel", ["--steps", "8", "--reps", "3"]),
+    ("exp_vit_fused_sublayer", ["--steps", "4", "--reps", "3"]),
 )
 
 
 def phase_probes(torch):
     """Each probe's ``main`` at its script's shapes, its rows and JSON line
     printed, its own checks held again here; the launches read around the
-    five."""
+    six."""
     import contextlib
     import importlib
     import io
@@ -1612,6 +1645,11 @@ def phase_probes(torch):
     for name, r in lines["exp_vit_attn_kernel"].items():
         if name.startswith("k") and not r["err"] <= BOUND_SINGLE_ROUNDING:
             fail(f"vit_attn.cu {name}: rel Frobenius err {r['err']} > {BOUND_SINGLE_ROUNDING}")
+    for name, r in lines["exp_vit_fused_sublayer"].items():
+        errs = (r["err"], r.get("err_added", 0.0))
+        if name.startswith("k") and not max(errs) <= BOUND_SINGLE_ROUNDING:
+            fail(f"vit_fused.cu {name}: rel Frobenius err (out, out - x) {errs} > "
+                 f"{BOUND_SINGLE_ROUNDING}")
     full = lines["exp_pinv_stash"]["full"]["vs_plain"]
     if not (full["err_gx"] <= BOUND_PINV_BWD and full["err_gs"] <= BOUND_PINV_BWD
             and full["cosine_gx"] >= BOUND_PINV_BWD_COS):

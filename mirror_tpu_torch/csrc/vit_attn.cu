@@ -34,19 +34,19 @@
 // b h images of one head and ld_in = ld_out = dh; with `group` G > 1 a
 // second kernel lets a block walk G consecutive (image, head) pairs in turn,
 // reusing its shared memory (G = N heads is N whole images).
-#include <mma.h>
-
-#include "common.cuh"
+//
+// The warp's part (scores, softmax, P v) is vit_attn.cuh's attend_warp,
+// which the fused ViT sub-layer kernels (vit_fused.cu) share.
+#include "vit_attn.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using vit_attn::kMaxCols;
+using vit_attn::kMaxDhTiles;
 
 constexpr int BQ = 64;  // queries per block, 16 a warp
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxCols = 256;  // the most key columns a score row holds
-constexpr int kMaxDhTiles = 8;  // dh <= 128
 
 struct Layout {
   int npad, ldk, ls;  // n rounded up to 16; bf16 stride of K, V; fp32 stride of S
@@ -57,9 +57,7 @@ __host__ __device__ inline Layout make_layout(int n, int dh) {
   Layout L;
   L.npad = (n + 15) / 16 * 16;
   L.ldk = dh + 8;
-  // a score row also holds the warp's staged q row (bf16) and its fp32
-  // output row, so it is at least dh + 4 wide
-  L.ls = (L.npad > dh ? L.npad : dh) + 4;
+  L.ls = vit_attn::score_stride(L.npad, dh);
   size_t off = 0;
   L.k = off; off += smem_align((size_t)L.npad * L.ldk * sizeof(bf16));
   L.v = off; off += smem_align((size_t)L.npad * L.ldk * sizeof(bf16));
@@ -97,7 +95,6 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* _
   const int ldk = L.ldk, ls = L.ls, npad = L.npad;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int dtiles = dh / 16;
 
   const size_t base = (size_t)img * n * ld_in + (size_t)head * dh;
   load_head_rows(sK, k + base, npad, n, dh, ld_in, ldk);
@@ -115,82 +112,9 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* _
   if (rows <= 0) return;
 
   float* wS = sS + (size_t)warp * 16 * ls;  // this warp's 16 score rows
-  bf16* wP = reinterpret_cast<bf16*>(wS);   // its probabilities, bf16 stride 2 ls
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[kMaxDhTiles];
-  // the fragment arrays are indexed with constants only (unrolled to
-  // kMaxDhTiles, predicated on dtiles), so they stay in registers
-#pragma unroll
-  for (int t = 0; t < kMaxDhTiles; ++t)
-    if (t < dtiles) wmma::load_matrix_sync(fq[t], wP + 16 * t, 2 * ls);
-  __syncwarp();
-
-  // S = q k^T over all npad columns (the pad rows of K are zeros)
-  for (int j = 0; j < npad / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int t = 0; t < kMaxDhTiles; ++t) {
-      if (t >= dtiles) break;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-      wmma::load_matrix_sync(fk, sK + (size_t)(16 * j) * ldk + 16 * t, ldk);
-      wmma::mma_sync(acc, fq[t], fk, acc);
-    }
-    wmma::store_matrix_sync(wS + 16 * j, acc, ls, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // softmax(S * scale) row by row, lanes over columns; the whole row is read
-  // into registers before its probabilities overwrite it
-  // (rows past n are skipped: their q rows are zeros, so their scores, read
-  // as bf16 probabilities, are zeros too, and they are never stored)
-  constexpr int kPer = kMaxCols / 32;
-  for (int r = 0; r < 16 && r < rows; ++r) {
-    float e[kPer];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = lane + 32 * i;
-      e[i] = c < n ? wS[(size_t)r * ls + c] * scale : -INFINITY;
-      m = fmaxf(m, e[i]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = lane + 32 * i;
-      e[i] = c < n ? expf(e[i] - m) : 0.f;
-      sum += e[i];
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = lane + 32 * i;
-      if (c < npad) wP[(size_t)r * 2 * ls + c] = __float2bfloat16(e[i] / sum);
-    }
-  }
-  __syncwarp();
-
-  // O = P v, fp32 accumulators
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_o[kMaxDhTiles];
-#pragma unroll
-  for (int t = 0; t < kMaxDhTiles; ++t) wmma::fill_fragment(acc_o[t], 0.0f);
-  for (int kk = 0; kk < npad / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-    wmma::load_matrix_sync(fp, wP + 16 * kk, 2 * ls);
-#pragma unroll
-    for (int t = 0; t < kMaxDhTiles; ++t) {
-      if (t >= dtiles) break;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-      wmma::load_matrix_sync(fv, sV + (size_t)(16 * kk) * ldk + 16 * t, ldk);
-      wmma::mma_sync(acc_o[t], fp, fv, acc_o[t]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < kMaxDhTiles; ++t)
-    if (t < dtiles) wmma::store_matrix_sync(wS + 16 * t, acc_o[t], ls, wmma::mem_row_major);
-  __syncwarp();
+  // its queries were staged at the start of its score rows
+  vit_attn::attend_warp(reinterpret_cast<const bf16*>(wS), 2 * ls, sK, sV, ldk, wS, ls, n, npad,
+                        dh, scale, rows);
 
   // the warp's 16 rows, 8 columns a lane per step, rounded once
   const int chunks = dh / 8;

@@ -35,6 +35,7 @@ instances beside these, each counted under its own name:
 | conv1d_bwd_dv, column_sum | csrc/conv1d.cu | exp_conv_parts.py (9b's parts) |
 | vit_mha_headmajor, vit_mha_natural_grouped | csrc/vit_attn.cu | exp_vit_attn_kernel.py (make_headmajor, make_natural) |
 | moore_penrose_pinv_bwd_stash1, _stash2 | csrc/pinv.cu | exp_pinv_stash.py (make_variant) |
+| vit_fused_attn, vit_fused_mlp, vit_fused_attn_block, vit_fused_mlp_block | csrc/vit_fused.cu (ops/vit_fused.py) | exp_vit_fused_sublayer.py (make_k5, make_k7, make_k8, make_k9) |
 
 The pinv's implicit gradient is two matrix products outside any kernel, as
 in the JAX package; ``grad="exact"`` runs its exact backward kernel.

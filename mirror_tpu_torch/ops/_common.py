@@ -99,9 +99,16 @@ _SIGNATURES = {
     # d, heads, dh, eps, stream
     "mirror_ln_qkv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _P),
+    # x, ln_s, ln_b (null: k5), wqkv, bqkv, wo, bo, out, b, n, heads, dh,
+    # group, scale, eps, stream
+    "mirror_vit_fused_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # x, ln_s, ln_b (null: k7), w1, b1, w2, b2, out, rows, rows_per_block, d,
+    # m, eps, stream
+    "mirror_vit_fused_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 # Scratch sizes, in elements, as the kernels' own tilings need them (so the
-# tile sizes are known only in csrc/); each returns a 64-bit count
+# tile sizes are known only in csrc/), and what else only csrc/ knows; each
+# returns a 64-bit count
 _SCRATCH_SIZES = {
     # b, H, C
     "mirror_ppeg_bwd_partial_elems": (_I, _I, _I),
@@ -109,6 +116,10 @@ _SCRATCH_SIZES = {
     "mirror_conv1d_bwd_partial_elems": (_I, _I, _I),
     # b, n, d, heads, dh
     "mirror_ln_qkv_bwd_scratch_elems": (_I, _I, _I, _I, _I),
+    # n, dh: bytes of shared memory a CTA of the fused attention takes
+    "mirror_vit_fused_attn_smem": (_I, _I),
+    # n, dh, heads: clusters of that kernel the card holds at once
+    "mirror_vit_fused_attn_clusters": (_I, _I, _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -202,8 +213,9 @@ def launch(entry: str, *args) -> None:
 
 
 def scratch_elems(entry: str, *args: int) -> int:
-    """Elements of the scratch buffer that a kernel's tiling needs, from
-    the library's own ``entry`` (one of ``_SCRATCH_SIZES``)."""
+    """Elements of the scratch buffer that a kernel's tiling needs, or
+    another count that only csrc/ knows, from the library's own ``entry``
+    (one of ``_SCRATCH_SIZES``)."""
     return getattr(library(), entry)(*args)
 
 

@@ -72,22 +72,33 @@ def mha_natural_ref(q, k, v, heads: int):
     return out.transpose(1, 2).reshape(b, n, d)
 
 
-def attn_block_ref(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads: int, eps: float = 1e-12):
-    d = x.shape[-1]
-    y = _ln_ref(x, ln_s, ln_b, eps)
+def attn_sublayer_ref(y, wq, wk, wv, bqkv, wo, bo, heads: int):
+    """W_o MHA(y W_qkv + b_qkv) + b_o in fp32, not yet rounded: q, k, v
+    rounded to y's dtype after the fp32 bias add, then
+    :func:`mha_natural_ref`."""
+    d = y.shape[-1]
     yf, bqkv = y.float(), bqkv.float().reshape(-1)
     q, k, v = ((yf @ w.float() + bqkv[i * d:(i + 1) * d]).to(y.dtype)
                for i, w in enumerate((wq, wk, wv)))
     att = mha_natural_ref(q, k, v, heads)
-    o = att.float() @ wo.float() + bo.float().reshape(-1)
+    return att.float() @ wo.float() + bo.float().reshape(-1)
+
+
+def mlp_sublayer_ref(y, w1, b1, w2, b2):
+    """fc2(GELU_erf(fc1(y))) in fp32, not yet rounded: the GELU in fp32, the
+    hidden rounded to y's dtype before fc2."""
+    h = y.float() @ w1.float() + b1.float().reshape(-1)
+    h = 0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))  # exact GELU, fp32
+    return h.to(y.dtype).float() @ w2.float() + b2.float().reshape(-1)
+
+
+def attn_block_ref(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads: int, eps: float = 1e-12):
+    o = attn_sublayer_ref(_ln_ref(x, ln_s, ln_b, eps), wq, wk, wv, bqkv, wo, bo, heads)
     return (x.float() + o).to(x.dtype)
 
 
 def mlp_block_ref(x, ln_s, ln_b, w1, b1, w2, b2, eps: float = 1e-12):
-    y = _ln_ref(x, ln_s, ln_b, eps)
-    h = y.float() @ w1.float() + b1.float().reshape(-1)
-    h = 0.5 * h * (1.0 + torch.erf(h * 2.0 ** -0.5))  # exact GELU, fp32
-    o = h.to(y.dtype).float() @ w2.float() + b2.float().reshape(-1)
+    o = mlp_sublayer_ref(_ln_ref(x, ln_s, ln_b, eps), w1, b1, w2, b2)
     return (x.float() + o).to(x.dtype)
 
 

@@ -21,4 +21,10 @@ the shape, and per variant its time, rate, bound, error and launches.
 | ``exp_ln_qkv`` | ``exp_ln_qkv.py`` (:128, ``big_core``) | ``csrc/ln_qkv.cu`` (kernel 10 is ``big_core``'s design) |
 | ``exp_pinv_stash`` | ``exp_pinv_stash.py`` (:99) | ``csrc/pinv.cu`` (the exact backward, stash 4 / 2 / 1) |
 | ``exp_vit_attn_kernel`` | ``exp_vit_attn_kernel.py`` (:101, :149) | ``csrc/vit_attn.cu`` (head-major, G pairs or N images a block) |
+| ``exp_vit_fused_sublayer`` | ``exp_vit_fused_sublayer.py`` (:111, :167, :256, :300) | ``csrc/vit_fused.cu`` (k5, k7, k8, k9: one launch a sub-layer; the split kernels 6 and 7 as the ``xla_*_blk`` baselines) |
+
+``vit_fused_phases`` asks no script's question: it splits the time of
+``csrc/vit_fused.cu``'s four kernels by phase (``clock64`` stamps in a copy
+of the source built beside the library, and k7/k9 built without their
+weight loads or their products), for the redesign of those kernels.
 """

@@ -662,3 +662,80 @@ def test_pinv_exact_bwd_stash_variants(dev, stash):
     _assert_rel(gx, gx_ref, bound=BOUND_PINV_BWD, name="gx")
     assert abs(gs.item() - gs_ref.item()) <= BOUND_PINV_BWD * abs(gs_ref.item())
     assert torch.equal(gx, full[0]) and torch.equal(gs, full[1])
+
+
+# --- the fused ViT sub-layers of the probe exp_vit_fused_sublayer (k5, k7,
+# k8, k9), inference only. Bound: BOUND_VIT on the output, and for k8 and
+# k9 on out - x too (x passes through and dominates the output) ---
+
+
+def _fused_inputs(g, b, n, d, m, dev):
+    x = _randn(g, b, n, d, dev=dev)
+    ln_s = (1.0 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    ln_b = (0.1 * torch.randn(d, generator=g)).to(dev)
+    wqkv = _randn(g, d, 3 * d, dev=dev, scale=d ** -0.5)
+    wo = _randn(g, d, d, dev=dev, scale=d ** -0.5)
+    bqkv, bo = (0.1 * torch.randn(3 * d, generator=g)).to(dev), (0.1 * torch.randn(d, generator=g)).to(dev)
+    w1, w2 = _randn(g, d, m, dev=dev, scale=d ** -0.5), _randn(g, m, d, dev=dev, scale=m ** -0.5)
+    b1, b2 = torch.randn(m, generator=g).to(dev), (0.1 * torch.randn(d, generator=g)).to(dev)
+    return x, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("n", [197, 50])
+@pytest.mark.parametrize("kernel", ["k5", "k7", "k8", "k9"])
+def test_vit_fused_sublayer_kernel(dev, kernel, n, group):
+    from mirror_tpu_torch.ops import vit_fused as vf
+
+    g = torch.Generator().manual_seed(40)
+    b, heads, d, m = 3, 12, 768, 3072
+    x, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2, b2 = _fused_inputs(g, b, n, d, m, dev)
+    calls = {
+        "k5": (vf.KERNEL_ATTN, lambda: vf.fused_attn(x, wqkv, bqkv, wo, bo, heads, group),
+               lambda: vf.fused_attn_ref(x, wqkv, bqkv, wo, bo, heads)),
+        "k7": (vf.KERNEL_MLP, lambda: vf.fused_mlp(x, w1, b1, w2, b2, group),
+               lambda: vf.fused_mlp_ref(x, w1, b1, w2, b2)),
+        "k8": (vf.KERNEL_ATTN_BLOCK,
+               lambda: vf.fused_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, 1e-12, group),
+               lambda: vf.fused_attn_block_ref(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, 1e-12)),
+        "k9": (vf.KERNEL_MLP_BLOCK,
+               lambda: vf.fused_mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12, group),
+               lambda: vf.fused_mlp_block_ref(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12)),
+    }
+    name, kernel_call, plain = calls[kernel]
+    _common.reset_launch_counts()
+    out = kernel_call()
+    assert _common.launch_counts() == {name: 1}
+    ref = plain()
+    _assert_rel(out, ref, BOUND_VIT, name)
+    if kernel in ("k8", "k9"):
+        _assert_rel(out.float() - x.float(), ref.float() - x.float(), BOUND_VIT, f"{name} out - x")
+
+
+def test_vit_fused_sublayer_kernels_refuse_bad_inputs(dev):
+    from mirror_tpu_torch.ops import vit_fused as vf
+
+    g = torch.Generator().manual_seed(41)
+    x, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2, b2 = _fused_inputs(g, 2, 20, 768, 256, dev)
+    with pytest.raises(TypeError, match="bfloat16"):  # fp32
+        vf.fused_attn(x.float(), wqkv, bqkv, wo, bo, 12)
+    with pytest.raises(TypeError, match="bfloat16"):
+        vf.fused_mlp_block(x.float(), ln_s, ln_b, w1, b1, w2, b2)
+    long = _randn(g, 1, 300, 768, dev=dev)
+    for call in (lambda: vf.fused_attn(long, wqkv, bqkv, wo, bo, 12),
+                 lambda: vf.fused_attn_block(long, ln_s, ln_b, wqkv, bqkv, wo, bo, 12)):
+        with pytest.raises(ValueError, match="at most 256"):  # n > 256
+            call()
+    with pytest.raises(ValueError, match="head dim 192"):  # dh 192
+        vf.fused_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, 4)
+    with pytest.raises(ValueError, match="at most 16"):  # 24 heads of 32: no such cluster
+        vf.fused_attn(x, wqkv, bqkv, wo, bo, 24)
+    wide = _randn(g, 2, 20, 1024, dev=dev)
+    with pytest.raises(ValueError, match="at most 768"):
+        vf.fused_mlp(wide, _randn(g, 1024, 256, dev=dev), b1, _randn(g, 256, 1024, dev=dev),
+                     torch.zeros(1024, device=dev))
+    xg = x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="inference-only"):
+        vf.fused_mlp(xg, w1, b1, w2, b2)
+    with torch.no_grad():
+        vf.fused_mlp(xg, w1, b1, w2, b2)
