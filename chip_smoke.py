@@ -7,7 +7,8 @@ Phases, each printed as it finishes:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel of ``mirror_tpu_torch/csrc`` compiled from the
-   checkout's sources, with its build time;
+   checkout's sources, with its build time, and what ``-Xptxas -v`` says
+   of the attention kernels (registers, shared memory, spills);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
@@ -23,7 +24,10 @@ Phases, each printed as it finishes:
    kernel, plain version and (where one PyTorch call computes the same
    function, or two for the LN + q/k/v projection, or the few the probe's
    ``library_*`` variants make for the fused ViT sub-layers) that call,
-   each also as single calls between two events;
+   each also as single calls between two events; the achieved TFLOP/s (the
+   products the function needs over the kernel's time), the kernel /
+   library ratio, and for the attention the design's count of products run
+   and needed (from the source notes, not measured);
 3b. backward kernels: each against its plain version fed the same inputs
    and incoming gradient, at the train slice's shapes (the encoder's 2117
    rows with pad 187 and the retention decoder's 2049 rows with pad 255;
@@ -33,7 +37,8 @@ Phases, each printed as it finishes:
    backwards, 2b ([8, 8, 256, 256]) and PPEG's at the self-test's shapes
    as in phase 3), error per output
    (the batch sums dkern, gw, gs and gb also against their largest
-   magnitude), and the same times;
+   magnitude), and the same times; the attention backwards (3c, 4b) run
+   twice on the same inputs and must give the same bits;
 4. serving slice: a full-width ``mirror_classifier`` (the subtyping
    configuration: 768-d Phikon features, embed 768, RNA 10234, 2048 tokens,
    bf16) with random weights from a seeded generator, saved as a reference
@@ -241,6 +246,12 @@ def phase_build():
     _common.library()
     say(f"[build] {lib.relative_to(REPO)} from {_common.CSRC_DIR.relative_to(REPO)}/*.cu "
         f"in {time.perf_counter() - t0:.1f} s")
+    # registers, shared memory and spills of the attention kernels (-Xptxas -v)
+    for src in ("softmax_attn.cu", "softmax_attn_bwd.cu"):
+        info = _common.PTXAS_INFO[src]
+        for line in info.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                say(f"[ptxas] {src}: {line.split('info    :')[-1].strip()}")
 
 
 def median_ms(fn, reps=20, warmup=3):
@@ -303,10 +314,21 @@ def run_case(torch, case: Case) -> dict:
     per_output = ", ".join(f"{o} {a:.4g}/{r:.4g}" for o, (a, r) in zip(case.outputs, errs))
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     lib_1 = f", library {library_ms_1:.4f}" if library_ms is not None else ""
+    # achieved rate: the tensor-core operations the function needs over the
+    # kernel's time; `products`: the r c dh products the design runs / the
+    # function needs, as the source notes count them (not measured)
+    tflops = case.work["mma"] / ms / 1e9 if case.work["mma"] else None
+    ratio = ms / library_ms if library_ms else None
+    rate = f"; {tflops:.1f} TFLOP/s" if tflops is not None else ""
+    if "products" in case.work:
+        rate += (f", {case.work['products'][0]} products run by the design "
+                 f"({case.work['products'][1]} needed)")
+    if ratio is not None:
+        rate += f", kernel / library {ratio:.2f}"
     say(f"[kernel] {case.name} ({case.shape}): max abs / rel Frobenius err {per_output} "
         f"(bound {case.tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-        f"bound {bound_ms:.4f} ms by {bound_by} (medians of warm calls, runs of calls under "
-        f"2 ms; single calls: kernel {ms_1:.4f}, plain {plain_ms_1:.4f}{lib_1})")
+        f"bound {bound_ms:.4f} ms by {bound_by}{rate} (medians of warm calls, runs of calls "
+        f"under 2 ms; single calls: kernel {ms_1:.4f}, plain {plain_ms_1:.4f}{lib_1})")
     if not ok:
         fail(f"{case.name} ({case.shape}) disagrees with its plain version beyond its bound")
     sources = [f"mirror_tpu_torch/csrc/{f}"
@@ -316,7 +338,7 @@ def run_case(torch, case: Case) -> dict:
                 max_abs_err=max(a for a, _ in errs), rel_fro_err=max(r for _, r in errs),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, ms_single_call=ms_1, plain_ms_single_call=plain_ms_1,
-                library_ms_single_call=library_ms_1)
+                library_ms_single_call=library_ms_1, tflops=tflops, library_ratio=ratio)
 
 
 def forward_cases(torch, randn):
@@ -355,7 +377,7 @@ def forward_cases(torch, randn):
             lambda q_l=q_l, k=k, v=v, pad=pad:
                 nystrom_attn.softmax_attn_ref(q_l, k, v, pad).to(bf16),
             BOUND_SINGLE_ROUNDING, ("out",),
-            dict(bytes=nbytes(q_l, k, v, q_l), mma=attn_mma),
+            dict(bytes=nbytes(q_l, k, v, q_l), mma=attn_mma, products=(2, 2)),
             library=lambda q_l=q_l, k_pad=k_pad, v_pad=v_pad:
                 F.scaled_dot_product_attention(q_l, k_pad, v_pad, scale=1.0)))
         cases.append(Case(
@@ -367,7 +389,8 @@ def forward_cases(torch, randn):
                 (nystrom_attn.softmax_attn_ref(q, k_l, w)
                  + nystrom_attn.depthwise_conv_seq_ref(v, kern)).to(bf16),
             BOUND_SINGLE_ROUNDING, ("out",),
-            dict(bytes=nbytes(q, k_l, w, v, kern, q), mma=attn_mma, fp32=conv_fp32)))
+            dict(bytes=nbytes(q, k_l, w, v, kern, q), mma=attn_mma, fp32=conv_fp32,
+                 products=(2, 2))))
         if n != N:
             continue
         s = pinv.global_scale(attn2)
@@ -396,7 +419,7 @@ def forward_cases(torch, randn):
             lambda q=q, k_l=k_l, w=w: nystrom_attn.softmax_matmul_landmark_q(q, k_l, w),
             lambda q=q, k_l=k_l, w=w: nystrom_attn.softmax_attn_ref(q, k_l, w).to(bf16),
             BOUND_SINGLE_ROUNDING, ("out",),
-            dict(bytes=nbytes(q, k_l, w, q), mma=attn_mma),
+            dict(bytes=nbytes(q, k_l, w, q), mma=attn_mma, products=(2, 2)),
             library=lambda q=q, k_l=k_l, w=w:
                 F.scaled_dot_product_attention(q, k_l, w, scale=1.0)))
 
@@ -736,6 +759,19 @@ def autograd_kernel(torch, fn, inputs, grads):
     return lambda: torch.autograd.grad(outs, leaves, grads, retain_graph=True)
 
 
+def same_bits_check(torch, name, kernel):
+    """A ``check`` that runs ``kernel`` a second time on the same inputs and
+    holds every output to the first run's bits (the attention backward:
+    fixed-order sums, no float atomics)."""
+    def check(out, ref):
+        again = kernel()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        say(f"[kernel] {name}: two runs {'bit-identical' if same else 'DIFFER'}")
+        return same
+    return check
+
+
 def backward_cases(torch, randn):
     import torch.nn.functional as F
 
@@ -765,16 +801,18 @@ def backward_cases(torch, randn):
         # call), its backward through autograd: kernel 3c's function
         k_pad = torch.cat([k.new_zeros(b, HEADS, pad, dh), k], dim=2)
         v_pad = torch.cat([v.new_zeros(b, HEADS, pad, dh), v], dim=2)
+        bwd3 = autograd_kernel(torch, lambda a, b, c, pad=pad:
+                               nystrom_attn.softmax_matmul_landmark_kv(a, b, c, pad),
+                               (q_l, k, v), (g3,))
         cases.append(Case(
             "softmax_attn_bwd", "softmax_attn_bwd.cu", "mirror_tpu/ops/nystrom_pallas.py:152",
-            f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}",
-            autograd_kernel(torch, lambda a, b, c, pad=pad:
-                            nystrom_attn.softmax_matmul_landmark_kv(a, b, c, pad),
-                            (q_l, k, v), (g3,)),
+            f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}", bwd3,
             lambda q_l=q_l, k=k, v=v, g3=g3, pad=pad: nystrom_attn.softmax_attn_bwd_ref(
                 q_l, k, v, g3, pad),
             BOUND_BWD, ("dq_l", "dk", "dv"),
-            dict(bytes=2 * nbytes(q_l, k, v) + nbytes(g3), mma=5 * 2 * bh * m * n * dh),
+            dict(bytes=2 * nbytes(q_l, k, v) + nbytes(g3), mma=5 * 2 * bh * m * n * dh,
+                 products=(7, 5)),
+            check=same_bits_check(torch, "softmax_attn_bwd", bwd3),
             library=autograd_kernel(
                 torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, scale=1.0),
                 (q_l, k_pad, v_pad), (g3,))))
@@ -784,17 +822,19 @@ def backward_cases(torch, randn):
         g4 = randn(b, HEADS, n, dh)
         # the conv's backward is conv1d.cu's (kernel 9b), launched by the
         # attention backward's C entry
+        bwd4 = autograd_kernel(torch, nystrom_attn.fused_softmax_attn_conv,
+                               (q, k_l, w, v, kern), (g4,))
         cases.append(Case(
             "softmax_attn_conv_bwd", ("softmax_attn_bwd.cu", "conv1d.cu"),
-            "mirror_tpu/ops/nystrom_pallas.py:318", shape,
-            autograd_kernel(torch, nystrom_attn.fused_softmax_attn_conv,
-                            (q, k_l, w, v, kern), (g4,)),
+            "mirror_tpu/ops/nystrom_pallas.py:318", shape, bwd4,
             lambda q=q, k_l=k_l, w=w, v=v, kern=kern, g4=g4: (
                 *nystrom_attn.softmax_attn_bwd_ref(q, k_l, w, g4),
                 *nystrom_attn.depthwise_conv_seq_bwd_ref(v, kern, g4)),
             BOUND_BWD, ("dq", "dk_l", "dw", "dv", "dkern"),
             dict(bytes=2 * nbytes(q, k_l, w, v, kern) + nbytes(g4),
-                 mma=5 * 2 * bh * n * m * dh, fp32=2 * 2 * bh * n * dh * CONV_TAPS)))
+                 mma=5 * 2 * bh * n * m * dh, fp32=2 * 2 * bh * n * dh * CONV_TAPS,
+                 products=(7, 5)),
+            check=same_bits_check(torch, "softmax_attn_conv_bwd", bwd4)))
 
     # kernel 2b on a softmax-like x (softmax of unit-normal logits, the CUDA
     # tests' pinv input) at the slices' b, h and m, and the self-test's

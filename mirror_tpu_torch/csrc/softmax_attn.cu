@@ -1,245 +1,298 @@
 // Row softmax attention of the Nystrom attention, with an optional fused
-// 33-tap depthwise residual conv (K3; WITH_CONV is K4).
+// 33-tap depthwise residual conv (K3, K3b; WITH_CONV is K4).
 //
 // Replaces: mirror_tpu/ops/nystrom_pallas.py::fused_softmax_attn (forward
 // pallas_call in _fwd_call; reached through softmax_matmul_landmark_kv and
 // softmax_matmul_landmark_q) and ::fused_softmax_attn_conv (forward
 // pallas_call in _fwd_conv_call). Both TPU kernels share one body
-// (_attn_fwd_math), and so do these.
+// (_attn_fwd_math), and so does this template.
 //
 // What it computes, per (batch, head): out = softmax(q k^T) w over the c
 // columns plus `pad` virtual columns whose logit is 0 and whose w row is 0
-// (the Nystrom front pad; _softmax_pad on the TPU), with fp32 statistics
-// and an fp32 accumulator for the P w product, rounded once. WITH_CONV adds
-// sum_t kern[h, t] v[i + t - K/2, :] (zero SAME padding, one filter per head
-// shared across dh, no bias) to the fp32 tile before that rounding.
+// (the Nystrom front pad; _softmax_pad on the TPU), with fp32 statistics,
+// P rounded to bf16 and an fp32 accumulator for P w, rounded once.
+// WITH_CONV adds sum_t kern[h, t] v[i + t - K/2, :] (zero SAME padding, one
+// filter per head shared across dh, no bias) to the fp32 tile before that
+// rounding.
 //
-// What bounds it on the H100: tensor-core FLOPs and the exp of every logit.
-// At the slice's shape each call is 4 x 128 x 2117 x 384 x 96 = 40 GFLOP and
-// 104 M exponentials, against 2 x 52 MB of q/k/v traffic.
+// Residuals for the backward (softmax_attn_bwd.cu), written only when the
+// caller passes their buffers (autograd needs them; never in predict):
+// - lse, fp32 [bh, r]: the row log-sum-exp m + log(l), the pad's share
+//   included, so the backward rebuilds P = exp(s - lse) with no statistics
+//   sweep;
+// - o_attn, bf16 [bh, r, dh], WITH_CONV only: the attention part before the
+//   conv is added, rounded once, from which the backward takes
+//   D = rowsum(g o). Without the conv the output itself is that O.
 //
-// Design: flash-attention style, so the [r, c] attention matrix never
-// reaches device memory (the TPU kept it in VMEM). A block of 4 warps owns
-// 64 rows of q (16 a warp) and walks the columns in tiles of 64: S = q k^T
-// on the tensor cores (WMMA bf16, fp32 accumulation), an online softmax of
-// the tile in fp32 (running max and sum per row), P rounded to bf16, and
-// O += P w accumulated in fp32 in shared memory after rescaling its rows.
-// The pad's closed form costs nothing: the running max starts at 0 and the
-// running sum at `pad`, exactly as if the pad columns had been seen first.
-// The conv is a direct loop over the K taps on a window of v rows (the
-// block's rows plus K/2 on each side) in shared memory, not the TPU's banded
-// matmul: on Hopper the 33 taps are 6 MFLOP a block against 1.6 GFLOP of
-// attention, and the window read is the only extra traffic.
-#include <mma.h>
-
-#include "common.cuh"
+// What bounds it on the H100: tensor-core operations. At the slice's shape
+// (b 16, h 8, r 384, c 2117, dh 96) a call is 2 products of 2 r c dh a
+// (batch, head), 40 GFLOP, and 104 M exponentials, against 2 x 52 MB of k
+// and w: 0.040 ms at the bf16 peak against 0.031 ms at the HBM rate.
+//
+// Design (FlashAttention-2 on mma.sync): a block of 4 warps owns 64 rows of
+// q, 16 a warp, and walks the columns in tiles of 64.
+// - S = q k^T and O += P w run on mma.sync m16n8k16 (attn_mma.cuh) with
+//   both accumulators in registers for the whole walk: S is 32 fp32 a
+//   thread, O 4 dh / 8 (48 at dh 96). P never leaves registers: S's
+//   accumulator fragment is P w's A operand once rounded to bf16 in place.
+//   q and k tiles feed ldmatrix, w tiles ldmatrix.trans.
+// - Why mma.sync and not wgmma: a measurement, not the layout. A swizzled
+//   wgmma layout fits both instances that run: w (like k, g and q in the
+//   backward) is walked along its rows, the reduction axis, so it is an
+//   MN-major B operand whose swizzle atom must divide the tile's dh
+//   extent, and the 128-byte atom (64 elements) divides dh 64, the 64-byte
+//   one (32 elements) dh 96's 192-byte rows; only dh 16, 48, 80 and 112,
+//   which no configuration uses, would need the 32-byte atom or none. A
+//   wgmma version of this same design (csrc/wgmma_variant/: one warpgroup
+//   a block, unswizzled core-matrix tiles, each product issued and awaited
+//   in turn) holds the same bars at the same errors and ran 1.6-1.8x
+//   slower forward and 1.1x slower backward on an H100
+//   (scripts/exp_attn_wgmma.py times both builds in one call; PERF.md has
+//   the numbers). What it lacks is
+//   FlashAttention-3's structure (TMA, swizzled tiles, two consumer
+//   warpgroups in ping-pong, the next S issued before this tile's
+//   softmax): ROADMAP R2b, which starts from that variant and script.
+//   ldmatrix.trans reads the MN-major tiles here from one padded,
+//   unswizzled layout (row stride dh + 8 elements, conflict-free at every
+//   dh).
+// - The online softmax stays in registers: each thread holds 16 logits of
+//   two rows; the row max and row sum take two quad shuffles each, the
+//   running (max, sum) are 4 registers, O is rescaled in registers. The
+//   pad's closed form costs nothing: the running max starts at 0 and the
+//   sum at `pad`, as if the pad columns had been seen first.
+// - k and w tiles arrive through a 2-stage cp.async ring: tile j + 1 is in
+//   flight while tile j is multiplied; cp.async zero-fills the ragged edge
+//   (c 2117, 2049), whose logits are then masked to -inf.
+// - The conv epilogue is one more tensor-core product, the TPU kernel's
+//   banded matmul: conv = band v_window, band[i, j] = kern[h, j - i] (0
+//   outside the K taps; exact in bf16, as the taps are), over a window of v
+//   rows in shared memory (the block's rows plus K/2 on each side). A warp
+//   needs (K + 30) / 16 k-steps of 16 window rows (3 at K 33), and its fp32
+//   result lands in the accumulator's own layout, so it is added to O / l
+//   in registers before the one rounding. The window's load is issued into
+//   the free ring stage with the last column tile, so it overlaps that
+//   tile's products.
+// - Output, and o_attn, are staged through the warp's own q rows (read only
+//   by that warp) and written 16 bytes a lane.
+// Occupancy (dh 96; ptxas -v, printed by chip_smoke.py): 146 registers a
+// thread (156 with the conv), no spills, and 66.6 KB of shared memory give
+// 3 blocks, 12 warps, an SM; at dh 112 and 128 two blocks.
+#include "attn_mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace attn;
 
-constexpr int BM = 64;  // rows of q per block
-constexpr int BN = 64;  // columns of k / w per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int LDS = BN + 4;  // fp32 stride of S
-constexpr int LDP = BN + 8;  // bf16 stride of P
+template <int DT>
+__host__ __device__ constexpr int row_stride() { return 16 * DT + 8; }
 
-struct Layout {
-  int ldb, ldo;  // bf16 stride of q/k/w/v rows, fp32 stride of O
-  size_t q, k, w, s, p, o, stat, v, tap, total;
-};
-
-__host__ __device__ inline Layout make_layout(int dh, int ksize) {
-  Layout L;
-  L.ldb = dh + 8;
-  L.ldo = dh + 4;
-  size_t off = 0;
-  L.q = off; off += smem_align((size_t)BM * L.ldb * sizeof(bf16));
-  L.k = off; off += smem_align((size_t)BN * L.ldb * sizeof(bf16));
-  L.w = off; off += smem_align((size_t)BN * L.ldb * sizeof(bf16));
-  L.s = off; off += smem_align((size_t)BM * LDS * sizeof(float));
-  L.p = off; off += smem_align((size_t)BM * LDP * sizeof(bf16));
-  L.o = off; off += smem_align((size_t)BM * L.ldo * sizeof(float));
-  L.stat = off; off += smem_align((size_t)3 * BM * sizeof(float));
-  L.v = off;
-  L.tap = off;
-  if (ksize > 0) {
-    off += smem_align((size_t)(BM + ksize - 1) * L.ldb * sizeof(bf16));
-    L.tap = off;
-    off += smem_align((size_t)ksize * sizeof(float));
-  }
-  L.total = off;
-  return L;
+// bytes: q tile, the ring (k then w tile a stage), the conv taps
+template <int DT>
+__host__ __device__ constexpr size_t smem_bytes(int ksize) {
+  return (size_t)(BM + kStages * 2 * BN) * row_stride<DT>() * sizeof(bf16) +
+         (size_t)ksize * sizeof(float);
 }
 
-// Copy rows [row0, row0 + rows) of a [n, dh] bf16 matrix into shared memory
-// with stride ldb, 16 bytes a thread; rows outside [0, n) become zeros.
-__device__ inline void load_rows(bf16* dst, const bf16* src, int row0, int rows, int n,
-                                 int dh, int ldb) {
-  const int chunks = dh / 8;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr >= 0 && gr < n) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * dh + c);
-    *reinterpret_cast<uint4*>(dst + r * ldb + c) = val;
-  }
+// rows of v the conv reads: the block's 64 plus K - 1, rounded up so that
+// every warp's whole k-steps of the band product land in the window (the
+// rows past BM + K - 1 meet zero band entries); at most the 2 x 64 rows of
+// a ring stage for K up to 65
+__host__ __device__ constexpr int window_rows(int ksize) {
+  return BM - 16 + 16 * ((ksize + 30) / 16);
 }
 
-template <bool WITH_CONV>
-__global__ void __launch_bounds__(kThreads)
+template <int DT, bool WITH_CONV>
+__global__ void __launch_bounds__(kThreads, DT <= 6 ? 3 : 2)
     softmax_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ w, const bf16* __restrict__ v,
-                        const bf16* __restrict__ kern, bf16* __restrict__ out, int heads,
-                        int R, int C, int dh, int pad, int ksize) {
+                        const bf16* __restrict__ kern, bf16* __restrict__ out,
+                        float* __restrict__ lse, bf16* __restrict__ o_attn, int heads, int R,
+                        int C, int pad, int ksize) {
+  constexpr int DH = 16 * DT, LD = row_stride<DT>(), NT = 2 * DT;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(dh, WITH_CONV ? ksize : 0);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* sW = reinterpret_cast<bf16*>(smem + L.w);
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L.p);
-  float* sO = reinterpret_cast<float*>(smem + L.o);
-  float* sMax = reinterpret_cast<float*>(smem + L.stat);
-  float* sSum = sMax + BM;
-  float* sAlpha = sSum + BM;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sRing = sQ + BM * LD;  // stage s: k at s * 2 BN rows, w BN rows later
+  float* sTap = reinterpret_cast<float*>(sRing + kStages * 2 * BN * LD);
 
-  const int bh = blockIdx.y;
-  const int r0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ldb = L.ldb, ldo = L.ldo;
-  const int dtiles = dh / 16;
-
-  load_rows(sQ, q + (size_t)bh * R * dh, r0, BM, R, dh, ldb);
-  for (int idx = threadIdx.x; idx < BM * ldo; idx += kThreads) sO[idx] = 0.f;
-  for (int i = threadIdx.x; i < BM; i += kThreads) {
-    // the pad columns, seen first: logit 0, so max 0 and sum pad * exp(0)
-    sMax[i] = pad > 0 ? 0.f : -INFINITY;
-    sSum[i] = (float)pad;
-  }
-
-  const bf16* kb = k + (size_t)bh * C * dh;
-  const bf16* wb = w + (size_t)bh * C * dh;
-  const int wrow = warp * 16;  // this warp's first row in the block
-  for (int c0 = 0; c0 < C; c0 += BN) {
-    load_rows(sK, kb, c0, BN, C, dh, ldb);
-    load_rows(sW, wb, c0, BN, C, dh, ldb);
-    __syncthreads();
-
-    // S = q k^T for the warp's 16 rows and the tile's 64 columns
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_acc;
-      wmma::fill_fragment(s_acc, 0.0f);
-      for (int t = 0; t < dtiles; ++t) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + wrow * ldb + 16 * t, ldb);
-        wmma::load_matrix_sync(fb, sK + (16 * j) * ldb + 16 * t, ldb);
-        wmma::mma_sync(s_acc, fa, fb, s_acc);
-      }
-      wmma::store_matrix_sync(sS + wrow * LDS + 16 * j, s_acc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax of the tile, one row at a time, lanes over columns
-    const bool v0 = c0 + lane < C, v1 = c0 + lane + 32 < C;
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = wrow + rr;
-      const float s0 = v0 ? sS[row * LDS + lane] : -INFINITY;
-      const float s1 = v1 ? sS[row * LDS + lane + 32] : -INFINITY;
-      const float m_old = sMax[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = v0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = v1 ? expf(s1 - m_new) : 0.f;
-      const float tile_sum = warp_sum(p0 + p1);
-      const float alpha = expf(m_old - m_new);  // 0 when m_old is -inf
-      sP[row * LDP + lane] = __float2bfloat16(p0);
-      sP[row * LDP + lane + 32] = __float2bfloat16(p1);
-      __syncwarp();
-      if (lane == 0) {
-        sMax[row] = m_new;
-        sSum[row] = sSum[row] * alpha + tile_sum;
-        sAlpha[row] = alpha;
-      }
-      __syncwarp();
-    }
-
-    // O = alpha * O, then O += P w on the tensor cores (fp32 accumulator)
-    for (int idx = lane; idx < 16 * dh; idx += 32) {
-      const int row = wrow + idx / dh, d = idx % dh;
-      sO[row * ldo + d] *= sAlpha[row];
-    }
-    __syncwarp();
-    for (int t = 0; t < dtiles; ++t) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_acc;
-      wmma::load_matrix_sync(o_acc, sO + wrow * ldo + 16 * t, ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fw;
-        wmma::load_matrix_sync(fp, sP + wrow * LDP + 16 * kk, LDP);
-        wmma::load_matrix_sync(fw, sW + (16 * kk) * ldb + 16 * t, ldb);
-        wmma::mma_sync(o_acc, fp, fw, o_acc);
-      }
-      wmma::store_matrix_sync(sO + wrow * ldo + 16 * t, o_acc, ldo, wmma::mem_row_major);
-    }
-    __syncthreads();  // every warp is done with sK / sW before the next tile
-  }
-
-  float* sTap = nullptr;
-  bf16* sV = nullptr;
+  const int bh = blockIdx.y, r0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const bf16* kb = k + (size_t)bh * C * DH;
+  const bf16* wb = w + (size_t)bh * C * DH;
   const int half = ksize / 2;
-  if (WITH_CONV) {
-    sV = reinterpret_cast<bf16*>(smem + L.v);
-    sTap = reinterpret_cast<float*>(smem + L.tap);
-    load_rows(sV, v + (size_t)bh * R * dh, r0 - half, BM + ksize - 1, R, dh, ldb);
-    const int head = bh % heads;
-    for (int t = threadIdx.x; t < ksize; t += kThreads)
-      sTap[t] = __bfloat162float(kern[head * ksize + t]);
+
+  load_rows_async<DH>(sQ, LD, q + (size_t)bh * R * DH, r0, BM, R);
+  load_rows_async<DH>(sRing, LD, kb, 0, BN, C);
+  load_rows_async<DH>(sRing + BN * LD, LD, wb, 0, BN, C);
+  cp_async_commit();
+  if (WITH_CONV)
+    for (int i = threadIdx.x; i < ksize; i += kThreads)
+      sTap[i] = __bfloat162float(kern[(bh % heads) * ksize + i]);
+
+  float o[NT][4];
+  zero(o);
+  // running max and sum of rows g and g + 8: the pad columns seen first
+  float m[2] = {pad > 0 ? 0.f : -INFINITY, pad > 0 ? 0.f : -INFINITY};
+  float l[2] = {(float)pad, (float)pad};
+  const bf16* sQw = sQ + warp * 16 * LD;
+  const int ntiles = (C + BN - 1) / BN;
+
+  for (int j = 0; j < ntiles; ++j) {
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    bf16* nxt = sRing + ((j + 1) % kStages) * 2 * BN * LD;
+    if (j + 1 < ntiles) {
+      load_rows_async<DH>(nxt, LD, kb, (j + 1) * BN, BN, C);
+      load_rows_async<DH>(nxt + BN * LD, LD, wb, (j + 1) * BN, BN, C);
+    } else if (WITH_CONV) {  // the conv's v window joins the ring
+      load_rows_async<DH>(nxt, LD, v + (size_t)bh * R * DH, r0 - half, window_rows(ksize), R);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and q) have landed
     __syncthreads();
+
+    const bf16* sK = sRing + (j % kStages) * 2 * BN * LD;
+    const bf16* sW = sK + BN * LD;
+    const int c0 = j * BN;
+    float s[8][4];
+    zero(s);
+    mma_nt<DT, 8>(s, sQw, sK, LD);
+    if (c0 + BN > C) {  // the ragged edge: zero-filled k rows, masked logits
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * n + 2 * t + (e & 1) >= C) s[n][e] = -INFINITY;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2], ml2[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = fast_exp2((m[i] - mx[i]) * kLog2e);  // 0 when m is -inf
+      m[i] = mx[i];
+      ml2[i] = mx[i] * kLog2e;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = fast_exp2(fmaf(s[n][e], kLog2e, -ml2[e / 2]));
+        sum[e / 2] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    unsigned p[4][4];
+    to_a_frags(p, s);
+    mma_rs<4, NT>(o, p, sW, LD);
   }
 
-  bf16* ob = out + (size_t)bh * R * dh;
-  for (int idx = threadIdx.x; idx < BM * dh; idx += kThreads) {
-    const int i = idx / dh, d = idx % dh;
-    if (r0 + i >= R) continue;
-    float val = sO[i * ldo + d] / sSum[i];
-    if (WITH_CONV) {
-      float conv = 0.f;
-      for (int t = 0; t < ksize; ++t) conv = fmaf(sTap[t], __bfloat162float(sV[(i + t) * ldb + d]), conv);
-      val += conv;
-    }
-    ob[(size_t)(r0 + i) * dh + d] = __float2bfloat16(val);
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  const int row_lo = r0 + warp * 16 + g;
+  if (lse != nullptr && t == 0) {
+    if (row_lo < R) lse[(size_t)bh * R + row_lo] = m[0] + logf(l[0]);
+    if (row_lo + 8 < R) lse[(size_t)bh * R + row_lo + 8] = m[1] + logf(l[1]);
   }
+  bf16* stage = sQ + warp * 16 * LD;  // this warp's q rows: only it read them
+  const size_t base = (size_t)bh * R * DH;
+  if (!WITH_CONV) {
+    stage_bf16<NT>(stage, LD, o, inv[0], inv[1]);
+    store_staged<DH>(out + base, stage, LD, r0 + warp * 16, R);
+    return;
+  }
+  if (o_attn != nullptr) {
+    stage_bf16<NT>(stage, LD, o, inv[0], inv[1]);
+    store_staged<DH>(o_attn + base, stage, LD, r0 + warp * 16, R);
+  }
+  cp_async_wait<0>();  // the v window
+  __syncthreads();
+  // conv = band v_window on the tensor cores: the warp's 16 rows need window
+  // rows 16 warp .. 16 warp + 15 + K - 1, ksteps steps of 16; band entry
+  // (i, j) is tap j - i (0 outside [0, K)), exact in bf16 like the taps
+  const bf16* sV = sRing + (ntiles % kStages) * 2 * BN * LD + warp * 16 * LD;
+  const int ksteps = (ksize + 30) / 16;
+  float conv[NT][4];
+  zero(conv);
+  for (int kk = 0; kk < ksteps; ++kk) {
+    unsigned band[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // a[e]: row g + 8 (e & 1), k 16 kk + 8 (e / 2) + 2 t
+      const int tap = 16 * kk + 8 * (e / 2) + 2 * t - (g + 8 * (e & 1));
+      band[e] = pack_bf16(tap >= 0 && tap < ksize ? sTap[tap] : 0.f,
+                          tap + 1 >= 0 && tap + 1 < ksize ? sTap[tap + 1] : 0.f);
+    }
+    mma_rs_step<NT>(conv, band, sV + 16 * kk * LD, LD);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], inv[e / 2], conv[n][e]);
+  stage_bf16<NT>(stage, LD, o, 1.f, 1.f);
+  store_staged<DH>(out + base, stage, LD, r0 + warp * 16, R);
 }
 
-template <bool WITH_CONV>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* w, const bf16* v,
-                   const bf16* kern, bf16* out, int bh, int heads, int R, int C, int dh,
+template <int DT, bool WITH_CONV>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* w, const bf16* v, const bf16* kern,
+                   bf16* out, float* lse, bf16* o_attn, int bh, int heads, int R, int C,
                    int pad, int ksize, cudaStream_t stream) {
-  const size_t smem = make_layout(dh, WITH_CONV ? ksize : 0).total;
-  cudaError_t err = allow_smem(softmax_attn_kernel<WITH_CONV>, smem);
+  const size_t smem = smem_bytes<DT>(WITH_CONV ? ksize : 0);
+  cudaError_t err = allow_smem(softmax_attn_kernel<DT, WITH_CONV>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((R + BM - 1) / BM, bh);
-  softmax_attn_kernel<WITH_CONV><<<grid, kThreads, smem, stream>>>(
-      q, k, w, v, kern, out, heads, R, C, dh, pad, ksize);
+  softmax_attn_kernel<DT, WITH_CONV><<<grid, kThreads, smem, stream>>>(
+      q, k, w, v, kern, out, lse, o_attn, heads, R, C, pad, ksize);
   return cudaGetLastError();
 }
 
+template <int DT>
+cudaError_t launch_dt(const bf16* q, const bf16* k, const bf16* w, const bf16* v,
+                      const bf16* kern, bf16* out, float* lse, bf16* o_attn, int bh, int heads,
+                      int R, int C, int pad, int ksize, cudaStream_t stream) {
+  if (ksize > 0)
+    return launch<DT, true>(q, k, w, v, kern, out, lse, o_attn, bh, heads, R, C, pad, ksize,
+                            stream);
+  return launch<DT, false>(q, k, w, v, kern, out, lse, nullptr, bh, heads, R, C, pad, 0,
+                           stream);
+}
+
+using LaunchFn = cudaError_t (*)(const bf16*, const bf16*, const bf16*, const bf16*,
+                                 const bf16*, bf16*, float*, bf16*, int, int, int, int, int,
+                                 int, cudaStream_t);
+constexpr LaunchFn kLaunch[8] = {launch_dt<1>, launch_dt<2>, launch_dt<3>, launch_dt<4>,
+                                 launch_dt<5>, launch_dt<6>, launch_dt<7>, launch_dt<8>};
+
 }  // namespace
 
-// ksize == 0: no conv (v and kern unused, may be null).
+// ksize == 0: no conv (v, kern and o_attn unused, may be null). lse (fp32
+// [bh, r]) and o_attn (bf16 [bh, r, dh]) are the backward's residuals:
+// null when no backward will run. dh a multiple of 16 up to 128, K odd up
+// to 65 (the window must fit one ring stage of 2 x 64 rows).
 MIRROR_EXPORT int mirror_softmax_attn(const void* q, const void* k, const void* w,
-                                      const void* v, const void* kern, void* out, int bh,
-                                      int heads, int r, int c, int dh, int pad, int ksize,
-                                      cudaStream_t stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* wp = static_cast<const bf16*>(w);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* kernp = static_cast<const bf16*>(kern);
-  bf16* op = static_cast<bf16*>(out);
-  if (ksize > 0)
-    return (int)launch<true>(qp, kp, wp, vp, kernp, op, bh, heads, r, c, dh, pad, ksize, stream);
-  return (int)launch<false>(qp, kp, wp, vp, kernp, op, bh, heads, r, c, dh, pad, 0, stream);
+                                      const void* v, const void* kern, void* out, void* lse,
+                                      void* o_attn, int bh, int heads, int r, int c, int dh,
+                                      int pad, int ksize, cudaStream_t stream) {
+  if (dh % 16 != 0 || dh < 16 || dh > 128 || ksize < 0 || (ksize > 0 && ksize % 2 == 0) ||
+      ksize > 65)
+    return (int)cudaErrorInvalidValue;
+  return (int)kLaunch[dh / 16 - 1](
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(kern), static_cast<bf16*>(out),
+      static_cast<float*>(lse), static_cast<bf16*>(o_attn), bh, heads, r, c, pad, ksize,
+      stream);
 }

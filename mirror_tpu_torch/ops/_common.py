@@ -40,6 +40,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+# what ptxas -v reported for each source at the last build (registers,
+# shared memory, spills of each kernel), by file name
+PTXAS_INFO: Dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,12 +66,13 @@ _SIGNATURES = {
     "mirror_pinv_eye_axpby": (_P, _P, _I, _I, _F, _F, _P),
     # gx32, gz, z0, s, gx, gs_partial (fp32 [bh]), bh, m, stream
     "mirror_pinv_bwd_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # q, k, w, v, kern, out, bh, heads, r, c, dh, pad, ksize, stream
-    "mirror_softmax_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, w, v, kern, g, dq, dk, dw, dv, dkern (fp32), stats, partial
-    # (scratch), bh, heads, r, c, dh, pad, ksize, stream
-    "mirror_softmax_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, w, v, kern, out, lse (fp32, or null), o_attn (or null), bh,
+    # heads, r, c, dh, pad, ksize, stream
+    "mirror_softmax_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, w, v, kern, g, lse (fp32), o, dq, dk, dw, dv, dkern (fp32), dvec
+    # (fp32 scratch), partial (scratch), bh, heads, r, c, dh, ksize, stream
+    "mirror_softmax_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _P),
     # img, kern, bias, out, b, H, W, C, stream
     "mirror_ppeg": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # img, kern, g, dimg, dkb (fp32 [50, C]: 49 taps then the bias),
@@ -144,17 +148,20 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _run_all(cmds) -> None:
-    """Run the commands at once and raise on the first that failed."""
+def _run_all(cmds) -> list:
+    """Run the commands at once, raise if any failed, else return each
+    one's standard error."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)) for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return errs
 
 
 def build_library(force: bool = False) -> Path:
@@ -173,8 +180,9 @@ def build_library(force: bool = False) -> Path:
     nvcc, tag = _nvcc(), os.getpid()
     sources = sorted(CSRC_DIR.glob("*.cu"))
     objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-              for src, obj in zip(sources, objects)])
+    errs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+                     for src, obj in zip(sources, objects)])
+    PTXAS_INFO.update((src.name, err) for src, err in zip(sources, errs))
     tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
     for obj in objects:

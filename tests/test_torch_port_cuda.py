@@ -39,11 +39,15 @@ from mirror_tpu_torch.ops.landmark import (
     landmark_softmax_ref,
 )
 from mirror_tpu_torch.ops.nystrom_attn import (
+    _launch_bwd,
+    _launch_fwd,
     depthwise_conv_seq_bwd_ref,
     depthwise_conv_seq_ref,
     fused_softmax_attn,
     fused_softmax_attn_conv,
+    softmax_attn_bwd_lse_ref,
     softmax_attn_bwd_ref,
+    softmax_attn_fwd_ref,
     softmax_attn_ref,
 )
 from mirror_tpu_torch.ops.pinv import (
@@ -254,6 +258,77 @@ def test_softmax_attn_conv_bwd_kernel(dev, b, h, n, m, dh):
     want = [*softmax_attn_bwd_ref(q, k_l, w, gout), *depthwise_conv_seq_bwd_ref(v, kern, gout)]
     for name, got, ref in zip(("dq", "dk_l", "dw", "dv", "dkern"), grads, want):
         _assert_rel(got, ref.to(got.dtype), name=name)
+
+
+# the attention's residuals: (b, h, r, c, dh, pad, conv); conv runs the
+# fused-conv instance (kernel 4), whose o_attn is the attention part alone
+ATTN_RESIDUAL_SHAPES = [(1, 2, 8, 40, 16, 24, False), (2, 3, 70, 130, 32, 0, False),
+                        (1, 2, 10, 8, 16, 0, True), (1, 8, 384, 2117, 96, 187, False),
+                        (1, 8, 384, 2049, 96, 255, False), (1, 8, 256, 2117, 64, 187, False),
+                        (1, 8, 2117, 384, 96, 0, True)]
+
+
+def _attn_inputs(seed, b, h, r, c, dh, dev):
+    g = torch.Generator().manual_seed(seed)
+    q = _randn(g, b, h, r, dh, dev=dev, scale=dh ** -0.5)
+    k, w = _randn(g, b, h, c, dh, dev=dev), _randn(g, b, h, c, dh, dev=dev)
+    v, kern = _randn(g, b, h, r, dh, dev=dev), _randn(g, h, 33, dev=dev, scale=0.1)
+    gout = _randn(g, b, h, r, dh, dev=dev)
+    return q, k, w, v, kern, gout
+
+
+@pytest.mark.parametrize("b,h,r,c,dh,pad,conv", ATTN_RESIDUAL_SHAPES)
+def test_softmax_attn_residuals_kernel(dev, b, h, r, c, dh, pad, conv):
+    """The forward's log-sum-exp within 1e-4 absolute of the plain
+    version's (fp32 statistics summed in another order; a wrong pad share
+    moves it by log(1 + pad e^-m)), o_attn at the output's bar, and the
+    backward from those residuals against its plain version fed the same
+    residuals, at the backward's bar."""
+    q, k, w, v, kern, gout = _attn_inputs(14, b, h, r, c, dh, dev)
+    v, kern = (v, kern) if conv else (None, None)
+    out, lse, o_attn = _launch_fwd(q, k, w, v, kern, pad, True)
+    want_out, want_lse, want_o = softmax_attn_fwd_ref(q, k, w, pad, v, kern)
+    _assert_close(out, want_out)
+    torch.cuda.synchronize()
+    assert lse.shape == want_lse.shape and lse.dtype == torch.float32
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-4, f"lse max abs error {err}"
+    o = o_attn if conv else out
+    if conv:
+        _assert_close(o_attn, want_o)
+    dq, dk, dw, _, _ = _launch_bwd(q, k, w, gout, lse, o, v, kern)
+    for name, got, ref in zip(("dq", "dk", "dw"), (dq, dk, dw),
+                              softmax_attn_bwd_lse_ref(q, k, w, gout, lse, o)):
+        _assert_rel(got, ref.to(got.dtype), name=name)
+
+
+@pytest.mark.parametrize("b,h,r,c,dh,pad,conv", ATTN_RESIDUAL_SHAPES)
+def test_softmax_attn_bwd_kernel_deterministic(dev, b, h, r, c, dh, pad, conv):
+    """Two backward runs on the same inputs give the same bits: every sum
+    is taken inside one block in a fixed order, with no float atomics."""
+    q, k, w, v, kern, gout = _attn_inputs(15, b, h, r, c, dh, dev)
+    v, kern = (v, kern) if conv else (None, None)
+    _, lse, o_attn = _launch_fwd(q, k, w, v, kern, pad, True)
+    o = o_attn if conv else _launch_fwd(q, k, w, v, kern, pad, False)[0]
+    first = _launch_bwd(q, k, w, gout, lse, o, v, kern)
+    second = _launch_bwd(q, k, w, gout, lse, o, v, kern)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dw", "dv", "dkern"), first, second):
+        if a is not None:
+            assert torch.equal(a, b_), f"{name} differs between two runs"
+
+
+def test_softmax_attn_keeps_residuals_only_for_autograd(dev):
+    """predict's calls (no grad) write no residuals: the forward returns
+    none and the Function saves none."""
+    q, k, w, v, kern, _ = _attn_inputs(16, 1, 2, 70, 130, 32, dev)
+    with torch.no_grad():
+        out = fused_softmax_attn(q, k, w)
+    assert out.grad_fn is None
+    assert _launch_fwd(q, k, w, v, kern, 0, False)[1:] == (None, None)
+    leaf = q.clone().requires_grad_()
+    out = fused_softmax_attn(leaf, k, w)
+    assert len(out.grad_fn.saved_tensors) == 5  # q, k, w, lse, the output
 
 
 @pytest.mark.parametrize("b,H,W,C", [(1, 5, 7, 40), (2, 46, 46, 768), (1, 9, 3, 64),

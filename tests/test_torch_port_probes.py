@@ -240,6 +240,37 @@ def test_probes_need_a_card_for_cuda():
             probe.main(SMALL[probe])
 
 
+def _c_entry(source: Path, name: str) -> str:
+    """The parameter list of C entry ``name`` in ``source``, whitespace
+    collapsed."""
+    text = source.read_text()
+    head = f"MIRROR_EXPORT int {name}("
+    assert text.count(head) == 1, (source, name)
+    start = text.index(head) + len(head)
+    return " ".join(text[start:text.index(")", start)].split())
+
+
+@pytest.mark.parametrize("src,entry", [("softmax_attn.cu", "mirror_softmax_attn"),
+                                       ("softmax_attn_bwd.cu", "mirror_softmax_attn_bwd")])
+def test_wgmma_variant_keeps_the_shipped_c_entries(src, entry):
+    """``exp_attn_wgmma`` runs the same wrappers on either library, so the
+    variant's C entries take what the shipped ones take."""
+    from mirror_tpu_torch.scripts import exp_attn_wgmma
+
+    shipped = exp_attn_wgmma._common.CSRC_DIR / src
+    assert _c_entry(exp_attn_wgmma.VARIANT_DIR / src, entry) == _c_entry(shipped, entry)
+    assert exp_attn_wgmma.VARIANT_DIR / src in exp_attn_wgmma.SOURCES
+
+
+def test_wgmma_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a card")
+    from mirror_tpu_torch.scripts import exp_attn_wgmma
+
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        exp_attn_wgmma.main([])
+
+
 def test_no_port_module_imports_jax_or_the_jax_package():
     """jax, flax, optax, the JAX package and ``scripts/`` made unimportable:
     every module of mirror_tpu_torch still loads."""
