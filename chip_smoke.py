@@ -8,7 +8,8 @@ Phases, each printed as it finishes:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel of ``mirror_tpu_torch/csrc`` compiled from the
    checkout's sources, with its build time, and what ``-Xptxas -v`` says
-   of the attention kernels (registers, shared memory, spills);
+   of the redesigned kernels (the Nystrom and ViT attention, PPEG:
+   registers, shared memory, spills);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
@@ -26,8 +27,9 @@ Phases, each printed as it finishes:
    ``library_*`` variants make for the fused ViT sub-layers) that call,
    each also as single calls between two events; the achieved TFLOP/s (the
    products the function needs over the kernel's time), the kernel /
-   library ratio, and for the attention the design's count of products run
-   and needed (from the source notes, not measured);
+   library ratio, the bound over the kernel's time, and for the attention
+   the design's count of products run and needed (from the source notes,
+   not measured);
 3b. backward kernels: each against its plain version fed the same inputs
    and incoming gradient, at the train slice's shapes (the encoder's 2117
    rows with pad 187 and the retention decoder's 2049 rows with pad 255;
@@ -37,8 +39,8 @@ Phases, each printed as it finishes:
    backwards, 2b ([8, 8, 256, 256]) and PPEG's at the self-test's shapes
    as in phase 3), error per output
    (the batch sums dkern, gw, gs and gb also against their largest
-   magnitude), and the same times; the attention backwards (3c, 4b) run
-   twice on the same inputs and must give the same bits;
+   magnitude), and the same times; the attention backwards (3c, 4b) and
+   PPEG's (5b) run twice on the same inputs and must give the same bits;
 4. serving slice: a full-width ``mirror_classifier`` (the subtyping
    configuration: 768-d Phikon features, embed 768, RNA 10234, 2048 tokens,
    bf16) with random weights from a seeded generator, saved as a reference
@@ -246,8 +248,8 @@ def phase_build():
     _common.library()
     say(f"[build] {lib.relative_to(REPO)} from {_common.CSRC_DIR.relative_to(REPO)}/*.cu "
         f"in {time.perf_counter() - t0:.1f} s")
-    # registers, shared memory and spills of the attention kernels (-Xptxas -v)
-    for src in ("softmax_attn.cu", "softmax_attn_bwd.cu"):
+    # registers, shared memory and spills of the redesigned kernels (-Xptxas -v)
+    for src in ("softmax_attn.cu", "softmax_attn_bwd.cu", "vit_attn.cu", "ppeg.cu"):
         info = _common.PTXAS_INFO[src]
         for line in info.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -325,6 +327,7 @@ def run_case(torch, case: Case) -> dict:
                  f"({case.work['products'][1]} needed)")
     if ratio is not None:
         rate += f", kernel / library {ratio:.2f}"
+    rate += f", {100 * bound_ms / ms:.1f} % of its bound"
     say(f"[kernel] {case.name} ({case.shape}): max abs / rel Frobenius err {per_output} "
         f"(bound {case.tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
         f"bound {bound_ms:.4f} ms by {bound_by}{rate} (medians of warm calls, runs of calls "
@@ -761,8 +764,8 @@ def autograd_kernel(torch, fn, inputs, grads):
 
 def same_bits_check(torch, name, kernel):
     """A ``check`` that runs ``kernel`` a second time on the same inputs and
-    holds every output to the first run's bits (the attention backward:
-    fixed-order sums, no float atomics)."""
+    holds every output to the first run's bits (the attention and PPEG
+    backwards: fixed-order sums, no float atomics)."""
     def check(out, ref):
         again = kernel()
         torch.cuda.synchronize()
@@ -887,14 +890,15 @@ def backward_cases(torch, randn):
         conv_w = kern.permute(2, 0, 1).unsqueeze(1).clone()
         conv_w[:, 0, 3, 3] += 1
         img_nchw, g5_nchw = img.permute(0, 3, 1, 2), g5.permute(0, 3, 1, 2)
+        bwd5 = autograd_kernel(torch, ppeg.ppeg_fused, (img, kern, bias), (g5,))
         cases.append(Case(
             "ppeg_bwd", "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:137",
-            f"[{b}, {SIDE}, {SIDE}, {c}]",
-            autograd_kernel(torch, ppeg.ppeg_fused, (img, kern, bias), (g5,)),
+            f"[{b}, {SIDE}, {SIDE}, {c}]", bwd5,
             lambda img=img, kern=kern, g5=g5: ppeg.ppeg_bwd_ref(img, kern, g5), BOUND_BWD,
             ("dimg", "dk", "db"),
             dict(bytes=3 * nbytes(img) + 2 * nbytes(kern) + nbytes(bias), mma=0,
                  fp32=(2 * 49 * 2 + 2) * img.numel()),
+            check=same_bits_check(torch, "ppeg_bwd", bwd5),
             # dinput, dweight and dbias of the depthwise conv with the identity
             # folded into its centre tap: one PyTorch call
             library=lambda g5_nchw=g5_nchw, img_nchw=img_nchw, conv_w=conv_w, c=c:

@@ -11,145 +11,286 @@
 // for the fused q|k|v buffer of attn_block). The scores, the softmax
 // statistics and both products' sums are fp32; the normalised probabilities
 // are rounded to bf16 before P v, and each head's output once, at the TPU
-// kernel's rounding points. Columns past n are -inf logits (weight 0): unlike
-// the Nystrom kernels' pad, they are not part of the softmax.
+// kernel's rounding points. Columns past n weigh 0: unlike the Nystrom
+// kernels' pad, they are not part of the softmax.
 //
 // What bounds it on the H100: device-memory bytes. At Phikon's batch of 256
 // (n 197, 12 heads, dh 64) q, k, v and out are 4 x 77.5 MB (0.093 ms at
 // 3.35 TB/s) against 3.0e10 FLOP of products (0.031 ms at 989 TFLOP/s).
 //
-// Design: the TPU program holds 2-4 whole images in VMEM and loops over the
-// heads; here a block of 4 warps owns (image, head, 64 queries), so the grid
-// is b x heads x ceil(n / 64) and no transpose to a head-major layout is ever
-// made. K_h and V_h (n rounded up to 16 rows, zero-filled) are copied into
-// shared memory with cp.async; each warp computes the full fp32 score rows of
-// its 16 queries with WMMA (16x16x16 bf16), takes an exact two-pass softmax
-// per row in registers, writes the bf16 probabilities over the first half of
-// the same score rows, and multiplies them by V_h. At n 197 the block holds
-// 114 KB, so two blocks share an SM. n is at most 256 (the registers of a
-// score row).
+// Design (on attn_mma.cuh's mma.sync m16n8k16 and ldmatrix):
+// - One block owns a whole (image, head) pair: K_h and V_h (n rounded up to
+//   16 rows, zero-filled, row stride dh + 8) go to shared memory once a
+//   pair with cp.async, and the block's warps walk all of the pair's 16-row
+//   query tiles (13 at n 197). Each element of q, k and v crosses device
+//   memory once and out is written once: the bytes bound's traffic.
+// - A warp's 16 x npad score tile stays in registers (32 n8-tiles x 4 =
+//   128 fp32 a thread at npad 256, the limit): the exact row max and sum are
+//   two quad shuffles a row, exp2 of the log2e-scaled scores on ex2.approx.
+//   The normalised probabilities, packed to bf16, are the A operand of P V
+//   against V through ldmatrix.trans, so neither S nor P touches shared
+//   memory. The warp's queries and then its bf16 output pass through one
+//   16-row staging tile of its own (16-byte loads and stores).
+// - One pass, not two: the 128 score registers fit the occupancy that
+//   shared memory allows anyway (one double-buffered block of 8 warps an
+//   SM, up to 255 registers a thread; ptxas at dh 64: 255 registers, 8
+//   bytes of spills; chip_smoke prints its report). Two passes over K (max
+//   and sum, then P and P V) would recompute q k^T and every exp for no
+//   gain in warps an SM. A first version held to 168 registers for 3
+//   blocks of 4 warps an SM spilled about 1 KB a thread at dh 64.
+// - Blocks of 8 warps walk consecutive pairs, double-buffered: while a
+//   block works on one pair, the next pair's K_h and V_h stream into its
+//   second buffer. On the model's path (`group` 1) there is one block an SM
+//   (138 KB at n 197, dh 64), each taking ceil(pairs / SMs) pairs; the
+//   probe's layouts fix G pairs a block. Where two buffers do not fit (dh 96
+//   and up at n 256, n above 176 at dh 128) a block loads each pair after
+//   the last. The per-pair arithmetic is the same code, so every launch
+//   gives the same bits.
 //
 // For the probe scripts/exp_vit_attn_kernel.py (K11c; make_headmajor :101,
 // make_natural :149): a head-major [b h, n, dh] tensor is the same call with
-// b h images of one head and ld_in = ld_out = dh; with `group` G > 1 a
-// second kernel lets a block walk G consecutive (image, head) pairs in turn,
-// reusing its shared memory (G = N heads is N whole images).
-//
-// The warp's part (scores, softmax, P v) is vit_attn.cuh's attend_warp,
-// which the fused ViT sub-layer kernels (vit_fused.cu) share.
-#include "vit_attn.cuh"
+// b h images of one head and ld_in = ld_out = dh; G = N heads is N whole
+// images a block.
+#include "attn_mma.cuh"
 
 namespace {
 
-using vit_attn::kMaxCols;
-using vit_attn::kMaxDhTiles;
+constexpr int kMaxKeyTiles = 16;  // n <= 256: the key tiles of 16 a score row holds
+constexpr int kWarps = 8;
+constexpr size_t kMaxSmem = 227 * 1024;
 
-constexpr int BQ = 64;  // queries per block, 16 a warp
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-
+// Shared memory of a block: `buffers` copies of (K_h, V_h), npad rows each
+// at a row stride of dh + 8, then one 16-row staging tile a warp.
 struct Layout {
-  int npad, ldk, ls;  // n rounded up to 16; bf16 stride of K, V; fp32 stride of S
-  size_t k, v, s, total;
+  int npad, ld;        // n rounded up to 16; the bf16 row stride
+  size_t kv, stage;    // bytes of one K_h (or V_h), of one warp's staging tile
+  size_t total;
 };
 
-__host__ __device__ inline Layout make_layout(int n, int dh) {
+__host__ __device__ inline Layout make_layout(int n, int dh, int buffers) {
   Layout L;
   L.npad = (n + 15) / 16 * 16;
-  L.ldk = dh + 8;
-  L.ls = vit_attn::score_stride(L.npad, dh);
-  size_t off = 0;
-  L.k = off; off += smem_align((size_t)L.npad * L.ldk * sizeof(bf16));
-  L.v = off; off += smem_align((size_t)L.npad * L.ldk * sizeof(bf16));
-  L.s = off; off += smem_align((size_t)BQ * L.ls * sizeof(float));
-  L.total = off;
+  L.ld = dh + 8;
+  L.kv = smem_align((size_t)L.npad * L.ld * sizeof(bf16));
+  L.stage = smem_align((size_t)16 * L.ld * sizeof(bf16));
+  L.total = 2 * buffers * L.kv + kWarps * L.stage;
   return L;
 }
 
-// Start copying rows [0, rows) of head columns [0, dh) of a matrix with row
-// stride ld to shared memory with stride lds (bf16 elements), 16 bytes a
-// thread per step with cp.async, so every load of the block is in flight at
-// once; rows >= valid are zero-filled.
-__device__ inline void load_head_rows(bf16* dst, const bf16* src, int rows, int valid, int dh,
-                                      int ld, int lds) {
-  const int chunks = dh / 8;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
+// Start copying K_h and V_h (rows [0, npad) of head columns [0, DH), row
+// stride ld_in) into shared memory, 16 bytes a thread per step; rows past n
+// are zero-filled.
+template <int DH, int THREADS>
+__device__ __forceinline__ void load_kv_async(bf16* sK, bf16* sV, const bf16* k, const bf16* v,
+                                              int npad, int n, int ld_in, int ld) {
+  constexpr int chunks = DH / 8;
+  for (int idx = threadIdx.x; idx < npad * chunks; idx += THREADS) {
     const int r = idx / chunks, c = (idx % chunks) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + (size_t)r * lds + c, ok ? src + (size_t)r * ld + c : src, ok);
+    const bool ok = r < n;
+    const size_t off = (size_t)r * ld_in + c;
+    cp_async16(sK + r * ld + c, ok ? k + off : k, ok);
+    cp_async16(sV + r * ld + c, ok ? v + off : v, ok);
   }
 }
 
-// The block's 64 queries of one (image, head) pair: K_h, V_h and the queries
-// into shared memory (every thread reaches the one block barrier), then each
-// warp's 16 rows.
-__device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                       const bf16* __restrict__ v, bf16* __restrict__ out,
-                                       int n, int dh, int ld_in, int ld_out, float scale,
-                                       int img, int head) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(n, dh);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L.v);
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  const int ldk = L.ldk, ls = L.ls, npad = L.npad;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// One warp's 16 query rows [row0, row0 + 16) of one pair: q and out point at
+// the pair's first row and head column (row strides ld_in, ld_out); sK, sV
+// its keys and values in shared memory; stage the warp's staging tile.
+// c = dh^-0.5 log2(e).
+template <int DH>
+__device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, bf16* __restrict__ out,
+                                            const bf16* sK, const bf16* sV, bf16* stage,
+                                            int ld, int n, int npad, int row0, int ld_in,
+                                            int ld_out, float c) {
+  constexpr int chunks = DH / 8, per_lane = (16 * chunks + 31) / 32;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int kt = npad / 16;
 
-  const size_t base = (size_t)img * n * ld_in + (size_t)head * dh;
-  load_head_rows(sK, k + base, npad, n, dh, ld_in, ldk);
-  load_head_rows(sV, v + base, npad, n, dh, ld_in, ldk);
-  // q row i is staged at the start of score row i (bf16 stride 2 ls), so a
-  // warp's queries lie in its own score rows
-  load_head_rows(reinterpret_cast<bf16*>(sS), q + base + (size_t)q0 * ld_in, BQ, n - q0, dh,
-                 ld_in, 2 * ls);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // the last block of an image holds n mod 64 queries (5 at n 197): a warp
-  // whose 16 rows all lie past n has nothing more to do
-  const int rows = n - (q0 + warp * 16);
-  if (rows <= 0) return;
+  // the queries into the staging tile (zeros past n): every load in flight
+  // before the first store
+  uint4 qv[per_lane];
+#pragma unroll
+  for (int i = 0; i < per_lane; ++i) {
+    const int idx = lane + 32 * i, r = idx / chunks, col = (idx % chunks) * 8;
+    qv[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (idx < 16 * chunks && row0 + r < n)
+      qv[i] = __ldg(reinterpret_cast<const uint4*>(q + (size_t)(row0 + r) * ld_in + col));
+  }
+  __syncwarp();  // the previous tile's output has left the staging tile
+#pragma unroll
+  for (int i = 0; i < per_lane; ++i) {
+    const int idx = lane + 32 * i, r = idx / chunks, col = (idx % chunks) * 8;
+    if (idx < 16 * chunks) *reinterpret_cast<uint4*>(stage + r * ld + col) = qv[i];
+  }
+  __syncwarp();
 
-  float* wS = sS + (size_t)warp * 16 * ls;  // this warp's 16 score rows
-  // its queries were staged at the start of its score rows
-  vit_attn::attend_warp(reinterpret_cast<const bf16*>(wS), 2 * ls, sK, sV, ldk, wS, ls, n, npad,
-                        dh, scale, rows);
+  // S = q K^T over the pair's kt key tiles. The arrays are indexed with
+  // constants only (unrolled to kMaxKeyTiles, predicated on kt), so they
+  // stay in registers.
+  float s[2 * kMaxKeyTiles][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  const bf16* pa = stage + (lane % 16) * ld + (lane / 16) * 8;
+  const bf16* pb = sK + ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    unsigned fa[4];
+    attn::ldsm_x4(fa, pa + 16 * kk);
+#pragma unroll
+    for (int np = 0; np < kMaxKeyTiles; ++np) {
+      if (np < kt) {
+        unsigned fb[4];
+        attn::ldsm_x4(fb, pb + 16 * np * ld + 16 * kk);
+        attn::mma16816(s[2 * np], fa, fb[0], fb[1]);
+        attn::mma16816(s[2 * np + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
 
-  // the warp's 16 rows, 8 columns a lane per step, rounded once
-  const int chunks = dh / 8;
+  // the exact softmax of rows g (s[.][0..1]) and g + 8 (s[.][2..3]): columns
+  // past n are -inf, the max and the sum two quad shuffles each
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) {
+    if (j < 2 * kt) {
+      const int col = 8 * j + 2 * t;
+      if (col >= n) s[j][0] = s[j][2] = -INFINITY;
+      if (col + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  const float b0 = m0 * c, b1 = m1 * c;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) {
+    if (j < 2 * kt) {
+      s[j][0] = attn::fast_exp2(fmaf(s[j][0], c, -b0));
+      s[j][1] = attn::fast_exp2(fmaf(s[j][1], c, -b0));
+      s[j][2] = attn::fast_exp2(fmaf(s[j][2], c, -b1));
+      s[j][3] = attn::fast_exp2(fmaf(s[j][3], c, -b1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  const float r0 = 1.f / l0, r1 = 1.f / l1;
+
+  // the normalised probabilities, rounded to bf16: P V's A operand (key
+  // tile kk is score n8-tiles 2 kk and 2 kk + 1)
+  unsigned p[kMaxKeyTiles][4];
+#pragma unroll
+  for (int kk = 0; kk < kMaxKeyTiles; ++kk) {
+    if (kk < kt) {
+      p[kk][0] = attn::pack_bf16(s[2 * kk][0] * r0, s[2 * kk][1] * r0);
+      p[kk][1] = attn::pack_bf16(s[2 * kk][2] * r1, s[2 * kk][3] * r1);
+      p[kk][2] = attn::pack_bf16(s[2 * kk + 1][0] * r0, s[2 * kk + 1][1] * r0);
+      p[kk][3] = attn::pack_bf16(s[2 * kk + 1][2] * r1, s[2 * kk + 1][3] * r1);
+    }
+  }
+  float o[DH / 8][4];
+  attn::zero(o);
+#pragma unroll
+  for (int kk = 0; kk < kMaxKeyTiles; ++kk)
+    if (kk < kt) attn::mma_rs_step<DH / 8>(o, p[kk], sV + 16 * kk * ld, ld);
+
+  // O rounded once, staged over the queries, then 16 bytes a lane
+  __syncwarp();
+  attn::stage_bf16<DH / 8>(stage, ld, o, 1.f, 1.f);
+  __syncwarp();
   for (int idx = lane; idx < 16 * chunks; idx += 32) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
-    if (r >= rows) continue;
-    const int row = q0 + warp * 16 + r;
-    uint4 val;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
-    const float* src = wS + (size_t)r * ls + c;
-    for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(src[2 * t], src[2 * t + 1]);
-    *reinterpret_cast<uint4*>(out + ((size_t)img * n + row) * ld_out + (size_t)head * dh + c) =
-        val;
+    const int r = idx / chunks, col = (idx % chunks) * 8;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * ld_out + col) =
+          *reinterpret_cast<const uint4*>(stage + r * ld + col);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A block of kWarps warps takes the `group` consecutive (image, head) pairs
+// [first, last) of `pairs` (pair = image heads + head). buffers 2: the
+// next pair's K_h, V_h load while this pair computes; 1: each pair loads
+// after the last.
+template <int DH>
+__global__ void __launch_bounds__(32 * kWarps, 1)
     vit_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, int n, int dh,
-                    int ld_in, int ld_out, float scale) {
-  attend(q, k, v, out, n, dh, ld_in, ld_out, scale, blockIdx.z, blockIdx.y);
+                    const bf16* __restrict__ v, bf16* __restrict__ out, int pairs, int heads,
+                    int group, int n, int ld_in, int ld_out, float scale, int buffers) {
+  constexpr int THREADS = 32 * kWarps;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = make_layout(n, DH, buffers);
+  const int warp = threadIdx.x / 32;
+  bf16* stage = reinterpret_cast<bf16*>(smem + 2 * buffers * L.kv + warp * L.stage);
+  auto keys = [&](int buf) { return reinterpret_cast<bf16*>(smem + 2 * buf * L.kv); };
+  auto values = [&](int buf) { return reinterpret_cast<bf16*>(smem + (2 * buf + 1) * L.kv); };
+  auto in_base = [&](int pair) {
+    return (size_t)(pair / heads) * n * ld_in + (size_t)(pair % heads) * DH;
+  };
+  const int first = blockIdx.x * group, last = min(pairs, first + group);
+  const int tiles = (n + 15) / 16;
+  const float c = scale * attn::kLog2e;
+
+  load_kv_async<DH, THREADS>(keys(0), values(0), k + in_base(first), v + in_base(first),
+                             L.npad, n, ld_in, L.ld);
+  cp_async_commit();
+  for (int pair = first; pair < last; ++pair) {
+    const int buf = buffers == 2 ? (pair - first) & 1 : 0;
+    if (buffers == 1 && pair > first) {
+      __syncthreads();  // every warp is done with the last pair's K_h and V_h
+      load_kv_async<DH, THREADS>(keys(0), values(0), k + in_base(pair), v + in_base(pair),
+                                 L.npad, n, ld_in, L.ld);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // past the barrier every warp is done with the pair before: its buffer
+    // takes the next pair
+    if (buffers == 2 && pair + 1 < last) {
+      load_kv_async<DH, THREADS>(keys(buf ^ 1), values(buf ^ 1), k + in_base(pair + 1),
+                                 v + in_base(pair + 1), L.npad, n, ld_in, L.ld);
+      cp_async_commit();
+    }
+    const bf16* qp = q + in_base(pair);
+    bf16* op = out + (size_t)(pair / heads) * n * ld_out + (size_t)(pair % heads) * DH;
+    for (int tile = warp; tile < tiles; tile += kWarps)
+      attend_tile<DH>(qp, op, keys(buf), values(buf), stage, L.ld, n, L.npad, 16 * tile, ld_in,
+                      ld_out, c);
+  }
 }
 
-// A block walks `group` consecutive (image, head) pairs of `pairs` in turn;
-// the barrier after each keeps the next pair's loads off the tiles in use.
-__global__ void __launch_bounds__(kThreads)
-    vit_attn_grouped_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ out, int pairs,
-                            int heads, int group, int n, int dh, int ld_in, int ld_out,
-                            float scale) {
-  const int first = (int)blockIdx.y * group, last = min(pairs, first + group);
-  for (int pair = first; pair < last; ++pair) {
-    attend(q, k, v, out, n, dh, ld_in, ld_out, scale, pair / heads, pair % heads);
-    __syncthreads();
+// Two buffers where they fit, else one. group 1 (the model's path): one
+// block an SM, each walking its share of the pairs; group G > 1 (the
+// probe's layouts): G pairs a block.
+template <int DH>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int pairs, int heads,
+                   int group, int n, int ld_in, int ld_out, float scale, cudaStream_t stream) {
+  const int buffers = make_layout(n, DH, 2).total <= kMaxSmem ? 2 : 1;
+  const size_t smem = make_layout(n, DH, buffers).total;
+  cudaError_t err = allow_smem(vit_attn_kernel<DH>, smem);
+  if (err != cudaSuccess) return err;
+  if (group == 1) {
+    int device, sms, per_sm;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vit_attn_kernel<DH>,
+                                                          32 * kWarps, smem);
+    if (err != cudaSuccess) return err;
+    const int slots = sms * (per_sm > 0 ? per_sm : 1);
+    group = (pairs + slots - 1) / slots;
   }
+  vit_attn_kernel<DH><<<(pairs + group - 1) / group, 32 * kWarps, smem, stream>>>(
+      q, k, v, out, pairs, heads, group, n, ld_in, ld_out, scale, buffers);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -161,27 +302,29 @@ __global__ void __launch_bounds__(kThreads)
 MIRROR_EXPORT int mirror_vit_attn(const void* q, const void* k, const void* v, void* out,
                                   int b, int n, int heads, int dh, int ld_in, int ld_out,
                                   int group, float scale, cudaStream_t stream) {
-  if (n > kMaxCols || dh % 16 != 0 || dh / 16 > kMaxDhTiles || group <= 0)
+  if (n > 16 * kMaxKeyTiles || dh % 16 != 0 || dh < 16 || dh > 128 || group <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = make_layout(n, dh).total;
+  const int pairs = b * heads;
+  if (pairs <= 0 || n <= 0) return (int)cudaSuccess;
   const auto* qb = static_cast<const bf16*>(q);
   const auto* kb = static_cast<const bf16*>(k);
   const auto* vb = static_cast<const bf16*>(v);
   auto* ob = static_cast<bf16*>(out);
-  cudaError_t err;
-  if (group == 1) {
-    err = allow_smem(vit_attn_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((n + BQ - 1) / BQ, heads, b);
-    vit_attn_kernel<<<grid, kThreads, smem, stream>>>(qb, kb, vb, ob, n, dh, ld_in, ld_out,
-                                                      scale);
-    return (int)cudaGetLastError();
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (dh) {
+#define MIRROR_VIT_ATTN_DH(D)                                                              \
+  case D:                                                                                  \
+    err = launch<D>(qb, kb, vb, ob, pairs, heads, group, n, ld_in, ld_out, scale, stream);    \
+    break;
+    MIRROR_VIT_ATTN_DH(16)
+    MIRROR_VIT_ATTN_DH(32)
+    MIRROR_VIT_ATTN_DH(48)
+    MIRROR_VIT_ATTN_DH(64)
+    MIRROR_VIT_ATTN_DH(80)
+    MIRROR_VIT_ATTN_DH(96)
+    MIRROR_VIT_ATTN_DH(112)
+    MIRROR_VIT_ATTN_DH(128)
+#undef MIRROR_VIT_ATTN_DH
   }
-  const int pairs = b * heads, blocks = (pairs + group - 1) / group;
-  if (blocks > 65535) return (int)cudaErrorInvalidValue;
-  err = allow_smem(vit_attn_grouped_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  vit_attn_grouped_kernel<<<dim3((n + BQ - 1) / BQ, blocks), kThreads, smem, stream>>>(
-      qb, kb, vb, ob, pairs, heads, group, n, dh, ld_in, ld_out, scale);
-  return (int)cudaGetLastError();
+  return (int)err;
 }

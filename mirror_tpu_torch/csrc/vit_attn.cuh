@@ -1,6 +1,9 @@
 // The attention of one warp's 16 query rows against one head's K and V in
-// shared memory: the body of kernel 8 (csrc/vit_attn.cu) that the fused ViT
-// sub-layer kernels (csrc/vit_fused.cu, k5 and k8) share.
+// shared memory, the body that the fused ViT sub-layer kernels
+// (csrc/vit_fused.cu, k5 and k8) share. Kernel 8 (csrc/vit_attn.cu) no
+// longer runs it: since its redesign it keeps S and P in registers on
+// mma.sync (attn_mma.cuh); this WMMA body waits for the fused kernels'
+// redesign (ROADMAP R7).
 //
 // S = q K^T (WMMA 16x16x16 bf16, fp32 sums) over all npad key columns, an
 // exact two-pass softmax of S * scale per row in registers (columns past n
@@ -21,7 +24,7 @@ constexpr int kMaxCols = 256;   // the most key columns a score row holds
 constexpr int kMaxDhTiles = 8;  // dh <= 128
 
 // fp32 stride of a warp's score rows: a row also holds the fp32 output row
-// (dh) and, in kernel 8, the staged bf16 q row, so it is at least dh + 4
+// (dh) and the staged bf16 q row, so it is at least dh + 4
 __host__ __device__ inline int score_stride(int npad, int dh) {
   return (npad > dh ? npad : dh) + 4;
 }

@@ -52,8 +52,8 @@
 //   [32, 192] tiles of W_qkv's head-h columns through a 4-stage ring;
 //   + b_qkv, rounded, into shared memory.
 // - Phase 2: each warp takes 16-query tiles of head h through
-//   vit_attn.cuh's attend_warp (kernel 8's body: fp32 scores, an exact
-//   softmax, bf16 probabilities) and writes o_h bf16 over its own q rows.
+//   vit_attn.cuh's attend_warp (kernel 8's body before its redesign: fp32
+//   scores, an exact softmax, bf16 probabilities) and writes o_h bf16 over its own q rows.
 // - cluster.sync(); phase 3: CTA j computes output columns [j dh, (j+1) dh)
 //   as the sum over heads of o_h W_o[h dh:(h+1) dh, j dh:(j+1) dh], with o_h
 //   read from CTA h's shared memory (distributed shared memory, in head

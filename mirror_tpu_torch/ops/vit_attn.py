@@ -169,8 +169,9 @@ def _attention(q, k, v, images, heads, dh, ld, group, kernel):
 def mha_natural(q, k, v, heads: int, images: Optional[int] = None):
     """softmax(q k^T / sqrt(dh)) v over ``heads`` head slices of the last
     dim of q, k, v [b, n, d]; the output in q's dtype. On the card a block
-    owns one (image, head) pair (the model's path), or with ``images`` N
-    walks the heads of N whole images in turn."""
+    walks consecutive (image, head) pairs: one block an SM, each taking its
+    share (the model's path), or with ``images`` N the heads of N whole
+    images a block."""
     _check_heads("mha_natural", q.shape[-1], heads)
     if not _common.on_cuda(q, k, v):
         return mha_natural_ref(q, k, v, heads)

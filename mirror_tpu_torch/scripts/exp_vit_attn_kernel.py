@@ -2,8 +2,9 @@
 
 Counterpart of ``scripts/exp_vit_attn_kernel.py``: softmax(q k^T / sqrt(dh))
 v at B 512, n 197, 12 heads of 64, from and to the natural [b, n, 768]
-layout, all on ``csrc/vit_attn.cu`` (a block owns 64 queries of one
-(image, head) pair and walks G pairs in turn):
+layout, all on ``csrc/vit_attn.cu`` (a block of 8 warps walks G
+consecutive (image, head) pairs, loading each pair's keys and values once,
+the next pair's while this one computes):
 
 - ``xla``: the script's baseline ``attn_xla`` in plain torch (einsums in
   the compute dtype, the softmax in fp32);
@@ -12,7 +13,8 @@ layout, all on ``csrc/vit_attn.cu`` (a block owns 64 queries of one
   CUDA instance: on the TPU k1 and k2 differ only in how Mosaic lowers a
   batched dot against unrolled dots, which has no counterpart here;
 - ``k3gN``: the natural layout, N whole images a block (N x 12 pairs);
-- ``k8``: kernel 8 as the model runs it, one (image, head) pair a block;
+- ``k8``: kernel 8 as the model runs it (G 1: one block an SM, each
+  walking its share of the pairs);
 - ``library``: SDPA on the [b, h, n, dh] views.
 
 Errors are against the plain version ``mha_natural_ref`` (fp32 scores and

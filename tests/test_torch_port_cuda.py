@@ -331,9 +331,14 @@ def test_softmax_attn_keeps_residuals_only_for_autograd(dev):
     assert len(out.grad_fn.saved_tensors) == 5  # q, k, w, lse, the output
 
 
+# (b, H, W, C): also H not a multiple of the backward's 8-row bands, W not
+# of its 16-column chunks, C below and not a multiple of its 64-channel
+# blocks, and odd C (its element-wise staging)
 @pytest.mark.parametrize("b,H,W,C", [(1, 5, 7, 40), (2, 46, 46, 768), (1, 9, 3, 64),
-                                     (2, 46, 46, 512)])
+                                     (2, 46, 46, 512), (3, 13, 21, 40), (1, 11, 19, 37)])
 def test_ppeg_bwd_kernel(dev, b, H, W, C):
+    """Against the plain version, and a second run bit for bit (fixed-order
+    sums, no float atomics)."""
     g = torch.Generator().manual_seed(13)
     img = _randn(g, b, H, W, C, dev=dev)
     kern, bias = _randn(g, 7, 7, C, dev=dev, scale=0.1), _randn(g, C, dev=dev, scale=0.1)
@@ -344,6 +349,9 @@ def test_ppeg_bwd_kernel(dev, b, H, W, C):
     _assert_rel(dimg, ref[0], name="dimg")
     _assert_rel(dk, ref[1].to(dk.dtype), name="dk")
     _assert_rel(db, ref[2].to(db.dtype), name="db")
+    _, again = _grads(ppeg_fused, img, kern, bias)
+    for name, first, second in zip(("dimg", "dk", "db"), (dimg, dk, db), again):
+        assert torch.equal(first, second), name
 
 
 def test_pinv_gradients_on_the_card(dev):
@@ -460,6 +468,38 @@ def test_vit_attn_block_kernel(dev, b, n, heads, dh, eps):
     # the attention half alone (out - x), where a wrong head or pad shows most
     x = args[0].float()
     _assert_rel(out.float() - x, attn_block_ref(*args, heads, eps).float() - x, 2e-2)
+
+
+# (b, n, heads, dh) at the kernel's edges: n 256 (the limit: 16 key tiles),
+# n 1 and 16 (one query tile), dh 16 and 128, n not a multiple of 16
+VIT_EDGE_SHAPES = [(2, 256, 2, 64), (3, 1, 4, 32), (2, 16, 3, 16), (1, 197, 2, 128),
+                   (2, 256, 1, 128), (1, 200, 6, 16)]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", VIT_EDGE_SHAPES)
+def test_vit_attention_kernel_edges(dev, b, n, heads, dh):
+    """Kernel 8 at its limits through every instance: the natural layout
+    (one pair a block), head-major with 3 pairs a block (the double-buffered
+    walk where it fits), whole images a block (bit for bit the first), and
+    inside attn_block (q, k, v in one q|k|v buffer, ld_in = 3d)."""
+    from mirror_tpu_torch.ops.vit_attn import (attn_block, attn_block_ref, mha_headmajor,
+                                               mha_headmajor_ref, mha_natural, mha_natural_ref)
+
+    g = torch.Generator().manual_seed(34)
+    q, k, v = (_randn(g, b, n, heads * dh, dev=dev) for _ in range(3))
+    one = mha_natural(q, k, v, heads)
+    _assert_rel(one, mha_natural_ref(q, k, v, heads), BOUND_VIT)
+    assert torch.equal(mha_natural(q, k, v, heads, 2), one)
+    qz, kz, vz = (t.view(b, n, heads, dh).transpose(1, 2).reshape(b * heads, n, dh).contiguous()
+                  for t in (q, k, v))
+    hm = mha_headmajor(qz, kz, vz, 3)
+    _assert_rel(hm, mha_headmajor_ref(qz, kz, vz), BOUND_VIT)
+    assert torch.equal(hm, one.view(b, n, heads, dh).transpose(1, 2).reshape(b * heads, n, dh))
+    args = _vit_attn_inputs(g, b, n, heads, dh, dev)
+    out = attn_block(*args, heads)
+    ref = attn_block_ref(*args, heads)
+    x = args[0].float()
+    _assert_rel(out.float() - x, ref.float() - x, 2e-2)
 
 
 @pytest.mark.parametrize("b,n,d,m", [(1, 197, 768, 3072), (3, 37, 64, 256), (3, 23, 128, 512)])
