@@ -8,7 +8,8 @@ Phases, each printed as it finishes:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel of ``mirror_tpu_torch/csrc`` compiled from the
    checkout's sources, with its build time, and what ``-Xptxas -v`` says
-   of the redesigned kernels (the Nystrom and ViT attention, PPEG:
+   of the redesigned kernels (the Nystrom and ViT attention, PPEG, the
+   pinv's GEMM:
    registers, shared memory, spills);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
@@ -40,7 +41,12 @@ Phases, each printed as it finishes:
    as in phase 3), error per output
    (the batch sums dkern, gw, gs and gb also against their largest
    magnitude), and the same times; the attention backwards (3c, 4b) and
-   PPEG's (5b) run twice on the same inputs and must give the same bits;
+   PPEG's (5b) and the exact pinv backward (2b) run twice on the same
+   inputs and must give the same bits; one launch of the pinv's GEMM at
+   [128, 384, 384] in its four main forms (NN with 7I - xz, NN adding to
+   ``prev``, TN adding to fp32 gx, NT scaled) against its plain version and
+   one cuBLAS call, and kernels 2 and 2b also against their launch
+   sequences' bytes floor;
 4. serving slice: a full-width ``mirror_classifier`` (the subtyping
    configuration: 768-d Phikon features, embed 768, RNA 10234, 2048 tokens,
    bf16) with random weights from a seeded generator, saved as a reference
@@ -126,8 +132,8 @@ try:
     # the roofline peaks and bound, the error bars and the errors: one copy,
     # the probes' (mirror_tpu_torch/scripts), so both read alike
     from mirror_tpu_torch.scripts._timing import (
-        BOUND_BWD, BOUND_PINV_BWD, BOUND_PINV_BWD_COS, BOUND_SINGLE_ROUNDING, bound,
-        events_ms, nbytes, rel_err, sum_bound, sum_err)
+        BOUND_BWD, BOUND_PINV_BWD, BOUND_PINV_BWD_COS, BOUND_SINGLE_ROUNDING, PEAK_BYTES,
+        bound, events_ms, nbytes, rel_err, sum_bound, sum_err)
 except ModuleNotFoundError as e:
     print(f"chip_smoke: FAIL: {e}: run it from a checkout of the repository",
           file=sys.stderr)
@@ -209,6 +215,7 @@ FORWARD = ("landmark_softmax", "moore_penrose_pinv", "softmax_attn", "softmax_at
            "ppeg")
 BACKWARD = ("landmark_softmax_bwd", "softmax_attn_bwd", "softmax_attn_conv_bwd", "ppeg_bwd")
 PINV_BWD = "moore_penrose_pinv_bwd"  # kernel 2b: --pinv-grad exact only
+PINV_GEMM = "pinv_gemm"  # every launch of kernels 2's and 2b's GEMM
 VIT = ("vit_attn_block", "vit_mlp_block", "vit_mha_natural")
 SELFTEST_PATH = FORWARD[:4] + BACKWARD[:3] + ("ppeg", "ppeg_bwd", "conv1d", "conv1d_bwd")
 
@@ -249,7 +256,7 @@ def phase_build():
     say(f"[build] {lib.relative_to(REPO)} from {_common.CSRC_DIR.relative_to(REPO)}/*.cu "
         f"in {time.perf_counter() - t0:.1f} s")
     # registers, shared memory and spills of the redesigned kernels (-Xptxas -v)
-    for src in ("softmax_attn.cu", "softmax_attn_bwd.cu", "vit_attn.cu", "ppeg.cu"):
+    for src in ("softmax_attn.cu", "softmax_attn_bwd.cu", "vit_attn.cu", "ppeg.cu", "pinv.cu"):
         info = _common.PTXAS_INFO[src]
         for line in info.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -313,6 +320,11 @@ def run_case(torch, case: Case) -> dict:
                                           median_ms(case.plain, reps=10))
     library_ms, library_ms_1 = median_ms(case.library) if case.library else (None, None)
     bound_ms, bound_by = bound(case.work["bytes"], case.work["mma"], case.work.get("fp32", 0))
+    # a launch sequence's own floor: the bytes its launches move between
+    # them through device memory (the pinv's 24 / 71 launches), from the
+    # design's count of tensors (not measured): printed, kept out of the JSON
+    design_ms = case.work["design_bytes"] / PEAK_BYTES * 1e3 if "design_bytes" in case.work \
+        else None
     per_output = ", ".join(f"{o} {a:.4g}/{r:.4g}" for o, (a, r) in zip(case.outputs, errs))
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     lib_1 = f", library {library_ms_1:.4f}" if library_ms is not None else ""
@@ -328,6 +340,8 @@ def run_case(torch, case: Case) -> dict:
     if ratio is not None:
         rate += f", kernel / library {ratio:.2f}"
     rate += f", {100 * bound_ms / ms:.1f} % of its bound"
+    if design_ms is not None:
+        rate += f"; the design's bytes floor {design_ms:.4f} ms ({100 * design_ms / ms:.1f} %)"
     say(f"[kernel] {case.name} ({case.shape}): max abs / rel Frobenius err {per_output} "
         f"(bound {case.tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
         f"bound {bound_ms:.4f} ms by {bound_by}{rate} (medians of warm calls, runs of calls "
@@ -412,7 +426,8 @@ def forward_cases(torch, randn):
             "moore_penrose_pinv", "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:239",
             f"b {b}, h {HEADS}, m {m}", lambda x=attn2: pinv.moore_penrose_pinv(x),
             lambda x=attn2, s=s: pinv.pinv_iterations_ref(x, s), BOUND_PINV, ("z",),
-            dict(bytes=2 * nbytes(attn2), mma=6 * 4 * 2 * bh * m ** 3), check=pinv_check,
+            dict(bytes=2 * nbytes(attn2), mma=6 * 4 * 2 * bh * m ** 3,
+                 design_bytes=pinv_design_units(PINV_ITERS) * nbytes(attn2)), check=pinv_check,
             library=lambda x=attn2, s=s: pinv_library(torch, x, s, PINV_ITERS)))
         if dh != DH:  # the q variant has no caller: the slices' shape only
             continue
@@ -441,8 +456,9 @@ def forward_cases(torch, randn):
             dict(bytes=nbytes(img, ppeg_k, ppeg_b, img), mma=0, fp32=(2 * 49 + 2) * img.numel()),
             library=lambda img_nchw=img_nchw, conv_w=conv_w, bias=ppeg_b, c=c: F.conv2d(
                 img_nchw, conv_w, bias, padding=3, groups=c)))
-    return cases + vit_cases(torch, randn) + conv_cases(torch, randn, False) \
-        + [ln_qkv_case(torch, randn, False)] + probe_cases(torch, randn, False)
+    return cases + pinv_gemm_cases(torch, randn) + vit_cases(torch, randn) \
+        + conv_cases(torch, randn, False) + [ln_qkv_case(torch, randn, False)] \
+        + probe_cases(torch, randn, False)
 
 
 def sum_check(torch, name, outputs, indices):
@@ -608,6 +624,83 @@ def vit_cases(torch, randn):
              lambda: vit_attn.mha_natural_ref(q, k, v, h), BOUND_SINGLE_ROUNDING, ("out",),
              dict(bytes=4 * nbytes(q), mma=attn_mma, fp32=softmax_fp32),
              library=lambda: F.scaled_dot_product_attention(by_head(q), by_head(k), by_head(v))),
+    ]
+
+
+def pinv_design_units(iters, stash=None):
+    """[b, h, m, m] bf16 tensors that the pinv's launch sequence moves
+    through device memory (each launch reads its operands and writes its
+    outputs; an fp32 tensor counts 2): the forward (``stash`` None) or the
+    exact backward keeping ``stash`` of the replay's 4 products. Forward:
+    z0 (read x, write z0) and per iteration x z -> xz, t1 (4), xz t1 -> t3
+    (3), xz t3 -> a (3), z a -> z' (3). Backward: the replay (the last z'
+    skipped), g's copy (2), gx32's zeros (2), per sweep step t1 = 7I - xz
+    (2; with stash 1 x z -> xz, t1, 4), the recomputed t3 and a (3 each,
+    stash 1 and 2), 4 products of 3, 3 with ``prev`` (4), gx32 += gb z^T
+    (2 + 4), and the finish (gx32 2, gz 2, z0 1, gx 1)."""
+    fwd = 2 + 13 * iters
+    if stash is None:
+        return fwd
+    sweep = {4: 2, 2: 2 + 6, 1: 4 + 6}[stash] + 4 * 3 + 3 * 4 + 6
+    return fwd - 3 + 2 + 2 + iters * sweep + 6
+
+
+def pinv_gemm_cases(torch, randn):
+    """One launch of the pinv's GEMM at the slice's [b h, m, m] = [128, 384,
+    384], in the four forms the pinv launches most: the forward's x z with
+    7I - xz (NN, EYE and c2), the sweep's gb += (NN here, ADD), gx += gb z^T
+    (TN here, ACC32) and gz' = 0.25 gz a^T (NT, EYE), each against its
+    plain version (``gemm_ref``) and one cuBLAS call on the same views. The
+    bound is its bytes over the bandwidth: every launch is bound by them."""
+    from mirror_tpu_torch.ops import pinv
+
+    bh, m = B * HEADS, M
+    a, b = randn(bh, m, m), randn(bh, m, m)
+    c, c2, prev = (torch.empty_like(a) for _ in range(3))
+    prev.copy_(randn(bh, m, m))
+    acc0 = randn(bh, m, m, dtype=torch.float32)
+    acc = acc0.clone()
+    shape = f"[{bh}, {m}, {m}]"
+    mma = 2 * bh * m ** 3
+
+    def run(fn, *outs):
+        def call():
+            fn()
+            return outs if len(outs) > 1 else outs[0]
+        return call
+
+    def plain(**kw):
+        outs = [torch.empty_like(a) for _ in range(2)]
+        accp = acc0.clone()
+        if kw.get("epilogue") == pinv._ACC32:
+            return run(lambda: pinv.gemm_ref(a, b, acc=accp.copy_(acc0), **kw), accp)
+        if kw.get("c2"):
+            kw["c2"] = outs[1]
+            return run(lambda: pinv.gemm_ref(a, b, outs[0], **kw), *outs)
+        return run(lambda: pinv.gemm_ref(a, b, outs[0], **kw), outs[0])
+
+    return [
+        Case("pinv_gemm", "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:151", f"{shape} NN/EYE+c2",
+             run(lambda: pinv._launch_gemm(a, b, c, c2, d0=7.0, d1=-1.0), c, c2),
+             plain(c2=True, d0=7.0, d1=-1.0), BOUND_SINGLE_ROUNDING, ("xz", "t1"),
+             dict(bytes=4 * nbytes(a), mma=mma), library=lambda: torch.bmm(a, b)),
+        Case("pinv_gemm", "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171", f"{shape} NN/ADD",
+             run(lambda: pinv._launch_gemm(a, b, c, prev=prev, epilogue=pinv._ADD), c),
+             plain(prev=prev, epilogue=pinv._ADD), BOUND_SINGLE_ROUNDING, ("c",),
+             dict(bytes=4 * nbytes(a), mma=mma), library=lambda: torch.baddbmm(prev, a, b)),
+        # the kernel's acc holds acc0 + P after its first call (the one
+        # compared); the timed calls go on adding to it
+        Case("pinv_gemm", "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171", f"{shape} TN/ACC32",
+             run(lambda: pinv._launch_gemm(a, b, acc=acc, layout=pinv._TN,
+                                           epilogue=pinv._ACC32), acc),
+             plain(layout=pinv._TN, epilogue=pinv._ACC32), BOUND_SINGLE_ROUNDING, ("acc",),
+             dict(bytes=2 * nbytes(a) + 2 * nbytes(acc), mma=mma),
+             library=lambda: torch.bmm(a.mT, b)),  # bf16 out: the fp32 sum not included
+        Case("pinv_gemm", "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171", f"{shape} NT/EYE",
+             run(lambda: pinv._launch_gemm(a, b, c, layout=pinv._NT, c1=0.25), c),
+             plain(layout=pinv._NT, c1=0.25), BOUND_SINGLE_ROUNDING, ("c",),
+             dict(bytes=3 * nbytes(a), mma=mma),
+             library=lambda: torch.baddbmm(c, a, b.mT, beta=0.0, alpha=0.25)),
     ]
 
 
@@ -862,8 +955,13 @@ def backward_cases(torch, randn):
             lambda x=x, s=s, g2=g2: pinv.pinv_exact_bwd_ref(x, s, g2, PINV_ITERS),
             BOUND_PINV_BWD, ("gx", "gs"),
             # the replay (its last z product skipped) and the sweep: 4 + 8 a step
-            dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * m ** 3),
-            check=pinv_bwd_check,
+            dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * m ** 3,
+                 design_bytes=pinv_design_units(PINV_ITERS, 4) * nbytes(x)),
+            # held by function, and a second run bit for bit (one block a
+            # tile, no split-K or atomics: gx's fp32 sum included)
+            check=lambda out, ref, c=pinv_bwd_check, again=same_bits_check(
+                torch, PINV_BWD, lambda x=x, s=s, g2=g2: pinv._pinv_exact_bwd_kernel(
+                    x, s, g2, PINV_ITERS)): c(out, ref) and again(out, ref),
             library=lambda x=x, s=s, g2=g2: pinv_bwd_library(torch, x, s, g2, PINV_ITERS)))
         if b != B:
             continue
@@ -879,7 +977,8 @@ def backward_cases(torch, randn):
                     x, s, g2, PINV_ITERS, st),
                 BOUND_PINV_BWD, ("gx", "gs"),
                 dict(bytes=3 * nbytes(x) + nbytes(s),
-                     mma=((12 + extra) * PINV_ITERS - 1) * 2 * bh * m ** 3),
+                     mma=((12 + extra) * PINV_ITERS - 1) * 2 * bh * m ** 3,
+                     design_bytes=pinv_design_units(PINV_ITERS, stash) * nbytes(x)),
                 check=pinv_bwd_check,
                 library=lambda x=x, s=s, g2=g2: pinv_bwd_library(torch, x, s, g2, PINV_ITERS)))
 
@@ -923,14 +1022,18 @@ def phase_kernels(torch, backward: bool):
     del cases
     torch.cuda.empty_cache()
     # one line per kernel in the JSON: the encoder's shape (the first) gives
-    # the times; the errors are the worst over the shapes checked
+    # the times; the errors are the worst over the shapes checked; every
+    # other shape's (or form's) times are kept under "by_shape"
+    keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "rel_fro_err", "library_ratio")
     merged = {}
     for r in results:
         if r["name"] not in merged:
-            merged[r["name"]] = dict(r, checked=[r["shape"]])
+            merged[r["name"]] = dict(r, checked=[r["shape"]], by_shape=[])
             continue
         first = merged[r["name"]]
         first["checked"].append(r["shape"])
+        first["by_shape"].append({k: r[k] for k in keep})
         first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
         first["rel_fro_err"] = max(first["rel_fro_err"], r["rel_fro_err"])
     return list(merged.values())
@@ -1607,6 +1710,9 @@ def phase_selftest(torch):
     want = {k: 1 if k in ("ppeg", "ppeg_bwd", "conv1d", "conv1d_bwd") else 2
             for k in SELFTEST_PATH}
     want[PINV_BWD] = 1
+    # the pinv's GEMM: 24 launches a forward (one a gradient mode), 71 a
+    # backward (the exact mode)
+    want[PINV_GEMM] = 2 * 4 * PINV_ITERS + 12 * PINV_ITERS - 1
     if launches != want:
         fail(f"the self-test's kernel launches {launches}, expected {want}")
 

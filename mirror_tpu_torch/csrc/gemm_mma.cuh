@@ -1,0 +1,187 @@
+// A batched bf16 GEMM mainloop on mma.sync m16n8k16, fed by a cp.async ring:
+// P = op(A) op(B) with fp32 accumulators left in registers for the caller's
+// epilogue.
+//
+// Operand layouts: op(A) is [M, K], stored [M][K] (k contiguous) or, with
+// TA, [K][M] (read transposed); op(B) is [K, N], stored [K][N] or, with TB,
+// [N][K]. No transpose is materialised: each shared-memory tile keeps its
+// global layout, so the 16-byte loads run along the contiguous axis, and
+// the fragment loads pick ldmatrix or ldmatrix.trans to match:
+// - A stored [m][k]: ldmatrix (the fragment's rows are the tile's rows);
+// - A stored [k][m]: ldmatrix.trans (an 8 x 8 block of k rows, transposed,
+//   is the fragment's m rows);
+// - B stored [k][n]: ldmatrix.trans; B stored [n][k]: ldmatrix.
+// attn_mma.cuh's mma_nt and mma_rs_step load B the same two ways.
+//
+// The ring: STAGES shared-memory stages of one BM x BK tile of A and one
+// BK x BN tile of B. Before the loop STAGES - 1 k tiles are requested; at
+// each k step a thread waits until its copies of this step's tile have
+// landed (cp.async.wait_group STAGES - 2), one barrier makes every thread's
+// copies visible and frees the stage read at the step before, and the copy
+// of k tile kt + STAGES - 1 into that stage is issued before this step's
+// products, so STAGES - 1 tiles are in flight while the tensor cores run.
+// One barrier a k step.
+//
+// Bank conflicts: every tile row is padded by 8 elements (16 bytes). A row
+// of 32 + 8 bf16 is 20 words, one of 64 + 8 is 36 and one of 128 + 8 is
+// 68; the 8 rows that one ldmatrix 8 x 8 matrix reads then start 20 or 4
+// banks apart (mod 32), in 8 disjoint groups of 4 of the 32 banks. No
+// swizzle.
+//
+// VEC: every row stride (M, N, K) is a multiple of 8, so each 16-byte chunk
+// of a tile row is wholly inside or wholly outside the matrix and is copied
+// by cp.async.cg (L1 bypassed), zero-filled outside. Otherwise the tile is
+// staged element by element with plain predicated loads (any M, N, K).
+#pragma once
+
+#include "attn_mma.cuh"
+
+namespace gemm_mma {
+
+using attn::ldsm_x4;
+using attn::ldsm_x4_t;
+using attn::mma16816;
+
+constexpr int PAD = 8;
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The block tile: 128 x 128 on 2 x 4 warps of 64 x 32, k steps of 64
+// through 3 stages (110 KB of shared memory, one block an SM). 128 divides
+// m 384 with no ragged edge. Fixed until a second kernel needs another shape.
+struct Tile {
+  static constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
+  static constexpr int WARPS_M = 2, WARPS_N = 4;
+  static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
+  static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // a warp's tile
+  static constexpr int MT = WTM / 16, NT = WTN / 8;  // its 16 x 8 accumulator tiles
+  // elements of one stage's tile of A and of B, in either stored layout
+  static constexpr int kTileA = cmax(BM * (BK + PAD), BK * (BM + PAD));
+  static constexpr int kTileB = cmax(BN * (BK + PAD), BK * (BN + PAD));
+  static constexpr size_t kSmemBytes = (size_t)STAGES * (kTileA + kTileB) * sizeof(bf16);
+  static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK % 16 == 0, "whole mma tiles");
+};
+
+// Copy rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major
+// `rows` x `cols` matrix with row stride ld into dst (row stride COLS +
+// PAD), zeros outside the matrix.
+template <int ROWS, int COLS, int THREADS, bool VEC>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int r0,
+                                          int c0, int rows, int cols, int ld) {
+  constexpr int LD = COLS + PAD;
+  if constexpr (VEC) {
+    constexpr int CH = COLS / 8;
+    static_assert((ROWS * CH) % THREADS == 0, "whole chunks a thread");
+#pragma unroll
+    for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      const int r = idx / CH, c = (idx % CH) * 8;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < rows && gc < cols;
+      cp_async16(dst + r * LD + c, ok ? src + (size_t)gr * ld + gc : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += THREADS) {
+      const int r = idx / COLS, c = idx % COLS;
+      const int gr = r0 + r, gc = c0 + c;
+      dst[r * LD + c] =
+          gr < rows && gc < cols ? src[(size_t)gr * ld + gc] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// acc += op(A)[m0.., :] op(B)[:, n0..] over all of K, for this thread's
+// fragments of the block tile (m0, n0). A and B point at one batch entry;
+// smem holds Tile::kSmemBytes.
+template <bool TA, bool TB, bool VEC>
+__device__ __forceinline__ void mainloop(float (&acc)[Tile::MT][Tile::NT][4], bf16* smem,
+                                         const bf16* __restrict__ A,
+                                         const bf16* __restrict__ B, int M, int N, int K,
+                                         int m0, int n0) {
+  bf16* sa = smem;
+  bf16* sb = smem + Tile::STAGES * Tile::kTileA;
+  auto request = [&](int stage, int k0) {
+    if constexpr (TA)
+      load_tile<Tile::BK, Tile::BM, Tile::kThreads, VEC>(sa + stage * Tile::kTileA, A, k0, m0, K, M, M);
+    else
+      load_tile<Tile::BM, Tile::BK, Tile::kThreads, VEC>(sa + stage * Tile::kTileA, A, m0, k0, M, K, K);
+    if constexpr (TB)
+      load_tile<Tile::BN, Tile::BK, Tile::kThreads, VEC>(sb + stage * Tile::kTileB, B, n0, k0, N, K, K);
+    else
+      load_tile<Tile::BK, Tile::BN, Tile::kThreads, VEC>(sb + stage * Tile::kTileB, B, k0, n0, K, N, N);
+  };
+  constexpr int LDA = TA ? Tile::BM + PAD : Tile::BK + PAD;
+  constexpr int LDB = TB ? Tile::BK + PAD : Tile::BN + PAD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / Tile::WARPS_N) * Tile::WTM, wn = (warp % Tile::WARPS_N) * Tile::WTN;
+  // this lane's ldmatrix row address within a 16 x 16 block, in each layout
+  const int a_off = TA ? ((lane % 8) + (lane / 16) * 8) * LDA + wm + ((lane / 8) % 2) * 8
+                       : (wm + lane % 16) * LDA + (lane / 16) * 8;
+  const int b_off = TB ? (wn + (lane % 8) + (lane / 16) * 8) * LDB + ((lane / 8) % 2) * 8
+                       : ((lane % 8) + ((lane / 8) % 2) * 8) * LDB + wn + (lane / 16) * 8;
+
+  const int KT = (K + Tile::BK - 1) / Tile::BK;
+#pragma unroll
+  for (int s = 0; s < Tile::STAGES - 1; ++s) {
+    if (s < KT) request(s, s * Tile::BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<Tile::STAGES - 2>();
+    __syncthreads();  // k tile kt has landed everywhere; the stage of kt - 1 is free
+    const int next = kt + Tile::STAGES - 1;
+    if (next < KT) request(next % Tile::STAGES, next * Tile::BK);
+    cp_async_commit();  // an empty group past the end keeps the count in step
+    const bf16* a = sa + (kt % Tile::STAGES) * Tile::kTileA + a_off;
+    const bf16* b = sb + (kt % Tile::STAGES) * Tile::kTileB + b_off;
+#pragma unroll
+    for (int kk = 0; kk < Tile::BK; kk += 16) {
+      unsigned fa[Tile::MT][4];
+#pragma unroll
+      for (int i = 0; i < Tile::MT; ++i) {
+        if constexpr (TA)
+          ldsm_x4_t(fa[i], a + kk * LDA + 16 * i);
+        else
+          ldsm_x4(fa[i], a + 16 * i * LDA + kk);
+      }
+#pragma unroll
+      for (int np = 0; np < Tile::NT / 2; ++np) {
+        unsigned fb[4];
+        if constexpr (TB)
+          ldsm_x4(fb, b + 16 * np * LDB + kk);
+        else
+          ldsm_x4_t(fb, b + kk * LDB + 16 * np);
+#pragma unroll
+        for (int i = 0; i < Tile::MT; ++i) {
+          mma16816(acc[i][2 * np], fa[i], fb[0], fb[1]);
+          mma16816(acc[i][2 * np + 1], fa[i], fb[2], fb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Call f(k, row, col, p[col], p[col + 1]) for each pair of adjacent
+// columns that this thread's accumulators hold: k numbers the pairs 0 ..
+// kPairs - 1, row and col are in the whole matrix (the block tile at m0,
+// n0); col is even.
+constexpr int kPairs = 2 * Tile::MT * Tile::NT;
+
+template <class F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[Tile::MT][Tile::NT][4], int m0,
+                                              int n0, F&& f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = m0 + (warp / Tile::WARPS_N) * Tile::WTM + lane / 4;
+  const int col0 = n0 + (warp % Tile::WARPS_N) * Tile::WTN + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < Tile::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Tile::NT; ++j) {
+      const int k = 2 * (i * Tile::NT + j);
+      f(k, row0 + 16 * i, col0 + 8 * j, acc[i][j][0], acc[i][j][1]);
+      f(k + 1, row0 + 16 * i + 8, col0 + 8 * j, acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+}  // namespace gemm_mma

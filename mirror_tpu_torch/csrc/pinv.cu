@@ -27,11 +27,17 @@
 // fp32 sum to bf16, "gb + _dot_nt(..)", "gb - gt1" and "gz' + _dot_tn(..)"
 // round in bf16, and gx stays fp32 until its final cast.
 //
-// What bounds it on the H100: tensor-core FLOPs. The forward is 4 products
-// of [m, m] per iteration: 24 x 2 x 384^3 x 128 (batch x heads) = 348 GFLOP
-// a call at the slice's shape, against ~7 MB of traffic per product. The
-// backward is 4 (replay, the last z product skipped) + 8 (sweep) products
-// per iteration: 71 x 2 x 384^3 x 128 = 1.03 TFLOP a call.
+// What bounds it on the H100. The function: its products, 24 (forward)
+// and 71 (backward) of 2 m^3 FLOP per (b, h): at b 16, h 8, m 384, 348
+// GFLOP (0.352 ms at 989 TFLOP/s bf16) and 1.03 TFLOP (1.04 ms). This
+// design, one batched GEMM launch a product: each launch reads its two
+// operands from device memory and writes its output, 3 x 37.7 MB = 113 MB
+// at bh 128, m 384 (0.034 ms at 3.35 TB/s) against 14.5 GFLOP (0.015 ms),
+// so every launch is bound by bytes. A forward iteration moves 13 such
+// tensors (x z also writes t1 = 7I - xz), 491 MB; the 24 launches and z0,
+// 3.0 GB, 0.90 ms. The backward (replay, the t1 pass, the sweep, gx in
+// fp32) moves about 10.5 GB, 3.1 ms. Going under those floors needs one
+// (b, h)'s chain kept on chip, which a block cannot do (below).
 //
 // Design, and why not the TPU's: one bf16 [384, 384] matrix is 288 KB, and a
 // block has at most 227 KB of shared memory, so the TPU programs (x, z and
@@ -40,135 +46,125 @@
 // could hold x and z in the distributed shared memory of several SMs, but
 // would pin a whole iteration chain of one (batch, head) to one cluster and
 // synchronise it dozens of times. This port instead runs one batched bf16
-// GEMM (WMMA 16x16x16 tiles on the tensor cores, fp32 accumulation) whose
-// operands may each be read transposed (A^T B and A B^T, so no transpose is
-// ever materialised: the shared-memory tile keeps the global layout, for
-// coalesced loads, and the WMMA fragment takes it as column-major), with
-// three fused epilogues:
+// GEMM (gemm_mma.cuh: mma.sync m16n8k16 from ldmatrix fragments, fp32
+// accumulators in registers, a 3-stage ring of 16-byte cp.async tiles)
+// whose operands may each be read transposed (A^T B and A B^T: the
+// shared-memory tile keeps the global layout and ldmatrix.trans reads it,
+// so no transpose is ever materialised), with three epilogues applied from
+// the accumulator registers, two adjacent columns at a time
+// (__nv_bfloat162 stores, float2 for ACC32; the identity term is
+// row == col):
 //   EYE:   out = bf16(c0 I + c1 bf16(P)), optionally out2 = bf16(d0 I + d1 out)
 //   ADD:   out = bf16(prev + c1 bf16(P))      (prev may be out itself)
 //   ACC32: acc += P, fp32, no rounding        (the backward's gx)
-// The wrapper (ops/pinv.py) launches it 4 times per forward iteration and
-// 12 times per backward iteration (the replay's last z product is skipped:
-// the sweep never reads it). The replay stash (4 x iters x [b, h, m, m]
-// bf16, 0.9 GB at the slice's shape) lives in device memory for the call;
-// gs is reduced per (b, h) in a fixed order by one block each and the
-// partials are summed by torch, so the result is the same from run to run.
-#include <mma.h>
-
-#include <type_traits>
-
-#include "common.cuh"
+// A block owns a 128 x 128 output tile (8 warps of 64 x 32; m 384 is 3 x 3
+// tiles, no ragged edge) and walks K in steps of 64 through 3 stages (110
+// KB of shared memory); the grid keeps a
+// matrix's 9 tiles together (batch slowest), so the blocks that share an A
+// row panel or B column panel find it in L2. One block a tile, no split-K
+// and no atomics: every output, ACC32's gx included, is the same from run
+// to run. The wrapper (ops/pinv.py) launches it 4 times per forward
+// iteration and 12 times per backward iteration (the replay's last z
+// product is skipped: the sweep never reads it). The replay stash (4 x
+// iters x [b, h, m, m] bf16, 0.9 GB at the slice's shape) lives in device
+// memory for the call; gs is reduced per (b, h) in a fixed order by one
+// block each and the partials are summed by torch, so the result is the
+// same from run to run.
+#include "gemm_mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDC = BN + 4;  // fp32 row stride, multiple of 4 for wmma
-constexpr int kThreads = 128;  // 4 warps, each a 32 x 32 quarter of the tile
-// bf16 tile buffers, row strides multiples of 8 for wmma: A as [BM][BK + 8]
-// (or [BK][BM + 8] when read transposed), B as [BK][BN + 8] (or [BN][BK + 8])
-constexpr int kTileA = (BM * (BK + 8) > BK * (BM + 8)) ? BM * (BK + 8) : BK * (BM + 8);
-constexpr int kTileB = (BK * (BN + 8) > BN * (BK + 8)) ? BK * (BN + 8) : BN * (BK + 8);
+using gemm_mma::Tile;
 
 enum Layout { NN = 0, NT = 1, TN = 2 };
 enum Epilogue { EPI_EYE = 0, EPI_ADD = 1, EPI_ACC32 = 2 };
 
-struct __align__(32) GemmSmem {
-  bf16 a[kTileA];
-  bf16 b[kTileB];
-  float c[BM * LDC];
-};
+// Two bf16 values at dst: one 4-byte store (VEC: N is even, so the pair
+// is aligned and whole), else element by element, the second only if `two`.
+template <bool VEC>
+__device__ __forceinline__ void store2(bf16* dst, __nv_bfloat162 v, bool two) {
+  if (VEC) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = v;
+    return;
+  }
+  dst[0] = v.x;
+  if (two) dst[1] = v.y;
+}
 
 // P = op(A) op(B) per batch entry, op(A) [M, K], op(B) [K, N]. TA: A is
-// stored [K, M] (op(A) = A^T); TB: B is stored [N, K] (op(B) = B^T).
-template <bool TA, bool TB, int EPI>
-__global__ void __launch_bounds__(kThreads)
+// stored [K, M] (op(A) = A^T); TB: B is stored [N, K] (op(B) = B^T). VEC:
+// M, N and K are multiples of 8 (16-byte staging and pair stores).
+template <bool TA, bool TB, int EPI, bool VEC>
+__global__ void __launch_bounds__(Tile::kThreads, 1)
     pinv_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* C,
                      bf16* __restrict__ C2, const bf16* prev, float* __restrict__ acc,
                      int M, int N, int K, float c0, float c1, float d0, float d1) {
-  __shared__ GemmSmem sm;
-  constexpr int LDA = TA ? BM + 8 : BK + 8;
-  constexpr int LDB = TB ? BK + 8 : BN + 8;
-  using LayoutA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int batch = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const bf16* Ab = A + (size_t)batch * M * K;
-  const bf16* Bb = B + (size_t)batch * K * N;
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> frag_c[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(frag_c[i][j], 0.0f);
-
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BM * BK; idx += kThreads) {
-      if constexpr (TA) {  // tile row r = k, column c = i: A[k][i]
-        const int r = idx / BM, c = idx % BM;
-        const int gk = k0 + r, gi = m0 + c;
-        sm.a[r * LDA + c] = (gi < M && gk < K) ? Ab[(size_t)gk * M + gi] : zero;
-      } else {  // tile row r = i, column c = k: A[i][k]
-        const int r = idx / BK, c = idx % BK;
-        const int gi = m0 + r, gk = k0 + c;
-        sm.a[r * LDA + c] = (gi < M && gk < K) ? Ab[(size_t)gi * K + gk] : zero;
-      }
-    }
-    for (int idx = threadIdx.x; idx < BK * BN; idx += kThreads) {
-      if constexpr (TB) {  // tile row r = j, column c = k: B[j][k]
-        const int r = idx / BK, c = idx % BK;
-        const int gj = n0 + r, gk = k0 + c;
-        sm.b[r * LDB + c] = (gk < K && gj < N) ? Bb[(size_t)gj * K + gk] : zero;
-      } else {  // tile row r = k, column c = j: B[k][j]
-        const int r = idx / BN, c = idx % BN;
-        const int gk = k0 + r, gj = n0 + c;
-        sm.b[r * LDB + c] = (gk < K && gj < N) ? Bb[(size_t)gk * N + gj] : zero;
-      }
-    }
-    __syncthreads();
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[2];
-      for (int i = 0; i < 2; ++i) {
-        const int row = wm + 16 * i;  // element (row, kk) of op(A)
-        wmma::load_matrix_sync(fa[i], TA ? sm.a + kk * LDA + row : sm.a + row * LDA + kk, LDA);
-      }
-      for (int j = 0; j < 2; ++j) {
-        const int col = wn + 16 * j;  // element (kk, col) of op(B)
-        wmma::load_matrix_sync(fb[j], TB ? sm.b + col * LDB + kk : sm.b + kk * LDB + col, LDB);
-      }
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(frag_c[i][j], fa[i], fb[j], frag_c[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sm.c + (wm + 16 * i) * LDC + wn + 16 * j, frag_c[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
+  const int m0 = blockIdx.y * Tile::BM, n0 = blockIdx.x * Tile::BN;
+  float p[Tile::MT][Tile::NT][4];
+#pragma unroll
+  for (int i = 0; i < Tile::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < Tile::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[i][j][e] = 0.f;
+  gemm_mma::mainloop<TA, TB, VEC>(p, reinterpret_cast<bf16*>(smem_raw),
+                                     A + (size_t)batch * M * K, B + (size_t)batch * K * N, M,
+                                     N, K, m0, n0);
 
   const size_t base = (size_t)batch * M * N;
-  for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
-    const int r = idx / BN, c = idx % BN;
-    const int gr = m0 + r, gc = n0 + c;
-    if (gr >= M || gc >= N) continue;
-    const size_t o = base + (size_t)gr * N + gc;
-    const float p = sm.c[r * LDC + c];
-    if constexpr (EPI == EPI_ACC32) {
-      acc[o] += p;
-    } else if constexpr (EPI == EPI_ADD) {
-      C[o] = __float2bfloat16(__bfloat162float(prev[o]) + c1 * round_bf16(p));
-    } else {
-      const float eye = (gr == gc) ? 1.0f : 0.0f;
-      const bf16 out = __float2bfloat16(c0 * eye + c1 * round_bf16(p));
-      C[o] = out;
-      if (C2) C2[o] = __float2bfloat16(d0 * eye + d1 * __bfloat162float(out));
-    }
+  // ADD and ACC32 first read every term they add to, all loads in flight
+  // at once: prev may alias C, so the compiler may not move a load of prev
+  // above a store to C, and loads interleaved with stores would each wait
+  // for device memory in turn
+  float2 q[EPI == EPI_EYE ? 1 : gemm_mma::kPairs];
+  if constexpr (EPI != EPI_EYE) {
+    gemm_mma::for_each_pair(p, m0, n0, [&](int k, int r, int c, float, float) {
+      q[k] = make_float2(0.f, 0.f);
+      if (r >= M || c >= N) return;
+      const size_t o = base + (size_t)r * N + c;
+      if constexpr (EPI == EPI_ACC32) {
+        if (VEC) {
+          q[k] = *reinterpret_cast<const float2*>(acc + o);
+        } else {
+          q[k].x = acc[o];
+          if (c + 1 < N) q[k].y = acc[o + 1];
+        }
+      } else {
+        if (VEC) {
+          q[k] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(prev + o));
+        } else {
+          q[k].x = __bfloat162float(prev[o]);
+          if (c + 1 < N) q[k].y = __bfloat162float(prev[o + 1]);
+        }
+      }
+    });
   }
+  gemm_mma::for_each_pair(p, m0, n0, [&](int k, int r, int c, float p0, float p1) {
+    if (r >= M || c >= N) return;
+    const size_t o = base + (size_t)r * N + c;
+    const bool two = c + 1 < N;  // always, when N is even
+    if constexpr (EPI == EPI_ACC32) {
+      if (VEC) {
+        *reinterpret_cast<float2*>(acc + o) = make_float2(q[k].x + p0, q[k].y + p1);
+      } else {
+        acc[o] = q[k].x + p0;
+        if (two) acc[o + 1] = q[k].y + p1;
+      }
+      return;
+    }
+    const float start0 = EPI == EPI_ADD ? q[k].x : c0 * (r == c ? 1.f : 0.f);
+    const float start1 = EPI == EPI_ADD ? q[k].y : c0 * (r == c + 1 ? 1.f : 0.f);
+    const __nv_bfloat162 out =
+        __floats2bfloat162_rn(start0 + c1 * round_bf16(p0), start1 + c1 * round_bf16(p1));
+    store2<VEC>(C + o, out, two);
+    if (EPI == EPI_EYE && C2 != nullptr)
+      store2<VEC>(C2 + o,
+                  __floats2bfloat162_rn(d0 * (r == c ? 1.f : 0.f) + d1 * __low2float(out),
+                                        d0 * (r == c + 1 ? 1.f : 0.f) + d1 * __high2float(out)),
+                  two);
+  });
 }
 
 // z0 = bf16(x^T / s), through a 32 x 32 shared-memory tile.
@@ -247,16 +243,30 @@ __global__ void __launch_bounds__(kGsThreads)
   }
 }
 
-template <bool TA, bool TB, int EPI>
-cudaError_t launch_gemm(const void* a, const void* b, void* c, void* c2, const void* prev,
-                        void* acc, int bh, int M, int N, int K, float c0, float c1,
-                        float d0, float d1, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, bh);
-  pinv_gemm_kernel<TA, TB, EPI><<<grid, kThreads, 0, stream>>>(
+template <bool TA, bool TB, int EPI, bool VEC>
+cudaError_t launch_gemm_vec(const void* a, const void* b, void* c, void* c2, const void* prev,
+                            void* acc, int bh, int M, int N, int K, float c0, float c1,
+                            float d0, float d1, cudaStream_t stream) {
+  auto kernel = pinv_gemm_kernel<TA, TB, EPI, VEC>;
+  const cudaError_t err = allow_smem(kernel, Tile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM, bh);
+  kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<bf16*>(c),
       static_cast<bf16*>(c2), static_cast<const bf16*>(prev), static_cast<float*>(acc), M, N,
       K, c0, c1, d0, d1);
   return cudaGetLastError();
+}
+
+template <bool TA, bool TB, int EPI>
+cudaError_t launch_gemm(const void* a, const void* b, void* c, void* c2, const void* prev,
+                        void* acc, int bh, int M, int N, int K, float c0, float c1,
+                        float d0, float d1, cudaStream_t stream) {
+  if (M % 8 == 0 && N % 8 == 0 && K % 8 == 0)
+    return launch_gemm_vec<TA, TB, EPI, true>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1,
+                                              d0, d1, stream);
+  return launch_gemm_vec<TA, TB, EPI, false>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
+                                             d1, stream);
 }
 
 template <int EPI>

@@ -20,73 +20,42 @@
 // 46, 768] the forward moves 52 MB and does 2.6 GFLOP, the backward 78 MB
 // and 5.1 GFLOP (0.077 ms at 67 TFLOP/s).
 //
-// Forward design: channels are contiguous (NHWC), so a block takes a 8 x 8
-// spatial tile of 32 channels, stages the tile plus its 3-pixel halo (14 x
-// 14 x 32 bf16, 12.5 KB) in shared memory once, and each thread (one
-// channel, one row of the tile) keeps its channel's 49 taps in registers
-// and sweeps the 8 pixels of its row. Every input element is read from
-// device memory about (14/8)^2 = 3 times through L2 and once from DRAM; the
-// TPU's channel blocking (_cblk) and 64 MB VMEM limit have no counterpart.
+// Design: both kernels share one body (conv_pairs below). A block takes
+// 64 channels of a band of 8 grid rows of one image and walks the band in
+// chunks of 16 columns; each chunk, with its 3-pixel halo (14 x 22 x 64
+// bf16, zero SAME padding), is staged in shared memory by 16-byte cp.async,
+// so each input crosses L2 about (14 x 22) / (8 x 16) = 2.4 times. Warp y
+// owns band row y, a lane a channel pair (4-byte shared loads, fp32 math):
+// for each tap row dy, one load of the staged row feeds the up to 7 outputs
+// whose window holds it, each output summing its taps in (dy, dx) order.
+// The forward (K5) starts each sum at img + b and reads the taps as they
+// are; the backward's dimg starts at g and reads them flipped; each output
+// is rounded once, as on the TPU. The forward stages only img (39 KB and
+// the taps), so three blocks share an SM; the TPU's channel blocking
+// (_cblk) and 64 MB VMEM limit have no counterpart.
 // The backward's design is at ppeg_bwd_kernel.
 #include "common.cuh"
 
 namespace {
 
 constexpr int KS = 7, HALO = KS / 2;
-constexpr int TH = 8, TW = 8, CB = 32;
-constexpr int SH = TH + KS - 1, SW = TW + KS - 1;
+constexpr int BH = 8;    // grid rows a band: warp y takes the output row y
+constexpr int BW = 16;   // grid columns a chunk: a thread's outputs
+constexpr int BC = 64;   // channels a block: a pair a lane
+constexpr int SBH = BH + KS - 1, SBW = BW + KS - 1;
+constexpr int NT = KS * KS + 1;  // 49 taps and the bias
 
-__global__ void __launch_bounds__(CB * TH)
-    ppeg_kernel(const bf16* __restrict__ img, const bf16* __restrict__ kern,
-                const bf16* __restrict__ bias, bf16* __restrict__ out, int H, int W,
-                int C) {
-  __shared__ bf16 tile[SH * SW * CB];
-  const int tiles_x = (W + TW - 1) / TW;
-  const int y0 = (blockIdx.x / tiles_x) * TH, x0 = (blockIdx.x % tiles_x) * TW;
-  const int c0 = blockIdx.y * CB;
-  const size_t base = (size_t)blockIdx.z * H * W * C;
-  const int tid = threadIdx.y * CB + threadIdx.x;
-  const bf16 zero = __float2bfloat16(0.0f);
-
-  for (int idx = tid; idx < SH * SW * CB; idx += CB * TH) {
-    const int c = idx % CB, p = idx / CB;
-    const int gy = y0 + p / SW - HALO, gx = x0 + p % SW - HALO, gc = c0 + c;
-    tile[idx] = (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C)
-                    ? img[base + ((size_t)gy * W + gx) * C + gc]
-                    : zero;
-  }
-  __syncthreads();
-
-  const int c = threadIdx.x, gc = c0 + c, ty = threadIdx.y, gy = y0 + ty;
-  if (gc >= C || gy >= H) return;
-  float taps[KS * KS];
-#pragma unroll
-  for (int t = 0; t < KS * KS; ++t)
-    taps[t] = __bfloat162float(kern[(size_t)t * C + gc]);
-  const float b = __bfloat162float(bias[gc]);
-  for (int tx = 0; tx < TW; ++tx) {
-    const int gx = x0 + tx;
-    if (gx >= W) break;
-    float acc = __bfloat162float(tile[((ty + HALO) * SW + tx + HALO) * CB + c]) + b;
-#pragma unroll
-    for (int dy = 0; dy < KS; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < KS; ++dx)
-        acc = fmaf(taps[dy * KS + dx],
-                   __bfloat162float(tile[((ty + dy) * SW + tx + dx) * CB + c]), acc);
-    out[base + ((size_t)gy * W + gx) * C + gc] = __float2bfloat16(acc);
-  }
-}
+// Forward (K5): 8 warps, one a band row, on the shared body. Three blocks
+// an SM (46 KB of shared memory each), registers held to 85 a thread.
+constexpr int kFwdThreads = 32 * BH;
 
 // Backward (K5b): one pass over g and img, as the TPU kernel makes it. A
 // block of 15 warps takes (64 channels, a band of BH grid rows, one image)
 // and walks the band in chunks of BW columns. Each chunk's g and img, with
 // their 3-pixel halos (14 x 22 x 64 bf16 each, zero SAME padding), are
 // staged in shared memory once, and both gradients are taken from them:
-// - warp y < 8: dimg of band row y over the chunk's 16 columns, a channel
-//   pair a lane (4-byte shared loads, fp32 math): for each tap row dy, one
-//   load of g feeds the up to 7 outputs whose window holds it (the 7 dx
-//   taps that share it), summed into each output in (dy, dx) order;
+// - warp y < 8: dimg of band row y over the chunk's 16 columns, on the
+//   shared body (conv_pairs) with the taps flipped, starting from g;
 // - warp 8 + dy: dk's tap row dy over the band, a channel pair a lane: a
 //   7-wide window of the img row slides along x in registers, so one load
 //   feeds the 7 dx taps; the 7 x 2 sums (and, in warp 8, db's 2) stay in
@@ -95,13 +64,13 @@ __global__ void __launch_bounds__(CB * TH)
 // partials over images and bands in a fixed order (deterministic, no
 // atomics). One block an SM (83 KB of shared memory; ptxas: 118 registers,
 // no spills): held to 64 registers for two blocks an SM, it spilled.
-constexpr int BH = 8;    // grid rows a band: warp y takes dimg's row y
-constexpr int BW = 16;   // grid columns a chunk: a dimg thread's outputs
-constexpr int BC = 64;   // channels a block: a pair a lane
-constexpr int SBH = BH + KS - 1, SBW = BW + KS - 1;
 constexpr int kDimgWarps = BH, kDkWarps = KS;
 constexpr int kBwdThreads = 32 * (kDimgWarps + kDkWarps);
-constexpr int NT = KS * KS + 1;  // 49 taps and the bias
+
+struct FwdSmem {
+  bf16 img[SBH * SBW * BC];
+  bf16 taps[KS * KS * BC];
+};
 
 struct BwdSmem {
   bf16 g[SBH * SBW * BC];
@@ -116,12 +85,13 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
 // Stage rows [y0 - 3, y0 + BH + 3) x columns [x0 - 3, x0 + BW + 3) x
 // channels [c0, c0 + BC) of one image of src into dst, zeros outside:
 // cp.async 16 bytes at a time when C is a multiple of 8, else one element
-// at a time.
+// at a time, by the block's THREADS threads.
+template <int THREADS>
 __device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* __restrict__ src, int y0,
                                             int x0, int c0, int H, int W, int C) {
   if (C % 8 == 0) {
     constexpr int chunks = BC / 8;
-    for (int idx = threadIdx.x; idx < SBH * SBW * chunks; idx += kBwdThreads) {
+    for (int idx = threadIdx.x; idx < SBH * SBW * chunks; idx += THREADS) {
       const int p = idx / chunks, gc = c0 + (idx % chunks) * 8;
       const int gy = y0 + p / SBW - HALO, gx = x0 + p % SBW - HALO;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C;
@@ -129,7 +99,7 @@ __device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* __restrict__ 
     }
     return;
   }
-  for (int idx = threadIdx.x; idx < SBH * SBW * BC; idx += kBwdThreads) {
+  for (int idx = threadIdx.x; idx < SBH * SBW * BC; idx += THREADS) {
     const int p = idx / BC, gc = c0 + idx % BC;
     const int gy = y0 + p / SBW - HALO, gx = x0 + p % SBW - HALO;
     dst[idx] = gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C
@@ -162,6 +132,73 @@ __device__ __forceinline__ void fma2(float2& acc, float2 a, float2 b) {
   acc.y = fmaf(a.y, b.y, acc.y);
 }
 
+// Stage the taps of channels [c0, c0 + BC) as [49][BC], zeros past C.
+template <int THREADS>
+__device__ __forceinline__ void stage_taps(bf16* dst, const bf16* __restrict__ kern, int c0,
+                                           int C) {
+  for (int idx = threadIdx.x; idx < KS * KS * BC; idx += THREADS) {
+    const int gc = c0 + idx % BC;
+    dst[idx] = gc < C ? kern[(size_t)(idx / BC) * C + gc] : __float2bfloat16(0.0f);
+  }
+}
+
+// The body both kernels share: acc[xo] += the 49 taps against the staged
+// tile around output (y, xo) of the chunk (tile coordinates y + dy, xo +
+// dx, halo included), for this lane's channel pair at cp. For each tap
+// row, one load of the tile feeds the up to 7 outputs whose window holds
+// it; each output still sums its taps in (dy, dx) order. FLIP reads
+// tap[6 - dy][6 - dx] (the backward's dimg).
+template <bool FLIP>
+__device__ __forceinline__ void conv_pairs(float2 (&acc)[BW], const bf16* tile,
+                                           const bf16* taps, int y, int cp) {
+#pragma unroll 1
+  for (int ty = 0; ty < KS; ++ty) {
+    float2 tap[KS];
+#pragma unroll
+    for (int dx = 0; dx < KS; ++dx)
+      tap[dx] = load2(taps + (FLIP ? KS * KS - 1 - (ty * KS + dx) : ty * KS + dx) * BC + cp);
+    const bf16* row = tile + (y + ty) * SBW * BC + cp;
+#pragma unroll
+    for (int xi = 0; xi < SBW; ++xi) {
+      const float2 val = load2(row + xi * BC);
+#pragma unroll
+      for (int dx = 0; dx < KS; ++dx)
+        if (xi - dx >= 0 && xi - dx < BW) fma2(acc[xi - dx], tap[dx], val);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 3)
+    ppeg_kernel(const bf16* __restrict__ img, const bf16* __restrict__ kern,
+                const bf16* __restrict__ bias, bf16* __restrict__ out, int H, int W, int C) {
+  __shared__ __align__(16) FwdSmem sm;
+  const int c0 = blockIdx.x * BC, band = blockIdx.y;
+  const int y0 = band * BH, y = threadIdx.x / 32, cp = 2 * (threadIdx.x % 32);
+  const size_t base = (size_t)blockIdx.z * H * W * C;
+  stage_taps<kFwdThreads>(sm.taps, kern, c0, C);
+  const float2 b = make_float2(c0 + cp < C ? __bfloat162float(bias[c0 + cp]) : 0.f,
+                               c0 + cp + 1 < C ? __bfloat162float(bias[c0 + cp + 1]) : 0.f);
+  for (int x0 = 0; x0 < W; x0 += BW) {
+    if (x0 > 0) __syncthreads();  // every warp is done with the last chunk
+    stage_chunk<kFwdThreads>(sm.img, img + base, y0, x0, c0, H, W, C);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (y0 + y >= H) continue;
+    float2 acc[BW];  // img + b, then the taps
+#pragma unroll
+    for (int xo = 0; xo < BW; ++xo) {
+      const float2 v = load2(sm.img + ((y + HALO) * SBW + xo + HALO) * BC + cp);
+      acc[xo] = make_float2(v.x + b.x, v.y + b.y);
+    }
+    conv_pairs<false>(acc, sm.img, sm.taps, y, cp);
+    bf16* dst = out + base + ((size_t)(y0 + y) * W + x0) * C + c0 + cp;
+#pragma unroll
+    for (int xo = 0; xo < BW; ++xo)
+      if (x0 + xo < W) store_pair(dst + (size_t)xo * C, c0 + cp, C, acc[xo]);
+  }
+}
+
 __global__ void __launch_bounds__(kBwdThreads, 1)
     ppeg_bwd_kernel(const bf16* __restrict__ img, const bf16* __restrict__ kern,
                     const bf16* __restrict__ g, bf16* __restrict__ dimg,
@@ -172,10 +209,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int y0 = band * BH, rows = min(BH, H - y0);
   const size_t base = (size_t)b * H * W * C;
   const int warp = threadIdx.x / 32, cp = 2 * (threadIdx.x % 32);
-  for (int idx = threadIdx.x; idx < KS * KS * BC; idx += kBwdThreads) {
-    const int gc = c0 + idx % BC;
-    sm.taps[idx] = gc < C ? kern[(size_t)(idx / BC) * C + gc] : __float2bfloat16(0.0f);
-  }
+  stage_taps<kBwdThreads>(sm.taps, kern, c0, C);
 
   const int dy = warp - kDimgWarps;  // the dk warps' tap row
   float2 dk[KS], db = make_float2(0.f, 0.f);
@@ -184,8 +218,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
   for (int x0 = 0; x0 < W; x0 += BW) {
     if (x0 > 0) __syncthreads();  // every warp is done with the last chunk
-    stage_chunk(sm.g, g + base, y0, x0, c0, H, W, C);
-    stage_chunk(sm.img, img + base, y0, x0, c0, H, W, C);
+    stage_chunk<kBwdThreads>(sm.g, g + base, y0, x0, c0, H, W, C);
+    stage_chunk<kBwdThreads>(sm.img, img + base, y0, x0, c0, H, W, C);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -197,21 +231,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       float2 acc[BW];
 #pragma unroll
       for (int xo = 0; xo < BW; ++xo) acc[xo] = load2(sm.g + ((y + HALO) * SBW + xo + HALO) * BC + cp);
-#pragma unroll 1
-      for (int ty = 0; ty < KS; ++ty) {
-        float2 tap[KS];
-#pragma unroll
-        for (int dx = 0; dx < KS; ++dx)
-          tap[dx] = load2(sm.taps + (KS * KS - 1 - (ty * KS + dx)) * BC + cp);
-        const bf16* row = sm.g + (y + ty) * SBW * BC + cp;
-#pragma unroll
-        for (int xi = 0; xi < SBW; ++xi) {
-          const float2 val = load2(row + xi * BC);
-#pragma unroll
-          for (int dx = 0; dx < KS; ++dx)
-            if (xi - dx >= 0 && xi - dx < BW) fma2(acc[xi - dx], tap[dx], val);
-        }
-      }
+      conv_pairs<true>(acc, sm.g, sm.taps, y, cp);
       bf16* out = dimg + base + ((size_t)(y0 + y) * W + x0) * C + c0 + cp;
 #pragma unroll
       for (int xo = 0; xo < BW; ++xo)
@@ -277,8 +297,8 @@ MIRROR_EXPORT int mirror_ppeg_bwd(const void* img, const void* kern, const void*
 
 MIRROR_EXPORT int mirror_ppeg(const void* img, const void* kern, const void* bias, void* out,
                               int b, int H, int W, int C, cudaStream_t stream) {
-  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), (C + CB - 1) / CB, b);
-  ppeg_kernel<<<grid, dim3(CB, TH), 0, stream>>>(
+  const dim3 grid((C + BC - 1) / BC, (H + BH - 1) / BH, b);
+  ppeg_kernel<<<grid, kFwdThreads, 0, stream>>>(
       static_cast<const bf16*>(img), static_cast<const bf16*>(kern),
       static_cast<const bf16*>(bias), static_cast<bf16*>(out), H, W, C);
   return (int)cudaGetLastError();

@@ -5,6 +5,16 @@ The global scale is reduced by torch here, outside the kernel, as the TPU
 package leaves it to XLA. On a CUDA tensor the iterations run
 ``csrc/pinv.cu``; on a CPU tensor :func:`pinv_iterations_ref`.
 
+On the card the iterations are launch sequences of one batched GEMM
+(``mirror_pinv_gemm``, 4 launches a forward iteration, 12 a backward one)
+and three helpers: :func:`pinv_sequence` and :func:`pinv_exact_bwd_sequence`,
+which take a launcher, :data:`CUDA_LAUNCHER` for the card. Each C entry has
+a plain version here (:func:`gemm_ref`, :func:`init_ref`,
+:func:`eye_axpby_ref`, :func:`bwd_finish_ref`, gathered in
+:data:`PLAIN_LAUNCHER`) so the CPU tests can run the same sequences; no
+path of the program passes it. Each GEMM launch is counted as
+``pinv_gemm``.
+
 Gradients:
 
 - ``grad="implicit"`` (the train step's default): :class:`PinvImplicit`,
@@ -20,12 +30,15 @@ Gradients:
   package leaves it to XLA (pinv_pallas.py:259-262).
 """
 
+from types import SimpleNamespace
+
 import torch
 
 from . import _common
 
 KERNEL = "moore_penrose_pinv"
 KERNEL_BWD = "moore_penrose_pinv_bwd"
+KERNEL_GEMM = "pinv_gemm"  # each launch of the batched GEMM of both
 
 
 def global_scale(x: torch.Tensor) -> torch.Tensor:
@@ -70,43 +83,122 @@ _NN, _NT, _TN = 0, 1, 2
 _EYE, _ADD, _ACC32 = 0, 1, 2
 
 
-def _gemm(a, b, c=None, c2=None, prev=None, acc=None, layout=_NN, epilogue=_EYE, c0=0.0,
-          c1=1.0, d0=0.0, d1=0.0):
-    """One launch of the batched [m, m] GEMM P = op(a) op(b): EYE writes
-    c = bf16(c0 I + c1 bf16(P)) (and c2 = bf16(d0 I + d1 c)), ADD
+def _launch_gemm(a, b, c=None, c2=None, prev=None, acc=None, layout=_NN, epilogue=_EYE, c0=0.0,
+                 c1=1.0, d0=0.0, d1=0.0):
+    """One launch of the batched [m, m] GEMM P = op(a) op(b) (``mirror_pinv_gemm``):
+    EYE writes c = bf16(c0 I + c1 bf16(P)) (and c2 = bf16(d0 I + d1 c)), ADD
     c = bf16(prev + c1 bf16(P)), ACC32 acc += P in fp32."""
     m = a.shape[-1]
     ptrs = [t.data_ptr() if t is not None else None for t in (a, b, c, c2, prev, acc)]
     _common.launch("mirror_pinv_gemm", *ptrs, a.numel() // (m * m), m, m, m, layout, epilogue,
                    c0, c1, d0, d1)
+    _common.count_launch(KERNEL_GEMM)
 
 
-def _iterations_kernel(x, s, iters, slots, last_z=True):
-    """The iterations on the card: z0 = bf16(x^T / s) into ``slots(0)[0]``;
+def gemm_ref(a, b, c=None, c2=None, prev=None, acc=None, layout=_NN, epilogue=_EYE, c0=0.0,
+             c1=1.0, d0=0.0, d1=0.0):
+    """Plain version of one ``mirror_pinv_gemm`` launch, on [..., m, m]
+    tensors, writing c (and c2) or acc in place: P = op(a) op(b) in fp32
+    (layout NN a b, NT a b^T, TN a^T b); EYE c = bf16(c0 I + c1 bf16(P)) and,
+    given c2, c2 = bf16(d0 I + d1 c); ADD c = bf16(prev + c1 bf16(P)), prev
+    may be c itself; ACC32 acc += P in fp32, unrounded."""
+    a32 = a.float().reshape(-1, *a.shape[-2:])
+    b32 = b.float().reshape(-1, *b.shape[-2:])
+    if layout == _TN:
+        a32 = a32.transpose(-1, -2)
+    if layout == _NT:
+        b32 = b32.transpose(-1, -2)
+    p = torch.matmul(a32, b32)  # [bh, M, N]
+    if epilogue == _ACC32:
+        acc.view(p.shape).add_(p)
+        return
+    dt = c.dtype
+    eye = torch.eye(p.shape[-2], p.shape[-1], device=p.device)
+    start = prev.float().view(p.shape) if epilogue == _ADD else c0 * eye
+    out = (start + c1 * p.to(dt).float()).to(dt)
+    c.view(p.shape).copy_(out)
+    if epilogue == _EYE and c2 is not None:
+        c2.view(p.shape).copy_((d0 * eye + d1 * out.float()).to(dt))
+
+
+def _launch_init(x, s, z):
+    m = x.shape[-1]
+    _common.launch("mirror_pinv_init", x.data_ptr(), s.data_ptr(), z.data_ptr(),
+                   x.numel() // (m * m), m)
+
+
+def init_ref(x, s, z):
+    """Plain ``mirror_pinv_init``: z = bf16(x^T / s), in place."""
+    z.copy_((x.transpose(-1, -2).float() / s).to(z.dtype).reshape(z.shape))
+
+
+def _launch_eye_axpby(inp, out, c0, c1):
+    m = inp.shape[-1]
+    _common.launch("mirror_pinv_eye_axpby", inp.data_ptr(), out.data_ptr(),
+                   inp.numel() // (m * m), m, c0, c1)
+
+
+def eye_axpby_ref(inp, out, c0, c1):
+    """Plain ``mirror_pinv_eye_axpby``: out = bf16(c0 I + c1 inp), in place."""
+    eye = torch.eye(inp.shape[-1], device=inp.device)
+    out.copy_((c0 * eye + c1 * inp.float()).to(out.dtype).reshape(out.shape))
+
+
+def _launch_bwd_finish(gx32, gz, z0, s, gx, gs_partial):
+    m = gz.shape[-1]
+    _common.launch("mirror_pinv_bwd_finish", gx32.data_ptr(), gz.data_ptr(), z0.data_ptr(),
+                   s.data_ptr(), gx.data_ptr(), gs_partial.data_ptr(), gz.numel() // (m * m), m)
+
+
+def bwd_finish_ref(gx32, gz, z0, s, gx, gs_partial):
+    """Plain ``mirror_pinv_bwd_finish``: gx = bf16(gx32 + gz^T / s) and
+    gs_partial[bh] = -sum(gz * z0) / s over each [m, m] matrix, in place."""
+    m = gz.shape[-1]
+    gx.copy_((gx32 + gz.transpose(-1, -2).float() / s).to(gx.dtype))
+    prod = gz.float().reshape(-1, m, m) * z0.float().reshape(-1, m, m)
+    gs_partial.copy_(-prod.sum(dim=(-1, -2)) / s)
+
+
+# The C entries the launch sequences below call, and their plain versions.
+# The wrappers pass CUDA_LAUNCHER; the CPU tests pass PLAIN_LAUNCHER to run
+# the same sequences through the plain versions.
+CUDA_LAUNCHER = SimpleNamespace(gemm=_launch_gemm, init=_launch_init,
+                                eye_axpby=_launch_eye_axpby, bwd_finish=_launch_bwd_finish)
+PLAIN_LAUNCHER = SimpleNamespace(gemm=gemm_ref, init=init_ref, eye_axpby=eye_axpby_ref,
+                                 bwd_finish=bwd_finish_ref)
+
+
+def _iterations(x, s, iters, slots, ops, last_z=True):
+    """The iterations as launches: z0 = bf16(x^T / s) into ``slots(0)[0]``;
     at each t, with (z, xz, t3, a) = ``slots(t)``, xz = x z (and
     t1 = 7I - xz in a scratch buffer), t3 = 15I - xz t1, a = 13I - xz t3 and
     z' = 0.25 z a into ``slots(t + 1)[0]`` (the last one only if ``last_z``)."""
-    m = x.shape[-1]
-    _common.launch("mirror_pinv_init", x.data_ptr(), s.data_ptr(), slots(0)[0].data_ptr(),
-                   x.numel() // (m * m), m)
+    ops.init(x, s, slots(0)[0])
     t1 = torch.empty_like(x)
     for t in range(iters):
         z, xz, t3, a = slots(t)
-        _gemm(x, z, xz, t1, d0=7.0, d1=-1.0)
-        _gemm(xz, t1, t3, c0=15.0, c1=-1.0)
-        _gemm(xz, t3, a, c0=13.0, c1=-1.0)
+        ops.gemm(x, z, xz, t1, d0=7.0, d1=-1.0)
+        ops.gemm(xz, t1, t3, c0=15.0, c1=-1.0)
+        ops.gemm(xz, t3, a, c0=13.0, c1=-1.0)
         if last_z or t + 1 < iters:
-            _gemm(z, a, slots(t + 1)[0], c1=0.25)
+            ops.gemm(z, a, slots(t + 1)[0], c1=0.25)
+
+
+def pinv_sequence(x: torch.Tensor, s: torch.Tensor, iters: int, ops=CUDA_LAUNCHER):
+    """The forward as the card runs it: 4 GEMM launches an iteration,
+    through ``ops`` (:data:`CUDA_LAUNCHER` or :data:`PLAIN_LAUNCHER`)."""
+    zs = (torch.empty_like(x), torch.empty_like(x))  # z_t and z_{t+1} alternate
+    xz, t3, a = (torch.empty_like(x) for _ in range(3))
+    _iterations(x, s, iters, lambda t: (zs[t % 2], xz, t3, a), ops)
+    return zs[iters % 2]
 
 
 def _pinv_kernel(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
     b, h, m, _ = x.shape
     _common.check_kernel_input("x", x, (b, h, m, m))
-    zs = (torch.empty_like(x), torch.empty_like(x))  # z_t and z_{t+1} alternate
-    xz, t3, a = (torch.empty_like(x) for _ in range(3))
-    _iterations_kernel(x, s, iters, lambda t: (zs[t % 2], xz, t3, a))
+    z = pinv_sequence(x, s, iters)
     _common.count_launch(KERNEL)
-    return zs[iters % 2]
+    return z
 
 
 def _step_ref(x, z, eye, xz=None):
@@ -172,22 +264,21 @@ def pinv_exact_bwd_stash_ref(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
     return _sweep_ref(x, s, g, z0, eye, (_step_ref(x, z, eye, xz) for z, xz in reversed(kept)))
 
 
-def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int,
-                           stash: int = 4):
-    """The replay and the reverse sweep on the card: 4 + 8 launches of the
-    batched GEMM per iteration (the replay's last z product, which the sweep
-    never reads, skipped). The replay stashes ``stash`` of (z_t, x z_t,
-    t3_t, a_t) per iteration in device memory for the call: all 4 (kernel
-    2b), or z_t (1) or z_t and x z_t (2), as the probe
-    ``scripts/exp_pinv_stash.py`` asks; the sweep then recomputes the rest
-    with the replay's launches (3 or 2 more GEMMs per iteration), so every
-    variant gives the same gradient."""
+def pinv_exact_bwd_sequence(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int,
+                            stash: int = 4, ops=CUDA_LAUNCHER):
+    """The replay and the reverse sweep as the card runs them: 4 + 8
+    launches of the batched GEMM per iteration (the replay's last z
+    product, which the sweep never reads, skipped), through ``ops``. The
+    replay stashes ``stash`` of (z_t, x z_t, t3_t, a_t) per iteration in
+    device memory for the call: all 4 (kernel 2b), or z_t (1) or z_t and
+    x z_t (2), as the probe ``scripts/exp_pinv_stash.py`` asks; the sweep
+    then recomputes the rest with the replay's launches (3 or 2 more GEMMs
+    per iteration), so every variant gives the same gradient. Returns (gx
+    in x's dtype, gs an fp32 scalar)."""
     if stash not in (1, 2, 4):
         raise ValueError(f"stash must be 1, 2 or 4, got {stash}")
-    b, h, m, _ = x.shape
-    _common.check_kernel_input("x", x, (b, h, m, m))
-    _common.check_kernel_input("g", g, (b, h, m, m))
-    bh = b * h
+    m = x.shape[-1]
+    bh = x.numel() // (m * m)
     kept = x.new_empty(iters, stash, bh, m, m)  # the first `stash` of (z, xz, t3, a) for each t
     rest = [torch.empty_like(x) for _ in range(4 - stash)]  # the others, recomputed
     z0 = kept[0, 0] if iters else torch.empty_like(x)
@@ -195,36 +286,45 @@ def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, it
     def slots(t):
         return (*kept[t], *rest) if iters else (z0,)
 
-    _iterations_kernel(x, s, iters, slots, last_z=False)
+    _iterations(x, s, iters, slots, ops, last_z=False)
 
     gz = g.clone()
     gz_next, gt4, gt2, gb = (torch.empty_like(x) for _ in range(4))
     gx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     t1 = torch.empty_like(x)
+    gemm = ops.gemm
     for t in range(iters - 1, -1, -1):
         z, xz, t3, a = slots(t)
         if stash == 1:  # xz = x z and t1 = 7I - xz in one launch
-            _gemm(x, z, xz, t1, d0=7.0, d1=-1.0)
+            gemm(x, z, xz, t1, d0=7.0, d1=-1.0)
         else:
-            _common.launch("mirror_pinv_eye_axpby", xz.data_ptr(), t1.data_ptr(), bh, m, 7.0,
-                           -1.0)
+            ops.eye_axpby(xz, t1, 7.0, -1.0)
         if stash < 4:
-            _gemm(xz, t1, t3, c0=15.0, c1=-1.0)
-            _gemm(xz, t3, a, c0=13.0, c1=-1.0)
-        _gemm(z, gz, gt4, layout=_TN, c1=-0.25)  # gt4 = -gA = -0.25 z^T gz
-        _gemm(gz, a, gz_next, layout=_NT, c1=0.25)  # gz' = 0.25 gz a^T
-        _gemm(gt4, t3, gb, layout=_NT)  # gb = gt4 t3^T
-        _gemm(xz, gt4, gt2, layout=_TN, c1=-1.0)  # gt2 = -B^T gt4
-        _gemm(gt2, t1, gb, prev=gb, layout=_NT, epilogue=_ADD)  # gb += gt2 t1^T
-        _gemm(xz, gt2, gb, prev=gb, layout=_TN, epilogue=_ADD, c1=-1.0)  # gb -= B^T gt2
-        _gemm(gb, z, acc=gx32, layout=_NT, epilogue=_ACC32)  # gx += gb z^T (fp32)
-        _gemm(x, gb, gz, prev=gz_next, layout=_TN, epilogue=_ADD)  # gz = gz' + x^T gb
+            gemm(xz, t1, t3, c0=15.0, c1=-1.0)
+            gemm(xz, t3, a, c0=13.0, c1=-1.0)
+        gemm(z, gz, gt4, layout=_TN, c1=-0.25)  # gt4 = -gA = -0.25 z^T gz
+        gemm(gz, a, gz_next, layout=_NT, c1=0.25)  # gz' = 0.25 gz a^T
+        gemm(gt4, t3, gb, layout=_NT)  # gb = gt4 t3^T
+        gemm(xz, gt4, gt2, layout=_TN, c1=-1.0)  # gt2 = -B^T gt4
+        gemm(gt2, t1, gb, prev=gb, layout=_NT, epilogue=_ADD)  # gb += gt2 t1^T
+        gemm(xz, gt2, gb, prev=gb, layout=_TN, epilogue=_ADD, c1=-1.0)  # gb -= B^T gt2
+        gemm(gb, z, acc=gx32, layout=_NT, epilogue=_ACC32)  # gx += gb z^T (fp32)
+        gemm(x, gb, gz, prev=gz_next, layout=_TN, epilogue=_ADD)  # gz = gz' + x^T gb
     gx = torch.empty_like(x)
     gs = torch.empty(bh, dtype=torch.float32, device=x.device)
-    _common.launch("mirror_pinv_bwd_finish", gx32.data_ptr(), gz.data_ptr(), z0.data_ptr(),
-                   s.data_ptr(), gx.data_ptr(), gs.data_ptr(), bh, m)
-    _common.count_launch(KERNEL_BWD if stash == 4 else f"{KERNEL_BWD}_stash{stash}")
+    ops.bwd_finish(gx32, gz, z0, s, gx, gs)
     return gx, gs.sum()
+
+
+def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, iters: int,
+                           stash: int = 4):
+    """:func:`pinv_exact_bwd_sequence` on the card."""
+    b, h, m, _ = x.shape
+    _common.check_kernel_input("x", x, (b, h, m, m))
+    _common.check_kernel_input("g", g, (b, h, m, m))
+    gx, gs = pinv_exact_bwd_sequence(x, s, g, iters, stash)
+    _common.count_launch(KERNEL_BWD if stash == 4 else f"{KERNEL_BWD}_stash{stash}")
+    return gx, gs
 
 
 class PinvImplicit(torch.autograd.Function):

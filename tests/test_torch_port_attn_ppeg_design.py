@@ -8,6 +8,12 @@ Pallas kernels (interpret mode, as the JAX package's own tests run them).
   and sum are exact, the weights are exp2 of log2(e)-scaled scores (the
   kernel's ex2.approx), normalised by the sum's reciprocal, rounded to
   bf16, and P v is summed in fp32 and rounded once.
+- Kernel 5 (``csrc/ppeg.cu``): a block takes 64 channels of a band of 8
+  grid rows and walks it in chunks of 16 columns, each chunk staged with
+  its 3-pixel halo (zeros outside the image); a lane owns a channel pair;
+  each output starts at img + b in fp32 and adds its 49 taps in (dy, dx)
+  order (fmaf of two bf16 values is exact in its product, so fp32
+  multiply-adds here give the kernel's bits), rounded once.
 - Kernel 5b (``csrc/ppeg.cu``): one pass writes dimg (g plus the flipped
   conv of g, summed in (dy, dx) order, one rounding) and one [50, C] fp32
   partial of dk and db per (image, band of 8 grid rows), summed over the
@@ -21,6 +27,11 @@ Tolerances, with their reasons:
   the same points, but from fp32 values that differ in their last bits
   (exp2 against exp, a reciprocal against a division, sums in another
   order), so a few values land one bf16 ulp (2^-8 relative) apart;
+- PPEG forward, bf16 inputs against ``ppeg_ref`` (an fp32 conv summed in
+  another order): relative Frobenius error 1e-3 (a few values one bf16 ulp
+  apart); against the plain (dy, dx)-order sum over the whole image: bit
+  for bit (the bands, chunks and channel blocks do not change an output's
+  arithmetic);
 - PPEG, fp32 inputs: max abs error 1e-5 of the largest magnitude, the bar
   tests/test_torch_port_grads.py holds the port's backward to against the
   Pallas VJP (sums of the same products in another order);
@@ -40,12 +51,14 @@ import torch.nn.functional as F
 
 from mirror_tpu.ops.ppeg_pallas import ppeg_fused as jax_ppeg_fused
 from mirror_tpu.ops.vit_attn_pallas import mha_natural as jax_mha_natural
-from mirror_tpu_torch.ops.ppeg import KSIZE, ppeg_bwd_ref
+from mirror_tpu_torch.ops.ppeg import KSIZE, ppeg_bwd_ref, ppeg_ref
 from mirror_tpu_torch.ops.vit_attn import mha_natural_ref
+from test_torch_port_cuda import ppeg_dydx_order
 
 LOG2E = 1.4426950408889634
 TILE = 16  # kernel 8's query and key tiles
-BAND, CHUNK, GROUPS = 8, 16, 8  # kernel 5b's band rows, chunk columns, reduction groups
+BAND, CHUNK, GROUPS = 8, 16, 8  # kernels 5 and 5b's band rows, chunk columns; 5b's groups
+CBLOCK = 64  # kernel 5's channels a block (a pair a lane)
 BOUND_ATTN, BOUND_FP32, BOUND_DIMG_BF16 = 1e-2, 1e-5, 1e-3
 
 
@@ -174,3 +187,70 @@ def test_kernel5b_band_partials_match_plain_in_bf16(b, H, W, C):
     assert _rel_fro(dimg, ref[0]) <= BOUND_DIMG_BF16
     assert _max_rel(dk, ref[1]) <= BOUND_FP32
     assert _max_rel(db, ref[2]) <= BOUND_FP32
+
+
+# ---------------------------------------------------------------------------
+# kernel 5
+# ---------------------------------------------------------------------------
+
+
+def kernel5_emulation(img, kern, bias):
+    """out in kernel 5's order of work: per (image, 64-channel block, band
+    of 8 rows, 16-column chunk), the chunk with its halo staged (zeros
+    outside the image), each output from img + b, then the taps in (dy, dx)
+    order, one rounding to img's dtype."""
+    b, H, W, C = img.shape
+    half = KSIZE // 2
+    x32, k32, b32 = img.float(), kern.float(), bias.float()
+    out = torch.empty(b, H, W, C, dtype=img.dtype)
+    for i in range(b):
+        for c0 in range(0, C, CBLOCK):
+            c1 = min(C, c0 + CBLOCK)
+            for y0 in range(0, H, BAND):
+                y1 = min(H, y0 + BAND)
+                for x0 in range(0, W, CHUNK):
+                    x1 = min(W, x0 + CHUNK)
+                    tile = torch.zeros(BAND + 2 * half, CHUNK + 2 * half, c1 - c0)
+                    ys, xs = max(0, y0 - half), max(0, x0 - half)
+                    ye, xe = min(H, y0 + BAND + half), min(W, x0 + CHUNK + half)
+                    tile[ys - y0 + half:ye - y0 + half, xs - x0 + half:xe - x0 + half] = \
+                        x32[i, ys:ye, xs:xe, c0:c1]
+                    rows, cols = y1 - y0, x1 - x0
+                    acc = tile[half:half + rows, half:half + cols] + b32[c0:c1]
+                    for dy in range(KSIZE):
+                        for dx in range(KSIZE):
+                            acc = acc + k32[dy, dx, c0:c1] * tile[dy:dy + rows, dx:dx + cols]
+                    out[i, y0:y1, x0:x1, c0:c1] = acc.to(img.dtype)
+    return out
+
+
+# (b, H, W, C): H not a multiple of the 8-row band, W not of the 16-column
+# chunk, C not of the 64-channel block (and above it), odd C
+PPEG_FWD_SHAPES = [(2, 13, 21, 40), (1, 9, 35, 72), (1, 11, 19, 37)]
+
+
+def _ppeg_fwd_inputs(seed, b, H, W, C):
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((b, H, W, C), np.float32)
+    kern = 0.1 * rng.standard_normal((KSIZE, KSIZE, C), np.float32)
+    bias = 0.1 * rng.standard_normal((C,), np.float32)
+    return img, kern, bias
+
+
+@pytest.mark.parametrize("b,H,W,C", PPEG_FWD_SHAPES)
+def test_kernel5_order_of_work_matches_plain_in_bf16(b, H, W, C):
+    img, kern, bias = (torch.from_numpy(t).to(torch.bfloat16)
+                       for t in _ppeg_fwd_inputs(93, b, H, W, C))
+    got = kernel5_emulation(img, kern, bias)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ppeg_dydx_order(img, kern, bias))
+    assert _rel_fro(got, ppeg_ref(img, kern, bias)) <= BOUND_DIMG_BF16
+
+
+@pytest.mark.parametrize("b,H,W,C", PPEG_FWD_SHAPES[::2])
+def test_kernel5_order_of_work_matches_pallas(b, H, W, C):
+    img, kern, bias = _ppeg_fwd_inputs(94, b, H, W, C)
+    want = jax_ppeg_fused(*map(jnp.asarray, (img, kern, bias)))
+    got = kernel5_emulation(*map(torch.from_numpy, (img, kern, bias)))
+    assert got.shape == want.shape
+    assert _max_rel(got, want) <= BOUND_FP32

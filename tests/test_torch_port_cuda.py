@@ -51,7 +51,15 @@ from mirror_tpu_torch.ops.nystrom_attn import (
     softmax_attn_ref,
 )
 from mirror_tpu_torch.ops.pinv import (
+    _ACC32,
+    _ADD,
+    _EYE,
+    _NN,
+    _NT,
+    _TN,
+    _launch_gemm,
     _pinv_exact_bwd_kernel,
+    gemm_ref,
     global_scale,
     moore_penrose_pinv,
     pinv_exact_bwd_ref,
@@ -81,6 +89,15 @@ def _assert_close(out, ref, rel=1e-2):
     err = (out.float() - ref.float()).abs().max().item()
     bound = rel * ref.float().abs().max().item()
     assert err <= bound, f"max abs error {err} > {bound}"
+
+
+def _gemm_launches(iters, backward=None):
+    """Launches of the pinv's GEMM: 4 an iteration forward; the exact
+    backward's replay (its last z product skipped) and sweep, 12 an
+    iteration, and 2 (stash 2) or 3 (stash 1) more to recompute."""
+    if backward is None:
+        return 4 * iters
+    return (12 + {4: 0, 2: 2, 1: 3}[backward]) * iters - 1 if iters else 0
 
 
 @pytest.mark.parametrize("b,h,n,dh,m", [(1, 2, 20, 16, 8), (1, 2, 45, 16, 8),
@@ -141,6 +158,36 @@ def test_ppeg_kernel(dev, b, H, W, C):
     _assert_close(ppeg_fused(img, kern, bias), ppeg_ref(img, kern, bias))
 
 
+def ppeg_dydx_order(img, kern, bias):
+    """PPEG as kernel 5 (and the kernel it replaced) sums it: img + b in
+    fp32, then the 49 taps in (dy, dx) order (a product of two bf16 values
+    is exact in fp32, so an fp32 multiply and add give fmaf's bits), one
+    rounding to img's dtype. tests/test_torch_port_attn_ppeg_design.py holds
+    its emulation of kernel 5 to this too."""
+    H, W = img.shape[1:3]
+    xp = torch.nn.functional.pad(img.float(), (0, 0, 3, 3, 3, 3))
+    acc = img.float() + bias.float()
+    for dy in range(7):
+        for dx in range(7):
+            acc = acc + kern.float()[dy, dx] * xp[:, dy:dy + H, dx:dx + W]
+    return acc.to(img.dtype)
+
+
+# (b, H, W, C): test_ppeg_kernel's shapes, and H not a multiple of the 8-row
+# bands, W not of the 16-column chunks, C not of the 64-channel blocks, odd C
+@pytest.mark.parametrize("b,H,W,C", [(1, 5, 7, 40), (2, 46, 46, 768), (2, 46, 46, 512),
+                                     (3, 13, 21, 40), (1, 11, 19, 37), (1, 9, 3, 72)])
+def test_ppeg_kernel_sums_in_dy_dx_order(dev, b, H, W, C):
+    """Kernel 5 bit for bit the (dy, dx)-order sum, and two runs bit for bit."""
+    g = torch.Generator().manual_seed(40)
+    img = _randn(g, b, H, W, C, dev=dev)
+    kern, bias = _randn(g, 7, 7, C, dev=dev, scale=0.1), _randn(g, C, dev=dev, scale=0.1)
+    out = ppeg_fused(img, kern, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ppeg_dydx_order(img, kern, bias))
+    assert torch.equal(out, ppeg_fused(img, kern, bias))
+
+
 def test_kernels_count_launches_and_reject_bad_inputs(dev):
     _common.reset_launch_counts()
     x = torch.randn(1, 5, 7, 32, device=dev, dtype=torch.bfloat16)
@@ -180,6 +227,7 @@ def test_classifier_kernel_path_matches_cpu_plain_path(dev):
         got = gpu(wsi.to(dev), rna.to(dev)).float().cpu()
         want = cpu(wsi, rna).float()
     assert _common.launch_counts() == {"landmark_softmax": 2, "moore_penrose_pinv": 2,
+                                       "pinv_gemm": 2 * _gemm_launches(6),
                                        "softmax_attn": 2, "softmax_attn_conv": 2, "ppeg": 1}
     assert ((got - want).norm() / want.norm()).item() <= 5e-2, (got, want)
 
@@ -369,7 +417,8 @@ def test_pinv_gradients_on_the_card(dev):
     _common.reset_launch_counts()
     xg = x.clone().requires_grad_()
     moore_penrose_pinv(xg, grad="exact").backward(gz)
-    assert _common.launch_counts() == {"moore_penrose_pinv": 1, "moore_penrose_pinv_bwd": 1}
+    assert _common.launch_counts() == {"moore_penrose_pinv": 1, "moore_penrose_pinv_bwd": 1,
+                                       "pinv_gemm": _gemm_launches(6) + _gemm_launches(6, 4)}
     xr = x.clone().requires_grad_()
     s = global_scale(xr)
     gx_ref, gs_ref = pinv_exact_bwd_ref(x, s.detach(), gz, 6)
@@ -401,7 +450,8 @@ def test_pinv_exact_bwd_kernel(dev, b, h, m, iters):
     s = global_scale(x)
     _common.reset_launch_counts()
     gx, gs = _pinv_exact_bwd_kernel(x, s, gz, iters)
-    assert _common.launch_counts() == {"moore_penrose_pinv_bwd": 1}
+    want = {"moore_penrose_pinv_bwd": 1, "pinv_gemm": _gemm_launches(iters, 4)}
+    assert _common.launch_counts() == {k: v for k, v in want.items() if v}
     assert gx.dtype == torch.bfloat16 and gs.shape == () and gs.dtype == torch.float32
     gx_ref, gs_ref = pinv_exact_bwd_ref(x, s, gz, iters)
     _assert_rel(gx, gx_ref, bound=BOUND_PINV_BWD, name="gx")
@@ -418,6 +468,67 @@ def test_pinv_exact_bwd_kernel_refuses_fp32(dev):
         _pinv_exact_bwd_kernel(x, global_scale(x), torch.ones_like(x), 6)
     with pytest.raises(TypeError):
         moore_penrose_pinv(x.requires_grad_(), grad="exact")
+
+
+# --- the pinv's GEMM alone (csrc/pinv.cu, gemm_mma.cuh) against gemm_ref
+# on the same inputs. Bounds: bf16 outputs, rounded once or twice (c, then
+# c2 from c) after fp32 sums taken in another order, max abs error <= 1e-2
+# of the largest magnitude, as _assert_close; ACC32's fp32 sums <= 1e-5 of
+# the largest magnitude (the same bf16 products summed in another order) ---
+
+GEMM_LAYOUTS = {"NN": _NN, "NT": _NT, "TN": _TN}
+
+
+# m: the slice's, a multiple of 8 but not of the 128-wide tile, not a
+# multiple of 8 (element-wise staging), and 512 (--embed_dim 1024)
+@pytest.mark.parametrize("epilogue", ["eye", "eye_c2", "add_aliased", "acc32"])
+@pytest.mark.parametrize("layout", list(GEMM_LAYOUTS))
+@pytest.mark.parametrize("m", [384, 136, 100, 512])
+def test_pinv_gemm_kernel(dev, m, layout, epilogue):
+    g = torch.Generator().manual_seed(41)
+    bh = 3
+    a, b = _randn(g, bh, m, m, dev=dev), _randn(g, bh, m, m, dev=dev)
+    kw = dict(layout=GEMM_LAYOUTS[layout])
+    _common.reset_launch_counts()
+    if epilogue == "acc32":
+        acc0 = torch.randn(bh, m, m, generator=g).to(dev)
+        acc, want = acc0.clone(), acc0.clone()
+        _launch_gemm(a, b, acc=acc, epilogue=_ACC32, **kw)
+        gemm_ref(a, b, acc=want, epilogue=_ACC32, **kw)
+        torch.cuda.synchronize()
+        err = (acc - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+        again = acc0.clone()
+        _launch_gemm(a, b, acc=again, epilogue=_ACC32, **kw)
+        assert torch.equal(acc, again)  # one block a tile: the same bits
+    elif epilogue == "add_aliased":
+        c = _randn(g, bh, m, m, dev=dev)
+        want = c.clone()
+        _launch_gemm(a, b, c, prev=c, epilogue=_ADD, c1=-1.0, **kw)
+        gemm_ref(a, b, want, prev=want, epilogue=_ADD, c1=-1.0, **kw)
+        _assert_close(c, want)
+    else:
+        c, want = torch.empty_like(a), torch.empty_like(a)
+        c2, want2 = (torch.empty_like(a), torch.empty_like(a)) if epilogue == "eye_c2" \
+            else (None, None)
+        _launch_gemm(a, b, c, c2, epilogue=_EYE, c0=13.0, c1=-0.25, d0=7.0, d1=-1.0, **kw)
+        gemm_ref(a, b, want, want2, epilogue=_EYE, c0=13.0, c1=-0.25, d0=7.0, d1=-1.0, **kw)
+        _assert_close(c, want)
+        if c2 is not None:
+            _assert_close(c2, want2)
+    assert _common.launch_counts()["pinv_gemm"] >= 1
+
+
+def test_pinv_exact_bwd_kernel_repeats_bitwise(dev):
+    """2b twice on the same inputs: gx (its fp32 ACC32 sum included) and gs
+    bit for bit (no split-K, no atomics, fixed-order reductions)."""
+    g = torch.Generator().manual_seed(42)
+    x = torch.softmax(torch.randn(2, 8, 384, 384, generator=g), -1).to(dev, torch.bfloat16)
+    gz = _randn(g, 2, 8, 384, 384, dev=dev)
+    s = global_scale(x)
+    first = _pinv_exact_bwd_kernel(x, s, gz, 6)
+    second = _pinv_exact_bwd_kernel(x, s, gz, 6)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 # --- the ViT half-block kernels of feature extraction (inference only) ---
@@ -772,7 +883,8 @@ def test_pinv_exact_bwd_stash_variants(dev, stash):
     full = _pinv_exact_bwd_kernel(x, s, gz, 6)
     _common.reset_launch_counts()
     gx, gs = _pinv_exact_bwd_kernel(x, s, gz, 6, stash)
-    assert _common.launch_counts() == {f"moore_penrose_pinv_bwd_stash{stash}": 1}
+    assert _common.launch_counts() == {f"moore_penrose_pinv_bwd_stash{stash}": 1,
+                                       "pinv_gemm": _gemm_launches(6, stash)}
     gx_ref, gs_ref = pinv_exact_bwd_ref(x, s, gz, 6)
     _assert_rel(gx, gx_ref, bound=BOUND_PINV_BWD, name="gx")
     assert abs(gs.item() - gs_ref.item()) <= BOUND_PINV_BWD * abs(gs_ref.item())
