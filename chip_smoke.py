@@ -8,9 +8,8 @@ Phases, each printed as it finishes:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel of ``mirror_tpu_torch/csrc`` compiled from the
    checkout's sources, with its build time, and what ``-Xptxas -v`` says
-   of the redesigned kernels (the Nystrom and ViT attention, PPEG, the
-   pinv's GEMM:
-   registers, shared memory, spills);
+   of the redesigned kernels (the landmark softmax, the Nystrom and ViT
+   attention, PPEG, the pinv's GEMM: registers, shared memory, spills);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
@@ -40,13 +39,17 @@ Phases, each printed as it finishes:
    backwards, 2b ([8, 8, 256, 256]) and PPEG's at the self-test's shapes
    as in phase 3), error per output
    (the batch sums dkern, gw, gs and gb also against their largest
-   magnitude), and the same times; the attention backwards (3c, 4b) and
-   PPEG's (5b) and the exact pinv backward (2b) run twice on the same
-   inputs and must give the same bits; one launch of the pinv's GEMM at
-   [128, 384, 384] in its four main forms (NN with 7I - xz, NN adding to
-   ``prev``, TN adding to fp32 gx, NT scaled) against its plain version and
-   one cuBLAS call, and kernels 2 and 2b also against their launch
-   sequences' bytes floor;
+   magnitude), and the same times; the landmark softmax's backward (1b),
+   the attention backwards (3c, 4b), PPEG's (5b) and the exact pinv
+   backward (2b) run twice on the same inputs and must give the same bits;
+   one launch of the pinv's GEMM at [128, 384, 384] in its four main forms
+   (NN with 7I - xz, NN adding to ``prev``, TN adding to fp32 gx, NT
+   scaled) against its plain version and one cuBLAS call, and kernels 2
+   and 2b also against their launch sequences' bytes floor, and kernels 1
+   and 1b also against the bound of their bytes with the TPU kernel's
+   residuals (no lse; q and k read again by the backward); kernels 1, 1b
+   and 2b are timed on their launch wrappers (1b from the card's forward
+   residuals), the other backwards through autograd;
 4. serving slice: a full-width ``mirror_classifier`` (the subtyping
    configuration: 768-d Phikon features, embed 768, RNA 10234, 2048 tokens,
    bf16) with random weights from a seeded generator, saved as a reference
@@ -256,7 +259,8 @@ def phase_build():
     say(f"[build] {lib.relative_to(REPO)} from {_common.CSRC_DIR.relative_to(REPO)}/*.cu "
         f"in {time.perf_counter() - t0:.1f} s")
     # registers, shared memory and spills of the redesigned kernels (-Xptxas -v)
-    for src in ("softmax_attn.cu", "softmax_attn_bwd.cu", "vit_attn.cu", "ppeg.cu", "pinv.cu"):
+    for src in ("landmark.cu", "landmark_bwd.cu", "softmax_attn.cu", "softmax_attn_bwd.cu",
+                "vit_attn.cu", "ppeg.cu", "pinv.cu"):
         info = _common.PTXAS_INFO[src]
         for line in info.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -325,6 +329,9 @@ def run_case(torch, case: Case) -> dict:
     # design's count of tensors (not measured): printed, kept out of the JSON
     design_ms = case.work["design_bytes"] / PEAK_BYTES * 1e3 if "design_bytes" in case.work \
         else None
+    # the bytes bound of the same function with other residuals (kernels 1
+    # and 1b with the TPU kernel's), printed beside, kept out of the JSON
+    alt = case.work.get("alt_bytes")
     per_output = ", ".join(f"{o} {a:.4g}/{r:.4g}" for o, (a, r) in zip(case.outputs, errs))
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     lib_1 = f", library {library_ms_1:.4f}" if library_ms is not None else ""
@@ -342,6 +349,8 @@ def run_case(torch, case: Case) -> dict:
     rate += f", {100 * bound_ms / ms:.1f} % of its bound"
     if design_ms is not None:
         rate += f"; the design's bytes floor {design_ms:.4f} ms ({100 * design_ms / ms:.1f} %)"
+    if alt is not None:
+        rate += f"; with {alt[0]} the bound is {alt[1] / PEAK_BYTES * 1e3:.4f} ms by bytes"
     say(f"[kernel] {case.name} ({case.shape}): max abs / rel Frobenius err {per_output} "
         f"(bound {case.tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
         f"bound {bound_ms:.4f} ms by {bound_by}{rate} (medians of warm calls, runs of calls "
@@ -371,6 +380,7 @@ def forward_cases(torch, randn):
         q = randn(b, HEADS, n, dh, scale=dh ** -0.5)
         k, v = randn(b, HEADS, n, dh), randn(b, HEADS, n, dh)
         q_l, k_l, attn2 = landmark.landmark_softmax_ref(q, k, m, pad)
+        lse_bytes = 4 * bh * m  # the forward's fp32 row log-sum-exp
         w = randn(b, HEADS, m, dh)
         kern = randn(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
         attn_mma = 4 * bh * n * m * dh  # S = q k^T and P w
@@ -380,12 +390,17 @@ def forward_cases(torch, randn):
         # and w (built here, outside the timed call) computes it
         k_pad = torch.cat([k.new_zeros(b, HEADS, pad, dh), k], dim=2)
         v_pad = torch.cat([v.new_zeros(b, HEADS, pad, dh), v], dim=2)
+        # kernel 1 on its launch wrapper with the fp32 row log-sum-exp it
+        # keeps for the backward (as kernel 2b below): through the autograd
+        # Function a call at the self-test's shape is host-bound
         cases.append(Case(
             "landmark_softmax", "landmark.cu", "mirror_tpu/ops/landmark_pallas.py:183", shape,
-            lambda q=q, k=k, m=m, pad=pad: landmark.landmark_softmax(q, k, m, pad),
-            lambda q=q, k=k, m=m, pad=pad: landmark.landmark_softmax_ref(q, k, m, pad),
-            BOUND_SINGLE_ROUNDING, ("q_l", "k_l", "attn2"),
-            dict(bytes=nbytes(q, k, q_l, k_l, attn2), mma=2 * bh * m * m * dh)))
+            lambda q=q, k=k, m=m, pad=pad: landmark._launch_fwd(q, k, m, pad),
+            lambda q=q, k=k, m=m, pad=pad: landmark.landmark_softmax_lse_ref(q, k, m, pad),
+            BOUND_SINGLE_ROUNDING, ("q_l", "k_l", "attn2", "lse"),
+            dict(bytes=nbytes(q, k, q_l, k_l, attn2) + lse_bytes, mma=2 * bh * m * m * dh,
+                 alt_bytes=("the TPU kernel's outputs (no lse)",
+                            nbytes(q, k, q_l, k_l, attn2)))))
         cases.append(Case(
             "softmax_attn", "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:202",
             f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}",
@@ -882,15 +897,25 @@ def backward_cases(torch, randn):
         q_l, k_l, _ = landmark.landmark_softmax_ref(q, k, m, pad)
         gql, gkl, ga2 = randn(b, HEADS, m, dh), randn(b, HEADS, m, dh), randn(b, HEADS, m, m)
         dq = landmark.landmark_softmax_bwd_ref(q, k, m, pad, gql, gkl, ga2)[0]
+        # kernel 1b on its launch wrapper, from the card's forward residuals
+        # (q_l, k_l and the fp32 lse), as kernel 2b: a call through
+        # autograd.grad is host-bound (0.27-0.31 ms against 0.15 ms of
+        # device time). No [bh, m, m] scratch, no float atomics, so a second
+        # run must give the same bits
+        res = landmark._launch_fwd(q, k, m, pad)
+        bwd1 = lambda res=res, n=n, pad=pad, g=(gql, gkl, ga2): landmark._launch_bwd(
+            res[0], res[1], res[3], n, pad, *g)
         cases.append(Case(
-            "landmark_softmax_bwd", "landmark.cu", "mirror_tpu/ops/landmark_pallas.py:148",
-            shape,
-            autograd_kernel(torch, lambda q, k, m=m, pad=pad: landmark.landmark_softmax(
-                q, k, m, pad), (q, k), (gql, gkl, ga2)),
+            "landmark_softmax_bwd", "landmark_bwd.cu", "mirror_tpu/ops/landmark_pallas.py:148",
+            shape, bwd1,
             lambda q=q, k=k, m=m, pad=pad, g=(gql, gkl, ga2): landmark.landmark_softmax_bwd_ref(
                 q, k, m, pad, *g),
             BOUND_BWD, ("dq", "dk"),
-            dict(bytes=nbytes(q, k, gql, gkl, ga2, dq, dq), mma=3 * 2 * bh * m * m * dh)))
+            dict(bytes=nbytes(q_l, k_l, gql, gkl, ga2, dq, dq) + 4 * bh * m,
+                 mma=3 * 2 * bh * m * m * dh,
+                 alt_bytes=("the TPU kernel's residuals (q, k)",
+                            nbytes(q, k, gql, gkl, ga2, dq, dq))),
+            check=same_bits_check(torch, "landmark_softmax_bwd", bwd1)))
 
         g3 = randn(b, HEADS, m, dh)
         # the same SDPA on zero-padded k and w (built outside the timed

@@ -211,17 +211,20 @@ _IGNORED_KEYS = {
     "model_ema_force_cpu", "worker_seeding", "epoch_repeats", "in_chans",
 }
 
-# flags this port does not implement: (dest, what it would need)
+# flags this port does not implement: (dest, what it would need, the
+# ROADMAP item that ports it)
 _UNPORTED = (
-    ("resume", "resume"), ("no_resume_opt", "resume"), ("start_epoch", "resume"),
-    ("recovery_interval", "recovery checkpoints"),
-    ("log_wandb", "wandb"), ("wandb_watch", "wandb"),
-    ("grad_accum_steps", "gradient accumulation"),
-    ("grad_checkpointing", "activation checkpointing"),
-    ("model_parallel", "tensor parallelism"), ("distributed", "multi-process training"),
-    ("optimizer_sharding", "ZeRO-1"), ("ckpt_format", "the JAX package's checkpoints"),
-    ("profile", "the profiler hook"),
+    ("resume", "resume", 10), ("no_resume_opt", "resume", 10), ("start_epoch", "resume", 10),
+    ("recovery_interval", "recovery checkpoints", 10),
+    ("log_wandb", "wandb", 10), ("wandb_watch", "wandb", 10),
+    ("grad_accum_steps", "gradient accumulation", 8),
+    ("grad_checkpointing", "activation checkpointing", 10),
+    ("model_parallel", "tensor parallelism", 16), ("distributed", "multi-process training", 14),
+    ("optimizer_sharding", "ZeRO-1", 14), ("ckpt_format", "the JAX package's checkpoints", 17),
+    ("profile", "the profiler hook", 10),
 )
+# pretrain only: the downstream CLIs warm-start through load_pretrained
+_UNPORTED_PRETRAIN = (("initial_checkpoint", "warm start from a checkpoint", 10),)
 # what each task's port runs of --model and --loss
 _PORTED_VALUES = {
     "pretrain": {"model": ("mirror",), "loss": ("mirror_loss",)},
@@ -271,15 +274,13 @@ def parse_args(argv: Optional[Sequence[str]] = None,
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise SystemExit on the first flag that the port does not implement
     for ``args.task``, set away from its default, naming it."""
-    unported = _UNPORTED
-    if args.task == "pretrain":
-        unported += (("initial_checkpoint", "warm start from a checkpoint"),)
-    for dest, what in unported:
+    unported = _UNPORTED + (_UNPORTED_PRETRAIN if args.task == "pretrain" else ())
+    for dest, what, item in unported:
         value = getattr(args, dest)
         if value != args.defaults[dest]:
             raise SystemExit(
                 f"--{dest.replace('_', '-')}={value!r}: {what} is not ported to the "
-                "PyTorch port yet (ROADMAP items 8-10); leave it at its default"
+                f"PyTorch port yet (ROADMAP item {item}); leave it at its default"
             )
     for dest, ported in _PORTED_VALUES[args.task].items():
         value = getattr(args, dest)

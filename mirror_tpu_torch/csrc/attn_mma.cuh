@@ -1,8 +1,9 @@
 // Tensor-core building blocks of the Nystrom softmax attention kernels
-// (softmax_attn.cu, softmax_attn_bwd.cu): warp-level bf16 products on
-// mma.sync m16n8k16 with fp32 accumulators in registers, fed by ldmatrix
-// from padded shared-memory tiles, and the cp.async tile loads of their
-// rings.
+// (softmax_attn.cu, softmax_attn_bwd.cu), the landmark softmax's
+// (landmark.cu, landmark_bwd.cu) and the ViT attention's: warp-level bf16
+// products on mma.sync m16n8k16 with fp32 accumulators in registers, fed by
+// ldmatrix from padded shared-memory tiles, and the cp.async tile loads of
+// their rings.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
 // - The accumulator of a 16 x 8 tile: c[0], c[1] at row g, columns 2t and
@@ -102,6 +103,37 @@ __device__ __forceinline__ void mma_nt(float (&acc)[NT][4], const bf16* a, const
       ldsm_x4(fb, pb + 16 * np * ld + 16 * kk);
       mma16816(acc[2 * np], fa, fb[0], fb[1]);
       mma16816(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// The A operand of a warp's 16 rows at `a` (k-contiguous, stride ld), all
+// 16 KT columns, into registers once (ldmatrix), for mma_nt_ra.
+template <int KT>
+__device__ __forceinline__ void load_a_frags(unsigned (&a)[KT][4], const bf16* p, int ld) {
+  const int lane = threadIdx.x % 32;
+  const bf16* pa = p + (lane % 16) * ld + (lane / 16) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) ldsm_x4(a[kk], pa + 16 * kk);
+}
+
+// mma_nt with A already in registers (load_a_frags): the landmark softmax's
+// S = q_l k_l^T and S^T = k_l q_l^T, whose owned rows are multiplied by
+// every walked tile.
+template <int KT, int NT>
+__device__ __forceinline__ void mma_nt_ra(float (&acc)[NT][4], const unsigned (&a)[KT][4],
+                                          const bf16* b, int ld) {
+  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
+  const int lane = threadIdx.x % 32;
+  const bf16* pb = b + ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned fb[4];
+      ldsm_x4(fb, pb + 16 * np * ld + 16 * kk);
+      mma16816(acc[2 * np], a[kk], fb[0], fb[1]);
+      mma16816(acc[2 * np + 1], a[kk], fb[2], fb[3]);
     }
   }
 }

@@ -1,349 +1,288 @@
-// Landmark means and landmark softmax of the Nystrom attention (K1).
+// Landmark means and landmark softmax of the Nystrom attention (K1); its
+// backward (K1b) is landmark_bwd.cu, which this comment describes too.
 //
-// Replaces: mirror_tpu/ops/landmark_pallas.py::landmark_softmax (forward
-// pallas_call in _fwd_call).
+// Replaces: mirror_tpu/ops/landmark_pallas.py::landmark_softmax, the
+// forward pallas_call in _fwd_call (body _fwd_kernel) and (landmark_bwd.cu)
+// the backward pallas_call in _bwd_call (body _bwd_kernel).
 //
-// What it computes, per (batch, head): q_l, k_l = means over contiguous
-// groups of l rows of the virtually FRONT-PADDED sequence (real row i lies
-// in group (i + pad) / l, the divisor is always l, groups made only of pad
-// rows are exactly 0), rounded to bf16; then attn2 = softmax(q_l k_l^T)
-// with fp32 statistics, rounded to bf16.
+// What it computes, per (batch, head):
+// - forward: q_l, k_l = means over contiguous groups of l rows of the
+//   virtually FRONT-PADDED sequence (real row i lies in group (i + pad) / l,
+//   the divisor is always l, groups made only of pad rows are exactly 0),
+//   summed in fp32 and rounded to bf16 once; attn2 = softmax(q_l k_l^T) with
+//   fp32 similarity and statistics, rounded to bf16; and, for the backward,
+//   lse = the fp32 row log-sum-exp of q_l k_l^T.
+// - backward, with the TPU kernel's rounding points and P = exp(S - lse):
+//   dsim = bf16(P ga2 - P rowsum(P ga2)); dq_l = dsim k_l + gql and
+//   dk_l = dsim^T q_l + gkl in fp32, times 1/l and rounded once; real row i
+//   takes its group's value, and groups made only of pad send gradient
+//   nowhere.
 //
-// What bounds it on the H100: bytes. At the slice's shape it reads q and k
-// once (2 x 16x8x2117x96 bf16 = 52 MB) and does ~1.8 GFLOP for the m x m
-// similarity, far below the tensor-core line.
+// What bounds it on the H100: bytes. At the slice's shape (b 16, h 8,
+// n 2117, pad 187, dh 96, m 384) q and k are 52.0 MB each; the forward reads
+// them once and writes q_l, k_l (9.4 MB each) and attn2 (37.7 MB): 160.7 MB,
+// 0.048 ms at 3.35 TB/s (lse adds 0.2 MB), against 3.6 GFLOP for S (0.004
+// ms at the bf16 peak). The backward reads q_l, k_l, lse, gql, gkl and ga2 and
+// writes dq and dk: 179.7 MB, 0.054 ms (the TPU kernel's residuals, q and k
+// with the means recomputed, would make it 264.7 MB), against 5 products of
+// 2 m m dh a (batch, head) run by this design (S twice in the row pass,
+// once transposed in the column pass, dsim k_l, dsim^T q_l): 18 GFLOP.
 //
-// Design: two launches in one entry point. The TPU program keeps the q/k
-// rows, the group means and the whole [m, m] softmax of one (batch, head) in
-// VMEM at once; a Hopper block cannot hold k_l and the q rows together with
-// the similarity rows, and one block per (batch, head) would leave most of
-// the 132 SMs idle. (1) the means kernel gives one thread per (group,
-// feature) and reads each real row once, coalesced along dh; (2) the rows
-// kernel gives a block of 4 warps 64 q_l rows: it walks k_l in tiles of 64
-// rows through shared memory, forms the [64, m] similarity on the tensor
-// cores (WMMA bf16, fp32 sums) into shared memory, and each warp then takes
-// max and sum of its 16 rows with shuffles and writes each row once.
-//
-// Backward (K1b; replaces the backward pallas_call in _bwd_call): four
-// launches. The means are recomputed (kernel 1), then the rows kernel
-// recomputes the softmax rows and writes dsim = bf16(p ga2 - p rowsum(p ga2))
-// to a [bh, m, m] bf16 scratch (37.7 MB at the slice's shape; dk_l needs
-// dsim^T q_l, a reduction over all m rows, which the scratch turns into a
-// plain tile read), then one tensor-core kernel, launched for dq and for
-// dk, forms dq_l = dsim k_l + gql or dk_l = dsim^T q_l + gkl with fp32
-// sums, scales by 1/l, rounds, and writes each group's value to its l real
-// rows: the TPU's G^T broadcast, never built. Groups made only of front pad
-// own no real row and write nothing.
-// Bytes bound it too: it reads q and k once (52 MB) and writes dq and dk
-// (52 MB), against 3.6 GFLOP.
-#include <mma.h>
-
-#include <type_traits>
-
-#include "common.cuh"
+// Design. The TPU program keeps one (batch, head)'s q and k rows, the
+// means and the whole [m, m] softmax in VMEM; a Hopper block cannot hold
+// that, and one block a (batch, head) would leave most SMs idle. So:
+// (1) means: a streaming reduction. A thread owns 8 features (one 16-byte
+//     load) of one group and walks the group's l contiguous rows of q and
+//     of k, two rows of each in flight; stores are 16 bytes. No thread idles
+//     at dh 64 or 96, and every real row is read once.
+// (2) forward rows: a block of 4 warps owns 64 rows of q_l, 16 a warp; each
+//     warp loads its A fragments once (ldmatrix) and keeps them in
+//     registers. k_l arrives in 64-row tiles through a 2-stage cp.async ring
+//     (attn_mma.cuh), and the walk runs twice: sweep 1 forms S in registers
+//     (mma.sync m16n8k16, fp32 accumulators) and keeps the online row max
+//     and sum (two quad shuffles a row); sweep 2 forms S again (cheap: the
+//     function is bound by bytes) and writes P = exp2(S log2e - lse log2e)
+//     as bf16, staged through a small per-warp tile so that every store to
+//     attn2 is 16 bytes and coalesced. No [64, m] block is kept in shared
+//     memory, so any m that is a multiple of 8 is taken (the earlier design
+//     staged the fp32 scores and took m <= 768 only). The second walk
+//     re-reads k_l (72 KB a (batch, head)) from L2.
+// (3) backward (landmark_bwd.cu), FlashAttention-2's split, with no
+//     [m, m] scratch and no float atomics:
+//     rows: a block owns 64 rows i of one (batch, head), A = q_l in
+//       registers. It walks the column tiles j twice through a ring of k_l
+//       and ga2 tiles: sweep 1 reduces dot_i = sum_j P_ij ga2_ij, sweep 2
+//       forms dsim in registers; rounded to bf16 in place it is the A
+//       operand of dq += dsim k_l (k_l read by ldmatrix.trans). It writes dot
+//       (fp32 [bh, m]) for the column pass.
+//     cols: a block owns 64 landmark columns j, A = k_l in registers, and
+//       walks the row tiles i of q_l with their lse and dot: S^T = k_l q_l^T
+//       in registers, P^T from lse_i, ga2^T read from the staged [i, j] tile
+//       by ldmatrix.trans straight into the accumulator's layout, dsim^T as
+//       the A operand of dk += dsim^T q_l.
+//     One epilogue: add gql or gkl, times 1/l, round, stage the [64, dh]
+//     bf16 result in shared memory, then write the block's groups' real rows
+//     (a contiguous span of dq or dk) with 16-byte coalesced stores.
+//     One block owns each output tile and sums in a fixed order, so two runs
+//     give the same bits. The row and column passes compute P from S and
+//     from S^T, whose products the tensor cores may add in another order,
+//     so a P can differ by an ulp between them; the plain emulation in
+//     tests/test_torch_port_landmark_design.py holds both orders to the
+//     reference.
+// Occupancy (dh 96; ptxas -v, printed by chip_smoke.py), no spills: the
+// means 48 registers a thread, 256 threads a block; the forward rows 114
+// registers and 39.9 KB of shared memory, 4 blocks (16 warps) an SM; the
+// row and column passes 185 and 176 registers and 72.7 KB, 2 blocks an SM.
+#include "landmark.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace attn;
+using namespace landmark;
 
-__global__ void landmark_means_kernel(const bf16* __restrict__ q,
-                                      const bf16* __restrict__ k,
-                                      bf16* __restrict__ q_l,
-                                      bf16* __restrict__ k_l,
-                                      int n, int dh, int m, int l, int pad) {
-  const int g = blockIdx.x;    // landmark group
-  const int bh = blockIdx.y;   // batch * heads + head
+// (1) the means, a thread per (batch * head, group, 8 features)
+constexpr int kMeanThreads = 256;
+
+__device__ __forceinline__ void add8(float (&s)[8], const uint4& v) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p[e]);
+    s[2 * e] += f.x;
+    s[2 * e + 1] += f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&s)[8], float scale) {
+  uint4 v;
+  v.x = pack_bf16(s[0] * scale, s[1] * scale);
+  v.y = pack_bf16(s[2] * scale, s[3] * scale);
+  v.z = pack_bf16(s[4] * scale, s[5] * scale);
+  v.w = pack_bf16(s[6] * scale, s[7] * scale);
+  return v;
+}
+
+__global__ void __launch_bounds__(kMeanThreads)
+    landmark_means_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          bf16* __restrict__ q_l, bf16* __restrict__ k_l, int bh, int n,
+                          int dh, int m, int l, int pad) {
+  const int chunks = dh / 8;
+  const long long idx = (long long)blockIdx.x * kMeanThreads + threadIdx.x;
+  if (idx >= (long long)bh * m * chunks) return;
+  const int c = (int)(idx % chunks);
+  const long long grp = idx / chunks;  // bh * m + group
+  const int g = (int)(grp % m);
+  const size_t base = (size_t)(grp / m) * n * dh + (size_t)c * 8;
+  const uint4* qp = reinterpret_cast<const uint4*>(q + base);
+  const uint4* kp = reinterpret_cast<const uint4*>(k + base);
+  const int stride = chunks;  // uint4s a row
+  float sq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float sk[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const int first = g * l - pad;  // rows before 0 are the pad's zeros
+  int r = max(first, 0);
+  const int end = min(first + l, n);
+  for (; r + 1 < end; r += 2) {
+    const uint4 q0 = qp[(size_t)r * stride], q1 = qp[(size_t)(r + 1) * stride];
+    const uint4 k0 = kp[(size_t)r * stride], k1 = kp[(size_t)(r + 1) * stride];
+    add8(sq, q0);
+    add8(sq, q1);
+    add8(sk, k0);
+    add8(sk, k1);
+  }
+  if (r < end) {
+    add8(sq, qp[(size_t)r * stride]);
+    add8(sk, kp[(size_t)r * stride]);
+  }
   const float inv_l = 1.0f / (float)l;
-  const size_t in_base = (size_t)bh * n * dh;
-  const size_t out_base = ((size_t)bh * m + g) * dh;
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
-    float sq = 0.f, sk = 0.f;
-    for (int j = 0; j < l; ++j) {
-      const int row = g * l - pad + j;  // pad rows (row < 0) are zeros
-      if (row >= 0 && row < n) {
-        sq += __bfloat162float(q[in_base + (size_t)row * dh + d]);
-        sk += __bfloat162float(k[in_base + (size_t)row * dh + d]);
-      }
-    }
-    q_l[out_base + d] = __float2bfloat16(sq * inv_l);
-    k_l[out_base + d] = __float2bfloat16(sk * inv_l);
-  }
+  const size_t out = (size_t)grp * dh + (size_t)c * 8;
+  *reinterpret_cast<uint4*>(q_l + out) = pack8(sq, inv_l);
+  *reinterpret_cast<uint4*>(k_l + out) = pack8(sk, inv_l);
 }
 
-// Copy the [rows, cols] tile at (row0, col0) of a row-major [nr, nc] bf16
-// matrix into shared memory with stride ld, 16 bytes a thread; outside the
-// matrix, zeros. nc and col0 are multiples of 8.
-__device__ inline void load_tile(bf16* dst, const bf16* src, int row0, int col0, int rows,
-                                 int cols, int nr, int nc, int ld) {
-  const int chunks = cols / 8;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
-    const int gr = row0 + r, gc = col0 + c;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nr && gc < nc) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * nc + gc);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// The rows kernel: p = softmax(q_l k_l^T) for 64 rows of one (batch, head),
-// then (BWD false) attn2 = bf16(p), or (BWD true) the backward's step 2,
-// dsim = bf16(p * ga2 - p * rowsum(p * ga2)).
-constexpr int kRows = 64, kRowThreads = 128;
-
-__host__ __device__ constexpr int rows_lds(int m) { return (m + 63) / 64 * 64 + 4; }
+// (2) forward rows. Shared memory: the q_l tile (its space then stages P,
+// stride LDP), then the ring of kStages k_l tiles (tile t + kStages - 1 is
+// in flight while tile t is multiplied).
 
 template <int DT>
-__host__ __device__ constexpr size_t rows_smem(int m) {
-  return 2 * smem_align((size_t)kRows * (16 * DT + 8) * sizeof(bf16)) +
-         (size_t)kRows * rows_lds(m) * sizeof(float);
+__host__ __device__ constexpr int q_stride() {
+  return row_stride<DT>() > LDP ? row_stride<DT>() : LDP;
 }
 
-template <int DT, bool BWD>
-__global__ void __launch_bounds__(kRowThreads)
-    landmark_rows_kernel(const bf16* __restrict__ q_l, const bf16* __restrict__ k_l,
-                         const bf16* __restrict__ ga2, bf16* __restrict__ out, int m) {
-  constexpr int dh = 16 * DT, ldb = dh + 8;
+template <int DT>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return ((size_t)BM * q_stride<DT>() + (size_t)kStages * BN * row_stride<DT>()) * sizeof(bf16);
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kThreads, 4)
+    landmark_fwd_kernel(const bf16* __restrict__ q_l, const bf16* __restrict__ k_l,
+                        bf16* __restrict__ attn2, float* __restrict__ lse, int m) {
+  constexpr int DH = 16 * DT, LD = row_stride<DT>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const size_t tile = smem_align((size_t)kRows * ldb * sizeof(bf16));
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + tile);
-  float* sS = reinterpret_cast<float*>(smem + 2 * tile);
-  const int lds = rows_lds(m);
+  bf16* sRing = sQ + BM * q_stride<DT>();
 
-  const int bh = blockIdx.y, r0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wrow = warp * 16;
-  const bf16* kb = k_l + (size_t)bh * m * dh;
-  load_tile(sQ, q_l + (size_t)bh * m * dh, r0, 0, kRows, dh, m, dh, ldb);
-  for (int c0 = 0; c0 < m; c0 += kRows) {
-    load_tile(sK, kb, c0, 0, kRows, dh, m, dh, ldb);
+  const int bh = blockIdx.y, r0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const bf16* kb = k_l + (size_t)bh * m * DH;
+  const int ntiles = (m + BN - 1) / BN, nsteps = 2 * ntiles;  // two sweeps
+  auto issue = [&](int step) {  // k_l tile step % ntiles into ring stage step % kStages
+    if (step < nsteps)
+      load_rows_async<DH>(sRing + (step % kStages) * BN * LD, LD, kb, (step % ntiles) * BN,
+                          BN, m);
+    cp_async_commit();
+  };
+  load_rows_async<DH>(sQ, LD, q_l + (size_t)bh * m * DH, r0, BM, m);
+  for (int step = 0; step < kStages - 1; ++step) issue(step);  // the q_l tile joins group 0
+
+  unsigned aq[DT][4];
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, ml2[2] = {0.f, 0.f};
+  bf16* stage = sQ + warp * 16 * LDP;  // free once every warp holds its A fragments
+  const int row_lo = r0 + warp * 16 + g;
+  for (int it = 0; it < nsteps; ++it) {
+    __syncthreads();  // every warp is done with the stage about to be refilled
+    issue(it + kStages - 1);
+    cp_async_wait<kStages - 1>();  // tile it (and at it 0 the q_l tile) has landed
     __syncthreads();
+    if (it == 0) load_a_frags<DT>(aq, sQ + warp * 16 * LD, LD);
+
+    const int c0 = (it % ntiles) * BN;
+    float s[8][4];
+    zero(s);
+    mma_nt_ra<DT, 8>(s, aq, sRing + (it % kStages) * BN * LD, LD);
+    if (c0 + BN > m) {  // the ragged edge: zero-filled k_l rows, masked logits
 #pragma unroll
-    for (int j = 0; j < kRows / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
+      for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + wrow * ldb + 16 * t, ldb);
-        wmma::load_matrix_sync(fb, sK + 16 * j * ldb + 16 * t, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
+        for (int e = 0; e < 4; ++e)
+          if (c0 + 8 * nn + 2 * t + (e & 1) >= m) s[nn][e] = -INFINITY;
+    }
+    if (it < ntiles) {  // sweep 1: the online max and sum
+      float tmx[2] = {mx[0], mx[1]};
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        tmx[0] = fmaxf(tmx[0], fmaxf(s[nn][0], s[nn][1]));
+        tmx[1] = fmaxf(tmx[1], fmaxf(s[nn][2], s[nn][3]));
       }
-      wmma::store_matrix_sync(sS + wrow * lds + c0 + 16 * j, acc, lds, wmma::mem_row_major);
-    }
-    __syncthreads();  // every warp is done with sK before the next tile
-  }
-
-  // each warp: the softmax of its own 16 rows, lanes over the columns
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = r0 + wrow + rr;
-    if (row >= m) break;
-    float* srow = sS + (wrow + rr) * lds;
-    float mx = -INFINITY;
-    for (int j = lane; j < m; j += 32) mx = fmaxf(mx, srow[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < m; j += 32) {
-      const float e = expf(srow[j] - mx);
-      srow[j] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / warp_sum(sum);
-    const size_t base = ((size_t)bh * m + row) * m;
-    if constexpr (!BWD) {
-      for (int j = lane; j < m; j += 32) out[base + j] = __float2bfloat16(srow[j] * inv);
-    } else {
-      float dot = 0.f;
-      for (int j = lane; j < m; j += 32) {
-        srow[j] *= inv;
-        dot += srow[j] * __bfloat162float(ga2[base + j]);
+      float part[2] = {0.f, 0.f}, mneg[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tmx[i] = fmaxf(tmx[i], __shfl_xor_sync(0xffffffffu, tmx[i], 1));
+        tmx[i] = fmaxf(tmx[i], __shfl_xor_sync(0xffffffffu, tmx[i], 2));
+        sum[i] *= fast_exp2((mx[i] - tmx[i]) * kLog2e);  // 0 while mx is -inf
+        mx[i] = tmx[i];
+        mneg[i] = -tmx[i] * kLog2e;
       }
-      dot = warp_sum(dot);
-      for (int j = lane; j < m; j += 32) {
-        const float pj = srow[j];
-        out[base + j] = __float2bfloat16(pj * __bfloat162float(ga2[base + j]) - pj * dot);
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[e / 2] += fast_exp2(fmaf(s[nn][e], kLog2e, mneg[e / 2]));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
+        part[i] += __shfl_xor_sync(0xffffffffu, part[i], 2);
+        sum[i] += part[i];
       }
-    }
-  }
-}
-
-template <int DT, bool BWD>
-cudaError_t launch_rows(const bf16* q_l, const bf16* k_l, const bf16* ga2, bf16* out, int bh,
-                        int m, cudaStream_t stream) {
-  const size_t smem = rows_smem<DT>(m);
-  const cudaError_t err = allow_smem(landmark_rows_kernel<DT, BWD>, smem);
-  if (err != cudaSuccess) return err;
-  landmark_rows_kernel<DT, BWD><<<dim3((m + kRows - 1) / kRows, bh), kRowThreads, smem,
-                                  stream>>>(q_l, k_l, ga2, out, m);
-  return cudaGetLastError();
-}
-
-template <bool BWD>
-cudaError_t rows(const bf16* q_l, const bf16* k_l, const bf16* ga2, bf16* out, int bh, int m,
-                 int dh, cudaStream_t stream) {
-  switch (dh / 16) {
-    case 1: return launch_rows<1, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    case 2: return launch_rows<2, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    case 3: return launch_rows<3, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    case 4: return launch_rows<4, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    case 5: return launch_rows<5, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    case 6: return launch_rows<6, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    case 7: return launch_rows<7, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    case 8: return launch_rows<8, BWD>(q_l, k_l, ga2, out, bh, m, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// a [64, m] fp32 similarity and two bf16 tiles must fit a block's 227 KB
-inline bool shape_ok(int dh, int m) {
-  return dh % 16 == 0 && dh <= 128 && m % 8 == 0 && m > 0 &&
-         rows_smem<8>(m) <= 227 * 1024;
-}
-
-// Backward, step 3: dX_l = A B + gX_l, with A = dsim and B = k_l for dq
-// (TRANS false) or A = dsim^T and B = q_l for dk (TRANS true), on the tensor
-// cores (WMMA bf16, fp32 sums); then times 1/l, rounded, and written to the
-// l real rows of each group: row i gets group (i + pad) / l, so the groups
-// made only of pad rows write nothing. A block of 4 warps owns 64 groups
-// (16 a warp) and all dh features of one (batch, head), and walks the m
-// landmarks in tiles of 64 through shared memory: the tile of dsim is
-// staged row-major either way, and dsim^T is the same tile read as a
-// column-major fragment.
-constexpr int kGM = 64, kGK = 64, kGemmThreads = 128;
-constexpr int kLdA = kGK + 8;  // bf16 stride of the staged dsim tile
-
-template <int DT>
-constexpr size_t grad_smem() {
-  // the dsim and B tiles, then (after the loop, over them) the fp32 stage
-  const size_t tiles = smem_align((size_t)kGK * kLdA * sizeof(bf16)) +
-                       (size_t)kGK * (16 * DT + 8) * sizeof(bf16);
-  const size_t stage = (size_t)kGM * (16 * DT + 4) * sizeof(float);
-  return tiles > stage ? tiles : stage;
-}
-
-template <int DT, bool TRANS>
-__global__ void __launch_bounds__(kGemmThreads)
-    landmark_grad_kernel(const bf16* __restrict__ dsim, const bf16* __restrict__ b_mat,
-                         const bf16* __restrict__ gadd, bf16* __restrict__ out, int n, int m,
-                         int l, int pad) {
-  constexpr int dh = 16 * DT, ldb = dh + 8, ldo = dh + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = reinterpret_cast<bf16*>(smem + smem_align((size_t)kGK * kLdA * sizeof(bf16)));
-  float* stage = reinterpret_cast<float*>(smem);
-
-  const int bh = blockIdx.y, g0 = blockIdx.x * kGM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wrow = warp * 16;
-  const bf16* ds = dsim + (size_t)bh * m * m;
-  const bf16* bb = b_mat + (size_t)bh * m * dh;
-  using ALayout = typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DT];
-#pragma unroll
-  for (int t = 0; t < DT; ++t) wmma::fill_fragment(acc[t], 0.0f);
-  for (int i0 = 0; i0 < m; i0 += kGK) {
-    if constexpr (TRANS) load_tile(sA, ds, i0, g0, kGK, kGM, m, m, kLdA);  // rows i, cols g
-    else load_tile(sA, ds, g0, i0, kGM, kGK, m, m, kLdA);        // rows g, cols i
-    load_tile(sB, bb, i0, 0, kGK, dh, m, dh, ldb);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa;
-      if constexpr (TRANS) wmma::load_matrix_sync(fa, sA + 16 * kk * kLdA + wrow, kLdA);
-      else wmma::load_matrix_sync(fa, sA + wrow * kLdA + 16 * kk, kLdA);
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sB + 16 * kk * ldb + 16 * t, ldb);
-        wmma::mma_sync(acc[t], fa, fb, acc[t]);
+      if (it == ntiles - 1) {
+        const float lse_lo = mx[0] + logf(sum[0]), lse_hi = mx[1] + logf(sum[1]);
+        ml2[0] = lse_lo * kLog2e;
+        ml2[1] = lse_hi * kLog2e;
+        if (t == 0) {
+          if (row_lo < m) lse[(size_t)bh * m + row_lo] = lse_lo;
+          if (row_lo + 8 < m) lse[(size_t)bh * m + row_lo + 8] = lse_hi;
+        }
       }
+      continue;
     }
-    __syncthreads();  // every warp is done with the tiles before they change
-  }
-
-  float* wstage = stage + wrow * ldo;
+    // sweep 2: P in bf16, staged, then 16-byte stores of the warp's 16 rows
 #pragma unroll
-  for (int t = 0; t < DT; ++t)
-    wmma::store_matrix_sync(wstage + 16 * t, acc[t], ldo, wmma::mem_row_major);
-  __syncwarp();
-  const float inv_l = 1.0f / (float)l;
-  const bf16* ga = gadd + (size_t)bh * m * dh;
-  bf16* ob = out + (size_t)bh * n * dh;
-  for (int idx = lane; idx < 16 * dh; idx += 32) {
-    const int r = idx / dh, d = idx % dh, grp = g0 + wrow + r;
-    if (grp >= m) continue;
-    const float full = wstage[r * ldo + d] + __bfloat162float(ga[(size_t)grp * dh + d]);
-    const bf16 val = __float2bfloat16(full * inv_l);
-    for (int j = 0; j < l; ++j) {
-      const int row = grp * l - pad + j;
-      if (row >= 0 && row < n) ob[(size_t)row * dh + d] = val;
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nn][e] = fast_exp2(fmaf(s[nn][e], kLog2e, -ml2[e / 2]));
+    stage_bf16<8>(stage, LDP, s, 1.f, 1.f);
+    __syncwarp();
+    for (int idx = lane; idx < 16 * (BN / 8); idx += 32) {
+      const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
+      const int row = r0 + warp * 16 + r, col = c0 + c;
+      if (row < m && col < m)
+        *reinterpret_cast<uint4*>(attn2 + ((size_t)bh * m + row) * m + col) =
+            *reinterpret_cast<const uint4*>(stage + r * LDP + c);
     }
+    __syncwarp();
   }
 }
 
 template <int DT>
-cudaError_t launch_grad(const bf16* dsim, const bf16* q_l, const bf16* k_l, const bf16* gql,
-                        const bf16* gkl, bf16* dq, bf16* dk, int bh, int n, int m, int l,
-                        int pad, cudaStream_t stream) {
-  const dim3 grid((m + kGM - 1) / kGM, bh);
-  landmark_grad_kernel<DT, false><<<grid, kGemmThreads, grad_smem<DT>(), stream>>>(
-      dsim, k_l, gql, dq, n, m, l, pad);
-  const cudaError_t err = cudaGetLastError();
+cudaError_t launch_fwd(const bf16* q_l, const bf16* k_l, bf16* attn2, float* lse, int bh,
+                       int m, cudaStream_t stream) {
+  const size_t smem = fwd_smem<DT>();
+  const cudaError_t err = allow_smem(landmark_fwd_kernel<DT>, smem);
   if (err != cudaSuccess) return err;
-  landmark_grad_kernel<DT, true><<<grid, kGemmThreads, grad_smem<DT>(), stream>>>(
-      dsim, q_l, gkl, dk, n, m, l, pad);
+  landmark_fwd_kernel<DT><<<dim3((m + BM - 1) / BM, bh), kThreads, smem, stream>>>(
+      q_l, k_l, attn2, lse, m);
   return cudaGetLastError();
 }
 
+using FwdFn = cudaError_t (*)(const bf16*, const bf16*, bf16*, float*, int, int, cudaStream_t);
+constexpr FwdFn kFwd[8] = {launch_fwd<1>, launch_fwd<2>, launch_fwd<3>, launch_fwd<4>,
+                           launch_fwd<5>, launch_fwd<6>, launch_fwd<7>, launch_fwd<8>};
 }  // namespace
 
-MIRROR_EXPORT int mirror_landmark_softmax(const void* q, const void* k, void* q_l,
-                                          void* k_l, void* attn2, int bh, int n,
-                                          int dh, int m, int l, int pad,
-                                          cudaStream_t stream) {
-  if (!shape_ok(dh, m)) return (int)cudaErrorInvalidValue;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
+// q, k: bf16 [bh, n, dh]; q_l, k_l: bf16 [bh, m, dh]; attn2: bf16 [bh, m, m];
+// lse: fp32 [bh, m], the row log-sum-exp the backward takes.
+MIRROR_EXPORT int mirror_landmark_softmax(const void* q, const void* k, void* q_l, void* k_l,
+                                          void* attn2, void* lse, int bh, int n, int dh, int m,
+                                          int l, int pad, cudaStream_t stream) {
+  if (!landmark::shape_ok(n, dh, m, l, pad)) return (int)cudaErrorInvalidValue;
   bf16* qlp = static_cast<bf16*>(q_l);
   bf16* klp = static_cast<bf16*>(k_l);
-  landmark_means_kernel<<<dim3(m, bh), 128, 0, stream>>>(qp, kp, qlp, klp, n, dh, m,
-                                                          l, pad);
+  const long long threads = (long long)bh * m * (dh / 8);
+  landmark_means_kernel<<<(unsigned)((threads + kMeanThreads - 1) / kMeanThreads),
+                          kMeanThreads, 0, stream>>>(static_cast<const bf16*>(q),
+                                                     static_cast<const bf16*>(k), qlp, klp, bh,
+                                                     n, dh, m, l, pad);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)rows<false>(qlp, klp, nullptr, static_cast<bf16*>(attn2), bh, m, dh, stream);
-}
-
-// Backward: q_l, k_l [bh, m, dh] and dsim [bh, m, m] are scratch the caller
-// allocates; every row of dq and dk is written.
-MIRROR_EXPORT int mirror_landmark_softmax_bwd(const void* q, const void* k, const void* gql,
-                                              const void* gkl, const void* ga2, void* dq,
-                                              void* dk, void* q_l, void* k_l, void* dsim,
-                                              int bh, int n, int dh, int m, int l, int pad,
-                                              cudaStream_t stream) {
-  if (!shape_ok(dh, m)) return (int)cudaErrorInvalidValue;
-  bf16* qlp = static_cast<bf16*>(q_l);
-  bf16* klp = static_cast<bf16*>(k_l);
-  bf16* dsp = static_cast<bf16*>(dsim);
-  landmark_means_kernel<<<dim3(m, bh), 128, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), qlp, klp, n, dh, m, l, pad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = rows<true>(qlp, klp, static_cast<const bf16*>(ga2), dsp, bh, m, dh, stream);
-  if (err != cudaSuccess) return (int)err;
-
-  const bf16* gqp = static_cast<const bf16*>(gql);
-  const bf16* gkp = static_cast<const bf16*>(gkl);
-  bf16* dqp = static_cast<bf16*>(dq);
-  bf16* dkp = static_cast<bf16*>(dk);
-  switch (dh / 16) {
-    case 1: return (int)launch_grad<1>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    case 2: return (int)launch_grad<2>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    case 3: return (int)launch_grad<3>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    case 4: return (int)launch_grad<4>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    case 5: return (int)launch_grad<5>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    case 6: return (int)launch_grad<6>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    case 7: return (int)launch_grad<7>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    case 8: return (int)launch_grad<8>(dsp, qlp, klp, gqp, gkp, dqp, dkp, bh, n, m, l, pad, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)kFwd[dh / 16 - 1](qlp, klp, static_cast<bf16*>(attn2), static_cast<float*>(lse),
+                                bh, m, stream);
 }

@@ -1,0 +1,21 @@
+// What the landmark softmax's forward (landmark.cu, kernel 1) and backward
+// (landmark_bwd.cu, kernel 1b) share: the tile strides and the shapes both
+// take. landmark.cu's head comment has the design.
+#pragma once
+
+#include "attn_mma.cuh"
+
+namespace landmark {
+
+template <int DT>
+__host__ __device__ constexpr int row_stride() { return 16 * DT + 8; }
+
+constexpr int LDP = attn::BN + 8;  // bf16 stride of a staged 64-column tile (P, ga2)
+
+// dh a multiple of 16 up to 128, m a multiple of 8, n + pad = m l
+inline bool shape_ok(int n, int dh, int m, int l, int pad) {
+  return dh % 16 == 0 && dh >= 16 && dh <= 128 && m % 8 == 0 && m > 0 && l > 0 && pad >= 0 &&
+         (long long)m * l == (long long)n + pad;
+}
+
+}  // namespace landmark

@@ -8,7 +8,7 @@ TPU.
 | kernel (launch count) | source | TPU kernel it replaces (mirror_tpu/ops/) |
 | --- | --- | --- |
 | landmark_softmax | csrc/landmark.cu | landmark_pallas.py::landmark_softmax fwd |
-| landmark_softmax_bwd | csrc/landmark.cu | the same, bwd (_bwd_call) |
+| landmark_softmax_bwd | csrc/landmark_bwd.cu | the same, bwd (_bwd_call) |
 | moore_penrose_pinv | csrc/pinv.cu | pinv_pallas.py::moore_penrose_pinv_pallas fwd |
 | moore_penrose_pinv_bwd | csrc/pinv.cu | the same, exact bwd (pinv_pallas.py:171) |
 | softmax_attn | csrc/softmax_attn.cu | nystrom_pallas.py::softmax_matmul_landmark_kv fwd |

@@ -50,11 +50,11 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signature of every entry point in csrc/ (all return cudaError_t as int)
 _SIGNATURES = {
-    # q, k, q_l, k_l, attn2, bh, n, dh, m, l, pad, stream
-    "mirror_landmark_softmax": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, gql, gkl, ga2, dq, dk, q_l, k_l, dsim (scratch), bh, n, dh, m, l,
-    # pad, stream
-    "mirror_landmark_softmax_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k, q_l, k_l, attn2, lse (fp32), bh, n, dh, m, l, pad, stream
+    "mirror_landmark_softmax": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q_l, k_l, lse (fp32), gql, gkl, ga2, dq, dk, dvec (fp32 scratch), bh, n,
+    # dh, m, l, pad, stream
+    "mirror_landmark_softmax_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P),
     # x, s, z, bh, m, stream
     "mirror_pinv_init": (_P, _P, _P, _I, _I, _P),

@@ -2,9 +2,18 @@
 
 Counterpart of ``mirror_tpu/ops/landmark_pallas.py::landmark_softmax`` and
 its custom VJP. :class:`LandmarkSoftmax` is the only caller of the kernels:
-on CUDA tensors its forward runs ``csrc/landmark.cu``'s forward entry and
-its backward the ``_bwd`` entry; on CPU tensors they run
-:func:`landmark_softmax_ref` and :func:`landmark_softmax_bwd_ref`.
+on CUDA tensors its forward runs ``csrc/landmark.cu`` and its backward
+``csrc/landmark_bwd.cu``; on CPU tensors they run
+:func:`landmark_softmax_lse_ref` and :func:`landmark_softmax_bwd_lse_ref`.
+
+Residuals. The TPU kernel's VJP keeps only (q, k) and recomputes the means
+and the softmax statistics in its backward. Here the forward keeps q_l and
+k_l (its own outputs) and the fp32 row log-sum-exp ``lse`` [b, h, m] of
+q_l k_l^T, so the backward rebuilds P = exp(q_l k_l^T - lse) with no
+statistics sweep and never reads q and k again. P differs from the TPU
+kernel's recomputed softmax only in its last fp32 bits.
+:func:`landmark_softmax_ref` and :func:`landmark_softmax_bwd_ref` stay the
+JAX-shaped references.
 """
 
 import torch
@@ -53,57 +62,106 @@ def landmark_softmax_bwd_ref(q, k, m: int, pad: int, gql, gkl, ga2):
     return dq, dk
 
 
-def _check(q, k, m, pad):
-    b, h, n, dh = q.shape
-    _common.check_kernel_input("q", q, (b, h, n, dh))
-    _common.check_kernel_input("k", k, (b, h, n, dh))
+def landmark_softmax_lse_ref(q: torch.Tensor, k: torch.Tensor, m: int, pad: int = 0):
+    """The forward kernel's plain version with its residual: (q_l, k_l,
+    attn2) of :func:`landmark_softmax_ref` and lse, the fp32 row
+    log-sum-exp [b, h, m] of q_l k_l^T."""
+    q_l, k_l, attn2 = landmark_softmax_ref(q, k, m, pad)
+    lse = torch.logsumexp(torch.matmul(q_l.float(), k_l.float().transpose(-1, -2)), dim=-1)
+    return q_l, k_l, attn2, lse
+
+
+def landmark_softmax_bwd_lse_ref(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
+    """The backward kernel's plain version: (dq, dk) [b, h, n, dh] in q_l's
+    dtype from the forward's residuals. P = exp(q_l k_l^T - lse) in fp32;
+    then the rounding points of :func:`landmark_softmax_bwd_ref`: dsim = P
+    ga2 - P rowsum(P ga2) rounded to q_l's dtype, dq_l = dsim k_l + gql and
+    dk_l = dsim^T q_l + gkl in fp32, times 1/l and rounded, broadcast to
+    each group's real rows."""
+    m = q_l.shape[2]
+    l = (n + pad) // m
+    sim = torch.matmul(q_l.float(), k_l.float().transpose(-1, -2))
+    p = torch.exp(sim - lse.unsqueeze(-1))
+    tmp = p * ga2.float()
+    dsim = (tmp - p * tmp.sum(-1, keepdim=True)).to(q_l.dtype).float()
+    dq_l = torch.matmul(dsim, k_l.float()) + gql.float()
+    dk_l = torch.matmul(dsim.transpose(-1, -2), q_l.float()) + gkl.float()
+    group = torch.div(torch.arange(n, device=q_l.device) + pad, l, rounding_mode="floor")
+    dq = (dq_l * (1.0 / l)).to(q_l.dtype)[:, :, group]
+    dk = (dk_l * (1.0 / l)).to(k_l.dtype)[:, :, group]
+    return dq, dk
+
+
+def _check_shape(dh: int, m: int):
     if dh % 16 or dh > 128 or m % 8:
         raise ValueError(f"dh = {dh}, m = {m}: the kernels take dh a multiple of 16 up to "
                          "128 and m a multiple of 8")
 
 
+def _launch_fwd(q, k, m: int, pad: int):
+    """(q_l, k_l, attn2, lse fp32 [b, h, m]) from csrc/landmark.cu."""
+    b, h, n, dh = q.shape
+    _common.check_kernel_input("q", q, (b, h, n, dh))
+    _common.check_kernel_input("k", k, (b, h, n, dh))
+    _check_shape(dh, m)
+    q_l = torch.empty(b, h, m, dh, dtype=q.dtype, device=q.device)
+    k_l = torch.empty_like(q_l)
+    attn2 = torch.empty(b, h, m, m, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, h, m, dtype=torch.float32, device=q.device)
+    _common.launch(
+        "mirror_landmark_softmax", q.data_ptr(), k.data_ptr(), q_l.data_ptr(), k_l.data_ptr(),
+        attn2.data_ptr(), lse.data_ptr(), b * h, n, dh, m, (n + pad) // m, pad,
+    )
+    return q_l, k_l, attn2, lse
+
+
+def _launch_bwd(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
+    """(dq, dk) [b, h, n, dh] from csrc/landmark_bwd.cu."""
+    b, h, m, dh = q_l.shape
+    _common.check_kernel_input("q_l", q_l, (b, h, m, dh))
+    _common.check_kernel_input("k_l", k_l, (b, h, m, dh))
+    _common.check_kernel_input("lse", lse, (b, h, m), torch.float32)
+    _common.check_kernel_input("gql", gql, (b, h, m, dh))
+    _common.check_kernel_input("gkl", gkl, (b, h, m, dh))
+    _common.check_kernel_input("ga2", ga2, (b, h, m, m))
+    _check_shape(dh, m)
+    dq = torch.empty(b, h, n, dh, dtype=q_l.dtype, device=q_l.device)
+    dk = torch.empty_like(dq)
+    dvec = torch.empty(b * h, m, dtype=torch.float32, device=q_l.device)
+    _common.launch(
+        "mirror_landmark_softmax_bwd", q_l.data_ptr(), k_l.data_ptr(), lse.data_ptr(),
+        gql.data_ptr(), gkl.data_ptr(), ga2.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dvec.data_ptr(), b * h, n, dh, m, (n + pad) // m, pad,
+    )
+    return dq, dk
+
+
 class LandmarkSoftmax(torch.autograd.Function):
-    """(q_l, k_l, attn2) with the TPU kernel's VJP: only q and k are kept
-    for the backward, which recomputes the means and the softmax."""
+    """(q_l, k_l, attn2); saves q_l, k_l and the row log-sum-exp for the
+    backward, which neither recomputes the means nor reads q and k."""
 
     @staticmethod
     def forward(ctx, q, k, m: int, pad: int):
-        ctx.m, ctx.pad = m, pad
-        ctx.save_for_backward(q, k)
         if not _common.on_cuda(q, k):
-            return landmark_softmax_ref(q, k, m, pad)
-        _check(q, k, m, pad)
-        b, h, n, dh = q.shape
-        q_l = torch.empty(b, h, m, dh, dtype=q.dtype, device=q.device)
-        k_l = torch.empty_like(q_l)
-        attn2 = torch.empty(b, h, m, m, dtype=q.dtype, device=q.device)
-        _common.launch(
-            "mirror_landmark_softmax", q.data_ptr(), k.data_ptr(), q_l.data_ptr(),
-            k_l.data_ptr(), attn2.data_ptr(), b * h, n, dh, m, (n + pad) // m, pad,
-        )
-        _common.count_launch(KERNEL)
+            q_l, k_l, attn2, lse = landmark_softmax_lse_ref(q, k, m, pad)
+        else:
+            q_l, k_l, attn2, lse = _launch_fwd(q, k, m, pad)
+            _common.count_launch(KERNEL)
+        ctx.n, ctx.pad = q.shape[2], pad
+        ctx.save_for_backward(q_l, k_l, lse)
         return q_l, k_l, attn2
 
     @staticmethod
     def backward(ctx, gql, gkl, ga2):
-        q, k = ctx.saved_tensors
-        m, pad = ctx.m, ctx.pad
-        b, h, n, dh = q.shape
-        gql = _common.grad_or_zeros(gql, q.new_empty(b, h, m, dh))
-        gkl = _common.grad_or_zeros(gkl, k.new_empty(b, h, m, dh))
-        ga2 = _common.grad_or_zeros(ga2, q.new_empty(b, h, m, m))
-        if not _common.on_cuda(q, k):
-            dq, dk = landmark_softmax_bwd_ref(q, k, m, pad, gql, gkl, ga2)
+        q_l, k_l, lse = ctx.saved_tensors
+        b, h, m, _ = q_l.shape
+        gql = _common.grad_or_zeros(gql, q_l)
+        gkl = _common.grad_or_zeros(gkl, k_l)
+        ga2 = _common.grad_or_zeros(ga2, q_l.new_empty(b, h, m, m))
+        if not _common.on_cuda(q_l, k_l):
+            dq, dk = landmark_softmax_bwd_lse_ref(q_l, k_l, lse, ctx.n, ctx.pad, gql, gkl, ga2)
             return dq, dk, None, None
-        dq, dk = torch.empty_like(q), torch.empty_like(k)
-        q_l, k_l = q.new_empty(b, h, m, dh), k.new_empty(b, h, m, dh)
-        dsim = q.new_empty(b, h, m, m)
-        _common.launch(
-            "mirror_landmark_softmax_bwd", q.data_ptr(), k.data_ptr(), gql.data_ptr(),
-            gkl.data_ptr(), ga2.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            q_l.data_ptr(), k_l.data_ptr(), dsim.data_ptr(), b * h, n, dh, m,
-            (n + pad) // m, pad,
-        )
+        dq, dk = _launch_bwd(q_l, k_l, lse, ctx.n, ctx.pad, gql, gkl, ga2)
         _common.count_launch(KERNEL_BWD)
         return dq, dk, None, None
 

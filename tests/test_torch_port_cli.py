@@ -15,7 +15,7 @@ import pandas as pd
 import pytest
 import torch
 
-from mirror_tpu_torch import train_mirror
+from mirror_tpu_torch import config, train_mirror
 from mirror_tpu_torch.registry import create_model
 from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
 
@@ -120,6 +120,32 @@ def test_train_mirror_refuses_unported_flags(cohort, flag):
     name = flag[0]
     with pytest.raises(SystemExit, match=name):
         train_mirror.main(_argv(cohort, "--device", "cpu", *flag))
+
+
+# each refused flag set away from its default, on the command line
+UNPORTED_ARGV = {
+    "resume": ["--resume", "x.pth.tar"], "no_resume_opt": ["--no-resume-opt"],
+    "start_epoch": ["--start-epoch", "3"], "recovery_interval": ["--recovery-interval", "5"],
+    "log_wandb": ["--log-wandb"], "wandb_watch": ["--wandb-watch"],
+    "grad_accum_steps": ["--grad-accum-steps", "2"],
+    "grad_checkpointing": ["--grad-checkpointing"], "model_parallel": ["--model-parallel", "2"],
+    "distributed": ["--distributed"], "optimizer_sharding": ["--optimizer-sharding"],
+    "ckpt_format": ["--ckpt-format", "orbax"], "profile": ["--profile"],
+    "initial_checkpoint": ["--initial-checkpoint", "x.pth.tar"],
+}
+
+
+@pytest.mark.parametrize("dest,item", [(dest, item) for dest, _, item in
+                                       config._UNPORTED + config._UNPORTED_PRETRAIN])
+def test_refusal_names_the_flag_and_its_roadmap_item(dest, item):
+    """Each refused pretrain flag's message names the flag and the ROADMAP
+    item that ports it (items 8, 10, 14, 16, 17), not one range for all."""
+    args, _ = config.parse_args(UNPORTED_ARGV[dest], task="pretrain")
+    with pytest.raises(SystemExit) as refusal:
+        config.refuse_unported(args)
+    message = str(refusal.value)
+    assert message.startswith(f"--{dest.replace('_', '-')}="), message
+    assert f"(ROADMAP item {item})" in message, message
 
 
 def test_train_mirror_refuses_exact_pinv_grad_on_the_card(cohort, capsys):

@@ -31,7 +31,7 @@ Inputs are bf16, the kernels' type. Bounds, with their reasons:
 import pytest
 import torch
 
-from mirror_tpu_torch.ops import _common
+from mirror_tpu_torch.ops import _common, landmark
 from mirror_tpu_torch.ops.conv1d import depthwise_conv1d_seq
 from mirror_tpu_torch.ops.landmark import (
     landmark_softmax,
@@ -100,15 +100,39 @@ def _gemm_launches(iters, backward=None):
     return (12 + {4: 0, 2: 2, 1: 3}[backward]) * iters - 1 if iters else 0
 
 
-@pytest.mark.parametrize("b,h,n,dh,m", [(1, 2, 20, 16, 8), (1, 2, 45, 16, 8),
-                                        (2, 8, 2117, 96, 384), (2, 8, 2049, 96, 384),
-                                        (2, 8, 2117, 64, 256)])
+# (b, h, n, dh, m): pad 4 (group 0 all pad), pad 3, the slice's two Nystrom
+# shapes and the self-test's; m 40 (not a multiple of 64: a ragged tile);
+# m 1024 (pad 955, l 3), which the earlier design (a [64, m] fp32 block in
+# shared memory) refused at launch
+LANDMARK_SHAPES = [(1, 2, 20, 16, 8), (1, 2, 45, 16, 8), (2, 8, 2117, 96, 384),
+                   (2, 8, 2049, 96, 384), (2, 8, 2117, 64, 256), (1, 2, 70, 48, 40),
+                   (1, 2, 2117, 64, 1024)]
+
+
+@pytest.mark.parametrize("b,h,n,dh,m", LANDMARK_SHAPES)
 def test_landmark_softmax_kernel(dev, b, h, n, dh, m):
     g = torch.Generator().manual_seed(0)
     q, k = _randn(g, b, h, n, dh, dev=dev), _randn(g, b, h, n, dh, dev=dev)
     pad = (m - n % m) % m
     for o, r in zip(landmark_softmax(q, k, m, pad), landmark_softmax_ref(q, k, m, pad)):
         _assert_close(o, r)
+
+
+@pytest.mark.parametrize("b,h,n,dh,m", LANDMARK_SHAPES)
+def test_landmark_softmax_lse_kernel(dev, b, h, n, dh, m):
+    """The forward's residual, the fp32 row log-sum-exp of q_l k_l^T, against
+    a direct fp32 logsumexp of the kernel's own q_l and k_l: max abs error
+    <= 1e-4 (fp32 sums in another order and ex2.approx's 2 ulp, on values
+    of magnitude about 10)."""
+    g = torch.Generator().manual_seed(0)
+    q = _randn(g, b, h, n, dh, dev=dev, scale=dh ** -0.5)
+    k = _randn(g, b, h, n, dh, dev=dev)
+    pad = (m - n % m) % m
+    q_l, k_l, _, lse = landmark._launch_fwd(q, k, m, pad)
+    want = torch.logsumexp(q_l.float() @ k_l.float().transpose(-1, -2), dim=-1)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, m)
+    assert (lse - want).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("b,h,m", [(1, 2, 32), (2, 8, 384), (1, 1, 100), (2, 8, 256)])
@@ -255,13 +279,10 @@ def _assert_rel(out, ref, bound=BOUND_BWD, name=""):
     assert err <= bound, f"{name}: relative Frobenius error {err} > {bound}"
 
 
-# (b, h, n, dh, m): pad 4 (group 0 all pad), pad 3, the slice's two
-# Nystrom shapes: the encoder (2117 rows, pad 187: groups 0-30 all pad) and
-# the retention decoder (2049 rows, pad 255: groups 0-41 all pad), and the
-# self-test's (dh 64, 256 landmarks, pad 187)
-@pytest.mark.parametrize("b,h,n,dh,m", [(1, 2, 20, 16, 8), (1, 2, 45, 16, 8),
-                                        (2, 8, 2117, 96, 384), (2, 8, 2049, 96, 384),
-                                        (2, 8, 2117, 64, 256)])
+# LANDMARK_SHAPES: the encoder's 2117 rows with pad 187 leave groups 0-30
+# all pad, the retention decoder's 2049 rows with pad 255 groups 0-41, and
+# m 1024's pad 955 groups 0-318
+@pytest.mark.parametrize("b,h,n,dh,m", LANDMARK_SHAPES)
 def test_landmark_softmax_bwd_kernel(dev, b, h, n, dh, m):
     g = torch.Generator().manual_seed(10)
     q = _randn(g, b, h, n, dh, dev=dev, scale=dh ** -0.5)
@@ -273,6 +294,23 @@ def test_landmark_softmax_bwd_kernel(dev, b, h, n, dh, m):
     ref = landmark_softmax_bwd_ref(q, k, m, pad, *gouts)
     _assert_rel(dq, ref[0], name="dq")
     _assert_rel(dk, ref[1], name="dk")
+
+
+@pytest.mark.parametrize("b,h,n,dh,m", [(2, 8, 2117, 96, 384), (1, 2, 70, 48, 40)])
+def test_landmark_softmax_bwd_kernel_repeats_bitwise(dev, b, h, n, dh, m):
+    """One block owns each output tile and sums in a fixed order, with no
+    float atomics: two backward runs on the same inputs give the same bits."""
+    g = torch.Generator().manual_seed(10)
+    q = _randn(g, b, h, n, dh, dev=dev, scale=dh ** -0.5)
+    k = _randn(g, b, h, n, dh, dev=dev)
+    pad = (m - n % m) % m
+    leaves = [q.requires_grad_(), k.requires_grad_()]
+    outs = landmark_softmax(*leaves, m, pad)
+    grads = [_randn(g, *o.shape, dev=dev) for o in outs]
+    first = torch.autograd.grad(outs, leaves, grads, retain_graph=True)
+    again = torch.autograd.grad(outs, leaves, grads)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("b,h,r,c,dh,pad", [(1, 2, 8, 40, 16, 24), (2, 3, 70, 130, 32, 0),

@@ -271,6 +271,29 @@ def test_wgmma_probe_needs_a_card():
         exp_attn_wgmma.main([])
 
 
+def test_landmark_ab_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a card")
+    from mirror_tpu_torch.scripts import exp_landmark_ab
+
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        exp_landmark_ab.main([])
+
+
+def test_landmark_ab_probe_loads_an_earlier_tree_apart(tmp_path):
+    """``--parent`` imports that tree's package under another name, so its
+    wrappers launch from its own library (built under its own build/)."""
+    from mirror_tpu_torch.ops import landmark
+    from mirror_tpu_torch.scripts import exp_landmark_ab
+
+    with pytest.raises(FileNotFoundError, match="landmark.cu"):
+        exp_landmark_ab.load_parent(tmp_path)
+    parent = exp_landmark_ab.load_parent(REPO)
+    assert parent.__name__ == f"{exp_landmark_ab.PARENT_NAME}.ops.landmark"
+    assert parent is not landmark and parent._common is not landmark._common
+    assert parent._common.BUILD_DIR == REPO / "build" / "kernels"
+
+
 def test_no_port_module_imports_jax_or_the_jax_package():
     """jax, flax, optax, the JAX package and ``scripts/`` made unimportable:
     every module of mirror_tpu_torch still loads."""
