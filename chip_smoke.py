@@ -9,14 +9,20 @@ Phases, each printed as it finishes:
 2. build: every kernel of ``mirror_tpu_torch/csrc`` compiled from the
    checkout's sources, with its build time, and what ``-Xptxas -v`` says
    of the redesigned kernels (the landmark softmax, the Nystrom and ViT
-   attention, PPEG, the pinv's GEMM: registers, shared memory, spills);
+   attention, PPEG, the pinv's GEMM, the ViT projection GEMM and its LN
+   pass: registers, shared memory, spills, ptxas's performance warnings);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
    decoder's 2049 rows with pad 255; the pad-0 q variant at its own shapes;
    PPEG on [16, 46, 46, 768]; the ViT half-blocks and the natural-layout
    attention at Phikon's batch of 256: x [256, 197, 768], 12 heads, MLP
-   3072, eps 1e-12; the standalone conv at [16, 8, 2117, 96] with bf16
+   3072, eps 1e-12, and their parts alone: the LN pass on [50432, 768] and
+   the projection GEMM in its four launches, q|k|v [50432, 768] x [768,
+   2304] + bias, fc1 x [768, 3072] + bias, GELU, fc2 [50432, 3072] x [3072,
+   768] and the output projection x [768, 768], + bias + x, each against
+   ``torch.addmm(bias, y, W)`` on the same operands, a yardstick that does
+   less; the standalone conv at [16, 8, 2117, 96] with bf16
    taps and at the self-test's [8, 8, 2117, 96] with fp32 taps; the fused
    LN + q/k/v projection at x [16, 2117, 768], 8 heads of 96), and the
    Nystrom kernels and PPEG again at the self-test's shapes (batch 8, dh 64,
@@ -74,8 +80,9 @@ Phases, each printed as it finishes:
    ``mirror_tpu_torch.tools.gen_patch_feature.main`` three times at batch
    256 on the card (``--model phikon``, ``--model phikon --quant int8``,
    ``--model custom_resnet50``; random weights from a seed), launch counts
-   read around each run (12 of each half-block kernel per Phikon batch, 12
-   attention launches per int8 batch), every file [n, 768] or [n, 1024] and
+   read around each run (12 of each half-block kernel per Phikon batch, and
+   within them 24 LN passes and 48 GEMM launches; 12 attention launches per
+   int8 batch), every file [n, 768] or [n, 1024] and
    finite, patches/s on the host clock; then each backbone's median ms on
    one resident uint8 batch of 256, Phikon's peak device memory and a
    ``torch.profiler`` split of its batch; then 8 patches on the card against
@@ -260,10 +267,12 @@ def phase_build():
         f"in {time.perf_counter() - t0:.1f} s")
     # registers, shared memory and spills of the redesigned kernels (-Xptxas -v)
     for src in ("landmark.cu", "landmark_bwd.cu", "softmax_attn.cu", "softmax_attn_bwd.cu",
-                "vit_attn.cu", "ppeg.cu", "pinv.cu"):
+                "vit_attn.cu", "ppeg.cu", "pinv.cu", "vit_gemm.cu"):
         info = _common.PTXAS_INFO[src]
         for line in info.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            # (C75xx: ptxas's performance warnings, e.g. wgmma serialised or
+            # setmaxnreg ignored)
+            if any(key in line for key in ("Compiling entry", "Used", "spill", "C75")):
                 say(f"[ptxas] {src}: {line.split('info    :')[-1].strip()}")
 
 
@@ -620,7 +629,7 @@ def vit_cases(torch, randn):
     softmax_fp32 = 5 * b * h * n * n  # scale, max, exp, sum, divide
     ln_fp32 = 10 * rows * d  # statistics and the affine, the residual add
     shape = f"b {b}, n {n}, d {d}, heads {h}"
-    return [
+    return vit_gemm_cases(torch, randn, x, ln_s, ln_b) + [
         Case("vit_attn_block", ("vit_gemm.cu", "vit_attn.cu"),
              "mirror_tpu/ops/vit_attn_pallas.py:255", shape,
              lambda: vit_attn.attn_block(*attn_args, h, VIT_EPS),
@@ -640,6 +649,56 @@ def vit_cases(torch, randn):
              dict(bytes=4 * nbytes(q), mma=attn_mma, fp32=softmax_fp32),
              library=lambda: F.scaled_dot_product_attention(by_head(q), by_head(k), by_head(v))),
     ]
+
+
+def vit_gemm_cases(torch, randn, x, ln_s, ln_b):
+    """The LN pass and the projection GEMM of kernels 6 and 7 (``vit_gemm.cu``),
+    each launch alone at Phikon's shapes (M = 256 x 197 rows): the q|k|v
+    product [M, 768] x [768, 2304] + bias (the first: it gives the row's
+    times), fc1 [M, 768] x [768, 3072] + bias then GELU, fc2 [M, 3072] x
+    [3072, 768] and the output projection [M, 768] x [768, 768], + bias then
+    + x. The library yardstick is one ``torch.addmm(bias, y, W)`` on the same
+    operands, a yardstick that does less: no GELU, no residual, a bf16 bias.
+    The LN pass's is ``F.layer_norm`` (bf16 scale and bias)."""
+    import torch.nn.functional as F
+
+    from mirror_tpu_torch.ops import vit_attn as va
+
+    d, m, rows = VIT_D, VIT_MLP, VIT_B * VIT_N
+    y = torch.empty_like(x)
+    s16, b16 = ln_s.to(x.dtype), ln_b.to(x.dtype)  # layer_norm takes x's dtype
+    cases = [Case(
+        "vit_ln", "vit_gemm.cu", "mirror_tpu/ops/vit_attn_pallas.py:103", f"[{rows}, {d}]",
+        lambda: (va._launch_ln(x, ln_s, ln_b, VIT_EPS, y), y)[1],
+        lambda: va._ln_ref(x, ln_s, ln_b, VIT_EPS), BOUND_SINGLE_ROUNDING, ("y",),
+        dict(bytes=nbytes(x, ln_s, ln_b, y), mma=0, fp32=8 * rows * d),
+        library=lambda: F.layer_norm(x, (d,), s16, b16, VIT_EPS))]
+    forms = (("q|k|v + bias", 110, d, 3 * d, va._EPI_BIAS),
+             ("fc1 + bias, GELU", 194, d, m, va._EPI_BIAS_GELU),
+             ("fc2 + bias + x", 194, m, d, va._EPI_BIAS_RESIDUAL),
+             ("out projection + bias + x", 110, d, d, va._EPI_BIAS_RESIDUAL))
+    for what, line, k, n, epi in forms:
+        a = randn(VIT_B, VIT_N, k)
+        w = randn(k, n, scale=k ** -0.5)
+        bias = randn(n, scale=0.1).float()
+        resid = x if epi == va._EPI_BIAS_RESIDUAL else None
+        out, plain_out = (torch.empty(VIT_B, VIT_N, n, dtype=x.dtype, device=x.device)
+                          for _ in range(2))
+        a2, bias16 = a.view(rows, k), bias.to(x.dtype)
+        # bias and, for GELU, its ~20 operations an element (erf's polynomial)
+        epi_fp32 = rows * n * (20 if epi == va._EPI_BIAS_GELU else 2)
+        cases.append(Case(
+            "vit_gemm", "vit_gemm.cu", f"mirror_tpu/ops/vit_attn_pallas.py:{line}",
+            f"{what}: [{rows}, {k}] x [{k}, {n}]",
+            lambda a=a, w=w, bias=bias, out=out, epi=epi, resid=resid:
+                (va._launch_gemm(a, w, bias, out, epi, resid=resid), out)[1],
+            lambda a=a, w=w, bias=bias, out=plain_out, epi=epi, resid=resid:
+                (va.gemm_ref(a, w, bias, out, epi, resid=resid), out)[1],
+            BOUND_SINGLE_ROUNDING, ("c",),
+            dict(bytes=nbytes(a, w, bias, out) + (nbytes(resid) if resid is not None else 0),
+                 mma=2 * rows * k * n, fp32=epi_fp32),
+            library=lambda a2=a2, w=w, bias16=bias16: torch.addmm(bias16, a2, w)))
+    return cases
 
 
 def pinv_design_units(iters, stash=None):
@@ -1647,7 +1706,10 @@ def phase_featgen(torch, root: Path):
         f"{time.perf_counter() - t0:.1f} s ({n_batches} batches of {VIT_B} with the tails); "
         f"decoder: cv2 {cv2.__version__}")
 
-    runs = {"phikon": ([], 768, {"vit_attn_block": VIT_DEPTH, "vit_mlp_block": VIT_DEPTH}),
+    # per Phikon batch: each block's two half-blocks, each of them an LN pass
+    # and two GEMM launches
+    runs = {"phikon": ([], 768, {"vit_attn_block": VIT_DEPTH, "vit_mlp_block": VIT_DEPTH,
+                                 "vit_ln": 2 * VIT_DEPTH, "vit_gemm": 4 * VIT_DEPTH}),
             "phikon_int8": (["--quant", "int8"], 768, {"vit_mha_natural": VIT_DEPTH}),
             "custom_resnet50": ([], 1024, {})}
     launches = {}

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.vit_attn import attn_block, mha_natural, mlp_block
+from ..ops.vit_attn import attn_block_qkv, mha_natural, mlp_block
 from .layers import Dense, LayerNorm, trunc_normal_
 
 # ---------------------------------------------------------------------------
@@ -74,6 +74,21 @@ def _kernel_weight(linear: nn.Linear, cdt: torch.dtype) -> torch.Tensor:
     return linear.weight.to(cdt).t().contiguous()
 
 
+def _cached_kernel_weights(module: nn.Module, params, cdt: torch.dtype, build):
+    """``build()``, the kernel-layout weights of ``module``, made once per
+    weight load: kept on the module and made again when one of ``params``
+    changed (``load_state_dict`` copies into them in place, which bumps their
+    version; ``.to()`` gives them new storage), or for another ``cdt``. A
+    call that autograd would record builds afresh and keeps nothing."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return build()
+    key = (cdt, tuple((p.device, p.data_ptr(), p._version) for p in params))
+    cached = getattr(module, "_kernel_weights", None)
+    if cached is None or cached[0] != key:
+        cached = module._kernel_weights = (key, build())
+    return cached[1]
+
+
 class ViTSelfAttention(nn.Module):
     """HF's ``attention`` of a ViT layer: ``attention.{query,key,value}`` and
     ``output.dense``."""
@@ -101,11 +116,15 @@ class ViTSelfAttention(nn.Module):
             return out(mha_natural(q, k, v, self.num_heads).to(x.dtype))
         ln_s, ln_b, eps = fused_ln
         cdt = self.dtype or torch.float32
-        bqkv = torch.cat([att["query"].bias, att["key"].bias, att["value"].bias])
-        return attn_block(
-            x.to(cdt), ln_s, ln_b, _kernel_weight(att["query"], cdt),
-            _kernel_weight(att["key"], cdt), _kernel_weight(att["value"], cdt), bqkv,
-            _kernel_weight(out, cdt), out.bias, self.num_heads, eps).to(x.dtype)
+        qkv = [att[name] for name in ("query", "key", "value")]
+
+        def build():  # W_q | W_k | W_v side by side [d, 3d], their biases, W_o
+            return (torch.cat([_kernel_weight(p, cdt) for p in qkv], dim=1),
+                    torch.cat([p.bias for p in qkv]), _kernel_weight(out, cdt))
+
+        wqkv, bqkv, wo = _cached_kernel_weights(self, list(self.parameters()), cdt, build)
+        return attn_block_qkv(x.to(cdt), ln_s, ln_b, wqkv, bqkv, wo, out.bias, self.num_heads,
+                              eps).to(x.dtype)
 
 
 class ViTBlock(nn.Module):
@@ -138,8 +157,11 @@ class ViTBlock(nn.Module):
         # stream goes through device memory
         x = self.attention(x, fused_ln=(ln1.weight, ln1.bias, self.norm_eps))
         cdt = self.dtype or torch.float32
-        return mlp_block(x.to(cdt), ln2.weight, ln2.bias, _kernel_weight(fc1, cdt), fc1.bias,
-                         _kernel_weight(fc2, cdt), fc2.bias, self.norm_eps).to(x.dtype)
+        w1, w2 = _cached_kernel_weights(
+            self, [fc1.weight, fc2.weight], cdt,
+            lambda: (_kernel_weight(fc1, cdt), _kernel_weight(fc2, cdt)))
+        return mlp_block(x.to(cdt), ln2.weight, ln2.bias, w1, fc1.bias, w2, fc2.bias,
+                         self.norm_eps).to(x.dtype)
 
 
 class ViTB16(nn.Module):

@@ -21,6 +21,7 @@ TPU.
 | vit_attn_block | csrc/vit_gemm.cu + csrc/vit_attn.cu | vit_attn_pallas.py::attn_block |
 | vit_mlp_block | csrc/vit_gemm.cu | vit_attn_pallas.py::mlp_block |
 | vit_mha_natural | csrc/vit_attn.cu | vit_attn_pallas.py::mha_natural |
+| vit_ln, vit_gemm (each launch within the two above) | csrc/vit_gemm.cu | their LN (_ln_f32) and products |
 | conv1d | csrc/conv1d.cu | conv1d_pallas.py::depthwise_conv1d_seq fwd |
 | conv1d_bwd | csrc/conv1d.cu | the same, bwd (_bwd_call) |
 | ln_qkv | csrc/ln_qkv.cu | ln_qkv_pallas.py::ln_qkv_fused fwd |

@@ -78,11 +78,11 @@ _SIGNATURES = {
     # img, kern, g, dimg, dkb (fp32 [50, C]: 49 taps then the bias),
     # partial (scratch), b, H, W, C, stream
     "mirror_ppeg_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, mu, rstd, rows, d, eps, stream
-    "mirror_vit_ln_stats": (_P, _P, _P, _I, _I, _F, _P),
-    # a, mu, rstd, ln_s, ln_b (LN prologue when mu is not null), b, bias,
-    # resid, c, M, N, K, epilogue, stream
-    "mirror_vit_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, ln_s, ln_b (fp32), y, rows, d, eps, stream
+    "mirror_vit_ln": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # a, b, bias (fp32), resid (residual epilogue only), c, M, N, K,
+    # epilogue, stream
+    "mirror_vit_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, out, b, n, heads, dh, ld_in, ld_out, group, scale, stream
     "mirror_vit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # v, kern, out, bh, heads, n, d, ksize, stream

@@ -12,13 +12,18 @@ argument order:
   block: the layouts of the probe ``scripts/exp_vit_attn_kernel.py`` (K11c),
   one kernel instance (``vit_attn.cu``) for all of them.
 
-On CUDA tensors they launch ``csrc/vit_gemm.cu`` (the projections, with the
-LN prologue and the bias, GELU and residual epilogues) and
+On CUDA tensors they launch ``csrc/vit_gemm.cu`` (the LN pass, and the
+projections with the bias, GELU and residual epilogues) and
 ``csrc/vit_attn.cu`` (the attention); on CPU tensors the plain versions
 ``*_ref``, which round at the TPU kernels' points: y = LN(x) to x's dtype,
 q, k, v after an fp32 bias add, the probabilities before P v, each head's
 output, the GELU hidden before fc2, and out-projection + bias + residual
-summed in fp32 and rounded once.
+summed in fp32 and rounded once. On the card a half-block is a sequence of
+launches (:func:`attn_block_sequence`, :func:`mlp_block_sequence`) that
+takes a launcher: :data:`CUDA_LAUNCHER`, or :data:`PLAIN_LAUNCHER`, the
+plain versions of the C entries, with which the CPU tests run the same
+sequence. :func:`attn_block_qkv` is :func:`attn_block` with W_q | W_k | W_v
+already side by side, for a caller that keeps them so (the ViT model).
 
 Like the Pallas kernels, which have no VJP, the kernels are inference-only:
 on CUDA, a call that autograd would record (grad mode on and an input that
@@ -27,6 +32,7 @@ shape with d (or 3d, or the MLP width) elements, as ``[1, d]`` or ``[d]``;
 ``bqkv`` is q|k|v concatenated.
 """
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -38,7 +44,10 @@ KERNEL_MLP_BLOCK = "vit_mlp_block"
 KERNEL_MHA = "vit_mha_natural"
 KERNEL_MHA_GROUPED = "vit_mha_natural_grouped"
 KERNEL_MHA_HEADMAJOR = "vit_mha_headmajor"
+KERNEL_LN = "vit_ln"  # each launch of the LN pass (two a block)
+KERNEL_GEMM = "vit_gemm"  # each launch of the projection GEMM (four a block)
 MAX_TOKENS = 256  # vit_attn.cu keeps a score row in registers
+MAX_LN_WIDTH = 4096  # the LN pass holds a row in registers: 16 chunks of 8 a lane
 # the epilogues of mirror_vit_gemm
 _EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESIDUAL = 0, 1, 2
 
@@ -130,26 +139,6 @@ def _check_attention(n: int, dh: int) -> None:
                          "to 128")
 
 
-def _gemm(a, w, bias, out, epilogue, ln=None, resid=None) -> None:
-    """out = epilogue(LN(a) w + bias); ``ln`` = (mu, rstd, s, b)."""
-    mu, rstd, s, lb = ln if ln is not None else (None,) * 4
-    ptrs = [t.data_ptr() if t is not None else None for t in (mu, rstd, s, lb)]
-    k, n = w.shape
-    _common.launch("mirror_vit_gemm", a.data_ptr(), *ptrs, w.data_ptr(), bias.data_ptr(),
-                   resid.data_ptr() if resid is not None else None, out.data_ptr(),
-                   a.numel() // k, n, k, epilogue)
-
-
-def _ln_stats(x, eps):
-    d = x.shape[-1]
-    rows = x.numel() // d
-    mu = torch.empty(rows, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mu)
-    _common.launch("mirror_vit_ln_stats", x.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
-                   rows, d, eps)
-    return mu, rstd
-
-
 def mha_headmajor_ref(q, k, v):
     """Plain version of :func:`mha_headmajor`, the rounding points of
     :func:`mha_natural_ref`."""
@@ -200,6 +189,127 @@ def mha_headmajor(q, k, v, group: int = 1):
     return _attention(q, k, v, z, 1, dh, dh, group, KERNEL_MHA_HEADMAJOR)
 
 
+# --- the half-blocks as launch sequences ---------------------------------------
+
+
+def _launch_ln(x, s, b, eps, y) -> None:
+    """y = LN(x) (``mirror_vit_ln``), s and b fp32 vectors of d."""
+    d = x.shape[-1]
+    _common.launch("mirror_vit_ln", x.data_ptr(), s.data_ptr(), b.data_ptr(), y.data_ptr(),
+                   x.numel() // d, d, eps)
+    _common.count_launch(KERNEL_LN)
+
+
+def ln_ref(x, s, b, eps, y) -> None:
+    """Plain ``mirror_vit_ln``: y = :func:`_ln_ref` (x), in place."""
+    y.copy_(_ln_ref(x, s, b, eps))
+
+
+def _launch_gemm(a, w, bias, out, epilogue, resid=None) -> None:
+    """out = epilogue(a w + bias) (``mirror_vit_gemm``), w [K, N]."""
+    k, n = w.shape
+    _common.launch("mirror_vit_gemm", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                   resid.data_ptr() if resid is not None else None, out.data_ptr(),
+                   a.numel() // k, n, k, epilogue)
+    _common.count_launch(KERNEL_GEMM)
+
+
+def gemm_ref(a, w, bias, out, epilogue, resid=None) -> None:
+    """Plain ``mirror_vit_gemm``, in place: P = a w in fp32, then + bias;
+    with GELU the exact erf GELU of that; with the residual resid + that;
+    rounded once to out's dtype."""
+    k, n = w.shape
+    v = a.float().reshape(-1, k) @ w.float() + bias.float().reshape(-1)
+    if epilogue == _EPI_BIAS_GELU:
+        v = 0.5 * v * (1.0 + torch.erf(v * 2.0 ** -0.5))
+    elif epilogue == _EPI_BIAS_RESIDUAL:
+        v = resid.float().reshape(-1, n) + v
+    out.copy_(v.to(out.dtype).view(out.shape))
+
+
+def _launch_attn(qkv, out, heads: int) -> None:
+    """out = MHA of the q|k|v buffer [b, n, 3d] (``mirror_vit_attn``, each of
+    q, k, v read with leading dimension 3d)."""
+    b, n, d = out.shape
+    dh, elem = d // heads, qkv.element_size()
+    _common.launch("mirror_vit_attn", qkv.data_ptr(), qkv.data_ptr() + d * elem,
+                   qkv.data_ptr() + 2 * d * elem, out.data_ptr(), b, n, heads, dh, 3 * d, d, 1,
+                   dh ** -0.5)
+
+
+def attn_ref(qkv, out, heads: int) -> None:
+    """Plain version of :func:`_launch_attn`: :func:`mha_natural_ref` on the
+    q, k, v views of the buffer, in place."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    out.copy_(mha_natural_ref(q, k, v, heads))
+
+
+# The C entries the sequences below call, and their plain versions: the
+# wrappers pass CUDA_LAUNCHER; the CPU tests pass PLAIN_LAUNCHER to run the
+# same sequences through the plain versions.
+CUDA_LAUNCHER = SimpleNamespace(ln=_launch_ln, gemm=_launch_gemm, attn=_launch_attn)
+PLAIN_LAUNCHER = SimpleNamespace(ln=ln_ref, gemm=gemm_ref, attn=attn_ref)
+
+
+def attn_block_sequence(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int, eps: float,
+                        ops=CUDA_LAUNCHER):
+    """Kernel 6 as the card runs it: the LN pass, one q|k|v product ([d, 3d],
+    + bias), the attention on that buffer, the output projection (+ bias,
+    + x), through ``ops``."""
+    y = torch.empty_like(x)
+    ops.ln(x, ln_s, ln_b, eps, y)
+    qkv = torch.empty(*x.shape[:-1], wqkv.shape[1], dtype=x.dtype, device=x.device)
+    ops.gemm(y, wqkv, bqkv, qkv, _EPI_BIAS)
+    del y
+    att = torch.empty_like(x)
+    ops.attn(qkv, att, heads)
+    del qkv
+    out = torch.empty_like(x)
+    ops.gemm(att, wo, bo, out, _EPI_BIAS_RESIDUAL, resid=x)
+    return out
+
+
+def mlp_block_sequence(x, ln_s, ln_b, w1, b1, w2, b2, eps: float, ops=CUDA_LAUNCHER):
+    """Kernel 7 as the card runs it: the LN pass, fc1 (+ bias, GELU), fc2
+    (+ bias, + x), through ``ops``."""
+    y = torch.empty_like(x)
+    ops.ln(x, ln_s, ln_b, eps, y)
+    h = torch.empty(*x.shape[:-1], w1.shape[1], dtype=x.dtype, device=x.device)
+    ops.gemm(y, w1, b1, h, _EPI_BIAS_GELU)
+    del y
+    out = torch.empty_like(x)
+    ops.gemm(h, w2, b2, out, _EPI_BIAS_RESIDUAL, resid=x)
+    return out
+
+
+def _check_ln_width(d: int) -> None:
+    _check_width("feature dim", d)
+    if d > MAX_LN_WIDTH:
+        raise ValueError(f"feature dim {d}: the LN pass holds a row in registers, at most "
+                         f"{MAX_LN_WIDTH}")
+
+
+def attn_block_qkv(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int, eps: float = 1e-12):
+    """:func:`attn_block` with W_q | W_k | W_v side by side: wqkv [d, 3d]."""
+    _check_heads("attn_block", x.shape[-1], heads)
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    if not _common.on_cuda(*args):
+        wq, wk, wv = wqkv.chunk(3, dim=1)
+        return attn_block_ref(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads, eps)
+    _refuse_grad("attn_block", *args)
+    b, n, d = x.shape
+    _check_ln_width(d)
+    _check_attention(n, d // heads)
+    _common.check_kernel_input("x", x, (b, n, d))
+    _common.check_kernel_input("wqkv", wqkv, (d, 3 * d))
+    _common.check_kernel_input("wo", wo, (d, d))
+    out = attn_block_sequence(x, _vector("ln_s", ln_s, d), _vector("ln_b", ln_b, d), wqkv,
+                              _vector("bqkv", bqkv, 3 * d), wo, _vector("bo", bo, d), heads,
+                              eps)
+    _common.count_launch(KERNEL_ATTN_BLOCK)
+    return out
+
+
 def attn_block(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads: int, eps: float = 1e-12):
     """x + out_proj(mha(qkv_proj(layernorm(x)))): the pre-LN attention
     half-block. x [b, n, d]; w* [d, d] ([in, out]); bqkv [3d]."""
@@ -207,27 +317,12 @@ def attn_block(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads: int, eps: float =
     args = (x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo)
     if not _common.on_cuda(*args):
         return attn_block_ref(*args, heads, eps)
-    _refuse_grad("attn_block", *args)
-    b, n, d = x.shape
-    dh = d // heads
-    _check_width("feature dim", d)
-    _check_attention(n, dh)
-    _common.check_kernel_input("x", x, (b, n, d))
-    for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+    d = x.shape[-1]
+    for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
         _common.check_kernel_input(name, w, (d, d))
-    ln = (*_ln_stats(x, eps), _vector("ln_s", ln_s, d), _vector("ln_b", ln_b, d))
-    qkv = torch.empty(b, n, 3 * d, dtype=x.dtype, device=x.device)
+    _refuse_grad("attn_block", *args)
     wqkv = torch.cat((wq, wk, wv), dim=1)  # [d, 3d]: one product for q|k|v
-    _gemm(x, wqkv, _vector("bqkv", bqkv, 3 * d), qkv, _EPI_BIAS, ln=ln)
-    att = torch.empty_like(x)
-    elem = qkv.element_size()
-    _common.launch("mirror_vit_attn", qkv.data_ptr(), qkv.data_ptr() + d * elem,
-                   qkv.data_ptr() + 2 * d * elem, att.data_ptr(), b, n, heads, dh, 3 * d, d, 1,
-                   dh ** -0.5)
-    out = torch.empty_like(x)
-    _gemm(att, wo, _vector("bo", bo, d), out, _EPI_BIAS_RESIDUAL, resid=x)
-    _common.count_launch(KERNEL_ATTN_BLOCK)
-    return out
+    return attn_block_qkv(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, eps)
 
 
 def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, eps: float = 1e-12):
@@ -239,15 +334,12 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, eps: float = 1e-12):
     _refuse_grad("mlp_block", *args)
     b, n, d = x.shape
     m = w1.shape[-1]
-    _check_width("feature dim", d)
+    _check_ln_width(d)
     _check_width("MLP width", m)
     _common.check_kernel_input("x", x, (b, n, d))
     _common.check_kernel_input("w1", w1, (d, m))
     _common.check_kernel_input("w2", w2, (m, d))
-    ln = (*_ln_stats(x, eps), _vector("ln_s", ln_s, d), _vector("ln_b", ln_b, d))
-    h = torch.empty(b, n, m, dtype=x.dtype, device=x.device)
-    _gemm(x, w1, _vector("b1", b1, m), h, _EPI_BIAS_GELU, ln=ln)
-    out = torch.empty_like(x)
-    _gemm(h, w2, _vector("b2", b2, d), out, _EPI_BIAS_RESIDUAL, resid=x)
+    out = mlp_block_sequence(x, _vector("ln_s", ln_s, d), _vector("ln_b", ln_b, d), w1,
+                             _vector("b1", b1, m), w2, _vector("b2", b2, d), eps)
     _common.count_launch(KERNEL_MLP_BLOCK)
     return out

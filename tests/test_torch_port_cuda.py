@@ -612,7 +612,7 @@ def test_vit_attn_block_kernel(dev, b, n, heads, dh, eps):
     args = _vit_attn_inputs(g, b, n, heads, dh, dev)
     _common.reset_launch_counts()
     out = attn_block(*args, heads, eps)
-    assert _common.launch_counts() == {"vit_attn_block": 1}
+    assert _common.launch_counts() == {"vit_attn_block": 1, "vit_ln": 1, "vit_gemm": 2}
     _assert_rel(out, attn_block_ref(*args, heads, eps), BOUND_VIT)
     # the attention half alone (out - x), where a wrong head or pad shows most
     x = args[0].float()
@@ -663,7 +663,7 @@ def test_vit_mlp_block_kernel(dev, b, n, d, m):
     b1, b2 = torch.randn(m, generator=g).to(dev), (0.1 * torch.randn(d, generator=g)).to(dev)
     _common.reset_launch_counts()
     out = mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12)
-    assert _common.launch_counts() == {"vit_mlp_block": 1}
+    assert _common.launch_counts() == {"vit_mlp_block": 1, "vit_ln": 1, "vit_gemm": 2}
     ref = mlp_block_ref(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12)
     _assert_rel(out, ref, BOUND_VIT)
     _assert_rel(out.float() - x.float(), ref.float() - x.float(), 2e-2)
@@ -741,10 +741,114 @@ def test_vit_kernel_path_matches_cpu_plain_path(dev, quant):
     with torch.no_grad():
         got = gpu(x.to(dev)).float().cpu()
         want = cpu(x)
-    expect = {"vit_mha_natural": 2} if quant else {"vit_attn_block": 2, "vit_mlp_block": 2}
+    expect = {"vit_mha_natural": 2} if quant else {"vit_attn_block": 2, "vit_mlp_block": 2,
+                                                    "vit_ln": 4, "vit_gemm": 8}
     assert _common.launch_counts() == expect
     cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
     assert (cos >= 0.99).all(), cos
+
+
+# --- the ViT projection GEMM (csrc/vit_gemm.cu, wgmma fed by TMA) and its LN
+# pass, alone
+
+# The GEMM against a float64 product with the float64 epilogue: a bf16
+# output within 2^-7 of the reference's largest magnitude (one bf16 ulp is
+# 2^-8 relative; the fp32 sum of K products adds its own rounding). M 111 =
+# 3 x 37 (a ragged row tile); N below, at and past the 256-column tile and
+# not a multiple of it (64, 192, 2304 = 9 x 256 is one; 768, 3072 are); B
+# drawn without symmetry, so an operand read transposed shows.
+BOUND_VIT_GEMM = 2.0 ** -7
+
+
+@pytest.mark.parametrize("k", [64, 768, 3072])
+@pytest.mark.parametrize("n", [64, 192, 768, 2304, 3072])
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
+def test_vit_gemm_kernel(dev, epilogue, n, k):
+    from mirror_tpu_torch.ops import vit_attn as va
+
+    g = torch.Generator().manual_seed(40)
+    m = 3 * 37
+    a = _randn(g, 3, 37, k, dev=dev)
+    w = _randn(g, k, n, dev=dev, scale=k ** -0.5) + 0.05 * torch.arange(
+        n, device=dev, dtype=torch.float32).div(n).to(torch.bfloat16)
+    bias = torch.randn(n, generator=g).to(dev)
+    resid = _randn(g, 3, 37, n, dev=dev)
+    epi = {"bias": va._EPI_BIAS, "gelu": va._EPI_BIAS_GELU,
+           "residual": va._EPI_BIAS_RESIDUAL}[epilogue]
+    out = torch.full((3, 37, n), float("nan"), dtype=torch.bfloat16, device=dev)
+    _common.reset_launch_counts()
+    va._launch_gemm(a, w, bias, out, epi, resid=resid if epilogue == "residual" else None)
+    assert _common.launch_counts() == {"vit_gemm": 1}
+    ref = a.double().reshape(m, k) @ w.double() + bias.double()
+    if epilogue == "gelu":
+        ref = 0.5 * ref * (1.0 + torch.erf(ref * 2.0 ** -0.5))
+    if epilogue == "residual":
+        ref = resid.double().reshape(m, n) + ref
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = (out.double().reshape(m, n) - ref).abs().max().item()
+    assert err <= BOUND_VIT_GEMM * ref.abs().max().item(), err
+    # and against its plain version (the same fp32 sum, other order)
+    plain = torch.empty_like(out)
+    va.gemm_ref(a, w, bias, plain, epi, resid=resid)
+    _assert_close(out, plain, BOUND_VIT_GEMM)
+
+
+# The LN pass against _ln_ref on the card: both take fp32 statistics, but
+# their sums run in other orders (the kernel a warp a row, torch's reduction
+# its own), so mu and rstd can differ in the last fp32 bit, and a y that
+# lies that close to a bf16 rounding boundary rounds the other way (a y near
+# 0, where (x - mu) s and b cancel, by a few of its own small ulps). So:
+# every y within one bf16 ulp of the largest magnitude (2^-8 of it), and at
+# most 1e-3 of them not bit for bit _ln_ref's; a wrong statistic or affine
+# moves almost every element by far more.
+@pytest.mark.parametrize("rows,d", [(111, 768), (5, 64), (37, 1000), (9, 2048), (3, 4096)])
+def test_vit_ln_kernel(dev, rows, d):
+    from mirror_tpu_torch.ops import vit_attn as va
+
+    g = torch.Generator().manual_seed(41)
+    x = _randn(g, rows, d, dev=dev) + 0.5
+    s = (1.0 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    b = (0.1 * torch.randn(d, generator=g)).to(dev)
+    y = torch.empty_like(x)
+    _common.reset_launch_counts()
+    va._launch_ln(x, s, b, 1e-12, y)
+    assert _common.launch_counts() == {"vit_ln": 1}
+    ref = va._ln_ref(x, s, b, 1e-12)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs()
+    assert err.max().item() <= 2.0 ** -8 * ref.float().abs().max().item()
+    assert (y != ref).count_nonzero().item() <= 1e-3 * y.numel()
+    y2 = torch.empty_like(x)
+    va._launch_ln(x, s, b, 1e-12, y2)
+    assert torch.equal(y, y2)
+
+
+def test_vit_ln_refuses_wide_rows(dev):
+    from mirror_tpu_torch.ops.vit_attn import mlp_block
+
+    d = 4104
+    x = torch.zeros(1, 2, d, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(d, 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        mlp_block(x, torch.ones(d, device=dev), torch.zeros(d, device=dev), w,
+                  torch.zeros(8, device=dev), w.t().contiguous(), torch.zeros(d, device=dev))
+
+
+def test_vit_half_blocks_same_bits_twice(dev):
+    """Kernels 6 and 7 at a Phikon-like width run twice give the same bits:
+    every sum has a fixed order (no atomics, no split K)."""
+    from mirror_tpu_torch.ops.vit_attn import attn_block, mlp_block
+
+    g = torch.Generator().manual_seed(42)
+    args = _vit_attn_inputs(g, 3, 197, 12, 64, dev)
+    assert torch.equal(attn_block(*args, 12), attn_block(*args, 12))
+    x, ln_s, ln_b = args[:3]
+    w1, w2 = _randn(g, 768, 3072, dev=dev, scale=768 ** -0.5), _randn(g, 3072, 768, dev=dev,
+                                                                    scale=3072 ** -0.5)
+    b1, b2 = torch.randn(3072, generator=g).to(dev), torch.randn(768, generator=g).to(dev)
+    assert torch.equal(mlp_block(x, ln_s, ln_b, w1, b1, w2, b2),
+                       mlp_block(x, ln_s, ln_b, w1, b1, w2, b2))
 
 
 def _assert_max_rel(out, ref, name=""):
