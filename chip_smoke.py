@@ -10,7 +10,8 @@ Phases, each printed as it finishes:
    checkout's sources, with its build time, and what ``-Xptxas -v`` says
    of the redesigned kernels (the landmark softmax, the Nystrom and ViT
    attention, PPEG, the pinv's GEMM, the ViT projection GEMM and its LN
-   pass: registers, shared memory, spills, ptxas's performance warnings);
+   pass, the copy floor, the fused ViT sub-layers: registers, shared
+   memory, spills, ptxas's performance warnings);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
@@ -267,7 +268,8 @@ def phase_build():
         f"in {time.perf_counter() - t0:.1f} s")
     # registers, shared memory and spills of the redesigned kernels (-Xptxas -v)
     for src in ("landmark.cu", "landmark_bwd.cu", "softmax_attn.cu", "softmax_attn_bwd.cu",
-                "vit_attn.cu", "ppeg.cu", "pinv.cu", "vit_gemm.cu"):
+                "vit_attn.cu", "ppeg.cu", "pinv.cu", "vit_gemm.cu", "copy_floor.cu",
+                "vit_fused.cu"):
         info = _common.PTXAS_INFO[src]
         for line in info.splitlines():
             # (C75xx: ptxas's performance warnings, e.g. wgmma serialised or
@@ -899,10 +901,17 @@ def fused_cases(torch):
     layer_norm)."""
     from mirror_tpu_torch.scripts import exp_vit_fused_sublayer as probe
 
+    from mirror_tpu_torch.ops import vit_fused
+
     dev = torch.device("cuda")
     wts = probe.make_weights(dev, SEED)
     x = probe.T.randn(dev, PROBE_VIT_B, probe.N, probe.D, seed=SEED + 1)
     shape = f"[{PROBE_VIT_B}, {probe.N}, {probe.D}], heads {probe.H}"
+    # the fused attention's CTA mapping at the probe's shape, and how many
+    # of its clusters the card holds at once
+    hpc = vit_fused.heads_per_cta(probe.N, probe.DH, probe.H)
+    say(f"[vit_fused] attention: {hpc} heads a CTA, clusters of {probe.H // hpc}, "
+        f"{vit_fused.max_clusters(probe.N, probe.DH, probe.H, 0)} at once")
     cases = []
     for name, group, variant, line in (("vit_fused_attn", "attn", "k5g1", 111),
                                        ("vit_fused_mlp", "mlp", "k7g1", 167),

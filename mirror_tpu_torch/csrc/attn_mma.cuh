@@ -37,6 +37,7 @@ constexpr int BM = 64;  // rows (or columns) a block owns: 16 a warp
 constexpr int BN = 64;  // rows of a walked tile
 constexpr int kStages = 2;  // the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxKeyTiles = 16;  // attend_rows: n <= 256, the key tiles a score row holds
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -233,4 +234,182 @@ __device__ __forceinline__ void store_staged(bf16* dst, const bf16* stage, int l
   __syncwarp();
 }
 
+// The exact softmax attention of one warp's 16 query rows against kt key
+// tiles of 16 (at most kMaxKeyTiles: n <= 256), the body of the ViT
+// attention (csrc/vit_attn.cu, kernel 8) and of the fused attention
+// sub-layer (csrc/vit_fused.cu): S = q K^T held in registers (2 kt n8-tiles
+// x 4 = 128 fp32 a thread at kt 16), columns past n at -inf; the exact row
+// max and sum by two quad shuffles each; exp2 of the log2(e)-scaled scores
+// on ex2.approx; the normalised probabilities rounded to bf16, as P V's A
+// operand against V through ldmatrix.trans, so neither S nor P touches
+// shared memory. q16: the warp's 16 query rows; sK, sV: the key and value
+// rows (rows past n zeros); all bf16 in shared memory with row stride ld.
+// c = scale log2(e). o: the fp32 16 x DH output tile in the accumulator
+// layout.
+template <int DH>
+__device__ __forceinline__ void attend_rows(float (&o)[DH / 8][4], const bf16* q16,
+                                            const bf16* sK, const bf16* sV, int ld, int n,
+                                            int kt, float c) {
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  // S = q K^T over the kt key tiles. The arrays are indexed with
+  // constants only (unrolled to kMaxKeyTiles, predicated on kt), so they
+  // stay in registers.
+  float s[2 * kMaxKeyTiles][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  const bf16* pa = q16 + (lane % 16) * ld + (lane / 16) * 8;
+  const bf16* pb = sK + ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    unsigned fa[4];
+    ldsm_x4(fa, pa + 16 * kk);
+#pragma unroll
+    for (int np = 0; np < kMaxKeyTiles; ++np) {
+      if (np < kt) {
+        unsigned fb[4];
+        ldsm_x4(fb, pb + 16 * np * ld + 16 * kk);
+        mma16816(s[2 * np], fa, fb[0], fb[1]);
+        mma16816(s[2 * np + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+
+  // the exact softmax of rows g (s[.][0..1]) and g + 8 (s[.][2..3]): columns
+  // past n are -inf, the max and the sum two quad shuffles each
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) {
+    if (j < 2 * kt) {
+      const int col = 8 * j + 2 * t;
+      if (col >= n) s[j][0] = s[j][2] = -INFINITY;
+      if (col + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  const float b0 = m0 * c, b1 = m1 * c;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) {
+    if (j < 2 * kt) {
+      s[j][0] = fast_exp2(fmaf(s[j][0], c, -b0));
+      s[j][1] = fast_exp2(fmaf(s[j][1], c, -b0));
+      s[j][2] = fast_exp2(fmaf(s[j][2], c, -b1));
+      s[j][3] = fast_exp2(fmaf(s[j][3], c, -b1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float r0 = 1.f / l0, r1 = 1.f / l1;
+
+  // the normalised probabilities, rounded to bf16: P V's A operand (key
+  // tile kk is score n8-tiles 2 kk and 2 kk + 1)
+  unsigned p[kMaxKeyTiles][4];
+#pragma unroll
+  for (int kk = 0; kk < kMaxKeyTiles; ++kk) {
+    if (kk < kt) {
+      p[kk][0] = pack_bf16(s[2 * kk][0] * r0, s[2 * kk][1] * r0);
+      p[kk][1] = pack_bf16(s[2 * kk][2] * r1, s[2 * kk][3] * r1);
+      p[kk][2] = pack_bf16(s[2 * kk + 1][0] * r0, s[2 * kk + 1][1] * r0);
+      p[kk][3] = pack_bf16(s[2 * kk + 1][2] * r1, s[2 * kk + 1][3] * r1);
+    }
+  }
+  zero(o);
+#pragma unroll
+  for (int kk = 0; kk < kMaxKeyTiles; ++kk)
+    if (kk < kt) mma_rs_step<DH / 8>(o, p[kk], sV + 16 * kk * ld, ld);
+}
+
+// S = q K^T for the warp's 16 rows against key tile `tile` (16 keys: two
+// n8 tiles), q's A fragments in registers; columns past n at -inf.
+template <int DH>
+__device__ __forceinline__ void score_tile(float (&s)[2][4], const unsigned (&qa)[DH / 16][4],
+                                           const bf16* sK, int ld, int tile, int n) {
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const bf16* pb =
+      sK + (16 * tile + (lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
+  zero(s);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    unsigned fb[4];
+    ldsm_x4(fb, pb + 16 * kk);
+    mma16816(s[0], qa[kk], fb[0], fb[1]);
+    mma16816(s[1], qa[kk], fb[2], fb[3]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int col = 16 * tile + 8 * j + 2 * t;
+    if (col >= n) s[j][0] = s[j][2] = -INFINITY;
+    if (col + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
+  }
+}
+
+// attend_rows in two passes over the key tiles, for a caller that cannot
+// give the attention 128 registers of scores: the first pass takes each
+// row's max and sum online (the sum rescaled by exp2 of the change of max
+// at each tile), the second recomputes each tile's scores and forms the
+// normalised probabilities as attend_rows does, exp2(s c - m c) / l rounded
+// to bf16, into P V. The same rounding points; the sum is taken in
+// another order (one fp32 rounding of a rescale a tile). The tile loops
+// stay nearly rolled, so a tile's 8 scores and its operands are all they
+// hold.
+template <int DH>
+__device__ __forceinline__ void attend_rows_two_pass(float (&o)[DH / 8][4], const bf16* q16,
+                                                     const bf16* sK, const bf16* sV, int ld,
+                                                     int n, int kt, float c) {
+  unsigned qa[DH / 16][4];
+  load_a_frags<DH / 16>(qa, q16, ld);
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+#pragma unroll 2
+  for (int tile = 0; tile < kt; ++tile) {
+    float s[2][4];
+    score_tile<DH>(s, qa, sK, ld, tile, n);
+    float x0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
+    float x1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+    }
+    // (tile 0 holds column 0 < n, so the max is finite from there on)
+    l0 *= fast_exp2((m0 - x0) * c);
+    l1 *= fast_exp2((m1 - x1) * c);
+    m0 = x0;
+    m1 = x1;
+    const float b0 = m0 * c, b1 = m1 * c;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l0 += fast_exp2(fmaf(s[j][0], c, -b0)) + fast_exp2(fmaf(s[j][1], c, -b0));
+      l1 += fast_exp2(fmaf(s[j][2], c, -b1)) + fast_exp2(fmaf(s[j][3], c, -b1));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float r0 = 1.f / l0, r1 = 1.f / l1, b0 = m0 * c, b1 = m1 * c;
+  zero(o);
+#pragma unroll 2
+  for (int tile = 0; tile < kt; ++tile) {
+    float s[2][4];
+    score_tile<DH>(s, qa, sK, ld, tile, n);
+    unsigned p[4];
+    p[0] = pack_bf16(fast_exp2(fmaf(s[0][0], c, -b0)) * r0, fast_exp2(fmaf(s[0][1], c, -b0)) * r0);
+    p[1] = pack_bf16(fast_exp2(fmaf(s[0][2], c, -b1)) * r1, fast_exp2(fmaf(s[0][3], c, -b1)) * r1);
+    p[2] = pack_bf16(fast_exp2(fmaf(s[1][0], c, -b0)) * r0, fast_exp2(fmaf(s[1][1], c, -b0)) * r0);
+    p[3] = pack_bf16(fast_exp2(fmaf(s[1][2], c, -b1)) * r1, fast_exp2(fmaf(s[1][3], c, -b1)) * r1);
+    mma_rs_step<DH / 8>(o, p, sV + 16 * tile * ld, ld);
+  }
+}
 }  // namespace attn

@@ -55,7 +55,6 @@
 
 namespace {
 
-constexpr int kMaxKeyTiles = 16;  // n <= 256: the key tiles of 16 a score row holds
 constexpr int kWarps = 8;
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -103,7 +102,7 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, bf16* __
                                             int ld, int n, int npad, int row0, int ld_in,
                                             int ld_out, float c) {
   constexpr int chunks = DH / 8, per_lane = (16 * chunks + 31) / 32;
-  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int lane = threadIdx.x % 32;
   const int kt = npad / 16;
 
   // the queries into the staging tile (zeros past n): every load in flight
@@ -124,84 +123,8 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, bf16* __
   }
   __syncwarp();
 
-  // S = q K^T over the pair's kt key tiles. The arrays are indexed with
-  // constants only (unrolled to kMaxKeyTiles, predicated on kt), so they
-  // stay in registers.
-  float s[2 * kMaxKeyTiles][4];
-#pragma unroll
-  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  const bf16* pa = stage + (lane % 16) * ld + (lane / 16) * 8;
-  const bf16* pb = sK + ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    unsigned fa[4];
-    attn::ldsm_x4(fa, pa + 16 * kk);
-#pragma unroll
-    for (int np = 0; np < kMaxKeyTiles; ++np) {
-      if (np < kt) {
-        unsigned fb[4];
-        attn::ldsm_x4(fb, pb + 16 * np * ld + 16 * kk);
-        attn::mma16816(s[2 * np], fa, fb[0], fb[1]);
-        attn::mma16816(s[2 * np + 1], fa, fb[2], fb[3]);
-      }
-    }
-  }
-
-  // the exact softmax of rows g (s[.][0..1]) and g + 8 (s[.][2..3]): columns
-  // past n are -inf, the max and the sum two quad shuffles each
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) {
-    if (j < 2 * kt) {
-      const int col = 8 * j + 2 * t;
-      if (col >= n) s[j][0] = s[j][2] = -INFINITY;
-      if (col + 1 >= n) s[j][1] = s[j][3] = -INFINITY;
-      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-  const float b0 = m0 * c, b1 = m1 * c;
-  float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 2 * kMaxKeyTiles; ++j) {
-    if (j < 2 * kt) {
-      s[j][0] = attn::fast_exp2(fmaf(s[j][0], c, -b0));
-      s[j][1] = attn::fast_exp2(fmaf(s[j][1], c, -b0));
-      s[j][2] = attn::fast_exp2(fmaf(s[j][2], c, -b1));
-      s[j][3] = attn::fast_exp2(fmaf(s[j][3], c, -b1));
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-  }
-  const float r0 = 1.f / l0, r1 = 1.f / l1;
-
-  // the normalised probabilities, rounded to bf16: P V's A operand (key
-  // tile kk is score n8-tiles 2 kk and 2 kk + 1)
-  unsigned p[kMaxKeyTiles][4];
-#pragma unroll
-  for (int kk = 0; kk < kMaxKeyTiles; ++kk) {
-    if (kk < kt) {
-      p[kk][0] = attn::pack_bf16(s[2 * kk][0] * r0, s[2 * kk][1] * r0);
-      p[kk][1] = attn::pack_bf16(s[2 * kk][2] * r1, s[2 * kk][3] * r1);
-      p[kk][2] = attn::pack_bf16(s[2 * kk + 1][0] * r0, s[2 * kk + 1][1] * r0);
-      p[kk][3] = attn::pack_bf16(s[2 * kk + 1][2] * r1, s[2 * kk + 1][3] * r1);
-    }
-  }
   float o[DH / 8][4];
-  attn::zero(o);
-#pragma unroll
-  for (int kk = 0; kk < kMaxKeyTiles; ++kk)
-    if (kk < kt) attn::mma_rs_step<DH / 8>(o, p[kk], sV + 16 * kk * ld, ld);
+  attn::attend_rows<DH>(o, stage, sK, sV, ld, n, kt, c);
 
   // O rounded once, staged over the queries, then 16 bytes a lane
   __syncwarp();
@@ -302,7 +225,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int p
 MIRROR_EXPORT int mirror_vit_attn(const void* q, const void* k, const void* v, void* out,
                                   int b, int n, int heads, int dh, int ld_in, int ld_out,
                                   int group, float scale, cudaStream_t stream) {
-  if (n > 16 * kMaxKeyTiles || dh % 16 != 0 || dh < 16 || dh > 128 || group <= 0)
+  if (n > 16 * attn::kMaxKeyTiles || dh % 16 != 0 || dh < 16 || dh > 128 || group <= 0)
     return (int)cudaErrorInvalidValue;
   const int pairs = b * heads;
   if (pairs <= 0 || n <= 0) return (int)cudaSuccess;

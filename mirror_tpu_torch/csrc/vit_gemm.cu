@@ -71,13 +71,13 @@
 // parent kernel's prologue made its GEMM about 35 % slower. Written out, y
 // costs 2 x 77 MB a call at the copy floor (~0.05 ms), and the GEMM reads
 // plain bf16 tiles that TMA delivers with no per-element work.
-#include <cuda.h>
-
 #include <algorithm>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128, BN = 256, BK = 64;  // BK: one 128-byte swizzle row of bf16
 constexpr int kStages = 4;
@@ -97,132 +97,6 @@ struct __align__(1024) GemmSmem {
 // dynamic shared memory is aligned here by hand to the 1024 bytes the
 // 128-byte swizzle repeats over
 constexpr size_t kSmemBytes = sizeof(GemmSmem) + 1024;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned addr = smem_u32(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// one TMA box of the 2-D map into shared memory, counted in on `bar`;
-// c0 indexes the contiguous axis
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// --- wgmma ------------------------------------------------------------------
-
-// A shared-memory matrix descriptor with the 128-byte swizzle (layout type
-// 1): the start address, the leading and the stride byte offsets, all in
-// 16-byte units. A K-major operand (A: rows of 128 bytes of K) has its
-// 8-row groups SBO = 1024 bytes apart (LBO unused); an MN-major one (B: rows
-// of 128 bytes of N, one per k) has its 8-k-row groups SBO = 1024 bytes
-// apart and its 64-column boxes LBO = 8 KB apart.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo, unsigned sbo) {
-  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin the accumulators here: the compiler sees wgmma as a plain asm that
-// reads and writes them when issued, so reads after a wait must not move
-// above it.
-__device__ __forceinline__ void fence_regs(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 256] (+)= A[64 x 16] B[16 x 256]: A K-major, B MN-major (trans-b
-// 1), both from shared memory; scale_d 0 overwrites d. Fragment layout of d
-// (PTX ISA, wgmma .m64nNk16): warp w of the warpgroup holds rows 16 w ..
-// 16 w + 15; lane = 4 g + t holds, per 8 columns j, d[4 j], d[4 j + 1] at
-// row g, columns 8 j + 2 t, 8 j + 2 t + 1, and d[4 j + 2], d[4 j + 3] at
-// row g + 8.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
-      "%123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
-        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
-        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
-        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
-        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
-        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
-        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
-        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
-        "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // --- the LN pass --------------------------------------------------------------
 
@@ -304,36 +178,6 @@ cudaError_t launch_ln(const bf16* x, const float* s, const float* b, bf16* y, in
 
 // --- the GEMM -----------------------------------------------------------------
 
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// shared-memory writes of this thread made visible to the async proxy (TMA)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// one TMA box from shared memory to the 2-D map (clipped at its edges)
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
-                                          int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's stores still read shared memory
-template <int N>
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void tma_store_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 // the residual pairs a consumer thread adds in 64 columns from col0: rows r
 // and r + 8, columns col0 + 8 jj + 2 t (zeros past M and N)
 __device__ __forceinline__ void load_residual(__nv_bfloat162 (&res)[8][2],
@@ -369,13 +213,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(&sm.full[s], 1);                // the producer's expect_tx
       mbar_init(&sm.empty[s], kConsumerWarps);  // one arrival a consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 
   if (wg == 0) {
     // producer: one thread issues every load; the others leave
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (threadIdx.x != 0) return;
     int stage = 0;
     unsigned phase = 0;
@@ -399,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // consumers: warpgroup 1 the tile's rows 0-63, warpgroup 2 rows 64-127
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  setmaxnreg_inc<232>();
   const int half = wg - 1, ct = threadIdx.x - 128 * wg;
   const int warp = ct / 32, lane = ct % 32, g = lane / 4, t = lane % 4;
   float d[128];
@@ -425,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bf16* b = sm.b[stage];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n256k16(d, sw128_desc(a + kk * 16, 0, 1024),
+        wgmma_ss_m64n256k16(d, sw128_desc(a + kk * 16, 0, 1024),
                          sw128_desc(b + kk * 16 * kBoxN, BK * kBoxN * 2, 1024),
                          ks > 0 || kk > 0);
       wgmma_commit();
@@ -457,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < BN / 64; ++c) {
       if (n0 + 64 * c >= N) break;
       unsigned char* buf = reinterpret_cast<unsigned char*>(sm.c[half][c & 1]);
-      if (ct == 0) tma_store_wait_read<1>();  // the store from buf two chunks ago has read it
+      if (ct == 0) bulk_wait_read<1>();  // the store from buf two chunks ago has read it
       named_bar_sync(1 + half, 128);
       float2 bc[8];
 #pragma unroll
@@ -492,57 +336,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (ct == 0) tma_store(&map_c, buf, n0 + 64 * c, m0 + half * 64);
     }
   }
-  if (ct == 0) tma_store_wait_all();
-}
-
-// cuTensorMapEncodeTiled, a driver-API symbol, reached through the runtime
-// (the library is not linked against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-// a row-major bf16 [rows, cols] matrix as a TMA map of [box_rows, 64] boxes
-// (128 bytes of the contiguous axis a box row, the 128-byte swizzle); boxes
-// past the matrix are zero-filled
-bool encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return count;
+  if (ct == 0) bulk_wait_all();
 }
 
 template <int EPI>

@@ -120,8 +120,10 @@ _SCRATCH_SIZES = {
     "mirror_conv1d_bwd_partial_elems": (_I, _I, _I),
     # b, n, d, heads, dh
     "mirror_ln_qkv_bwd_scratch_elems": (_I, _I, _I, _I, _I),
-    # n, dh: bytes of shared memory a CTA of the fused attention takes
-    "mirror_vit_fused_attn_smem": (_I, _I),
+    # n, dh, heads: bytes of shared memory a CTA of the fused attention takes
+    "mirror_vit_fused_attn_smem": (_I, _I, _I),
+    # n, dh, heads: the heads a CTA of that kernel takes
+    "mirror_vit_fused_attn_heads_per_cta": (_I, _I, _I),
     # n, dh, heads: clusters of that kernel the card holds at once
     "mirror_vit_fused_attn_clusters": (_I, _I, _I),
 }

@@ -13,10 +13,11 @@ blocks):
 
 On CUDA tensors each is one launch of ``csrc/vit_fused.cu`` that keeps
 q|k|v, the head outputs and the GELU hidden on chip: the wrapper allocates
-only the output. k5 and k8 run one thread-block cluster an image, one CTA a
-head (so at most 16 heads), k7 and k9 a block per G images of rows. On CPU
-tensors they run the plain versions ``*_ref``, which are ``vit_attn``'s
-plain half-blocks and round at the TPU kernels' points. ``group`` is the
+only the output. k5 and k8 run one thread-block cluster an image, a CTA
+for every head or every two (the kernel's choice by shape,
+:func:`heads_per_cta`; so at most 16 heads), k7 and k9 a block per G images
+of rows. On CPU tensors they run the plain versions ``*_ref``, which are
+``vit_attn``'s plain half-blocks and round at the TPU kernels' points. ``group`` is the
 probe's G: the images a cluster (k5, k8) or a block (k7, k9) walks in turn.
 
 Like the TPU kernels, which have no VJP, they are inference-only on every
@@ -46,7 +47,7 @@ KERNEL_ATTN = "vit_fused_attn"  # k5
 KERNEL_MLP = "vit_fused_mlp"  # k7
 KERNEL_ATTN_BLOCK = "vit_fused_attn_block"  # k8
 KERNEL_MLP_BLOCK = "vit_fused_mlp_block"  # k9
-MAX_HEADS = 16  # a cluster is one CTA a head, and 16 is the largest cluster
+MAX_HEADS = 16  # a cluster is one CTA a head or two, and 16 is the largest cluster
 MAX_MLP_WIDTH = 768  # k7/k9 keep a [32, d] fp32 accumulator in registers
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block can have
 
@@ -72,10 +73,16 @@ def fused_attn_block_ref(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int, eps: flo
 fused_mlp_block_ref = mlp_block_ref  # k9 is kernel 7's function
 
 
+def heads_per_cta(n: int, dh: int, heads: int) -> int:
+    """The heads a CTA of the attention kernel takes at this shape: two
+    where they pair up and fit, else one."""
+    return _common.scratch_elems("mirror_vit_fused_attn_heads_per_cta", n, dh, heads)
+
+
 @functools.lru_cache(maxsize=None)
 def max_clusters(n: int, dh: int, heads: int, device_index: int) -> int:
-    """How many clusters of the attention kernel the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+    """How many clusters of the attention kernel the card holds at once at
+    this shape (``cudaOccupancyMaxActiveClusters``)."""
     with torch.cuda.device(device_index):
         return _common.scratch_elems("mirror_vit_fused_attn_clusters", n, dh, heads)
 
@@ -96,7 +103,7 @@ def _attn(x, ln, wqkv, bqkv, wo, bo, heads, eps, group, kernel):
     _check_attention(n, dh)
     if heads > MAX_HEADS:
         raise ValueError(f"{heads} heads: the fused attention runs a cluster of one CTA a "
-                         f"head, and a cluster has at most {MAX_HEADS}")
+                         f"head or two, and a cluster has at most {MAX_HEADS} CTAs")
     if group < 1:
         raise ValueError(f"group {group}: a cluster walks at least one image")
     _common.check_kernel_input("x", x, (b, n, d))
@@ -104,14 +111,16 @@ def _attn(x, ln, wqkv, bqkv, wo, bo, heads, eps, group, kernel):
     _common.check_kernel_input("wo", wo, (d, d))
     ln_ptrs = _ln_pointers(ln, d)
     bqkv, bo = _vector("bqkv", bqkv, 3 * d), _vector("bo", bo, d)
-    smem = _common.scratch_elems("mirror_vit_fused_attn_smem", n, dh)
+    smem = _common.scratch_elems("mirror_vit_fused_attn_smem", n, dh, heads)
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{n} tokens, head dim {dh}: a CTA of the fused attention needs "
-                         f"{smem} bytes of shared memory, a block has at most {SMEM_PER_BLOCK}")
+        raise ValueError(f"{n} tokens, head dim {dh}: a CTA of the fused "
+                         f"attention needs {smem} bytes of shared memory, a block has at most "
+                         f"{SMEM_PER_BLOCK}")
     clusters = max_clusters(n, dh, heads, x.device.index or 0)
     if clusters <= 0:
-        raise RuntimeError(f"{kernel}: a cluster of {heads} CTAs with {smem} bytes of shared "
-                           f"memory each cannot be scheduled on this card "
+        cs = heads // heads_per_cta(n, dh, heads)
+        raise RuntimeError(f"{kernel}: a cluster of {cs} CTAs with {smem} bytes of "
+                           f"shared memory each cannot be scheduled on this card "
                            f"(cudaOccupancyMaxActiveClusters: {clusters})")
     out = torch.empty_like(x)
     _common.launch("mirror_vit_fused_attn", x.data_ptr(), *ln_ptrs, wqkv.data_ptr(),

@@ -7,8 +7,8 @@ keys and shapes from a seed), with its variant names:
 - ``xla_attn``: the script's baseline in plain torch: the q, k and v
   products, kernel 8 (``vit_attn.mha_natural``), the out product;
 - ``k5gG``: the q|k|v product, the attention and the out product in one
-  launch of ``csrc/vit_fused.cu`` (a cluster of 12 CTAs an image, G images
-  in turn);
+  launch of ``csrc/vit_fused.cu`` (a cluster an image, a CTA for every
+  head or every two, G images in turn);
 - ``xla_mlp``: fc1, ``F.gelu(approximate="none")`` in fp32, fc2;
 - ``k7gG``: fc1, GELU and fc2 in one launch (a block G images of rows);
 - ``xla_attn_blk`` / ``xla_mlp_blk``: the split path the model runs today,
@@ -264,6 +264,7 @@ def main(argv=None) -> int:
         if group.endswith("_blk"):
             row["err_added"] = T.rel_err(out.float() - y.float(), ref.float() - y.float())
         if name.startswith(("k5", "k8")) and device.type == "cuda":
+            row["heads_per_cta"] = vit_fused.heads_per_cta(N, DH, H)
             row["max_active_clusters"] = vit_fused.max_clusters(N, DH, H, device.index or 0)
         if name.startswith("k"):
             ok = ok and row["err"] <= T.BOUND_SINGLE_ROUNDING \

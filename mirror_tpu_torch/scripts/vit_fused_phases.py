@@ -5,10 +5,11 @@ A diagnostic beside the probe ``exp_vit_fused_sublayer`` for the redesign of
 library under ``build/kernels/phases/`` (the shipped library is untouched):
 
 - ``stamps``: ``clock64()`` stamps of thread 0 of every CTA around each
-  phase of k5 and k8 (LN statistics, phase 1, phase 2, the cluster barrier,
-  phase 3, the epilogue and the last barrier), and of every block of k7 and
-  k9 around the ring's wait and the W_1 and W_2 tiles' products, summed in
-  a device array;
+  phase of k5 and k8 (the LN statistics and their exchange, the q|k|v
+  products with their ring waits and epilogue, the attention, the o-ready
+  cluster barrier, the out product with its distributed loads, its
+  epilogue), and of every block of k7 and k9 around the ring's wait and the
+  W_1 and W_2 tiles' products, summed in a device array;
 - ``no_weight_loads`` (k7, k9: the ring never loads a weight tile) and
   ``no_products`` (k7, k9: no WMMA product), timed.
 
@@ -33,7 +34,8 @@ from . import exp_vit_fused_sublayer as P
 
 SOURCE = _common.CSRC_DIR / "vit_fused.cu"
 OUT_DIR = _common.BUILD_DIR / "phases"
-ATTN_PHASES = ("ln_stats", "phase1", "phase2", "cluster_sync", "phase3", "epilogue_sync")
+ATTN_PHASES = ("ln_stats", "qkv_products", "attention", "cluster_wait", "out_product",
+               "out_epilogue")
 
 # (text in vit_fused.cu, its replacement): each must match exactly once
 STAMPS = (
@@ -44,20 +46,47 @@ STAMPS = (
      "  unsigned long long zero[16] = {0};\n"
      "  return (int)cudaMemcpyToSymbol(g_clk, zero, sizeof(zero));\n"
      "}\nnamespace {\n\nnamespace cg"),
-    ("    const bf16* xi = x + (size_t)img * n * d;\n",
-     "    const bf16* xi = x + (size_t)img * n * d;\n    long long TS[8];\n"
-     "    TS[0] = clock64();\n"),
-    ("    // phase 1: q_h | k_h | v_h", "    TS[1] = clock64();\n    // phase 1: q_h | k_h | v_h"),
-    ("    // phase 2: o_h = attention", "    TS[2] = clock64();\n    // phase 2: o_h = attention"),
-    ("    cluster.sync();  // every head's o_h is in its CTA's shared memory\n",
-     "    TS[3] = clock64();\n    cluster.sync();\n    TS[4] = clock64();\n"),
-    ("      // epilogue: + b_o (+ the residual, k8)",
-     "      TS[5] = clock64();\n      // epilogue: + b_o (+ the residual, k8)"),
-    ("    cluster.sync();  // no CTA overwrites its o_h or exits while others read it\n",
-     "    cluster.sync();\n    TS[6] = clock64();\n    if (threadIdx.x == 0) {\n"
-     "      for (int i = 0; i < 6; ++i)\n"
-     "        atomicAdd(&g_clk[i], (unsigned long long)(TS[i + 1] - TS[i]));\n"
-     "      atomicAdd(&g_clk[15], 1ull);\n    }\n"),
+    # the attention kernels: per image, the LN statistics and their
+    # exchange, phase 1 (the ring's waits, the q|k|v products and their
+    # epilogue) and phase 2 summed over the CTA's heads, the o-ready cluster
+    # barrier, phase 3's products (with the W_o waits and the distributed
+    # loads) and its epilogue
+    ("  for (int img = first; img < last; ++img) {\n",
+     "  for (int img = first; img < last; ++img) {\n"
+     "    long long T0 = clock64(), T1 = T0, ph1 = 0, ph2 = 0, tq = 0;\n"),
+    ("    for (int j = 0; j < hpc; ++j) {\n      const int head = rank * hpc + j;\n",
+     "    T1 = clock64();\n    for (int j = 0; j < hpc; ++j) {\n"
+     "      const int head = rank * hpc + j;\n      tq = clock64();\n"),
+    ("      __syncthreads();  // head j's q, k and v are complete\n",
+     "      __syncthreads();  // head j's q, k and v are complete\n"
+     "      ph1 += clock64() - tq;\n      tq = clock64();\n"),
+    ("      __syncthreads();  // k and v are free for the next head\n",
+     "      __syncthreads();  // k and v are free for the next head\n"
+     "      ph2 += clock64() - tq;\n"),
+    ("    cluster_arrive();  // every head's o is in its CTA's shared memory\n"
+     "    cluster_wait();\n",
+     "    const long long T3 = clock64();\n    cluster_arrive();\n    cluster_wait();\n"
+     "    const long long T4 = clock64();\n"),
+    ("  const int rounds = (L.npad + kPassRows - 1) / kPassRows;\n",
+     "  const int rounds = (L.npad + kPassRows - 1) / kPassRows;\n"
+     "  const long long P0 = clock64();\n  long long EPI = 0;\n"),
+    ("    fence_regs(acc);\n    // + b_o",
+     "    fence_regs(acc);\n    const long long P1 = clock64();\n    // + b_o"),
+    ("        *reinterpret_cast<__nv_bfloat162*>(a.out + at) = __floats2bfloat162_rn(v0, v1);\n"
+     "      }\n    }\n  }\n}\n",
+     "        *reinterpret_cast<__nv_bfloat162*>(a.out + at) = __floats2bfloat162_rn(v0, v1);\n"
+     "      }\n    }\n    EPI += clock64() - P1;\n  }\n  if (threadIdx.x == 0) {\n"
+     "    atomicAdd(&g_clk[4], (unsigned long long)(clock64() - P0 - EPI));\n"
+     "    atomicAdd(&g_clk[5], (unsigned long long)EPI);\n  }\n}\n"),
+    ("    }\n  }\n  if (end_pending) cluster_wait();",
+     "    }\n    if (threadIdx.x == 0) {\n"
+     "      atomicAdd(&g_clk[0], (unsigned long long)(T1 - T0));\n"
+     "      atomicAdd(&g_clk[1], (unsigned long long)ph1);\n"
+     "      atomicAdd(&g_clk[2], (unsigned long long)ph2);\n"
+     "      atomicAdd(&g_clk[3], (unsigned long long)(T4 - T3));\n"
+     "      atomicAdd(&g_clk[15], 1ull);\n    }\n  }\n  if (end_pending) cluster_wait();"),
+    # the MLP kernels: per 32-row tile, the ring's waits and the W_1 and
+    # W_2 products
     ("    for (int s = 0; s < tiles; ++s) {",
      "    long long wait = 0, prod1 = 0, prod2 = 0, t_tile = clock64();\n"
      "    for (int s = 0; s < tiles; ++s) {\n      const long long ta = clock64();"),

@@ -939,10 +939,14 @@ def test_conv1d_and_ln_qkv_refuse_bad_inputs(dev):
 
 
 # (b, h, n, d, gb, tile): gb 8 / 4 / 1 / the whole batch, gb not dividing b,
-# n not a multiple of the 384-row tile, d 96 and 128
+# n not a multiple of the 384-row tile, d 96 and 128; runs shorter than one
+# 48 KB stage (80 bytes, one 16-byte row) and of several stages with a
+# ragged last piece
 @pytest.mark.parametrize("b,h,n,d,gb,tile", [(5, 3, 777, 96, 2, None), (3, 2, 100, 128, 8, None),
                                              (4, 8, 2304, 96, 4, None), (7, 2, 770, 96, 1, 384),
-                                             (9, 3, 1000, 128, 8, 384), (6, 2, 50, 96, 6, None)])
+                                             (9, 3, 1000, 128, 8, 384), (6, 2, 50, 96, 6, None),
+                                             (3, 2, 5, 8, 2, None), (2, 2, 1, 8, 1, None),
+                                             (2, 1, 3000, 96, 1, 1000)])
 def test_copy_floor_kernel_bit_exact(dev, b, h, n, d, gb, tile):
     from mirror_tpu_torch.ops.copy_floor import copy_floor
 
@@ -953,6 +957,20 @@ def test_copy_floor_kernel_bit_exact(dev, b, h, n, d, gb, tile):
     torch.cuda.synchronize()
     assert _common.launch_counts() == {"copy_floor": 1}
     assert torch.equal(out, x)
+
+
+def test_copy_floor_kernel_refuses_a_misaligned_view(dev):
+    """Bulk copies move 16-byte units from 16-byte addresses: a view 2
+    bytes into its storage is refused, not copied some other way."""
+    from mirror_tpu_torch.ops.copy_floor import copy_floor
+
+    base = torch.zeros(2 * 2 * 16 * 8 + 1, dtype=torch.bfloat16, device=dev)
+    x = base[1:].view(2, 2, 16, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _common.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        copy_floor(x, 1)
+    assert _common.launch_counts() == {}
 
 
 @pytest.mark.parametrize("b,h,n,d,ksize", [(2, 3, 140, 32, 33), (8, 8, 2304, 96, 33),
@@ -1081,6 +1099,60 @@ def test_vit_fused_sublayer_kernel(dev, kernel, n, group):
         _assert_rel(out.float() - x.float(), ref.float() - x.float(), BOUND_VIT, f"{name} out - x")
 
 
+# (heads, d, n, group, the heads a CTA the kernel takes at that shape): the
+# probe's 12 heads of 64 (two a CTA, 6-CTA clusters) at n 197, 50 and 1 and
+# G 1, 2 and 4; dh 128 (6 heads of d 768: one a CTA) at n 50, 1 and 176, the
+# most its shared memory takes; odd head counts (3 heads of 128, d 384; 9
+# heads of 64, d 576, a non-portable 9-CTA cluster: one a CTA); clusters of
+# one CTA (2 heads of 64, 1 head of 64)
+FUSED_ATTN_CASES = [(12, 768, 197, 1, 2), (12, 768, 197, 2, 2), (12, 768, 197, 4, 2),
+                    (12, 768, 50, 2, 2), (12, 768, 50, 1, 2), (12, 768, 1, 4, 2),
+                    (12, 768, 1, 1, 2), (6, 768, 50, 1, 1), (6, 768, 1, 2, 1),
+                    (6, 768, 176, 1, 1), (3, 384, 176, 1, 1), (3, 384, 50, 2, 1),
+                    (9, 576, 197, 1, 1), (9, 576, 50, 2, 1), (2, 128, 197, 1, 2),
+                    (1, 64, 50, 2, 1)]
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k8"])
+@pytest.mark.parametrize("heads,d,n,group,hpc", FUSED_ATTN_CASES)
+def test_vit_fused_attn_kernel_instances(dev, kernel, heads, d, n, group, hpc):
+    """Each CTA mapping of the fused attention, reached by shape, against
+    the plain version, one launch a call; k8 also on out - x."""
+    from mirror_tpu_torch.ops import vit_fused as vf
+
+    assert vf.heads_per_cta(n, d // heads, heads) == hpc
+    g = torch.Generator().manual_seed(42)
+    x, ln_s, ln_b, wqkv, bqkv, wo, bo = _fused_inputs(g, 5, n, d, 8, dev)[:7]
+    _common.reset_launch_counts()
+    if kernel == "k5":
+        out = vf.fused_attn(x, wqkv, bqkv, wo, bo, heads, group)
+        ref = vf.fused_attn_ref(x, wqkv, bqkv, wo, bo, heads)
+        name = vf.KERNEL_ATTN
+    else:
+        out = vf.fused_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, 1e-12, group)
+        ref = vf.fused_attn_block_ref(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, 1e-12)
+        name = vf.KERNEL_ATTN_BLOCK
+    assert _common.launch_counts() == {name: 1}
+    _assert_rel(out, ref, BOUND_VIT, f"{kernel} {heads}x{d // heads} n {n} G {group} hpc {hpc}")
+    if kernel == "k8":
+        _assert_rel(out.float() - x.float(), ref.float() - x.float(), BOUND_VIT, "k8 out - x")
+
+
+@pytest.mark.parametrize("heads,d", [(12, 768), (9, 576)])  # two heads a CTA; one
+def test_vit_fused_attn_same_bits_twice(dev, heads, d):
+    """The out product sums heads in a fixed order with no atomics: two
+    calls of k5 and of k8 give the same bits."""
+    from mirror_tpu_torch.ops import vit_fused as vf
+
+    g = torch.Generator().manual_seed(43)
+    x, ln_s, ln_b, wqkv, bqkv, wo, bo = _fused_inputs(g, 9, 197, d, 8, dev)[:7]
+    for call in (lambda: vf.fused_attn(x, wqkv, bqkv, wo, bo, heads, 1),
+                 lambda: vf.fused_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, 1e-12,
+                                             2)):
+        first = call()
+        assert torch.equal(call(), first)
+
+
 def test_vit_fused_sublayer_kernels_refuse_bad_inputs(dev):
     from mirror_tpu_torch.ops import vit_fused as vf
 
@@ -1099,6 +1171,8 @@ def test_vit_fused_sublayer_kernels_refuse_bad_inputs(dev):
         vf.fused_attn_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, 4)
     with pytest.raises(ValueError, match="at most 16"):  # 24 heads of 32: no such cluster
         vf.fused_attn(x, wqkv, bqkv, wo, bo, 24)
+    with pytest.raises(ValueError, match="shared memory"):  # dh 128 at n 197: 251 KB a CTA
+        vf.fused_attn(_randn(g, 1, 197, 768, dev=dev), wqkv, bqkv, wo, bo, 6)
     wide = _randn(g, 2, 20, 1024, dev=dev)
     with pytest.raises(ValueError, match="at most 768"):
         vf.fused_mlp(wide, _randn(g, 1024, 256, dev=dev), b1, _randn(g, 256, 1024, dev=dev),

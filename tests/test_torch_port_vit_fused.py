@@ -211,5 +211,5 @@ def test_phase_diagnostic_patches_still_apply(variant):
     out = vit_fused_phases.patched(text, vit_fused_phases.VARIANTS[variant])
     assert out != text
     with pytest.raises(ValueError, match="exactly one"):
-        vit_fused_phases.patched(text.replace("cluster.sync();  // every", "// every"),
+        vit_fused_phases.patched(text.replace("cluster_arrive();  // every", "// every"),
                                  vit_fused_phases.STAMPS)
