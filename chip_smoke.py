@@ -631,6 +631,24 @@ def vit_cases(torch, randn):
     softmax_fp32 = 5 * b * h * n * n  # scale, max, exp, sum, divide
     ln_fp32 = 10 * rows * d  # statistics and the affine, the residual add
     shape = f"b {b}, n {n}, d {d}, heads {h}"
+    # the PyTorch calls for the same two functions (bf16 LN scale, shift and
+    # biases: layer_norm and addmm take x's dtype), timed beside them only
+    s16, lb16 = ln_s.to(x.dtype), ln_b.to(x.dtype)
+    wqkv = torch.cat([wq, wk, wv], dim=1)
+    bqkv16, bo16 = attn_args[6].to(x.dtype), attn_args[8].to(x.dtype)
+    b1_16, b2_16 = mlp_args[4].to(x.dtype), mlp_args[6].to(x.dtype)
+
+    def attn_block_library():
+        y = F.layer_norm(x, (d,), s16, lb16, VIT_EPS).view(rows, d)
+        qkv = torch.addmm(bqkv16, y, wqkv).view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+        return x + torch.addmm(bo16, o.transpose(1, 2).reshape(rows, d), wo).view(b, n, d)
+
+    def mlp_block_library():
+        y = F.layer_norm(x, (d,), s16, lb16, VIT_EPS).view(rows, d)
+        hid = F.gelu(torch.addmm(b1_16, y, mlp_args[3]), approximate="none")
+        return x + torch.addmm(b2_16, hid, mlp_args[5]).view(b, n, d)
+
     return vit_gemm_cases(torch, randn, x, ln_s, ln_b) + [
         Case("vit_attn_block", ("vit_gemm.cu", "vit_attn.cu"),
              "mirror_tpu/ops/vit_attn_pallas.py:255", shape,
@@ -638,13 +656,14 @@ def vit_cases(torch, randn):
              lambda: vit_attn.attn_block_ref(*attn_args, h, VIT_EPS),
              BOUND_SINGLE_ROUNDING, ("out",),
              dict(bytes=nbytes(*attn_args, x), mma=2 * rows * d * 4 * d + attn_mma,
-                  fp32=softmax_fp32 + ln_fp32), check=added_term("vit_attn_block", x)),
+                  fp32=softmax_fp32 + ln_fp32), library=attn_block_library,
+             check=added_term("vit_attn_block", x)),
         Case("vit_mlp_block", "vit_gemm.cu", "mirror_tpu/ops/vit_attn_pallas.py:276",
              f"{shape}, mlp {m}", lambda: vit_attn.mlp_block(*mlp_args, VIT_EPS),
              lambda: vit_attn.mlp_block_ref(*mlp_args, VIT_EPS), BOUND_SINGLE_ROUNDING, ("out",),
              dict(bytes=nbytes(*mlp_args, x), mma=4 * rows * d * m,
                   fp32=10 * rows * m + ln_fp32),  # bias and the erf GELU
-             check=added_term("vit_mlp_block", x)),
+             library=mlp_block_library, check=added_term("vit_mlp_block", x)),
         Case("vit_mha_natural", "vit_attn.cu", "mirror_tpu/ops/vit_attn_pallas.py:242", shape,
              lambda: vit_attn.mha_natural(q, k, v, h),
              lambda: vit_attn.mha_natural_ref(q, k, v, h), BOUND_SINGLE_ROUNDING, ("out",),
@@ -912,6 +931,8 @@ def fused_cases(torch):
     hpc = vit_fused.heads_per_cta(probe.N, probe.DH, probe.H)
     say(f"[vit_fused] attention: {hpc} heads a CTA, clusters of {probe.H // hpc}, "
         f"{vit_fused.max_clusters(probe.N, probe.DH, probe.H, 0)} at once")
+    say(f"[vit_fused] MLP: clusters of two quads of CTAs (two fc1, two fc2), "
+        f"{vit_fused.mlp_clusters(0)} at once")
     cases = []
     for name, group, variant, line in (("vit_fused_attn", "attn", "k5g1", 111),
                                        ("vit_fused_mlp", "mlp", "k7g1", 167),

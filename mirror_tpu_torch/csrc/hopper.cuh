@@ -1,9 +1,12 @@
 // Hopper building blocks shared by the kernels that TMA and wgmma feed
 // (csrc/vit_gemm.cu, csrc/vit_fused.cu) and by the bulk-copy ring of
-// csrc/copy_floor.cu: mbarriers, TMA tensor and 1-D bulk copies, the
-// 128-byte-swizzle shared-memory descriptor of wgmma, wgmma's fence, commit
-// and wait and the instruction shapes the kernels issue, named barriers,
-// setmaxnreg, and the host side's tensor-map encoding. Everything here is
+// csrc/copy_floor.cu: mbarriers (also a peer CTA's, in a cluster), TMA
+// tensor loads (also multicast to a cluster), 1-D bulk copies (also into a
+// peer CTA's shared memory), stores into a peer CTA's shared memory, the
+// 128-byte-swizzle shared-memory
+// descriptor of wgmma, wgmma's fence, commit and wait and the instruction
+// shapes the kernels issue, named barriers, setmaxnreg, eight bf16 packed
+// in 16 bytes, and the host side's tensor-map encoding. Everything here is
 // sm_90a.
 #pragma once
 
@@ -53,6 +56,52 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
+// --- clusters -------------------------------------------------------------------
+
+// the address of this CTA's shared-memory address `addr` in CTA `rank` of
+// the cluster
+__device__ __forceinline__ unsigned map_to_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// one arrival on the barrier at `bar`'s offset in CTA `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_rank(uint64_t* bar, unsigned rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   map_to_rank(smem_u32(bar), rank))
+               : "memory");
+}
+
+// the same, releasing this thread's writes so far to the whole cluster
+__device__ __forceinline__ void mbar_arrive_rank_release(uint64_t* bar, unsigned rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   map_to_rank(smem_u32(bar), rank))
+               : "memory");
+}
+
+// mbar_wait, acquiring what the cluster's arrivals released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// 16 bytes into a peer CTA's shared memory at a mapped address (map_to_rank)
+__device__ __forceinline__ void st_cluster_v4(unsigned addr, const unsigned (&v)[4]) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v[0]),
+               "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
 // --- TMA: tensor boxes ----------------------------------------------------------
 
 // one TMA box of a 2-D map into shared memory, counted in on `bar`; c0
@@ -63,6 +112,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the same box into `dst`'s offset of every CTA of the cluster in `mask`,
+// counted in on each one's barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -99,6 +160,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// `bytes` of this CTA's shared memory into CTA `rank`'s, at `dst`'s offset
+// there, counted in on its barrier at `bar`'s offset
+__device__ __forceinline__ void bulk_copy_to_rank(void* dst, const void* src, unsigned bytes,
+                                                  uint64_t* bar, unsigned rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(map_to_rank(smem_u32(dst), rank)),
+      "r"(smem_u32(src)), "r"(bytes), "r"(map_to_rank(smem_u32(bar), rank))
+      : "memory");
+}
+
 // `bytes` from shared memory to global memory, in a bulk group of its own
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
@@ -122,6 +194,11 @@ __device__ __forceinline__ void bulk_wait_all() {
 // wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the same for its writes into the shared memory of the cluster's CTAs
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
 }
 
 // --- barriers and registers -----------------------------------------------------
@@ -149,6 +226,26 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// --- eight bf16 in 16 bytes ----------------------------------------------------
+
+__device__ __forceinline__ uint4 pack_bf16x8(const float* v) {
+  uint4 out;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(v[2 * t], v[2 * t + 1]);
+  return out;
+}
+
+__device__ __forceinline__ void unpack_bf16x8(uint4 in, float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&in);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float2 f = __bfloat1622float2(h[t]);
+    v[2 * t] = f.x;
+    v[2 * t + 1] = f.y;
+  }
 }
 
 // --- wgmma --------------------------------------------------------------------
@@ -265,6 +362,32 @@ __device__ __forceinline__ void wgmma_ss_m64n192k16(float (&d)[96], uint64_t da,
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
         "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory: A K-major,
+// B MN-major (trans-b 1); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

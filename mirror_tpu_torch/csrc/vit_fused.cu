@@ -10,8 +10,8 @@
 // at the TPU kernels' points: y = LN(x) once; q|k|v after the fp32 bias
 // add; the probabilities before P v; each head's output; the GELU hidden
 // (GELU in fp32) before fc2; the output once, the residual added in fp32.
-// The GELU uses erff where the TPU kernel has the A&S 7.1.26 polynomial
-// (|error| <= 1.5e-7, far below a bf16 ulp of the hidden, 2^-8 relative).
+// The GELU's erf is the TPU kernel's A&S 7.1.26 polynomial (|error| <=
+// 1.5e-7, far below a bf16 ulp of the hidden, 2^-8 relative).
 //
 // What bounds them on the H100: tensor-core operations. At the probe's
 // B 512 (n 197, d 768, 12 heads of 64, MLP 3072): k5 and k8 do 5.37e11 FLOP
@@ -24,23 +24,66 @@
 // and no intermediate (q|k|v, the head outputs, y, the GELU hidden) ever
 // reaches device memory: the wrappers allocate only the output.
 //
-// MLP (k7, k9): WMMA 16x16x16 bf16 with fp32 accumulators, 8 warps a block,
-// row-wise, so no cluster. A block owns G images (G n rows
-// of the flattened [b n, d] stream) and walks them in tiles of 32 rows:
-// the tile (LN'd once per tile for k9) sits in shared memory, and the
-// hidden dim goes by in chunks of 64: h_c = GELU(y W_1[:, c] + b_1[c]) into
-// shared memory as bf16, then acc[32, d] += h_c W_2[c, :], the accumulator
-// in registers (each warp 96 columns: 96 fp32 a thread, so d <= 768). Bias
-// and residual in the epilogue. The weights come as 27 KB tiles through a
-// 4-stage cp.async ring: four [192, 64] tiles of W_1 and four [16, d] tiles
-// of W_2 per chunk, 12 products a warp each. Cost of the design: every
-// 32-row tile reads all 9.4 MB of W_1 and W_2 from L2, so at B 512 L2
-// carries 100864 / 32 x 9.4 MB = 30 GB (about 5.5 ms at 5.5 TB/s): more
-// rows a tile would cut it, but their accumulator no longer fits in
-// registers. Measured (H100 SXM, B 512; scripts/vit_fused_phases.py of
-// PR 7): bound by its WMMA products at one block of 8 warps a SM (about 100
-// FMA a clock a SM, a tenth of the tensor cores' rate), not by L2 (k7
-// without its weight loads kept 58 % of its time).
+// MLP (k7, k9): wgmma fed by TMA, a quad of CTAs a 64-row tile of the
+// flattened [b n, d] rows (rows past the end zero-filled by the TMA map),
+// kQuads = 2 quads a cluster (8 CTAs). What holds such a kernel back: L2,
+// and the registers. Every weight byte (9.4 MB of W_1 and W_2) is read
+// once for each group of rows that shares it, 100864 / 64 x 9.4 MB = 14.9
+// GB at B 512 for 64 rows (about 2.7 ms at 5.5 TB/s, against 0.96 ms of
+// products); and a tile's fc2 accumulator, [64, 768] fp32, is 192 KB,
+// three quarters of an SM's registers, while ptxas compiles a wgmma
+// m64n256k16 only with 154 registers a thread or more (fewer than a block
+// of 512 threads gets). So a tile's work is split across four SMs, and the
+// quads of a cluster share each weight box by multicast (each CTA of a
+// role loads every kQuads-th box of a stage for the kQuads CTAs of that
+// role, and hands the stage back to all of them), which divides the L2
+// traffic by kQuads:
+// - two fc1 CTAs (f = 0, 1) keep the tile y resident (d / 64 boxes of [64,
+//   64], 128-byte swizzle) and take the quad's 128-column hidden chunks q =
+//   f, f + 2, ..., their three consumer warpgroups in turns (chunk q = 2 (3
+//   i + j) + f to warpgroup j), so that two can run their GELU while the
+//   third multiplies: acc[64, 128] = y W_1[:, chunk] by wgmma m64n128k16
+//   (y K-major, the W_1 stage [64, 128] MN-major from an 8-stage ring),
+//   then + b_1 and the erf GELU in fp32 in registers, one rounding, zeros
+//   past m, and the bf16 chunk stored straight into hidden buffer q % 6 of
+//   the first fc2 CTA (16 bytes a lane after a transpose across each quad,
+//   in the swizzled A layout), fenced for the async proxy and released to
+//   it by one arrival a thread. A warpgroup waits on its chunk's stages only
+//   in its turn (a barrier's parity tells apart only two phases). k9: the
+//   12 consumer warps apply the LN to each landed tile once, in place, a
+//   warp a row, then fence.proxy.async and a barrier;
+// - two fc2 CTAs (h = 0, 1) each sum the output columns [384 h, 384 h +
+//   384) over the chunks in order, three consumer warpgroups of 128
+//   columns: acc[64, 128] += h_q W_2[chunk rows, columns] by wgmma
+//   m64n128k16 (the hidden chunk K-major from its buffer, the W_2 stage
+//   [32, 384] MN-major from a 5-stage ring); then + b_2 (+ x, k9) in fp32,
+//   rounded once, stored from the registers. The first fc2 CTA copies each
+//   chunk on to the second by one bulk copy (a second round of stores from
+//   the fc1 warpgroup cost more). Columns past d are computed, not stored;
+//   so d <= 768.
+// - warpgroup 0 feeds: thread 0 the weight ring; warp 1 the y tiles (fc1)
+//   or the hand-back of each hidden buffer once the CTA's products have
+//   read it (fc2; the fc1 warpgroup that fills the buffer waits for both
+//   fc2 CTAs'); warp 2 of the first fc2 CTA the copy of each chunk on to
+//   the second.
+// The hidden chunks are summed in a fixed order with no atomics: two calls,
+// and every kQuads, give the same bits. The hidden layer never leaves shared
+// memory; the wrapper allocates only the output.
+// Measured (H100 80GB HBM3, 700 W; exp_vit_fused_sublayer at B 512 beside
+// the parent's WMMA kernel in one call, scripts/vit_fused_phases.py): k7
+// 2.61-2.66 ms at G 1 (17.93-18.02 before; matmul, gelu, matmul 2.68-2.71),
+// k9 3.25-3.28 (18.46-18.51; with layer_norm and add 3.07-3.09), kernel 7's
+// split 1.81-1.82. kQuads = 2 beat 1 and 4 in every call. Per 64-row tile and
+// consumer warpgroup, the fc1 CTA's GELU and stores took about three times
+// its products' clocks: the epilogue runs one warp a scheduler (no GELU:
+// k7 about 2.0 ms; no stores: about 2.0 ms). Tried and not kept: one CTA
+// pair a tile with the [64, 768] accumulator in 3 warpgroups (ptxas needs
+// 154 registers a thread for m64n256k16; 512 threads get 128); 256-column
+// chunks in two warpgroups (k7 3.25 ms with the chunk copied through a
+// staging chunk by bulk copies, its 4-stage W_1 ring starved; 4.37 with
+// 4-byte stores into both fc2 CTAs); erff (0.2 ms slower than the
+// polynomial); the LN by two warps of warpgroup 0, or by the two fc1
+// warpgroups not busy with a GELU (k9 3.80-4.02).
 //
 // Attention (k5, k8): a head needs all n rows of its image, and the out
 // product all heads, so one thread block cluster an image; CTA r of the
@@ -113,226 +156,570 @@
 
 #include "attn_mma.cuh"
 #include "hopper.cuh"
-#include "wmma_gemm.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 using namespace hopper;
-using namespace nvcuda;
-using wmma_gemm::pack_bf16x8;
-using wmma_gemm::unpack_bf16x8;
 
-constexpr int kWarps = 8, kThreads = 32 * kWarps;
-constexpr int LDE = 16 + 4;  // fp32 stride of a warp's epilogue staging tile
-constexpr size_t kStagingBytes = (size_t)kWarps * 16 * LDE * sizeof(float);
-
+// GELU(v) = v (1 + erf(v / sqrt 2)) / 2 with erf by Abramowitz & Stegun
+// 7.1.26, as the TPU kernel computes it (|error| <= 1.5e-7, far below a
+// bf16 ulp of the hidden): erfc(z) = t P(t) exp(-z^2), t = 1 / (1 + p z), z
+// = |v| / sqrt 2, so GELU(v) = v - w for v >= 0 and w below, w = v erfc(z)
+// / 2 (P's coefficients halved). A reciprocal, an exponential and a dozen
+// FP32 operations: the epilogue that runs it is one warp a scheduler.
 __device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+  const float t = __fdividef(1.0f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(v), 1.0f));
+  const float half_p =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 0.5f * 1.061405429f, 0.5f * -1.453152027f),
+                               0.5f * 1.421413741f),
+                       0.5f * -0.284496736f),
+               0.5f * 0.254829592f);
+  const float w = v * half_p * exp2f(v * v * (-0.5f * 1.4426950408889634f));
+  return v >= 0.f ? v - w : w;
 }
 
 // --------------------------------------------------------------------------
-// k7, k9: the MLP sub-layer
+// k7, k9: the MLP sub-layer, a quad of CTAs a 64-row tile (two fc1 CTAs,
+// two fc2 CTAs), kQuads quads a cluster
 // --------------------------------------------------------------------------
 
-constexpr int MR = 32;        // rows of a tile
-constexpr int MC = 64;        // hidden columns of a chunk
-constexpr int MK1 = 192;      // K rows of a W_1 tile
-constexpr int MK2 = 16;       // hidden rows of a W_2 tile
-constexpr int kMlpStages = 4;
-constexpr int kMaxD = 768;    // the [32, d] accumulator in registers
-constexpr int kMaxFn = kMaxD / 128;  // a warp's accumulator column tiles
-constexpr int LDH = MC + 8;
+// Quads of a cluster: they share each weight box by multicast. 2 beat 1
+// and 4 on the H100 (scripts/vit_fused_phases.py builds 1 and 4 beside it).
+constexpr int kQuads = 2;
 
-struct MlpLayout {
-  int dpad, ldy, ldw2, t1, stage;  // stage: bf16 elements of a ring stage
-  size_t y, h, ring, e, total;
+constexpr int kMlpThreads = 512;  // warpgroup 0 feeds, warpgroups 1-3 multiply
+constexpr int kMlpRows = 64;      // rows of a tile: one m64 wgmma tile
+constexpr int kChunk = 128;       // hidden columns of a chunk: one m64n128k16
+constexpr int kHalfD = 384;       // output columns of a fc2 CTA: three warpgroups of 128
+constexpr int kMaxD = 2 * kHalfD;
+constexpr int kK1 = 64;           // K rows (of d) a W_1 stage holds
+constexpr int kK2 = 32;           // K rows (of m) a W_2 stage holds
+constexpr int kStages1 = 8, kStages2 = 5;
+constexpr int kBufs = 6;          // hidden buffers of a fc2 CTA: chunk q lands in q % 6
+constexpr unsigned kBox = kMlpRows * 64 * 2;         // 8 KB: [64 rows, 64 columns] of y or h
+constexpr unsigned kW1Box = kK1 * 64 * 2;            // 8 KB: [64, 64] of W_1
+constexpr unsigned kW2Box = kK2 * 64 * 2;            // 4 KB: [32, 64] of W_2
+constexpr unsigned kW1Stage = kChunk / 64 * kW1Box;  // 16 KB
+constexpr unsigned kW2Stage = kHalfD / 64 * kW2Box;  // 24 KB
+constexpr unsigned kHBytes = kChunk / 64 * kBox;     // 16 KB: a hidden chunk [64, 128]
+// Shared memory, as offsets from a base aligned by hand to the 1024 bytes
+// the 128-byte swizzle repeats over. A fc1 CTA: the row tile y (d / 64
+// boxes), the W_1 ring. A fc2 CTA: kBufs hidden chunks (at offset 0), the
+// W_2 ring. Both: the barriers.
+constexpr size_t kOffRing1 = kMaxD / 64 * kBox;               // 96 KB
+constexpr size_t kOffRing2 = kBufs * kHBytes;                 // 96 KB
+constexpr size_t kOffBars = kOffRing1 + kStages1 * kW1Stage;  // 224 KB
+static_assert(kOffRing2 + kStages2 * kW2Stage <= kOffBars, "the W_2 ring outgrew its place");
+
+struct MlpBars {
+  uint64_t full[kStages1], empty[kStages1];  // the weight ring's stages (fc2: kStages2)
+  uint64_t y_full, y_empty;  // fc1 CTA: y landed / read by every product of the tile
+  uint64_t hfree[3];         // fc1 CTA: both fc2 CTAs took back warpgroup j's buffer
+  uint64_t turn[3];          // fc1 CTA: warpgroup j may wait on its next chunk's stages
+  uint64_t h_full[kBufs], h_empty[kBufs];  // fc2 CTA: hidden buffer q % 6 written / read
+};
+constexpr size_t kMlpSmem = kOffBars + sizeof(MlpBars) + 1024;  // + the alignment slack
+static_assert(kMlpSmem <= 232448, "the MLP kernel outgrew a block's shared memory");
+
+struct MlpArgs {
+  const bf16* x;  // [rows, d]: k9's residual is read here
+  const float *ln_s, *ln_b, *b1, *b2;
+  bf16* out;
+  int rows, d, m, tiles;  // tiles: the 64-row tiles a quad walks
+  float eps;
 };
 
-__host__ __device__ inline MlpLayout mlp_layout(int d) {
-  MlpLayout L;
-  L.dpad = (d + 127) / 128 * 128;
-  L.ldy = L.dpad + 8;
-  L.ldw2 = L.dpad + 8;
-  L.t1 = (d + MK1 - 1) / MK1;
-  L.stage = MK1 * LDH > MK2 * L.ldw2 ? MK1 * LDH : MK2 * L.ldw2;
-  size_t off = 0;
-  L.y = off; off += smem_align((size_t)MR * L.ldy * sizeof(bf16));
-  L.h = off; off += smem_align((size_t)MR * LDH * sizeof(bf16));
-  L.ring = off; off += smem_align((size_t)kMlpStages * L.stage * sizeof(bf16));
-  L.e = off; off += kStagingBytes;
-  L.total = off;
-  return L;
+__device__ __forceinline__ int mlp_chunks(int m) { return (m + kChunk - 1) / kChunk; }
+
+// Bias pairs of a warpgroup's accumulator columns, fetched once a warp
+// (global loads one at a time in the epilogue each stalled the warp):
+// lane l holds the pairs p = l + 32 k of the columns col0 + 2 p, zeros from
+// `end` on; the pair of 8-column group jj a lane (g, t4) adds, p = 4 jj +
+// t4, is held by lane 4 (jj % 8) + t4, slot jj / 8.
+template <int K>
+__device__ __forceinline__ void load_bias_pairs(float2 (&held)[K], const float* bias, int col0,
+                                                int end, int lane) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int col = col0 + 2 * (lane + 32 * k);  // end is a multiple of 8: col + 1 < end too
+    held[k] = col < end ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                        : make_float2(0.f, 0.f);
+  }
 }
 
-// kBlock: k9 (LN before, residual after); else k7.
-template <bool kBlock>
-__global__ void __launch_bounds__(kThreads, 1)
-    vit_fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                         const float* __restrict__ ln_b, const bf16* __restrict__ w1,
-                         const float* __restrict__ b1, const bf16* __restrict__ w2,
-                         const float* __restrict__ b2, bf16* __restrict__ out, int rows_total,
-                         int rows_per_block, int d, int m, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MlpLayout L = mlp_layout(d);
-  bf16* sY = reinterpret_cast<bf16*>(smem + L.y);
-  bf16* sH = reinterpret_cast<bf16*>(smem + L.h);
-  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* sE = reinterpret_cast<float*>(smem + L.e) + warp * 16 * LDE;
-  const int er = lane / 2, ec = (lane % 2) * 8;  // a lane's row and 8 columns of a fragment
-  const int ldy = L.ldy, ldw2 = L.ldw2, t1 = L.t1;
-  const int fn = L.dpad / 128;  // this warp: output columns [16 fn warp, 16 fn (warp + 1))
-  const int per_chunk = t1 + MC / MK2;
-  const int tiles = (m + MC - 1) / MC * per_chunk;
-  const int g0 = blockIdx.x * rows_per_block;
-  const int g1 = min(rows_total, g0 + rows_per_block);
+template <int K>
+__device__ __forceinline__ float2 bias_pair(const float2 (&held)[K], int jj, int t4) {
+  const int src = 4 * (jj % 8) + t4;
+  return make_float2(__shfl_sync(0xffffffffu, held[jj / 8].x, src),
+                     __shfl_sync(0xffffffffu, held[jj / 8].y, src));
+}
 
-  // start copying weight tile s (of the sequence t1 W_1 tiles, 4 W_2 tiles
-  // per hidden chunk) into ring stage st; zero-filled past d and m
-  auto load_tile = [&](int st, int s) {
-    bf16* dst = ring + (size_t)st * L.stage;
-    const int chunk = s / per_chunk, j = s % per_chunk, c0 = chunk * MC;
-    if (j < t1) {
-      const int k0 = j * MK1;
-      for (int idx = tid; idx < MK1 * (MC / 8); idx += kThreads) {
-        const int r = idx / (MC / 8), c = (idx % (MC / 8)) * 8;
-        const bool ok = k0 + r < d && c0 + c < m;
-        cp_async16(dst + r * LDH + c, ok ? w1 + (size_t)(k0 + r) * m + c0 + c : w1, ok);
-      }
-    } else {
-      const int k0 = c0 + (j - t1) * MK2, cols = L.dpad / 8;
-      for (int idx = tid; idx < MK2 * cols; idx += kThreads) {
-        const int r = idx / cols, c = (idx % cols) * 8;
-        const bool ok = k0 + r < m && c < d;
-        cp_async16(dst + r * ldw2 + c, ok ? w2 + (size_t)(k0 + r) * d + c : w2, ok);
-      }
-    }
-  };
-
-  for (int r0 = g0; r0 < g1; r0 += MR) {
-    const int valid = min(MR, g1 - r0);
-    for (int idx = tid; idx < MR * (L.dpad / 8); idx += kThreads) {
-      const int r = idx / (L.dpad / 8), c = (idx % (L.dpad / 8)) * 8;
-      const bool ok = r < valid && c < d;
-      cp_async16(sY + r * ldy + c, ok ? x + (size_t)(r0 + r) * d + c : x, ok);
-    }
-    cp_async_commit();
-    for (int st = 0; st < kMlpStages - 1; ++st) {
-      if (st < tiles) load_tile(st, st);
-      cp_async_commit();  // one group per stage, empty or not, so the count holds
-    }
-    cp_async_wait<kMlpStages - 1>();  // the row tile has landed
-    __syncthreads();
-    if (kBlock) {
-      // y = LN(x) in place, a warp a row: fp32 statistics, the mean first,
-      // then the mean of the squared deviations; rounded once
-      for (int r = warp; r < valid; r += kWarps) {
-        bf16* row = sY + r * ldy;
-        float v[8], sum = 0.f, sq = 0.f;
-        for (int c = lane * 8; c < d; c += 256) {
-          unpack_bf16x8(*reinterpret_cast<const uint4*>(row + c), v);
-          for (int t = 0; t < 8; ++t) sum += v[t];
-        }
-        const float mean = warp_sum(sum) / d;
-        for (int c = lane * 8; c < d; c += 256) {
-          unpack_bf16x8(*reinterpret_cast<const uint4*>(row + c), v);
-          for (int t = 0; t < 8; ++t) sq += (v[t] - mean) * (v[t] - mean);
-        }
-        const float rstd = rsqrtf(warp_sum(sq) / d + eps);
-        for (int c = lane * 8; c < d; c += 256) {
-          unpack_bf16x8(*reinterpret_cast<const uint4*>(row + c), v);
-          for (int t = 0; t < 8; ++t) v[t] = (v[t] - mean) * rstd * ln_s[c + t] + ln_b[c + t];
-          *reinterpret_cast<uint4*>(row + c) = pack_bf16x8(v);
-        }
-      }
-    }
-    // (the first ring iteration's barrier orders these writes before the reads)
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kMaxFn], hacc;
+// A 4 x 4 transpose of 32-bit values across the 4 lanes of each quad (t4 =
+// lane % 4): afterwards lane t4's v[x] is lane x's v[t4] before. Turns the
+// accumulator layout (a lane 2 columns of each 8-column group) into 16
+// bytes of one row a lane.
+__device__ __forceinline__ void transpose_quad(unsigned (&v)[4], int t4) {
+  unsigned r[4] = {v[0], v[1], v[2], v[3]};
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int m = 1; m < 4; ++m) {
+    const int x = t4 ^ m;  // the partner lane, which takes this lane's v[x] into its r[t4]
+    const unsigned send = x == 0 ? v[0] : x == 1 ? v[1] : x == 2 ? v[2] : v[3];
+    const unsigned got = __shfl_xor_sync(0xffffffffu, send, m);
 #pragma unroll
-      for (int f = 0; f < kMaxFn; ++f) wmma::fill_fragment(acc[i][f], 0.0f);
-    const int hrt = warp / 4, hct = warp % 4;  // this warp's fragment of h_c
-
-    for (int s = 0; s < tiles; ++s) {
-      const int st = s % kMlpStages;
-      cp_async_wait<kMlpStages - 2>();  // this thread's copies of tile s have landed
-      __syncthreads();  // everyone's have; the stage of tile s - 1 is free; sH is written
-      if (s + kMlpStages - 1 < tiles) load_tile((s + kMlpStages - 1) % kMlpStages,
-                                                s + kMlpStages - 1);
-      cp_async_commit();
-      const bf16* tile = ring + (size_t)st * L.stage;
-      const int chunk = s / per_chunk, j = s % per_chunk;
-      if (j < t1) {  // h_c += y[:, k0:k0+192] W_1 tile
-        const int k0 = j * MK1;
-        if (j == 0) wmma::fill_fragment(hacc, 0.0f);
-        const int ksub = (min(MK1, d - k0) + 15) / 16;
-#pragma unroll
-        for (int kk = 0; kk < MK1 / 16; ++kk) {
-          if (kk >= ksub) break;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, sY + 16 * hrt * ldy + k0 + 16 * kk, ldy);
-          wmma::load_matrix_sync(fb, tile + 16 * kk * LDH + 16 * hct, LDH);
-          wmma::mma_sync(hacc, fa, fb, hacc);
-        }
-        if (j == t1 - 1) {  // h_c = bf16(GELU(. + b_1)), zeros past m
-          wmma::store_matrix_sync(sE, hacc, LDE, wmma::mem_row_major);
-          __syncwarp();
-          const int col = chunk * MC + 16 * hct + ec;
-          float v[8];
-          for (int t = 0; t < 8; ++t)
-            v[t] = col < m ? gelu_erf(sE[er * LDE + ec + t] + b1[col + t]) : 0.f;
-          *reinterpret_cast<uint4*>(sH + (16 * hrt + er) * LDH + 16 * hct + ec) = pack_bf16x8(v);
-          __syncwarp();
-        }
-      } else {  // acc += h_c[:, 16 jj : 16 jj + 16] W_2 tile
-        const int jj = j - t1;
-        // every fragment first, then the 2 fn independent products
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[kMaxFn];
-#pragma unroll
-        for (int f = 0; f < kMaxFn; ++f)
-          if (f < fn) wmma::load_matrix_sync(fb[f], tile + 16 * (warp * fn + f), ldw2);
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], sH + 16 * i * LDH + 16 * jj, LDH);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int f = 0; f < kMaxFn; ++f)
-            if (f < fn) wmma::mma_sync(acc[i][f], fa[i], fb[f], acc[i][f]);
-      }
-    }
-    cp_async_wait<0>();
-
-    // epilogue: + b_2 (+ the residual row, k9), rounded once
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int f = 0; f < kMaxFn; ++f) {
-        if (f >= fn) break;
-        wmma::store_matrix_sync(sE, acc[i][f], LDE, wmma::mem_row_major);
-        __syncwarp();
-        const int r = 16 * i + er, col = 16 * (warp * fn + f) + ec;
-        if (r < valid && col < d) {
-          const size_t at = (size_t)(r0 + r) * d + col;
-          float v[8];
-          for (int t = 0; t < 8; ++t) v[t] = sE[er * LDE + ec + t] + b2[col + t];
-          if (kBlock) {
-            float res[8];
-            unpack_bf16x8(*reinterpret_cast<const uint4*>(x + at), res);
-            for (int t = 0; t < 8; ++t) v[t] = res[t] + v[t];
-          }
-          *reinterpret_cast<uint4*>(out + at) = pack_bf16x8(v);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();  // before the next row tile overwrites sY and the ring
+    for (int i = 0; i < 4; ++i) r[i] = i == x ? got : r[i];
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = r[i];
+}
+
+// the warpgroup of this thread, read from lane 0 so that the compiler sees
+// a warp-uniform value (wgmma in branches on it is not serialised)
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
+// one weight box into `dst` of this CTA, or of every CTA of its role in the
+// cluster (ranks first .. first + kQuads - 1) by multicast
+__device__ __forceinline__ void load_weight_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                int c0, int c1, int first) {
+  if constexpr (kQuads == 1)
+    tma_load(dst, map, bar, c0, c1);
+  else
+    tma_load_multicast(dst, map, bar, c0, c1, (uint16_t)(((1u << kQuads) - 1) << first));
+}
+
+// a weight stage read: one arrival a warp on the stage's "empty" barrier in
+// every CTA whose load wrote it (its role's kQuads CTAs, ranks first ..)
+__device__ __forceinline__ void release_stage(uint64_t* bar, int lane, int first) {
+  if constexpr (kQuads == 1) {
+    if (lane == 0) mbar_arrive(bar);
+  } else {
+    if (lane < kQuads) mbar_arrive_rank(bar, first + lane);
+  }
+}
+
+// fc1 CTA f, thread 0: W_1 through the ring for the chunks it takes (the
+// quad's chunk sequence q = tile nch + c, every second one from f), K step
+// by K step; a stage is [64 rows of d, 128 hidden columns] as 2 boxes
+// (fewer past m), each CTA of the role loading every kQuads-th box for all
+__device__ __forceinline__ void feed_w1(const CUtensorMap* map_w1, MlpBars& bars,
+                                        unsigned char* smem, const MlpArgs& a, int f, int quad) {
+  const int nch = mlp_chunks(a.m), ksteps = (a.d + kK1 - 1) / kK1;
+  int stage = 0;
+  unsigned phase = 0;
+  for (int q = f; q < a.tiles * nch; q += 2) {
+    const int c = q % nch, boxes = min(kChunk / 64, (a.m - c * kChunk + 63) / 64);
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbar_wait(&bars.empty[stage], phase ^ 1);  // passes at once on the first round
+      mbar_expect_tx(&bars.full[stage], boxes * kW1Box);
+      unsigned char* dst = smem + kOffRing1 + stage * kW1Stage;
+      for (int bx = quad; bx < boxes; bx += kQuads)
+        load_weight_box(dst + bx * kW1Box, map_w1, &bars.full[stage], c * kChunk + 64 * bx,
+                        ks * kK1, f * kQuads);
+      if (++stage == kStages1) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// fc1 CTA, warp 1: the row tile y = x[64 rows, d] as d / 64 boxes of [64,
+// 64] (rows past the end zero-filled) once every product has read the last
+__device__ __forceinline__ void feed_y(const CUtensorMap* map_x, MlpBars& bars,
+                                       unsigned char* smem, const MlpArgs& a, int tile0) {
+  const int boxes = (a.d + 63) / 64;
+  for (int t = 0; t < a.tiles; ++t) {
+    mbar_wait(&bars.y_empty, (t & 1) ^ 1);
+    const int row0 = (tile0 + t) * kMlpRows;
+    if (row0 >= a.rows) {  // wholly past the end: nothing of it is stored
+      mbar_arrive(&bars.y_full);
+      continue;
+    }
+    mbar_expect_tx(&bars.y_full, boxes * kBox);
+    for (int bx = 0; bx < boxes; ++bx)
+      tma_load(smem + bx * kBox, map_x, &bars.y_full, 64 * bx, row0);
+  }
+}
+
+// fc2 CTA h, thread 0: W_2 through the ring for every chunk in order, K step
+// by K step; a stage is [32 hidden rows, the CTA's 384 columns] as 6 boxes
+// (fewer past d)
+__device__ __forceinline__ void feed_w2(const CUtensorMap* map_w2, MlpBars& bars,
+                                        unsigned char* smem, const MlpArgs& a, int h, int quad) {
+  const int nch = mlp_chunks(a.m);
+  const int boxes = max(0, min(kHalfD / 64, (a.d - h * kHalfD + 63) / 64));
+  int stage = 0;
+  unsigned phase = 0;
+  for (int q = 0; q < a.tiles * nch; ++q) {
+    const int c = q % nch, ksteps = (min(kChunk, a.m - c * kChunk) + kK2 - 1) / kK2;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbar_wait(&bars.empty[stage], phase ^ 1);
+      mbar_expect_tx(&bars.full[stage], boxes * kW2Box);
+      unsigned char* dst = smem + kOffRing2 + stage * kW2Stage;
+      for (int bx = quad; bx < boxes; bx += kQuads)
+        load_weight_box(dst + bx * kW2Box, map_w2, &bars.full[stage], h * kHalfD + 64 * bx,
+                        c * kChunk + ks * kK2, (2 + h) * kQuads);
+      if (++stage == kStages2) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// fc2 CTA h, warp 1: hands hidden buffer q % 6 back to the fc1 warpgroup
+// that fills it (fc1 CTA q % 2, warpgroup q / 2 % 3) once this CTA's
+// products have read it; the second fc2 CTA first arms the buffer's "full"
+// barrier for the copy from the first
+__device__ __forceinline__ void hand_back_hidden(MlpBars& bars, const MlpArgs& a, int h,
+                                                 int quad) {
+  const int chunks = a.tiles * mlp_chunks(a.m);
+  for (int q = 0; q < chunks; ++q) {
+    const int hb = q % kBufs;
+    mbar_wait(&bars.h_empty[hb], ((q / kBufs) & 1) ^ 1);
+    if (h == 1) mbar_expect_tx(&bars.h_full[hb], kHBytes);
+    mbar_arrive_rank(&bars.hfree[hb / 2], (hb % 2) * kQuads + quad);
+  }
+}
+
+// the first fc2 CTA, warp 2: each hidden chunk, once its fc1 warpgroup has
+// released it here, copied on to the second fc2 CTA by one bulk copy
+// (cheaper than a second round of stores from the fc1 warpgroup)
+__device__ __forceinline__ void forward_hidden(MlpBars& bars, unsigned char* smem,
+                                               const MlpArgs& a, int quad) {
+  const int chunks = a.tiles * mlp_chunks(a.m);
+  for (int q = 0; q < chunks; ++q) {
+    const int hb = q % kBufs;
+    mbar_wait_cluster(&bars.h_full[hb], (q / kBufs) & 1);
+    bulk_copy_to_rank(smem + hb * kHBytes, smem + hb * kHBytes, kHBytes, &bars.h_full[hb],
+                      3 * kQuads + quad);
+  }
+}
+
+// k9: y = LN(x) on rows r0, r0 + stride, ... of the landed tile, in place, a
+// warp a row: fp32 statistics, the mean first, then the mean of the squared
+// deviations; rounded once. Chunk p of row r of a box holds its columns
+// 8 (p ^ r % 8) .. + 7 (the 128-byte swizzle); lane l takes chunks l, l +
+// 32, l + 64 of the row (box ci / 8, chunk ci % 8). The LN scale and shift
+// (6 KB, in L1 after the first row) are read again each row: held for the
+// tile they took 48 registers beside the accumulators.
+__device__ __forceinline__ void layer_norm_rows(unsigned char* y, const MlpArgs& a, int r0,
+                                                int stride, int lane) {
+  for (int r = r0; r < kMlpRows; r += stride) {
+    float v[3][8], sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int ci = lane + 32 * i;
+      if (8 * ci < a.d) {
+        unpack_bf16x8(*reinterpret_cast<const uint4*>(y + (ci / 8) * kBox + r * 128 +
+                                                      (((ci % 8) ^ (r % 8)) << 4)),
+                      v[i]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum += v[i][e];
+      }
+    }
+    const float mean = warp_sum(sum) / a.d;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (8 * (lane + 32 * i) < a.d)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sq += (v[i][e] - mean) * (v[i][e] - mean);
+    const float rstd = rsqrtf(warp_sum(sq) / a.d + a.eps);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int ci = lane + 32 * i, col = 8 * ci;
+      if (col < a.d) {
+        float sc[8], sh[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float4*>(sc + 4 * h) =
+              __ldg(reinterpret_cast<const float4*>(a.ln_s + col + 4 * h));
+          *reinterpret_cast<float4*>(sh + 4 * h) =
+              __ldg(reinterpret_cast<const float4*>(a.ln_b + col + 4 * h));
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[i][e] = (v[i][e] - mean) * rstd * sc[e] + sh[e];
+        *reinterpret_cast<uint4*>(y + (ci / 8) * kBox + r * 128 + (((ci % 8) ^ (r % 8)) << 4)) =
+            pack_bf16x8(v[i]);
+      }
+    }
+  }
+}
+
+// h = bf16(GELU(acc + b_1)) of a chunk from columns col0 on (zeros past m:
+// kEdge, the last chunk) into a fc2 CTA's hidden buffer (this thread's row
+// of it at dst). Lane (g, t4) holds rows 16 warp + g (+ 8), columns 8 jj +
+// 2 t4 (+ 1); four column groups at a time are transposed across the quad,
+// so that it stores the 16 bytes of group 4 k + t4 of its row: chunk (4 k +
+// t4) % 8 of the row of box k / 2, at position (4 k + t4) % 8 ^ g (the
+// row's 8).
+template <bool kEdge>
+__device__ __forceinline__ void store_hidden(const float (&acc)[64], const float2 (&bias)[2],
+                                             int col0, int m, unsigned dst, int g, int t4) {
+#pragma unroll
+  for (int k = 0; k < kChunk / 32; ++k) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      unsigned pk[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int jj = 4 * k + x;
+        const bool in = !kEdge || col0 + 8 * jj + 2 * t4 < m;  // m a multiple of 8
+        const float2 b = bias_pair(bias, jj, t4);
+        const float v0 = in ? gelu_erf(acc[4 * jj + 2 * h2] + b.x) : 0.f;
+        const float v1 = in ? gelu_erf(acc[4 * jj + 2 * h2 + 1] + b.y) : 0.f;
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+        pk[x] = *reinterpret_cast<const unsigned*>(&pair);
+      }
+      transpose_quad(pk, t4);
+      st_cluster_v4(dst + (k / 2) * kBox + 8 * h2 * 128 + (((4 * (k % 2) + t4) ^ g) << 4), pk);
+    }
+  }
+}
+
+// fc1 CTA f, consumer warpgroup j (0-2): the quad's chunks q = 2 (3 i + j)
+// + f, i = 0, 1, ... (a sixth of them; the three warpgroups take the CTA's
+// in turns, so that two can run their GELU under the third's products). A
+// chunk: acc[64, 128] = y W_1[:, chunk] by wgmma m64n128k16 (y K-major from
+// its resident boxes, the W_1 stage MN-major), K in steps of 64; then h =
+// bf16(GELU(acc + b_1)) (zeros past m) stored from the registers straight
+// into hidden buffer q % 6 of the first fc2 CTA, in the swizzled A layout,
+// and released to it (each thread's stores fenced for its wgmma and bulk
+// copy, then one arrival a thread on its barrier); it copies the chunk on
+// to the second.
+template <bool kBlock>
+__device__ __forceinline__ void fc1_consumer(MlpBars& bars, unsigned char* smem, const MlpArgs& a,
+                                             int f, int quad) {
+  const int j = warpgroup() - 1, ct = threadIdx.x % 128;
+  const int warp = ct / 32, lane = ct % 32, g = lane / 4, t4 = lane % 4;
+  const int nch = mlp_chunks(a.m), ksteps = (a.d + kK1 - 1) / kK1, hb = 2 * j + f;
+  // this thread's row of hidden buffer hb in the first fc2 CTA
+  const unsigned dst = map_to_rank(smem_u32(smem) + hb * kHBytes + (warp * 16 + g) * 128,
+                                   2 * kQuads + quad);
+  float acc[64];
+  for (int t = 0; t < a.tiles; ++t) {
+    mbar_wait(&bars.y_full, t & 1);
+    if (kBlock) {  // y = LN(x), a warp a row
+      layer_norm_rows(smem, a, threadIdx.x / 32 - 4, 12, lane);
+      fence_proxy_async();  // the generic writes, before wgmma reads them
+      named_bar_sync(4, 384);
+    }
+    // this warpgroup's chunks of the tile: q = t nch + c = hb (mod 6)
+    const int c0 = ((hb - t * nch) % kBufs + kBufs) % kBufs;
+    if (c0 >= nch && lane == 0) mbar_arrive(&bars.y_empty);  // none in this tile
+    for (int c = c0; c < nch; c += kBufs) {
+      const int q = t * nch + c, u = q >> 1;  // u: the chunk's place in this CTA's ring order
+      // A barrier's parity tells apart only its current phase and the one
+      // before, so a warpgroup waits on its chunk's stages only once the
+      // one before it has waited on all of the chunk before (u - 1): its
+      // turn (warpgroup j's i-th turn is phase i of turn[j], and the first
+      // of warpgroup 0 passes at once)
+      mbar_wait(&bars.turn[j], ((u / 3) & 1) ^ (j == 0));
+      int prev = 0;
+#pragma unroll 1
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const int pos = u * ksteps + ks, s = pos % kStages1;
+        mbar_wait(&bars.full[s], (pos / kStages1) & 1);
+        if (ks == ksteps - 1 && ct == 0) mbar_arrive(&bars.turn[(j + 1) % 3]);
+        wgmma_fence();
+        const unsigned char* w = smem + kOffRing1 + s * kW1Stage;
+#pragma unroll
+        for (int kk = 0; kk < kK1 / 16; ++kk) {
+          const int k = ks * kK1 + kk * 16;
+          wgmma_ss_m64n128k16(acc, sw128_desc(smem + (k / 64) * kBox + (k % 64) * 2, 0, 1024),
+                              sw128_desc(w + kk * 16 * 128, kW1Box, 1024), ks > 0 || kk > 0);
+        }
+        wgmma_commit();
+        if (ks > 0) {  // the previous stage's products have retired: free it
+          wgmma_wait<1>();
+          release_stage(&bars.empty[prev], lane, f * kQuads);
+        }
+        prev = s;
+      }
+      float2 bias[2];  // fetched while the last products run
+      load_bias_pairs(bias, a.b1, c * kChunk, a.m, lane);
+      wgmma_wait<0>();
+      release_stage(&bars.empty[prev], lane, f * kQuads);
+      if (c + kBufs >= nch && lane == 0) mbar_arrive(&bars.y_empty);  // its last read of y
+      fence_regs(acc);
+
+      // h = bf16(GELU(acc + b_1)), zeros past m, once both fc2 CTAs have
+      // read this warpgroup's last chunk
+      mbar_wait(&bars.hfree[j], (q / kBufs) & 1);
+      if (c * kChunk + kChunk <= a.m)
+        store_hidden<false>(acc, bias, c * kChunk, a.m, dst, g, t4);
+      else
+        store_hidden<true>(acc, bias, c * kChunk, a.m, dst, g, t4);
+      fence_proxy_async_cluster();  // the stores, before its wgmma and bulk copy read them
+      mbar_arrive_rank_release(&bars.h_full[hb], 2 * kQuads + quad);
+    }
+  }
+}
+
+// fc2 CTA h, consumer warpgroup i (0-2): output columns 384 h + 128 i ..
+// + 127 of the tile, acc[64, 128] += h_q W_2[chunk rows, its columns] over
+// the chunks in order (fixed: two calls and every cluster size give the
+// same bits), K in steps of 32, by wgmma m64n128k16 (the hidden chunk
+// K-major from its buffer, the W_2 stage MN-major); then + b_2 (+ x, k9)
+// in fp32, rounded once, stored from the registers. Columns past d (from
+// boxes never loaded) are computed and not stored.
+template <bool kBlock>
+__device__ __forceinline__ void fc2_consumer(MlpBars& bars, unsigned char* smem, const MlpArgs& a,
+                                             int h, int tile0) {
+  const int i = warpgroup() - 1, ct = threadIdx.x % 128;
+  const int warp = ct / 32, lane = ct % 32, g = lane / 4, t4 = lane % 4;
+  const int col0 = h * kHalfD + i * 128;
+  const int nch = mlp_chunks(a.m);
+  int stage = 0;
+  unsigned phase = 0;
+  float acc[64];
+  for (int t = 0; t < a.tiles; ++t) {
+    for (int c = 0; c < nch; ++c) {
+      const int q = t * nch + c, hb = q % kBufs;
+      const int ksteps = (min(kChunk, a.m - c * kChunk) + kK2 - 1) / kK2;
+      const unsigned char* hid = smem + hb * kHBytes;
+      mbar_wait_cluster(&bars.h_full[hb], (q / kBufs) & 1);
+      int prev = 0;
+#pragma unroll 1
+      for (int ks = 0; ks < ksteps; ++ks) {
+        mbar_wait(&bars.full[stage], phase);
+        wgmma_fence();
+        const unsigned char* w = smem + kOffRing2 + stage * kW2Stage + i * 2 * kW2Box;
+#pragma unroll
+        for (int kk = 0; kk < kK2 / 16; ++kk) {
+          const int k = ks * kK2 + kk * 16;
+          wgmma_ss_m64n128k16(acc, sw128_desc(hid + (k / 64) * kBox + (k % 64) * 2, 0, 1024),
+                              sw128_desc(w + kk * 16 * 128, kW2Box, 1024),
+                              c > 0 || ks > 0 || kk > 0);
+        }
+        wgmma_commit();
+        if (ks > 0) {
+          wgmma_wait<1>();
+          release_stage(&bars.empty[prev], lane, (2 + h) * kQuads);
+        }
+        prev = stage;
+        if (++stage == kStages2) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      release_stage(&bars.empty[prev], lane, (2 + h) * kQuads);
+      if (lane == 0) mbar_arrive(&bars.h_empty[hb]);
+    }
+    fence_regs(acc);
+
+    // + b_2 (+ the residual row, k9) in fp32, rounded once: lane (g, t4)
+    // holds rows r0 + g (+ 8), columns col0 + 8 jj + 2 t4 (+ 1); the
+    // residual pairs of 8 column groups loaded together before they are
+    // used
+    if (col0 >= a.d) continue;
+    const int r0 = (tile0 + t) * kMlpRows + warp * 16 + g;
+    float2 bias[2];
+    load_bias_pairs(bias, a.b2, col0, a.d, lane);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      unsigned res[8][2];
+      if (kBlock) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int col = col0 + 8 * (8 * half + jj) + 2 * t4, row = r0 + 8 * h2;
+            const bf16* xr = a.x + (size_t)row * a.d + col;
+            res[jj][h2] =
+                col < a.d && row < a.rows ? __ldg(reinterpret_cast<const unsigned*>(xr)) : 0u;
+          }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j8 = 8 * half + jj;
+        const int col = col0 + 8 * j8 + 2 * t4;  // d is a multiple of 8: col + 1 < d too
+        const float2 b = bias_pair(bias, j8, t4);
+        if (col >= a.d) continue;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int row = r0 + 8 * h2;
+          if (row >= a.rows) continue;
+          const size_t at = (size_t)row * a.d + col;
+          float o0 = acc[4 * j8 + 2 * h2] + b.x, o1 = acc[4 * j8 + 2 * h2 + 1] + b.y;
+          if (kBlock) {
+            const float2 r =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res[jj][h2]));
+            o0 = r.x + o0;
+            o1 = r.y + o1;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(a.out + at) = __floats2bfloat162_rn(o0, o1);
+        }
+      }
+    }
+  }
+}
+
+// kBlock: k9 (LN before, residual after); else k7. Clusters of 4 kQuads
+// CTAs: rank role kQuads + p is CTA `role` of quad p; roles 0 and 1 the fc1
+// CTAs (each every second hidden chunk), 2 and 3 the fc2 CTAs (each 384
+// output columns). Quad p walks a.tiles 64-row tiles from tile (cluster
+// kQuads + p) a.tiles. Warpgroup 0 feeds, 1-3 multiply.
+template <bool kBlock>
+__global__ void __launch_bounds__(kMlpThreads, 1)
+    vit_fused_mlp_kernel(__grid_constant__ const CUtensorMap map_x,
+                         __grid_constant__ const CUtensorMap map_w1,
+                         __grid_constant__ const CUtensorMap map_w2, const MlpArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  MlpBars& bars = *reinterpret_cast<MlpBars*>(smem + kOffBars);
+  const int rank = (int)blockIdx.x % (4 * kQuads), role = rank / kQuads, quad = rank % kQuads;
+  const bool fc1 = role < 2;
+  const int tile0 = ((int)blockIdx.x / (4 * kQuads) * kQuads + quad) * a.tiles;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages1; ++s) {
+      mbar_init(&bars.full[s], 1);  // the feeding thread's expect_tx
+      mbar_init(&bars.empty[s], (fc1 ? 4 : 12) * kQuads);  // a warp of each reader in each CTA
+    }
+    for (int hb = 0; hb < kBufs; ++hb) {
+      // each thread of the fc1 warpgroup that writes it (the first fc2
+      // CTA), or the expect_tx of the copy from there (the second)
+      mbar_init(&bars.h_full[hb], role == 2 ? 128 : 1);
+      mbar_init(&bars.h_empty[hb], 12);  // each consumer warp
+    }
+    mbar_init(&bars.y_full, 1);
+    mbar_init(&bars.y_empty, 12);  // each consumer warp
+    for (int j = 0; j < 3; ++j) {
+      mbar_init(&bars.hfree[j], 2);  // warp 1 of each fc2 CTA
+      mbar_init(&bars.turn[j], 1);   // thread 0 of the consumer warpgroup before
+    }
+    fence_mbar_init();
+  }
+  cluster_arrive();  // the barriers of all CTAs are set before any peer signals them
+  cluster_wait();
+
+  if (warpgroup() == 0) {
+    if (threadIdx.x == 0) {
+      if (fc1)
+        feed_w1(&map_w1, bars, smem, a, role, quad);
+      else
+        feed_w2(&map_w2, bars, smem, a, role - 2, quad);
+    } else if (threadIdx.x == 32) {
+      if (fc1)
+        feed_y(&map_x, bars, smem, a, tile0);
+      else
+        hand_back_hidden(bars, a, role - 2, quad);
+    } else if (threadIdx.x == 64 && role == 2) {
+      forward_hidden(bars, smem, a, quad);
+    }
+    __syncwarp();
+  } else if (fc1) {
+    fc1_consumer<kBlock>(bars, smem, a, role, quad);
+  } else {
+    fc2_consumer<kBlock>(bars, smem, a, role - 2, tile0);
+  }
+  __syncwarp();
+  cluster_arrive();  // no CTA leaves while a peer may still signal or write it
+  cluster_wait();
 }
 
 // --------------------------------------------------------------------------
@@ -918,16 +1305,48 @@ long long attn_clusters_dh(int n, int heads, int hpc) {
 
 #define MIRROR_FUSED_ATTN_DH(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
+// the launch of clusters of 4 kQuads CTAs (16: non-portable, allowed here)
 template <bool kBlock>
-cudaError_t launch_mlp(const bf16* x, const float* ln_s, const float* ln_b, const bf16* w1,
-                       const float* b1, const bf16* w2, const float* b2, bf16* out, int rows,
-                       int rows_per_block, int d, int m, float eps, cudaStream_t stream) {
-  const size_t smem = mlp_layout(d).total;
-  const cudaError_t err = allow_smem(vit_fused_mlp_kernel<kBlock>, smem);
+cudaError_t mlp_config(unsigned ctas, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                       cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(vit_fused_mlp_kernel<kBlock>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kMlpSmem);
+  if (err == cudaSuccess && 4 * kQuads > 8)
+    err = cudaFuncSetAttribute(vit_fused_mlp_kernel<kBlock>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  *cfg = {};
+  cfg->gridDim = dim3(ctas);
+  cfg->blockDim = dim3(kMlpThreads);
+  cfg->dynamicSmemBytes = kMlpSmem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 4 * kQuads;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+template <bool kBlock>
+cudaError_t launch_mlp(const void* w1, const void* w2, MlpArgs a, int rows_per_block,
+                       cudaStream_t stream) {
+  const int tiles = (a.rows + kMlpRows - 1) / kMlpRows;
+  a.tiles = (rows_per_block + kMlpRows - 1) / kMlpRows;  // rows_per_block > 0: at least 1
+  const int quads = (tiles + a.tiles - 1) / a.tiles;
+  const long long ctas = 4LL * kQuads * ((quads + kQuads - 1) / kQuads);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  CUtensorMap map_x, map_w1, map_w2;
+  if (!encode_map(&map_x, a.x, a.rows, a.d, kMlpRows) ||
+      !encode_map(&map_w1, w1, a.d, a.m, kK1) || !encode_map(&map_w2, w2, a.m, a.d, kK2))
+    return cudaErrorNotSupported;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = mlp_config<kBlock>((unsigned)ctas, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  vit_fused_mlp_kernel<kBlock><<<blocks, kThreads, smem, stream>>>(
-      x, ln_s, ln_b, w1, b1, w2, b2, out, rows, rows_per_block, d, m, eps);
+  err = cudaLaunchKernelEx(&cfg, vit_fused_mlp_kernel<kBlock>, map_x, map_w1, map_w2, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -997,26 +1416,38 @@ MIRROR_EXPORT long long mirror_vit_fused_attn_clusters(int n, int dh, int heads)
 }
 
 // k7 (ln_s null) or k9: x [rows, d] bf16; w1 [d, m], w2 [m, d] bf16; ln_s,
-// ln_b [d], b1 [m], b2 [d] fp32; out [rows, d]. A block takes
-// rows_per_block consecutive rows (G images of n). d and m multiples of 8,
-// d <= 768.
+// ln_b [d], b1 [m], b2 [d] fp32; out [rows, d]. A quad of CTAs walks
+// ceil(rows_per_block / 64) consecutive 64-row tiles (G images of n);
+// kQuads quads a cluster share each weight box by multicast. d and m
+// multiples of 8, d <= 768; x, w1 and w2 16-byte aligned (TMA).
 MIRROR_EXPORT int mirror_vit_fused_mlp(const void* x, const void* ln_s, const void* ln_b,
                                        const void* w1, const void* b1, const void* w2,
                                        const void* b2, void* out, int rows, int rows_per_block,
                                        int d, int m, float eps, cudaStream_t stream) {
-  if (rows <= 0 || rows_per_block <= 0 || d % 8 != 0 || d > kMaxD || m % 8 != 0 || m <= 0)
+  if (rows <= 0 || rows_per_block <= 0 || d <= 0 || d % 8 != 0 || d > kMaxD || m % 8 != 0 ||
+      m <= 0)
     return (int)cudaErrorInvalidValue;
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* sp = static_cast<const float*>(ln_s);
-  const auto* lbp = static_cast<const float*>(ln_b);
-  const auto* w1p = static_cast<const bf16*>(w1);
-  const auto* b1p = static_cast<const float*>(b1);
-  const auto* w2p = static_cast<const bf16*>(w2);
-  const auto* b2p = static_cast<const float*>(b2);
-  auto* ob = static_cast<bf16*>(out);
-  if (ln_s != nullptr)
-    return (int)launch_mlp<true>(xb, sp, lbp, w1p, b1p, w2p, b2p, ob, rows, rows_per_block, d,
-                                 m, eps, stream);
-  return (int)launch_mlp<false>(xb, sp, lbp, w1p, b1p, w2p, b2p, ob, rows, rows_per_block, d, m,
-                                eps, stream);
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w1) |
+       reinterpret_cast<uintptr_t>(w2)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const MlpArgs a{static_cast<const bf16*>(x),     static_cast<const float*>(ln_s),
+                  static_cast<const float*>(ln_b), static_cast<const float*>(b1),
+                  static_cast<const float*>(b2),   static_cast<bf16*>(out),
+                  rows, d, m, 0, eps};
+  return (int)(a.ln_s != nullptr ? launch_mlp<true>(w1, w2, a, rows_per_block, stream)
+                                  : launch_mlp<false>(w1, w2, a, rows_per_block, stream));
+}
+
+// How many clusters of the MLP kernel (4 kQuads CTAs each) the card holds
+// at once: 0 when one cannot be scheduled, minus a CUDA error code when
+// the query fails.
+MIRROR_EXPORT long long mirror_vit_fused_mlp_clusters() {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = mlp_config<true>(4 * kQuads, nullptr, &cfg, &attr);
+  if (err != cudaSuccess) return -(long long)err;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, vit_fused_mlp_kernel<true>, &cfg);
+  if (err != cudaSuccess) return -(long long)err;
+  return clusters;
 }

@@ -100,24 +100,6 @@ constexpr size_t kSmemBytes = sizeof(GemmSmem) + 1024;
 
 // --- the LN pass --------------------------------------------------------------
 
-__device__ __forceinline__ uint4 pack_bf16x8(const float* v) {
-  uint4 out;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) h[t] = __floats2bfloat162_rn(v[2 * t], v[2 * t + 1]);
-  return out;
-}
-
-__device__ __forceinline__ void unpack_bf16x8(uint4 in, float* v) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&in);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float2 f = __bfloat1622float2(h[t]);
-    v[2 * t] = f.x;
-    v[2 * t + 1] = f.y;
-  }
-}
-
 constexpr int kLnWarps = 8;
 constexpr int kLnMaxChunks = 16;  // 16-byte chunks a lane holds: d up to 4096
 

@@ -126,6 +126,8 @@ _SCRATCH_SIZES = {
     "mirror_vit_fused_attn_heads_per_cta": (_I, _I, _I),
     # n, dh, heads: clusters of that kernel the card holds at once
     "mirror_vit_fused_attn_clusters": (_I, _I, _I),
+    # clusters of the fused MLP the card holds at once
+    "mirror_vit_fused_mlp_clusters": (),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

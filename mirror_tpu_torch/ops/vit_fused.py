@@ -15,10 +15,16 @@ On CUDA tensors each is one launch of ``csrc/vit_fused.cu`` that keeps
 q|k|v, the head outputs and the GELU hidden on chip: the wrapper allocates
 only the output. k5 and k8 run one thread-block cluster an image, a CTA
 for every head or every two (the kernel's choice by shape,
-:func:`heads_per_cta`; so at most 16 heads), k7 and k9 a block per G images
-of rows. On CPU tensors they run the plain versions ``*_ref``, which are
-``vit_attn``'s plain half-blocks and round at the TPU kernels' points. ``group`` is the
-probe's G: the images a cluster (k5, k8) or a block (k7, k9) walks in turn.
+:func:`heads_per_cta`; so at most 16 heads). k7 and k9 run a quad of CTAs
+on each 64-row tile of the flattened [b n, d] rows: two fc1 CTAs keep the
+tile y resident and take every second 128-column hidden chunk, and store
+each GELU'd chunk into the shared memory of two fc2 CTAs, which sum fc2 in
+registers, 384 output columns each (so d is at most
+:data:`MAX_MLP_WIDTH`); the two quads of a cluster share each weight box by
+TMA multicast. On CPU tensors they run the plain versions ``*_ref``,
+which are ``vit_attn``'s plain half-blocks and round at the TPU kernels'
+points. ``group`` is the probe's G: the images a cluster (k5, k8) walks in
+turn, and for k7 and k9 the rows (G n, in tiles of 64) a quad walks.
 
 Like the TPU kernels, which have no VJP, they are inference-only on every
 device: a call that autograd would record (grad mode on and an input that
@@ -48,7 +54,7 @@ KERNEL_MLP = "vit_fused_mlp"  # k7
 KERNEL_ATTN_BLOCK = "vit_fused_attn_block"  # k8
 KERNEL_MLP_BLOCK = "vit_fused_mlp_block"  # k9
 MAX_HEADS = 16  # a cluster is one CTA a head or two, and 16 is the largest cluster
-MAX_MLP_WIDTH = 768  # k7/k9 keep a [32, d] fp32 accumulator in registers
+MAX_MLP_WIDTH = 768  # k7/k9's fc2 accumulator: two CTAs of three warpgroups of 128 columns
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block can have
 
 
@@ -85,6 +91,14 @@ def max_clusters(n: int, dh: int, heads: int, device_index: int) -> int:
     this shape (``cudaOccupancyMaxActiveClusters``)."""
     with torch.cuda.device(device_index):
         return _common.scratch_elems("mirror_vit_fused_attn_clusters", n, dh, heads)
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_clusters(device_index: int) -> int:
+    """How many clusters of the MLP kernel the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    with torch.cuda.device(device_index):
+        return _common.scratch_elems("mirror_vit_fused_mlp_clusters")
 
 
 def _ln_pointers(ln, d: int):
@@ -136,10 +150,11 @@ def _mlp(x, ln, w1, b1, w2, b2, eps, group, kernel):
     _check_width("feature dim", d)
     _check_width("MLP width", m)
     if d > MAX_MLP_WIDTH:
-        raise ValueError(f"feature dim {d}: the fused MLP keeps a row tile's accumulator in "
-                         f"registers, so it takes at most {MAX_MLP_WIDTH}")
+        raise ValueError(f"feature dim {d}: the fused MLP keeps a 64-row tile's fc2 "
+                         f"accumulator in the registers of two CTAs, 384 columns each, so it "
+                         f"takes at most {MAX_MLP_WIDTH}")
     if group < 1:
-        raise ValueError(f"group {group}: a block walks at least one image")
+        raise ValueError(f"group {group}: a quad of CTAs walks at least one image")
     _common.check_kernel_input("x", x, (b, n, d))
     _common.check_kernel_input("w1", w1, (d, m))
     _common.check_kernel_input("w2", w2, (m, d))

@@ -1153,6 +1153,57 @@ def test_vit_fused_attn_same_bits_twice(dev, heads, d):
         assert torch.equal(call(), first)
 
 
+# (b, n, d, m, group): the fused MLP (k7, k9) at row counts that are not a
+# multiple of its 64-row tiles nor of a cluster's (b 3 at n 197: 591 rows;
+# b 5 at n 50; b 7 at n 1), G 1 and 2, an MLP width that is not a multiple
+# of its 128-column hidden chunks (1000: a last chunk of 104 columns, the
+# second of its 2 boxes partial; 520: 8 columns, 1 box, and an odd number of
+# chunks for the two fc1 CTAs), and d 384 (the second fc2 CTA computes no
+# column)
+FUSED_MLP_CASES = [(3, 197, 768, 3072, 1), (3, 197, 768, 3072, 2), (5, 50, 768, 3072, 1),
+                   (5, 50, 768, 3072, 2), (7, 1, 768, 3072, 1), (7, 1, 768, 3072, 2),
+                   (3, 197, 768, 1000, 1), (3, 197, 768, 520, 2), (3, 197, 384, 1536, 1),
+                   (5, 50, 384, 1000, 2)]
+
+
+@pytest.mark.parametrize("kernel", ["k7", "k9"])
+@pytest.mark.parametrize("b,n,d,m,group", FUSED_MLP_CASES)
+def test_vit_fused_mlp_kernel_instances(dev, kernel, b, n, d, m, group):
+    """The fused MLP at ragged shapes against the plain version, one launch
+    a call; k9 also on out - x."""
+    from mirror_tpu_torch.ops import vit_fused as vf
+
+    g = torch.Generator().manual_seed(44)
+    x, ln_s, ln_b, _, _, _, _, w1, b1, w2, b2 = _fused_inputs(g, b, n, d, m, dev)
+    _common.reset_launch_counts()
+    if kernel == "k7":
+        out = vf.fused_mlp(x, w1, b1, w2, b2, group)
+        ref = vf.fused_mlp_ref(x, w1, b1, w2, b2)
+        name = vf.KERNEL_MLP
+    else:
+        out = vf.fused_mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12, group)
+        ref = vf.fused_mlp_block_ref(x, ln_s, ln_b, w1, b1, w2, b2, 1e-12)
+        name = vf.KERNEL_MLP_BLOCK
+    assert _common.launch_counts() == {name: 1}
+    _assert_rel(out, ref, BOUND_VIT, f"{kernel} b {b} n {n} d {d} m {m} G {group}")
+    if kernel == "k9":
+        _assert_rel(out.float() - x.float(), ref.float() - x.float(), BOUND_VIT, "k9 out - x")
+
+
+@pytest.mark.parametrize("n,d,m", [(197, 768, 3072), (50, 384, 1000)])
+def test_vit_fused_mlp_same_bits_twice(dev, n, d, m):
+    """The hidden chunks are summed in a fixed order with no atomics: two
+    calls of k7 and of k9 give the same bits, and so does G 2."""
+    from mirror_tpu_torch.ops import vit_fused as vf
+
+    g = torch.Generator().manual_seed(45)
+    x, ln_s, ln_b, _, _, _, _, w1, b1, w2, b2 = _fused_inputs(g, 9, n, d, m, dev)
+    for ln, kernel in ((None, vf.KERNEL_MLP), ((ln_s, ln_b), vf.KERNEL_MLP_BLOCK)):
+        first = vf._mlp(x, ln, w1, b1, w2, b2, 1e-12, 1, kernel)
+        assert torch.equal(vf._mlp(x, ln, w1, b1, w2, b2, 1e-12, 1, kernel), first)
+        assert torch.equal(vf._mlp(x, ln, w1, b1, w2, b2, 1e-12, 2, kernel), first)
+
+
 def test_vit_fused_sublayer_kernels_refuse_bad_inputs(dev):
     from mirror_tpu_torch.ops import vit_fused as vf
 

@@ -201,7 +201,8 @@ def test_kernel_wrappers_refuse_grad_recording(name):
         assert fn(x, wts, HEADS).shape == x.shape
 
 
-@pytest.mark.parametrize("variant", ["stamps", "no_weight_loads", "no_products"])
+@pytest.mark.parametrize("variant", ["stamps", "no_weight_loads", "no_products", "no_gelu",
+                                     "no_hidden_stores", "quads_1", "quads_4"])
 def test_phase_diagnostic_patches_still_apply(variant):
     """``vit_fused_phases`` builds patched copies of ``csrc/vit_fused.cu``:
     each of its texts still occurs exactly once in the source."""
