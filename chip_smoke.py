@@ -10,8 +10,9 @@ Phases, each printed as it finishes:
    checkout's sources, with its build time, and what ``-Xptxas -v`` says
    of the redesigned kernels (the landmark softmax, the Nystrom and ViT
    attention, PPEG, the pinv's GEMM, the ViT projection GEMM and its LN
-   pass, the copy floor, the fused ViT sub-layers: registers, shared
-   memory, spills, ptxas's performance warnings);
+   pass, the copy floor, the fused ViT sub-layers, the fused LN + q/k/v
+   projection: registers, shared memory, spills, ptxas's performance
+   warnings);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
@@ -47,8 +48,9 @@ Phases, each printed as it finishes:
    as in phase 3), error per output
    (the batch sums dkern, gw, gs and gb also against their largest
    magnitude), and the same times; the landmark softmax's backward (1b),
-   the attention backwards (3c, 4b), PPEG's (5b) and the exact pinv
-   backward (2b) run twice on the same inputs and must give the same bits;
+   the attention backwards (3c, 4b), PPEG's (5b), the exact pinv
+   backward (2b) and the LN + q/k/v projection's (10b) run twice on the
+   same inputs and must give the same bits;
    one launch of the pinv's GEMM at [128, 384, 384] in its four main forms
    (NN with 7I - xz, NN adding to ``prev``, TN adding to fp32 gx, NT
    scaled) against its plain version and one cuBLAS call, and kernels 2
@@ -269,7 +271,7 @@ def phase_build():
     # registers, shared memory and spills of the redesigned kernels (-Xptxas -v)
     for src in ("landmark.cu", "landmark_bwd.cu", "softmax_attn.cu", "softmax_attn_bwd.cu",
                 "vit_attn.cu", "ppeg.cu", "pinv.cu", "vit_gemm.cu", "copy_floor.cu",
-                "vit_fused.cu"):
+                "vit_fused.cu", "ln_qkv.cu"):
         info = _common.PTXAS_INFO[src]
         for line in info.splitlines():
             # (C75xx: ptxas's performance warnings, e.g. wgmma serialised or
@@ -579,14 +581,18 @@ def ln_qkv_case(torch, randn, backward: bool):
         gx, gw, gs, gb = ln_qkv.ln_qkv_bwd_ref(x, ln_s, ln_b, w, *g, HEADS)
         return gx, gs, gb, gw
 
+    kernel = autograd_kernel(torch, fused, (x, ln_s, ln_b, w), g)
+    # held by the batch sums, and a second run bit for bit (gw's row ranges
+    # and the gs / gb partials summed in a fixed order, no atomics)
+    sums = sum_check(torch, "ln_qkv_bwd", ("gx", "gs", "gb", "gw"), (1, 2, 3))
+    again = same_bits_check(torch, "ln_qkv_bwd", kernel)
     return Case(
         "ln_qkv_bwd", "ln_qkv.cu", "mirror_tpu/ops/ln_qkv_pallas.py:157", label,
-        autograd_kernel(torch, fused, (x, ln_s, ln_b, w), g), plain, BOUND_BWD,
-        ("gx", "gs", "gb", "gw"),
+        kernel, plain, BOUND_BWD, ("gx", "gs", "gb", "gw"),
         dict(bytes=2 * nbytes(x, ln_s, ln_b, w) + qkv_bytes, mma=4 * rows * EMBED * n3,
              fp32=16 * rows * EMBED),
         library=autograd_kernel(torch, two_calls, (x, s16, b16, w), g),
-        check=sum_check(torch, "ln_qkv_bwd", ("gx", "gs", "gb", "gw"), (1, 2, 3)))
+        check=lambda out, ref: sums(out, ref) and again(out, ref))
 
 
 def added_term(name, x):

@@ -27,7 +27,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Byte offsets of shared-memory sub-buffers, each aligned to 128 bytes
-// (wmma loads and stores need 32-byte aligned pointers).
+// (ldmatrix rows and 16-byte vector accesses need aligned pointers).
 __host__ __device__ constexpr size_t smem_align(size_t bytes) {
   return (bytes + 127) & ~size_t(127);
 }

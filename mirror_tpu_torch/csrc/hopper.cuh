@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the kernels that TMA and wgmma feed
-// (csrc/vit_gemm.cu, csrc/vit_fused.cu) and by the bulk-copy ring of
+// (csrc/vit_gemm.cu, csrc/vit_fused.cu, csrc/ln_qkv.cu) and by the bulk-copy ring of
 // csrc/copy_floor.cu: mbarriers (also a peer CTA's, in a cluster), TMA
-// tensor loads (also multicast to a cluster), 1-D bulk copies (also into a
+// tensor loads (also multicast to a cluster) and stores, 1-D bulk copies (also into a
 // peer CTA's shared memory), stores into a peer CTA's shared memory, the
 // 128-byte-swizzle shared-memory
 // descriptor of wgmma, wgmma's fence, commit and wait and the instruction
@@ -149,6 +149,17 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// the same from a 3-D map
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
 // --- TMA: 1-D bulk copies (sizes and addresses multiples of 16 bytes) -----------
 
 // `bytes` from global memory into shared memory, counted in on `bar`
@@ -291,8 +302,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // 2t + 1), a[1] (row g + 8), a[2] (row g, k 8 + 2t), a[3] (row g + 8, k 8 +
 // 2t).
 
-// d[64 x 256] (+)= A[64 x 16] B[16 x 256], both from shared memory: A K-major,
-// B MN-major (trans-b 1); scale_d 0 overwrites d.
+// d[64 x 256] (+)= A[64 x 16] B[16 x 256], both from shared memory; scale_d 0
+// overwrites d. TA and TB are the transpose immediates: 0 a K-major operand,
+// 1 an MN-major one (the default: A K-major, B MN-major).
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
                                                    int scale_d) {
   asm volatile(
@@ -307,7 +320,7 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t da
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
       "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
       "%124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -329,11 +342,12 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t da
         "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// d[64 x 192] (+)= A[64 x 16] B[16 x 192], both from shared memory: A K-major,
-// B MN-major (trans-b 1); scale_d 0 overwrites d.
+// d[64 x 192] (+)= A[64 x 16] B[16 x 192], both from shared memory; scale_d 0
+// overwrites d; TA, TB as for m64n256k16.
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_ss_m64n192k16(float (&d)[96], uint64_t da, uint64_t db,
                                                    int scale_d) {
   asm volatile(
@@ -345,7 +359,7 @@ __device__ __forceinline__ void wgmma_ss_m64n192k16(float (&d)[96], uint64_t da,
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
       "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
       "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -362,7 +376,7 @@ __device__ __forceinline__ void wgmma_ss_m64n192k16(float (&d)[96], uint64_t da,
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
         "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory: A K-major,

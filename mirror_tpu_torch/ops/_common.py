@@ -96,13 +96,18 @@ _SIGNATURES = {
     "mirror_column_sum": (_P, _I, _L, _P, _P),
     # src, dst, b, h, n, d, gb, tile, stream
     "mirror_copy_floor": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, ln_s, ln_b, w, q, k, v, stats (fp32 [2, b n]), b, n, d, heads, dh,
-    # eps, stream
-    "mirror_ln_qkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # x, ln_s, ln_b, w, gq, gk, gv, gx, gw, gsb (fp32 [2, d]), scratch, b, n,
-    # d, heads, dh, eps, stream
-    "mirror_ln_qkv_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _P),
+    # x, ln_s, ln_b (fp32), y, stats (fp32 [2, rows], or null), gq, gk, gv,
+    # G (or null), rows, d, n, heads, dh, eps, stream
+    "mirror_ln_qkv_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # y, w, q, k, v, b, n, d, heads, dh, stream
+    "mirror_ln_qkv_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # G, w, gy (fp32), rows, d, n3, stream
+    "mirror_ln_qkv_grad_y": (_P, _P, _P, _I, _I, _I, _P),
+    # y, G, gw, partial (fp32 [splits, d, n3]), rows, d, n3, splits, stream
+    "mirror_ln_qkv_grad_w": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # gy (fp32), x, stats (fp32), ln_s, gx, gsb (fp32 [2, d]), partial
+    # (scratch), rows, d, stream
+    "mirror_ln_qkv_ln_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # x, ln_s, ln_b (null: k5), wqkv, bqkv, wo, bo, out, b, n, heads, dh,
     # group, scale, eps, stream
     "mirror_vit_fused_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
@@ -118,8 +123,10 @@ _SCRATCH_SIZES = {
     "mirror_ppeg_bwd_partial_elems": (_I, _I, _I),
     # bh, n, ksize (the standalone conv's backward, and kernel 4b's conv)
     "mirror_conv1d_bwd_partial_elems": (_I, _I, _I),
-    # b, n, d, heads, dh
-    "mirror_ln_qkv_bwd_scratch_elems": (_I, _I, _I, _I, _I),
+    # rows, d, n3: the default number of gw's row ranges
+    "mirror_ln_qkv_gw_splits": (_I, _I, _I),
+    # rows, d
+    "mirror_ln_qkv_ln_bwd_partial_elems": (_I, _I),
     # n, dh, heads: bytes of shared memory a CTA of the fused attention takes
     "mirror_vit_fused_attn_smem": (_I, _I, _I),
     # n, dh, heads: the heads a CTA of that kernel takes

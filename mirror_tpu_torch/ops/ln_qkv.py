@@ -4,13 +4,21 @@ Counterpart of ``mirror_tpu/ops/ln_qkv_pallas.py::ln_qkv_fused`` and its
 custom VJP. As in the JAX package it is library-only: no model of the port
 calls it (the JAX package wires it to nothing, ``mirror_tpu/ops/__init__.py``).
 :class:`LnQkv` is the only caller of the kernels: on CUDA tensors its
-forward and backward run ``csrc/ln_qkv.cu``; on CPU tensors
+forward and backward run the launch sequences :func:`fwd_sequence` and
+:func:`bwd_sequence` on ``csrc/ln_qkv.cu``'s entries (a row pass, then
+``wgmma`` GEMMs fed by TMA, then the LN backward); on CPU tensors
 :func:`ln_qkv_ref` and :func:`ln_qkv_bwd_ref`, with the Pallas kernels'
 rounding points: the LN statistics in fp32 with flax's fast variance, y
 rounded to x's dtype before the product, each output rounded once; in the
 backward, the incoming gradients in x's dtype, gy in fp32 up to the LN
 backward, gw summed in fp32 over the whole batch and rounded once.
+
+The CPU tests run the same sequences through :data:`PLAIN_LAUNCHER`, the
+plain version of each C entry; :func:`store_plan` is the forward GEMM's
+epilogue and :func:`gw_row_ranges` the split of gw's rows, in Python.
 """
+
+from types import SimpleNamespace
 
 import torch
 
@@ -19,6 +27,9 @@ from . import _common
 KERNEL = "ln_qkv"
 KERNEL_BWD = "ln_qkv_bwd"
 MAX_DIM = 2048  # the LN backward keeps 16 fp32 partial rows of d in shared memory
+# csrc/ln_qkv.cu's tiling: the forward's 128 x 192 tiles, its store boxes of
+# 64 x 64, and gw's K step (a split of gw's rows is whole steps)
+TILE_M, TILE_N, BOX, ROW_STEP = 128, 192, 64, 64
 
 
 def _ln_f32(x, s, b, eps):
@@ -64,6 +75,225 @@ def ln_qkv_bwd_ref(x, ln_scale, ln_bias, w, gq, gk, gv, heads: int, eps: float =
     return rstd * (gxhat - m1 - xhat * m2), gw, gs, gb
 
 
+def head_major_index(b: int, n: int, heads: int, dh: int) -> torch.Tensor:
+    """[b n, 3 h dh] int64: where element (row, c) of the q|k|v product lies
+    in q, k and v flattened one after the other (each [b, h, n, dh]), as
+    ``csrc/ln_qkv.cu::head_major`` computes it: tensor c / (h dh), head
+    (c % (h dh)) / dh, feature c % dh, sequence row / n, position row % n."""
+    inner = heads * dh
+    row = torch.arange(b * n).view(-1, 1)
+    c = torch.arange(3 * inner).view(1, -1)
+    which, rem = c // inner, c % inner
+    bi, i = row // n, row % n
+    return which * (b * inner * n) + ((bi * heads + rem // dh) * n + i) * dh + rem % dh
+
+
+def store_plan(b: int, n: int, heads: int, dh: int):
+    """The stores of the forward GEMM's epilogue (``mirror_ln_qkv_gemm``),
+    in its order: (row0, rows, col0, cols, which, bh, i0, e0), the block
+    [row0:row0 + rows, col0:col0 + cols] of the [b n, 3 h dh] product going
+    to q, k or v (which) [bh, i0:i0 + rows, e0:e0 + cols].
+
+    With dh 64, 96 or 192 a 192-column tile holds whole heads: row tiles of
+    128 start at each sequence's first row, and each consumer warpgroup's 64
+    rows of a head go out as TMA boxes of 64 columns, clipped at n and dh
+    (a head of 96 is two boxes). Other dh take flat 128-row tiles and
+    16-byte stores, [1, 8] blocks, each within one head."""
+    M, N, inner = b * n, 3 * heads * dh, heads * dh
+    plan = []
+    if dh >= BOX and TILE_N % dh == 0:
+        for seq in range(b):
+            for i0 in range(0, n, TILE_M):
+                for n0 in range(0, N, TILE_N):
+                    for ih in (i0, i0 + 64):
+                        if ih >= n:
+                            continue
+                        boxes = []
+                        for col in range(n0, min(N, n0 + TILE_N), 8):
+                            which, rem = divmod(col, inner)
+                            hh, e = divmod(rem, dh)
+                            e0 = e - e % BOX
+                            box = (col - e + e0, which, seq * heads + hh, e0)
+                            if box not in boxes:
+                                boxes.append(box)
+                        plan += [(seq * n + ih, min(64, n - ih), c0, min(BOX, dh - e0), which,
+                                  bh, ih, e0) for c0, which, bh, e0 in boxes]
+        return plan
+    for m0 in range(0, M, TILE_M):
+        for n0 in range(0, N, TILE_N):
+            for row in range(m0, min(M, m0 + TILE_M)):
+                bi, i = divmod(row, n)
+                for col in range(n0, min(N, n0 + TILE_N), 8):
+                    which, rem = divmod(col, inner)
+                    hh, e = divmod(rem, dh)
+                    plan.append((row, 1, col, 8, which, bi * heads + hh, i, e))
+    return plan
+
+
+def gw_row_ranges(rows: int, splits: int):
+    """gw's row ranges for ``splits`` (``mirror_ln_qkv_grad_w``): whole K
+    steps of ``ROW_STEP`` rows, as equal as they come, none empty (so at
+    most ``splits`` of them)."""
+    steps = -(-rows // ROW_STEP)
+    per = -(-steps // max(1, min(splits, steps))) * ROW_STEP
+    return [(r, min(rows, r + per)) for r in range(0, rows, per)]
+
+
+# --- the C entries of csrc/ln_qkv.cu and their plain versions ------------------
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_rows(x, s, b, eps, y, stats=None, g=None, G=None) -> None:
+    """y = LN(x) [b n, d] (``mirror_ln_qkv_rows``); with ``stats`` [2, b n]
+    fp32 also each row's mean and rstd, with ``G`` [b n, 3 h dh] also the
+    gather of g = (gq, gk, gv)."""
+    bsz, n, d = x.shape
+    gq, gk, gv = g if g is not None else (None, None, None)
+    heads, dh = (gq.shape[1], gq.shape[3]) if g is not None else (0, 0)
+    _common.launch("mirror_ln_qkv_rows", x.data_ptr(), s.data_ptr(), b.data_ptr(), y.data_ptr(),
+                   _ptr(stats), _ptr(gq), _ptr(gk), _ptr(gv), _ptr(G), bsz * n, d, n, heads, dh,
+                   eps)
+
+
+def rows_ref(x, s, b, eps, y, stats=None, g=None, G=None) -> None:
+    """Plain ``mirror_ln_qkv_rows``, in place: y = :func:`_ln_f32`'s y in
+    y's dtype; stats the fp32 mean and rstd; G gathered through
+    :func:`head_major_index`."""
+    bsz, n, d = x.shape
+    yf, _, rstd = _ln_f32(x, s, b, eps)
+    y.copy_(yf.reshape(y.shape))
+    if stats is not None:
+        stats.copy_(torch.stack([x.float().mean(-1).reshape(-1), rstd.reshape(-1)]))
+    if G is not None:
+        idx = head_major_index(bsz, n, g[0].shape[1], g[0].shape[3])
+        G.copy_(torch.cat([t.reshape(-1) for t in g])[idx.to(G.device)])
+
+
+def _launch_qkv(y, w, q, k, v) -> None:
+    """q|k|v = y w head-major (``mirror_ln_qkv_gemm``)."""
+    bsz, heads, n, dh = q.shape
+    _common.launch("mirror_ln_qkv_gemm", y.data_ptr(), w.data_ptr(), q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), bsz, n, w.shape[0], heads, dh)
+
+
+def qkv_ref(y, w, q, k, v) -> None:
+    """Plain ``mirror_ln_qkv_gemm``, in place: y w in fp32, rounded once to
+    q's dtype, scattered through :func:`head_major_index`."""
+    bsz, heads, n, dh = q.shape
+    out = torch.empty(3 * q.numel(), dtype=q.dtype, device=q.device)
+    out[head_major_index(bsz, n, heads, dh).to(q.device)] = (y.float() @ w.float()).to(q.dtype)
+    for t, o in zip((q, k, v), out.view(3, *q.shape)):
+        t.copy_(o)
+
+
+def _launch_grad_y(G, w, gy) -> None:
+    """gy = G w^T in fp32 (``mirror_ln_qkv_grad_y``)."""
+    _common.launch("mirror_ln_qkv_grad_y", G.data_ptr(), w.data_ptr(), gy.data_ptr(),
+                   G.shape[0], w.shape[0], w.shape[1])
+
+
+def grad_y_ref(G, w, gy) -> None:
+    """Plain ``mirror_ln_qkv_grad_y``, in place."""
+    gy.copy_(G.float() @ w.float().t())
+
+
+def _gw_splits(rows: int, d: int, n3: int) -> int:
+    """The kernel's own number of gw's row ranges for the card's SMs."""
+    return _common.scratch_elems("mirror_ln_qkv_gw_splits", rows, d, n3)
+
+
+def _launch_grad_w(y, G, gw, splits: int) -> None:
+    """gw = y^T G summed in fp32 over :func:`gw_row_ranges`, the ranges'
+    partials added in order, rounded once (``mirror_ln_qkv_grad_w``)."""
+    rows, d = y.shape
+    n3 = G.shape[1]
+    part = torch.empty(len(gw_row_ranges(rows, splits)), d, n3, dtype=torch.float32,
+                       device=y.device)
+    _common.launch("mirror_ln_qkv_grad_w", y.data_ptr(), G.data_ptr(), gw.data_ptr(),
+                   part.data_ptr(), rows, d, n3, splits)
+
+
+def grad_w_ref(y, G, gw, splits: int) -> None:
+    """Plain ``mirror_ln_qkv_grad_w``, in place: one fp32 product a range of
+    :func:`gw_row_ranges`, added in order, then rounded to gw's dtype."""
+    total = None
+    for r0, r1 in gw_row_ranges(y.shape[0], splits):
+        part = y[r0:r1].float().t() @ G[r0:r1].float()
+        total = part if total is None else total + part
+    gw.copy_(total)
+
+
+def _launch_ln_bwd(gy, x, stats, s, gx, gsb) -> None:
+    """gx and gsb = (gs, gb) from gy and the row statistics
+    (``mirror_ln_qkv_ln_bwd``)."""
+    rows, d = gy.shape
+    part = torch.empty(_common.scratch_elems("mirror_ln_qkv_ln_bwd_partial_elems", rows, d),
+                       dtype=torch.float32, device=gy.device)
+    _common.launch("mirror_ln_qkv_ln_bwd", gy.data_ptr(), x.data_ptr(), stats.data_ptr(),
+                   s.data_ptr(), gx.data_ptr(), gsb.data_ptr(), part.data_ptr(), rows, d)
+
+
+def ln_bwd_ref(gy, x, stats, s, gx, gsb) -> None:
+    """Plain ``mirror_ln_qkv_ln_bwd``, in place: xhat from the kept mean and
+    rstd, gs = sum gy xhat, gb = sum gy over the rows, gx = rstd (gxhat -
+    mean(gxhat) - xhat mean(gxhat xhat)) with gxhat = gy s."""
+    rows, d = gy.shape
+    mu, rstd = stats[0].unsqueeze(1), stats[1].unsqueeze(1)
+    xhat = (x.float().reshape(rows, d) - mu) * rstd
+    gsb.copy_(torch.stack([(gy * xhat).sum(0), gy.sum(0)]))
+    gxhat = gy * s.float()
+    m1 = gxhat.mean(-1, keepdim=True)
+    m2 = (gxhat * xhat).mean(-1, keepdim=True)
+    gx.copy_((rstd * (gxhat - m1 - xhat * m2)).reshape(gx.shape))
+
+
+# The C entries the sequences below call, and their plain versions: the
+# Function passes CUDA_LAUNCHER; the CPU tests pass PLAIN_LAUNCHER to run the
+# same sequences through the plain versions.
+CUDA_LAUNCHER = SimpleNamespace(rows=_launch_rows, qkv=_launch_qkv, grad_y=_launch_grad_y,
+                                grad_w=_launch_grad_w, gw_splits=_gw_splits,
+                                ln_bwd=_launch_ln_bwd)
+PLAIN_LAUNCHER = SimpleNamespace(rows=rows_ref, qkv=qkv_ref, grad_y=grad_y_ref,
+                                 grad_w=grad_w_ref, gw_splits=lambda rows, d, n3: 1,
+                                 ln_bwd=ln_bwd_ref)
+
+
+def fwd_sequence(x, s, b, w, heads: int, eps: float, ops=CUDA_LAUNCHER):
+    """Kernel 10 as the card runs it: the row pass writes y = LN(x), then
+    one GEMM writes q, k, v head-major, through ``ops``."""
+    bsz, n, d = x.shape
+    y = x.new_empty(bsz * n, d)
+    ops.rows(x, s, b, eps, y)
+    q, k, v = (x.new_empty(bsz, heads, n, _head_dim(w, heads)) for _ in range(3))
+    ops.qkv(y, w, q, k, v)
+    return q, k, v
+
+
+def bwd_sequence(x, s, b, w, gq, gk, gv, heads: int, eps: float, splits=None,
+                 ops=CUDA_LAUNCHER):
+    """Kernel 10b as the card runs it, through ``ops``: the row pass writes y
+    again, the row statistics and G (the gather of gq, gk, gv); gy = G w^T
+    (fp32); gw = y^T G over ``splits`` row ranges (the kernel's own count
+    when None); the LN backward. Returns (gx, gw, gs, gb)."""
+    bsz, n, d = x.shape
+    rows, n3 = bsz * n, w.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y, G = x.new_empty(rows, d), x.new_empty(rows, n3)
+    stats = torch.empty(2, rows, **f32)
+    ops.rows(x, s, b, eps, y, stats=stats, g=(gq, gk, gv), G=G)
+    gy = torch.empty(rows, d, **f32)
+    ops.grad_y(G, w, gy)
+    gw = torch.empty_like(w)
+    ops.grad_w(y, G, gw, splits or ops.gw_splits(rows, d, n3))
+    del y, G
+    gx, gsb = torch.empty_like(x), torch.empty(2, d, **f32)
+    ops.ln_bwd(gy, x, stats, s, gx, gsb)
+    return gx, gw, gsb[0], gsb[1]
+
+
 def _check(x, ln_scale, ln_bias, w, heads):
     b, n, d = x.shape
     dh = _head_dim(w, heads)
@@ -87,14 +317,10 @@ class LnQkv(torch.autograd.Function):
         ctx.save_for_backward(x, ln_scale, ln_bias, w)
         if not _common.on_cuda(x, ln_scale, ln_bias, w):
             return ln_qkv_ref(x, ln_scale, ln_bias, w, heads, eps)
-        b, n, d, dh = _check(x, ln_scale, ln_bias, w, heads)
-        q, k, v = (x.new_empty(b, heads, n, dh) for _ in range(3))
-        stats = torch.empty(2, b * n, dtype=torch.float32, device=x.device)
-        _common.launch("mirror_ln_qkv", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-                       w.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       stats.data_ptr(), b, n, d, heads, dh, eps)
+        _check(x, ln_scale, ln_bias, w, heads)
+        out = fwd_sequence(x, ln_scale, ln_bias, w, heads, eps)
         _common.count_launch(KERNEL)
-        return q, k, v
+        return out
 
     @staticmethod
     def backward(ctx, gq, gk, gv):
@@ -107,19 +333,11 @@ class LnQkv(torch.autograd.Function):
             gx, gw, gs, gb = ln_qkv_bwd_ref(x, s, lb, w, gq, gk, gv, heads, eps)
             gx, gw = gx.to(x.dtype), gw.to(x.dtype)
         else:
-            _, _, _, dh = _check(x, s, lb, w, heads)
+            _check(x, s, lb, w, heads)
             for name, g in (("gq", gq), ("gk", gk), ("gv", gv)):
                 _common.check_kernel_input(name, g, like.shape)
-            gx, gw = torch.empty_like(x), torch.empty_like(w)
-            gsb = torch.empty(2, d, dtype=torch.float32, device=x.device)
-            elems = _common.scratch_elems("mirror_ln_qkv_bwd_scratch_elems", b, n, d, heads, dh)
-            scratch = torch.empty(elems, dtype=torch.float32, device=x.device)
-            _common.launch("mirror_ln_qkv_bwd", x.data_ptr(), s.data_ptr(), lb.data_ptr(),
-                           w.data_ptr(), gq.data_ptr(), gk.data_ptr(), gv.data_ptr(),
-                           gx.data_ptr(), gw.data_ptr(), gsb.data_ptr(), scratch.data_ptr(),
-                           b, n, d, heads, dh, eps)
+            gx, gw, gs, gb = bwd_sequence(x, s, lb, w, gq, gk, gv, heads, eps)
             _common.count_launch(KERNEL_BWD)
-            gs, gb = gsb
         return gx, gs.to(s.dtype), gb.to(lb.dtype), gw, None, None
 
 

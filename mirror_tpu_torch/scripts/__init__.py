@@ -23,6 +23,11 @@ the shape, and per variant its time, rate, bound, error and launches.
 | ``exp_vit_attn_kernel`` | ``exp_vit_attn_kernel.py`` (:101, :149) | ``csrc/vit_attn.cu`` (head-major, G pairs or N images a block) |
 | ``exp_vit_fused_sublayer`` | ``exp_vit_fused_sublayer.py`` (:111, :167, :256, :300) | ``csrc/vit_fused.cu`` (k5, k7, k8, k9: one launch a sub-layer; the split kernels 6 and 7 as the ``xla_*_blk`` baselines) |
 
+``exp_landmark_ab`` and ``exp_ln_qkv_ab`` ask no script's question either:
+they time kernels 1 / 1b and 10 / 10b of this tree against an earlier
+tree's (``--parent DIR``) in one process, with ``torch.profiler``'s split of
+each call by launch.
+
 ``vit_fused_phases`` asks no script's question: it splits the time of
 ``csrc/vit_fused.cu``'s four kernels by phase (``clock64`` stamps in a copy
 of the source built beside the library, and k7/k9 built without their

@@ -46,18 +46,18 @@ SHAPES = ((16, 2117, 187, 96, 384), (16, 2049, 255, 96, 384), (8, 2117, 187, 64,
 PARENT_NAME = "parent_mirror_tpu_torch"
 
 
-def load_parent(root: Path):
+def load_parent(root: Path, op: str = "landmark"):
     """``root/mirror_tpu_torch`` imported as ``parent_mirror_tpu_torch``;
-    returns its ``ops.landmark``."""
+    returns its ``ops.<op>`` (whose kernels are ``csrc/<op>.cu``)."""
     pkg = root / "mirror_tpu_torch"
-    if not (pkg / "csrc" / "landmark.cu").is_file():
-        raise FileNotFoundError(f"{pkg}: no mirror_tpu_torch/csrc/landmark.cu in --parent")
+    if not (pkg / "csrc" / f"{op}.cu").is_file():
+        raise FileNotFoundError(f"{pkg}: no mirror_tpu_torch/csrc/{op}.cu in --parent")
     spec = importlib.util.spec_from_file_location(PARENT_NAME, pkg / "__init__.py",
                                                   submodule_search_locations=[str(pkg)])
     module = importlib.util.module_from_spec(spec)
     sys.modules[PARENT_NAME] = module
     spec.loader.exec_module(module)
-    return importlib.import_module(f"{PARENT_NAME}.ops.landmark")
+    return importlib.import_module(f"{PARENT_NAME}.ops.{op}")
 
 
 def forward_call(mod, q, k, m, pad):

@@ -8,9 +8,10 @@ Counterpart of ``scripts/exp_ln_qkv.py``, at its shape (B 64, n 2117, d
   lowering);
 - ``fused|bigg``: kernel 10 (``csrc/ln_qkv.cu``; 10b for the backward).
   The script's ``big_core`` (one [d, 3d] GEMM, then the head-major slices)
-  is the design kernel 10 already has: one full-width GEMM on the shared
-  mainloop with a head-major scatter epilogue, where the TPU library
-  kernel ran per-head dots. So the two are one row here, not two copies;
+  is kernel 10's design: an LN pass, then one full-width ``wgmma`` GEMM fed
+  by TMA whose epilogue stores each head's box in place, where the TPU
+  library kernel ran per-head dots. So the two are one row here, not two
+  copies;
 - ``library``: ``layer_norm`` + a cuBLAS ``matmul`` with the head-major
   view, as ``chip_smoke.py`` row 10 times it.
 
@@ -19,7 +20,9 @@ Errors are against the plain versions ``ln_qkv_ref`` / ``ln_qkv_bwd_ref``
 within ``chip_smoke.py``'s bars for them (``_timing``): the relative
 Frobenius error of every output, and the batch sums gs, gb and gw also by
 their max abs error against their largest value. The probe exits 1 when one
-is out.
+is out. On the card each ``fused|bigg`` row also prints its share of the
+bound, its ratio to the ``library`` row, and the ``torch.profiler`` split
+of one call by kernel launch (``split`` in its JSON row).
 
     python -m mirror_tpu_torch.scripts.exp_ln_qkv [--device cuda]
 """
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from ..ops import ln_qkv
 from . import _timing as T
+from .exp_landmark_ab import launch_split
 
 EPS = 1e-5
 
@@ -103,7 +107,7 @@ def main(argv=None) -> int:
     fwd_bound = T.bound(T.nbytes(x, s, b, w) + qkv_bytes, mma, 8 * rows_n * d)
     both_bound = T.bound(2 * T.nbytes(x, s, b, w) + 2 * qkv_bytes, 3 * mma, 24 * rows_n * d)
     note = {"fused|bigg": "kernel 10 / 10b is big_core's design (one [d, 3d] GEMM, a "
-                          "head-major scatter epilogue): one instance for both rows"}
+                          "head-major epilogue): one instance for both rows"}
 
     # the kernels' bars (the fused|bigg rows); the other rows' errors are
     # reported, not held
@@ -125,6 +129,7 @@ def main(argv=None) -> int:
                                 sum_bar={g: T.sum_bound(o) for g, (o, _) in sums.items()})
                 ms = T.median_ms(fn, device, R, a.reps)
             if name == "fused|bigg":
+                fused_call = fn
                 held["bar"] = bars[mode]
                 ok = ok and err <= bars[mode] and all(
                     e <= held["sum_bar"][g] for g, e in held.get("sum_err", {}).items())
@@ -137,6 +142,15 @@ def main(argv=None) -> int:
                   f"{T.fmt(tflops, '6.1f')} TFLOP/s  bound {bound[0]:.4f} ms ({bound[1]})  "
                   f"err {err:.3g}" + (f" (bar {held['bar']:g})" if "bar" in held else ""),
                   flush=True)
+        fused_row, library_row = rows[-2], rows[-1]
+        if device.type == "cuda":
+            split = launch_split(fused_call)
+            fused_row["split"] = [dict(kernel=k, ms=kms, per_call=c) for k, kms, c in split]
+            print(f"{mode:8s} fused|bigg: {100 * fused_row['bound_ms'] / fused_row['ms']:.1f} % of "
+                  f"its bound, kernel / library {fused_row['ms'] / library_row['ms']:.2f}; one "
+                  f"call by launch (torch.profiler):", flush=True)
+            for kname, kms, cnt in split:
+                print(f"    {kms:9.4f} ms x{cnt:g} {kname[:100]}", flush=True)
     T.emit("exp_ln_qkv", device, dict(b=bsz, n=n, d=d, heads=heads, dh=dh), rows, ok=ok)
     return 0 if ok else 1
 

@@ -883,9 +883,14 @@ def test_conv1d_kernel(dev, b, h, n, d, ksize, taps_dtype):
 
 
 # (b, n, d, heads, dh): the slice's x [2, 2117, 768] with 8 heads of 96;
-# h dh != d (4 heads of 40 at d 64); ragged rows and columns; d 8
+# h dh != d (4 heads of 40 at d 64); ragged rows and columns; d 8; phase 3's
+# x [16, 2117, 768]; the TMA-box epilogue with a last column tile of one
+# head (3 h dh = 288) and n not a multiple of the 128-row tile; the general
+# instance with 3 h dh = 336, not a multiple of the 192-column tile
 @pytest.mark.parametrize("b,n,d,heads,dh", [(2, 2117, 768, 8, 96), (3, 37, 64, 4, 40),
-                                            (1, 5, 8, 1, 8), (2, 300, 256, 2, 24)])
+                                            (1, 5, 8, 1, 8), (2, 300, 256, 2, 24),
+                                            (16, 2117, 768, 8, 96), (3, 200, 128, 1, 96),
+                                            (2, 129, 128, 2, 56)])
 def test_ln_qkv_kernel(dev, b, n, d, heads, dh):
     g = torch.Generator().manual_seed(21)
     x = _randn(g, b, n, d, dev=dev)
@@ -903,6 +908,24 @@ def test_ln_qkv_kernel(dev, b, n, d, heads, dh):
     _assert_rel(gx, gx_ref, name="gx")
     for name, got, ref in (("gw", gw, gw_ref), ("gs", gs, gs_ref), ("gb", gb, gb_ref)):
         _assert_max_rel(got, ref, name=name)
+
+
+def test_ln_qkv_wgmma_transposed_operands(dev):
+    """One tile of each wgmma form that only kernel 10b issues, against
+    torch.matmul: gy = G w^T reads w's rows K-major (transpose-B 0), gw =
+    y^T G reads y MN-major (transpose-A 1); operands drawn without symmetry,
+    so an operand read the other way shows."""
+    from mirror_tpu_torch.ops import ln_qkv as lq
+
+    g = torch.Generator().manual_seed(23)
+    G, w = _randn(g, 128, 64, dev=dev), _randn(g, 256, 64, dev=dev)  # one 128 x 256 tile, K 64
+    gy = torch.empty(128, 256, dtype=torch.float32, device=dev)
+    lq._launch_grad_y(G, w, gy)
+    _assert_max_rel(gy, G.float() @ w.float().t(), name="gy")
+    y, G2 = _randn(g, 64, 128, dev=dev), _randn(g, 64, 256, dev=dev)  # d 128, 3 h dh 256
+    gw = torch.empty(128, 256, dtype=torch.bfloat16, device=dev)
+    lq._launch_grad_w(y, G2, gw, 1)
+    _assert_max_rel(gw, (y.float().t() @ G2.float()).to(torch.bfloat16), name="gw")
 
 
 def test_conv1d_and_ln_qkv_backward_repeat_bitwise(dev):
