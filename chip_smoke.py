@@ -11,8 +11,8 @@ Phases, each printed as it finishes:
    of the redesigned kernels (the landmark softmax, the Nystrom and ViT
    attention, PPEG, the pinv's GEMM, the ViT projection GEMM and its LN
    pass, the copy floor, the fused ViT sub-layers, the fused LN + q/k/v
-   projection: registers, shared memory, spills, ptxas's performance
-   warnings);
+   projection, the conv along the sequence and the column sum: registers,
+   shared memory, spills, ptxas's performance warnings);
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the shapes the slices give it (batch 16, 8 heads, dh 96, 384
    landmarks; the encoder's 2117 rows with front pad 187 and the retention
@@ -43,7 +43,8 @@ Phases, each printed as it finishes:
    rows with pad 187 and the retention decoder's 2049 rows with pad 255;
    PPEG on [16, 46, 46, 768]; the exact pinv backward, kernel 2b, at
    [16, 8, 384, 384] and 6 iterations on a softmax-like input; the conv
-   and the LN + q/k/v projection at phase 3's shapes; the Nystrom
+   (on its launch wrapper: through autograd a call is host-bound) and the
+   LN + q/k/v projection at phase 3's shapes; the Nystrom
    backwards, 2b ([8, 8, 256, 256]) and PPEG's at the self-test's shapes
    as in phase 3), error per output
    (the batch sums dkern, gw, gs and gb also against their largest
@@ -271,7 +272,7 @@ def phase_build():
     # registers, shared memory and spills of the redesigned kernels (-Xptxas -v)
     for src in ("landmark.cu", "landmark_bwd.cu", "softmax_attn.cu", "softmax_attn_bwd.cu",
                 "vit_attn.cu", "ppeg.cu", "pinv.cu", "vit_gemm.cu", "copy_floor.cu",
-                "vit_fused.cu", "ln_qkv.cu"):
+                "vit_fused.cu", "ln_qkv.cu", "conv1d.cu"):
         info = _common.PTXAS_INFO[src]
         for line in info.splitlines():
             # (C75xx: ptxas's performance warnings, e.g. wgmma serialised or
@@ -364,6 +365,12 @@ def run_case(torch, case: Case) -> dict:
         rate += f"; the design's bytes floor {design_ms:.4f} ms ({100 * design_ms / ms:.1f} %)"
     if alt is not None:
         rate += f"; with {alt[0]} the bound is {alt[1] / PEAK_BYTES * 1e3:.4f} ms by bytes"
+    # the bound with the conv's products counted as fp32 FMAs (the earlier
+    # CUDA-core slide's count), printed beside, kept out of the JSON
+    if "fma_alt" in case.work:
+        fma = case.work["fma_alt"]
+        rate += (f"; its conv's products as fp32 FMAs bound it at "
+                 f"{bound(case.work['bytes'], case.work['mma'] - fma, fma)[0]:.4f} ms")
     say(f"[kernel] {case.name} ({case.shape}): max abs / rel Frobenius err {per_output} "
         f"(bound {case.tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
         f"bound {bound_ms:.4f} ms by {bound_by}{rate} (medians of warm calls, runs of calls "
@@ -397,7 +404,7 @@ def forward_cases(torch, randn):
         w = randn(b, HEADS, m, dh)
         kern = randn(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
         attn_mma = 4 * bh * n * m * dh  # S = q k^T and P w
-        conv_fp32 = 2 * bh * n * dh * CONV_TAPS
+        conv_mma = 2 * bh * n * dh * CONV_TAPS  # the conv's products, on the tensor cores
         # kernel 3's function as one PyTorch call: its pad columns are
         # zero logits with zero w rows, so SDPA on explicitly zero-padded k
         # and w (built here, outside the timed call) computes it
@@ -434,8 +441,8 @@ def forward_cases(torch, randn):
                 (nystrom_attn.softmax_attn_ref(q, k_l, w)
                  + nystrom_attn.depthwise_conv_seq_ref(v, kern)).to(bf16),
             BOUND_SINGLE_ROUNDING, ("out",),
-            dict(bytes=nbytes(q, k_l, w, v, kern, q), mma=attn_mma, fp32=conv_fp32,
-                 products=(2, 2))))
+            dict(bytes=nbytes(q, k_l, w, v, kern, q), mma=attn_mma + conv_mma,
+                 products=(2, 2), fma_alt=conv_mma)))
         if n != N:
             continue
         s = pinv.global_scale(attn2)
@@ -525,17 +532,26 @@ def conv_cases(torch, randn, backward: bool):
                 lambda v=v, kern=kern: conv1d.depthwise_conv1d_seq(v, kern),
                 lambda v=v, kern16=kern16: conv1d.depthwise_conv_seq_ref(v, kern16).to(v.dtype),
                 BOUND_SINGLE_ROUNDING, ("out",),
-                dict(bytes=nbytes(v, kern, v), mma=0, fp32=fmas),
+                dict(bytes=nbytes(v, kern, v), mma=fmas, fma_alt=fmas),
                 library=lambda v=v, weight=weight, h=h: F.conv2d(
                     v, weight, padding=(CONV_TAPS // 2, 0), groups=h)))
             continue
         g = randn(*shape)
+        # 9b on its launch wrapper (dv, the partials and their column sum into
+        # buffers made here), as kernel 1 below: through the autograd
+        # Function a call is host-bound (0.276 ms a call against 0.07 of
+        # device time on an H100); the self-test's phase 8 runs that path
+        dv, dkern = torch.empty_like(v), torch.empty(h, ksize, device=v.device)
+        partial = conv1d.conv1d_bwd_scratch(v, ksize)
+
+        def bwd9(v=v, kern16=kern16, g=g, dv=dv, dkern=dkern, partial=partial):
+            conv1d.conv1d_bwd_into(v, kern16, g, dv, dkern, partial)
+            return dv, dkern
         cases.append(Case(
-            "conv1d_bwd", "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:224", label,
-            autograd_kernel(torch, conv1d.depthwise_conv1d_seq, (v, kern), (g,)),
+            "conv1d_bwd", "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:224", label, bwd9,
             lambda v=v, kern16=kern16, g=g: conv1d.depthwise_conv_seq_bwd_ref(v, kern16, g),
             BOUND_BWD, ("dv", "dkern"),
-            dict(bytes=nbytes(v, kern, g, v, kern), mma=0, fp32=2 * fmas),
+            dict(bytes=nbytes(v, kern, g, v, kern), mma=2 * fmas, fma_alt=2 * fmas),
             library=lambda v=v, weight=weight, g=g, h=h: torch.ops.aten.convolution_backward(
                 g, v, weight, None, [1, 1], [CONV_TAPS // 2, 0], [1, 1], False, [0, 0], h,
                 [True, True, False]),
@@ -901,14 +917,15 @@ def probe_cases(torch, randn, backward: bool):
     cases.append(Case(
         "conv1d_bwd_dv", "conv1d.cu", "scripts/exp_conv_parts.py:55", label,
         lambda: conv1d.conv1d_bwd_dv(g, taps), lambda: conv1d.conv1d_bwd_dv_ref(g, taps),
-        BOUND_BWD, ("dv",), dict(bytes=2 * nbytes(v), mma=0, fp32=2 * CONV_TAPS * v.numel()),
+        BOUND_BWD, ("dv",), dict(bytes=2 * nbytes(v), mma=2 * CONV_TAPS * v.numel(),
+                                 fma_alt=2 * CONV_TAPS * v.numel()),
         library=lambda: torch.ops.aten.convolution_backward(
             g, v, taps.view(h, 1, CONV_TAPS, 1), None, [1, 1], [CONV_TAPS // 2, 0], [1, 1],
             False, [0, 0], h, [True, False, False])[0],
         # bit for bit the fused kernel's dv
         check=lambda out, ref: bool(torch.equal(out, dv))))
     cases.append(Case(
-        "column_sum", "conv1d.cu", "scripts/exp_conv_parts.py:55",
+        "column_sum", ("common.cuh", "conv1d.cu"), "scripts/exp_conv_parts.py:55",
         f"{list(partial.shape)} fp32 partials of {label}", lambda: conv1d.column_sum(partial),
         lambda: conv1d.column_sum_ref(partial), BOUND_SINGLE_ROUNDING, ("dkern",),
         dict(bytes=nbytes(partial) + 4 * partial.shape[1], mma=0, fp32=partial.numel()),
@@ -1048,8 +1065,8 @@ def backward_cases(torch, randn):
                 *nystrom_attn.depthwise_conv_seq_bwd_ref(v, kern, g4)),
             BOUND_BWD, ("dq", "dk_l", "dw", "dv", "dkern"),
             dict(bytes=2 * nbytes(q, k_l, w, v, kern) + nbytes(g4),
-                 mma=5 * 2 * bh * n * m * dh, fp32=2 * 2 * bh * n * dh * CONV_TAPS,
-                 products=(7, 5)),
+                 mma=5 * 2 * bh * n * m * dh + 2 * 2 * bh * n * dh * CONV_TAPS,
+                 products=(7, 5), fma_alt=2 * 2 * bh * n * dh * CONV_TAPS),
             check=same_bits_check(torch, "softmax_attn_conv_bwd", bwd4)))
 
     # kernel 2b on a softmax-like x (softmax of unit-normal logits, the CUDA

@@ -59,33 +59,151 @@ __device__ __forceinline__ void cp_async_wait() {
 
 namespace {
 
-// out[j] = sum over p of parts[p * count + j] for j < count, in a fixed
-// order, so the result is the same from run to run: a block of 32 x 8
-// threads takes 32 columns, lane j a column, warp w the rows w, w + 8, ...
-// in order; then the 8 warp sums are added in order. Launch with
-// column_sum_blocks(count) blocks of dim3(32, 8).
-template <typename T>
-__global__ void __launch_bounds__(256)
-    column_sum_kernel(const float* __restrict__ parts, int nparts, long long count,
-                      T* __restrict__ out) {
-  __shared__ float sums[8][32];
-  const long long j = (long long)blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (j < count)
-    for (int p = threadIdx.y; p < nparts; p += 8) acc += parts[(size_t)p * count + j];
-  sums[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && j < count) {
-    float total = 0.f;
-    for (int w = 0; w < 8; ++w) total += sums[w][threadIdx.x];
-    if constexpr (sizeof(T) == sizeof(float))
-      out[j] = total;
-    else
-      out[j] = __float2bfloat16(total);
+// The fixed-order column sum, the second pass of every kernel that reduces
+// over blocks without float atomics: out[j] = sum over p < nparts of
+// parts[p * count + j] (fp32 parts, fp32 or bf16 out). Its callers: the
+// conv backward's dkern (conv1d.cu, also kernel 4b's conv), PPEG's dk / db
+// (ppeg.cu, 5b), and gw, gs / gb of the fused LN + q/k/v backward
+// (ln_qkv.cu, 10b); the probe exp_conv_parts times it alone.
+//
+// The order, the same from run to run (and emulated bit for bit in plain
+// torch by ops/conv1d.py::column_sum_in_order): the parts are cut into G
+// contiguous groups of per = ceil(nparts / G) parts (the last ones may be
+// short or empty); each group is summed in part order from 0; then the G
+// group sums are added as a pairwise tree, s[w] += s[w + 1], then s[w] +=
+// s[w + 2], ... (w a multiple of twice the stride), and s[0] is rounded
+// once to T. G is a power of two from column_sum_groups(nparts, count).
+//
+// What bounds it: the bytes of the parts (53 MB at 10b's gw, 7 parts of
+// [768, 2304], 16 us) or, for a few hundred columns over hundreds of parts
+// (the conv's dkern, gs / gb), the chain of dependent reads of one thread.
+// Two regimes from one rule:
+// - wide (gw, 5b): a thread owns 4 adjacent columns (a float4 when count %
+//   4 == 0 and the pointers are aligned, else 4 scalars that stop at
+//   count, never reading across rows) and walks its group's parts with
+//   eight loads in flight before it adds them in order; G grows from 1 only
+//   until the blocks fill 2 waves of the card's 132 SMs.
+// - tall (a few hundred columns): the 256 threads of a block split into G
+//   groups of 256 / G column quads; G grows to 64 (each group at least 4
+//   parts), so a thread's chain is nparts / G reads, and the tree takes
+//   log2 G shared-memory steps.
+// The design it replaced gave one fp32 column to a thread, 32 to a block
+// and 8 warps over the parts: 9 blocks at 264 columns, 144 dependent reads
+// a warp over 1152 parts (0.0321 ms against sum(0)'s 0.0092), and 4-byte
+// loads with one warp of 8 idle at gw (0.0557 ms).
+constexpr int kColumnSumThreads = 256;
+constexpr int kColumnSumMaxGroups = 64;
+constexpr int kColumnSumMinParts = 4;     // parts a group has at least, once split
+constexpr int kColumnSumTargetBlocks = 264;  // 2 waves of one block a SM on 132 SMs
+constexpr int kColumnSumAhead = 8;        // loads a thread has in flight
+
+// G, the number of part groups (a power of two): doubled from 1 while the
+// grid is under the target, each group would keep kColumnSumMinParts parts
+// and G is under kColumnSumMaxGroups.
+inline int column_sum_groups(int nparts, long long count) {
+  const long long quads = (count + 3) / 4;
+  int groups = 1;
+  while (groups < kColumnSumMaxGroups &&
+         2LL * groups * kColumnSumMinParts <= nparts &&
+         (quads + kColumnSumThreads / groups - 1) / (kColumnSumThreads / groups) <
+             kColumnSumTargetBlocks)
+    groups *= 2;
+  return groups;
+}
+
+template <bool kVec>
+__device__ __forceinline__ float4 load_quad(const float* p, long long left) {
+  if constexpr (kVec) return __ldg(reinterpret_cast<const float4*>(p));
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  x.x = __ldg(p);
+  if (left > 1) x.y = __ldg(p + 1);
+  if (left > 2) x.z = __ldg(p + 2);
+  if (left > 3) x.w = __ldg(p + 3);
+  return x;
+}
+
+__device__ __forceinline__ void add_quad(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+template <typename T, bool kVec>
+__device__ __forceinline__ void store_quad(T* p, const float4& x, long long left) {
+  if constexpr (kVec && sizeof(T) == sizeof(float)) {
+    *reinterpret_cast<float4*>(p) = x;
+  } else if constexpr (kVec) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+    uint2 u;
+    u.x = *reinterpret_cast<unsigned*>(&lo);
+    u.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else {
+    const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < left) {
+        if constexpr (sizeof(T) == sizeof(float))
+          p[e] = v[e];
+        else
+          p[e] = __float2bfloat16(v[e]);
+      }
+    }
   }
 }
 
-inline unsigned column_sum_blocks(long long count) { return (unsigned)((count + 31) / 32); }
+// One block: 256 / groups column quads x groups part groups (see above).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kColumnSumThreads)
+    column_sum_kernel(const float* __restrict__ parts, int nparts, long long count, int groups,
+                      T* __restrict__ out) {
+  __shared__ float4 sums[kColumnSumThreads];
+  const int quads = kColumnSumThreads / groups;
+  const int q = threadIdx.x % quads, w = threadIdx.x / quads;
+  const long long j = ((long long)blockIdx.x * quads + q) * 4;
+  const int per = (nparts + groups - 1) / groups;
+  const int p0 = min(nparts, w * per), p1 = min(nparts, p0 + per);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (j < count) {
+    const float* src = parts + j;
+    for (int p = p0; p < p1; p += kColumnSumAhead) {
+      float4 x[kColumnSumAhead];
+#pragma unroll
+      for (int u = 0; u < kColumnSumAhead; ++u)
+        if (p + u < p1) x[u] = load_quad<kVec>(src + (size_t)(p + u) * count, count - j);
+#pragma unroll
+      for (int u = 0; u < kColumnSumAhead; ++u)
+        if (p + u < p1) add_quad(acc, x[u]);
+    }
+  }
+  sums[threadIdx.x] = acc;
+  __syncthreads();
+  for (int step = 1; step < groups; step *= 2) {
+    if (w % (2 * step) == 0) add_quad(sums[threadIdx.x], sums[threadIdx.x + step * quads]);
+    __syncthreads();
+  }
+  if (w == 0 && j < count) store_quad<T, kVec>(out + j, sums[q], count - j);
+}
+
+// Launch the column sum of `parts` [nparts, count] into `out` [count] on
+// `stream`: the one launcher every caller goes through.
+template <typename T>
+cudaError_t launch_column_sum(const float* parts, int nparts, long long count, T* out,
+                              cudaStream_t stream) {
+  if (nparts <= 0 || count <= 0) return cudaErrorInvalidValue;
+  const int groups = column_sum_groups(nparts, count);
+  const long long quads = kColumnSumThreads / groups;
+  const unsigned blocks = (unsigned)(((count + 3) / 4 + quads - 1) / quads);
+  const bool vec = count % 4 == 0 && reinterpret_cast<uintptr_t>(parts) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0;
+  if (vec)
+    column_sum_kernel<T, true><<<blocks, kColumnSumThreads, 0, stream>>>(parts, nparts, count,
+                                                                       groups, out);
+  else
+    column_sum_kernel<T, false><<<blocks, kColumnSumThreads, 0, stream>>>(parts, nparts, count,
+                                                                        groups, out);
+  return cudaGetLastError();
+}
 
 }  // namespace
-

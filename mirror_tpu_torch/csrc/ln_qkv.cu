@@ -56,9 +56,10 @@
 // - gy and gw write fp32 from the registers (a quad of threads one 32-byte
 //   sector); gw's long reduction over the M rows is split into a fixed
 //   number of row ranges of whole K steps (mirror_ln_qkv_gw_splits), each a
-//   partial that column_sum_kernel adds in order, so gw, like gs and gb
-//   (per-block column partials of the LN backward, summed in order), is the
-//   same from run to run;
+//   partial that launch_column_sum (common.cuh) adds in its fixed order
+//   (plain part order where d n3 columns fill the card), so gw, like gs and
+//   gb (per-block column partials of the LN backward, summed the same way),
+//   is the same from run to run;
 // - the LN backward (ln_bwd_rows_kernel) holds a row of gy and xhat and
 //   its lane's gs / gb column sums in registers, bytes-bound.
 // vit_gemm.cu's LN pass takes the two-pass variance; this file's is
@@ -724,10 +725,7 @@ MIRROR_EXPORT int mirror_ln_qkv_grad_w(const void* y, const void* G, void* gw, v
   cudaError_t err =
       launch_gemm<kGradW>(map_a, map_b, maps, nullptr, nullptr, nullptr, part, s, stream);
   if (err != cudaSuccess) return (int)err;
-  const long long count = (long long)d * n3;
-  column_sum_kernel<bf16><<<column_sum_blocks(count), dim3(32, 8), 0, stream>>>(
-      part, used, count, static_cast<bf16*>(gw));
-  return (int)cudaGetLastError();
+  return (int)launch_column_sum(part, used, (long long)d * n3, static_cast<bf16*>(gw), stream);
 }
 
 // Elements of the fp32 scratch that mirror_ln_qkv_ln_bwd needs: the blocks'
@@ -762,7 +760,5 @@ MIRROR_EXPORT int mirror_ln_qkv_ln_bwd(const void* gy, const void* x, const void
   else
     err = launch_ln_bwd<8>(gp, xp, st, sp, gxp, part, rows, d, blocks, stream);
   if (err != cudaSuccess) return (int)err;
-  column_sum_kernel<float><<<column_sum_blocks(2LL * d), dim3(32, 8), 0, stream>>>(
-      part, blocks, 2LL * d, static_cast<float*>(gsb));
-  return (int)cudaGetLastError();
+  return (int)launch_column_sum(part, blocks, 2LL * d, static_cast<float*>(gsb), stream);
 }

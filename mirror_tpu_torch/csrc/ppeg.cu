@@ -60,10 +60,11 @@ constexpr int kFwdThreads = 32 * BH;
 //   7-wide window of the img row slides along x in registers, so one load
 //   feeds the 7 dx taps; the 7 x 2 sums (and, in warp 8, db's 2) stay in
 //   registers across the band's chunks and rows.
-// The block writes its [50, 64] partial once; column_sum_kernel sums the
-// partials over images and bands in a fixed order (deterministic, no
-// atomics). One block an SM (83 KB of shared memory; ptxas: 118 registers,
-// no spills): held to 64 registers for two blocks an SM, it spilled.
+// The block writes its [50, 64] partial once; launch_column_sum
+// (common.cuh) sums the partials over images and bands in its fixed order
+// (deterministic, no atomics). One block an SM (83 KB of shared memory;
+// ptxas: 118 registers, no spills): held to 64 registers for two blocks an
+// SM, it spilled.
 constexpr int kDimgWarps = BH, kDkWarps = KS;
 constexpr int kBwdThreads = 32 * (kDimgWarps + kDkWarps);
 
@@ -289,10 +290,8 @@ MIRROR_EXPORT int mirror_ppeg_bwd(const void* img, const void* kern, const void*
       W, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long count = (long long)NT * C;
-  column_sum_kernel<float><<<column_sum_blocks(count), dim3(32, 8), 0, stream>>>(
-      static_cast<const float*>(partial), b * bands, count, static_cast<float*>(dkb));
-  return (int)cudaGetLastError();
+  return (int)launch_column_sum(static_cast<const float*>(partial), b * bands,
+                                (long long)NT * C, static_cast<float*>(dkb), stream);
 }
 
 MIRROR_EXPORT int mirror_ppeg(const void* img, const void* kern, const void* bias, void* out,

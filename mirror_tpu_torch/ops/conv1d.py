@@ -26,6 +26,30 @@ KERNEL_BWD_DV = "conv1d_bwd_dv"
 KERNEL_COLUMN_SUM = "column_sum"
 MAX_TAPS = 65
 MAX_DIM = 128
+# csrc/conv1d.cu's tiling: 64-row steps (16 rows a warp), chunks of whole
+# steps, as many as keep b h chunks within one wave of the backward
+STEP_ROWS, WAVE_BLOCKS = 64, 264
+# common.cuh's column sum: 256 threads a block, at most 64 part groups of
+# at least 4 parts, grown until the blocks reach 264
+COLUMN_SUM_THREADS, COLUMN_SUM_MAX_GROUPS = 256, 64
+COLUMN_SUM_MIN_PARTS, COLUMN_SUM_TARGET_BLOCKS = 4, 264
+
+
+def conv_plan(bh: int, n: int):
+    """(steps a chunk, chunks) of ``csrc/conv1d.cu::conv_plan``: the rows of
+    one (batch, head) in chunks of whole 64-row steps, the most chunks that
+    keep b h chunks within WAVE_BLOCKS (at least one, at most one a step),
+    the last one shorter. The backward writes one dkern partial a chunk."""
+    steps = -(-n // STEP_ROWS)
+    chunks = min(max(WAVE_BLOCKS // bh, 1), steps)
+    per = -(-steps // chunks)
+    return per, -(-steps // per)
+
+
+def band_width(ksize: int) -> int:
+    """W, the band's columns (16 + K - 1 rounded up to 16): the window rows
+    a warp's 16 outputs read, and the Toeplitz product's columns s."""
+    return (ksize + 30) // 16 * 16
 
 
 def depthwise_conv_seq_ref(v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
@@ -163,6 +187,35 @@ def conv1d_bwd_dv(g: torch.Tensor, kern: torch.Tensor,
 
 def column_sum_ref(parts: torch.Tensor) -> torch.Tensor:
     return parts.float().sum(0)
+
+
+def column_sum_groups(nparts: int, count: int) -> int:
+    """G, the column sum's number of part groups (``common.cuh::
+    column_sum_groups``): doubled from 1 while the grid of 256-thread blocks
+    (256 / G column quads each) is under the target, each group would keep
+    at least COLUMN_SUM_MIN_PARTS parts and G is under the cap."""
+    quads, groups = -(-count // 4), 1
+    while (groups < COLUMN_SUM_MAX_GROUPS and 2 * groups * COLUMN_SUM_MIN_PARTS <= nparts
+           and -(-quads // (COLUMN_SUM_THREADS // groups)) < COLUMN_SUM_TARGET_BLOCKS):
+        groups *= 2
+    return groups
+
+
+def column_sum_in_order(parts: torch.Tensor) -> torch.Tensor:
+    """The column sum of fp32 ``parts`` [nparts, count] in the kernel's
+    order (``common.cuh``), which the card's result equals bit for bit: G
+    contiguous groups of ceil(nparts / G) parts, each summed in part order
+    from 0, then the group sums added as a pairwise tree."""
+    nparts, count = parts.shape
+    groups = column_sum_groups(nparts, count)
+    per = -(-nparts // groups)
+    sums = torch.zeros(groups, count, dtype=torch.float32, device=parts.device)
+    for k in range(per):
+        rows = [w * per + k for w in range(groups) if w * per + k < nparts]
+        sums[:len(rows)] += parts[rows].float()
+    while sums.shape[0] > 1:
+        sums = sums[0::2] + sums[1::2]
+    return sums[0]
 
 
 def column_sum(parts: torch.Tensor) -> torch.Tensor:

@@ -9,12 +9,19 @@ On the CPU nothing is timed: the plain versions run once each and their
 time is reported as not measured (null). ``chip_smoke.py`` imports the
 peaks, :func:`bound`, :func:`nbytes`, :func:`events_ms`, the bars and the
 errors from here, so that the probes' rows and its kernels line are read
-against one copy.
+against one copy. The A/B probes (``exp_landmark_ab``, ``exp_ln_qkv_ab``,
+``exp_conv_parts --parent``) import an earlier tree with
+:func:`load_parent`, time the two in turns with :func:`in_turns` and split
+a call's device time by launch with :func:`launch_split`.
 """
 
+import importlib
+import importlib.util
 import json
 import statistics
-from typing import Callable, Dict, Optional, Sequence
+import sys
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -155,6 +162,60 @@ class Launches:
         self.counts = {k: v - self._before.get(k, 0) for k, v in after.items()
                        if v != self._before.get(k, 0)}
         return False
+
+
+PARENT_NAME = "parent_mirror_tpu_torch"
+
+
+def load_parent(root: Path, op: str = "landmark"):
+    """``root/mirror_tpu_torch`` (a checkout of an earlier tree, e.g. unpacked
+    by ``git archive`` into a git-ignored directory) imported as
+    ``parent_mirror_tpu_torch``, which builds its own kernel library under
+    ``root/build/kernels``; returns its ``ops.<op>`` (whose kernels are
+    ``csrc/<op>.cu``). The A/B probes run both trees' wrappers in one
+    process."""
+    pkg = root / "mirror_tpu_torch"
+    if not (pkg / "csrc" / f"{op}.cu").is_file():
+        raise FileNotFoundError(f"{pkg}: no mirror_tpu_torch/csrc/{op}.cu in --parent")
+    spec = importlib.util.spec_from_file_location(PARENT_NAME, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[PARENT_NAME] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{PARENT_NAME}.ops.{op}")
+
+
+def in_turns(calls: Dict[str, Callable], device: torch.device, runs: int,
+             reps: int) -> Dict[str, List[Optional[float]]]:
+    """Each tree's call timed in turns, parent, this, this, parent (this
+    alone without a parent): {tree: [median ms of each reading]}. Two
+    trees are compared only inside one such run."""
+    order = ("parent", "this", "this", "parent") if "parent" in calls else ("this",)
+    samples: Dict[str, List[Optional[float]]] = {name: [] for name in calls}
+    for name in order:
+        samples[name].append(median_ms(calls[name], device, runs, reps))
+    return samples
+
+
+def launch_split(fn, calls: int = 5):
+    """[(kernel, ms a call, launches a call)] of ``calls`` calls of ``fn``
+    under torch.profiler: the device's own events, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    return [(e.key, dev_us(e) / 1e3 / calls, e.count / calls)
+            for e in sorted(events, key=dev_us, reverse=True)]
 
 
 def fmt(value: Optional[float], spec: str = ".4f") -> str:

@@ -30,8 +30,6 @@ its bar or a backward is not bit-identical over two runs.
 """
 
 import argparse
-import importlib
-import importlib.util
 import sys
 from pathlib import Path
 
@@ -43,21 +41,6 @@ from . import _timing as T
 HEADS = 8
 # (b, n, pad, dh, m): the encoder's, the retention decoder's, the self-test's
 SHAPES = ((16, 2117, 187, 96, 384), (16, 2049, 255, 96, 384), (8, 2117, 187, 64, 256))
-PARENT_NAME = "parent_mirror_tpu_torch"
-
-
-def load_parent(root: Path, op: str = "landmark"):
-    """``root/mirror_tpu_torch`` imported as ``parent_mirror_tpu_torch``;
-    returns its ``ops.<op>`` (whose kernels are ``csrc/<op>.cu``)."""
-    pkg = root / "mirror_tpu_torch"
-    if not (pkg / "csrc" / f"{op}.cu").is_file():
-        raise FileNotFoundError(f"{pkg}: no mirror_tpu_torch/csrc/{op}.cu in --parent")
-    spec = importlib.util.spec_from_file_location(PARENT_NAME, pkg / "__init__.py",
-                                                  submodule_search_locations=[str(pkg)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[PARENT_NAME] = module
-    spec.loader.exec_module(module)
-    return importlib.import_module(f"{PARENT_NAME}.ops.{op}")
 
 
 def forward_call(mod, q, k, m, pad):
@@ -70,27 +53,6 @@ def backward_call(mod, q, k, m, pad, grads):
     return lambda: torch.autograd.grad(outs, leaves, grads, retain_graph=True)
 
 
-def launch_split(fn, calls: int = 5):
-    """[(kernel, ms a call, launches a call)] of ``calls`` calls of ``fn``
-    under torch.profiler: the device's own events, by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    return [(e.key, dev_us(e) / 1e3 / calls, e.count / calls)
-            for e in sorted(events, key=dev_us, reverse=True)]
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", type=Path, default=None,
@@ -101,8 +63,7 @@ def main(argv=None) -> int:
     device = T.device_from_arg("cuda")
     trees = {"this": landmark}
     if a.parent is not None:
-        trees["parent"] = load_parent(a.parent.resolve())
-    order = ("parent", "this", "this", "parent") if "parent" in trees else ("this",)
+        trees["parent"] = T.load_parent(a.parent.resolve())
     failed, result = [], []
     for i, (b, n, pad, dh, m) in enumerate(SHAPES):
         shape = f"b {b}, h {HEADS}, n {n}, pad {pad}, dh {dh}, m {m}"
@@ -118,9 +79,7 @@ def main(argv=None) -> int:
             calls = {name: forward_call(mod, q, k, m, pad) if pas == "fwd"
                      else backward_call(mod, q, k, m, pad, grads)
                      for name, mod in trees.items()}
-            samples = {name: [] for name in trees}
-            for name in order:
-                samples[name].append(T.median_ms(calls[name], device, a.runs, a.reps))
+            samples = T.in_turns(calls, device, a.runs, a.reps)
             for name, call in calls.items():
                 out = call()
                 err = max(T.rel_err(o, r) for o, r in zip(out, refs[pas], strict=True))
@@ -130,7 +89,7 @@ def main(argv=None) -> int:
                     torch.cuda.synchronize()
                     same = all(torch.equal(x, y) for x, y in zip(out, again))
                 ms = sum(samples[name]) / len(samples[name])
-                split = launch_split(call)
+                split = T.launch_split(call)
                 device_ms = sum(kms for _, kms, _ in split)
                 result.append(dict(shape=shape, tree=name, direction=pas, ms=ms,
                                    samples_ms=samples[name], device_ms=device_ms,

@@ -35,7 +35,6 @@ import torch.nn.functional as F
 
 from ..ops import ln_qkv
 from . import _timing as T
-from .exp_landmark_ab import launch_split
 
 EPS = 1e-5
 
@@ -144,7 +143,7 @@ def main(argv=None) -> int:
                   flush=True)
         fused_row, library_row = rows[-2], rows[-1]
         if device.type == "cuda":
-            split = launch_split(fused_call)
+            split = T.launch_split(fused_call)
             fused_row["split"] = [dict(kernel=k, ms=kms, per_call=c) for k, kms, c in split]
             print(f"{mode:8s} fused|bigg: {100 * fused_row['bound_ms'] / fused_row['ms']:.1f} % of "
                   f"its bound, kernel / library {fused_row['ms'] / library_row['ms']:.2f}; one "

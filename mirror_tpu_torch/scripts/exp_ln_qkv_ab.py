@@ -39,7 +39,6 @@ import torch.nn.functional as F
 
 from ..ops import ln_qkv
 from . import _timing as T
-from .exp_landmark_ab import launch_split, load_parent
 
 HEADS, DH, D, N, EPS = 8, 96, 768, 2117, 1e-5
 BATCHES = (16, 64)
@@ -78,8 +77,7 @@ def main(argv=None) -> int:
     device = T.device_from_arg("cuda")
     trees = {"this": ln_qkv}
     if a.parent is not None:
-        trees["parent"] = load_parent(a.parent.resolve(), "ln_qkv")
-    order = ("parent", "this", "this", "parent") if "parent" in trees else ("this",)
+        trees["parent"] = T.load_parent(a.parent.resolve(), "ln_qkv")
     failed, result = [], []
     for i, b in enumerate(a.batches):
         shape = f"x [{b}, {N}, {D}], heads {HEADS}, dh {DH}"
@@ -101,9 +99,7 @@ def main(argv=None) -> int:
                     else _backward_call(fused, inputs, grads)
             library = (lambda: _library(b)(*inputs)) if pas == "fwd" \
                 else _backward_call(_library(b), inputs, grads)
-            samples = {name: [] for name in trees}
-            for name in order:
-                samples[name].append(T.median_ms(calls[name], device, a.runs, a.reps))
+            samples = T.in_turns(calls, device, a.runs, a.reps)
             library_ms = T.median_ms(library, device, a.runs, a.reps)
             bound_ms, bound_by = bounds[pas]
             for name, call in calls.items():
@@ -119,7 +115,7 @@ def main(argv=None) -> int:
                     torch.cuda.synchronize()
                     same = all(torch.equal(x, y) for x, y in zip(out, again))
                 ms = sum(samples[name]) / len(samples[name])
-                split = launch_split(call)
+                split = T.launch_split(call)
                 device_ms = sum(kms for _, kms, _ in split)
                 result.append(dict(shape=shape, tree=name, direction=pas, ms=ms,
                                    samples_ms=samples[name], device_ms=device_ms,

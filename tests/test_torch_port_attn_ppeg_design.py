@@ -17,9 +17,10 @@ Pallas kernels (interpret mode, as the JAX package's own tests run them).
 - Kernel 5b (``csrc/ppeg.cu``): one pass writes dimg (g plus the flipped
   conv of g, summed in (dy, dx) order, one rounding) and one [50, C] fp32
   partial of dk and db per (image, band of 8 grid rows), summed over the
-  band's 16-column chunks; a second pass sums the partials in a fixed
-  order: group w of 8 takes partials w, w + 8, ... in turn, then the 8
-  group sums are added in order.
+  band's 16-column chunks; a second pass sums the partials in the column
+  sum's fixed order (``csrc/common.cuh``, ``column_sum_in_order``: G
+  contiguous groups of partials, each summed in order, then the group sums
+  added as a pairwise tree).
 
 Tolerances, with their reasons:
 - attention: relative Frobenius error 1e-2 (BOUND_VIT of the CUDA tests).
@@ -51,13 +52,14 @@ import torch.nn.functional as F
 
 from mirror_tpu.ops.ppeg_pallas import ppeg_fused as jax_ppeg_fused
 from mirror_tpu.ops.vit_attn_pallas import mha_natural as jax_mha_natural
+from mirror_tpu_torch.ops.conv1d import column_sum_in_order
 from mirror_tpu_torch.ops.ppeg import KSIZE, ppeg_bwd_ref, ppeg_ref
 from mirror_tpu_torch.ops.vit_attn import mha_natural_ref
 from test_torch_port_cuda import ppeg_dydx_order
 
 LOG2E = 1.4426950408889634
 TILE = 16  # kernel 8's query and key tiles
-BAND, CHUNK, GROUPS = 8, 16, 8  # kernels 5 and 5b's band rows, chunk columns; 5b's groups
+BAND, CHUNK = 8, 16  # kernels 5 and 5b's band rows, chunk columns
 CBLOCK = 64  # kernel 5's channels a block (a pair a lane)
 BOUND_ATTN, BOUND_FP32, BOUND_DIMG_BF16 = 1e-2, 1e-5, 1e-3
 
@@ -146,17 +148,13 @@ def kernel5b_emulation(img, kern, g):
                         acc[dy * KSIZE + dx] += (gb * win).sum((0, 1))
                 acc[-1] += gb.sum((0, 1))
             partial[i * bands + band] = acc
-    group_sums = [torch.zeros(KSIZE * KSIZE + 1, C) for _ in range(GROUPS)]
-    for p in range(b * bands):  # partials w, w + 8, ... in turn
-        group_sums[p % GROUPS] = group_sums[p % GROUPS] + partial[p]
-    total = torch.zeros(KSIZE * KSIZE + 1, C)
-    for s in group_sums:
-        total = total + s
+    total = column_sum_in_order(partial.reshape(b * bands, -1)).reshape(KSIZE * KSIZE + 1, C)
     return dimg.to(img.dtype), total[:-1].reshape(KSIZE, KSIZE, C), total[-1]
 
 
 # (b, H, W, C): H not a multiple of the 8-row band, W not of the 16-column
-# chunk, C not of the 64-channel block; more than 8 partials in the last
+# chunk, C not of the 64-channel block; 9 partials in the last (the column
+# sum's two groups, the second shorter)
 PPEG_SHAPES = [(2, 13, 21, 40), (1, 9, 18, 72), (3, 17, 35, 8)]
 
 

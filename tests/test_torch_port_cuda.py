@@ -861,12 +861,13 @@ def _assert_max_rel(out, ref, name=""):
     assert err <= bound, f"{name}: max abs error {err} > {bound}"
 
 
-# (b, h, n, d, K): a short last tile (140 rows = 132 + 8), n <= K // 2, the
-# self-test's shape, d 8 with K 7, and K 65 at d 128
+# (b, h, n, d, K): a short last step (140 rows = 2 x 64 + 12), n <= K // 2,
+# the self-test's shape, d 8 with K 7, K 65 at d 128, and kernel 4b's conv at
+# the padded length r 2304
 @pytest.mark.parametrize("taps_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,h,n,d,ksize", [(2, 3, 140, 32, 33), (1, 2, 10, 16, 33),
                                            (8, 8, 2117, 96, 33), (2, 2, 300, 8, 7),
-                                           (1, 2, 200, 128, 65)])
+                                           (1, 2, 200, 128, 65), (2, 8, 2304, 96, 33)])
 def test_conv1d_kernel(dev, b, h, n, d, ksize, taps_dtype):
     g = torch.Generator().manual_seed(20)
     v = _randn(g, b, h, n, d, dev=dev)
@@ -997,7 +998,8 @@ def test_copy_floor_kernel_refuses_a_misaligned_view(dev):
 
 
 @pytest.mark.parametrize("b,h,n,d,ksize", [(2, 3, 140, 32, 33), (8, 8, 2304, 96, 33),
-                                           (2, 2, 300, 8, 7), (1, 2, 10, 16, 33)])
+                                           (2, 2, 300, 8, 7), (1, 2, 10, 16, 33),
+                                           (1, 2, 200, 128, 65)])
 def test_conv1d_bwd_dv_only_and_column_sum(dev, b, h, n, d, ksize):
     """dv alone is the fused backward's dv bit for bit; the column sum
     alone, on the fused pass's partials, is its dkern bit for bit."""
@@ -1017,6 +1019,55 @@ def test_conv1d_bwd_dv_only_and_column_sum(dev, b, h, n, d, ksize):
     assert torch.equal(dv_only, dv)
     assert torch.equal(col, dkern.reshape(-1))
     _assert_rel(dv_only, conv1d.conv1d_bwd_dv_ref(gr, taps), BOUND_BWD)
+
+
+def test_conv1d_dkern_batch_sum_bar_at_phase3(dev):
+    """dkern at [16, 8, 2117, 96], K 33 (chip_smoke.py phase 3's shape): the
+    tensor cores' fp32 sums over 3.3 million products a tap hold the batch
+    sum's bar, 1e-4 of its largest magnitude, and dv its 2e-2; the scratch
+    holds one partial a (batch, chunk), as conv_plan tiles the rows."""
+    from mirror_tpu_torch.ops import conv1d
+
+    g = torch.Generator().manual_seed(33)
+    v, gr = _randn(g, 16, 8, 2117, 96, dev=dev), _randn(g, 16, 8, 2117, 96, dev=dev)
+    taps = _randn(g, 8, 33, dev=dev, scale=0.1)
+    partial = conv1d.conv1d_bwd_scratch(v, 33)
+    assert tuple(partial.shape) == (16 * conv1d.conv_plan(128, 2117)[1], 8 * 33)
+    dv, dkern = torch.empty_like(v), torch.empty(8, 33, device=dev)
+    conv1d.conv1d_bwd_into(v, taps, gr, dv, dkern, partial)
+    dv_ref, dkern_ref = depthwise_conv_seq_bwd_ref(v, taps, gr)
+    _assert_rel(dv, dv_ref, BOUND_BWD, name="dv")
+    _assert_max_rel(dkern, dkern_ref, name="dkern")
+
+
+# (nparts, count): the call sites' tall and wide shapes ([1152, 264] and
+# [288, 264] the former conv partials, [96, 38400] kernel 5b's), counts not
+# a multiple of 4 (the scalar path), one part, and a view 4 bytes into its
+# storage (not 16-byte aligned: the scalar path too)
+@pytest.mark.parametrize("nparts,count,offset", [(1152, 264, 0), (288, 264, 0), (96, 38400, 0),
+                                                 (288, 99, 0), (1, 99, 0), (7, 4099, 0),
+                                                 (64, 264, 1)])
+def test_column_sum_kernel(dev, nparts, count, offset):
+    """The column sum against the float64 sum (within 1e-6 of each column's
+    sum of magnitudes) and against ``partial.sum(0)``; bit for bit its
+    order's plain emulation (``column_sum_in_order``, so the host's copy of
+    the group rule is the kernel's) and itself over two runs."""
+    from mirror_tpu_torch.ops import conv1d
+
+    g = torch.Generator().manual_seed(34)
+    flat = torch.randn(nparts * count + offset, generator=g).to(dev)
+    parts = flat[offset:].view(nparts, count)
+    out = torch.empty(count, device=dev)
+    _common.launch("mirror_column_sum", parts.data_ptr(), nparts, count, out.data_ptr())
+    again = torch.empty_like(out)
+    _common.launch("mirror_column_sum", parts.data_ptr(), nparts, count, again.data_ptr())
+    torch.cuda.synchronize()
+    want = parts.double().sum(0)
+    scale = parts.double().abs().sum(0)
+    assert ((out.double() - want).abs() <= 1e-6 * scale).all()
+    assert ((parts.sum(0).double() - want).abs() <= 1e-6 * scale).all()
+    assert torch.equal(out, again)
+    assert torch.equal(out, conv1d.column_sum_in_order(parts))
 
 
 # (b, n, heads, dh, group): G pairs a block dividing b h or not, at Phikon's

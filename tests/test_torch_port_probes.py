@@ -284,14 +284,44 @@ def test_landmark_ab_probe_loads_an_earlier_tree_apart(tmp_path):
     """``--parent`` imports that tree's package under another name, so its
     wrappers launch from its own library (built under its own build/)."""
     from mirror_tpu_torch.ops import landmark
-    from mirror_tpu_torch.scripts import exp_landmark_ab
+    from mirror_tpu_torch.scripts import _timing
 
     with pytest.raises(FileNotFoundError, match="landmark.cu"):
-        exp_landmark_ab.load_parent(tmp_path)
-    parent = exp_landmark_ab.load_parent(REPO)
-    assert parent.__name__ == f"{exp_landmark_ab.PARENT_NAME}.ops.landmark"
+        _timing.load_parent(tmp_path)
+    parent = _timing.load_parent(REPO)
+    assert parent.__name__ == f"{_timing.PARENT_NAME}.ops.landmark"
     assert parent is not landmark and parent._common is not landmark._common
     assert parent._common.BUILD_DIR == REPO / "build" / "kernels"
+
+
+def test_conv_parts_probe_takes_a_parent_only_on_the_card():
+    """``exp_conv_parts --parent`` times two trees' kernels: on the CPU it
+    refuses, before loading anything; ``load_parent`` finds the earlier
+    tree's ``ops.conv1d`` (its own ``_common``, so its own library)."""
+    from mirror_tpu_torch.ops import conv1d
+    from mirror_tpu_torch.scripts import _timing
+
+    with pytest.raises(ValueError, match="--device cuda"):
+        exp_conv_parts.main(["--device", "cpu", "--parent", str(REPO), *SMALL[exp_conv_parts]])
+    parent = _timing.load_parent(REPO, "conv1d")
+    assert parent.__name__ == f"{_timing.PARENT_NAME}.ops.conv1d"
+    assert parent is not conv1d and parent._common is not conv1d._common
+
+
+def test_in_turns_times_parent_this_this_parent(monkeypatch):
+    """The A/B probes' shared timing: the parent first and last, this tree
+    twice between (this alone without a parent)."""
+    from mirror_tpu_torch.scripts import _timing
+
+    order = []
+    monkeypatch.setattr(_timing, "median_ms", lambda fn, *a, **k: order.append(fn()) or 1.0)
+    calls = {"this": lambda: "this", "parent": lambda: "parent"}
+    samples = _timing.in_turns(calls, torch.device("cpu"), 1, 1)
+    assert order == ["parent", "this", "this", "parent"]
+    assert samples == {"this": [1.0, 1.0], "parent": [1.0, 1.0]}
+    order.clear()
+    assert _timing.in_turns({"this": lambda: "this"}, torch.device("cpu"), 1, 1) == \
+        {"this": [1.0]} and order == ["this"]
 
 
 def test_no_port_module_imports_jax_or_the_jax_package():
