@@ -79,6 +79,22 @@ Phases, each printed as it finishes:
    feed); then 2 steps at batch 16 with ``--pinv-grad exact`` through
    ``train_mirror.main`` (kernel 2b's launches read around it), and that
    step timed (ms, peak memory) and profiled;
+5b. the CLIP baseline: ``mirror_tpu_torch.train_pretrain.main`` (the dual
+   encoder, InfoNCE) on 48 of phase 5's slides with 16 validating, at full
+   width (768-d features, 2048 tokens, RNA 10234, embed 768, batch 16,
+   bf16, implicit pinv gradient) with the optimizer side's flags (lamb, a
+   cosine schedule on updates with a warmup epoch, AGC at 0.01, the EMA with
+   its ramp, gradient accumulation 2), 2 epochs of 3 micro-batches: launch
+   counts read around it (two of each Nystrom kernel forward and backward
+   and one of PPEG's a micro-step), summary.csv with the lr and the EMA's
+   eval loss, the ``.pth.tar`` with ``state_dict_ema`` reloaded; one step
+   at batch 2 on the card against the CPU's plain path in fp32; on 4
+   (weights, batch) pairs the PPEG biases' gradient (5b's sum against the
+   float64 sum of the gradient it was given, that gradient against fp32's,
+   the bias gradient of the card and of the CPU's bf16 path against fp32);
+   the step timed per real update (ms, peak memory) without the EMA, with
+   it, and with it and accumulation 2, and profiled; the update, the EMA's
+   update and accumulation's pair of calls timed alone;
 6. feature extraction: 8 synthetic slides of 2,048 224x224 JPEG patches in
    all (``{root}/{class}/{slide}/``), run through
    ``mirror_tpu_torch.tools.gen_patch_feature.main`` three times at batch
@@ -99,7 +115,10 @@ Phases, each printed as it finishes:
    survival template set to fine-tune and ``--pinv-grad exact``, 2 epochs
    of 2 steps each: launch counts read around each run, every logged loss
    finite, the eval metrics finite and in range; each run's step timed on
-   one resident batch (ms, peak memory) and profiled; one classifier step
+   one resident batch (ms, peak memory) and profiled; the survival run
+   again with the optimizer side (SGD, the plateau schedule, the EMA,
+   clipping at a global norm of 1; its launches under their own path, the
+   EMA's eval metrics and weights checked); one classifier step
    at batch 2 with the exact gradient on the card against the CPU's plain
    path; ``predict`` scoring the subtyping checkpoint;
 8. the kernel self-test: ``mirror_tpu_torch.selftest.main()`` at
@@ -176,6 +195,16 @@ SURVIVAL_YAML = REPO / "configs" / "survival" / "mirror.template.yaml"
 N_DOWN_SLIDES, N_DOWN_TRAIN, DOWN_EPOCHS = 48, 32, 2
 CLASSES = ("LUAD", "LUSC")
 N_PRETRAIN_SLIDES, TRAIN_STEPS, TRAIN_STEPS_EXACT = 64, 4, 2
+# the CLIP baseline (train_pretrain): 48 of phase 5's slides train (3
+# micro-batches of 16 an epoch), 16 validate; the optimizer side's flags
+CLIP_MICRO_STEPS = 3
+CLIP_FLAGS = ["--opt", "lamb", "--use-sched", "--sched", "cosine", "--sched-on-updates",
+              "--warmup-epochs", "1", "--clip-grad", "0.01", "--clip-mode", "agc",
+              "--model-ema", "--model-ema-warmup", "--grad-accum-steps", "2"]
+# the downstream run of the optimizer side: survival fine-tuning with SGD,
+# the plateau schedule, the EMA and global-norm clipping
+SURVIVAL_OPT_FLAGS = ["--opt", "sgd", "--use-sched", "--sched", "plateau", "--model-ema",
+                      "--clip-grad", "1.0"]
 # feature extraction: Phikon ViT-B/16 at 224 px (patch 16: 197 tokens), d 768,
 # 12 heads of 64, MLP 3072, depth 12, LN eps 1e-12, batch 256 (the CLI's
 # default); 8 synthetic slides of 2,048 patches in all
@@ -201,6 +230,13 @@ BOUND_LOGITS = 5e-2
 # (res_conv, to_qkv, the PPEG convs) at cosine >= 0.99 with norms within 5 %.
 # A lost dkern, pad or head order moves them by O(1).
 BOUND_STEP_LOSS, BOUND_GRAD_COS, BOUND_GRAD_NORM = 2e-2, 0.99, 5e-2
+# PPEG's bias gradient (kernel 5b) against the float64 sum of the gradient
+# the kernel was given: its fp32 sum, then one rounding to bf16 (2^-9), so
+# two bf16 roundings, 4e-3 relative Frobenius. The gradient it is given, the
+# CLIP step's on the card against the CPU's fp32 path: cosine >= 0.999 (the
+# CPU's plain bf16 path reads 0.99995 there; a lost pad, head or dkern
+# moves it by O(1)).
+BOUND_BIAS_SUM, BOUND_PPEG_G_COS = 4e-3, 0.999
 # Patch features of the card (kernels, bf16) against the CPU's plain path in
 # fp32, same weights and patches: cosine >= 0.99 per patch (bf16 drift
 # through 12 blocks; a wrong head, pad or rounding point moves it by O(1));
@@ -1308,9 +1344,11 @@ def profile_step(torch, train_step, batch, step_ms, tag="train", what="step"):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # the device's own events (kernels, copies, fills), not the host ops
-    # that launched them
+    # that launched them, nor a user annotation's span over them, which
+    # would count them twice
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     total = sum(dev_us(e) for e in events) / 1e3
     if total == 0:
         say(f"[{tag}] profiler: no device time recorded (time with CUDA events instead)")
@@ -1320,6 +1358,18 @@ def profile_step(torch, train_step, batch, step_ms, tag="train", what="step"):
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         say(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / total:5.1f} % "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+def compute_dtype(torch, model) -> str:
+    """The compute dtype a model was built with: its first module's."""
+    dtype = next((m.dtype for m in model.modules() if getattr(m, "dtype", None) is not None),
+                 torch.float32)
+    return {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype, str(dtype))
+
+
+def kernel_fed(name: str) -> bool:
+    """The leaves whose gradients only the backward kernels feed."""
+    return "res_conv.weight" in name or "to_qkv.weight" in name or "pos_layer.proj" in name
 
 
 def step_card_vs_cpu(torch, tag, make_step, batch, n_leaves):
@@ -1342,14 +1392,14 @@ def step_card_vs_cpu(torch, tag, make_step, batch, n_leaves):
             model.load_state_dict(state)
         metrics = step({k: v.to(device) for k, v in batch.items()})
         grads = {name: p.grad.detach().float().cpu() for name, p in model.named_parameters()
-                 if p.grad is not None and ("res_conv.weight" in name or "to_qkv.weight" in name
-                                            or "pos_layer.proj" in name)}
+                 if p.grad is not None and kernel_fed(name)}
         results[device] = (float(metrics["loss"]), grads)
+        ref = compute_dtype(torch, model)
         del model, step
     loss_gpu, g_gpu = results["cuda"]
     loss_cpu, g_cpu = results["cpu"]
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    say(f"[{tag}] one step at batch 2, card kernels vs CPU plain path (bf16): loss "
+    say(f"[{tag}] one step at batch 2, card kernels (bf16) vs CPU plain path ({ref}): loss "
         f"{loss_gpu:.6g} vs {loss_cpu:.6g}, relative error {rel:.4g} (bound "
         f"{BOUND_STEP_LOSS:g}); {time.perf_counter() - t0:.1f} s")
     if not np.isfinite(loss_gpu) or rel > BOUND_STEP_LOSS:
@@ -1548,6 +1598,253 @@ def phase_train(torch, root: Path):
                                           exact_step_ms=exact_ms, exact_peak_gib=exact_gib)
 
 
+def clip_step_card_vs_cpu(torch, argv, wsi, rna):
+    """The CLIP train step at batch 2 (the pretrain_clip run's arguments and
+    widths, dropout 0), card against the CPU's plain path in fp32. Against
+    the CPU in bf16 the PPEG biases' gradient is no reference: it is the sum
+    of g over the 2 x 2116 grid tokens, where the cls-only loss leaves
+    about 5 % of the sum of |g| (the softmax's key gradients cancel over the
+    tokens), so each side's bf16 rounding moves it by a few percent, the
+    CPU's bf16 path further from its fp32 than the card's kernels."""
+    from mirror_tpu_torch.config import model_kwargs_from_args, parse_args
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_clip_train_step
+
+    args, _ = parse_args(argv)
+    kw = dict(model_kwargs_from_args(args), rna_embed_dim=RNA_DIM, wsi_dropout=0.0,
+              rna_proj_drop_rate=0.0)
+    batch = dict(wsi=torch.from_numpy(wsi[:2]), rna=torch.from_numpy(rna[:2]))
+
+    def make_step(device, generator):
+        model = create_model("mirror_dual", device=device, generator=generator,
+                             **dict(kw, dtype="bfloat16" if device == "cuda" else "float32"))
+        return model, make_clip_train_step(model, make_optimizer(args, model, args.lr),
+                                           temperature=args.temperature)
+
+    return step_card_vs_cpu(torch, "pretrain_clip", make_step, batch, 2 * 2 + 6)
+
+
+def clip_bias_study(torch, argv, wsi, rna, seeds=4):
+    """The PPEG biases' gradient of the CLIP step at batch 2 on ``seeds``
+    (weights, batch) pairs: weights from seed SEED + s, rows 2s and 2s + 1
+    of the batch, dropout 0; the card (kernels, bf16), the CPU's plain path
+    in bf16 and in fp32. The bias gradient is the sum of g, the PPEG
+    output's gradient, over the grid tokens, a sum that keeps a few percent
+    of sum |g|: a bf16 path's g, at cosine 0.9999 of fp32's, moves it by
+    percents, the CPU's plain bf16 path as far as the card (PERF.md, PR
+    17). So each pair holds the two parts apart: 5b's sum on the card
+    against the float64 sum of the g it was given (a fault of the
+    reduction), and that g against fp32's (a fault upstream); fails if
+    either is beyond its bar. Prints beside them the card's and the CPU
+    bf16's bias gradient against fp32 (cosine, norm ratio) and how much of
+    sum |g| the sum keeps. Returns the card's worst bias cosine."""
+    from mirror_tpu_torch.config import model_kwargs_from_args, parse_args
+    from mirror_tpu_torch.models import transmil
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_clip_train_step
+
+    args, _ = parse_args(argv)
+    kw = dict(model_kwargs_from_args(args), rna_embed_dim=RNA_DIM, wsi_dropout=0.0,
+              rna_proj_drop_rate=0.0)
+    leaf = "wsi_encoder.pos_layer.proj.bias"
+    seen = {}
+    plain_fused = transmil.ppeg_fused
+
+    def spy(img, kern, bias):
+        out = plain_fused(img, kern, bias)
+        out.register_hook(lambda g: seen.__setitem__("g", g.detach().double().cpu()))
+        bias.register_hook(lambda d: seen.__setitem__("db", d.detach().double().cpu()))
+        return out
+
+    def cos(a, b):
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    worst, bad = 1.0, []
+    transmil.ppeg_fused = spy
+    try:
+        for s in range(seeds):
+            batch = dict(wsi=torch.from_numpy(wsi[2 * s:2 * s + 2]),
+                         rna=torch.from_numpy(rna[2 * s:2 * s + 2]))
+            state, runs = None, {}
+            for run, device, dtype in (("card", "cuda", "bfloat16"), ("bf16", "cpu", "bfloat16"),
+                                       ("fp32", "cpu", "float32")):
+                gen = None if state else torch.Generator().manual_seed(SEED + s)
+                model = create_model("mirror_dual", device=device, generator=gen,
+                                     **dict(kw, dtype=dtype))
+                if state is None:
+                    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+                else:
+                    model.load_state_dict(state)
+                step = make_clip_train_step(model, make_optimizer(args, model, args.lr),
+                                            temperature=args.temperature)
+                step({k: v.to(device) for k, v in batch.items()})
+                grad = dict(model.named_parameters())[leaf].grad.detach().double().cpu()
+                runs[run] = dict(grad=grad, g=seen["g"], db=seen["db"])
+                del model, step
+            card, bf16, fp32 = runs["card"], runs["bf16"], runs["fp32"]
+            g_sum = card["g"].sum((0, 1, 2))
+            sum_err = ((card["db"] - g_sum).norm() / g_sum.norm()).item()
+            keeps = (fp32["g"].sum((0, 1, 2)).norm()
+                     / fp32["g"].abs().sum((0, 1, 2)).norm()).item()
+            c_card, c_bf16 = cos(card["grad"], fp32["grad"]), cos(bf16["grad"], fp32["grad"])
+            g_cos = cos(card["g"].ravel(), fp32["g"].ravel())
+            r_card = (card["grad"].norm() / fp32["grad"].norm()).item()
+            r_bf16 = (bf16["grad"].norm() / fp32["grad"].norm()).item()
+            say(f"[pretrain_clip] PPEG bias gradient, seed {SEED + s}, rows {2 * s}-{2 * s + 1}: "
+                f"card vs fp32 cosine {c_card:.6f}, norm ratio {r_card:.5f}; CPU bf16 vs fp32 "
+                f"cosine {c_bf16:.6f}, norm ratio {r_bf16:.5f}; g card vs fp32 cosine "
+                f"{g_cos:.6f} (bar {BOUND_PPEG_G_COS:g}), CPU bf16 vs fp32 "
+                f"{cos(bf16['g'].ravel(), fp32['g'].ravel()):.6f}; the sum keeps "
+                f"{100 * keeps:.2f} % of sum |g| (fp32); 5b's sum vs float64 sum of its g: "
+                f"rel Frobenius err {sum_err:.3g} (bar {BOUND_BIAS_SUM:g})")
+            if not sum_err <= BOUND_BIAS_SUM:
+                bad.append(f"seed {SEED + s}: ppeg_bwd's bias sum is not the sum of its g")
+            if not g_cos >= BOUND_PPEG_G_COS:
+                bad.append(f"seed {SEED + s}: the g 5b is given against fp32's")
+            worst = min(worst, c_card)
+    finally:
+        transmil.ppeg_fused = plain_fused
+    if bad:
+        fail(f"[pretrain_clip] PPEG bias gradient: {'; '.join(bad)}")
+    return worst
+
+
+def phase_pretrain_clip(torch, root: Path, feat_dir: Path, rna_csv: Path):
+    """The CLIP baseline through ``train_pretrain.main`` on phase 5's cohort
+    (48 slides train, 16 val) at full width with the optimizer side's flags
+    (lamb, a cosine schedule on updates with a warmup epoch, AGC, the EMA
+    with its ramp, accumulation 2): 2 epochs of 3 micro-batches, 3 real
+    updates; its launches read around the run; the checkpoint with its EMA
+    weights reloaded; one batch-2 step on the card against the CPU; the
+    step timed per real update with and without the EMA and accumulation."""
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch import train_pretrain
+    from mirror_tpu_torch.config import model_kwargs_from_args, parse_args
+    from mirror_tpu_torch.data.datasets import PretrainDataset
+    from mirror_tpu_torch.data.loader import Loader
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import ModelEma, make_clip_train_step
+
+    split_dir = root / "splits_clip"
+    split_dir.mkdir(parents=True)
+    ids = sorted(p.stem[:12] for p in feat_dir.glob("*.npy"))
+    n_train = CLIP_MICRO_STEPS * B
+    pd.DataFrame({"train": pd.Series(ids[:n_train]), "val": pd.Series(ids[n_train:])}).to_csv(
+        split_dir / "splits_0.csv")
+    argv = ["--config", str(PRETRAIN_YAML), "--wsi-feature-dir", str(feat_dir),
+            "--rna-feature-csv", str(rna_csv), "--split-dir", str(split_dir), "--fold-nb", "0",
+            "--output", str(root / "runs"), "--experiment", "clip", "--epochs", "2",
+            "--batch-size", str(B), "--log-interval", "1", "--seed", str(SEED),
+            "--workers", "8", *CLIP_FLAGS]
+    results, launches = run_entry_point(torch, "pretrain_clip", train_pretrain.main, argv,
+                                        2 * CLIP_MICRO_STEPS)
+    run_dir = root / "runs" / "pretrain_clip" / "clip"
+    summary = pd.read_csv(run_dir / "summary.csv")
+    cols = ["train_loss", "train_lr", "eval_loss", "eval_ema_loss"]
+    if len(summary) != 2 or not np.isfinite(summary[cols].to_numpy()).all():
+        fail(f"[pretrain_clip] summary.csv: {summary.to_dict('list')}")
+    if results.get("metric_name") != "loss" or not np.isfinite(results["best_metric"]):
+        fail(f"[pretrain_clip] --result is not what a finished run prints: {results}")
+    say(f"[pretrain_clip] --result {json.dumps(results)}; train lr by epoch "
+        f"{summary['train_lr'].tolist()}, eval loss {summary['eval_loss'].tolist()}, EMA eval "
+        f"loss {summary['eval_ema_loss'].tolist()}")
+    # per micro-step: two of each Nystrom kernel forward and backward, one
+    # PPEG and its backward; the forwards also run in the two evals (live
+    # and EMA) of each epoch
+    steps = 2 * CLIP_MICRO_STEPS
+    want = {k: 2 * steps for k in BACKWARD if k != "ppeg_bwd"}
+    want["ppeg_bwd"] = steps
+    wrong = {k: launches.get(k, 0) for k, n in want.items() if launches.get(k, 0) != n}
+    missing = [k for k in FORWARD if launches.get(k, 0) < (1 if k == "ppeg" else 2) * steps]
+    if wrong or missing:
+        fail(f"[pretrain_clip] backward launches {wrong} (want {want}); forwards short: "
+             f"{missing}")
+
+    payload = load_checkpoint_file(str(run_dir / "last.pth.tar"))
+    if payload["arch"] != "mirror_dual" or "state_dict_ema" not in payload:
+        fail("[pretrain_clip] last.pth.tar lacks the dual encoder or its EMA weights")
+    model = create_model("mirror_dual", device="cuda", **run_args(payload)["model_kwargs"])
+    model.load_state_dict(payload["state_dict_ema"])
+    model.load_state_dict(payload["state_dict"])
+    say(f"[pretrain_clip] last.pth.tar reloads into create_model('mirror_dual'), live and EMA "
+        f"weights: {sum(p.numel() for p in model.parameters())} parameters")
+    del model
+
+    dataset = PretrainDataset(str(feat_dir), str(rna_csv), N_TOKENS, splits=str(split_dir))
+    host = next(iter(Loader(dataset, B, shuffle=True, seed=SEED, workers=8)))
+    cos, rel = clip_step_card_vs_cpu(torch, argv, host["wsi"], host["rna"])
+    bias_cos = clip_bias_study(torch, argv, host["wsi"], host["rna"])
+
+    # ms per real update at batch 16: the flags without the EMA and at k 1,
+    # with the EMA at k 1, and with both (an update is then two steps)
+    args, _ = parse_args(argv)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    kw = dict(model_kwargs_from_args(args), rna_embed_dim=RNA_DIM)
+    timings = {}
+    for name, use_ema, k in (("plain", False, 1), ("ema", True, 1), ("ema_accum2", True, 2)):
+        args.grad_accum_steps = k
+        model = create_model("mirror_dual", device="cuda",
+                             generator=torch.Generator().manual_seed(SEED), **kw)
+        ema = ModelEma(model, args.model_ema_decay, args.model_ema_warmup) if use_ema else None
+        step = make_clip_train_step(model, make_optimizer(args, model, args.lr),
+                                    temperature=args.temperature,
+                                    generator=torch.Generator(device="cuda").manual_seed(SEED),
+                                    ema=ema)
+
+        def update(b, step=step, k=k):
+            for _ in range(k):
+                out = step(b)
+            return out
+        ms, lo, hi, peak, metrics = time_steps(torch, update, batch, reps=6)
+        timings[name] = dict(ms=ms, peak_gib=peak)
+        say(f"[pretrain_clip] CLIP train step at batch {B}, {name} (k {k}, EMA {use_ema}): "
+            f"median {ms:.3f} ms per real update over 6 (min {lo:.3f}, max {hi:.3f}), "
+            f"{1000 * B * k / ms:.1f} samples/s; peak device memory {peak:.2f} GiB; loss "
+            f"{float(metrics['loss']):.6g}")
+        if name == "plain":
+            profile_step(torch, step, batch, ms, tag="pretrain_clip")
+        del model, ema, step, update
+        torch.cuda.empty_cache()
+
+    # the optimizer side alone, on one step's gradients (the steps above
+    # spread by more than it costs): an update at k 1, the EMA's update,
+    # and at k 2 the pair of calls (a copy of the gradients, then their
+    # running mean and the update)
+    model = create_model("mirror_dual", device="cuda",
+                         generator=torch.Generator().manual_seed(SEED), **kw)
+    args.grad_accum_steps = 1
+    make_clip_train_step(model, make_optimizer(args, model, args.lr),
+                         temperature=args.temperature)(batch)
+    ema = ModelEma(model, args.model_ema_decay, args.model_ema_warmup)
+    opts = {}
+    for k in (1, 2):
+        args.grad_accum_steps = k
+        opts[k] = make_optimizer(args, model, args.lr)
+    alone = {
+        "update": lambda _: opts[1].step(),
+        "ema_update": lambda _: ema.update(),
+        "accum2_pair": lambda _: (opts[2].step(), opts[2].step()),
+    }
+    for name, fn in alone.items():
+        ms, lo, hi, _, _ = time_steps(torch, fn, None, reps=10)
+        timings[name] = dict(ms=ms)
+        say(f"[pretrain_clip] {name}: median {ms:.3f} ms over 10 (min {lo:.3f}, max {hi:.3f}), "
+            f"{sum(p.numel() for p in model.parameters())} fp32 parameters")
+    say(f"[pretrain_clip] what accumulation 2 adds to an update: "
+        f"{timings['accum2_pair']['ms'] - timings['update']['ms']:.3f} ms (the pair less "
+        f"one update); the EMA: {timings['ema_update']['ms']:.3f} ms")
+    del model, ema, opts, alone, batch
+    torch.cuda.empty_cache()
+    return launches, dict(timings=timings, worst_grad_cos=cos, step_loss_rel=rel,
+                          worst_bias_cos=bias_cos)
+
+
 def write_downstream_cohort(root: Path):
     """48 slides (fp16 Phikon-width patches, a 10234-gene RNA CSV) in the
     subtyping class layout ({root}/classes/{class}/, links to the flat
@@ -1602,7 +1899,7 @@ def downstream_step(torch, task, argv):
                                   args.survival_csv, args.num_wsi_feature_tokens,
                                   splits=args.split_dir, num_bins=args.num_bins)
         model = build_classifier(args, dataset, args.num_bins, device)
-    loader, optimizer, _ = train_loader_and_optimizer(args, dataset, model)
+    loader, (optimizer, _, _), _ = train_loader_and_optimizer(args, dataset, model)
     gen = torch.Generator(device=device).manual_seed(SEED)
     if task == "subtyping":
         step = make_classifier_train_step(model, optimizer, smoothing=args.smoothing,
@@ -1624,6 +1921,7 @@ def phase_downstream(torch, root: Path, pretrain_ckpt: Path):
     from mirror_tpu_torch import train_subtyping, train_survival
     from mirror_tpu_torch.registry import create_model
     from mirror_tpu_torch.tools.predict import predict
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file
     from mirror_tpu_torch.train.optim import make_optimizer
     from mirror_tpu_torch.train.steps import make_classifier_train_step
 
@@ -1675,6 +1973,28 @@ def phase_downstream(torch, root: Path, pretrain_ckpt: Path):
         profile_step(torch, step, batch, ms, tag=task)
         del model, step, batch
         torch.cuda.empty_cache()
+
+    # the optimizer side on the card: survival fine-tuning with SGD, the
+    # plateau schedule, the EMA (evaluated beside the live weights, saved
+    # in the checkpoint) and global-norm clipping, implicit pinv gradient
+    argv_opt = ["--config", str(survival_yaml), "--wsi-feature-dir", str(feat_dir),
+                "--survival-csv", str(surv_csv), "--experiment", "survival_opt", *common,
+                *SURVIVAL_OPT_FLAGS]
+    results, launches["survival_opt"] = run_entry_point(torch, "survival_opt",
+                                                        train_survival.main, argv_opt, steps)
+    run_dir = root / "runs" / "survival" / "survival_opt"
+    summary = pd.read_csv(run_dir / "summary.csv")
+    cols = ["train_loss", "train_lr", "eval_loss", "eval_ema_loss"]
+    if not np.isfinite(summary[cols].to_numpy()).all():
+        fail(f"[survival_opt] summary.csv: {summary.to_dict('list')}")
+    if "state_dict_ema" not in load_checkpoint_file(str(run_dir / "last.pth.tar")):
+        fail("[survival_opt] last.pth.tar has no state_dict_ema")
+    missing = [k for k in FORWARD + BACKWARD if launches["survival_opt"].get(k, 0) == 0]
+    if missing:
+        fail(f"[survival_opt] never launched: {missing}")
+    say(f"[survival_opt] --result {json.dumps(results)}; plateau lr by epoch "
+        f"{summary['train_lr'].tolist()}; EMA eval c-index "
+        f"{summary['eval_ema_c-index'].tolist()}; last.pth.tar carries state_dict_ema")
 
     # one classifier step at batch 2 with the exact pinv gradient, card
     # against CPU (the subtyping run's arguments and widths)
@@ -1967,6 +2287,9 @@ def main() -> int:
         serve = phase_slice(torch, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
         train, train_exact, _ = phase_train(torch, Path(tmp) / "train")
+        clip, _ = phase_pretrain_clip(torch, Path(tmp) / "clip",
+                                      Path(tmp) / "train" / "features",
+                                      Path(tmp) / "train" / "rna.csv")
         with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp_fg:
             featgen = phase_featgen(torch, Path(tmp_fg))
         pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
@@ -1974,17 +2297,18 @@ def main() -> int:
     selftest_launches = phase_selftest(torch)
     probe_launches = phase_probes(torch)
     # the main paths' launches: predict's, the train step's (implicit and
-    # exact pinv gradient), feature extraction's (its three runs), the two
-    # downstream entry points' and the self-test's, each counted from 0 just
+    # exact pinv gradient), the CLIP baseline's, feature extraction's (its
+    # three runs), the downstream entry points' (and the optimizer side's
+    # survival run) and the self-test's, each counted from 0 just
     # before its run. Exempt: softmax_attn_q, the pad-0 entry of the
     # softmax_attn kernel, which no path calls (its callers all have the
     # residual conv). ln_qkv and ln_qkv_bwd, library-only as in the JAX
     # package, run on the probes' path (exp_ln_qkv), as do the kernels the
     # probes added
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
-             "featgen": featgen, "subtyping": down["subtyping"],
-             "survival": down["survival"], "selftest": selftest_launches,
-             "probes": probe_launches}
+             "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
+             "survival": down["survival"], "survival_opt": down["survival_opt"],
+             "selftest": selftest_launches, "probes": probe_launches}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -217,7 +217,6 @@ _UNPORTED = (
     ("resume", "resume", 10), ("no_resume_opt", "resume", 10), ("start_epoch", "resume", 10),
     ("recovery_interval", "recovery checkpoints", 10),
     ("log_wandb", "wandb", 10), ("wandb_watch", "wandb", 10),
-    ("grad_accum_steps", "gradient accumulation", 8),
     ("grad_checkpointing", "activation checkpointing", 10),
     ("model_parallel", "tensor parallelism", 16), ("distributed", "multi-process training", 14),
     ("optimizer_sharding", "ZeRO-1", 14), ("ckpt_format", "the JAX package's checkpoints", 17),
@@ -225,9 +224,11 @@ _UNPORTED = (
 )
 # pretrain only: the downstream CLIs warm-start through load_pretrained
 _UNPORTED_PRETRAIN = (("initial_checkpoint", "warm start from a checkpoint", 10),)
-# what each task's port runs of --model and --loss
+# what each task's port runs of --model and --loss; pretrain: train_mirror
+# runs mirror and its loss, train_pretrain mirror_dual (the default mirror
+# maps to it) and InfoNCE, whatever --loss says (as the JAX CLI)
 _PORTED_VALUES = {
-    "pretrain": {"model": ("mirror",), "loss": ("mirror_loss",)},
+    "pretrain": {"model": ("mirror", "mirror_dual"), "loss": ("mirror_loss", "info_nce")},
     "subtyping": {"model": ("mirror", "mirror_classifier"), "loss": ("ce_loss",)},
     "survival": {"model": ("mirror", "mirror_classifier"), "loss": ("nll_surv", "ce_surv")},
 }
@@ -289,6 +290,15 @@ def refuse_unported(args: argparse.Namespace) -> None:
                 f"--{dest}={value!r}: the port's {args.task} runs {' or '.join(ported)} only; "
                 "the other models and losses are not ported yet"
             )
+
+
+def refuse_clip_values(args: argparse.Namespace) -> None:
+    """train_mirror's own refusal: the CLIP baseline's model and loss run
+    through ``train_pretrain``."""
+    for dest, value in (("model", "mirror_dual"), ("loss", "info_nce")):
+        if getattr(args, dest) == value:
+            raise SystemExit(f"--{dest}={value!r}: train_mirror trains MIRROR; the CLIP "
+                             "baseline runs through mirror_tpu_torch.train_pretrain")
 
 
 def model_kwargs_from_args(args: argparse.Namespace) -> Dict[str, Any]:

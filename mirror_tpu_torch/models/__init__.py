@@ -1,7 +1,9 @@
 """Model definitions of the port: the downstream classifier, the MIRROR
-pretraining model, and the patch feature extractors."""
+pretraining model, the CLIP baseline's dual encoder, and the patch feature
+extractors."""
 
 from .classifier import MIRRORClassifier
+from .dual import MIRRORDual
 from .feature_extractors import TruncatedResNet50, ViTB16
 from .mirror import MIRROR, MirrorOutput
 from .nystrom import NystromAttention
@@ -14,6 +16,7 @@ __all__ = [
     "FeatureTransMIL",
     "FeatureTransMILHybrid",
     "MIRRORClassifier",
+    "MIRRORDual",
     "MirrorOutput",
     "NystromAttention",
     "TransFormer",

@@ -1,8 +1,8 @@
 """Model registry, counterpart of ``mirror_tpu/registry.py``.
 
-``create_model(name, device=..., **kwargs)`` (``mirror_classifier`` or
-``mirror``) filters the accepted kwargs and warns about the others, like the
-reference's registry functions. Config conveniences:
+``create_model(name, device=..., **kwargs)`` (``mirror_classifier``,
+``mirror`` or ``mirror_dual``) filters the accepted kwargs and warns about
+the others, like the reference's registry functions. Config conveniences:
 
 - ``rna_norm_layer``: "layernorm" -> LayerNorm eps 1e-5; None/"" -> 1e-6;
 - ``rna_act_layer``: only "gelu" is supported;
@@ -22,7 +22,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
-from .models import MIRROR, MIRRORClassifier
+from .models import MIRROR, MIRRORClassifier, MIRRORDual
 from .models.nystrom import NystromAttention, kernel_refusal
 from .models.layers import (
     Dense,
@@ -187,3 +187,15 @@ def mirror(**kwargs: Any) -> MIRROR:
         "wsi_dropout", "dtype", "use_pallas",
     }
     return MIRROR(**_filter(_resolve_common(kwargs), accepted))
+
+
+@register_model
+def mirror_dual(**kwargs: Any) -> MIRRORDual:
+    accepted = {
+        "wsi_embed_dim", "rna_embed_dim", "embed_dim", "projection_dim",
+        "rna_encoder_depth", "rna_gene_embed", "rna_mlp_ratio",
+        "rna_pos_drop_rate", "rna_proj_drop_rate", "rna_attn_drop_rate",
+        "rna_drop_path_rate", "rna_norm_eps", "pinv_grad", "wsi_dropout", "dtype",
+        "use_pallas",
+    }
+    return MIRRORDual(**_filter(_resolve_common(kwargs), accepted))

@@ -212,8 +212,11 @@ def launch_split(fn, calls: int = 5):
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
+    # the device's own events, not a user annotation's span over them
+    # (torch.optim's ``Optimizer.step#...``), which would count them twice
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     return [(e.key, dev_us(e) / 1e3 / calls, e.count / calls)
             for e in sorted(events, key=dev_us, reverse=True)]
 

@@ -14,7 +14,7 @@ checkpoint, non-strict (``mirror_tpu/train/checkpoint.py:318-361``).
 import argparse
 import logging
 import os
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,9 +66,11 @@ def load_checkpoint_file(path: str) -> Dict[str, Any]:
 
 def save_checkpoint_file(path: str, state_dict: Mapping[str, Any],
                          args: Mapping[str, Any], arch: str = "mirror_classifier",
-                         epoch: int = 0, metric: Any = None) -> None:
-    """Write the payload (CPU tensors, run ``args`` stored as yaml) with a
-    tmp file and a rename."""
+                         epoch: int = 0, metric: Any = None,
+                         state_dict_ema: Optional[Mapping[str, Any]] = None) -> None:
+    """Write the payload (CPU tensors, run ``args`` stored as yaml, the EMA
+    weights as ``state_dict_ema`` when given) with a tmp file and a
+    rename."""
     payload = {
         "epoch": epoch,
         "arch": arch,
@@ -77,6 +79,9 @@ def save_checkpoint_file(path: str, state_dict: Mapping[str, Any],
         "metric": metric,
         "version": 2,
     }
+    if state_dict_ema is not None:
+        payload["state_dict_ema"] = {k: v.detach().cpu()
+                                     for k, v in to_tensors(state_dict_ema).items()}
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)

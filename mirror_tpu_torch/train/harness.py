@@ -2,11 +2,16 @@
 
 The port's counterpart of ``mirror_tpu/train/harness.py``, for one process
 on one device: the device check, the run directory with ``args.yaml``, the
-epoch loop with its log lines, ``summary.csv``, the reference's ``.pth.tar``
-saves (``last`` every epoch, ``model_best`` when the eval metric improves,
-in the metric's direction: decreasing only for ``loss``, and the best
-``--checkpoint-hist`` epochs as ``checkpoint-<epoch>``), the downstream
-evaluation gather, and the ``--result`` JSON on stdout.
+epoch loop (``optim.scheduled_epochs`` epochs) with its log lines,
+``summary.csv`` (the epoch's mean ``lr`` among the train metrics), the
+reference's ``.pth.tar`` saves (``last`` every epoch, ``model_best`` when
+the eval metric improves, in the metric's direction: decreasing only for
+``loss``, and the best ``--checkpoint-hist`` epochs as
+``checkpoint-<epoch>``; with ``--model-ema`` each also carries
+``state_dict_ema``), the EMA weights evaluated beside the live ones as
+``ema_<metric>`` (which then ranks the epoch), the plateau controller's
+step at each epoch boundary, the downstream evaluation gather, and the
+``--result`` JSON on stdout.
 """
 
 import csv
@@ -23,6 +28,8 @@ import torch
 
 from ..data.loader import Loader
 from .checkpoint import save_checkpoint_file
+from .optim import PlateauController, make_optimizer, scheduled_epochs
+from .steps import ModelEma
 
 _logger = logging.getLogger("train")
 
@@ -53,6 +60,24 @@ def output_dir(args, task: str, args_text: str) -> Optional[str]:
     return out_dir
 
 
+def optimizer_side(args, model, loader, lr: float, decreasing: bool,
+                   head_only: bool = False):
+    """The optimizer over ``ceil(len(loader) / --grad-accum-steps)`` real
+    updates an epoch, the plateau controller under ``--sched plateau``
+    (None otherwise) and the model EMA under ``--model-ema`` (None
+    otherwise), as the JAX entry points build them."""
+    k = max(args.grad_accum_steps, 1)
+    updates_per_epoch = max((len(loader) + k - 1) // k, 1)
+    optimizer = make_optimizer(args, model, lr, head_only=head_only,
+                               steps_per_epoch=updates_per_epoch)
+    lr_controller = None
+    if args.use_sched and args.sched == "plateau":
+        lr_controller = PlateauController.from_args(args, lr, decreasing_metric=decreasing)
+    ema = ModelEma(model, args.model_ema_decay, args.model_ema_warmup) if args.model_ema \
+        else None
+    return optimizer, lr_controller, ema
+
+
 def update_summary(path: str, epoch: int, train: Dict[str, float],
                    evals: Optional[Dict[str, float]]) -> None:
     row = {"epoch": epoch, **{f"train_{k}": v for k, v in train.items()},
@@ -66,8 +91,9 @@ def update_summary(path: str, epoch: int, train: Dict[str, float],
 
 
 def train_one_epoch(args, epoch, train_step, loader, device) -> Dict[str, float]:
-    """One pass over the loader; the metrics are summed on the device and
-    pulled to the host at log lines and once at the end of the epoch."""
+    """One pass over the loader; the metrics are summed on the device (the
+    lr, a float, on the host) and pulled to the host at log lines and once
+    at the end of the epoch."""
     loader.set_epoch(epoch)
     num_batches = len(loader)
     sums: Dict[str, torch.Tensor] = {}
@@ -76,7 +102,7 @@ def train_one_epoch(args, epoch, train_step, loader, device) -> Dict[str, float]
     for batch_idx, host_batch in enumerate(loader):
         metrics = train_step(to_device(host_batch, device))
         for k, v in metrics.items():
-            sums[k] = sums[k] + v if k in sums else v.clone()
+            sums[k] = sums[k] + v if k in sums else v
         count += 1
         if batch_idx % args.log_interval == 0 or batch_idx == num_batches - 1:
             vals = {k: float(v) for k, v in metrics.items()}
@@ -145,40 +171,68 @@ class CheckpointHistory:
         return writes
 
 
-def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
-        out_dir: Optional[str], decreasing: bool) -> Dict:
-    """The epoch loop: train, evaluate (``eval_fn(epoch)``), summary,
-    checkpoints; then the ``--result`` JSON on stdout. A NaN eval metric
-    (a c-index over an all-censored split) is logged and not ranked."""
+def save_epoch(paths: Sequence[str], model, ema, args, epoch: int,
+               metric: Optional[float]) -> None:
+    """The epoch's ``.pth.tar`` files, with ``state_dict_ema`` under
+    ``--model-ema``."""
     saved_args = {k: v for k, v in vars(args).items() if k != "defaults"}
+    ema_state = ema.module.state_dict() if ema is not None else None
+    for path in paths:
+        save_checkpoint_file(path, model.state_dict(), saved_args,
+                             arch=args.model, epoch=epoch, metric=metric,
+                             state_dict_ema=ema_state)
+
+
+def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
+        out_dir: Optional[str], decreasing: bool, ema=None, lr_controller=None,
+        optimizer=None) -> Dict:
+    """The epoch loop: train, evaluate (``eval_fn(epoch, model)``, and the
+    EMA module as ``ema_<metric>``), summary, the plateau step
+    (``lr_controller.step_epoch(optimizer, ...)``), checkpoints; then the
+    ``--result`` JSON on stdout. A NaN eval metric (a c-index over an
+    all-censored split) is logged and not ranked; so is an
+    ``--eval-metric`` the epoch does not emit."""
     best_metric, best_epoch = None, None
     history = CheckpointHistory(out_dir, args.checkpoint_hist, decreasing) if out_dir else None
-    for epoch in range(args.epochs):
+    for epoch in range(scheduled_epochs(args)):
         t0 = time.time()
         train_metrics = train_one_epoch(args, epoch, train_step, loader, device)
         eval_metrics = None
         if eval_fn is not None:
-            eval_metrics = eval_fn(epoch)
+            eval_metrics = eval_fn(epoch, model)
             _logger.info("Eval: %d  %s", epoch,
                          " ".join(f"{k}: {v:.4f}" for k, v in eval_metrics.items()))
-        metric = (eval_metrics or train_metrics).get(args.eval_metric)
-        if metric is not None and math.isnan(metric):
+            if ema is not None:
+                ema_metrics = eval_fn(epoch, ema.module)
+                _logger.info("Eval EMA: %d  %s", epoch,
+                             " ".join(f"{k}: {v:.4f}" for k, v in ema_metrics.items()))
+                eval_metrics.update({f"ema_{k}": v for k, v in ema_metrics.items()})
+        source = eval_metrics or train_metrics
+        name = args.eval_metric
+        if ema is not None and eval_metrics and f"ema_{name}" in eval_metrics:
+            name = f"ema_{name}"  # the reference ranks by the EMA's metric
+        metric = source.get(name)
+        if metric is None:
+            _logger.warning("eval metric %s not among the epoch's metrics (%s); epoch %d is "
+                            "not ranked", args.eval_metric, ", ".join(source), epoch)
+        elif math.isnan(metric):
             _logger.warning("eval metric %s is NaN at epoch %d; skipping ranking",
                             args.eval_metric, epoch)
             metric = None
         if out_dir:
             update_summary(os.path.join(out_dir, "summary.csv"), epoch, train_metrics,
                            eval_metrics)
-            for path in history.paths(epoch, metric):
-                save_checkpoint_file(path, model.state_dict(), saved_args, arch=args.model,
-                                     epoch=epoch, metric=metric)
+        if lr_controller is not None:
+            lr_controller.step_epoch(optimizer, epoch, metric)
+            _logger.info("Plateau LR after epoch %d: %g", epoch, lr_controller.applied_lr)
+        if out_dir:
+            save_epoch(history.paths(epoch, metric), model, ema, args, epoch, metric)
         if metric is not None and (best_metric is None or (
                 metric < best_metric if decreasing else metric > best_metric)):
             best_metric, best_epoch = metric, epoch
             if out_dir:
-                save_checkpoint_file(os.path.join(out_dir, "model_best.pth.tar"),
-                                     model.state_dict(), saved_args, arch=args.model,
-                                     epoch=epoch, metric=metric)
+                save_epoch([os.path.join(out_dir, "model_best.pth.tar")], model, ema, args,
+                           epoch, metric)
         _logger.info("Epoch %d done in %.1fs", epoch, time.time() - t0)
 
     results = {"best_metric": best_metric, "best_epoch": best_epoch,

@@ -1,4 +1,5 @@
-"""The train and eval steps: MIRROR pretraining, subtyping, survival.
+"""The train and eval steps: MIRROR pretraining, the CLIP baseline,
+subtyping, survival; and the model EMA.
 
 Counterpart of ``mirror_tpu/train/steps.py``. The pretrain step
 (``make_mirror_train_step``) runs its two in-step updates in the JAX step's
@@ -16,17 +17,27 @@ to label-smoothed cross-entropy (subtyping) or a discrete survival loss,
 each over the batch's ``valid`` rows. Their eval steps return the fp32
 logits; the caller takes metrics over the valid rows of the whole set.
 
-The steps run eagerly: metrics come back as device tensors and the caller
-pulls them to the host only when it logs.
+The CLIP steps (steps.py:306-380) take InfoNCE of the dual encoder's two
+embeddings; the eval step masks the batch's padded rows by ``valid``.
+
+Every train step reports the lr of the next real update (``lr``) and calls
+``optimizer.step()`` (``optim.ChainOptimizer``), which updates on every
+call or, under gradient accumulation, on every k-th; a :class:`ModelEma`
+then advances once per real update (steps.py:104-146).
+
+The steps run eagerly: metrics come back as device tensors (the lr as a
+float) and the caller pulls them to the host only when it logs.
 """
 
+import copy
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..losses import MirrorLossWeights, ce_surv_loss, mirror_loss, nll_surv_loss
+from ..losses import MirrorLossWeights, ce_surv_loss, info_nce, mirror_loss, nll_surv_loss
 from ..models.layers import set_generator
 
 LOG_100 = math.log(100.0)
@@ -50,10 +61,59 @@ def _global_norm(tensors) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
-def make_mirror_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+def ema_decay_at(decay: float, warmup: bool, n_updates: int) -> float:
+    """timm ``ModelEmaV3.get_decay`` in the JAX package's fp32: 0 at the
+    first update (the EMA takes the weights), then ``decay``, or with
+    ``warmup`` the ramp 1 - (1 + step)^(-2/3) clipped to [0, decay], step
+    being the updates before this one."""
+    step = np.float32(n_updates) - np.float32(1)
+    if step <= 0:
+        return 0.0
+    if not warmup:
+        return float(np.float32(decay))
+    d = np.float32(1) - np.power(np.float32(1) + step, np.float32(-2.0 / 3.0))
+    return float(np.clip(d, np.float32(0), np.float32(decay)))
+
+
+class ModelEma:
+    """The model EMA (``--model-ema``): ``module`` is a copy of the model
+    whose fp32 parameters on the device follow e <- d e + (1 - d) p after
+    each real update (:func:`ema_decay_at`). The harness evaluates it beside
+    the live model and saves its ``state_dict`` as ``state_dict_ema``."""
+
+    def __init__(self, model: nn.Module, decay: float = 0.9998, warmup: bool = False):
+        self.module = copy.deepcopy(model).eval()
+        for p in self.module.parameters():
+            p.requires_grad_(False)
+        self.decay, self.warmup = decay, warmup
+        self.updates = 0
+        self._ema = list(self.module.parameters())
+        self._live = list(model.parameters())
+
+    @torch.no_grad()
+    def update(self) -> None:
+        self.updates += 1
+        d = ema_decay_at(self.decay, self.warmup, self.updates)
+        torch._foreach_mul_(self._ema, d)
+        torch._foreach_add_(self._ema, self._live, alpha=1.0 - d)
+
+
+def _update(optimizer, ema: Optional[ModelEma],
+            after_update: Optional[Callable] = None) -> None:
+    """One optimizer call; on a real update the step's post-update work
+    (the logit-scale clamp), then the EMA."""
+    if optimizer.step():
+        if after_update is not None:
+            after_update()
+        if ema is not None:
+            ema.update()
+
+
+def make_mirror_train_step(model: nn.Module, optimizer,
                            loss_weights: MirrorLossWeights, wsi_mask_ratio: float = 0.75,
                            rna_mask_ratio: float = 0.75,
-                           generator: Optional[torch.Generator] = None) -> Callable:
+                           generator: Optional[torch.Generator] = None,
+                           ema: Optional[ModelEma] = None) -> Callable:
     """``train_step(batch, noise=None) -> metrics``. ``generator`` drives
     every draw of the step (dropout, token masking, VAE eps); ``noise``
     injects the masking noise and eps instead (see ``models.mirror``).
@@ -69,15 +129,15 @@ def make_mirror_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         out = model(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio,
                     generator=generator, noise=noise)
         losses = mirror_loss(*out, weights=loss_weights)
-        optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         losses[0].backward()
         with torch.no_grad():
             metrics = {
                 "grad_norm": _global_norm([p.grad for p in params if p.grad is not None]),
                 "param_norm": _global_norm(params),
+                "lr": optimizer.current_lr(),
             }
-        optimizer.step()
-        clamp_logit_scale(model)
+        _update(optimizer, ema, lambda: clamp_logit_scale(model))
         metrics.update({name: v.detach() for name, v in zip(LOSS_NAMES, losses)})
         metrics["logit_scale"] = torch.exp(model.logit_scale.detach())
         return metrics
@@ -98,6 +158,62 @@ def mirror_eval_losses(model: nn.Module, batch: Dict[str, torch.Tensor],
     return dict(zip(LOSS_NAMES, mirror_loss(*out, weights=loss_weights)))
 
 
+def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
+                     generator: Optional[torch.Generator],
+                     ema: Optional[ModelEma]) -> Callable:
+    """``train_step(batch) -> {"loss", "grad_norm", "param_norm", "lr"}``
+    with ``loss_of(batch)`` the loss of ``model``'s forward: the whole model
+    is differentiated, as in the JAX step, and ``optimizer`` updates what it
+    holds (every parameter, or the head alone under the linear probe, where
+    the JAX step discards the trunk's updates); the norms are over every
+    parameter."""
+    set_generator(model, generator)
+    params = list(model.parameters())
+
+    def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.train()
+        loss = loss_of(batch)
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        with torch.no_grad():
+            metrics = {
+                "loss": loss.detach(),
+                "grad_norm": _global_norm([p.grad for p in params if p.grad is not None]),
+                "param_norm": _global_norm(params),
+                "lr": optimizer.current_lr(),
+            }
+        _update(optimizer, ema)
+        return metrics
+
+    return train_step
+
+
+def make_clip_train_step(model: nn.Module, optimizer, temperature: float = 0.1,
+                         generator: Optional[torch.Generator] = None,
+                         ema: Optional[ModelEma] = None) -> Callable:
+    """The CLIP baseline's step: InfoNCE over the batch's own negatives of
+    the dual encoder's (wsi, rna) embeddings; ``generator`` drives its
+    dropout."""
+    def loss_of(batch):
+        wsi, rna = model(batch["wsi"], batch["rna"])
+        return info_nce(wsi, rna, temperature=temperature)
+
+    return _make_train_step(model, optimizer, loss_of, generator, ema)
+
+
+def make_clip_eval_step(model: nn.Module, temperature: float = 0.1) -> Callable:
+    """``eval_step(batch) -> {"loss"}``, dropout off; the batch's ``valid``
+    takes the padded rows out of the loss and of the negatives."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model.eval()
+        wsi, rna = model(batch["wsi"], batch["rna"])
+        return {"loss": info_nce(wsi, rna, temperature=temperature, valid=batch.get("valid"))}
+
+    return eval_step
+
+
 def smoothed_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 0.0,
                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy with label smoothing (timm's LabelSmoothingCrossEntropy),
@@ -112,42 +228,24 @@ def smoothed_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float =
     return nll.mean()
 
 
-def _make_downstream_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                                loss_fn: Callable, wsi_only: bool,
-                                generator: Optional[torch.Generator]) -> Callable:
-    """``train_step(batch) -> {"loss", "grad_norm", "param_norm"}``: the
-    whole model is differentiated, as in the JAX step, and ``optimizer``
-    updates what it holds (every parameter, or the head alone under the
-    linear probe, where the JAX step discards the trunk's updates); the
-    norms are over every parameter."""
-    set_generator(model, generator)
-    params = list(model.parameters())
-
-    def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        model.train()
+def _make_downstream_train_step(model: nn.Module, optimizer, loss_fn: Callable,
+                                wsi_only: bool, generator: Optional[torch.Generator],
+                                ema: Optional[ModelEma]) -> Callable:
+    def loss_of(batch):
         logits = model(batch["wsi"], None if wsi_only else batch["rna"]).float()
-        loss = loss_fn(logits, batch)
-        model.zero_grad(set_to_none=True)
-        loss.backward()
-        with torch.no_grad():
-            metrics = {
-                "loss": loss.detach(),
-                "grad_norm": _global_norm([p.grad for p in params if p.grad is not None]),
-                "param_norm": _global_norm(params),
-            }
-        optimizer.step()
-        return metrics
+        return loss_fn(logits, batch)
 
-    return train_step
+    return _make_train_step(model, optimizer, loss_of, generator, ema)
 
 
-def make_classifier_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                               smoothing: float = 0.0, wsi_only: bool = False,
-                               generator: Optional[torch.Generator] = None) -> Callable:
+def make_classifier_train_step(model: nn.Module, optimizer, smoothing: float = 0.0,
+                               wsi_only: bool = False,
+                               generator: Optional[torch.Generator] = None,
+                               ema: Optional[ModelEma] = None) -> Callable:
     def loss_fn(logits, batch):
         return smoothed_xent(logits, batch["label"], smoothing, valid=batch.get("valid"))
 
-    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator)
+    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator, ema)
 
 
 def survival_loss(loss_name: str, logits: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -163,14 +261,14 @@ def survival_loss(loss_name: str, logits: torch.Tensor, batch: Dict[str, torch.T
                          valid=valid)
 
 
-def make_survival_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                             loss_name: str = "nll_surv", loss_alpha: float = 0.0,
-                             wsi_only: bool = False,
-                             generator: Optional[torch.Generator] = None) -> Callable:
+def make_survival_train_step(model: nn.Module, optimizer, loss_name: str = "nll_surv",
+                             loss_alpha: float = 0.0, wsi_only: bool = False,
+                             generator: Optional[torch.Generator] = None,
+                             ema: Optional[ModelEma] = None) -> Callable:
     def loss_fn(logits, batch):
         return survival_loss(loss_name, logits, batch, loss_alpha)
 
-    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator)
+    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator, ema)
 
 
 def make_classifier_eval_step(model: nn.Module, wsi_only: bool = False) -> Callable:

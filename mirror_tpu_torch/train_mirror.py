@@ -12,13 +12,18 @@ reference's CLI), with its flags and YAML:
 It trains on the card (``--device cuda``, the default) through the port's
 kernels, forward and backward; ``--device cpu`` or ``--no-use-pallas`` runs
 their plain versions. A configuration beyond the kernels (``--no-amp``, a
-head dim above 128) is refused at start unless ``--no-use-pallas``.
-Per epoch: one log line per ``--log-interval`` steps with the six loss terms
-and the grad / param norms, an optional validation pass, ``summary.csv``,
-and the reference's ``.pth.tar`` checkpoints (``last``, ``model_best`` and
-the best ``--checkpoint-hist`` ``checkpoint-<epoch>``). At the end the ``--result`` JSON goes to stdout. Flags of
-the JAX entry point that the port does not implement are refused at start
-when set away from their defaults (``config.refuse_unported``).
+head dim above 128) is refused at start unless ``--no-use-pallas``. The
+optimizer side is the JAX package's (``train/optim.py``): every ``--opt``,
+the timm schedules and plateau, clipping, ``--layer-decay``,
+``--model-ema`` and ``--grad-accum-steps``.
+Per epoch: one log line per ``--log-interval`` steps with the six loss terms,
+the grad / param norms and the lr, an optional validation pass (and the
+EMA's), ``summary.csv``, and the reference's ``.pth.tar`` checkpoints
+(``last``, ``model_best`` and the best ``--checkpoint-hist``
+``checkpoint-<epoch>``). At the end the ``--result`` JSON goes to stdout.
+Flags of the JAX entry point that the port does not implement are refused at
+start when set away from their defaults (``config.refuse_unported``), and so
+are the CLIP baseline's model and loss (``train_pretrain`` runs them).
 """
 
 import logging
@@ -29,6 +34,7 @@ import torch
 from mirror_tpu_torch.config import (
     model_kwargs_from_args,
     parse_args,
+    refuse_clip_values,
     refuse_unported,
     resolve_lr,
 )
@@ -37,7 +43,6 @@ from mirror_tpu_torch.data.loader import Loader
 from mirror_tpu_torch.losses import MirrorLossWeights
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
-from mirror_tpu_torch.train.optim import make_optimizer
 from mirror_tpu_torch.train.steps import make_mirror_train_step, mirror_eval_losses
 
 _logger = logging.getLogger("train")
@@ -74,6 +79,7 @@ def main(argv=None) -> Dict:
     args, args_text = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     refuse_unported(args)
+    refuse_clip_values(args)
     device = harness.device_from_arg(args.device)
     check_kernel_config(args.model, device, **model_kwargs_from_args(args))
     torch.manual_seed(args.seed)
@@ -95,18 +101,20 @@ def main(argv=None) -> Dict:
     dataset.train()
     loader = Loader(dataset, args.batch_size, shuffle=True, drop_last=True, seed=args.seed,
                     workers=args.workers)
-    optimizer = make_optimizer(args, model, resolve_lr(args, args.batch_size))
+    optimizer, lr_controller, ema = harness.optimizer_side(
+        args, model, loader, resolve_lr(args, args.batch_size), decreasing=True)
     loss_weights = loss_weights_from_args(args)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     train_step = make_mirror_train_step(model, optimizer, loss_weights, args.wsi_mask_ratio,
-                                        args.rna_mask_ratio, generator=generator)
+                                        args.rna_mask_ratio, generator=generator, ema=ema)
     out_dir = harness.output_dir(args, "pretrain", args_text)
     eval_fn = None
     if args.val and args.split_dir is not None:
-        def eval_fn(epoch):
-            return evaluate(args, model, dataset, loss_weights, generator, device)
+        def eval_fn(epoch, module):
+            return evaluate(args, module, dataset, loss_weights, generator, device)
     return harness.run(args, model, train_step, loader, device, eval_fn, out_dir,
-                       decreasing=True)
+                       decreasing=True, ema=ema, lr_controller=lr_controller,
+                       optimizer=optimizer)
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
 from mirror_tpu_torch.train.metrics import accuracy, multiclass_auroc, multiclass_f1
-from mirror_tpu_torch.train.optim import make_optimizer, reinit_head
+from mirror_tpu_torch.train.optim import reinit_head
 from mirror_tpu_torch.train.steps import (
     make_classifier_eval_step,
     make_classifier_train_step,
@@ -99,16 +99,18 @@ def build_classifier(args, dataset, num_classes: int, device) -> torch.nn.Module
 def train_loader_and_optimizer(args, dataset, model):
     """The train loader (``clamp_batch_size``; ``--no-drop-last`` pads the
     tail batch and the loss masks it by ``valid``; ``--weighted-sampler``
-    draws class-balanced) and Adam over every parameter, or over the head
-    alone under ``--linear-probe``. Returns (loader, optimizer, batch)."""
+    draws class-balanced) and the optimizer side (``harness.optimizer_side``)
+    over every parameter, or over the head alone under ``--linear-probe``.
+    Returns (loader, (optimizer, plateau controller, EMA), batch)."""
     dataset.train()
     batch_size = clamp_batch_size(args.batch_size, len(dataset))
     loader = Loader(dataset, batch_size, shuffle=not args.weighted_sampler,
                     drop_last=args.drop_last, pad_last=not args.drop_last,
                     weighted=args.weighted_sampler, seed=args.seed, workers=args.workers)
-    optimizer = make_optimizer(args, model, resolve_lr(args, batch_size),
-                               head_only=args.linear_probe)
-    return loader, optimizer, batch_size
+    side = harness.optimizer_side(args, model, loader, resolve_lr(args, batch_size),
+                                  decreasing=args.eval_metric == "loss",
+                                  head_only=args.linear_probe)
+    return loader, side, batch_size
 
 
 def main(argv=None) -> Dict:
@@ -127,16 +129,17 @@ def main(argv=None) -> Dict:
         raise SystemExit(f"--num-classes {num_classes} != {len(args.classes)} --classes")
 
     model = build_classifier(args, dataset, num_classes, device)
-    loader, optimizer, batch_size = train_loader_and_optimizer(args, dataset, model)
+    loader, (optimizer, lr_controller, ema), batch_size = train_loader_and_optimizer(
+        args, dataset, model)
     train_step = make_classifier_train_step(
         model, optimizer, smoothing=args.smoothing or 0.0, wsi_only=args.wsi_feature_only,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
-    eval_step = make_classifier_eval_step(model, args.wsi_feature_only)
+        generator=torch.Generator(device=device).manual_seed(args.seed), ema=ema)
     avg = args.eval_metric_average
 
-    def eval_fn(epoch):
+    def eval_fn(epoch, module):
         logits, labels, _ = harness.gather_eval_outputs(
-            eval_step, dataset, args.validation_batch_size or batch_size, args, epoch, device)
+            make_classifier_eval_step(module, args.wsi_feature_only), dataset,
+            args.validation_batch_size or batch_size, args, epoch, device)
         loss = float(smoothed_xent(torch.from_numpy(logits), torch.from_numpy(labels)))
         return {"loss": loss, "acc": accuracy(logits, labels),
                 "auc": multiclass_auroc(logits, labels, average=avg),
@@ -145,7 +148,8 @@ def main(argv=None) -> Dict:
     out_dir = harness.output_dir(args, "subtyping", args_text)
     return harness.run(args, model, train_step, loader, device,
                        eval_fn if args.val else None, out_dir,
-                       decreasing=args.eval_metric == "loss")
+                       decreasing=args.eval_metric == "loss", ema=ema,
+                       lr_controller=lr_controller, optimizer=optimizer)
 
 
 if __name__ == "__main__":

@@ -52,17 +52,18 @@ def main(argv=None) -> Dict:
                          f"{args.num_bins}")
 
     model = build_classifier(args, dataset, args.num_bins, device)
-    loader, optimizer, batch_size = train_loader_and_optimizer(args, dataset, model)
+    loader, (optimizer, lr_controller, ema), batch_size = train_loader_and_optimizer(
+        args, dataset, model)
     train_step = make_survival_train_step(
         model, optimizer, loss_name=args.loss, loss_alpha=args.loss_alpha,
         wsi_only=args.wsi_feature_only,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
-    eval_step = make_survival_eval_step(model, args.wsi_feature_only)
+        generator=torch.Generator(device=device).manual_seed(args.seed), ema=ema)
 
-    def eval_fn(epoch):
+    def eval_fn(epoch, module):
         logits, labels, extras = harness.gather_eval_outputs(
-            eval_step, dataset, args.validation_batch_size or batch_size, args, epoch,
-            device, extra_keys=("event_time", "censorship"))
+            make_survival_eval_step(module, args.wsi_feature_only), dataset,
+            args.validation_batch_size or batch_size, args, epoch, device,
+            extra_keys=("event_time", "censorship"))
         batch = {"label": torch.from_numpy(labels),
                  "censorship": torch.from_numpy(extras["censorship"])}
         loss = float(survival_loss(args.loss, torch.from_numpy(logits), batch,
@@ -80,7 +81,8 @@ def main(argv=None) -> Dict:
     out_dir = harness.output_dir(args, "survival", args_text)
     return harness.run(args, model, train_step, loader, device,
                        eval_fn if args.val else None, out_dir,
-                       decreasing=args.eval_metric == "loss")
+                       decreasing=args.eval_metric == "loss", ema=ema,
+                       lr_controller=lr_controller, optimizer=optimizer)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,7 @@ card when there is none, and imports no JAX.
 
 import inspect
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -112,9 +113,9 @@ def test_train_mirror_trains_on_the_cpu_and_its_checkpoint_reloads(cohort, capsy
 
 @pytest.mark.parametrize("flag", [
     ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--start-epoch", "3"],
-    ["--log-wandb"], ["--grad-accum-steps", "2"], ["--model-parallel", "2"],
-    ["--distributed"], ["--opt", "sgd"], ["--use-sched"], ["--clip-grad", "1.0"],
-    ["--layer-decay", "0.7"], ["--model-ema"],
+    ["--log-wandb"], ["--grad-checkpointing"], ["--model-parallel", "2"],
+    ["--distributed"], ["--optimizer-sharding"], ["--ckpt-format", "orbax"], ["--profile"],
+    ["--initial-checkpoint", "x.pth.tar"], ["--no-resume-opt"],
 ])
 def test_train_mirror_refuses_unported_flags(cohort, flag):
     name = flag[0]
@@ -122,12 +123,65 @@ def test_train_mirror_refuses_unported_flags(cohort, flag):
         train_mirror.main(_argv(cohort, "--device", "cpu", *flag))
 
 
+@pytest.mark.parametrize("flag", [
+    ["--grad-accum-steps", "2"], ["--opt", "sgd"], ["--use-sched"], ["--clip-grad", "1.0"],
+    ["--layer-decay", "0.7"], ["--model-ema"],
+])
+def test_train_mirror_runs_the_optimizer_flags(cohort, flag):
+    """The optimizer-side flags the port once refused now train: one epoch
+    on the CPU, a finite result, and the EMA weights in the checkpoint
+    under --model-ema."""
+    experiment = "opt_" + flag[0].strip("-")
+    results = train_mirror.main(_argv(cohort, "--device", "cpu", "--experiment", experiment,
+                                      *flag))
+    assert np.isfinite(results["best_metric"])
+    payload = load_checkpoint_file(str(cohort / "runs" / "pretrain" / experiment
+                                       / "last.pth.tar"))
+    assert ("state_dict_ema" in payload) == (flag[0] == "--model-ema")
+    summary = pd.read_csv(cohort / "runs" / "pretrain" / experiment / "summary.csv")
+    assert np.isfinite(summary["train_lr"]).all()
+
+
+@pytest.mark.parametrize("flag", [["--model", "mirror_dual"], ["--loss", "info_nce"]])
+def test_train_mirror_leaves_the_clip_baseline_to_train_pretrain(cohort, flag):
+    with pytest.raises(SystemExit, match="train_pretrain"):
+        train_mirror.main(_argv(cohort, "--device", "cpu", *flag))
+
+
+def test_an_eval_metric_the_epochs_do_not_emit_is_warned_and_unranked(cohort, caplog):
+    """The JAX behaviour (the epoch unranked, no best checkpoint), now with a
+    warning that names the metric and the metrics the epoch emitted."""
+    with caplog.at_level(logging.WARNING, logger="train"):
+        results = train_mirror.main(_argv(cohort, "--device", "cpu", "--eval-metric", "auc",
+                                          "--experiment", "tiny_no_metric"))
+    assert results["best_metric"] is None and results["best_epoch"] is None
+    warned = [r.getMessage() for r in caplog.records if "auc" in r.getMessage()]
+    assert warned and "not ranked" in warned[0] and "alignment_loss" in warned[0]
+    run_dir = cohort / "runs" / "pretrain" / "tiny_no_metric"
+    assert sorted(p.name for p in run_dir.glob("*.pth.tar")) == ["last.pth.tar"]
+
+
+def test_a_train_mirror_ema_checkpoint_warm_starts_from_its_ema_weights(cohort):
+    """train_mirror --model-ema saves state_dict_ema beside the live
+    weights; load_pretrained(use_ema=True) reads it."""
+    from mirror_tpu_torch.train.checkpoint import load_pretrained
+
+    train_mirror.main(_argv(cohort, "--device", "cpu", "--model-ema", "--experiment",
+                            "tiny_ema"))
+    path = str(cohort / "runs" / "pretrain" / "tiny_ema" / "last.pth.tar")
+    payload = load_checkpoint_file(path)
+    model = create_model("mirror", device="cpu", **run_args(payload)["model_kwargs"])
+    load_pretrained(model, path, use_ema=True)
+    key = "wsi_encoder.layer1.attn.to_qkv.weight"
+    assert torch.equal(model.state_dict()[key], payload["state_dict_ema"][key])
+    assert not torch.equal(payload["state_dict_ema"][key], payload["state_dict"][key])
+
+
 # each refused flag set away from its default, on the command line
 UNPORTED_ARGV = {
     "resume": ["--resume", "x.pth.tar"], "no_resume_opt": ["--no-resume-opt"],
     "start_epoch": ["--start-epoch", "3"], "recovery_interval": ["--recovery-interval", "5"],
     "log_wandb": ["--log-wandb"], "wandb_watch": ["--wandb-watch"],
-    "grad_accum_steps": ["--grad-accum-steps", "2"],
     "grad_checkpointing": ["--grad-checkpointing"], "model_parallel": ["--model-parallel", "2"],
     "distributed": ["--distributed"], "optimizer_sharding": ["--optimizer-sharding"],
     "ckpt_format": ["--ckpt-format", "orbax"], "profile": ["--profile"],
@@ -139,7 +193,7 @@ UNPORTED_ARGV = {
                                        config._UNPORTED + config._UNPORTED_PRETRAIN])
 def test_refusal_names_the_flag_and_its_roadmap_item(dest, item):
     """Each refused pretrain flag's message names the flag and the ROADMAP
-    item that ports it (items 8, 10, 14, 16, 17), not one range for all."""
+    item that ports it (items 10, 14, 16, 17), not one range for all."""
     args, _ = config.parse_args(UNPORTED_ARGV[dest], task="pretrain")
     with pytest.raises(SystemExit) as refusal:
         config.refuse_unported(args)

@@ -1307,3 +1307,104 @@ def test_vit_fused_sublayer_kernels_refuse_bad_inputs(dev):
         vf.fused_mlp(xg, w1, b1, w2, b2)
     with torch.no_grad():
         vf.fused_mlp(xg, w1, b1, w2, b2)
+
+
+# --- the CLIP baseline's path: the dual encoder and the optimizer side ---
+
+DUAL_KW = dict(wsi_embed_dim=64, rna_embed_dim=100, embed_dim=384, rna_encoder_depth=1,
+               rna_proj_drop_rate=0.0, wsi_dropout=0.0, pinv_grad="implicit",
+               dtype="bfloat16")
+
+
+def test_dual_encoder_on_the_card_matches_its_plain_path(dev):
+    """mirror_dual at embed 384 (8 heads of 48, 192 landmarks; 300 tokens:
+    325 rows, pad 59), bf16: the card's kernels against the CPU's plain
+    path on the same weights. The embeddings within a relative Frobenius
+    error of 5e-2 and the InfoNCE loss within 2e-2 (chip_smoke's bars for
+    two Nystrom layers in bf16), the kernel-fed gradients at cosine >= 0.99;
+    one forward and backward launch two of each Nystrom kernel and one of
+    PPEG and its backward."""
+    from mirror_tpu_torch.losses import info_nce
+    from mirror_tpu_torch.registry import create_model
+
+    g = torch.Generator().manual_seed(3)
+    wsi, rna = torch.randn(3, 300, 64, generator=g), torch.randn(3, 100, generator=g)
+    results = {}
+    state = None
+    for device in ("cuda", "cpu"):
+        model = create_model("mirror_dual", device=device,
+                             generator=None if state else torch.Generator().manual_seed(0),
+                             **DUAL_KW)
+        if state is None:
+            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        _common.reset_launch_counts()
+        w, r = model(wsi.to(device), rna.to(device))
+        loss = info_nce(w, r, symmetric=True)
+        loss.backward()
+        launches = _common.launch_counts()
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                 if "to_qkv" in n or "res_conv" in n or "pos_layer" in n}
+        results[device] = (w.detach().float().cpu(), r.detach().float().cpu(),
+                           float(loss.detach()), grads, launches)
+    (wc, rc, lc, gc, launches), (wp, rp, lp, gp, _) = results["cuda"], results["cpu"]
+    for out, ref in ((wc, wp), (rc, rp)):
+        assert ((out - ref).norm() / ref.norm()).item() <= 5e-2
+    assert abs(lc - lp) <= 2e-2 * abs(lp)
+    for name in gp:
+        cos = (gc[name].ravel() @ gp[name].ravel()
+               / (gc[name].norm() * gp[name].norm())).item()
+        assert cos >= 0.99, f"{name}: cosine {cos}"
+    for name in ("landmark_softmax", "moore_penrose_pinv", "softmax_attn", "softmax_attn_conv",
+                 "landmark_softmax_bwd", "softmax_attn_bwd", "softmax_attn_conv_bwd"):
+        assert launches.get(name) == 2, (name, launches)
+    assert launches.get("ppeg") == 1 and launches.get("ppeg_bwd") == 1, launches
+
+
+@pytest.mark.parametrize("opt,clip_mode", [("lamb", "agc"), ("adamw", "norm"), ("adam", "agc"),
+                                           ("rmsprop", "value"), ("adagrad", "norm")])
+def test_optimizer_side_on_the_card_matches_the_cpu(dev, opt, clip_mode):
+    """ChainOptimizer's batched _foreach updates, its device-side clip and
+    trust ratio, with accumulation 2 and the EMA, on CUDA tensors against
+    the same run on the CPU: every parameter and EMA weight within 1e-5 of
+    its scale after 6 micro-steps."""
+    from types import SimpleNamespace
+
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import ModelEma
+
+    args = SimpleNamespace(opt=opt, opt_eps=None, opt_betas=None, opt_kwargs={},
+                           momentum=0.9, weight_decay=0.05, clip_grad=0.5,
+                           clip_mode=clip_mode, layer_decay=None, use_sched=True,
+                           sched="cosine", sched_on_updates=True, grad_accum_steps=2, epochs=3,
+                           warmup_epochs=1, decay_epochs=1, decay_milestones=(1,),
+                           warmup_lr=1e-4, min_lr=0.0, decay_rate=0.1, warmup_prefix=False,
+                           lr_cycle_mul=1.0, lr_cycle_decay=0.5, lr_cycle_limit=1,
+                           lr_k_decay=1.0, cooldown_epochs=0, lr_noise=None, seed=0)
+    g = torch.Generator().manual_seed(5)
+    init = {"enc.weight": torch.randn(64, 48, generator=g),
+            "enc.bias": torch.randn(64, generator=g),
+            "head.weight": torch.randn(3, 64, generator=g)}
+    grads = [{k: 3 * torch.randn(v.shape, generator=g) for k, v in init.items()}
+             for _ in range(6)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = torch.nn.Module()
+        model.enc = torch.nn.Linear(48, 64)
+        model.head = torch.nn.Linear(64, 3, bias=False)
+        model.load_state_dict(init)
+        model.to(device)
+        opt_ = make_optimizer(args, model, 1e-2, steps_per_epoch=2)
+        ema = ModelEma(model, 0.9, warmup=True)
+        for step in grads:
+            for name, p in model.named_parameters():
+                p.grad = step[name].to(device)
+            if opt_.step():
+                ema.update()
+        out[device] = ({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                       {k: v.cpu() for k, v in ema.module.state_dict().items()})
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for key in want:
+            scale = want[key].abs().max().item()
+            assert (got[key] - want[key]).abs().max().item() <= 1e-5 * scale, key

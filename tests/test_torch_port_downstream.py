@@ -311,7 +311,8 @@ def test_three_step_trajectory_matches_jax_step(task, loss, pinv_grad, probe, fu
     trunk_before = port.wsi_encoder.layer1.attn.to_qkv.weight.detach().clone()
     for t, b in enumerate(batches):
         out = train_step({k: torch.from_numpy(v) for k, v in b.items()})
-        assert set(out) == {"loss", "grad_norm", "param_norm"}
+        assert set(out) == {"loss", "grad_norm", "param_norm", "lr"}
+        assert out["lr"] == pytest.approx(lr, rel=1e-7)
         assert float(out["loss"]) == pytest.approx(losses_j[t], rel=2e-5), \
             f"step {t}: port {float(out['loss'])} vs jax {losses_j[t]}"
     # the parameters moved alike: the head after three updates, and the
@@ -331,7 +332,7 @@ def test_linear_probe_keeps_the_whole_models_grad_norm():
                          generator=torch.Generator().manual_seed(1), **_kw("concat", 2),
                          pinv_grad="implicit", wsi_dropout=0.0)
     opt = make_optimizer(_AdamArgs, model, 1e-3, head_only=True)
-    assert sum(len(g["params"]) for g in opt.param_groups) == 2
+    assert len(opt.params) == 2
     step = make_classifier_train_step(model, opt)
     batch = {"wsi": torch.randn(2, N_TOK, WSI_IN), "rna": torch.randn(2, RNA_IN),
              "label": torch.tensor([0, 1])}
@@ -597,14 +598,67 @@ def test_gen_few_shot_files_writes_the_jax_tools_files(cohort, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--grad-accum-steps", "2"],
-    ["--use-sched"], ["--model-ema"], ["--loss", "focal"], ["--model", "mirror_clip"],
+    ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--grad-checkpointing"],
+    ["--profile"], ["--ckpt-format", "orbax"], ["--loss", "focal"], ["--model", "mirror_clip"],
 ])
 @pytest.mark.parametrize("task", ["subtyping", "survival"])
 def test_downstream_entry_points_refuse_unported_flags(cohort, task, flag):
     main = train_subtyping.main if task == "subtyping" else train_survival.main
     with pytest.raises(SystemExit, match=flag[0]):
         main(_downstream_argv(cohort, task, "--device", "cpu", *flag))
+
+
+@pytest.mark.parametrize("flag", [
+    ["--grad-accum-steps", "2"],
+    ["--opt", "sgd", "--use-sched", "--sched", "plateau", "--clip-grad", "1.0",
+     "--warmup-epochs", "1", "--warmup-lr", "1e-4"],
+    ["--model-ema", "--model-ema-warmup"],
+])
+@pytest.mark.parametrize("task", ["subtyping", "survival"])
+def test_downstream_entry_points_run_the_optimizer_flags(cohort, task, flag):
+    """The flags the downstream entry points once refused now train, 2
+    epochs on the CPU: the lr in summary.csv, the plateau's lr written at
+    the epoch boundary, the EMA evaluated beside the live weights and saved
+    with them."""
+    main = train_subtyping.main if task == "subtyping" else train_survival.main
+    experiment = f"opt_{task}_{flag[0].strip('-')}"
+    results = main(_downstream_argv(cohort, task, "--device", "cpu", "--experiment",
+                                    experiment, *flag))
+    run_dir = cohort / "runs" / task / experiment
+    summary = pd.read_csv(run_dir / "summary.csv")
+    assert len(summary) == 2 and np.isfinite(summary["train_lr"]).all()
+    payload = load_checkpoint_file(str(run_dir / "last.pth.tar"))
+    ema = "--model-ema" in flag
+    assert ("state_dict_ema" in payload) == ema and ("eval_ema_loss" in summary) == ema
+    if "plateau" in flag:
+        # one warmup epoch at --warmup-lr, then the template's lr
+        base = 2e-3 if task == "subtyping" else 3e-3
+        assert summary["train_lr"].tolist() == pytest.approx([1e-4, base], rel=1e-6)
+    assert results["metric_name"] == ("acc" if task == "subtyping" else "c-index")
+
+
+def test_predict_use_ema_scores_the_ema_weights(cohort, tmp_path):
+    """A train_subtyping --model-ema checkpoint: predict --use-ema scores
+    its state_dict_ema (the same rows as a checkpoint holding those weights
+    alone), not the live weights."""
+    from mirror_tpu_torch.tools.predict import predict
+
+    train_subtyping.main(_downstream_argv(cohort, "subtyping", "--device", "cpu",
+                                          "--experiment", "ema_predict", "--model-ema"))
+    ckpt = str(cohort / "runs" / "subtyping" / "ema_predict" / "last.pth.tar")
+    payload = load_checkpoint_file(ckpt)
+    ema_only = str(tmp_path / "ema_only.pth.tar")
+    save_checkpoint_file(ema_only, payload["state_dict_ema"], run_args(payload),
+                         arch=payload["arch"])
+    kw = dict(rna_feature_csv=str(cohort / "rna.csv"), batch_size=8, device="cpu")
+    rows = {}
+    for name, path, use_ema in (("ema", ckpt, True), ("ema_only", ema_only, False),
+                                ("live", ckpt, False)):
+        out = tmp_path / f"{name}.csv"
+        predict(path, "subtyping", str(cohort / "classes"), str(out), use_ema=use_ema, **kw)
+        rows[name] = pd.read_csv(out)
+    pd.testing.assert_frame_equal(rows["ema"], rows["ema_only"])
+    assert not np.allclose(rows["ema"]["prob_0"], rows["live"]["prob_0"])
 
 
 def test_pretrain_still_refuses_a_warm_start(cohort):

@@ -280,6 +280,48 @@ def test_landmark_ab_probe_needs_a_card():
         exp_landmark_ab.main([])
 
 
+def test_optim_ab_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a card")
+    from mirror_tpu_torch.scripts import exp_optim_ab
+
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        exp_optim_ab.main([])
+
+
+def test_optim_ab_bar_holds_the_chain_against_torch_adam():
+    """The probe's bar on one update: the port's adam chain (the earlier
+    tree's ``make_optimizer`` built torch's Adam) moves the weights as
+    torch's Adam does within ``BOUND_UPDATE``, though not bit for bit (Adam's
+    bias corrections in fp32 as optax takes them)."""
+    from types import SimpleNamespace
+
+    from mirror_tpu_torch.scripts.exp_optim_ab import BOUND_UPDATE
+    from mirror_tpu_torch.train.optim import make_optimizer
+
+    g = torch.Generator().manual_seed(0)
+    models = []
+    for _ in range(2):
+        torch.manual_seed(1)
+        models.append(torch.nn.Sequential(torch.nn.Linear(40, 64), torch.nn.LayerNorm(64),
+                                          torch.nn.Linear(64, 8)))
+    for ps in zip(*(m.parameters() for m in models)):
+        grad = torch.randn(ps[0].shape, generator=g) * 1e-2
+        for p in ps:
+            p.grad = grad.clone()
+    args = SimpleNamespace(opt="adam", opt_eps=None, opt_betas=None, opt_kwargs={},
+                           weight_decay=0.0, clip_grad=None, layer_decay=None, use_sched=False)
+    chain = make_optimizer(args, models[0], 2e-5)
+    adam = torch.optim.Adam(models[1].parameters(), lr=2e-5)
+    before = [p.detach().clone() for p in models[0].parameters()]
+    chain.step()
+    adam.step()
+    moved = [[p.detach() - b for p, b in zip(m.parameters(), before)] for m in models]
+    num = sum(float((x - y).double().square().sum()) for x, y in zip(*moved))
+    den = sum(float(y.double().square().sum()) for y in moved[1])
+    assert (num / den) ** 0.5 <= BOUND_UPDATE
+
+
 def test_landmark_ab_probe_loads_an_earlier_tree_apart(tmp_path):
     """``--parent`` imports that tree's package under another name, so its
     wrappers launch from its own library (built under its own build/)."""
