@@ -95,6 +95,21 @@ Phases, each printed as it finishes:
    the step timed per real update (ms, peak memory) without the EMA, with
    it, and with it and accumulation 2, and profiled; the update, the EMA's
    update and accumulation's pair of calls timed alone;
+5c. the run control (ROADMAP item 10) on 32 of phase 5's slides (2
+   steps of 16 an epoch, full width, the EMA on): the loader's C++ gather
+   taken on the ``.npy`` cohort and its host ms per batch against the
+   numpy path's; ``train_mirror.main`` for 2 epochs straight (the second
+   under ``--profile``, whose trace must name kernels of ``csrc/``)
+   against 1 epoch and ``--resume last.pth.tar`` for the second, the
+   weights, the EMA and the moments compared (bit for bit, or the step's
+   bars with the ops that do not repeat named); a SIGTERM sent from within
+   the first step, the recovery file and its reload; the cost of a save
+   with the optimizer's state; one step without and with
+   ``--grad-checkpointing`` on the same batch, weights and generator
+   state (the gradients held, kernels 1-4 launched twice as often and 2's
+   GEMM 144 times, the backwards and PPEG as often; ms and peak memory of
+   both; its launches under ``train_gradckpt``), and one with
+   ``--pinv-grad exact`` (2b at 3 a step);
 6. feature extraction: 8 synthetic slides of 2,048 224x224 JPEG patches in
    all (``{root}/{class}/{slide}/``), run through
    ``mirror_tpu_torch.tools.gen_patch_feature.main`` three times at batch
@@ -195,6 +210,11 @@ SURVIVAL_YAML = REPO / "configs" / "survival" / "mirror.template.yaml"
 N_DOWN_SLIDES, N_DOWN_TRAIN, DOWN_EPOCHS = 48, 32, 2
 CLASSES = ("LUAD", "LUSC")
 N_PRETRAIN_SLIDES, TRAIN_STEPS, TRAIN_STEPS_EXACT = 64, 4, 2
+# the run control (phase 5c): 2 steps an epoch on 32 of phase 5's slides;
+# kernels of csrc/ whose names the --profile trace of a train epoch must hold
+RC_STEPS = 2
+RC_TRACE_KERNELS = ("landmark_fwd_kernel", "pinv_gemm_kernel", "softmax_attn_kernel",
+                    "attn_bwd_rows_kernel", "ppeg_kernel", "ppeg_bwd_kernel")
 # the CLIP baseline (train_pretrain): 48 of phase 5's slides train (3
 # micro-batches of 16 an epoch), 16 validate; the optimizer side's flags
 CLIP_MICRO_STEPS = 3
@@ -1213,8 +1233,9 @@ def phase_kernels(torch, backward: bool):
 
 
 def write_cohort(root: Path, n_slides: int, prefix: str):
-    """n_slides slides of 1000-4000 fp16 Phikon-width patches, an RNA CSV
-    with 10234 genes, all from numpy generators seeded with SEED."""
+    """n_slides slides of 1000-4000 Phikon-width patches (fp16 values stored
+    as float32 .npy, the C++ gather's format), an RNA CSV with 10234 genes,
+    all from numpy generators seeded with SEED."""
     import numpy as np
     import pandas as pd
 
@@ -1225,7 +1246,8 @@ def write_cohort(root: Path, n_slides: int, prefix: str):
     for sid in ids:
         n = int(rng.integers(1000, 4001))
         np.save(feat_dir / f"{sid}.npy",
-                rng.standard_normal((n, 768), dtype=np.float32).astype(np.float16))
+                rng.standard_normal((n, 768), dtype=np.float32).astype(np.float16)
+                .astype(np.float32))
     rna = rng.standard_normal((n_slides, RNA_DIM), dtype=np.float32)
     pd.DataFrame(rna, index=[s[:15] for s in ids],
                  columns=[f"gene_{j}" for j in range(RNA_DIM)]).to_csv(root / "rna.csv")
@@ -1596,6 +1618,290 @@ def phase_train(torch, root: Path):
     return launches, launches_exact, dict(step_ms=step_ms, peak_gib=peak_gib,
                                           worst_grad_cos=cos, step_loss_rel=rel,
                                           exact_step_ms=exact_ms, exact_peak_gib=exact_gib)
+
+
+def max_diff(torch, a: dict, b: dict) -> float:
+    """The largest |a - b| over the tensors of two dicts with the same keys."""
+    if set(a) != set(b):
+        fail(f"[run control] the states hold other keys: {sorted(set(a) ^ set(b))[:5]}")
+    return max((float((a[k].float() - b[k].float()).abs().max()) for k in a), default=0.0)
+
+
+def nondeterministic_ops(torch, step, batch):
+    """The ops of one step that PyTorch knows not to repeat bit for bit,
+    named by its deterministic-algorithms check (warnings only)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0][:80] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def sigterm_on_step(module, name, at_step):
+    """Replace ``module.name``, a train-step factory, by one whose step
+    sends this process a SIGTERM from within its ``at_step``-th call;
+    returns the original."""
+    import os
+    import signal
+
+    real = getattr(module, name)
+    calls = [0]
+
+    def factory(*a, **k):
+        step = real(*a, **k)
+
+        def wrapped(*sa, **sk):
+            calls[0] += 1
+            out = step(*sa, **sk)
+            if calls[0] == at_step:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return wrapped
+
+    setattr(module, name, factory)
+    return real
+
+
+def grad_checkpointing_step(torch, model_kwargs, args, batch, exact: bool):
+    """One MIRROR step without and with --grad-checkpointing on the same
+    batch, weights and step generator state, each step's launches counted
+    from 0 just before it; then each step timed (ms, peak memory). Returns
+    (plain launches, checkpointed launches, the gradients' largest
+    difference and worst cosine, times and peaks)."""
+    from mirror_tpu_torch import train_mirror
+    from mirror_tpu_torch.ops import _common
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_mirror_train_step
+
+    kw = dict(model_kwargs, pinv_grad="exact" if exact else "implicit")
+    state, out = None, {}
+    for ckpt in (False, True):
+        model = create_model("mirror", device="cuda",
+                             generator=None if state else torch.Generator().manual_seed(SEED),
+                             **dict(kw, grad_checkpointing=ckpt))
+        if state is None:
+            state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        step = make_mirror_train_step(
+            model, make_optimizer(args, model, 2e-5), train_mirror.loss_weights_from_args(args),
+            args.wsi_mask_ratio, args.rna_mask_ratio,
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        _common.reset_launch_counts()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        launches = _common.launch_counts()
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        ms = peak = None
+        if not exact:
+            ms, _, _, peak, _ = time_steps(torch, step, batch, reps=5)
+        out[ckpt] = dict(loss=float(metrics["loss"]), launches=launches, grads=grads, ms=ms,
+                         peak_gib=peak)
+        del model, step
+        torch.cuda.empty_cache()
+    a, b = out[False]["grads"], out[True]["grads"]
+    cos = min(float(a[k].ravel() @ b[k].ravel() / (a[k].norm() * b[k].norm()).clamp_min(1e-30))
+              for k in a if a[k].norm() > 0)
+    return out[False], out[True], max_diff(torch, a, b), cos
+
+
+def phase_run_control(torch, root: Path, feat_dir: Path, rna_csv: Path, model_kwargs):
+    """The run control on the card at full width, on phase 5's cohort
+    (32 slides, 2 steps of 16 an epoch): the loader's C++ gather taken and
+    its host ms per batch against the numpy path's; 2 epochs straight (the
+    second under --profile, whose trace must name the csrc kernels) against
+    1 epoch and --resume for the second; a SIGTERM from within a step and
+    its recovery file reloaded; one step with and without
+    --grad-checkpointing (the gradients held, the launches of the table in
+    PERF.md §6, peak memory and ms of both), and one with the exact pinv
+    gradient (2b not recomputed); a checkpoint save with the optimizer's
+    state timed. Returns the checkpointed step's launches."""
+    import pandas as pd
+
+    from mirror_tpu_torch import train_mirror
+    from mirror_tpu_torch.config import parse_args
+    from mirror_tpu_torch.data.datasets import PretrainDataset
+    from mirror_tpu_torch.data.loader import Loader
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train import harness
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import ModelEma
+
+    t0 = time.perf_counter()
+    split_dir = root / "splits_rc"
+    split_dir.mkdir(parents=True)
+    ids = sorted(p.stem[:12] for p in feat_dir.glob("*.npy"))[:RC_STEPS * B]
+    pd.DataFrame({"train": ids, "val": [None] * len(ids)}).to_csv(split_dir / "splits_0.csv")
+
+    # the loader: the C++ gather on the .npy cohort (the train runs so far
+    # took it: no fallback said), its host ms per batch (assembly alone, no
+    # prefetch) against the numpy path's
+    from mirror_tpu_torch.data import loader as loader_mod
+
+    if loader_mod._said:
+        fail(f"[run control] a train run stepped back to the numpy path: {loader_mod._said}")
+    dataset = PretrainDataset(str(feat_dir), str(rna_csv), N_TOKENS, splits=str(split_dir))
+    per_batch = {}
+    for native in (True, False):
+        loader = Loader(dataset, B, seed=SEED, workers=8, prefetch=0, use_native=native)
+        if loader.native is not native:
+            fail(f"[run control] the loader's native path is {loader.native}, asked {native}")
+        it = iter(loader)
+        times = []
+        for _ in range(RC_STEPS):
+            t1 = time.perf_counter()
+            host = next(it)
+            times.append(1e3 * (time.perf_counter() - t1))
+        it.close()
+        per_batch["native" if native else "numpy"] = statistics.median(times)
+    say(f"[run control] loader host ms per batch of {B} x {N_TOKENS} x 768 (median of "
+        f"{RC_STEPS}, no prefetch): C++ gather {per_batch['native']:.2f}, numpy path "
+        f"{per_batch['numpy']:.2f}")
+
+    argv = ["--config", str(PRETRAIN_YAML), "--wsi-feature-dir", str(feat_dir),
+            "--rna-feature-csv", str(rna_csv), "--split-dir", str(split_dir), "--fold-nb", "0",
+            "--output", str(root / "runs"), "--no-val", "--batch-size", str(B),
+            "--log-interval", "1", "--seed", str(SEED), "--workers", "8", "--model-ema",
+            "--checkpoint-hist", "1"]
+    run_entry_point(torch, "resume straight", train_mirror.main,
+                                  argv + ["--experiment", "straight", "--epochs", "2",
+                                          "--profile"], 2 * RC_STEPS)
+    straight = root / "runs" / "pretrain" / "straight"
+    traces = list((straight / "profile").glob("*.json"))
+    text = traces[0].read_text() if traces else ""
+    named = [k for k in RC_TRACE_KERNELS if k in text]
+    say(f"[run control] --profile trace {traces[0].name if traces else None} "
+        f"({len(text) / 2**20:.1f} MiB) names {named}")
+    if named != list(RC_TRACE_KERNELS):
+        fail(f"[run control] the --profile trace lacks the csrc kernels "
+             f"{sorted(set(RC_TRACE_KERNELS) - set(named))}")
+    run_entry_point(torch, "resume first", train_mirror.main,
+                    argv + ["--experiment", "resumed", "--epochs", "1"], RC_STEPS)
+    resumed = root / "runs" / "pretrain" / "resumed"
+    run_entry_point(torch, "resume second", train_mirror.main,
+                    argv + ["--experiment", "resumed", "--epochs", "2", "--resume",
+                            str(resumed / "last.pth.tar")], RC_STEPS)
+    a, b = (load_checkpoint_file(str(d / "last.pth.tar")) for d in (straight, resumed))
+    diffs = {"weights": max_diff(torch, a["state_dict"], b["state_dict"]),
+             "ema": max_diff(torch, a["state_dict_ema"], b["state_dict_ema"])}
+    for key in a["optimizer"]["state"]:
+        diffs[f"moment {key}"] = max_diff(torch, a["optimizer"]["state"][key],
+                                          b["optimizer"]["state"][key])
+    counts = [(x["optimizer"]["count"], x["step"]) for x in (a, b)]
+    losses = [pd.read_csv(d / "summary.csv")["train_loss"].tolist() for d in (straight, resumed)]
+    say(f"[run control] 2 epochs straight against 1 + --resume: largest difference "
+        f"{json.dumps(diffs)}; (count, step) {counts}; train loss by epoch {losses}")
+    if counts[0] != counts[1] or counts[0][0] != 2 * RC_STEPS:
+        fail(f"[run control] the resumed run's counts {counts[1]} are not {counts[0]}")
+    if max(diffs.values()) == 0.0 and losses[0] == losses[1]:
+        say("[run control] the resumed run is the uninterrupted run bit for bit")
+    else:
+        # the step's bars, and the ops PyTorch knows not to repeat
+        rel = abs(losses[0][1] - losses[1][1]) / abs(losses[0][1])
+        cos = min(float(a["state_dict"][k].float().ravel() @ b["state_dict"][k].float().ravel()
+                        / (a["state_dict"][k].float().norm() * b["state_dict"][k].float().norm())
+                        .clamp_min(1e-30)) for k in a["state_dict"]
+                  if a["state_dict"][k].float().norm() > 0)
+        args, _ = parse_args(argv)
+        model = create_model("mirror", device="cuda",
+                             generator=torch.Generator().manual_seed(SEED), **model_kwargs)
+        from mirror_tpu_torch.train.steps import make_mirror_train_step
+        step = make_mirror_train_step(model, make_optimizer(args, model, 2e-5),
+                                      train_mirror.loss_weights_from_args(args),
+                                      generator=torch.Generator(device="cuda").manual_seed(SEED))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        ops = nondeterministic_ops(torch, step, batch)
+        del model, step, batch
+        say(f"[run control] not bit for bit: loss relative {rel:.3g} (bound "
+            f"{BOUND_STEP_LOSS:g}), weight cosine min {cos:.6f} (bound {BOUND_GRAD_COS}); "
+            f"ops that do not repeat: {ops}")
+        if not (rel <= BOUND_STEP_LOSS and cos >= BOUND_GRAD_COS):
+            fail("[run control] the resumed run left the uninterrupted run's bars")
+
+    # a SIGTERM from within the first step: the recovery file, reloaded
+    real = sigterm_on_step(train_mirror, "make_mirror_train_step", 1)
+    try:
+        results, _ = run_entry_point(torch, "sigterm", train_mirror.main,
+                                     argv + ["--experiment", "sigterm", "--epochs", "2"], 1)
+    finally:
+        train_mirror.make_mirror_train_step = real
+    recovery = root / "runs" / "pretrain" / "sigterm" / "recovery.pth.tar"
+    if results.get("preempted") is not True or not recovery.exists():
+        fail(f"[run control] SIGTERM: --result {results}, recovery file {recovery.exists()}")
+    args, _ = parse_args(argv)
+    model = create_model("mirror", device="cuda", **model_kwargs)
+    optimizer = make_optimizer(args, model, 2e-5)
+    ema = ModelEma(model)
+    from mirror_tpu_torch.train.checkpoint import resume_checkpoint
+    start = resume_checkpoint(str(recovery), model, optimizer, ema)
+    say(f"[run control] SIGTERM in step 1: --result {json.dumps(results)}; recovery.pth.tar "
+        f"({recovery.stat().st_size / 2**20:.0f} MiB) reloads: start epoch {start}, count "
+        f"{optimizer.count}, EMA updates {ema.updates}")
+    if (start, optimizer.count, ema.updates) != (1, 1, 1):
+        fail("[run control] the recovery file does not hold the first step's state")
+
+    # the cost of a save with the optimizer's state (weights, EMA, 2 moments)
+    save_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        harness.save_epoch([str(root / "save.pth.tar")], model, ema, args, 0, None, optimizer)
+        save_ms.append(1e3 * (time.perf_counter() - t1))
+    size = (root / "save.pth.tar").stat().st_size
+    say(f"[run control] a checkpoint save with the optimizer's state: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, {size / 2**20:.0f} MiB, "
+        f"median {statistics.median(save_ms):.1f} ms of 3 (host clock, page cache warm)")
+    del model, optimizer, ema
+    torch.cuda.empty_cache()
+
+    # one step without and with --grad-checkpointing
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    plain, ckpt, diff, cos = grad_checkpointing_step(torch, model_kwargs, args, batch, False)
+    say(f"[train_gradckpt] one step at batch {B}: loss {plain['loss']:.6g} / "
+        f"{ckpt['loss']:.6g}, gradients largest difference {diff:.3g}, cosine min {cos:.6f}; "
+        f"plain {plain['ms']:.3f} ms, peak {plain['peak_gib']:.2f} GiB; checkpointed "
+        f"{ckpt['ms']:.3f} ms, peak {ckpt['peak_gib']:.2f} GiB; launches "
+        f"{json.dumps(plain['launches'])} -> {json.dumps(ckpt['launches'])}")
+    if not (diff == 0.0 or (cos >= BOUND_GRAD_COS and abs(plain["loss"] - ckpt["loss"])
+                            <= BOUND_STEP_LOSS * abs(plain["loss"]))):
+        fail("[train_gradckpt] the checkpointed step's gradients are not the plain step's")
+    want = {k: 3 for k in FORWARD[:4] + BACKWARD[:3]}
+    want.update({PINV_GEMM: 72, "ppeg": 1, "ppeg_bwd": 1})
+    got_plain = {k: plain["launches"].get(k, 0) for k in want}
+    got_ckpt = {k: ckpt["launches"].get(k, 0) for k in want}
+    want_ckpt = {k: 2 * v if k in FORWARD[:4] + (PINV_GEMM,) else v for k, v in want.items()}
+    if got_plain != want or got_ckpt != want_ckpt:
+        fail(f"[train_gradckpt] launches {got_plain} -> {got_ckpt}, expected {want} -> "
+             f"{want_ckpt}")
+    plain_x, ckpt_x, diff_x, cos_x = grad_checkpointing_step(torch, model_kwargs, args, batch,
+                                                             True)
+    say(f"[train_gradckpt] --pinv-grad exact: gradients largest difference {diff_x:.3g}, "
+        f"cosine min {cos_x:.6f}; {PINV_BWD} {plain_x['launches'].get(PINV_BWD, 0)} -> "
+        f"{ckpt_x['launches'].get(PINV_BWD, 0)}, moore_penrose_pinv "
+        f"{plain_x['launches'].get(FORWARD[1], 0)} -> {ckpt_x['launches'].get(FORWARD[1], 0)}")
+    if ckpt_x["launches"].get(PINV_BWD, 0) != 3 or ckpt_x["launches"].get(FORWARD[1]) != 6:
+        fail("[train_gradckpt] --pinv-grad exact: 2b must launch 3 times a step and the pinv "
+             "forward 6 with --grad-checkpointing")
+    if not (diff_x == 0.0 or cos_x >= BOUND_GRAD_COS):
+        fail("[train_gradckpt] --pinv-grad exact: the checkpointed gradients disagree")
+    del batch
+    torch.cuda.empty_cache()
+    say(f"[run control] {time.perf_counter() - t0:.1f} s")
+    return ckpt["launches"], dict(loader_ms=per_batch, save_ms=statistics.median(save_ms),
+                                  step_ms=(plain["ms"], ckpt["ms"]),
+                                  peak_gib=(plain["peak_gib"], ckpt["peak_gib"]),
+                                  resume_diff=max(diffs.values()))
 
 
 def clip_step_card_vs_cpu(torch, argv, wsi, rna):
@@ -2272,6 +2578,15 @@ def phase_probes(torch):
     return launches
 
 
+def run_model_kwargs(train_root: Path) -> dict:
+    """The model kwargs phase 5's checkpoint was saved with."""
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
+
+    payload = load_checkpoint_file(str(train_root / "runs" / "pretrain" / "smoke"
+                                       / "last.pth.tar"))
+    return run_args(payload)["model_kwargs"]
+
+
 def main() -> int:
     import torch
 
@@ -2290,6 +2605,10 @@ def main() -> int:
         clip, _ = phase_pretrain_clip(torch, Path(tmp) / "clip",
                                       Path(tmp) / "train" / "features",
                                       Path(tmp) / "train" / "rna.csv")
+        gradckpt, _ = phase_run_control(torch, Path(tmp) / "run_control",
+                                        Path(tmp) / "train" / "features",
+                                        Path(tmp) / "train" / "rna.csv",
+                                        run_model_kwargs(Path(tmp) / "train"))
         with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp_fg:
             featgen = phase_featgen(torch, Path(tmp_fg))
         pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
@@ -2297,7 +2616,8 @@ def main() -> int:
     selftest_launches = phase_selftest(torch)
     probe_launches = phase_probes(torch)
     # the main paths' launches: predict's, the train step's (implicit and
-    # exact pinv gradient), the CLIP baseline's, feature extraction's (its
+    # exact pinv gradient, and one step with --grad-checkpointing), the
+    # CLIP baseline's, feature extraction's (its
     # three runs), the downstream entry points' (and the optimizer side's
     # survival run) and the self-test's, each counted from 0 just
     # before its run. Exempt: softmax_attn_q, the pad-0 entry of the
@@ -2306,6 +2626,7 @@ def main() -> int:
     # package, run on the probes' path (exp_ln_qkv), as do the kernels the
     # probes added
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
+             "train_gradckpt": gradckpt,
              "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
              "survival": down["survival"], "survival_opt": down["survival_opt"],
              "selftest": selftest_launches, "probes": probe_launches}

@@ -214,16 +214,9 @@ _IGNORED_KEYS = {
 # flags this port does not implement: (dest, what it would need, the
 # ROADMAP item that ports it)
 _UNPORTED = (
-    ("resume", "resume", 10), ("no_resume_opt", "resume", 10), ("start_epoch", "resume", 10),
-    ("recovery_interval", "recovery checkpoints", 10),
-    ("log_wandb", "wandb", 10), ("wandb_watch", "wandb", 10),
-    ("grad_checkpointing", "activation checkpointing", 10),
     ("model_parallel", "tensor parallelism", 16), ("distributed", "multi-process training", 14),
     ("optimizer_sharding", "ZeRO-1", 14), ("ckpt_format", "the JAX package's checkpoints", 17),
-    ("profile", "the profiler hook", 10),
 )
-# pretrain only: the downstream CLIs warm-start through load_pretrained
-_UNPORTED_PRETRAIN = (("initial_checkpoint", "warm start from a checkpoint", 10),)
 # what each task's port runs of --model and --loss; pretrain: train_mirror
 # runs mirror and its loss, train_pretrain mirror_dual (the default mirror
 # maps to it) and InfoNCE, whatever --loss says (as the JAX CLI)
@@ -275,8 +268,7 @@ def parse_args(argv: Optional[Sequence[str]] = None,
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise SystemExit on the first flag that the port does not implement
     for ``args.task``, set away from its default, naming it."""
-    unported = _UNPORTED + (_UNPORTED_PRETRAIN if args.task == "pretrain" else ())
-    for dest, what, item in unported:
+    for dest, what, item in _UNPORTED:
         value = getattr(args, dest)
         if value != args.defaults[dest]:
             raise SystemExit(
@@ -304,13 +296,14 @@ def refuse_clip_values(args: argparse.Namespace) -> None:
 def model_kwargs_from_args(args: argparse.Namespace) -> Dict[str, Any]:
     """The model kwargs that every entry point derives from its flags:
     ``--model-kwargs``, then, unless it set them, the compute dtype
-    (``--amp``), the pinv gradient and the kernel path (``--use-pallas``,
-    on by default)."""
+    (``--amp``), the pinv gradient, the kernel path (``--use-pallas``, on
+    by default) and ``--grad-checkpointing``."""
     kwargs = dict(args.model_kwargs or {})
     if args.amp:
         kwargs.setdefault("dtype", args.amp_dtype)
     kwargs.setdefault("pinv_grad", args.pinv_grad)
     kwargs.setdefault("use_pallas", args.use_pallas is not False)
+    kwargs.setdefault("grad_checkpointing", bool(args.grad_checkpointing))
     return kwargs
 
 

@@ -116,6 +116,23 @@ class _BaseDataset:
     def _feature_path(self, slide: str) -> str:
         return find_feature_file(self.wsi_feature_dir, slide)
 
+    def wsi_npy_path(self, idx: int) -> Optional[str]:
+        """The item's ``.npy`` feature file, or None where the cohort is
+        cached or the file is another format (the C++ gather's
+        eligibility)."""
+        if self.cache:
+            return None
+        try:
+            path = self._feature_path(self.used_feature_ids[idx])
+        except FileNotFoundError:
+            return None
+        return path if path.endswith(".npy") else None
+
+    def get_meta(self, idx: int) -> dict:
+        """What ``__getitem__`` returns but the ``wsi`` tokens (the gather
+        draws those)."""
+        return self._meta(self.used_feature_ids[idx])
+
     @property
     def rna_dim(self) -> int:
         return self.rna_feature_df.shape[1]

@@ -1,4 +1,4 @@
-"""Host-side batch loader: the numpy path of ``mirror_tpu/data/loader.py``.
+"""Host-side batch loader: the port of ``mirror_tpu/data/loader.py``.
 
 Per-epoch deterministic order from the seed (``set_epoch``): a shuffle, or
 with ``weighted`` a class-balanced draw with replacement (weight
@@ -6,16 +6,33 @@ with ``weighted`` a class-balanced draw with replacement (weight
 batches, where train drops the trailing partial batch and ``pad_last``
 pads it by repeating its last item; a ``valid`` mask (1 real, 0 padding)
 in every batch; and one token-draw seed per epoch position, so an item's
-patch subsample is a pure function of the seed, the epoch and its position:
-the same draws as the JAX loader's numpy path. Items are read by a small
-thread pool (``workers``); the C++ gather, the prefetch thread and the
-multi-process blocks of the JAX loader are not ported (ROADMAP item 10).
+patch subsample is a pure function of the seed, the epoch and its position.
+
+Two paths assemble a batch, as in the JAX loader. On a cohort of ``.npy``
+files (``dataset.wsi_npy_path``) the C++ gather
+(:mod:`.native_loader`, ``workers`` threads) draws the tokens: the JAX
+CLI's default, so the same seed gives the JAX CLI's batches. Elsewhere, or
+with ``use_native=False``, the numpy path (``dataset.__getitem__`` with a
+generator from the item's seed, ``workers`` items at a time), the JAX
+loader's ``use_native=False`` batches. Where the gather turns a cohort
+down (a mixed cohort, a dtype or order it does not read), the loader takes
+the numpy path for the rest of its life and says so once; a library that
+does not build or load raises instead. A producer thread keeps
+``prefetch`` batches ready and stops when iteration ends or is abandoned.
+The multi-process blocks of the JAX loader are not ported (ROADMAP item
+14).
 """
 
+import logging
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+_logger = logging.getLogger(__name__)
+_said = set()  # the fallback reasons already logged
 
 
 def class_balanced_weights(dataset) -> np.ndarray:
@@ -25,10 +42,17 @@ def class_balanced_weights(dataset) -> np.ndarray:
     return 1.0 / np.bincount(labels)[labels]
 
 
+def _say_once(reason: str) -> None:
+    if reason not in _said:
+        _said.add(reason)
+        _logger.warning("native loader: %s; the numpy path assembles these batches", reason)
+
+
 class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, pad_last: bool = False, weighted: bool = False,
-                 seed: int = 42, workers: int = 4) -> None:
+                 seed: int = 42, workers: int = 4, prefetch: int = 2,
+                 use_native: bool = True) -> None:
         if drop_last and pad_last:
             raise ValueError("drop_last and pad_last exclude each other")
         self.dataset = dataset
@@ -39,7 +63,16 @@ class Loader:
         self.weighted = weighted
         self.seed = seed
         self.workers = max(int(workers), 1)
+        self.prefetch = prefetch
         self.epoch = 0
+        # the JAX loader's eligibility: a .npy-backed cohort (the first item
+        # tells; a mixed cohort turns the gather off at its first other file)
+        self.native = bool(use_native and len(dataset) and hasattr(dataset, "wsi_npy_path")
+                           and dataset.wsi_npy_path(0) is not None)
+        if self.native:
+            from . import native_loader
+
+            native_loader.library()  # a build or load failure raises here
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -60,24 +93,110 @@ class Loader:
             rng.shuffle(indices)
         return indices
 
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+    def _native_batch(self, indices, seeds) -> Optional[Dict[str, np.ndarray]]:
+        """The batch through the C++ gather, or None (and the numpy path
+        from here on) where it turns the cohort down."""
+        from . import native_loader
+
+        paths = [self.dataset.wsi_npy_path(int(i)) for i in indices]
+        if any(p is None for p in paths):
+            self.native = False
+            _say_once("a cohort of mixed formats")
+            return None
+        try:
+            wsi = native_loader.gather_batch(paths, self.dataset.num_wsi_feature_tokens,
+                                             [int(s) for s in seeds], num_threads=self.workers)
+        except ValueError as e:
+            self.native = False
+            _say_once(f"it rejected this cohort ({e})")
+            return None
+        metas = [self.dataset.get_meta(int(i)) for i in indices]
+        batch = {k: np.stack([m[k] for m in metas]) for k in metas[0]}
+        batch["wsi"] = wsi
+        return batch
+
+    def _make_batch(self, pool, indices, seeds, n_valid) -> Dict[str, np.ndarray]:
+        batch = self._native_batch(indices, seeds) if self.native else None
+        if batch is None:
+            def item(pos):
+                return self.dataset.__getitem__(int(indices[pos]),
+                                                rng=np.random.default_rng(int(seeds[pos])))
+
+            items = list(pool.map(item, range(len(indices))))
+            batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+        batch["valid"] = (np.arange(len(indices)) < n_valid).astype(np.float32)
+        return batch
+
+    def _chunks(self):
         rng = np.random.default_rng(self.seed + self.epoch * 1000003)
         indices = self._indices(rng)
         n = len(indices)
         item_seeds = rng.integers(0, 2**63, size=n, dtype=np.int64)
         stop = n - (n % self.batch_size) if self.drop_last else n
+        for start in range(0, stop, self.batch_size):
+            idx = indices[start:start + self.batch_size]
+            seeds = item_seeds[start:start + self.batch_size]
+            n_valid = len(idx)
+            if self.pad_last and n_valid < self.batch_size:
+                pad = self.batch_size - n_valid
+                idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
+                seeds = np.concatenate([seeds, np.repeat(seeds[-1:], pad)])
+            yield idx, seeds, n_valid
 
-        def item(pos):
-            return self.dataset.__getitem__(int(indices[pos]),
-                                            rng=np.random.default_rng(int(item_seeds[pos])))
-
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        chunks = list(self._chunks())
         with ThreadPoolExecutor(self.workers) as pool:
-            for start in range(0, stop, self.batch_size):
-                positions = list(range(start, min(start + self.batch_size, stop)))
-                n_valid = len(positions)
-                if self.pad_last:
-                    positions += positions[-1:] * (self.batch_size - n_valid)
-                items = list(pool.map(item, positions))
-                batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
-                batch["valid"] = (np.arange(len(positions)) < n_valid).astype(np.float32)
-                yield batch
+            if self.prefetch <= 0:
+                for chunk in chunks:
+                    yield self._make_batch(pool, *chunk)
+                return
+            yield from self._prefetched(pool, chunks)
+
+    def _prefetched(self, pool, chunks) -> Iterator[Dict[str, np.ndarray]]:
+        """The JAX loader's producer thread and queue of ``prefetch``
+        batches: a stop event set when the consumer ends or abandons the
+        iteration, the sentinel delivered whenever the consumer still
+        listens, the queue drained and the thread joined on the way out, a
+        producer's error raised in the consumer."""
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        error = []
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for chunk in chunks:
+                    if not put(self._make_batch(pool, *chunk)):
+                        return
+            except Exception as e:  # raised in the consumer
+                error.append(e)
+            finally:
+                put(sentinel)
+
+        thread = threading.Thread(target=producer, daemon=True, name="mirror-loader")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                yield item
+        finally:
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            thread.join(timeout=10.0)
+        if error:
+            raise error[0]

@@ -31,13 +31,15 @@ class MIRRORDual(nn.Module):
                  rna_proj_drop_rate: float = 0.1, rna_attn_drop_rate: float = 0.0,
                  rna_drop_path_rate: float = 0.0, rna_norm_eps: float = 1e-6,
                  pinv_grad: str = "exact", wsi_dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None, use_pallas: bool = True):
+                 dtype: Optional[torch.dtype] = None, use_pallas: bool = True,
+                 grad_checkpointing: bool = False):
         super().__init__()
         proj_dim = projection_dim or embed_dim
         self.wsi_embed_dim = wsi_embed_dim
         self.wsi_encoder = FeatureTransMIL(wsi_embed_dim, embed_dim, dtype,
                                            dropout=wsi_dropout, pinv_grad=pinv_grad,
-                                           use_pallas=use_pallas)
+                                           use_pallas=use_pallas,
+                                           grad_checkpointing=grad_checkpointing)
         self.rna_encoder = TransFormer(
             input_dim=rna_embed_dim, embed_dim=embed_dim, depth=rna_encoder_depth,
             gene_embed=rna_gene_embed, mlp_ratio=rna_mlp_ratio,

@@ -60,7 +60,8 @@ class MIRROR(nn.Module):
                  style_mlp_hidden_dim: int = 512, style_mlp_out_dim: int = 256,
                  style_latent_dim: int = 128, num_prototypes: int = 3000,
                  pinv_grad: str = "implicit", wsi_dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None, use_pallas: bool = True):
+                 dtype: Optional[torch.dtype] = None, use_pallas: bool = True,
+                 grad_checkpointing: bool = False):
         super().__init__()
         self.wsi_embed_dim = wsi_embed_dim
         self.init_logit_scale = init_logit_scale
@@ -69,6 +70,7 @@ class MIRROR(nn.Module):
         self.wsi_encoder = FeatureTransMILHybrid(
             wsi_embed_dim, embed_dim, wsi_num_tokens, wsi_retention_decoder_depth, dtype,
             dropout=wsi_dropout, pinv_grad=pinv_grad, use_pallas=use_pallas,
+            grad_checkpointing=grad_checkpointing,
         )
         self.rna_encoder = TransFormerHybrid(
             rna_embed_dim, embed_dim, retention_decoder_depth=rna_retention_decoder_depth,

@@ -11,9 +11,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.ppeg import ppeg_fused, ppeg_ref
-from .layers import Dense, LayerNorm, l2_normalize
+from .layers import Dense, DropPath, Dropout, LayerNorm, l2_normalize
 from .nystrom import NystromAttention
 
 
@@ -60,12 +61,24 @@ class TransLayer(nn.Module):
     """Pre-norm Nystrom attention residual block: dim_head = dim / 8, 8 heads,
     dim / 2 landmarks, 6 pinv iterations, residual conv, LayerNorm eps 1e-5.
     The reference fixes the attention's output dropout at 0.1; ``dropout``
-    lets a test set it to 0."""
+    lets a test set it to 0.
+
+    ``grad_checkpointing`` (the JAX package's ``nn.remat(TransLayer)``):
+    in training with grad on, the block keeps only its input and runs its
+    forward again in the backward (non-reentrant ``torch.utils.checkpoint``;
+    the kernels' residuals are saved through ``save_for_backward``, so they
+    are freed too). The dropout draws from an explicit generator, which
+    ``checkpoint`` neither saves nor restores: the recompute is given the
+    generator's state from before the first forward, so it draws the same
+    mask, and the generator is then set back to where it stood, the state
+    the first forward left it in or later."""
 
     def __init__(self, dim: int = 512, dtype: Optional[torch.dtype] = None,
                  xavier_init: bool = False, dropout: float = 0.1,
-                 pinv_grad: str = "implicit", use_pallas: bool = True):
+                 pinv_grad: str = "implicit", use_pallas: bool = True,
+                 grad_checkpointing: bool = False):
         super().__init__()
+        self.grad_checkpointing = grad_checkpointing
         self.norm = LayerNorm(dim, 1e-5, dtype)
         self.attn = NystromAttention(
             dim=dim, dim_head=dim // 8, heads=8, num_landmarks=dim // 2,
@@ -73,8 +86,43 @@ class TransLayer(nn.Module):
             xavier_init=xavier_init, dtype=dtype, use_pallas=use_pallas,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.attn(self.norm(x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.grad_checkpointing and self.training and torch.is_grad_enabled()):
+            return self._block(x)
+        return checkpoint_replaying_generators(self, self._block, x)
+
+
+def checkpoint_replaying_generators(module: nn.Module, fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` under non-reentrant activation checkpointing, its recompute
+    drawing what the first forward drew from the explicit generators of
+    ``module``'s Dropout and DropPath layers: their states are taken before
+    the forward, set for the recompute, and put back after it."""
+    generators = []
+    for mod in module.modules():
+        g = getattr(mod, "generator", None)
+        if isinstance(mod, (Dropout, DropPath)) and g is not None and \
+                all(g is not h for h in generators):
+            generators.append(g)
+    before = [g.get_state() for g in generators]
+    recompute = [False]
+
+    def run(inp):
+        if not recompute[0]:
+            recompute[0] = True
+            return fn(inp)
+        after = [g.get_state() for g in generators]
+        for g, state in zip(generators, before):
+            g.set_state(state)
+        try:
+            return fn(inp)
+        finally:
+            for g, state in zip(generators, after):
+                g.set_state(state)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def _square_pad_tokens(h: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
@@ -96,7 +144,8 @@ class FeatureTransMIL(nn.Module):
     def __init__(self, input_dim: int = 1024, embed_dim: int = 512,
                  dtype: Optional[torch.dtype] = None, xavier_init: bool = False,
                  cls_token_std: float = 1.0, dropout: float = 0.1,
-                 pinv_grad: str = "implicit", use_pallas: bool = True):
+                 pinv_grad: str = "implicit", use_pallas: bool = True,
+                 grad_checkpointing: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
         self.dtype = dtype
@@ -105,8 +154,10 @@ class FeatureTransMIL(nn.Module):
         self._fc1 = nn.Sequential(Dense(input_dim, embed_dim, dtype=dtype, init=init),
                                   nn.ReLU())
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
-        self.layer1 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas)
-        self.layer2 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas)
+        self.layer1 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas,
+                                 grad_checkpointing)
+        self.layer2 = TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas,
+                                 grad_checkpointing)
         self.pos_layer = PPEG(embed_dim, dtype, use_pallas)
         self.norm = LayerNorm(embed_dim, 1e-5, dtype)
 
@@ -154,16 +205,18 @@ class FeatureTransMILHybrid(FeatureTransMIL):
     def __init__(self, input_dim: int = 1024, embed_dim: int = 512, num_tokens: int = 2048,
                  retention_decoder_depth: int = 1, dtype: Optional[torch.dtype] = None,
                  xavier_init: bool = True, cls_token_std: float = 0.02,
-                 dropout: float = 0.1, pinv_grad: str = "implicit", use_pallas: bool = True):
+                 dropout: float = 0.1, pinv_grad: str = "implicit", use_pallas: bool = True,
+                 grad_checkpointing: bool = False):
         super().__init__(input_dim, embed_dim, dtype, xavier_init, cls_token_std, dropout,
-                         pinv_grad, use_pallas)
+                         pinv_grad, use_pallas, grad_checkpointing)
         init = "xavier" if xavier_init else "torch"
         self.alignment_head = Dense(embed_dim, embed_dim, dtype=dtype, init=init)
         self.retention_embed = Dense(embed_dim, embed_dim, dtype=dtype, init=init)
         self.mask_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.retention_gene_embed = nn.Parameter(torch.empty(1, num_tokens + 1, embed_dim))
         self.retention_blocks = nn.ModuleList(
-            TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas)
+            TransLayer(embed_dim, dtype, xavier_init, dropout, pinv_grad, use_pallas,
+                       grad_checkpointing)
             for _ in range(retention_decoder_depth)
         )
         self.retention_norm = LayerNorm(embed_dim, 1e-5, dtype)

@@ -170,7 +170,7 @@ def mirror_classifier(**kwargs: Any) -> MIRRORClassifier:
         "rna_gene_embed", "rna_mlp_ratio", "rna_pos_drop_rate",
         "rna_proj_drop_rate", "rna_attn_drop_rate", "rna_drop_path_rate",
         "rna_norm_eps", "num_classes", "fusion", "pinv_grad", "wsi_dropout", "dtype",
-        "use_pallas",
+        "use_pallas", "grad_checkpointing",
     }
     return MIRRORClassifier(**_filter(_resolve_common(kwargs), accepted))
 
@@ -184,7 +184,7 @@ def mirror(**kwargs: Any) -> MIRROR:
         "rna_attn_drop_rate", "rna_drop_path_rate", "rna_norm_eps",
         "rna_retention_decoder_depth", "init_logit_scale", "style_mlp_hidden_dim",
         "style_mlp_out_dim", "style_latent_dim", "num_prototypes", "pinv_grad",
-        "wsi_dropout", "dtype", "use_pallas",
+        "wsi_dropout", "dtype", "use_pallas", "grad_checkpointing",
     }
     return MIRROR(**_filter(_resolve_common(kwargs), accepted))
 
@@ -196,6 +196,6 @@ def mirror_dual(**kwargs: Any) -> MIRRORDual:
         "rna_encoder_depth", "rna_gene_embed", "rna_mlp_ratio",
         "rna_pos_drop_rate", "rna_proj_drop_rate", "rna_attn_drop_rate",
         "rna_drop_path_rate", "rna_norm_eps", "pinv_grad", "wsi_dropout", "dtype",
-        "use_pallas",
+        "use_pallas", "grad_checkpointing",
     }
     return MIRRORDual(**_filter(_resolve_common(kwargs), accepted))

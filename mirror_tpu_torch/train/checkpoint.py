@@ -3,7 +3,11 @@
 Schema (mirror_tpu/tools/import_torch_checkpoint.py:1-13): a dict with
 ``arch``, ``state_dict``, optionally ``state_dict_ema``, ``args`` (the run's
 arguments: a yaml string, a dict, or the reference's argparse Namespace),
-``epoch``, ``metric`` and ``version``. The JAX package's flax msgpack files
+``epoch``, ``metric`` and ``version``; the port adds the run's state that
+``--resume`` restores (:func:`resume_checkpoint`): ``optimizer`` (the
+chain's buffers keyed by parameter name, its counts, the accumulated
+micro-gradients and the host lr), ``step`` (the update count) and
+``rng_state`` (the train step generator's state). The JAX package's flax msgpack files
 are not read here: ``convert.state_dict_from_jax`` turns their params into
 this payload's ``state_dict``.
 
@@ -67,10 +71,12 @@ def load_checkpoint_file(path: str) -> Dict[str, Any]:
 def save_checkpoint_file(path: str, state_dict: Mapping[str, Any],
                          args: Mapping[str, Any], arch: str = "mirror_classifier",
                          epoch: int = 0, metric: Any = None,
-                         state_dict_ema: Optional[Mapping[str, Any]] = None) -> None:
+                         state_dict_ema: Optional[Mapping[str, Any]] = None,
+                         run_state: Optional[Mapping[str, Any]] = None) -> None:
     """Write the payload (CPU tensors, run ``args`` stored as yaml, the EMA
-    weights as ``state_dict_ema`` when given) with a tmp file and a
-    rename."""
+    weights as ``state_dict_ema`` when given, and ``run_state``'s keys, the
+    run's own state that ``--resume`` restores: ``optimizer``, ``step``,
+    ``rng_state``) with a tmp file and a rename."""
     payload = {
         "epoch": epoch,
         "arch": arch,
@@ -82,6 +88,7 @@ def save_checkpoint_file(path: str, state_dict: Mapping[str, Any],
     if state_dict_ema is not None:
         payload["state_dict_ema"] = {k: v.detach().cpu()
                                      for k, v in to_tensors(state_dict_ema).items()}
+    payload.update(run_state or {})
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -109,3 +116,37 @@ def load_pretrained(model: torch.nn.Module, path: str,
     _logger.info("Loaded %d param tensors from %s (%d target entries kept their init)",
                  len(loaded), path, len(skipped))
     return loaded, skipped
+
+
+def resume_checkpoint(path: str, model: torch.nn.Module, optimizer=None, ema=None,
+                      generator: Optional[torch.Generator] = None,
+                      resume_opt: bool = True) -> int:
+    """``--resume``: restore the weights, the EMA weights (the live ones
+    where the file has none), the EMA's update count from ``step`` (else
+    its decay ramp restarts and overwrites the restored EMA), the train
+    step generator and, unless ``resume_opt`` is False, the optimizer.
+    Returns the start epoch, the saved epoch + 1 (timm's rule; a mid-epoch
+    recovery file also starts at the next epoch)."""
+    payload = load_checkpoint_file(path)
+    model.load_state_dict(payload["state_dict"])
+    if ema is not None:
+        ema_state = payload.get("state_dict_ema")
+        if not ema_state:
+            _logger.warning("%s has no state_dict_ema: the EMA restarts from the resumed "
+                            "weights", path)
+        ema.module.load_state_dict(ema_state or payload["state_dict"])
+        ema.updates = int(payload.get("step", 0))
+    if generator is not None and payload.get("rng_state") is not None:
+        try:
+            generator.set_state(payload["rng_state"])
+        except RuntimeError as e:  # a CPU generator's state on the card, or back
+            _logger.warning("the step generator's state in %s does not fit this "
+                            "device's generator (%s); it keeps its seed", path, e)
+    if optimizer is not None and resume_opt:
+        if payload.get("optimizer") is None:
+            _logger.warning("%s has no optimizer state: the optimizer starts afresh", path)
+        else:
+            optimizer.load_state_dict(payload["optimizer"])
+    start_epoch = int(payload.get("epoch", -1)) + 1
+    _logger.info("Resumed from %s (epoch %d)", path, start_epoch - 1)
+    return start_epoch

@@ -11,14 +11,22 @@ the eval metric improves, in the metric's direction: decreasing only for
 ``state_dict_ema``), the EMA weights evaluated beside the live ones as
 ``ema_<metric>`` (which then ranks the epoch), the plateau controller's
 step at each epoch boundary, the downstream evaluation gather, and the
-``--result`` JSON on stdout.
+``--result`` JSON on stdout. The run control of the JAX harness is here
+too: ``--resume`` (with ``--no-resume-opt`` and ``--start-epoch``) from the
+run's state in the checkpoint, the SIGTERM stop with its synchronous
+``recovery.pth.tar`` and ``--recovery-interval``'s, ``--profile``'s
+``torch.profiler`` trace of one epoch, and wandb (``--log-wandb``, with the
+``--wandb-watch`` stats routed there only).
 """
 
+import contextlib
 import csv
 import json
 import logging
 import math
 import os
+import shutil
+import signal
 import time
 from datetime import datetime
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -27,8 +35,8 @@ import numpy as np
 import torch
 
 from ..data.loader import Loader
-from .checkpoint import save_checkpoint_file
-from .optim import PlateauController, make_optimizer, scheduled_epochs
+from .checkpoint import resume_checkpoint, save_checkpoint_file
+from .optim import PlateauController, fast_forward_schedule, make_optimizer, scheduled_epochs
 from .steps import ModelEma
 
 _logger = logging.getLogger("train")
@@ -90,27 +98,40 @@ def update_summary(path: str, epoch: int, train: Dict[str, float],
         writer.writerow(row)
 
 
-def train_one_epoch(args, epoch, train_step, loader, device) -> Dict[str, float]:
+def train_one_epoch(args, epoch, train_step, loader, device,
+                    stop_requested: Callable[[], bool] = lambda: False,
+                    save_recovery: Optional[Callable[[int, int], None]] = None
+                    ) -> Dict[str, float]:
     """One pass over the loader; the metrics are summed on the device (the
     lr, a float, on the host) and pulled to the host at log lines and once
-    at the end of the epoch."""
+    at the end of the epoch. The ``watch/*`` metrics (``--wandb-watch``)
+    stay out of the log line. The pass stops before the next batch once
+    ``stop_requested()``; every ``--recovery-interval`` batches
+    ``save_recovery(epoch, batch_idx)`` writes the recovery file."""
     loader.set_epoch(epoch)
     num_batches = len(loader)
+    recovery_interval = getattr(args, "recovery_interval", 0) or 0
     sums: Dict[str, torch.Tensor] = {}
     count = 0
     end = time.time()
     for batch_idx, host_batch in enumerate(loader):
+        if stop_requested():
+            _logger.warning("preemption: stopping epoch %d at batch %d", epoch, batch_idx)
+            break
         metrics = train_step(to_device(host_batch, device))
         for k, v in metrics.items():
             sums[k] = sums[k] + v if k in sums else v
         count += 1
         if batch_idx % args.log_interval == 0 or batch_idx == num_batches - 1:
-            vals = {k: float(v) for k, v in metrics.items()}
+            vals = {k: float(v) for k, v in metrics.items() if not k.startswith("watch/")}
             rate = host_batch["wsi"].shape[0] / max(time.time() - end, 1e-9)
             _logger.info(
                 "Train: %d [%4d/%d] Loss: %.4g (%.4g)  %s %.1f samples/s", epoch, batch_idx,
                 num_batches, vals["loss"], float(sums["loss"]) / count,
                 " ".join(f"{k}: {v:.4g}" for k, v in vals.items() if k != "loss"), rate)
+        if save_recovery is not None and recovery_interval and \
+                (batch_idx + 1) % recovery_interval == 0:
+            save_recovery(epoch, batch_idx)
         end = time.time()
     return {k: float(v) / count for k, v in sums.items()} if count else {}
 
@@ -171,71 +192,218 @@ class CheckpointHistory:
         return writes
 
 
+def eval_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The generator of an epoch's validation draws, a function of (seed,
+    epoch) apart from the train step's stream (the JAX CLI folds its eval
+    keys in at 10_000_000 + epoch * 10_000), so ``--val`` changes no
+    training draw and a resume needs only the train stream."""
+    return torch.Generator(device=device).manual_seed(seed + 10_000_000 + epoch * 10_000)
+
+
 def save_epoch(paths: Sequence[str], model, ema, args, epoch: int,
-               metric: Optional[float]) -> None:
+               metric: Optional[float], optimizer=None,
+               generator: Optional[torch.Generator] = None) -> None:
     """The epoch's ``.pth.tar`` files, with ``state_dict_ema`` under
-    ``--model-ema``."""
+    ``--model-ema`` and what ``--resume`` restores: the optimizer's state,
+    its update count as ``step`` and the train step generator's state."""
+    if not paths:
+        return
     saved_args = {k: v for k, v in vars(args).items() if k != "defaults"}
     ema_state = ema.module.state_dict() if ema is not None else None
-    for path in paths:
-        save_checkpoint_file(path, model.state_dict(), saved_args,
-                             arch=args.model, epoch=epoch, metric=metric,
-                             state_dict_ema=ema_state)
+    state: Dict = {}
+    if optimizer is not None:
+        state.update(optimizer=optimizer.state_dict(), step=optimizer.count)
+    if generator is not None:
+        state["rng_state"] = generator.get_state()
+    save_checkpoint_file(paths[0], model.state_dict(), saved_args, arch=args.model,
+                         epoch=epoch, metric=metric, state_dict_ema=ema_state, run_state=state)
+    for path in paths[1:]:  # the same payload: copied, not serialized again
+        shutil.copyfile(paths[0], path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+
+def start_epoch_of(args, model, loader, optimizer=None, ema=None, lr_controller=None,
+                   generator: Optional[torch.Generator] = None) -> int:
+    """The JAX CLIs' start (``train_mirror.py:113-145``): ``--resume``
+    restores the run (:func:`checkpoint.resume_checkpoint`; the plateau
+    controller adopts a restored lr), an explicit ``--start-epoch``
+    overrides the resumed epoch, and from a start past 0 the schedule's
+    count goes to start_epoch x updates an epoch where it is still 0, or
+    in any case with both flags (timm's rewind); the plateau, with no
+    restored optimizer, takes the epoch before the start."""
+    start_epoch = 0
+    resume_opt = not args.no_resume_opt
+    if args.resume:
+        start_epoch = resume_checkpoint(args.resume, model, optimizer, ema, generator,
+                                        resume_opt=resume_opt)
+        if lr_controller is not None and resume_opt:
+            lr_controller.sync_from_optimizer(optimizer)
+    rewind = args.start_epoch is not None and bool(args.resume)
+    if args.start_epoch is not None:
+        start_epoch = args.start_epoch
+    args.start_epoch = start_epoch
+    if optimizer is not None and (start_epoch > 0 or rewind):
+        k = max(args.grad_accum_steps, 1)
+        fast_forward_schedule(optimizer, start_epoch * max((len(loader) + k - 1) // k, 1),
+                              rewind=rewind)
+    if start_epoch > 0 and lr_controller is not None and (not args.resume or not resume_opt):
+        lr_controller.step_epoch(optimizer, start_epoch - 1, None)
+    return start_epoch
+
+
+def init_wandb(args, out_dir: Optional[str]):
+    """The wandb run under ``--log-wandb``, or None (with a warning) where
+    wandb is not installed."""
+    if not getattr(args, "log_wandb", False):
+        return None
+    try:
+        import wandb
+    except ImportError:
+        _logger.warning("wandb requested but not installed; skipping")
+        return None
+    return wandb.init(project=getattr(args, "wandb_project", "MIRROR"),
+                      name=os.path.basename(out_dir) if out_dir else None,
+                      config={k: v for k, v in vars(args).items() if k != "defaults"})
+
+
+@contextlib.contextmanager
+def profiled_epoch(profile_dir: Optional[str], epoch: int, device):
+    """``--profile``: the epoch under ``torch.profiler`` (the CPU, and the
+    card's kernels on a CUDA device), its trace written to
+    ``{profile_dir}/epoch_<epoch>.pt.trace.json``; nothing without a
+    directory."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"epoch_{epoch}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    _logger.info("profiler trace written to %s", path)
+
+
+@contextlib.contextmanager
+def sigterm_flag():
+    """A SIGTERM handler that only sets a flag (the run finishes its batch,
+    writes the recovery file and stops), the old handler restored on every
+    exit path. Off the main thread no handler can be set: the flag then
+    stays down."""
+    flag = {"stop": False}
+
+    def on_term(signum, frame):
+        flag["stop"] = True
+        _logger.warning("signal %d received: will checkpoint and stop at the next batch "
+                        "boundary", signum)
+
+    try:
+        old = signal.signal(signal.SIGTERM, on_term)
+    except ValueError:  # not the main thread
+        old = None
+    try:
+        yield flag
+    finally:
+        if old is not None:
+            signal.signal(signal.SIGTERM, old)
 
 
 def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
         out_dir: Optional[str], decreasing: bool, ema=None, lr_controller=None,
-        optimizer=None) -> Dict:
-    """The epoch loop: train, evaluate (``eval_fn(epoch, model)``, and the
-    EMA module as ``ema_<metric>``), summary, the plateau step
-    (``lr_controller.step_epoch(optimizer, ...)``), checkpoints; then the
+        optimizer=None, generator: Optional[torch.Generator] = None) -> Dict:
+    """The epoch loop from the start epoch (:func:`start_epoch_of`): train,
+    evaluate (``eval_fn(epoch, model)``, and the EMA module as
+    ``ema_<metric>``), summary, wandb, the plateau step
+    (``lr_controller.step_epoch(optimizer, ...)``), checkpoints with the
+    run's state (``optimizer`` and the train step's ``generator``); then the
     ``--result`` JSON on stdout. A NaN eval metric (a c-index over an
     all-censored split) is logged and not ranked; so is an
-    ``--eval-metric`` the epoch does not emit."""
-    best_metric, best_epoch = None, None
-    history = CheckpointHistory(out_dir, args.checkpoint_hist, decreasing) if out_dir else None
-    for epoch in range(scheduled_epochs(args)):
-        t0 = time.time()
-        train_metrics = train_one_epoch(args, epoch, train_step, loader, device)
-        eval_metrics = None
-        if eval_fn is not None:
-            eval_metrics = eval_fn(epoch, model)
-            _logger.info("Eval: %d  %s", epoch,
-                         " ".join(f"{k}: {v:.4f}" for k, v in eval_metrics.items()))
-            if ema is not None:
-                ema_metrics = eval_fn(epoch, ema.module)
-                _logger.info("Eval EMA: %d  %s", epoch,
-                             " ".join(f"{k}: {v:.4f}" for k, v in ema_metrics.items()))
-                eval_metrics.update({f"ema_{k}": v for k, v in ema_metrics.items()})
-        source = eval_metrics or train_metrics
-        name = args.eval_metric
-        if ema is not None and eval_metrics and f"ema_{name}" in eval_metrics:
-            name = f"ema_{name}"  # the reference ranks by the EMA's metric
-        metric = source.get(name)
-        if metric is None:
-            _logger.warning("eval metric %s not among the epoch's metrics (%s); epoch %d is "
-                            "not ranked", args.eval_metric, ", ".join(source), epoch)
-        elif math.isnan(metric):
-            _logger.warning("eval metric %s is NaN at epoch %d; skipping ranking",
-                            args.eval_metric, epoch)
-            metric = None
+    ``--eval-metric`` the epoch does not emit. ``--profile`` traces the
+    epoch after the start epoch. On SIGTERM the run finishes its batch,
+    writes ``recovery.pth.tar``, skips eval and the summary, and returns
+    with ``"preempted": true``."""
+    start_epoch = start_epoch_of(args, model, loader, optimizer, ema, lr_controller, generator)
+    with sigterm_flag() as flag:
+        best_metric, best_epoch = None, None
+        history = CheckpointHistory(out_dir, args.checkpoint_hist, decreasing) if out_dir else None
+        wandb_run = init_wandb(args, out_dir)
+        profile_dir = os.path.join(out_dir, "profile") if out_dir and args.profile else None
+        save_recovery = None
         if out_dir:
-            update_summary(os.path.join(out_dir, "summary.csv"), epoch, train_metrics,
-                           eval_metrics)
-        if lr_controller is not None:
-            lr_controller.step_epoch(optimizer, epoch, metric)
-            _logger.info("Plateau LR after epoch %d: %g", epoch, lr_controller.applied_lr)
-        if out_dir:
-            save_epoch(history.paths(epoch, metric), model, ema, args, epoch, metric)
-        if metric is not None and (best_metric is None or (
-                metric < best_metric if decreasing else metric > best_metric)):
-            best_metric, best_epoch = metric, epoch
+            def save_recovery(epoch, batch_idx):
+                save_epoch([os.path.join(out_dir, "recovery.pth.tar")], model, ema, args, epoch,
+                           None, optimizer, generator)
+        preempted = False
+        for epoch in range(start_epoch, scheduled_epochs(args)):
+            t0 = time.time()
+            with profiled_epoch(profile_dir if epoch == start_epoch + 1 else None, epoch, device):
+                train_metrics = train_one_epoch(args, epoch, train_step, loader, device,
+                                                lambda: flag["stop"], save_recovery)
+            if flag["stop"]:
+                # a grace window is short: the recovery file only, no eval or summary
+                preempted = True
+                if save_recovery is not None:
+                    save_recovery(epoch, -1)
+                    _logger.warning("preemption: recovery checkpoint written during epoch %d; "
+                                    "exiting", epoch)
+                break
+            eval_metrics = None
+            if eval_fn is not None:
+                eval_metrics = eval_fn(epoch, model)
+                _logger.info("Eval: %d  %s", epoch,
+                             " ".join(f"{k}: {v:.4f}" for k, v in eval_metrics.items()))
+                if ema is not None:
+                    ema_metrics = eval_fn(epoch, ema.module)
+                    _logger.info("Eval EMA: %d  %s", epoch,
+                                 " ".join(f"{k}: {v:.4f}" for k, v in ema_metrics.items()))
+                    eval_metrics.update({f"ema_{k}": v for k, v in ema_metrics.items()})
+            # the --wandb-watch stats go to wandb only
+            watch = {k: v for k, v in train_metrics.items() if k.startswith("watch/")}
+            train_metrics = {k: v for k, v in train_metrics.items() if k not in watch}
+            source = eval_metrics or train_metrics
+            name = args.eval_metric
+            if ema is not None and eval_metrics and f"ema_{name}" in eval_metrics:
+                name = f"ema_{name}"  # the reference ranks by the EMA's metric
+            metric = source.get(name)
+            if metric is None:
+                _logger.warning("eval metric %s not among the epoch's metrics (%s); epoch %d is "
+                                "not ranked", args.eval_metric, ", ".join(source), epoch)
+            elif math.isnan(metric):
+                _logger.warning("eval metric %s is NaN at epoch %d; skipping ranking",
+                                args.eval_metric, epoch)
+                metric = None
             if out_dir:
-                save_epoch([os.path.join(out_dir, "model_best.pth.tar")], model, ema, args,
-                           epoch, metric)
-        _logger.info("Epoch %d done in %.1fs", epoch, time.time() - t0)
+                update_summary(os.path.join(out_dir, "summary.csv"), epoch, train_metrics,
+                               eval_metrics)
+            if wandb_run is not None:
+                payload = {f"train_{k}": v for k, v in train_metrics.items()}
+                payload.update(watch)
+                payload.update({f"eval_{k}": v for k, v in (eval_metrics or {}).items()})
+                wandb_run.log(payload, step=epoch)
+            if lr_controller is not None:
+                lr_controller.step_epoch(optimizer, epoch, metric)
+                _logger.info("Plateau LR after epoch %d: %g", epoch, lr_controller.applied_lr)
+            improved = metric is not None and (best_metric is None or (
+                metric < best_metric if decreasing else metric > best_metric))
+            if improved:
+                best_metric, best_epoch = metric, epoch
+            if out_dir:
+                paths = history.paths(epoch, metric)
+                if improved:
+                    paths.append(os.path.join(out_dir, "model_best.pth.tar"))
+                save_epoch(paths, model, ema, args, epoch, metric, optimizer, generator)
+            _logger.info("Epoch %d done in %.1fs", epoch, time.time() - t0)
 
-    results = {"best_metric": best_metric, "best_epoch": best_epoch,
-               "metric_name": args.eval_metric}
-    print(f"--result\n{json.dumps(results, indent=4)}", flush=True)
-    return results
+        results = {"best_metric": best_metric, "best_epoch": best_epoch,
+                   "metric_name": args.eval_metric}
+        if preempted:
+            results["preempted"] = True
+        if wandb_run is not None:
+            wandb_run.summary.update(results)
+            wandb_run.finish()
+        print(f"--result\n{json.dumps(results, indent=4)}", flush=True)
+        return results

@@ -40,7 +40,7 @@ the JAX package).
 
 import logging
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -281,6 +281,14 @@ class PlateauController:
         optimizer.set_lr(self.applied_lr)
         return self.applied_lr
 
+    def sync_from_optimizer(self, optimizer: "ChainOptimizer") -> None:
+        """Adopt the lr a resumed optimizer holds (``sync_from_state`` of the
+        JAX package): the restored lr is the post-warmup, maybe decayed one,
+        so the warmup's exit must not overwrite it at the next epoch."""
+        self.current_lr = optimizer.host_lr
+        self.applied_lr = self.current_lr
+        self._warmup_exited = True
+
     @classmethod
     def from_args(cls, args, base_lr: float, decreasing_metric: bool = True):
         return cls(base_lr=base_lr, decay_rate=args.decay_rate, patience=args.patience_epochs,
@@ -291,6 +299,18 @@ class PlateauController:
                    noise_pct=getattr(args, "lr_noise_pct", 0.67),
                    noise_std=getattr(args, "lr_noise_std", 1.0),
                    noise_seed=getattr(args, "seed", 42))
+
+
+def fast_forward_schedule(optimizer: "ChainOptimizer", n_updates: int,
+                          rewind: bool = False) -> None:
+    """Set the update count to ``n_updates`` where it is still 0 (timm
+    steps its rebuilt scheduler to the start epoch; the JAX package's
+    ``fast_forward_schedule``), or whatever it is with ``rewind`` (an
+    explicit ``--start-epoch`` with ``--resume``: timm's rewind, which the
+    JAX package leaves out). The one count is both the schedule's and the
+    logged lr's, so the two cannot part, under accumulation too."""
+    if rewind or optimizer.count == 0:
+        optimizer.count = int(n_updates)
 
 
 class ChainOptimizer:
@@ -313,6 +333,7 @@ class ChainOptimizer:
             raise ValueError(f"unknown clip_mode {clip_mode}")
         decay = [(n, p) for n, p in named_params if p.ndim > 1]
         no_decay = [(n, p) for n, p in named_params if p.ndim <= 1]
+        self.names = [n for n, _ in decay + no_decay]
         self.params = [p for _, p in decay + no_decay]
         self.n_decay = len(decay)
         self.opt, self.schedule, self.weight_decay = opt, schedule, weight_decay
@@ -323,7 +344,10 @@ class ChainOptimizer:
                          for n, _ in decay + no_decay]
         self.accum_steps = max(int(accum_steps), 1)
         self.host_lr = None if host_lr is None else float(f32(host_lr))
-        self.count = 0  # real updates so far: the schedule's and Adam's count
+        self.count = 0  # real updates so far: the schedule's count
+        # the updates the moments have seen: Adam's bias correction (optax
+        # keeps it apart from the schedule's, so a fast-forward leaves it)
+        self.moment_count = 0
         self.mini_step = 0
         self.state = {}
         self._acc: Optional[List[torch.Tensor]] = None
@@ -336,6 +360,40 @@ class ChainOptimizer:
     def set_lr(self, lr: float) -> None:
         """The plateau controller's write."""
         self.host_lr = float(f32(lr))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The chain's whole state as CPU tensors and numbers, each buffer
+        keyed by its parameter's name (``torch.load(weights_only=True)``
+        reads it back): the moments and traces, the update count, the
+        micro-step, the accumulated micro-gradients and the host lr."""
+        def named(tensors):
+            return {n: t.detach().cpu().clone() for n, t in zip(self.names, tensors)}
+
+        return {"state": {key: named(bufs) for key, bufs in self.state.items()},
+                "count": self.count, "moment_count": self.moment_count,
+                "mini_step": self.mini_step,
+                "acc": None if self._acc is None else named(self._acc),
+                "host_lr": self.host_lr}
+
+    def load_state_dict(self, payload: Mapping[str, Any]) -> None:
+        """Restore :meth:`state_dict`'s output onto this chain's parameters
+        (by name, each buffer on its parameter's device in fp32)."""
+        missing = [n for n in self.names if any(n not in bufs for bufs in
+                                                payload["state"].values())]
+        if missing:
+            raise ValueError(f"optimizer state lacks parameters {missing[:5]}")
+
+        def placed(named):
+            return [named[n].to(device=p.device, dtype=torch.float32)
+                    for n, p in zip(self.names, self.params)]
+
+        self.state = {key: placed(bufs) for key, bufs in payload["state"].items()}
+        self.count = int(payload["count"])
+        self.moment_count = int(payload["moment_count"])
+        self.mini_step = int(payload["mini_step"])
+        self._acc = None if payload.get("acc") is None else placed(payload["acc"])
+        host_lr = payload.get("host_lr")
+        self.host_lr = None if host_lr is None else float(host_lr)
 
     def _state(self, key: str) -> List[torch.Tensor]:
         """An fp32 buffer a parameter (moments, traces, sums), zero at first."""
@@ -368,6 +426,7 @@ class ChainOptimizer:
             torch._foreach_mul_(updates, -lr)
             torch._foreach_add_(self.params, updates)
         self.count += 1
+        self.moment_count += 1
         return True
 
     def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -436,7 +495,7 @@ class ChainOptimizer:
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        n = f32(self.count + 1)
+        n = f32(self.moment_count + 1)
         bc1 = float(f32(1) - np.power(f32(self.b1), n))
         bc2 = float(f32(1) - np.power(f32(self.b2), n))
         den = torch._foreach_div(nu, bc2)

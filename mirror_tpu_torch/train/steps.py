@@ -61,6 +61,25 @@ def _global_norm(tensors) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
+def watch_stats(named_params) -> Dict[str, torch.Tensor]:
+    """``--wandb-watch``'s stats (``watch_stats`` of the JAX package, the
+    ``wandb.watch`` histograms as moments): the L2 norm, mean and
+    population std of each gradient and each parameter, in fp32, as device
+    scalars under ``watch/{gradients,parameters}/<name>/{norm,mean,std}``.
+    The harness sums them like the other metrics and hands them to wandb
+    only."""
+    out: Dict[str, torch.Tensor] = {}
+    named = [(n, p) for n, p in named_params if p.grad is not None]
+    for kind, tensors in (("gradients", [p.grad for _, p in named]),
+                          ("parameters", [p for _, p in named])):
+        for (name, _), t in zip(named, tensors):
+            x = t.detach().float()
+            out[f"watch/{kind}/{name}/norm"] = torch.linalg.vector_norm(x)
+            out[f"watch/{kind}/{name}/mean"] = x.mean()
+            out[f"watch/{kind}/{name}/std"] = x.std(correction=0)
+    return out
+
+
 def ema_decay_at(decay: float, warmup: bool, n_updates: int) -> float:
     """timm ``ModelEmaV3.get_decay`` in the JAX package's fp32: 0 at the
     first update (the EMA takes the weights), then ``decay``, or with
@@ -113,14 +132,16 @@ def make_mirror_train_step(model: nn.Module, optimizer,
                            loss_weights: MirrorLossWeights, wsi_mask_ratio: float = 0.75,
                            rna_mask_ratio: float = 0.75,
                            generator: Optional[torch.Generator] = None,
-                           ema: Optional[ModelEma] = None) -> Callable:
+                           ema: Optional[ModelEma] = None, watch: bool = False) -> Callable:
     """``train_step(batch, noise=None) -> metrics``. ``generator`` drives
     every draw of the step (dropout, token masking, VAE eps); ``noise``
     injects the masking noise and eps instead (see ``models.mirror``).
     ``grad_norm`` and ``param_norm`` are the global norms of the gradients
-    and of the renormed parameters the gradients were taken at."""
+    and of the renormed parameters the gradients were taken at; ``watch``
+    adds :func:`watch_stats` of those."""
     set_generator(model, generator)
     params = [p for p in model.parameters() if p.requires_grad]
+    named = list(model.named_parameters())
 
     def train_step(batch: Dict[str, torch.Tensor],
                    noise: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -137,6 +158,8 @@ def make_mirror_train_step(model: nn.Module, optimizer,
                 "param_norm": _global_norm(params),
                 "lr": optimizer.current_lr(),
             }
+            if watch:
+                metrics.update(watch_stats(named))
         _update(optimizer, ema, lambda: clamp_logit_scale(model))
         metrics.update({name: v.detach() for name, v in zip(LOSS_NAMES, losses)})
         metrics["logit_scale"] = torch.exp(model.logit_scale.detach())
@@ -160,15 +183,16 @@ def mirror_eval_losses(model: nn.Module, batch: Dict[str, torch.Tensor],
 
 def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
                      generator: Optional[torch.Generator],
-                     ema: Optional[ModelEma]) -> Callable:
+                     ema: Optional[ModelEma], watch: bool = False) -> Callable:
     """``train_step(batch) -> {"loss", "grad_norm", "param_norm", "lr"}``
     with ``loss_of(batch)`` the loss of ``model``'s forward: the whole model
     is differentiated, as in the JAX step, and ``optimizer`` updates what it
     holds (every parameter, or the head alone under the linear probe, where
-    the JAX step discards the trunk's updates); the norms are over every
-    parameter."""
+    the JAX step discards the trunk's updates); the norms (and ``watch``'s
+    :func:`watch_stats`) are over every parameter."""
     set_generator(model, generator)
     params = list(model.parameters())
+    named = list(model.named_parameters())
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -182,6 +206,8 @@ def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
                 "param_norm": _global_norm(params),
                 "lr": optimizer.current_lr(),
             }
+            if watch:
+                metrics.update(watch_stats(named))
         _update(optimizer, ema)
         return metrics
 
@@ -190,7 +216,7 @@ def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
 
 def make_clip_train_step(model: nn.Module, optimizer, temperature: float = 0.1,
                          generator: Optional[torch.Generator] = None,
-                         ema: Optional[ModelEma] = None) -> Callable:
+                         ema: Optional[ModelEma] = None, watch: bool = False) -> Callable:
     """The CLIP baseline's step: InfoNCE over the batch's own negatives of
     the dual encoder's (wsi, rna) embeddings; ``generator`` drives its
     dropout."""
@@ -198,7 +224,7 @@ def make_clip_train_step(model: nn.Module, optimizer, temperature: float = 0.1,
         wsi, rna = model(batch["wsi"], batch["rna"])
         return info_nce(wsi, rna, temperature=temperature)
 
-    return _make_train_step(model, optimizer, loss_of, generator, ema)
+    return _make_train_step(model, optimizer, loss_of, generator, ema, watch)
 
 
 def make_clip_eval_step(model: nn.Module, temperature: float = 0.1) -> Callable:
@@ -230,22 +256,23 @@ def smoothed_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float =
 
 def _make_downstream_train_step(model: nn.Module, optimizer, loss_fn: Callable,
                                 wsi_only: bool, generator: Optional[torch.Generator],
-                                ema: Optional[ModelEma]) -> Callable:
+                                ema: Optional[ModelEma], watch: bool) -> Callable:
     def loss_of(batch):
         logits = model(batch["wsi"], None if wsi_only else batch["rna"]).float()
         return loss_fn(logits, batch)
 
-    return _make_train_step(model, optimizer, loss_of, generator, ema)
+    return _make_train_step(model, optimizer, loss_of, generator, ema, watch)
 
 
 def make_classifier_train_step(model: nn.Module, optimizer, smoothing: float = 0.0,
                                wsi_only: bool = False,
                                generator: Optional[torch.Generator] = None,
-                               ema: Optional[ModelEma] = None) -> Callable:
+                               ema: Optional[ModelEma] = None, watch: bool = False) -> Callable:
     def loss_fn(logits, batch):
         return smoothed_xent(logits, batch["label"], smoothing, valid=batch.get("valid"))
 
-    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator, ema)
+    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator, ema,
+                                       watch)
 
 
 def survival_loss(loss_name: str, logits: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -264,11 +291,12 @@ def survival_loss(loss_name: str, logits: torch.Tensor, batch: Dict[str, torch.T
 def make_survival_train_step(model: nn.Module, optimizer, loss_name: str = "nll_surv",
                              loss_alpha: float = 0.0, wsi_only: bool = False,
                              generator: Optional[torch.Generator] = None,
-                             ema: Optional[ModelEma] = None) -> Callable:
+                             ema: Optional[ModelEma] = None, watch: bool = False) -> Callable:
     def loss_fn(logits, batch):
         return survival_loss(loss_name, logits, batch, loss_alpha)
 
-    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator, ema)
+    return _make_downstream_train_step(model, optimizer, loss_fn, wsi_only, generator, ema,
+                                       watch)
 
 
 def make_classifier_eval_step(model: nn.Module, wsi_only: bool = False) -> Callable:

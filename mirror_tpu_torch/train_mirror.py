@@ -15,7 +15,12 @@ their plain versions. A configuration beyond the kernels (``--no-amp``, a
 head dim above 128) is refused at start unless ``--no-use-pallas``. The
 optimizer side is the JAX package's (``train/optim.py``): every ``--opt``,
 the timm schedules and plateau, clipping, ``--layer-decay``,
-``--model-ema`` and ``--grad-accum-steps``.
+``--model-ema`` and ``--grad-accum-steps``; so is the run control
+(``train/harness.py``): ``--initial-checkpoint`` (a non-strict warm start),
+``--resume`` with the optimizer's state (``--no-resume-opt``,
+``--start-epoch``), the SIGTERM stop and ``--recovery-interval``'s
+``recovery.pth.tar``, ``--grad-checkpointing``, ``--profile``, and
+``--log-wandb`` / ``--wandb-watch``.
 Per epoch: one log line per ``--log-interval`` steps with the six loss terms,
 the grad / param norms and the lr, an optional validation pass (and the
 EMA's), ``summary.csv``, and the reference's ``.pth.tar`` checkpoints
@@ -43,6 +48,7 @@ from mirror_tpu_torch.data.loader import Loader
 from mirror_tpu_torch.losses import MirrorLossWeights
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
+from mirror_tpu_torch.train.checkpoint import load_pretrained
 from mirror_tpu_torch.train.steps import make_mirror_train_step, mirror_eval_losses
 
 _logger = logging.getLogger("train")
@@ -59,9 +65,13 @@ def loss_weights_from_args(args) -> MirrorLossWeights:
     )
 
 
-def evaluate(args, model, dataset, loss_weights, generator, device) -> Dict[str, float]:
+def evaluate(args, model, dataset, loss_weights, epoch, device) -> Dict[str, float]:
+    """The mean eval losses over the val split, the masking and VAE draws
+    from the epoch's own generator (``harness.eval_generator``), not the
+    train step's."""
     loader = Loader(dataset.val(), args.validation_batch_size or args.batch_size,
                     shuffle=False, drop_last=False, seed=args.seed, workers=args.workers)
+    generator = harness.eval_generator(args.seed, epoch, device)
     totals: Dict[str, float] = {}
     seen = 0
     for host_batch in loader:
@@ -97,6 +107,8 @@ def main(argv=None) -> Dict:
                          generator=torch.Generator().manual_seed(args.seed), **model_kwargs)
     _logger.info("Model %s created on %s, param count: %d", args.model, device,
                  sum(p.numel() for p in model.parameters()))
+    if args.initial_checkpoint:
+        load_pretrained(model, args.initial_checkpoint)
 
     dataset.train()
     loader = Loader(dataset, args.batch_size, shuffle=True, drop_last=True, seed=args.seed,
@@ -106,15 +118,16 @@ def main(argv=None) -> Dict:
     loss_weights = loss_weights_from_args(args)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     train_step = make_mirror_train_step(model, optimizer, loss_weights, args.wsi_mask_ratio,
-                                        args.rna_mask_ratio, generator=generator, ema=ema)
+                                        args.rna_mask_ratio, generator=generator, ema=ema,
+                                        watch=args.wandb_watch)
     out_dir = harness.output_dir(args, "pretrain", args_text)
     eval_fn = None
     if args.val and args.split_dir is not None:
         def eval_fn(epoch, module):
-            return evaluate(args, module, dataset, loss_weights, generator, device)
+            return evaluate(args, module, dataset, loss_weights, epoch, device)
     return harness.run(args, model, train_step, loader, device, eval_fn, out_dir,
                        decreasing=True, ema=ema, lr_controller=lr_controller,
-                       optimizer=optimizer)
+                       optimizer=optimizer, generator=generator)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ projected, under InfoNCE over the batch's own negatives at
 ``--temperature`` (the JAX CLI's loss whatever ``--loss`` says). It runs on
 the card (``--device cuda``, the default) through the port's kernels, or
 with ``--device cpu`` on their plain versions; the optimizer side is
-``train/optim.py``'s. Per epoch: the train log lines (loss, grad / param
+``train/optim.py``'s and the run control (warm start, resume, recovery,
+activation checkpointing, profiler, wandb) ``train_mirror``'s. Per epoch: the train log lines (loss, grad / param
 norms, lr), a validation pass over the whole val split (the tail batch
 padded and masked, the loss weighted by the valid rows, a fresh token draw
 each epoch) and the EMA's beside it under ``--model-ema``, ``summary.csv``
@@ -38,6 +39,7 @@ from mirror_tpu_torch.data.datasets import PretrainDataset
 from mirror_tpu_torch.data.loader import Loader
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
+from mirror_tpu_torch.train.checkpoint import load_pretrained
 from mirror_tpu_torch.train.steps import make_clip_eval_step, make_clip_train_step
 
 _logger = logging.getLogger("train")
@@ -80,15 +82,17 @@ def main(argv=None) -> Dict:
                          generator=torch.Generator().manual_seed(args.seed), **model_kwargs)
     _logger.info("Model %s created on %s, param count: %d", args.model, device,
                  sum(p.numel() for p in model.parameters()))
+    if args.initial_checkpoint:
+        load_pretrained(model, args.initial_checkpoint)
 
     dataset.train()
     loader = Loader(dataset, args.batch_size, shuffle=True, drop_last=True, seed=args.seed,
                     workers=args.workers)
     optimizer, lr_controller, ema = harness.optimizer_side(
         args, model, loader, resolve_lr(args, args.batch_size), decreasing=True)
-    train_step = make_clip_train_step(
-        model, optimizer, temperature=args.temperature,
-        generator=torch.Generator(device=device).manual_seed(args.seed), ema=ema)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    train_step = make_clip_train_step(model, optimizer, temperature=args.temperature,
+                                      generator=generator, ema=ema, watch=args.wandb_watch)
     out_dir = harness.output_dir(args, "pretrain_clip", args_text)
     eval_fn = None
     if args.val and args.split_dir is not None:
@@ -98,7 +102,7 @@ def main(argv=None) -> Dict:
             return evaluate(args, module, dataset, val_batch, epoch, device)
     return harness.run(args, model, train_step, loader, device, eval_fn, out_dir,
                        decreasing=True, ema=ema, lr_controller=lr_controller,
-                       optimizer=optimizer)
+                       optimizer=optimizer, generator=generator)
 
 
 if __name__ == "__main__":

@@ -131,9 +131,10 @@ def main(argv=None) -> Dict:
     model = build_classifier(args, dataset, num_classes, device)
     loader, (optimizer, lr_controller, ema), batch_size = train_loader_and_optimizer(
         args, dataset, model)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     train_step = make_classifier_train_step(
         model, optimizer, smoothing=args.smoothing or 0.0, wsi_only=args.wsi_feature_only,
-        generator=torch.Generator(device=device).manual_seed(args.seed), ema=ema)
+        generator=generator, ema=ema, watch=args.wandb_watch)
     avg = args.eval_metric_average
 
     def eval_fn(epoch, module):
@@ -149,7 +150,7 @@ def main(argv=None) -> Dict:
     return harness.run(args, model, train_step, loader, device,
                        eval_fn if args.val else None, out_dir,
                        decreasing=args.eval_metric == "loss", ema=ema,
-                       lr_controller=lr_controller, optimizer=optimizer)
+                       lr_controller=lr_controller, optimizer=optimizer, generator=generator)
 
 
 if __name__ == "__main__":

@@ -54,10 +54,10 @@ def main(argv=None) -> Dict:
     model = build_classifier(args, dataset, args.num_bins, device)
     loader, (optimizer, lr_controller, ema), batch_size = train_loader_and_optimizer(
         args, dataset, model)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     train_step = make_survival_train_step(
         model, optimizer, loss_name=args.loss, loss_alpha=args.loss_alpha,
-        wsi_only=args.wsi_feature_only,
-        generator=torch.Generator(device=device).manual_seed(args.seed), ema=ema)
+        wsi_only=args.wsi_feature_only, generator=generator, ema=ema, watch=args.wandb_watch)
 
     def eval_fn(epoch, module):
         logits, labels, extras = harness.gather_eval_outputs(
@@ -82,7 +82,7 @@ def main(argv=None) -> Dict:
     return harness.run(args, model, train_step, loader, device,
                        eval_fn if args.val else None, out_dir,
                        decreasing=args.eval_metric == "loss", ema=ema,
-                       lr_controller=lr_controller, optimizer=optimizer)
+                       lr_controller=lr_controller, optimizer=optimizer, generator=generator)
 
 
 if __name__ == "__main__":

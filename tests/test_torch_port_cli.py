@@ -62,8 +62,10 @@ def _argv(cohort, *extra):
 
 @pytest.mark.parametrize("epoch", [0, 1])
 def test_loader_draws_the_jax_loaders_batches(cohort, epoch):
-    """The port's PretrainDataset + Loader against the JAX package's numpy
-    path: the same fold, shuffle, drop_last and per-slide token draws."""
+    """The port's PretrainDataset + Loader against the JAX package's, both
+    at their default (the C++ gather, which turns these float16 files down,
+    so both assemble them on the numpy path): the same fold, shuffle,
+    drop_last and per-slide token draws."""
     from mirror_tpu.data.datasets import PretrainDataset as JaxDataset
     from mirror_tpu.data.loader import Loader as JaxLoader
     from mirror_tpu_torch.data.datasets import PretrainDataset
@@ -73,7 +75,7 @@ def test_loader_draws_the_jax_loaders_batches(cohort, epoch):
     ours = Loader(PretrainDataset(*args, splits=str(cohort / "splits")), 4, seed=3,
                   workers=2)
     theirs = JaxLoader(JaxDataset(*args, splits=str(cohort / "splits")), 4, seed=3,
-                       use_native=False, process_index=0, process_count=1)
+                       process_index=0, process_count=1)
     ours.set_epoch(epoch)
     theirs.set_epoch(epoch)
     got, want = list(ours), list(theirs)
@@ -112,10 +114,8 @@ def test_train_mirror_trains_on_the_cpu_and_its_checkpoint_reloads(cohort, capsy
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--start-epoch", "3"],
-    ["--log-wandb"], ["--grad-checkpointing"], ["--model-parallel", "2"],
-    ["--distributed"], ["--optimizer-sharding"], ["--ckpt-format", "orbax"], ["--profile"],
-    ["--initial-checkpoint", "x.pth.tar"], ["--no-resume-opt"],
+    ["--model-parallel", "2"], ["--distributed"], ["--optimizer-sharding"],
+    ["--ckpt-format", "orbax"],
 ])
 def test_train_mirror_refuses_unported_flags(cohort, flag):
     name = flag[0]
@@ -179,21 +179,15 @@ def test_a_train_mirror_ema_checkpoint_warm_starts_from_its_ema_weights(cohort):
 
 # each refused flag set away from its default, on the command line
 UNPORTED_ARGV = {
-    "resume": ["--resume", "x.pth.tar"], "no_resume_opt": ["--no-resume-opt"],
-    "start_epoch": ["--start-epoch", "3"], "recovery_interval": ["--recovery-interval", "5"],
-    "log_wandb": ["--log-wandb"], "wandb_watch": ["--wandb-watch"],
-    "grad_checkpointing": ["--grad-checkpointing"], "model_parallel": ["--model-parallel", "2"],
-    "distributed": ["--distributed"], "optimizer_sharding": ["--optimizer-sharding"],
-    "ckpt_format": ["--ckpt-format", "orbax"], "profile": ["--profile"],
-    "initial_checkpoint": ["--initial-checkpoint", "x.pth.tar"],
+    "model_parallel": ["--model-parallel", "2"], "distributed": ["--distributed"],
+    "optimizer_sharding": ["--optimizer-sharding"], "ckpt_format": ["--ckpt-format", "orbax"],
 }
 
 
-@pytest.mark.parametrize("dest,item", [(dest, item) for dest, _, item in
-                                       config._UNPORTED + config._UNPORTED_PRETRAIN])
+@pytest.mark.parametrize("dest,item", [(dest, item) for dest, _, item in config._UNPORTED])
 def test_refusal_names_the_flag_and_its_roadmap_item(dest, item):
     """Each refused pretrain flag's message names the flag and the ROADMAP
-    item that ports it (items 10, 14, 16, 17), not one range for all."""
+    item that ports it (items 14, 16, 17), not one range for all."""
     args, _ = config.parse_args(UNPORTED_ARGV[dest], task="pretrain")
     with pytest.raises(SystemExit) as refusal:
         config.refuse_unported(args)

@@ -44,7 +44,7 @@ from mirror_tpu.train.steps import (
     smoothed_xent as jax_smoothed_xent,
     survival_risk as jax_survival_risk,
 )
-from mirror_tpu_torch import train_mirror, train_subtyping, train_survival
+from mirror_tpu_torch import train_subtyping, train_survival
 from mirror_tpu_torch.convert import state_dict_from_jax
 from mirror_tpu_torch.losses import ce_surv_loss, nll_surv_loss
 from mirror_tpu_torch.models import MIRRORClassifier
@@ -598,8 +598,7 @@ def test_gen_few_shot_files_writes_the_jax_tools_files(cohort, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume", "x.pth.tar"], ["--recovery-interval", "5"], ["--grad-checkpointing"],
-    ["--profile"], ["--ckpt-format", "orbax"], ["--loss", "focal"], ["--model", "mirror_clip"],
+    ["--ckpt-format", "orbax"], ["--loss", "focal"], ["--model", "mirror_clip"],
 ])
 @pytest.mark.parametrize("task", ["subtyping", "survival"])
 def test_downstream_entry_points_refuse_unported_flags(cohort, task, flag):
@@ -659,11 +658,6 @@ def test_predict_use_ema_scores_the_ema_weights(cohort, tmp_path):
         rows[name] = pd.read_csv(out)
     pd.testing.assert_frame_equal(rows["ema"], rows["ema_only"])
     assert not np.allclose(rows["ema"]["prob_0"], rows["live"]["prob_0"])
-
-
-def test_pretrain_still_refuses_a_warm_start(cohort):
-    with pytest.raises(SystemExit, match="--initial-checkpoint"):
-        train_mirror.main(["--initial-checkpoint", "x.pth.tar", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("task", ["subtyping", "survival"])
