@@ -2,6 +2,8 @@
 """Drive the PyTorch port of MIRROR once on one NVIDIA card, and check it.
 
     python3 chip_smoke.py            # from the repo root; one CUDA card, nvcc
+    python3 chip_smoke.py --ddp-ranks 4   # only the build and phase 5d's group
+                                          # check, one NCCL process a card
 
 Phases, each printed as it finishes:
 
@@ -110,6 +112,22 @@ Phases, each printed as it finishes:
    GEMM 144 times, the backwards and PPEG as often; ms and peak memory of
    both; its launches under ``train_gradckpt``), and one with
    ``--pinv-grad exact`` (2b at 3 a step);
+5d. data parallelism (ROADMAP item 14) on 32 of phase 5's slides (2 steps
+   of 16): ``train_mirror.main`` as one rank of a NCCL group
+   (``MIRROR_COORDINATOR`` with one process: the DDP wrapper over NCCL;
+   at world size 1 the scale's all-reduce, the gathers and the agreed stop
+   issue no collective, so the cross-rank math runs in the gloo pair
+   below and under ``--ddp-ranks``) against the same run without a group,
+   the losses and the saved weights bit for bit (the first leaf that differs named; its
+   launches under ``train_ddp``), the group's init and the step with and
+   without DDP timed; then two processes on the one card over gloo
+   (``parallel/worker.py``), a global batch of 16 split 8 / 8 with global
+   negatives and the masking noise and eps injected, dropout 0: the ranks'
+   averaged gradients against the one-process step on the card from the
+   same weights, batch and draws at phase 5's bars, the two ranks' weights
+   the same bits after the update, then again with
+   ``--optimizer-sharding``; the group's init, the first step and the
+   step's median of each;
 6. feature extraction: 8 synthetic slides of 2,048 224x224 JPEG patches in
    all (``{root}/{class}/{slide}/``), run through
    ``mirror_tpu_torch.tools.gen_patch_feature.main`` three times at batch
@@ -163,6 +181,7 @@ The line before the last is the kernels' JSON; the last line is
 The script imports nothing of JAX.
 """
 
+import contextlib
 import json
 import logging
 import math
@@ -213,6 +232,9 @@ N_PRETRAIN_SLIDES, TRAIN_STEPS, TRAIN_STEPS_EXACT = 64, 4, 2
 # the run control (phase 5c): 2 steps an epoch on 32 of phase 5's slides;
 # kernels of csrc/ whose names the --profile trace of a train epoch must hold
 RC_STEPS = 2
+# data parallelism (phase 5d): 2 steps of 16 on 32 of phase 5's slides; the
+# gloo pair's timed steps and its launch's time limit
+DDP_STEPS, DDP_REPS, DDP_TIMEOUT_S = 2, 3, 300.0
 RC_TRACE_KERNELS = ("landmark_fwd_kernel", "pinv_gemm_kernel", "softmax_attn_kernel",
                     "attn_bwd_rows_kernel", "ppeg_kernel", "ppeg_bwd_kernel")
 # the CLIP baseline (train_pretrain): 48 of phase 5's slides train (3
@@ -315,6 +337,7 @@ def phase_device(torch):
     # the plain versions are fp32 references: no TF32 in their products or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return smi
 
 
 def phase_build():
@@ -1904,6 +1927,265 @@ def phase_run_control(torch, root: Path, feat_dir: Path, rna_csv: Path, model_kw
                                   resume_diff=max(diffs.values()))
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def first_difference(torch, a: dict, b: dict):
+    """The first key (in a's order) whose tensors differ in shape or bits,
+    or None."""
+    for key, value in a.items():
+        if key not in b or b[key].shape != value.shape or not torch.equal(b[key], value):
+            return key
+    return None
+
+
+def ddp_ranks(torch, root: Path, name, spec, argv, ranks: int, backend: str):
+    """``ranks`` processes of ``parallel/worker.py`` over ``backend``; their
+    outputs."""
+    from mirror_tpu_torch.parallel import worker
+
+    path = root / f"{name}.spec.pt"
+    torch.save(dict(spec, argv=argv), path)
+    try:
+        return worker.launch(path, root / name, ranks, root / f"{name}.rdv", DDP_TIMEOUT_S,
+                             env={"MIRROR_DIST_BACKEND": backend, "OMP_NUM_THREADS": "4"})
+    except RuntimeError as e:
+        fail(f"[ddp] the ranks of {name} failed: {str(e)[-3000:]}")
+
+
+def grad_agreement(grads, ref):
+    """The worst cosine (and its leaf) and the norm ratio furthest from 1
+    of ``grads`` against ``ref`` over ref's nonzero leaves."""
+    worst, worst_leaf, worst_ratio = 1.0, None, 1.0
+    for leaf, g in ref.items():
+        a, b = grads[leaf].float().ravel(), g.float().ravel()
+        if b.norm() == 0:
+            continue
+        cos = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+        ratio = float(a.norm() / b.norm())
+        if cos < worst:
+            worst, worst_leaf = cos, leaf
+        if abs(ratio - 1.0) > abs(worst_ratio - 1.0):
+            worst_ratio = ratio
+    return worst, worst_leaf, worst_ratio
+
+
+def phase_ddp(torch, root: Path, feat_dir: Path, rna_csv: Path, model_kwargs):
+    """Data parallelism on the one card: a one-rank NCCL group through
+    ``train_mirror.main`` bit for bit the run without one, and two gloo
+    processes against the one-process step (phase 5d in the docstring).
+    Returns the one-rank run's launches."""
+    import os
+
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch import train_mirror
+    from mirror_tpu_torch.config import parse_args
+    from mirror_tpu_torch.data.datasets import PretrainDataset
+    from mirror_tpu_torch.data.loader import Loader
+    from mirror_tpu_torch.parallel import distributed
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_mirror_train_step
+
+    t0 = time.perf_counter()
+    split_dir = root / "splits_ddp"
+    split_dir.mkdir(parents=True)
+    ids = sorted(p.stem[:12] for p in feat_dir.glob("*.npy"))[:DDP_STEPS * B]
+    pd.DataFrame({"train": ids, "val": [None] * len(ids)}).to_csv(split_dir / "splits_0.csv")
+    argv = ["--config", str(PRETRAIN_YAML), "--wsi-feature-dir", str(feat_dir),
+            "--rna-feature-csv", str(rna_csv), "--split-dir", str(split_dir), "--fold-nb", "0",
+            "--output", str(root / "runs"), "--no-val", "--batch-size", str(B), "--epochs", "1",
+            "--log-interval", "1", "--seed", str(SEED), "--workers", "8",
+            "--checkpoint-hist", "1"]
+
+    # one rank over NCCL (the JAX env contract, host:port) against no group
+    run_entry_point(torch, "ddp plain", train_mirror.main, argv + ["--experiment", "plain"],
+                    DDP_STEPS)
+    env = {"MIRROR_COORDINATOR": f"localhost:{free_port()}", "MIRROR_NUM_PROCESSES": "1",
+           "MIRROR_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        _, launches = run_entry_point(torch, "train_ddp", train_mirror.main,
+                                      argv + ["--experiment", "one_rank"], DDP_STEPS)
+    finally:
+        for key in env:
+            os.environ.pop(key)
+    if distributed.initialized():
+        fail("[ddp] train_mirror.main left its process group behind")
+    runs = root / "runs" / "pretrain"
+    losses = [pd.read_csv(runs / d / "summary.csv").filter(like="loss").iloc[0].tolist()
+              for d in ("plain", "one_rank")]
+    a, b = (load_checkpoint_file(str(runs / d / "last.pth.tar")) for d in ("plain", "one_rank"))
+    leaf = first_difference(torch, a["state_dict"], b["state_dict"])
+    say(f"[ddp] one NCCL rank (the DDP wrapper at world size 1; the cross-rank math runs in "
+        f"the gloo pair below and under --ddp-ranks) against no group, {DDP_STEPS} "
+        f"steps at batch {B}: losses {losses[1]} vs {losses[0]}; weights "
+        f"{'bit for bit' if leaf is None else 'differ first at ' + leaf}")
+    if losses[0] != losses[1] or leaf is not None:
+        fail(f"[ddp] the one-rank NCCL run is not the plain run bit for bit (first leaf that "
+             f"differs: {leaf}; losses {losses})")
+
+    # the cost of DDP at world size 1: the group's init, the step with and without
+    dataset = PretrainDataset(str(feat_dir), str(rna_csv), N_TOKENS, splits=str(split_dir))
+    host = next(iter(Loader(dataset, B, shuffle=True, seed=SEED, workers=8)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    args, _ = parse_args(argv)
+    times = {}
+    for grouped in (False, True):
+        if grouped:
+            os.environ.update(dict(env, MIRROR_COORDINATOR=f"localhost:{free_port()}"))
+        try:
+            with contextlib.ExitStack() as stack:
+                t1 = time.perf_counter()
+                if grouped:
+                    stack.enter_context(distributed.session(args, torch.device("cuda")))
+                init_s = time.perf_counter() - t1
+                model = create_model("mirror", device="cuda",
+                                     generator=torch.Generator().manual_seed(SEED),
+                                     **model_kwargs)
+                step = make_mirror_train_step(
+                    model, make_optimizer(args, model, 2e-5),
+                    train_mirror.loss_weights_from_args(args), args.wsi_mask_ratio,
+                    args.rna_mask_ratio,
+                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                first_ms = 1e3 * (time.perf_counter() - t1)
+                ms, _, _, _, _ = time_steps(torch, step, batch, reps=5, warm=1)
+                times["nccl_1" if grouped else "no_group"] = dict(
+                    init_s=init_s, first_step_ms=first_ms, step_ms=ms)
+                del model, step
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+    torch.cuda.empty_cache()
+    say(f"[ddp] one rank, batch {B}: no group: first step "
+        f"{times['no_group']['first_step_ms']:.1f} ms, median {times['no_group']['step_ms']:.3f}"
+        f" ms of 5; NCCL group of 1 (DDP): init {times['nccl_1']['init_s']:.2f} s, first step "
+        f"{times['nccl_1']['first_step_ms']:.1f} ms, median {times['nccl_1']['step_ms']:.3f} ms "
+        f"of 5 (CUDA events; the first steps on the host clock)")
+
+    del batch
+    # two gloo processes on the one card against the one-process step
+    pairs = ddp_group_check(torch, root, host, args, model_kwargs, 2, "gloo")
+    say(f"[ddp] phase {time.perf_counter() - t0:.1f} s")
+    return launches, dict(times=times, pairs=pairs)
+
+
+def ddp_group_check(torch, root: Path, host, args, model_kwargs, ranks: int, backend: str):
+    """``ranks`` processes of ``parallel/worker.py`` over ``backend`` (gloo:
+    all on the one card; nccl: one a card), a global batch of ``B`` split
+    evenly with global negatives, the masking noise and eps injected and
+    dropout 0, against the one-process step on the card from the same
+    weights, batch and draws at phase 5's bars; the ranks' weights the same
+    bits after the update; then again with ``--optimizer-sharding``.
+    Returns the times of each run."""
+    import numpy as np
+
+    from mirror_tpu_torch import train_mirror
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_mirror_train_step
+
+    kw = dict(model_kwargs, wsi_dropout=0.0, rna_proj_drop_rate=0.0)
+    rng = np.random.default_rng(SEED)
+    noise = dict(wsi_noise=rng.random((B, N_TOKENS), dtype=np.float32),
+                 rna_noise=rng.random((B, EMBED), dtype=np.float32),
+                 wsi_eps=rng.standard_normal((B, 128), dtype=np.float32),
+                 rna_eps=rng.standard_normal((B, 128), dtype=np.float32))
+    noise = {k: torch.from_numpy(v) for k, v in noise.items()}
+    weights = train_mirror.loss_weights_from_args(args)
+    spec = dict(model="mirror", model_kwargs=kw, device="cuda", seed=SEED, step="mirror",
+                negatives="global", lr=2e-5, loss_weights=tuple(weights),
+                mask_ratios=(args.wsi_mask_ratio, args.rna_mask_ratio),
+                batches=[{k: torch.from_numpy(host[k]) for k in ("wsi", "rna")}],
+                noise=[noise], dump=("grads",), reps=DDP_REPS)
+    model = create_model("mirror", device="cuda", generator=torch.Generator().manual_seed(SEED),
+                         **kw)
+    step = make_mirror_train_step(model, make_optimizer(args, model, 2e-5), weights,
+                                  args.wsi_mask_ratio, args.rna_mask_ratio)
+    batch = {k: torch.from_numpy(host[k]).cuda() for k in ("wsi", "rna")}
+    ref_loss = float(step(batch, noise={k: v.cuda() for k, v in noise.items()})["loss"])
+    ref = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+           if p.grad is not None}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    runs = {}
+    for zero1 in (False, True):
+        name = f"{backend}_{ranks}{'_zero1' if zero1 else ''}"
+        outs = ddp_ranks(torch, root, name, spec, ["--config", str(PRETRAIN_YAML)]
+                         + (["--optimizer-sharding"] if zero1 else []), ranks, backend)
+        same = len({o["digests"][0] for o in outs}) == 1 and \
+            len({o["init_digest"] for o in outs}) == 1
+        loss = outs[0]["metrics"][0]["loss"]
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        grads = outs[0]["grads"]
+        if set(grads) != set(ref):
+            fail(f"[ddp] {name}: gradient leaves differ: {sorted(set(grads) ^ set(ref))[:5]}")
+        worst, worst_leaf, worst_ratio = grad_agreement(grads, ref)
+        runs[name] = dict(init_s=[o["init_s"] for o in outs],
+                          first_step_ms=[o["first_step_ms"] for o in outs],
+                          step_ms=[o["step_ms"] for o in outs], digest=outs[0]["digests"][0])
+
+        def spread(key, fmt):
+            return " / ".join(format(v, fmt) for v in runs[name][key])
+
+        say(f"[ddp] {name}: {ranks} processes over {backend}, batch {B} as {ranks} x "
+            f"{B // ranks}, global negatives: loss {loss:.6g} vs one process {ref_loss:.6g} "
+            f"(relative {rel:.3g}, bound {BOUND_STEP_LOSS:g}); averaged gradients over "
+            f"{len(ref)} leaves, worst cosine {worst:.6f} ({worst_leaf}), norm ratio furthest "
+            f"from 1 {worst_ratio:.5f} (bounds {BOUND_GRAD_COS}, {BOUND_GRAD_NORM:g}); the "
+            f"ranks' weights {'the same bits' if same else 'DIFFER'} after the update; init "
+            f"{spread('init_s', '.2f')} s, first step {spread('first_step_ms', '.1f')} ms, "
+            f"median {spread('step_ms', '.3f')} ms of {DDP_REPS} (host clock around a "
+            f"synchronized step)")
+        if not same:
+            fail(f"[ddp] {name}: the ranks' weights differ after the update")
+        if not (np.isfinite(loss) and rel <= BOUND_STEP_LOSS and worst >= BOUND_GRAD_COS
+                and abs(worst_ratio - 1.0) <= BOUND_GRAD_NORM):
+            fail(f"[ddp] {name}: the averaged gradients leave the one-process step's bars")
+    names = list(runs)
+    zero1_same = runs[names[0]]["digest"] == runs[names[1]]["digest"]
+    say(f"[ddp] ZeRO-1's weights after the update {'are' if zero1_same else 'are not'} the "
+        f"unsharded run's bits")
+    if not zero1_same:
+        fail(f"[ddp] {names[1]}: ZeRO-1's weights after the update are not the unsharded "
+             f"run's bits")
+    return runs
+
+
+def phase_ddp_cards(torch, ranks: int) -> None:
+    """``chip_smoke.py --ddp-ranks R`` on R cards of one host: the kernels
+    built, phase 5's cohort written, and :func:`ddp_group_check` with one
+    process a card over NCCL."""
+    from mirror_tpu_torch.config import model_kwargs_from_args, parse_args
+    from mirror_tpu_torch.data.datasets import PretrainDataset
+    from mirror_tpu_torch.data.loader import Loader
+
+    if torch.cuda.device_count() < ranks:
+        fail(f"--ddp-ranks {ranks}: {torch.cuda.device_count()} card(s)")
+    phase_build()
+    args, _ = parse_args(["--config", str(PRETRAIN_YAML)])
+    kw = dict(model_kwargs_from_args(args), rna_embed_dim=RNA_DIM, wsi_num_tokens=N_TOKENS)
+    build_root = REPO / "build"
+    build_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
+        feat_dir, rna_csv, split_dir = write_pretrain_cohort(Path(tmp))
+        dataset = PretrainDataset(str(feat_dir), str(rna_csv), N_TOKENS, splits=str(split_dir))
+        host = next(iter(Loader(dataset, B, shuffle=True, seed=SEED, workers=8)))
+        ddp_group_check(torch, Path(tmp), host, args, kw, ranks, "nccl")
+
+
 def clip_step_card_vs_cpu(torch, argv, wsi, rna):
     """The CLIP train step at batch 2 (the pretrain_clip run's arguments and
     widths, dropout 0), card against the CPU's plain path in fp32. Against
@@ -2590,8 +2872,15 @@ def run_model_kwargs(train_root: Path) -> dict:
 def main() -> int:
     import torch
 
-    phase_device(torch)
+    smi = phase_device(torch)
     torch.set_num_threads(8)
+    if sys.argv[1:2] == ["--ddp-ranks"]:
+        phase_ddp_cards(torch, int(sys.argv[2]))
+        say(f"[done] on {' | '.join(smi.splitlines())}")
+        say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     t_start = time.perf_counter()
     phase_build()
     kernels = phase_kernels(torch, backward=False)
@@ -2609,6 +2898,9 @@ def main() -> int:
                                         Path(tmp) / "train" / "features",
                                         Path(tmp) / "train" / "rna.csv",
                                         run_model_kwargs(Path(tmp) / "train"))
+        train_ddp, _ = phase_ddp(torch, Path(tmp) / "ddp", Path(tmp) / "train" / "features",
+                                 Path(tmp) / "train" / "rna.csv",
+                                 run_model_kwargs(Path(tmp) / "train"))
         with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp_fg:
             featgen = phase_featgen(torch, Path(tmp_fg))
         pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
@@ -2616,7 +2908,8 @@ def main() -> int:
     selftest_launches = phase_selftest(torch)
     probe_launches = phase_probes(torch)
     # the main paths' launches: predict's, the train step's (implicit and
-    # exact pinv gradient, and one step with --grad-checkpointing), the
+    # exact pinv gradient, one step with --grad-checkpointing, and the
+    # one-rank NCCL run of phase 5d), the
     # CLIP baseline's, feature extraction's (its
     # three runs), the downstream entry points' (and the optimizer side's
     # survival run) and the self-test's, each counted from 0 just
@@ -2626,7 +2919,7 @@ def main() -> int:
     # package, run on the probes' path (exp_ln_qkv), as do the kernels the
     # probes added
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
-             "train_gradckpt": gradckpt,
+             "train_gradckpt": gradckpt, "train_ddp": train_ddp,
              "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
              "survival": down["survival"], "survival_opt": down["survival_opt"],
              "selftest": selftest_launches, "probes": probe_launches}
@@ -2637,7 +2930,7 @@ def main() -> int:
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in exempt]
     if unlaunched:
         fail(f"kernels no main path launched: {unlaunched}")
-    say(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
+    say(f"[done] {time.perf_counter() - t_start:.1f} s after the device check, on {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -89,7 +89,8 @@ def build_parser(task: str = "pretrain") -> argparse.ArgumentParser:
     g.add_argument("--amp-dtype", type=str, default="bfloat16")
     g.add_argument("--contrastive-negatives", type=str, default="local",
                    choices=["global", "local"],
-                   help="one process: the batch's own negatives either way")
+                   help="each rank's own rows (local) or the global batch's; the same "
+                        "with one process")
 
     g = p.add_argument_group("Optimizer")
     g.add_argument("--opt", type=str, default="adam")
@@ -214,8 +215,8 @@ _IGNORED_KEYS = {
 # flags this port does not implement: (dest, what it would need, the
 # ROADMAP item that ports it)
 _UNPORTED = (
-    ("model_parallel", "tensor parallelism", 16), ("distributed", "multi-process training", 14),
-    ("optimizer_sharding", "ZeRO-1", 14), ("ckpt_format", "the JAX package's checkpoints", 17),
+    ("model_parallel", "tensor parallelism", 16),
+    ("ckpt_format", "the JAX package's checkpoints", 17),
 )
 # what each task's port runs of --model and --loss; pretrain: train_mirror
 # runs mirror and its loss, train_pretrain mirror_dual (the default mirror

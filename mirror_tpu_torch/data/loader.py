@@ -19,8 +19,13 @@ down (a mixed cohort, a dtype or order it does not read), the loader takes
 the numpy path for the rest of its life and says so once; a library that
 does not build or load raises instead. A producer thread keeps
 ``prefetch`` batches ready and stops when iteration ends or is abandoned.
-The multi-process blocks of the JAX loader are not ported (ROADMAP item
-14).
+
+Under a process group (``parallel/distributed.py``) ``batch_size`` is the
+GLOBAL batch, as in the JAX CLIs: every rank draws the same epoch order
+and item seeds from the shared seed and assembles only its block of each
+global batch (``local_block``: rank p owns rows [p * b / R, (p + 1) * b /
+R)), so the blocks in rank order are the one-process batch, ``valid``
+included; a padded eval tail is padded as a whole, then cut.
 """
 
 import logging
@@ -30,6 +35,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from ..parallel.distributed import local_block, process_info
 
 _logger = logging.getLogger(__name__)
 _said = set()  # the fallback reasons already logged
@@ -52,11 +59,16 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, pad_last: bool = False, weighted: bool = False,
                  seed: int = 42, workers: int = 4, prefetch: int = 2,
-                 use_native: bool = True) -> None:
+                 use_native: bool = True, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None) -> None:
         if drop_last and pad_last:
             raise ValueError("drop_last and pad_last exclude each other")
+        self.process_index, self.process_count = process_info(process_index, process_count)
+        if batch_size % self.process_count or not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"batch {batch_size} over {self.process_count} processes "
+                             f"(process {self.process_index})")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # GLOBAL: every process's block together
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.pad_last = pad_last
@@ -115,7 +127,7 @@ class Loader:
         batch["wsi"] = wsi
         return batch
 
-    def _make_batch(self, pool, indices, seeds, n_valid) -> Dict[str, np.ndarray]:
+    def _make_batch(self, pool, indices, seeds, valid) -> Dict[str, np.ndarray]:
         batch = self._native_batch(indices, seeds) if self.native else None
         if batch is None:
             def item(pos):
@@ -124,7 +136,7 @@ class Loader:
 
             items = list(pool.map(item, range(len(indices))))
             batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
-        batch["valid"] = (np.arange(len(indices)) < n_valid).astype(np.float32)
+        batch["valid"] = valid
         return batch
 
     def _chunks(self):
@@ -133,6 +145,7 @@ class Loader:
         n = len(indices)
         item_seeds = rng.integers(0, 2**63, size=n, dtype=np.int64)
         stop = n - (n % self.batch_size) if self.drop_last else n
+        p, pc = self.process_index, self.process_count
         for start in range(0, stop, self.batch_size):
             idx = indices[start:start + self.batch_size]
             seeds = item_seeds[start:start + self.batch_size]
@@ -141,7 +154,11 @@ class Loader:
                 pad = self.batch_size - n_valid
                 idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
                 seeds = np.concatenate([seeds, np.repeat(seeds[-1:], pad)])
-            yield idx, seeds, n_valid
+            elif pc > 1 and n_valid % pc:
+                raise ValueError("a multi-process loader's tail batch needs drop_last or "
+                                 f"pad_last ({n_valid} rows over {pc} processes)")
+            valid = (np.arange(len(idx)) < n_valid).astype(np.float32)
+            yield tuple(local_block(a, p, pc) for a in (idx, seeds, valid))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         chunks = list(self._chunks())

@@ -13,9 +13,11 @@ Every vector is L2-normalised with the norm taken in fp32
 the inputs' dtype and the logits are cast to fp32 after them, as the
 reference's ``F.cross_entropy`` promotes its half logits under autocast.
 
-``local_info_nce`` of the JAX package (each data shard's own in-batch loss,
-averaged over the shards) is the DDP semantics of several processes; in the
-port's one process it is this ``info_nce`` over the whole batch.
+:func:`contrastive_info_nce` is the CLIP step's in-batch loss over the
+rank's own negatives (``--contrastive-negatives local``: the JAX package's
+``local_info_nce``, each rank's loss, which DDP averages) or the global
+batch's (``global``: the embeddings all-gathered in rank order); with one
+process the two are ``info_nce`` over the batch.
 """
 
 from typing import Optional
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import l2_normalize
+from ..parallel import distributed
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, reduction: str,
@@ -79,3 +82,31 @@ def info_nce(query: torch.Tensor, positive_key: torch.Tensor,
         return (0.5 * _xent(logits / temperature, labels, reduction, valid)
                 + 0.5 * _xent(logits2 / temperature, labels, reduction, valid))
     return _xent(logits / temperature, labels, reduction, valid)
+
+
+def contrastive_info_nce(query: torch.Tensor, positive_key: torch.Tensor,
+                         temperature: float = 0.1, negatives: str = "local",
+                         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In-batch ``info_nce`` over the rank's rows (``local``) or, with
+    ``global``, over every rank's rows gathered in rank order (the gather's
+    backward sums the ranks' gradients, so DDP's average is the global
+    loss's gradient)."""
+    if negatives == "global":
+        query = distributed.gather_rows(query)
+        positive_key = distributed.gather_rows(positive_key)
+        if valid is not None:
+            valid = distributed.gather_rows(valid)
+    return info_nce(query, positive_key, temperature=temperature, valid=valid)
+
+
+def reduce_info_nce(loss: torch.Tensor, n_valid, negatives: str = "local") -> torch.Tensor:
+    """The global value of :func:`contrastive_info_nce` from each rank's
+    (detached; ``n_valid`` the rank's valid rows, a number or a tensor):
+    the mean over the ranks that hold a valid row (the JAX
+    ``local_info_nce``'s psum pair), or the global loss as it is."""
+    loss = loss.detach()
+    if not distributed.multi() or negatives == "global":
+        return loss
+    has = (torch.as_tensor(n_valid, device=loss.device).float().reshape(()) > 0).float()
+    sums = distributed.all_reduce(torch.stack([loss.float() * has, has]))
+    return sums[0] / sums[1].clamp_min(1.0)

@@ -94,6 +94,22 @@ class MIRROR(nn.Module):
         z = mu + torch.exp(0.5 * logstd) * eps.to(mu.dtype)
         return self.prototypes(self.style_decoder(z)), mu, logstd
 
+    def draw_noise(self, batch: int, num_tokens: int, generator: Optional[torch.Generator],
+                   device) -> Dict[str, torch.Tensor]:
+        """What :meth:`forward` draws for ``batch`` rows of ``num_tokens``
+        tokens, from ``generator`` in its order (the two masking noises,
+        then the two eps): a train step across ranks draws them for the
+        global batch and keeps its block, so that, with dropout 0, the
+        ranks together draw what one process draws."""
+        rna_tokens = self.rna_encoder.retention_gene_embed.shape[1]
+        latent = self.style_mu.out_features
+        return {
+            "wsi_noise": torch.rand((batch, num_tokens), generator=generator, device=device),
+            "rna_noise": torch.rand((batch, rna_tokens), generator=generator, device=device),
+            "wsi_eps": torch.randn((batch, latent), generator=generator, device=device),
+            "rna_eps": torch.randn((batch, latent), generator=generator, device=device),
+        }
+
     def forward(self, wsi_emb: torch.Tensor, rna_emb: torch.Tensor,
                 wsi_mask_ratio: float = 0.75, rna_mask_ratio: float = 0.75,
                 generator: Optional[torch.Generator] = None,

@@ -15,6 +15,10 @@ a plain version here (:func:`gemm_ref`, :func:`init_ref`,
 path of the program passes it. Each GEMM launch is counted as
 ``pinv_gemm``.
 
+The scale is global over the batch, as the JAX package's is over its data
+mesh: under a process group of several ranks :class:`GlobalScale` reduces
+it over every rank's block.
+
 Gradients:
 
 - ``grad="implicit"`` (the train step's default): :class:`PinvImplicit`,
@@ -34,6 +38,7 @@ from types import SimpleNamespace
 
 import torch
 
+from ..parallel import distributed
 from . import _common
 
 KERNEL = "moore_penrose_pinv"
@@ -43,11 +48,47 @@ KERNEL_GEMM = "pinv_gemm"  # each launch of the batched GEMM of both
 
 def global_scale(x: torch.Tensor) -> torch.Tensor:
     """max(rowsum|x|) * max(colsum|x|) over the WHOLE [b, h, m, m] tensor
-    (the reference's quirk), as an fp32 scalar tensor on x's device."""
+    (the reference's quirk), as an fp32 scalar tensor on x's device. Under
+    a process group of several ranks the whole tensor is the global
+    batch's, as on the JAX package's data mesh: :class:`GlobalScale`."""
+    if distributed.multi():
+        return GlobalScale.apply(x)
     abs_x = x.abs()
     col = abs_x.sum(-1)
     row = abs_x.sum(-2)
     return (col.max() * row.max()).float()
+
+
+class GlobalScale(torch.autograd.Function):
+    """:func:`global_scale` over every rank's block of the batch: the two
+    maxima all-reduced with MAX (one collective), their product rounded as
+    one process rounds it. The backward (the exact pinv gradient; the
+    implicit one takes none) sums the incoming ds over the ranks, since
+    each rank's loss reaches the one shared scale, and routes it as
+    autograd through ``max()`` does on one process: evenly over every
+    element that holds the maximum, counted over all ranks, so the one tie
+    rule is the same on every rank and the ranks without the maximum get
+    none."""
+
+    @staticmethod
+    def forward(ctx, x):
+        abs_x = x.detach().abs()
+        col, row = abs_x.sum(-1), abs_x.sum(-2)
+        maxima = distributed.all_reduce(torch.stack([col.max(), row.max()]), "max")
+        cmax, rmax = maxima.to(x.dtype).unbind()
+        ctx.save_for_backward(x, col, row, cmax, rmax)
+        return (cmax * rmax).float()
+
+    @staticmethod
+    def backward(ctx, ds):
+        x, col, row, cmax, rmax = ctx.saved_tensors
+        at_c, at_r = col == cmax, row == rmax
+        total = distributed.all_reduce(torch.stack(
+            [ds.float().reshape(()), at_c.sum().float(), at_r.sum().float()]))
+        g = total[0].to(x.dtype)
+        g_col = torch.where(at_c, g * rmax / total[1].to(x.dtype), 0.0).to(x.dtype)
+        g_row = torch.where(at_r, g * cmax / total[2].to(x.dtype), 0.0).to(x.dtype)
+        return torch.sgn(x) * (g_col.unsqueeze(-1) + g_row.unsqueeze(-2))
 
 
 def _dot(a, b):

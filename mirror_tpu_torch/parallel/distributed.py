@@ -1,0 +1,258 @@
+"""Multi-process data parallelism: one process per device, ``torch.distributed``.
+
+Counterpart of ``mirror_tpu/parallel/distributed.py`` and of the parts of
+``mirror_tpu/parallel/mesh.py`` that a process group needs. The JAX package
+runs one SPMD program over a ``data`` mesh axis; the port runs R processes,
+each on its own device, with the model wrapped in ``DistributedDataParallel``
+(``train/steps.py``), so an R-rank run computes what the R-way data mesh
+computes:
+
+- :func:`session` is the rendezvous (``maybe_initialize`` there). It takes
+  the JAX package's env contract, ``MIRROR_COORDINATOR=host:port`` (or a
+  ``file://`` / ``tcp://`` URL) with ``MIRROR_NUM_PROCESSES`` and
+  ``MIRROR_PROCESS_ID``, or torchrun's (``RANK``, ``WORLD_SIZE``,
+  ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); ``--distributed`` asks
+  for one of them. The backend is NCCL on a CUDA device and gloo on the CPU
+  (``MIRROR_DIST_BACKEND`` overrides it), the device ``cuda:LOCAL_RANK``,
+  set before the group is made, and ``init_process_group`` is given a
+  timeout (``MIRROR_DIST_TIMEOUT`` seconds, default 600), so a rank that
+  never arrives fails the run instead of hanging it;
+- the loader cuts each GLOBAL batch into per-rank blocks (:func:`local_block`:
+  rank p owns rows [p * b / R, (p + 1) * b / R)), so the blocks in rank order
+  are the one-process batch; :func:`allgather_rows` puts them back together
+  on every rank, and :func:`gather_rows` does so for a tensor in the
+  autograd graph (its backward sums the incoming gradients over the ranks
+  and keeps the rank's block);
+- ``create_mesh``, ``shard_batch`` and ``replicate`` have no counterpart:
+  the group is the mesh, a rank moves its block to its device, and DDP
+  broadcasts rank 0's parameters when it wraps the model (every rank builds
+  the same weights from the seed anyway).
+
+With no group every helper is the identity of one process.
+"""
+
+import contextlib
+import datetime
+import logging
+import os
+from typing import Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+_logger = logging.getLogger(__name__)
+
+DEFAULT_TIMEOUT_S = 600.0
+
+
+def initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if initialized() else 0
+
+
+def is_main() -> bool:
+    """Rank 0, or the one process: the owner of the run directory."""
+    return rank() == 0
+
+
+def multi() -> bool:
+    """More than one rank: the collectives of the data-parallel math run."""
+    return world_size() > 1
+
+
+def process_info(process_index: Optional[int] = None,
+                 process_count: Optional[int] = None) -> Tuple[int, int]:
+    """(process_index, process_count), defaulting to the live group (0 and
+    1 without one)."""
+    if process_index is None:
+        process_index = rank()
+    if process_count is None:
+        process_count = world_size()
+    return process_index, process_count
+
+
+def local_block(chunk: np.ndarray, process_index: int, process_count: int) -> np.ndarray:
+    """This rank's rows of one GLOBAL batch chunk, whose length divides over
+    the ranks: rank p owns rows [p * lbs, (p + 1) * lbs), so the blocks in
+    rank order are the chunk."""
+    n = len(chunk)
+    if n % process_count:
+        raise ValueError(f"{n} rows do not divide over {process_count} processes")
+    lbs = n // process_count
+    return chunk[process_index * lbs:(process_index + 1) * lbs]
+
+
+def own_rows(x):
+    """This rank's rows of a global-batch array or tensor
+    (:func:`local_block` of the live group); ``x`` with one process."""
+    return local_block(x, rank(), world_size())
+
+
+def _env_contract() -> Optional[Tuple[str, int, int, Optional[int]]]:
+    """(init_method, world size, rank, local rank or None) from the env,
+    or None where neither contract is set."""
+    coord = os.environ.get("MIRROR_COORDINATOR")
+    if coord:
+        method = coord if "://" in coord else f"tcp://{coord}"
+        local = os.environ.get("LOCAL_RANK")
+        return (method, int(os.environ["MIRROR_NUM_PROCESSES"]),
+                int(os.environ["MIRROR_PROCESS_ID"]), None if local is None else int(local))
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        return ("env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                int(os.environ.get("LOCAL_RANK", 0)))
+    return None
+
+
+def maybe_initialize(args=None, device: Optional[torch.device] = None) -> torch.device:
+    """Join the process group when the env or ``args.distributed`` asks for
+    one; return this rank's device (``device`` itself on the CPU or
+    without a group). A group made before the call is kept."""
+    device = torch.device(device or getattr(args, "device", "cpu"))
+    contract = _env_contract()
+    if initialized() or (contract is None and not getattr(args, "distributed", False)):
+        if initialized() and device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
+    if contract is None:
+        raise SystemExit("--distributed: set torchrun's env (RANK, WORLD_SIZE, LOCAL_RANK, "
+                         "MASTER_ADDR, MASTER_PORT; `torchrun --nproc-per-node R -m ...`) or "
+                         "MIRROR_COORDINATOR=host:port, MIRROR_NUM_PROCESSES and "
+                         "MIRROR_PROCESS_ID")
+    method, world, rank_, local = contract
+    backend = os.environ.get("MIRROR_DIST_BACKEND") or (
+        "nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":
+        if local is None:
+            local = rank_ % max(torch.cuda.device_count(), 1)
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    timeout = float(os.environ.get("MIRROR_DIST_TIMEOUT", DEFAULT_TIMEOUT_S))
+    kwargs = {}
+    if backend == "nccl":
+        kwargs["device_id"] = device  # binds the communicator to this rank's card
+    dist.init_process_group(backend, init_method=method, world_size=world, rank=rank_,
+                            timeout=datetime.timedelta(seconds=timeout), **kwargs)
+    _logger.info("distributed: rank %d/%d on %s (%s, %s)", rank_, world, device, backend,
+                 method)
+    return device
+
+
+@contextlib.contextmanager
+def session(args, device: torch.device) -> Iterator[torch.device]:
+    """:func:`maybe_initialize` for the length of a run; the group is
+    destroyed on the way out if this call made it."""
+    made = not initialized()
+    device = maybe_initialize(args, device)
+    made = made and initialized()
+    try:
+        yield device
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _comm_device() -> torch.device:
+    """Where a host array travels for a collective: the card under NCCL,
+    the CPU under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def allgather_rows(array) -> np.ndarray:
+    """Concatenate every rank's host array (equal shapes) along axis 0 in
+    rank order, the global row order under the blocked layout; the array
+    itself with one process."""
+    array = np.asarray(array)
+    if not multi():
+        return array
+    dtype = array.dtype
+    t = torch.from_numpy(np.ascontiguousarray(array.astype(np.float64) if dtype == bool
+                                              else array)).to(_comm_device())
+    parts = [torch.empty_like(t) for _ in range(world_size())]
+    dist.all_gather(parts, t)
+    return torch.cat(parts).cpu().numpy().astype(dtype)
+
+
+def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over the ranks (``sum`` or ``max``), a new fp32 tensor
+    on t's device; ``t`` in fp32 with one process."""
+    out = t.detach().float().clone()
+    if multi():
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+    return out
+
+
+def agree(flag: bool, device: Optional[torch.device] = None) -> bool:
+    """True on every rank when any rank says True (a one-element MAX
+    all-reduce); ``flag`` with one process."""
+    if not multi():
+        return bool(flag)
+    t = torch.tensor([1.0 if flag else 0.0], device=device or _comm_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item() > 0)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All ranks' [b, ...] blocks concatenated in rank order; the backward
+    sums the incoming gradient over the ranks (each rank differentiates its
+    own copy of a function of the whole batch) and keeps this rank's rows.
+    The blocks travel in fp32, which every backend reduces."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype, ctx.rows = x.dtype, x.shape[0]
+        parts = [torch.empty_like(x, dtype=torch.float32) for _ in range(world_size())]
+        dist.all_gather(parts, x.detach().float().contiguous())
+        return torch.cat(parts).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.float().contiguous().clone()
+        dist.all_reduce(g)
+        r = rank()
+        return g[r * ctx.rows:(r + 1) * ctx.rows].to(ctx.dtype)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The global batch of a per-rank tensor, in the autograd graph where x
+    is (:class:`_GatherRows`); ``x`` itself with one process."""
+    return _GatherRows.apply(x) if multi() else x
+
+
+def broadcast_(tensors: Sequence[torch.Tensor], src: int) -> None:
+    """Broadcast ``tensors`` (each rank holds the same shapes) from rank
+    ``src`` in place, one collective per dtype: flattened into one buffer."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in group]) if rank() == src else \
+            torch.empty(sum(t.numel() for t in group), dtype=group[0].dtype,
+                        device=group[0].device)
+        dist.broadcast(flat, src=src)
+        if rank() != src:
+            for t, piece in zip(group, flat.split([t.numel() for t in group])):
+                t.detach().copy_(piece.view(t.shape))
+
+
+def refuse_indivisible(batch_size: int, shrinkable: bool = False) -> None:
+    """The JAX CLIs' refusal of a global batch that does not divide over
+    the data axis (``train_mirror.py:68-72``; with ``shrinkable``, the
+    downstream CLIs' multi-process form, ``parallel/mesh.py:108-112``):
+    ranks cannot be left idle the way a one-process mesh shrinks."""
+    n = world_size()
+    if batch_size % n == 0:
+        return
+    if shrinkable:
+        raise SystemExit(f"batch_size {batch_size} must divide over the data axis ({n}) "
+                         "(cannot shrink a multi-process mesh)")
+    raise SystemExit(f"batch_size {batch_size} must divide over the data axis ({n} shards)")

@@ -1,7 +1,9 @@
-"""What the port's three training entry points share.
+"""What the port's training entry points share.
 
 The port's counterpart of ``mirror_tpu/train/harness.py``, for one process
-on one device: the device check, the run directory with ``args.yaml``, the
+or for a process group of one process per device
+(``parallel/distributed.py``): the device check, the run directory with
+``args.yaml``, the
 epoch loop (``optim.scheduled_epochs`` epochs) with its log lines,
 ``summary.csv`` (the epoch's mean ``lr`` among the train metrics), the
 reference's ``.pth.tar`` saves (``last`` every epoch, ``model_best`` when
@@ -17,6 +19,16 @@ run's state in the checkpoint, the SIGTERM stop with its synchronous
 ``recovery.pth.tar`` and ``--recovery-interval``'s, ``--profile``'s
 ``torch.profiler`` trace of one epoch, and wandb (``--log-wandb``, with the
 ``--wandb-watch`` stats routed there only).
+
+Across ranks, rank 0 alone owns the run directory: ``args.yaml``,
+``summary.csv``, the checkpoints, wandb and the ``--result`` JSON (as the
+JAX ``common_setup`` gates them on process 0); every rank logs, evaluates
+and enters each save, since a ZeRO-1 optimizer gathers its state from all
+of them before rank 0 writes. The downstream eval gathers the ranks'
+logits, labels and extras in rank order, so every rank computes the same
+global metrics. A SIGTERM stop is agreed at each batch boundary (one MAX
+all-reduce of the flag): every rank stops at the same batch and enters the
+recovery save.
 """
 
 import contextlib
@@ -35,6 +47,7 @@ import numpy as np
 import torch
 
 from ..data.loader import Loader
+from ..parallel import distributed
 from .checkpoint import resume_checkpoint, save_checkpoint_file
 from .optim import PlateauController, fast_forward_schedule, make_optimizer, scheduled_epochs
 from .steps import ModelEma
@@ -54,10 +67,28 @@ def to_device(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def contrastive_negatives(args, batch_size: int) -> str:
+    """``--contrastive-negatives`` as the JAX CLIs take it
+    (``train_mirror.py:159-176``): ``local`` (each rank's own rows, the
+    reference's DDP semantics) or ``global``, the same thing with one
+    process; a warning where a rank's block has fewer than 2 rows."""
+    n = distributed.world_size()
+    if args.contrastive_negatives == "local" and n > 1:
+        _logger.info("contrastive loss: per-rank LOCAL negatives (parity mode)")
+        if batch_size // n < 2:
+            _logger.warning(
+                "local negatives with %d sample/rank: the in-rank contrastive term is "
+                "degenerate (a 1-row batch has no negatives, loss==0, as in reference DDP "
+                "at per-rank batch 1); raise --batch-size or use --contrastive-negatives "
+                "global", batch_size // n)
+    return args.contrastive_negatives
+
+
 def output_dir(args, task: str, args_text: str) -> Optional[str]:
     """``{output}/{task}/{experiment or time-model-fold}``, with the run's
-    resolved arguments in ``args.yaml``; None without ``--output``."""
-    if not args.output:
+    resolved arguments in ``args.yaml``; None without ``--output`` and on
+    every rank but 0."""
+    if not args.output or not distributed.is_main():
         return None
     name = args.experiment or "-".join(
         [datetime.now().strftime("%Y%m%d-%H%M%S"), args.model, f"fold_{args.fold_nb}"])
@@ -106,7 +137,8 @@ def train_one_epoch(args, epoch, train_step, loader, device,
     lr, a float, on the host) and pulled to the host at log lines and once
     at the end of the epoch. The ``watch/*`` metrics (``--wandb-watch``)
     stay out of the log line. The pass stops before the next batch once
-    ``stop_requested()``; every ``--recovery-interval`` batches
+    ``stop_requested()`` (which the ranks agree on); every
+    ``--recovery-interval`` batches
     ``save_recovery(epoch, batch_idx)`` writes the recovery file."""
     loader.set_epoch(epoch)
     num_batches = len(loader)
@@ -124,7 +156,8 @@ def train_one_epoch(args, epoch, train_step, loader, device,
         count += 1
         if batch_idx % args.log_interval == 0 or batch_idx == num_batches - 1:
             vals = {k: float(v) for k, v in metrics.items() if not k.startswith("watch/")}
-            rate = host_batch["wsi"].shape[0] / max(time.time() - end, 1e-9)
+            rate = host_batch["wsi"].shape[0] * distributed.world_size() / \
+                max(time.time() - end, 1e-9)
             _logger.info(
                 "Train: %d [%4d/%d] Loss: %.4g (%.4g)  %s %.1f samples/s", epoch, batch_idx,
                 num_batches, vals["loss"], float(sums["loss"]) / count,
@@ -141,19 +174,25 @@ def gather_eval_outputs(eval_step: Callable, dataset, batch_size: int, args, epo
                         ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:
     """The downstream eval over the whole validation split: the tail batch
     padded (``pad_last``), a fresh token draw per epoch, and only the valid
-    rows kept. Returns (logits, labels, {key: values for extra_keys})."""
+    rows kept. Across ranks the batch is rounded up to a multiple of the
+    ranks, and the logits, labels and extras are gathered in rank order
+    (``allgather_rows``), so every rank holds the whole split. Returns
+    (logits, labels, {key: values for extra_keys})."""
+    n = distributed.world_size()
+    batch_size = (batch_size + n - 1) // n * n
     loader = Loader(dataset.val(), batch_size, shuffle=False, drop_last=False,
                     pad_last=True, seed=args.seed, workers=args.workers)
     loader.set_epoch(epoch)
+    gather = distributed.allgather_rows
     logits, labels = [], []
     extras = {k: [] for k in extra_keys}
     for host_batch in loader:
-        keep = host_batch.pop("valid") > 0
-        out = eval_step(to_device(host_batch, device)).cpu().numpy()
+        keep = gather(host_batch.pop("valid")) > 0
+        out = gather(eval_step(to_device(host_batch, device)).cpu().numpy())
         logits.append(out[keep])
-        labels.append(host_batch["label"][keep])
+        labels.append(gather(host_batch["label"])[keep])
         for k in extra_keys:
-            extras[k].append(host_batch[k][keep])
+            extras[k].append(gather(host_batch[k])[keep])
     dataset.train()
     return (np.concatenate(logits), np.concatenate(labels),
             {k: np.concatenate(v) for k, v in extras.items()})
@@ -205,14 +244,19 @@ def save_epoch(paths: Sequence[str], model, ema, args, epoch: int,
                generator: Optional[torch.Generator] = None) -> None:
     """The epoch's ``.pth.tar`` files, with ``state_dict_ema`` under
     ``--model-ema`` and what ``--resume`` restores: the optimizer's state,
-    its update count as ``step`` and the train step generator's state."""
+    its update count as ``step`` and the train step generator's state.
+    Every rank calls it (rank 0 with the paths, the others with none): a
+    ZeRO-1 optimizer's state is gathered from all of them first."""
+    sharded = optimizer is not None and optimizer.shard is not None
+    if not paths and not sharded:
+        return
+    state: Dict = {}
+    if optimizer is not None:
+        state.update(optimizer=optimizer.state_dict(), step=optimizer.count)
     if not paths:
         return
     saved_args = {k: v for k, v in vars(args).items() if k != "defaults"}
     ema_state = ema.module.state_dict() if ema is not None else None
-    state: Dict = {}
-    if optimizer is not None:
-        state.update(optimizer=optimizer.state_dict(), step=optimizer.count)
     if generator is not None:
         state["rng_state"] = generator.get_state()
     save_checkpoint_file(paths[0], model.state_dict(), saved_args, arch=args.model,
@@ -325,25 +369,31 @@ def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
     ``--eval-metric`` the epoch does not emit. ``--profile`` traces the
     epoch after the start epoch. On SIGTERM the run finishes its batch,
     writes ``recovery.pth.tar``, skips eval and the summary, and returns
-    with ``"preempted": true``."""
+    with ``"preempted": true``. Across ranks every rank runs the loop
+    (``out_dir`` is rank 0's only) and rank 0 prints the ``--result``."""
     start_epoch = start_epoch_of(args, model, loader, optimizer, ema, lr_controller, generator)
     with sigterm_flag() as flag:
         best_metric, best_epoch = None, None
         history = CheckpointHistory(out_dir, args.checkpoint_hist, decreasing) if out_dir else None
-        wandb_run = init_wandb(args, out_dir)
+        wandb_run = init_wandb(args, out_dir) if distributed.is_main() else None
         profile_dir = os.path.join(out_dir, "profile") if out_dir and args.profile else None
         save_recovery = None
-        if out_dir:
+        if args.output:  # on every rank: a ZeRO-1 save gathers from all of them
             def save_recovery(epoch, batch_idx):
-                save_epoch([os.path.join(out_dir, "recovery.pth.tar")], model, ema, args, epoch,
-                           None, optimizer, generator)
+                paths = [os.path.join(out_dir, "recovery.pth.tar")] if out_dir else []
+                save_epoch(paths, model, ema, args, epoch, None, optimizer, generator)
+
+        def stop_requested() -> bool:
+            flag["stop"] = distributed.agree(flag["stop"], device)
+            return flag["stop"]
+
         preempted = False
         for epoch in range(start_epoch, scheduled_epochs(args)):
             t0 = time.time()
             with profiled_epoch(profile_dir if epoch == start_epoch + 1 else None, epoch, device):
                 train_metrics = train_one_epoch(args, epoch, train_step, loader, device,
-                                                lambda: flag["stop"], save_recovery)
-            if flag["stop"]:
+                                                stop_requested, save_recovery)
+            if stop_requested():
                 # a grace window is short: the recovery file only, no eval or summary
                 preempted = True
                 if save_recovery is not None:
@@ -391,9 +441,9 @@ def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
                 metric < best_metric if decreasing else metric > best_metric))
             if improved:
                 best_metric, best_epoch = metric, epoch
-            if out_dir:
-                paths = history.paths(epoch, metric)
-                if improved:
+            if args.output:
+                paths = history.paths(epoch, metric) if out_dir else []
+                if improved and out_dir:
                     paths.append(os.path.join(out_dir, "model_best.pth.tar"))
                 save_epoch(paths, model, ema, args, epoch, metric, optimizer, generator)
             _logger.info("Epoch %d done in %.1fs", epoch, time.time() - t0)
@@ -405,5 +455,6 @@ def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
         if wandb_run is not None:
             wandb_run.summary.update(results)
             wandb_run.finish()
-        print(f"--result\n{json.dumps(results, indent=4)}", flush=True)
+        if distributed.is_main():
+            print(f"--result\n{json.dumps(results, indent=4)}", flush=True)
         return results

@@ -32,6 +32,18 @@ optimizer state is fp32 on the parameters' device, and every per-update
 step is a batched ``torch._foreach_*`` call over the parameter list (AGC
 a few launches over one flat buffer).
 
+ZeRO-1 (``--optimizer-sharding`` under a process group of several ranks;
+the JAX package's ``shard_state(zero1=True)``): the parameter list is cut
+into one contiguous range of whole tensors a rank, the fixed split with
+the least largest range in elements (:func:`partition`; a range is empty
+only where there are fewer tensors than ranks, as in the linear probe);
+each rank keeps the buffers of its range only, clips on the whole
+averaged gradient (so the norm and AGC see what an unsharded run sees),
+updates its range and broadcasts it; ``state_dict`` gathers every range
+(a collective: every rank calls it) into the file an unsharded run
+writes, and ``load_state_dict`` takes the rank's range of any such file. ``ZeroRedundancyOptimizer`` cannot wrap the chain: it is not a
+``torch.optim.Optimizer``.
+
 The linear probe (``head_only``) holds only the ``head.*`` parameters, the
 JAX package's ``head_only_mask`` with the frozen updates set to zero;
 :func:`reinit_head` is the probe's head init (train_subtyping.py:48-62 of
@@ -45,6 +57,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel import distributed
 
 _logger = logging.getLogger(__name__)
 
@@ -301,6 +315,33 @@ class PlateauController:
                    noise_seed=getattr(args, "seed", 42))
 
 
+def partition(numels: Sequence[int], parts: int) -> List[int]:
+    """The bounds [0, ..., n] of ``parts`` contiguous ranges of a list of
+    tensors of ``numels`` elements, whole tensors a range: the least
+    largest range in elements (the smallest capacity that a greedy walk
+    fits into ``parts`` ranges), each range cut early where the tensors
+    left are no more than the ranges left, so that a range is empty only
+    when there are fewer tensors than ranges."""
+    numels = [int(n) for n in numels]
+
+    def ranges(cap: int) -> List[int]:
+        bounds, load = [0], 0
+        for i, n in enumerate(numels):
+            opened = i > bounds[-1]
+            if opened and (load + n > cap or len(numels) - i <= parts - len(bounds)):
+                bounds.append(i)
+                load = 0
+            load += n
+        return bounds
+
+    lo, hi = max(numels, default=0), sum(numels)
+    while lo < hi:  # the least capacity that fits
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if len(ranges(mid)) <= parts else (mid + 1, hi)
+    bounds = ranges(lo)
+    return bounds + [len(numels)] * (parts + 1 - len(bounds))
+
+
 def fast_forward_schedule(optimizer: "ChainOptimizer", n_updates: int,
                           rewind: bool = False) -> None:
     """Set the update count to ``n_updates`` where it is still 0 (timm
@@ -326,7 +367,8 @@ class ChainOptimizer:
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  momentum: float = 0.9, rms_alpha: float = 0.9, amsgrad: bool = False,
                  clip_grad: Optional[float] = None, clip_mode: str = "norm",
-                 accum_steps: int = 1, host_lr: Optional[float] = None):
+                 accum_steps: int = 1, host_lr: Optional[float] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         if opt not in OPTIMIZERS:
             raise ValueError(f"Unsupported optimizer: {opt}")
         if clip_grad is not None and clip_mode not in ("norm", "value", "agc"):
@@ -336,6 +378,15 @@ class ChainOptimizer:
         self.names = [n for n, _ in decay + no_decay]
         self.params = [p for _, p in decay + no_decay]
         self.n_decay = len(decay)
+        # ZeRO-1: (rank, ranks); this rank's range [lo, hi) of the list
+        self.shard = shard if shard is not None and shard[1] > 1 else None
+        self.bounds = partition([p.numel() for p in self.params],
+                                self.shard[1] if self.shard else 1)
+        r = self.shard[0] if self.shard else 0
+        self.lo, self.hi = self.bounds[r], self.bounds[r + 1]
+        self.own = self.params[self.lo:self.hi]
+        self.own_names = self.names[self.lo:self.hi]
+        self.own_decay = min(max(self.n_decay - self.lo, 0), self.hi - self.lo)
         self.opt, self.schedule, self.weight_decay = opt, schedule, weight_decay
         self.b1, self.b2, self.eps = float(betas[0]), float(betas[1]), eps
         self.momentum, self.rms_alpha, self.amsgrad = momentum, rms_alpha, amsgrad
@@ -361,15 +412,31 @@ class ChainOptimizer:
         """The plateau controller's write."""
         self.host_lr = float(f32(lr))
 
+    def _gathered(self, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Every rank's range of one buffer, in the list's order (each
+        range broadcast by its owner)."""
+        if self.shard is None:
+            return bufs
+        out = []
+        for r in range(self.shard[1]):
+            lo, hi = self.bounds[r], self.bounds[r + 1]
+            part = bufs if r == self.shard[0] else [
+                torch.empty_like(p, dtype=torch.float32) for p in self.params[lo:hi]]
+            distributed.broadcast_(part, src=r)
+            out += part
+        return out
+
     def state_dict(self) -> Dict[str, Any]:
         """The chain's whole state as CPU tensors and numbers, each buffer
         keyed by its parameter's name (``torch.load(weights_only=True)``
         reads it back): the moments and traces, the update count, the
-        micro-step, the accumulated micro-gradients and the host lr."""
+        micro-step, the accumulated micro-gradients and the host lr. Under
+        ZeRO-1 every rank must call it: the ranges are gathered."""
         def named(tensors):
             return {n: t.detach().cpu().clone() for n, t in zip(self.names, tensors)}
 
-        return {"state": {key: named(bufs) for key, bufs in self.state.items()},
+        return {"state": {key: named(self._gathered(self.state[key]))
+                          for key in self.state},
                 "count": self.count, "moment_count": self.moment_count,
                 "mini_step": self.mini_step,
                 "acc": None if self._acc is None else named(self._acc),
@@ -377,17 +444,19 @@ class ChainOptimizer:
 
     def load_state_dict(self, payload: Mapping[str, Any]) -> None:
         """Restore :meth:`state_dict`'s output onto this chain's parameters
-        (by name, each buffer on its parameter's device in fp32)."""
+        (by name, each buffer on its parameter's device in fp32; under
+        ZeRO-1 the rank's range of the buffers)."""
         missing = [n for n in self.names if any(n not in bufs for bufs in
                                                 payload["state"].values())]
         if missing:
             raise ValueError(f"optimizer state lacks parameters {missing[:5]}")
 
-        def placed(named):
+        def placed(named, names=self.names, params=self.params):
             return [named[n].to(device=p.device, dtype=torch.float32)
-                    for n, p in zip(self.names, self.params)]
+                    for n, p in zip(names, params)]
 
-        self.state = {key: placed(bufs) for key, bufs in payload["state"].items()}
+        self.state = {key: placed(bufs, self.own_names, self.own)
+                      for key, bufs in payload["state"].items()}
         self.count = int(payload["count"])
         self.moment_count = int(payload["moment_count"])
         self.mini_step = int(payload["mini_step"])
@@ -395,10 +464,20 @@ class ChainOptimizer:
         host_lr = payload.get("host_lr")
         self.host_lr = None if host_lr is None else float(host_lr)
 
+    def _state_keys(self) -> List[str]:
+        """The keys of the buffers that an update makes, in its order."""
+        if self.opt in ("adam", "adamw", "lamb"):
+            return ["mu", "nu"] + (["nu_max"] if self.amsgrad else [])
+        if self.opt == "adagrad":
+            return ["sum_of_squares"]
+        if self.opt == "rmsprop":
+            return ["nu"] + (["trace"] if self.momentum else [])
+        return ["trace"]
+
     def _state(self, key: str) -> List[torch.Tensor]:
         """An fp32 buffer a parameter (moments, traces, sums), zero at first."""
         if key not in self.state:
-            self.state[key] = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+            self.state[key] = [torch.zeros_like(p, dtype=torch.float32) for p in self.own]
         return self.state[key]
 
     @torch.no_grad()
@@ -418,13 +497,22 @@ class ChainOptimizer:
                 return False
             grads, self._acc, self.mini_step = self._acc, None, 0
         lr = self.current_lr()
-        grads = self._clip(grads)
-        if self.opt in ("adam", "adamw"):
+        grads = self._clip(grads)[self.lo:self.hi]
+        if not self.own:
+            # an empty ZeRO-1 range: no update (a _foreach op refuses an empty
+            # list), the buffers' keys all the same, so that state_dict's
+            # gathers line up across the ranks
+            for key in self._state_keys():
+                self._state(key)
+        elif self.opt in ("adam", "adamw"):
             self._adam_apply(grads, lr)
         else:
             updates = self._direction(grads)
             torch._foreach_mul_(updates, -lr)
-            torch._foreach_add_(self.params, updates)
+            torch._foreach_add_(self.own, updates)
+        if self.shard is not None:
+            for r in range(self.shard[1]):
+                distributed.broadcast_(self.params[self.bounds[r]:self.bounds[r + 1]], src=r)
         self.count += 1
         self.moment_count += 1
         return True
@@ -480,10 +568,10 @@ class ChainOptimizer:
 
     def _add_decay(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """optax add_decayed_weights on the decay group: t + wd * p."""
-        nd = self.n_decay
+        nd = self.own_decay
         if not self.weight_decay or nd == 0:
             return tensors
-        decayed = list(torch._foreach_mul(self.params[:nd], self.weight_decay))
+        decayed = list(torch._foreach_mul(self.own[:nd], self.weight_decay))
         torch._foreach_add_(decayed, tensors[:nd])
         return decayed + list(tensors[nd:])
 
@@ -512,13 +600,13 @@ class ChainOptimizer:
         """adam (decay coupled into the gradient) and adamw (decoupled, p
         shrunk by lr * wd) applied in the moments' passes: one addcdiv
         writes p - (lr / bc1) mu / den."""
-        nd = self.n_decay
+        nd = self.own_decay
         if self.opt == "adam":
             grads = self._add_decay(grads)
         mu, den, bc1 = self._adam_moments(grads)
         if self.opt == "adamw" and self.weight_decay and nd:
-            torch._foreach_mul_(self.params[:nd], 1.0 - lr * self.weight_decay)
-        torch._foreach_addcdiv_(self.params, mu, den, value=-lr / bc1)
+            torch._foreach_mul_(self.own[:nd], 1.0 - lr * self.weight_decay)
+        torch._foreach_addcdiv_(self.own, mu, den, value=-lr / bc1)
 
     def _direction(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         opt = self.opt
@@ -527,7 +615,7 @@ class ChainOptimizer:
             u = torch._foreach_div(mu, bc1)
             torch._foreach_div_(u, den)
             u = self._add_decay(u)
-            p_norm = torch.stack(torch._foreach_norm(self.params))
+            p_norm = torch.stack(torch._foreach_norm(self.own))
             u_norm = torch.stack(torch._foreach_norm(u))
             ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
             torch._foreach_mul_(u, list(ratio.unbind()))
@@ -581,7 +669,8 @@ def make_optimizer(args, model: nn.Module, lr: float, head_only: bool = False,
     refused, as the JAX chain refuses them), clipping, the schedule of
     ``lr`` over ``steps_per_epoch`` real updates an epoch (or the plateau's
     host lr, starting at ``--warmup-lr`` under warmup), ``--layer-decay``
-    (logged, inert) and ``--grad-accum-steps``."""
+    (logged, inert), ``--grad-accum-steps`` and ``--optimizer-sharding``
+    (ZeRO-1 across the ranks of a process group)."""
     opt = args.opt.lower()
     eps = args.opt_eps if args.opt_eps is not None else 1e-8
     betas = tuple(args.opt_betas) if args.opt_betas else (0.9, 0.999)
@@ -607,12 +696,15 @@ def make_optimizer(args, model: nn.Module, lr: float, head_only: bool = False,
             "prefix, so every parameter lands in one group with lr scale 1.0 (the "
             "reference's --layer-decay is inert for its own models; see "
             "scale_by_layer_decay)", layer_decay)
+    shard = None
+    if getattr(args, "optimizer_sharding", False) and distributed.multi():
+        shard = (distributed.rank(), distributed.world_size())
     return ChainOptimizer(
         _trainable(model, head_only), opt, schedule, weight_decay=args.weight_decay,
         betas=betas, eps=eps, momentum=momentum, rms_alpha=rms_alpha, amsgrad=amsgrad,
         clip_grad=getattr(args, "clip_grad", None),
         clip_mode=getattr(args, "clip_mode", "norm"),
-        accum_steps=getattr(args, "grad_accum_steps", 1), host_lr=host_lr)
+        accum_steps=getattr(args, "grad_accum_steps", 1), host_lr=host_lr, shard=shard)
 
 
 @torch.no_grad()

@@ -27,6 +27,22 @@ then advances once per real update (steps.py:104-146).
 
 The steps run eagerly: metrics come back as device tensors (the lr as a
 float) and the caller pulls them to the host only when it logs.
+
+Under a process group (``parallel/distributed.py``) each train step runs
+the model wrapped in ``DistributedDataParallel`` (:func:`data_parallel`),
+whose gradient is the average over the ranks; the eval steps run the bare
+module. The contrastive terms take ``negatives`` (the rank's own or the
+global batch's, ``losses``), and the reported losses are the global ones.
+With several ranks the draws are :class:`RankDraws`'s: the masking noise and
+the VAE eps are drawn for the GLOBAL batch from the shared step generator
+and each rank keeps its block, so with dropout 0 the ranks draw what one
+process draws; the dropout draws come from a generator of the rank's own,
+seeded each step from one draw of the shared generator and the rank, so
+they differ between ranks and follow from the one generator state that a
+checkpoint holds. With one process every draw is the generator's, as
+before. The prototype renorm, the logit-scale clamp, clipping and the EMA
+run on every rank on the same averaged gradients, so the weights stay the
+same bits on every rank.
 """
 
 import copy
@@ -37,8 +53,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..losses import MirrorLossWeights, ce_surv_loss, info_nce, mirror_loss, nll_surv_loss
-from ..models.layers import set_generator
+from ..losses import (
+    MirrorLossWeights,
+    ce_surv_loss,
+    contrastive_info_nce,
+    mirror_loss,
+    nll_surv_loss,
+    reduce_info_nce,
+    reduce_over_ranks,
+)
+from ..models.layers import Dropout, DropPath, set_generator
+from ..parallel import distributed
 
 LOG_100 = math.log(100.0)
 LOSS_NAMES = ("loss", "alignment_loss", "wsi_retention_loss", "rna_retention_loss",
@@ -117,6 +142,47 @@ class ModelEma:
         torch._foreach_add_(self._ema, self._live, alpha=1.0 - d)
 
 
+def data_parallel(model: nn.Module, find_unused: bool = False) -> nn.Module:
+    """``model`` wrapped in ``DistributedDataParallel`` when a process group
+    is up (on the card with the model's device as its one device), else
+    ``model``. ``find_unused`` for a forward that leaves parameters out (the
+    downstream ``--wsi-feature-only``)."""
+    if not distributed.initialized():
+        return model
+    from torch.nn.parallel import DistributedDataParallel
+
+    device = next(model.parameters()).device
+    kwargs = {"device_ids": [device]} if device.type == "cuda" else {}
+    return DistributedDataParallel(model, find_unused_parameters=find_unused, **kwargs)
+
+
+class RankDraws:
+    """A train step's draws. With one process (or none given) the model's
+    dropout draws from ``generator`` and :meth:`step` does nothing. With
+    several ranks the dropout draws from a generator of the rank's own, and
+    :meth:`step`, before each step, seeds it from one draw of the shared
+    ``generator`` and the rank when the model has a live dropout (with
+    none the shared stream is the one process's)."""
+
+    def __init__(self, model: nn.Module, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.own = None
+        if distributed.multi() and generator is not None:
+            self.own = torch.Generator(device=generator.device)
+            self.live = any(isinstance(m, (Dropout, DropPath)) and m.rate > 0
+                            for m in model.modules())
+            set_generator(model, self.own)
+        else:
+            set_generator(model, generator)
+
+    def step(self) -> None:
+        if self.own is None or not self.live:
+            return
+        seed = int(torch.randint(0, 2**62, (1,), generator=self.generator,
+                                 device=self.generator.device).item())
+        self.own.manual_seed((seed * 1_000_003 + distributed.rank()) % 2**63)
+
+
 def _update(optimizer, ema: Optional[ModelEma],
             after_update: Optional[Callable] = None) -> None:
     """One optimizer call; on a real update the step's post-update work
@@ -132,14 +198,18 @@ def make_mirror_train_step(model: nn.Module, optimizer,
                            loss_weights: MirrorLossWeights, wsi_mask_ratio: float = 0.75,
                            rna_mask_ratio: float = 0.75,
                            generator: Optional[torch.Generator] = None,
-                           ema: Optional[ModelEma] = None, watch: bool = False) -> Callable:
+                           ema: Optional[ModelEma] = None, watch: bool = False,
+                           negatives: str = "local") -> Callable:
     """``train_step(batch, noise=None) -> metrics``. ``generator`` drives
-    every draw of the step (dropout, token masking, VAE eps); ``noise``
-    injects the masking noise and eps instead (see ``models.mirror``).
+    every draw of the step (dropout, token masking, VAE eps; across ranks
+    see :class:`RankDraws`); ``noise`` injects the masking noise and eps
+    instead (see ``models.mirror``; across ranks the rank's block).
+    ``negatives`` is the alignment term's (``losses.clip_loss``).
     ``grad_norm`` and ``param_norm`` are the global norms of the gradients
     and of the renormed parameters the gradients were taken at; ``watch``
     adds :func:`watch_stats` of those."""
-    set_generator(model, generator)
+    draws = RankDraws(model, generator)
+    net = data_parallel(model)
     params = [p for p in model.parameters() if p.requires_grad]
     named = list(model.named_parameters())
 
@@ -147,9 +217,15 @@ def make_mirror_train_step(model: nn.Module, optimizer,
                    noise: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         model.train()
         renorm_prototypes(model)
-        out = model(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio,
-                    generator=generator, noise=noise)
-        losses = mirror_loss(*out, weights=loss_weights)
+        draws.step()
+        b = batch["wsi"].shape[0]
+        if noise is None and distributed.multi():
+            draws_all = model.draw_noise(b * distributed.world_size(), batch["wsi"].shape[1],
+                                         generator, batch["wsi"].device)
+            noise = {k: distributed.own_rows(v) for k, v in draws_all.items()}
+        out = net(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio,
+                  generator=generator, noise=noise)
+        losses = mirror_loss(*out, weights=loss_weights, negatives=negatives)
         model.zero_grad(set_to_none=True)
         losses[0].backward()
         with torch.no_grad():
@@ -161,7 +237,7 @@ def make_mirror_train_step(model: nn.Module, optimizer,
             if watch:
                 metrics.update(watch_stats(named))
         _update(optimizer, ema, lambda: clamp_logit_scale(model))
-        metrics.update({name: v.detach() for name, v in zip(LOSS_NAMES, losses)})
+        metrics.update(zip(LOSS_NAMES, reduce_over_ranks(losses, loss_weights, b, negatives)))
         metrics["logit_scale"] = torch.exp(model.logit_scale.detach())
         return metrics
 
@@ -172,36 +248,49 @@ def make_mirror_train_step(model: nn.Module, optimizer,
 def mirror_eval_losses(model: nn.Module, batch: Dict[str, torch.Tensor],
                        loss_weights: MirrorLossWeights, wsi_mask_ratio: float = 0.75,
                        rna_mask_ratio: float = 0.75,
-                       generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                       generator: Optional[torch.Generator] = None,
+                       negatives: str = "local") -> Dict[str, torch.Tensor]:
     """The validation forward (make_mirror_eval_step of the JAX package):
-    dropout off, token masking and the VAE draw still stochastic."""
+    dropout off, token masking and the VAE draw still stochastic. Across
+    ranks the draws are made for the global batch (each rank keeping its
+    block), the batch's ``valid`` takes its padded rows out, and the
+    losses are the global ones (``losses.reduce_over_ranks``)."""
     model.eval()
-    out = model(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio,
-                generator=generator)
-    return dict(zip(LOSS_NAMES, mirror_loss(*out, weights=loss_weights)))
+    b, n = batch["wsi"].shape[0], distributed.world_size()
+    draws_all = model.draw_noise(b * n, batch["wsi"].shape[1], generator, batch["wsi"].device)
+    noise = {k: distributed.own_rows(v) for k, v in draws_all.items()}
+    out = model(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio, noise=noise)
+    valid = batch.get("valid")
+    losses = mirror_loss(*out, weights=loss_weights, negatives=negatives, valid=valid)
+    n_valid = b if valid is None else valid.sum()
+    return dict(zip(LOSS_NAMES, reduce_over_ranks(losses, loss_weights, n_valid, negatives)))
 
 
 def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
                      generator: Optional[torch.Generator],
-                     ema: Optional[ModelEma], watch: bool = False) -> Callable:
+                     ema: Optional[ModelEma], watch: bool = False,
+                     find_unused: bool = False) -> Callable:
     """``train_step(batch) -> {"loss", "grad_norm", "param_norm", "lr"}``
-    with ``loss_of(batch)`` the loss of ``model``'s forward: the whole model
+    with ``loss_of(net, batch)`` the (rank's loss, reported global loss) of
+    the forward of ``net`` (the model, or its DDP wrapper): the whole model
     is differentiated, as in the JAX step, and ``optimizer`` updates what it
     holds (every parameter, or the head alone under the linear probe, where
     the JAX step discards the trunk's updates); the norms (and ``watch``'s
     :func:`watch_stats`) are over every parameter."""
-    set_generator(model, generator)
+    draws = RankDraws(model, generator)
+    net = data_parallel(model, find_unused)
     params = list(model.parameters())
     named = list(model.named_parameters())
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
-        loss = loss_of(batch)
+        draws.step()
+        loss, reported = loss_of(net, batch)
         model.zero_grad(set_to_none=True)
         loss.backward()
         with torch.no_grad():
             metrics = {
-                "loss": loss.detach(),
+                "loss": reported,
                 "grad_norm": _global_norm([p.grad for p in params if p.grad is not None]),
                 "param_norm": _global_norm(params),
                 "lr": optimizer.current_lr(),
@@ -216,26 +305,33 @@ def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
 
 def make_clip_train_step(model: nn.Module, optimizer, temperature: float = 0.1,
                          generator: Optional[torch.Generator] = None,
-                         ema: Optional[ModelEma] = None, watch: bool = False) -> Callable:
-    """The CLIP baseline's step: InfoNCE over the batch's own negatives of
-    the dual encoder's (wsi, rna) embeddings; ``generator`` drives its
-    dropout."""
-    def loss_of(batch):
-        wsi, rna = model(batch["wsi"], batch["rna"])
-        return info_nce(wsi, rna, temperature=temperature)
+                         ema: Optional[ModelEma] = None, watch: bool = False,
+                         negatives: str = "local") -> Callable:
+    """The CLIP baseline's step: in-batch InfoNCE of the dual encoder's
+    (wsi, rna) embeddings over the rank's or the global batch's negatives
+    (``losses.contrastive_info_nce``); ``generator`` drives its dropout."""
+    def loss_of(net, batch):
+        wsi, rna = net(batch["wsi"], batch["rna"])
+        loss = contrastive_info_nce(wsi, rna, temperature, negatives)
+        return loss, reduce_info_nce(loss, wsi.shape[0], negatives)
 
     return _make_train_step(model, optimizer, loss_of, generator, ema, watch)
 
 
-def make_clip_eval_step(model: nn.Module, temperature: float = 0.1) -> Callable:
+def make_clip_eval_step(model: nn.Module, temperature: float = 0.1,
+                        negatives: str = "local") -> Callable:
     """``eval_step(batch) -> {"loss"}``, dropout off; the batch's ``valid``
-    takes the padded rows out of the loss and of the negatives."""
+    takes the padded rows out of the loss and of the negatives; across
+    ranks the loss is the global one."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()
         wsi, rna = model(batch["wsi"], batch["rna"])
-        return {"loss": info_nce(wsi, rna, temperature=temperature, valid=batch.get("valid"))}
+        valid = batch.get("valid")
+        loss = contrastive_info_nce(wsi, rna, temperature, negatives, valid=valid)
+        return {"loss": reduce_info_nce(loss, wsi.shape[0] if valid is None else valid.sum(),
+                                        negatives)}
 
     return eval_step
 
@@ -257,11 +353,25 @@ def smoothed_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float =
 def _make_downstream_train_step(model: nn.Module, optimizer, loss_fn: Callable,
                                 wsi_only: bool, generator: Optional[torch.Generator],
                                 ema: Optional[ModelEma], watch: bool) -> Callable:
-    def loss_of(batch):
-        logits = model(batch["wsi"], None if wsi_only else batch["rna"]).float()
-        return loss_fn(logits, batch)
+    """The downstream losses are means over the batch's valid rows. Across
+    ranks a rank's share of the global mean is its mean times its valid
+    rows over the global count, so the rank's loss is scaled by R n_rank /
+    n_global (DDP's average then gives the global mean's gradient, padded
+    tails included) and the reported loss is the global mean."""
+    def loss_of(net, batch):
+        logits = net(batch["wsi"], None if wsi_only else batch["rna"]).float()
+        loss = loss_fn(logits, batch)
+        if not distributed.multi():
+            return loss, loss.detach()
+        valid = batch.get("valid")
+        n = valid.float().sum() if valid is not None else \
+            torch.tensor(float(logits.shape[0]), device=logits.device)
+        sums = distributed.all_reduce(torch.stack([loss.detach().float() * n, n]))
+        share = (distributed.world_size() * n / sums[1].clamp_min(1.0)).to(loss.dtype)
+        return loss * share, sums[0] / sums[1].clamp_min(1.0)
 
-    return _make_train_step(model, optimizer, loss_of, generator, ema, watch)
+    return _make_train_step(model, optimizer, loss_of, generator, ema, watch,
+                            find_unused=wsi_only)
 
 
 def make_classifier_train_step(model: nn.Module, optimizer, smoothing: float = 0.0,

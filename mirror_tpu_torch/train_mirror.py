@@ -20,7 +20,13 @@ the timm schedules and plateau, clipping, ``--layer-decay``,
 ``--resume`` with the optimizer's state (``--no-resume-opt``,
 ``--start-epoch``), the SIGTERM stop and ``--recovery-interval``'s
 ``recovery.pth.tar``, ``--grad-checkpointing``, ``--profile``, and
-``--log-wandb`` / ``--wandb-watch``.
+``--log-wandb`` / ``--wandb-watch``. It runs data-parallel in one
+process per device under ``torchrun --nproc-per-node R -m
+mirror_tpu_torch.train_mirror ...`` or the ``MIRROR_COORDINATOR`` /
+``MIRROR_NUM_PROCESSES`` / ``MIRROR_PROCESS_ID`` env
+(``parallel/distributed.py``): ``--batch-size`` is the global batch,
+``--contrastive-negatives`` picks the rank's or the global batch's
+negatives, ``--optimizer-sharding`` shards the optimizer's state (ZeRO-1).
 Per epoch: one log line per ``--log-interval`` steps with the six loss terms,
 the grad / param norms and the lr, an optional validation pass (and the
 EMA's), ``summary.csv``, and the reference's ``.pth.tar`` checkpoints
@@ -46,6 +52,7 @@ from mirror_tpu_torch.config import (
 from mirror_tpu_torch.data.datasets import PretrainDataset
 from mirror_tpu_torch.data.loader import Loader
 from mirror_tpu_torch.losses import MirrorLossWeights
+from mirror_tpu_torch.parallel import distributed
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
@@ -65,19 +72,26 @@ def loss_weights_from_args(args) -> MirrorLossWeights:
     )
 
 
-def evaluate(args, model, dataset, loss_weights, epoch, device) -> Dict[str, float]:
+def evaluate(args, model, dataset, loss_weights, epoch, device,
+             negatives: str = "local") -> Dict[str, float]:
     """The mean eval losses over the val split, the masking and VAE draws
     from the epoch's own generator (``harness.eval_generator``), not the
-    train step's."""
-    loader = Loader(dataset.val(), args.validation_batch_size or args.batch_size,
-                    shuffle=False, drop_last=False, seed=args.seed, workers=args.workers)
+    train step's. Across ranks the batch is rounded up to a multiple of
+    the ranks and its tail padded, and each batch is weighted by its
+    global valid rows (``train_mirror.py:216-222`` of the JAX package)."""
+    multi, ranks = distributed.multi(), distributed.world_size()
+    batch = args.validation_batch_size or args.batch_size
+    loader = Loader(dataset.val(), (batch + ranks - 1) // ranks * ranks, shuffle=False,
+                    drop_last=False, pad_last=multi, seed=args.seed, workers=args.workers)
     generator = harness.eval_generator(args.seed, epoch, device)
     totals: Dict[str, float] = {}
     seen = 0
     for host_batch in loader:
-        n = host_batch["wsi"].shape[0]
+        n = int(distributed.allgather_rows(host_batch["valid"]).sum()) if multi else \
+            host_batch["wsi"].shape[0]
         losses = mirror_eval_losses(model, harness.to_device(host_batch, device), loss_weights,
-                                    args.wsi_mask_ratio, args.rna_mask_ratio, generator)
+                                    args.wsi_mask_ratio, args.rna_mask_ratio, generator,
+                                    negatives)
         for k, v in losses.items():
             totals[k] = totals.get(k, 0.0) + float(v) * n
         seen += n
@@ -92,6 +106,14 @@ def main(argv=None) -> Dict:
     refuse_clip_values(args)
     device = harness.device_from_arg(args.device)
     check_kernel_config(args.model, device, **model_kwargs_from_args(args))
+    with distributed.session(args, device) as device:
+        return train(args, args_text, device)
+
+
+def train(args, args_text: str, device: torch.device) -> Dict:
+    """The run on this rank's ``device`` (one process, or one rank of a
+    process group)."""
+    distributed.refuse_indivisible(args.batch_size)
     torch.manual_seed(args.seed)
 
     dataset = PretrainDataset(args.wsi_feature_dir, args.rna_feature_csv,
@@ -117,14 +139,15 @@ def main(argv=None) -> Dict:
         args, model, loader, resolve_lr(args, args.batch_size), decreasing=True)
     loss_weights = loss_weights_from_args(args)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    negatives = harness.contrastive_negatives(args, args.batch_size)
     train_step = make_mirror_train_step(model, optimizer, loss_weights, args.wsi_mask_ratio,
                                         args.rna_mask_ratio, generator=generator, ema=ema,
-                                        watch=args.wandb_watch)
+                                        watch=args.wandb_watch, negatives=negatives)
     out_dir = harness.output_dir(args, "pretrain", args_text)
     eval_fn = None
     if args.val and args.split_dir is not None:
         def eval_fn(epoch, module):
-            return evaluate(args, module, dataset, loss_weights, epoch, device)
+            return evaluate(args, module, dataset, loss_weights, epoch, device, negatives)
     return harness.run(args, model, train_step, loader, device, eval_fn, out_dir,
                        decreasing=True, ema=ema, lr_controller=lr_controller,
                        optimizer=optimizer, generator=generator)

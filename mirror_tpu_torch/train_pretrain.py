@@ -21,7 +21,10 @@ norms, lr), a validation pass over the whole val split (the tail batch
 padded and masked, the loss weighted by the valid rows, a fresh token draw
 each epoch) and the EMA's beside it under ``--model-ema``, ``summary.csv``
 and the reference's ``.pth.tar`` checkpoints ranked by the eval loss; the
-``--result`` JSON goes to stdout.
+``--result`` JSON goes to stdout. Data-parallel runs (torchrun or the
+``MIRROR_*`` env, one process per device) take ``train_mirror``'s flags:
+the global ``--batch-size``, ``--contrastive-negatives`` (InfoNCE over the
+rank's or the global batch's rows) and ``--optimizer-sharding``.
 """
 
 import logging
@@ -37,6 +40,7 @@ from mirror_tpu_torch.config import (
 )
 from mirror_tpu_torch.data.datasets import PretrainDataset
 from mirror_tpu_torch.data.loader import Loader
+from mirror_tpu_torch.parallel import distributed
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
@@ -45,15 +49,19 @@ from mirror_tpu_torch.train.steps import make_clip_eval_step, make_clip_train_st
 _logger = logging.getLogger("train")
 
 
-def evaluate(args, model, dataset, batch_size: int, epoch: int, device) -> Dict[str, float]:
-    """The mean eval loss over the valid rows of the whole val split."""
-    loader = Loader(dataset.val(), batch_size, shuffle=False, drop_last=False, pad_last=True,
-                    seed=args.seed, workers=args.workers)
+def evaluate(args, model, dataset, batch_size: int, epoch: int, device,
+             negatives: str = "local") -> Dict[str, float]:
+    """The mean eval loss over the valid rows of the whole val split (across
+    ranks the batch rounded up to a multiple of the ranks, each weighted by
+    its global valid rows)."""
+    ranks = distributed.world_size()
+    loader = Loader(dataset.val(), (batch_size + ranks - 1) // ranks * ranks, shuffle=False,
+                    drop_last=False, pad_last=True, seed=args.seed, workers=args.workers)
     loader.set_epoch(epoch)
-    eval_step = make_clip_eval_step(model, temperature=args.temperature)
+    eval_step = make_clip_eval_step(model, temperature=args.temperature, negatives=negatives)
     total, seen = 0.0, 0
     for host_batch in loader:
-        n_valid = int(host_batch["valid"].sum())
+        n_valid = int(distributed.allgather_rows(host_batch["valid"]).sum())
         total += float(eval_step(harness.to_device(host_batch, device))["loss"]) * n_valid
         seen += n_valid
     dataset.train()
@@ -68,6 +76,14 @@ def main(argv=None) -> Dict:
     refuse_unported(args)
     device = harness.device_from_arg(args.device)
     check_kernel_config(args.model, device, **model_kwargs_from_args(args))
+    with distributed.session(args, device) as device:
+        return train(args, args_text, device)
+
+
+def train(args, args_text: str, device: torch.device) -> Dict:
+    """The run on this rank's ``device`` (one process, or one rank of a
+    process group)."""
+    distributed.refuse_indivisible(args.batch_size)
     torch.manual_seed(args.seed)
 
     dataset = PretrainDataset(args.wsi_feature_dir, args.rna_feature_csv,
@@ -91,15 +107,17 @@ def main(argv=None) -> Dict:
     optimizer, lr_controller, ema = harness.optimizer_side(
         args, model, loader, resolve_lr(args, args.batch_size), decreasing=True)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    negatives = harness.contrastive_negatives(args, args.batch_size)
     train_step = make_clip_train_step(model, optimizer, temperature=args.temperature,
-                                      generator=generator, ema=ema, watch=args.wandb_watch)
+                                      generator=generator, ema=ema, watch=args.wandb_watch,
+                                      negatives=negatives)
     out_dir = harness.output_dir(args, "pretrain_clip", args_text)
     eval_fn = None
     if args.val and args.split_dir is not None:
         val_batch = args.validation_batch_size or args.batch_size
 
         def eval_fn(epoch, module):
-            return evaluate(args, module, dataset, val_batch, epoch, device)
+            return evaluate(args, module, dataset, val_batch, epoch, device, negatives)
     return harness.run(args, model, train_step, loader, device, eval_fn, out_dir,
                        decreasing=True, ema=ema, lr_controller=lr_controller,
                        optimizer=optimizer, generator=generator)

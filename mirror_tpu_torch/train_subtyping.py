@@ -19,7 +19,11 @@ probe (``--linear-probe``: only the head trains) or scales it
 cpu`` runs their plain versions. Each epoch evaluates accuracy, AUROC and
 F1 (``--eval-metric-average``) over the whole validation split and saves
 the reference's ``.pth.tar``, which ``tools/predict.py`` scores with. The
-``--result`` JSON goes to stdout.
+``--result`` JSON goes to stdout. Data-parallel runs (torchrun or the
+``MIRROR_*`` env, one process per device) take the global
+``--batch-size``, which must divide over the ranks after the clamp, and
+``--optimizer-sharding``; every rank computes the metrics over the whole
+split.
 """
 
 import logging
@@ -35,6 +39,7 @@ from mirror_tpu_torch.config import (
 )
 from mirror_tpu_torch.data.datasets import SubtypingDataset
 from mirror_tpu_torch.data.loader import Loader
+from mirror_tpu_torch.parallel import distributed
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
@@ -59,7 +64,7 @@ def clamp_batch_size(batch_size: int, dataset_len: int) -> int:
 
 def setup(args) -> torch.device:
     """The start both downstream tasks share: parse-time refusals, logging,
-    the device, the seed."""
+    the device."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     if args.model == "mirror":
         # the config default is the pretrain model; the downstream tasks
@@ -68,7 +73,6 @@ def setup(args) -> torch.device:
     refuse_unported(args)
     device = harness.device_from_arg(args.device)
     check_kernel_config(args.model, device, **model_kwargs_from_args(args))
-    torch.manual_seed(args.seed)
     return device
 
 
@@ -104,6 +108,7 @@ def train_loader_and_optimizer(args, dataset, model):
     Returns (loader, (optimizer, plateau controller, EMA), batch)."""
     dataset.train()
     batch_size = clamp_batch_size(args.batch_size, len(dataset))
+    distributed.refuse_indivisible(batch_size, shrinkable=True)
     loader = Loader(dataset, batch_size, shuffle=not args.weighted_sampler,
                     drop_last=args.drop_last, pad_last=not args.drop_last,
                     weighted=args.weighted_sampler, seed=args.seed, workers=args.workers)
@@ -116,6 +121,14 @@ def train_loader_and_optimizer(args, dataset, model):
 def main(argv=None) -> Dict:
     args, args_text = parse_args(argv, task="subtyping")
     device = setup(args)
+    with distributed.session(args, device) as device:
+        return train(args, args_text, device)
+
+
+def train(args, args_text: str, device: torch.device) -> Dict:
+    """The run on this rank's ``device`` (one process, or one rank of a
+    process group)."""
+    torch.manual_seed(args.seed)
     if not args.classes:
         raise SystemExit("subtyping needs --classes")
     dataset = SubtypingDataset(args.wsi_feature_dir, args.rna_feature_csv,

@@ -16,7 +16,8 @@ trains with ``nll_surv`` (``--loss-alpha``) or ``ce_surv`` on the card
 plain versions. Each epoch evaluates the loss and the censored
 concordance index of risk = -sum_t S(t) over the whole validation split
 and saves the reference's ``.pth.tar``; the ``--result`` JSON goes to
-stdout.
+stdout. Data-parallel runs as ``train_subtyping``'s: the c-index is the
+whole split's on every rank.
 """
 
 import logging
@@ -26,6 +27,7 @@ import torch
 
 from mirror_tpu_torch.config import parse_args
 from mirror_tpu_torch.data.datasets import SurvivalDataset
+from mirror_tpu_torch.parallel import distributed
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.metrics import concordance_index_censored
 from mirror_tpu_torch.train.steps import (
@@ -42,6 +44,14 @@ _logger = logging.getLogger("train")
 def main(argv=None) -> Dict:
     args, args_text = parse_args(argv, task="survival")
     device = setup(args)
+    with distributed.session(args, device) as device:
+        return train(args, args_text, device)
+
+
+def train(args, args_text: str, device: torch.device) -> Dict:
+    """The run on this rank's ``device`` (one process, or one rank of a
+    process group)."""
+    torch.manual_seed(args.seed)
     dataset = SurvivalDataset(args.wsi_feature_dir, args.rna_feature_csv, args.survival_csv,
                               num_wsi_feature_tokens=args.num_wsi_feature_tokens,
                               splits=args.split_dir, k=args.k, num_bins=args.num_bins,

@@ -361,7 +361,7 @@ def test_train_pretrain_default_run_matches_its_eval(cohort):
     assert summary["train_lr"].tolist() == pytest.approx([2e-5, 2e-5])
 
 
-@pytest.mark.parametrize("flag,item", [(["--distributed"], 14), (["--model-parallel", "2"], 16),
+@pytest.mark.parametrize("flag,item", [(["--model-parallel", "2"], 16),
                                        (["--ckpt-format", "orbax"], 17)])
 def test_train_pretrain_refuses_unported_flags_with_their_item(cohort, flag, item):
     with pytest.raises(SystemExit, match=rf"{flag[0]}.*ROADMAP item {item}"):

@@ -143,8 +143,7 @@ def test_the_port_parsers_match_the_jax_parsers(task, n_options):
 
 def test_only_the_multi_device_and_tool_flags_stay_refused():
     assert sorted((dest, item) for dest, _, item in config._UNPORTED) == [
-        ("ckpt_format", 17), ("distributed", 14), ("model_parallel", 16),
-        ("optimizer_sharding", 14)]
+        ("ckpt_format", 17), ("model_parallel", 16)]
 
 
 # --------------------------------------------------------------------------
