@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # from the repo root; one CUDA card, nvcc
     python3 chip_smoke.py --ddp-ranks 4   # only the build and phase 5d's group
                                           # check, one NCCL process a card
+    python3 chip_smoke.py --cp-ranks 4    # only the build and phase 10's group
+                                          # check, one NCCL process a card
 
 Phases, each printed as it finishes:
 
@@ -174,7 +176,27 @@ Phases, each printed as it finishes:
    version, the stash variants within 2b's bars of the full stash. Phases
    3 and 3b also hold and time each new kernel at these shapes, and give
    kernels 2 and 2b a library time: their products as batched bf16 cuBLAS
-   calls.
+   calls;
+10. whole-slide encoding (ROADMAP item 15) at the subtyping template's
+   width (768-d features, embed 768, 8 heads of 96, 384 landmarks, bf16,
+   weights from a seed): 4 synthetic slides of 2,000, 15,000, 40,000 and
+   100,000 patches (fp16 ``.npy``) through
+   ``mirror_tpu_torch.tools.encode_slide.main``, every patch, the launches
+   of kernels 2, 3, 3b, 9 and 5 read around it (the ``whole_slide`` path);
+   each slide's encode timed at world 1 (ms, patches/s, peak memory); the
+   world-1 context-parallel encoder on the 40,000 slide against
+   ``FeatureTransMIL.encode``'s kernel path and on the 15,000 slide against
+   the CPU's plain path in fp32; kernels 3 (as the combine launches it,
+   with its row log-sum-exp), 3b, 9 (on the halo-extended block) and 5 at
+   the 100,000 slide's shapes against their plain versions at phase 3's
+   bars (their rows in the JSON's "by_shape"); ``predict --whole-slide``
+   and ``predict`` on two slides; one CP attention layer's output and
+   gradient of sum(out t) (the exact pinv gradient) at world 1 against the
+   plain path (``use_pallas=False``) on the card at phase 5's bars; then
+   two gloo processes on the one card (``parallel/cp_worker.py``): the
+   100,000 slide against world 1, the same layer's output and gradient
+   (kernels 3c, 9b and 2b through the collectives) against world 1 at
+   phase 5's bars, and both predicts in 2 ranks against one process.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -1240,9 +1262,17 @@ def phase_kernels(torch, backward: bool):
     # one line per kernel in the JSON: the encoder's shape (the first) gives
     # the times; the errors are the worst over the shapes checked; every
     # other shape's (or form's) times are kept under "by_shape"
+    merged = {}
+    merge_shapes(merged, results)
+    return list(merged.values())
+
+
+def merge_shapes(merged: dict, results) -> None:
+    """Fold run_case's results into ``merged`` (name -> the kernel's JSON
+    line): a new name's first result starts its line, a later shape's times
+    go under its "by_shape", and the errors are the worst of all."""
     keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
             "rel_fro_err", "library_ratio")
-    merged = {}
     for r in results:
         if r["name"] not in merged:
             merged[r["name"]] = dict(r, checked=[r["shape"]], by_shape=[])
@@ -1252,7 +1282,6 @@ def phase_kernels(torch, backward: bool):
         first["by_shape"].append({k: r[k] for k in keep})
         first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
         first["rel_fro_err"] = max(first["rel_fro_err"], r["rel_fro_err"])
-    return list(merged.values())
 
 
 def write_cohort(root: Path, n_slides: int, prefix: str):
@@ -2860,6 +2889,413 @@ def phase_probes(torch):
     return launches
 
 
+# whole-slide encoding (phase 10): 4 synthetic slides of these patch
+# counts (768-d, fp16 .npy), encoded whole at the subtyping template's width;
+# the CP attention layer whose gradient the gloo pair takes has n rows (24
+# landmark groups of 384), and the two slides predict scores; the ranks'
+# launch time limit
+WS_SLIDES = (2_000, 15_000, 40_000, 100_000)
+WS_GRAD_N = 24 * M
+WS_PREDICT = 2
+WS_TIMEOUT_S = 300.0
+
+
+def write_whole_slide_cohort(root: Path):
+    """The slides of WS_SLIDES (fp16 .npy, from numpy seeded with SEED) and,
+    for predict, the first WS_PREDICT of them in their own folder with an
+    RNA CSV."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(SEED)
+    feat_dir, pred_dir = root / "ws_features", root / "ws_predict"
+    feat_dir.mkdir()
+    pred_dir.mkdir()
+    ids = [f"TCGA-WS-{i:04d}-01Z-00-DX1" for i in range(len(WS_SLIDES))]
+    for i, (sid, n) in enumerate(zip(ids, WS_SLIDES)):
+        feats = rng.standard_normal((n, EMBED), dtype=np.float32).astype(np.float16)
+        np.save(feat_dir / f"{sid}.npy", feats)
+        if i < WS_PREDICT:
+            np.save(pred_dir / f"{sid}.npy", feats)
+    pd.DataFrame(rng.standard_normal((WS_PREDICT, RNA_DIM), dtype=np.float32),
+                 index=[s[:15] for s in ids[:WS_PREDICT]],
+                 columns=[f"gene_{j}" for j in range(RNA_DIM)]).to_csv(root / "ws_rna.csv")
+    return feat_dir, pred_dir, root / "ws_rna.csv", ids
+
+
+def seq_agreement(torch, got, want):
+    """(relative Frobenius error, worst row cosine) of a sequence against
+    its reference, in fp32."""
+    a, b = got.float(), want.float()
+    rel = ((a - b).norm() / b.norm()).item()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+    return rel, cos
+
+
+def ws_attention(torch):
+    """A CP attention layer at the slices' width (dim 768, 8 heads of 96, 384
+    landmarks, bf16, the exact pinv gradient), its weights from SEED, and x
+    and t [WS_GRAD_N, 768]."""
+    from mirror_tpu_torch.models.nystrom import NystromAttention
+    from mirror_tpu_torch.registry import init_weights
+
+    kwargs = dict(dim=EMBED, dim_head=DH, heads=HEADS, num_landmarks=M, pinv_grad="exact",
+                  dtype=torch.bfloat16)
+    attn = NystromAttention(**kwargs)
+    init_weights(attn, torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    x, t = (torch.randn(WS_GRAD_N, EMBED, generator=gen) for _ in range(2))
+    return kwargs, attn.eval(), x, t
+
+
+def cp_attention_here(torch, attn, x, t):
+    """The CP attention without a group on the card: (out, dL/dx, the
+    parameters' gradients), L = sum(out t)."""
+    from mirror_tpu_torch.parallel.context_parallel import nystrom_attention_cp
+
+    attn = attn.cuda()
+    attn.zero_grad()
+    xc = x.cuda().requires_grad_(True)
+    out = nystrom_attention_cp(xc, attn)
+    (out.float() * t.cuda()).sum().backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in attn.named_parameters()}
+    return out.detach().float().cpu(), xc.grad.float().cpu(), grads
+
+
+def ws_kernel_cases(torch, patches: int):
+    """Kernels 3, 3b, 9 and 5 at the shapes the whole-slide path gives them
+    for a slide of ``patches`` patches (wrap-padded to a square grid, the
+    cls row added, front-padded to a multiple of the landmarks; batch 1,
+    one rank): kernel 3 as ``KvCombine`` launches it,
+    keeping the row log-sum-exp the combine reads, over every column with
+    pad 0; 3b over every row; 9 on the block extended by the 16-row halo
+    (zeros at the ends of the sequence); PPEG on the grid. Each against its
+    plain version on the same inputs at phase 3's bars."""
+    import torch.nn.functional as F
+
+    from mirror_tpu_torch.ops import conv1d, nystrom_attn, ppeg
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
+
+    side = math.isqrt(patches - 1) + 1  # ceil(sqrt(patches)), as wrap_pad_square
+    n = -(-(1 + side * side) // M) * M
+    halo = CONV_TAPS // 2
+    q, k, v = randn(1, HEADS, n, DH, scale=DH ** -0.5), randn(1, HEADS, n, DH), \
+        randn(1, HEADS, n, DH)
+    q_l, k_l, w = randn(1, HEADS, M, DH, scale=DH ** -0.5), randn(1, HEADS, M, DH), \
+        randn(1, HEADS, M, DH)
+    v_ext = F.pad(v, (0, 0, halo, halo))
+    kern = randn(HEADS, CONV_TAPS, scale=0.1)
+    img = randn(1, side, side, EMBED)
+    ppeg_k, ppeg_b = randn(7, 7, EMBED, scale=0.1), randn(EMBED, scale=0.1)
+    conv_w = ppeg_k.permute(2, 0, 1).unsqueeze(1).clone()  # PPEG as one depthwise conv
+    conv_w[:, 0, 3, 3] += 1
+    attn_mma = 4 * HEADS * n * M * DH
+    fmas = 2 * CONV_TAPS * v_ext.numel()
+    return [
+        Case("softmax_attn", "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:202",
+             f"whole slide, kv with lse: r {M}, c {n}, pad 0, b 1, dh {DH}",
+             lambda: nystrom_attn._launch_fwd(q_l, k, v, None, None, 0, keep=True)[:2],
+             lambda: nystrom_attn.softmax_attn_fwd_ref(q_l, k, v)[:2],
+             BOUND_SINGLE_ROUNDING, ("out", "lse"),
+             dict(bytes=nbytes(q_l, k, v, q_l) + 4 * HEADS * M, mma=attn_mma),
+             library=lambda: F.scaled_dot_product_attention(q_l, k, v, scale=1.0)),
+        Case("softmax_attn_q", "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:208",
+             f"whole slide, q: r {n}, c {M}, pad 0, b 1",
+             lambda: nystrom_attn.softmax_matmul_landmark_q(q, k_l, w),
+             lambda: nystrom_attn.softmax_attn_ref(q, k_l, w).to(bf16),
+             BOUND_SINGLE_ROUNDING, ("out",),
+             dict(bytes=nbytes(q, k_l, w, q), mma=attn_mma),
+             library=lambda: F.scaled_dot_product_attention(q, k_l, w, scale=1.0)),
+        Case("conv1d", "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:258",
+             f"whole slide, v with its halo {list(v_ext.shape)}, K {CONV_TAPS}, bf16 taps",
+             lambda: conv1d.depthwise_conv1d_seq(v_ext, kern),
+             lambda: conv1d.depthwise_conv_seq_ref(v_ext, kern).to(bf16),
+             BOUND_SINGLE_ROUNDING, ("out",),
+             dict(bytes=nbytes(v_ext, kern, v_ext), mma=fmas, fma_alt=fmas),
+             library=lambda: F.conv2d(v_ext, kern.view(HEADS, 1, CONV_TAPS, 1),
+                                      padding=(halo, 0), groups=HEADS)),
+        Case("ppeg", "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:179",
+             f"whole slide [1, {side}, {side}, {EMBED}]",
+             lambda: ppeg.ppeg_fused(img, ppeg_k, ppeg_b),
+             lambda: ppeg.ppeg_ref(img, ppeg_k, ppeg_b), BOUND_SINGLE_ROUNDING, ("out",),
+             dict(bytes=nbytes(img, ppeg_k, ppeg_b, img), mma=0,
+                  fp32=(2 * 49 + 2) * img.numel()),
+             library=lambda: F.conv2d(img.permute(0, 3, 1, 2), conv_w, ppeg_b, padding=3,
+                                      groups=EMBED)),
+    ]
+
+
+def cp_group_check(torch, root: Path, ranks: int, backend: str, encoder_state, slide: Path,
+                   want_seq, extra_cases=()):
+    """``ranks`` processes of ``parallel/cp_worker.py`` over ``backend``
+    (gloo: all on the one card; nccl: one a card): the whole-slide encoder
+    on ``slide`` against ``want_seq`` (world 1), and one CP attention layer's
+    output and gradient against world 1's at phase 5's bars (the ranks'
+    gradients of 3c, 9b and 2b through the collectives), then
+    ``extra_cases``. Returns rank 0's results."""
+    from mirror_tpu_torch.parallel import worker
+
+    from mirror_tpu_torch.models.nystrom import NystromAttention
+
+    kwargs, attn, x, t = ws_attention(torch)
+    want_out, want_gx, want_grads = cp_attention_here(torch, attn, x, t)
+    # world 1's kernels against the plain path (use_pallas=False) on the card
+    plain = NystromAttention(**dict(kwargs, use_pallas=False))
+    plain.load_state_dict(attn.state_dict())
+    plain_out, plain_gx, plain_grads = cp_attention_here(torch, plain.eval(), x, t)
+    del plain
+    out_rel, _ = seq_agreement(torch, want_out, plain_out)
+    gx_cos = torch.nn.functional.cosine_similarity(want_gx.ravel(), plain_gx.ravel(),
+                                                   dim=0).item()
+    gx_ratio = (want_gx.norm() / plain_gx.norm()).item()
+    worst, worst_leaf, worst_ratio = grad_agreement(want_grads, plain_grads)
+    say(f"[whole_slide] one CP attention layer at world 1, the kernels (2, 2b, 3, 3b, 3c, 9, "
+        f"9b) against the plain path (use_pallas=False) on the card: output relative error "
+        f"{out_rel:.4g} (bound {BOUND_STEP_LOSS:g}); dL/dx cosine {gx_cos:.6f}, norm ratio "
+        f"{gx_ratio:.5f}; parameters' gradients worst cosine {worst:.6f} ({worst_leaf}), "
+        f"norm ratio furthest from 1 {worst_ratio:.5f} (bounds {BOUND_GRAD_COS}, "
+        f"{BOUND_GRAD_NORM:g})")
+    if not (out_rel <= BOUND_STEP_LOSS and gx_cos >= BOUND_GRAD_COS
+            and abs(gx_ratio - 1) <= BOUND_GRAD_NORM and worst >= BOUND_GRAD_COS
+            and abs(worst_ratio - 1) <= BOUND_GRAD_NORM):
+        fail("[whole_slide] the CP gradient's kernels leave the plain path's bars")
+    enc_kwargs = dict(input_dim=EMBED, embed_dim=EMBED, dtype=torch.bfloat16, dropout=0.0)
+    cases = [dict(kind="encoder", kwargs=enc_kwargs, state_dict=encoder_state,
+                  tokens_path=str(slide)),
+             dict(kind="attention", kwargs=kwargs, state_dict=attn.state_dict(), x=x, t=t),
+             *extra_cases]
+    name = f"cp_{backend}_{ranks}"
+    spec = root / f"{name}.spec.pt"
+    torch.save(dict(device="cuda", cases=cases), spec)
+    t0 = time.perf_counter()
+    try:
+        outs = worker.launch(spec, root / name, ranks, root / f"{name}.rdv", WS_TIMEOUT_S,
+                             env={"MIRROR_DIST_BACKEND": backend, "OMP_NUM_THREADS": "4"},
+                             module="mirror_tpu_torch.parallel.cp_worker")
+    except RuntimeError as e:
+        fail(f"[whole_slide] the ranks of {name} failed: {str(e)[-3000:]}")
+    seconds = time.perf_counter() - t0
+    enc, grad = outs[0]["results"][:2]
+    rel, cos = seq_agreement(torch, enc["seq"], want_seq)
+    say(f"[whole_slide] {name}: {ranks} processes over {backend}, the {slide.stem} slide "
+        f"({want_seq.shape[0]} rows) encoded in {enc['ms']:.1f} ms (rank 0, host clock, the "
+        f"ranks' first collectives in it{'; gloo through the host' if backend == 'gloo' else ''}"
+        f"), peak {enc['peak_gib']:.2f} GiB a rank: against world "
+        f"1 relative error {rel:.4g} (bound {BOUND_STEP_LOSS:g}), worst row cosine {cos:.6f} "
+        f"(bound {BOUND_GRAD_COS}); launches {json.dumps(enc['launches'])}; the launch "
+        f"{seconds:.1f} s")
+    if not (rel <= BOUND_STEP_LOSS and cos >= BOUND_GRAD_COS):
+        fail(f"[whole_slide] {name}: the encoded slide leaves world 1's bars")
+    out_rel, _ = seq_agreement(torch, grad["out"], want_out)
+    gx_cos = torch.nn.functional.cosine_similarity(grad["gx"].float().ravel(),
+                                                   want_gx.ravel(), dim=0).item()
+    gx_ratio = (grad["gx"].float().norm() / want_gx.norm()).item()
+    worst, worst_leaf, worst_ratio = grad_agreement(grad["grads"], want_grads)
+    for need in ("softmax_attn_bwd", "conv1d_bwd", PINV_BWD):
+        if grad["launches"].get(need, 0) == 0:
+            fail(f"[whole_slide] {name}: the CP gradient launched no {need}")
+    say(f"[whole_slide] {name}: one CP attention layer ({WS_GRAD_N} rows, dim {EMBED}, "
+        f"{HEADS} heads of {DH}, {M} landmarks, bf16, exact pinv gradient), sum(out t) "
+        f"against world 1: output relative error {out_rel:.4g} (bound {BOUND_STEP_LOSS:g}); "
+        f"dL/dx cosine {gx_cos:.6f}, norm ratio {gx_ratio:.5f}; parameters' gradients summed "
+        f"over the ranks, worst cosine {worst:.6f} ({worst_leaf}), norm ratio furthest from "
+        f"1 {worst_ratio:.5f} (bounds {BOUND_GRAD_COS}, {BOUND_GRAD_NORM:g}); rank 0's "
+        f"launches {json.dumps(grad['launches'])}, {grad['ms']:.1f} ms")
+    if not (out_rel <= BOUND_STEP_LOSS and gx_cos >= BOUND_GRAD_COS
+            and abs(gx_ratio - 1) <= BOUND_GRAD_NORM and worst >= BOUND_GRAD_COS
+            and abs(worst_ratio - 1) <= BOUND_GRAD_NORM):
+        fail(f"[whole_slide] {name}: the CP gradient leaves world 1's bars")
+    return outs[0]["results"]
+
+
+def ws_classifier(torch, root: Path):
+    """The subtyping template's classifier (phase 4's) with weights from
+    SEED, saved as a .pth.tar; returns its path and its WSI encoder's state."""
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
+
+    args = dict(model="mirror_classifier", model_kwargs=MODEL_KWARGS, num_classes=2,
+                classes=list(CLASSES), num_wsi_feature_tokens=N_TOKENS, batch_size=WS_PREDICT,
+                amp=True, amp_dtype="bfloat16", wsi_feature_only=False)
+    model = create_model("mirror_classifier", device="cpu", num_classes=2,
+                         generator=torch.Generator().manual_seed(SEED), **MODEL_KWARGS)
+    ckpt = root / "ws_classifier.pth.tar"
+    save_checkpoint_file(str(ckpt), model.state_dict(), args=args)
+    state = {k[len("wsi_encoder."):]: v for k, v in model.state_dict().items()
+             if k.startswith("wsi_encoder.")}
+    return ckpt, state
+
+
+def phase_whole_slide(torch, root: Path):
+    """Whole-slide encoding (ROADMAP item 15; phase 10 in the docstring).
+    Returns encode_slide's launches, the encode times and the results of
+    :func:`ws_kernel_cases`."""
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch.data.formats import load_feature_file
+    from mirror_tpu_torch.models.transmil import FeatureTransMIL
+    from mirror_tpu_torch.ops import _common
+    from mirror_tpu_torch.parallel.context_parallel import transmil_encode_cp, wrap_pad_square
+    from mirror_tpu_torch.tools import encode_slide
+    from mirror_tpu_torch.tools.predict import predict
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    ckpt, state = ws_classifier(torch, root)
+    feat_dir, pred_dir, rna_csv, ids = write_whole_slide_cohort(root)
+    say(f"[whole_slide] set-up (the classifier's weights, {len(WS_SLIDES)} slides of "
+        f"{', '.join(map(str, WS_SLIDES))} patches) {time.perf_counter() - t_phase:.1f} s")
+
+    out_dir = root / "ws_embeddings"
+    torch.cuda.synchronize()
+    _common.reset_launch_counts()
+    t0 = time.perf_counter()
+    encode_slide.main(["--wsi-feature-dir", str(feat_dir), "--checkpoint", str(ckpt),
+                       "--output", str(out_dir), "--save", "cls", "--dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _common.launch_counts()
+    say(f"[whole_slide] encode_slide.main: {len(WS_SLIDES)} slides, every patch, in "
+        f"{seconds:.2f} s (encoder build and file reads included); kernel launches "
+        f"{json.dumps(launches)}")
+    # per slide, two TransLayers (pinv, the kv attention, the q attention,
+    # the conv each) and one PPEG; the pinv's GEMM 24 a pinv
+    want = {"moore_penrose_pinv": 2, "softmax_attn": 2, "softmax_attn_q": 2, "conv1d": 2,
+            "ppeg": 1, PINV_GEMM: 2 * 4 * PINV_ITERS}
+    want = {k: v * len(WS_SLIDES) for k, v in want.items()}
+    if launches != want:
+        fail(f"[whole_slide] encode_slide's launches {launches}, expected {want}")
+    embs = [np.load(out_dir / f"{sid}.npy") for sid in ids]
+    if any(e.shape != (EMBED,) or not np.isfinite(e).all() for e in embs):
+        fail("[whole_slide] an embedding is not a finite [768] vector")
+
+    # world 1: each slide's encode timed, its peak memory; the outputs kept
+    encoder = encode_slide.build_encoder(state, torch.bfloat16, True, torch.device("cuda"))
+    seqs, rows = {}, []
+    with torch.no_grad():
+        for sid, n in zip(ids, WS_SLIDES):
+            feats = np.asarray(load_feature_file(str(feat_dir / f"{sid}.npy")), np.float32)
+            tokens = torch.from_numpy(np.array(wrap_pad_square(feats))).cuda()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seqs[n] = transmil_encode_cp(encoder, tokens).float().cpu()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            times = []
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                transmil_encode_cp(encoder, tokens)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = statistics.median(times)
+            rows.append(dict(patches=n, rows=seqs[n].shape[0], ms=ms, peak_gib=peak))
+            say(f"[whole_slide] {n} patches ({seqs[n].shape[0]} rows after the wrap pad and "
+                f"cls): encode {ms:.3f} ms (median of 3, CUDA events, world 1), "
+                f"{n / ms * 1e3:.0f} patches/s, peak device memory {peak:.2f} GiB; on {smi}")
+    if not all(torch.isfinite(s).all() for s in seqs.values()):
+        fail("[whole_slide] an encoded sequence is not finite")
+
+    # the gloo pair on the one card: the 100,000 slide and the CP gradient,
+    # and predict (--whole-slide, and the token subsample) in 2 ranks
+    predict_argv = ["--checkpoint", str(ckpt), "--task", "subtyping", "--wsi-feature-dir",
+                    str(pred_dir), "--rna-feature-csv", str(rna_csv), "--batch-size",
+                    str(WS_PREDICT), "--seed", str(SEED)]
+    extra = [dict(kind="main", module="mirror_tpu_torch.tools.predict",
+                  argv=predict_argv + ["--whole-slide", "--output", str(root / "ws_2.csv")]),
+             dict(kind="main", module="mirror_tpu_torch.tools.predict",
+                  argv=predict_argv + ["--output", str(root / "pred_2.csv")])]
+    big = feat_dir / f"{ids[-1]}.npy"
+
+    # world 1 against the module's kernel path (40,000) and the CPU (15,000)
+    def module_encode(device, dtype, n):
+        with torch.device("meta"):
+            enc = FeatureTransMIL(EMBED, EMBED, dtype, dropout=0.0)
+        enc = enc.to_empty(device=device).eval()
+        enc.load_state_dict(state)
+        feats = np.asarray(load_feature_file(str(feat_dir / f"{ids[WS_SLIDES.index(n)]}.npy")),
+                           np.float32)
+        with torch.no_grad():
+            return enc.encode(torch.from_numpy(feats)[None].to(device))[0][0].float().cpu()
+
+    for n, device, dtype, bound, what in (
+            (40_000, "cuda", torch.bfloat16, BOUND_STEP_LOSS,
+             "FeatureTransMIL.encode's kernel path on the card (bf16)"),
+            (15_000, "cpu", None, BOUND_LOGITS, "the CPU's plain path (fp32)")):
+        t0 = time.perf_counter()
+        rel, cos = seq_agreement(torch, seqs[n], module_encode(device, dtype, n))
+        say(f"[whole_slide] world 1 on the {n}-patch slide against {what}: relative error "
+            f"{rel:.4g} (bound {bound:g}), worst row cosine {cos:.6f} (bound "
+            f"{BOUND_GRAD_COS}); {time.perf_counter() - t0:.1f} s")
+        if not (rel <= bound and cos >= BOUND_GRAD_COS):
+            fail(f"[whole_slide] world 1 on the {n}-patch slide leaves the bars")
+    torch.cuda.empty_cache()
+
+    # kernels 3, 3b, 9 and 5 at the 100,000-patch slide's shapes
+    ws_kernels = [run_case(torch, case) for case in ws_kernel_cases(torch, WS_SLIDES[-1])]
+    torch.cuda.empty_cache()
+
+    for whole, csv in ((True, "ws_1.csv"), (False, "pred_1.csv")):
+        predict(str(ckpt), "subtyping", str(pred_dir), str(root / csv),
+                rna_feature_csv=str(rna_csv), batch_size=WS_PREDICT, seed=SEED,
+                whole_slide=whole)
+    del encoder
+    torch.cuda.empty_cache()
+    cp_group_check(torch, root, 2, "gloo", state, big, seqs[WS_SLIDES[-1]], extra)
+    for one, two, what in (("ws_1.csv", "ws_2.csv", "predict --whole-slide"),
+                           ("pred_1.csv", "pred_2.csv", "predict")):
+        a, b = pd.read_csv(root / one), pd.read_csv(root / two)
+        cols = [c for c in a.columns if c.startswith("prob_")]
+        diff = float(np.abs(a[cols].to_numpy() - b[cols].to_numpy()).max())
+        say(f"[whole_slide] {what} in 2 gloo ranks against one process, {len(a)} slides: "
+            f"probabilities {b[cols].to_numpy().round(6).tolist()} vs "
+            f"{a[cols].to_numpy().round(6).tolist()}, max |difference| {diff:.3g} (bound "
+            f"{BOUND_LOGITS:g})")
+        if list(a["slide_id"]) != list(b["slide_id"]) or not diff <= BOUND_LOGITS:
+            fail(f"[whole_slide] {what} in 2 ranks leaves one process's bar")
+    say(f"[whole_slide] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, rows, ws_kernels
+
+
+def phase_cp_cards(torch, ranks: int) -> None:
+    """``chip_smoke.py --cp-ranks R`` on R cards of one host: the kernels
+    built, the 100,000-patch slide written, and :func:`cp_group_check` with
+    one process a card over NCCL."""
+    import numpy as np
+
+    from mirror_tpu_torch.data.formats import load_feature_file
+    from mirror_tpu_torch.parallel.context_parallel import transmil_encode_cp, wrap_pad_square
+    from mirror_tpu_torch.tools import encode_slide
+
+    if torch.cuda.device_count() < ranks:
+        fail(f"--cp-ranks {ranks}: {torch.cuda.device_count()} card(s)")
+    phase_build()
+    build_root = REPO / "build"
+    build_root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        _, state = ws_classifier(torch, root)
+        feat_dir, _, _, ids = write_whole_slide_cohort(root)
+        big = feat_dir / f"{ids[-1]}.npy"
+        encoder = encode_slide.build_encoder(state, torch.bfloat16, True, torch.device("cuda"))
+        feats = np.asarray(load_feature_file(str(big)), np.float32)
+        with torch.no_grad():
+            want = transmil_encode_cp(encoder, torch.from_numpy(np.array(
+                wrap_pad_square(feats))).cuda()).float().cpu()
+        del encoder
+        torch.cuda.empty_cache()
+        cp_group_check(torch, root, ranks, "nccl", state, big, want)
+
+
 def run_model_kwargs(train_root: Path) -> dict:
     """The model kwargs phase 5's checkpoint was saved with."""
     from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
@@ -2874,8 +3310,9 @@ def main() -> int:
 
     smi = phase_device(torch)
     torch.set_num_threads(8)
-    if sys.argv[1:2] == ["--ddp-ranks"]:
-        phase_ddp_cards(torch, int(sys.argv[2]))
+    if sys.argv[1:2] in (["--ddp-ranks"], ["--cp-ranks"]):
+        (phase_ddp_cards if sys.argv[1] == "--ddp-ranks" else phase_cp_cards)(
+            torch, int(sys.argv[2]))
         say(f"[done] on {' | '.join(smi.splitlines())}")
         say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                "kind": torch.cuda.get_device_name(0),
@@ -2907,27 +3344,29 @@ def main() -> int:
         down = phase_downstream(torch, Path(tmp) / "downstream", pretrain_ckpt)
     selftest_launches = phase_selftest(torch)
     probe_launches = phase_probes(torch)
+    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
+        whole_slide, _, ws_kernels = phase_whole_slide(torch, Path(tmp))
+    merge_shapes({k["name"]: k for k in kernels}, ws_kernels)
     # the main paths' launches: predict's, the train step's (implicit and
     # exact pinv gradient, one step with --grad-checkpointing, and the
     # one-rank NCCL run of phase 5d), the
     # CLIP baseline's, feature extraction's (its
     # three runs), the downstream entry points' (and the optimizer side's
-    # survival run) and the self-test's, each counted from 0 just
-    # before its run. Exempt: softmax_attn_q, the pad-0 entry of the
-    # softmax_attn kernel, which no path calls (its callers all have the
-    # residual conv). ln_qkv and ln_qkv_bwd, library-only as in the JAX
-    # package, run on the probes' path (exp_ln_qkv), as do the kernels the
-    # probes added
+    # survival run), the self-test's and encode_slide's (the whole-slide
+    # path, the only caller of softmax_attn_q, the pad-0 entry of the
+    # softmax_attn kernel), each counted from 0 just before its run.
+    # ln_qkv and ln_qkv_bwd, library-only as in the JAX package, run on the
+    # probes' path (exp_ln_qkv), as do the kernels the probes added
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
              "train_gradckpt": gradckpt, "train_ddp": train_ddp,
              "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
              "survival": down["survival"], "survival_opt": down["survival_opt"],
-             "selftest": selftest_launches, "probes": probe_launches}
+             "selftest": selftest_launches, "probes": probe_launches,
+             "whole_slide": whole_slide}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-    exempt = ("softmax_attn_q",)
-    unlaunched = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in exempt]
+    unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
         fail(f"kernels no main path launched: {unlaunched}")
     say(f"[done] {time.perf_counter() - t_start:.1f} s after the device check, on {smi}")

@@ -46,12 +46,15 @@ KERNEL_BWD = "moore_penrose_pinv_bwd"
 KERNEL_GEMM = "pinv_gemm"  # each launch of the batched GEMM of both
 
 
-def global_scale(x: torch.Tensor) -> torch.Tensor:
+def global_scale(x: torch.Tensor, over_ranks: bool = True) -> torch.Tensor:
     """max(rowsum|x|) * max(colsum|x|) over the WHOLE [b, h, m, m] tensor
     (the reference's quirk), as an fp32 scalar tensor on x's device. Under
     a process group of several ranks the whole tensor is the global
-    batch's, as on the JAX package's data mesh: :class:`GlobalScale`."""
-    if distributed.multi():
+    batch's, as on the JAX package's data mesh: :class:`GlobalScale`;
+    ``over_ranks=False`` keeps it this rank's, for an x that every rank
+    holds alike (context parallelism's landmark matrix, which a reduction
+    over the ranks would count once a rank)."""
+    if over_ranks and distributed.multi():
         return GlobalScale.apply(x)
     abs_x = x.abs()
     col = abs_x.sum(-1)
@@ -372,8 +375,8 @@ class PinvImplicit(torch.autograd.Function):
     """z = pinv(x) by the iterations; dL/dx = -z^T (g z^T)."""
 
     @staticmethod
-    def forward(ctx, x, iters: int):
-        s = global_scale(x.detach())
+    def forward(ctx, x, iters: int, over_ranks: bool = True):
+        s = global_scale(x.detach(), over_ranks)
         z = _pinv_kernel(x, s, iters) if _common.on_cuda(x) else pinv_iterations_ref(x, s, iters)
         ctx.save_for_backward(z)
         return z
@@ -382,15 +385,15 @@ class PinvImplicit(torch.autograd.Function):
     def backward(ctx, g):
         (z,) = ctx.saved_tensors
         zt = z.transpose(-1, -2)
-        return -torch.matmul(zt, torch.matmul(g.to(z.dtype), zt)), None
+        return -torch.matmul(zt, torch.matmul(g.to(z.dtype), zt)), None, None
 
 
 class PinvImplicitRef(PinvImplicit):
     """:class:`PinvImplicit` over the plain iterations on any device."""
 
     @staticmethod
-    def forward(ctx, x, iters: int):
-        z = pinv_iterations_ref(x, global_scale(x.detach()), iters)
+    def forward(ctx, x, iters: int, over_ranks: bool = True):
+        z = pinv_iterations_ref(x, global_scale(x.detach(), over_ranks), iters)
         ctx.save_for_backward(z)
         return z
 
@@ -421,14 +424,16 @@ class PinvExact(torch.autograd.Function):
         return gx, gs.to(s.dtype), None, None
 
 
-def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, grad: str = "implicit") -> torch.Tensor:
+def moore_penrose_pinv(x: torch.Tensor, iters: int = 6, grad: str = "implicit",
+                       over_ranks: bool = True) -> torch.Tensor:
     """Iterative pseudo-inverse of [b, h, m, m] matrices:
-    z <- 0.25 z (13I - xz (15I - xz (7I - xz))), z0 = x^T / global_scale(x)."""
+    z <- 0.25 z (13I - xz (15I - xz (7I - xz))), z0 = x^T / global_scale(x)
+    (``over_ranks``: :func:`global_scale`'s)."""
     if grad == "implicit":
-        return PinvImplicit.apply(x, iters)
+        return PinvImplicit.apply(x, iters, over_ranks)
     if grad != "exact":
         raise ValueError(f"pinv grad must be 'exact' or 'implicit', got {grad!r}")
-    return PinvExact.apply(x, global_scale(x), iters)
+    return PinvExact.apply(x, global_scale(x, over_ranks), iters)
 
 
 def moore_penrose_pinv_stash(x: torch.Tensor, iters: int = 6, stash: int = 1) -> torch.Tensor:
@@ -438,14 +443,15 @@ def moore_penrose_pinv_stash(x: torch.Tensor, iters: int = 6, stash: int = 1) ->
     return PinvExact.apply(x, global_scale(x), iters, stash)
 
 
-def moore_penrose_pinv_ref(x: torch.Tensor, iters: int = 6, grad: str = "implicit") -> torch.Tensor:
+def moore_penrose_pinv_ref(x: torch.Tensor, iters: int = 6, grad: str = "implicit",
+                           over_ranks: bool = True) -> torch.Tensor:
     """:func:`moore_penrose_pinv` by its plain version on any device, for a
     caller that asks for the plain path by name (``use_pallas=False``), as
     the JAX package's dense branch does (``models/nystrom.py:258-261``
     there): ``implicit`` the same gradient as :class:`PinvImplicit`,
     ``exact`` autograd through the iterations and the global scale."""
     if grad == "implicit":
-        return PinvImplicitRef.apply(x, iters)
+        return PinvImplicitRef.apply(x, iters, over_ranks)
     if grad != "exact":
         raise ValueError(f"pinv grad must be 'exact' or 'implicit', got {grad!r}")
-    return pinv_iterations_ref(x, global_scale(x), iters)
+    return pinv_iterations_ref(x, global_scale(x, over_ranks), iters)

@@ -35,7 +35,7 @@ import contextlib
 import datetime
 import logging
 import os
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -183,12 +183,13 @@ def allgather_rows(array) -> np.ndarray:
 
 
 def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced over the ranks (``sum`` or ``max``), a new fp32 tensor
-    on t's device; ``t`` in fp32 with one process."""
-    out = t.detach().float().clone()
+    """``t`` reduced over the ranks (``sum`` or ``max``) in fp32, a new
+    tensor on t's device (under gloo it travels through the CPU); ``t`` in
+    fp32 with one process. Outside autograd."""
+    out = t.detach().float().to(_comm_device() if multi() else t.device, copy=True)
     if multi():
         dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
-    return out
+    return out.to(t.device)
 
 
 def agree(flag: bool, device: Optional[torch.device] = None) -> bool:
@@ -201,31 +202,13 @@ def agree(flag: bool, device: Optional[torch.device] = None) -> bool:
     return bool(t.item() > 0)
 
 
-class _GatherRows(torch.autograd.Function):
-    """All ranks' [b, ...] blocks concatenated in rank order; the backward
-    sums the incoming gradient over the ranks (each rank differentiates its
-    own copy of a function of the whole batch) and keeps this rank's rows.
-    The blocks travel in fp32, which every backend reduces."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.dtype, ctx.rows = x.dtype, x.shape[0]
-        parts = [torch.empty_like(x, dtype=torch.float32) for _ in range(world_size())]
-        dist.all_gather(parts, x.detach().float().contiguous())
-        return torch.cat(parts).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.float().contiguous().clone()
-        dist.all_reduce(g)
-        r = rank()
-        return g[r * ctx.rows:(r + 1) * ctx.rows].to(ctx.dtype)
-
-
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """The global batch of a per-rank tensor, in the autograd graph where x
-    is (:class:`_GatherRows`); ``x`` itself with one process."""
-    return _GatherRows.apply(x) if multi() else x
+    is: :func:`gather_along` its rows (the backward sums the incoming
+    gradient over the ranks, each rank differentiating its own copy of a
+    function of the whole batch, and keeps this rank's rows); ``x`` itself
+    with one process."""
+    return gather_along(x, 0)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int) -> None:
@@ -242,6 +225,92 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int) -> None:
         if rank() != src:
             for t, piece in zip(group, flat.split([t.numel() for t in group])):
                 t.detach().copy_(piece.view(t.shape))
+
+
+# --------------------------------------------------------------------------
+# The collectives of context parallelism (``context_parallel.py``): one long
+# sequence split over the ranks. Each is an autograd Function whose backward
+# is the matching collective, and each is the identity of one process (no
+# collective) with one rank. The rule they keep: a tensor that every rank
+# holds alike (replicated) gets as gradient the sum of every rank's partial,
+# summed once, at the collective that made it. The all-reduce SUM of the
+# ranks' attention parts, whose backward all-reduces the incoming gradient,
+# is ``context_parallel.KvCombine``'s own (its forward and backward).
+# --------------------------------------------------------------------------
+
+def gather_parts(x: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's ``x`` (equal shapes), in rank order, on x's device.
+    They travel as bytes, so any dtype goes over any backend unchanged,
+    and under gloo through the CPU (:func:`_comm_device`)."""
+    flat = x.detach().contiguous().reshape(-1).view(torch.uint8).to(_comm_device())
+    parts = [torch.empty_like(flat) for _ in range(world_size())]
+    dist.all_gather(parts, flat)
+    return [p.to(x.device).view(x.dtype).view(x.shape) for p in parts]
+
+
+class _GatherAlong(torch.autograd.Function):
+    """Every rank's block concatenated along ``dim`` in rank order; the
+    backward sums the incoming gradient over the ranks (each rank's is a
+    partial) and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        return torch.cat(gather_parts(x), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g).to(g.dtype)
+        return g.narrow(ctx.dim, rank() * ctx.size, ctx.size).contiguous(), None
+
+
+def gather_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The tiled all-gather of every rank's block of equal size along
+    ``dim`` (:class:`_GatherAlong`); ``x`` itself with one rank."""
+    return _GatherAlong.apply(x, dim) if multi() else x
+
+
+class _HaloExchange(torch.autograd.Function):
+    """This rank's block along ``dim`` with ``halo`` rows on each side: the
+    previous rank's last rows before it, the next rank's first rows after
+    it, zeros at the ends of the whole sequence. The edges of every rank
+    travel in one all-gather, which every rank enters alike. The backward
+    sends each halo's gradient back to the rank that owns those rows, where
+    it is added to the gradient of its edge."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, halo: int):
+        n = x.shape[dim]
+        ctx.dim, ctx.halo, ctx.n = dim, halo, n
+        edges = gather_parts(torch.stack([x.narrow(dim, 0, halo),
+                                           x.narrow(dim, n - halo, halo)]))
+        r, p = rank(), world_size()
+        zeros = torch.zeros_like(edges[0][0])
+        left = edges[r - 1][1] if r > 0 else zeros
+        right = edges[r + 1][0] if r < p - 1 else zeros
+        return torch.cat([left, x, right], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, halo, n = ctx.dim, ctx.halo, ctx.n
+        grads = gather_parts(torch.stack([g.narrow(dim, 0, halo),
+                                           g.narrow(dim, halo + n, halo)]))
+        r, p = rank(), world_size()
+        gx = g.narrow(dim, halo, n).clone()
+        if r > 0:  # our first rows were the previous rank's right halo
+            gx.narrow(dim, 0, halo).add_(grads[r - 1][1])
+        if r < p - 1:  # our last rows were the next rank's left halo
+            gx.narrow(dim, n - halo, halo).add_(grads[r + 1][0])
+        return gx, None, None
+
+
+def halo_exchange(x: torch.Tensor, dim: int, halo: int) -> torch.Tensor:
+    """:class:`_HaloExchange` (``halo`` at most this rank's rows); with one
+    rank the block zero-padded by ``halo`` rows on each side."""
+    if multi():
+        return _HaloExchange.apply(x, dim, halo)
+    pad = [0, 0] * (x.dim() - 1 - dim) + [halo, halo]
+    return torch.nn.functional.pad(x, pad)
 
 
 def refuse_indivisible(batch_size: int, shrinkable: bool = False) -> None:

@@ -178,13 +178,13 @@ def start_ranks(cmd: List[str], world: int, rendezvous: Path, log_prefix: Path,
 
 
 def start(spec_path: Path, out_path: Path, world: int, rendezvous: Path,
-          timeout_s: float = 120.0, env: Optional[Dict[str, str]] = None
-          ) -> Callable[[], List[Dict]]:
-    """:func:`start_ranks` of this module's :func:`main` on ``spec_path``;
-    the wait returns the ranks' outputs in rank order."""
-    wait = start_ranks([sys.executable, "-m", "mirror_tpu_torch.parallel.worker",
-                        str(spec_path), str(out_path)], world, rendezvous, out_path,
-                       timeout_s, env)
+          timeout_s: float = 120.0, env: Optional[Dict[str, str]] = None,
+          module: str = "mirror_tpu_torch.parallel.worker") -> Callable[[], List[Dict]]:
+    """:func:`start_ranks` of ``module``'s ``main`` (this module's, or
+    ``context_parallel``'s cases in ``cp_worker``) on ``spec_path``; the
+    wait returns the ranks' outputs (``OUT.<rank>``) in rank order."""
+    wait = start_ranks([sys.executable, "-m", module, str(spec_path), str(out_path)], world,
+                       rendezvous, out_path, timeout_s, env)
 
     def outputs() -> List[Dict]:
         wait()
@@ -194,9 +194,10 @@ def start(spec_path: Path, out_path: Path, world: int, rendezvous: Path,
 
 
 def launch(spec_path: Path, out_path: Path, world: int, rendezvous: Path,
-           timeout_s: float = 120.0, env: Optional[Dict[str, str]] = None) -> List[Dict]:
+           timeout_s: float = 120.0, env: Optional[Dict[str, str]] = None,
+           module: str = "mirror_tpu_torch.parallel.worker") -> List[Dict]:
     """:func:`start`, then its wait."""
-    return start(spec_path, out_path, world, rendezvous, timeout_s, env)()
+    return start(spec_path, out_path, world, rendezvous, timeout_s, env, module)()
 
 
 def main(argv=None) -> int:

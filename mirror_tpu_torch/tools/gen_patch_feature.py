@@ -17,7 +17,13 @@ Counterpart of ``mirror_tpu/tools/gen_patch_feature.py``, with its CLI and a
   through one bf16 backbone, which computes while the host decodes the
   next batch;
 - per-slide ``[n_patches, D]`` features are written as ``.npy`` or ``.pt``;
-- ``--fold/--k`` takes the slides ``[fold::k]``, for several processes.
+- ``--fold/--k`` takes the slides ``[fold::k]``, for several processes;
+- under a process group (``torchrun --nproc-per-node R -m
+  mirror_tpu_torch.tools.gen_patch_feature ...``, or the ``MIRROR_*`` env
+  of ``parallel/distributed.py``) rank r of R extracts every R-th of those
+  slides from the r-th, each on its own device: the files are the ones one
+  process writes (the JAX tool shards each image batch over its devices
+  instead; a patch's features do not depend on its batch).
 
 Backbones: ``phikon`` (ViT-B/16 CLS, 768-d, through the ViT half-block
 kernels; ``--quant int8`` for W8A8 projections and the attention kernel)
@@ -26,8 +32,7 @@ local HF snapshot directory (Phikon) or a torchvision ``.pt`` state_dict
 (ResNet50); without one the weights are random, drawn from a seeded
 generator. The ViT has one path: the kernels on the card, their plain
 versions with ``--device cpu`` (``--no-use-pallas``, the JAX tool's dense
-path, is refused). One device per process: the JAX tool's data-parallel
-mesh is not ported.
+path, is refused). One device per process.
 """
 
 import argparse
@@ -238,13 +243,16 @@ def extract_features(
     device="cuda",
 ) -> dict:
     """Write one ``[n_patches, D]`` feature file per slide; returns counts
-    and the host-clock rate. ``extractor``: a prebuilt (fn, dim)."""
+    and the host-clock rate. ``extractor``: a prebuilt (fn, dim). Under a
+    process group, this rank's share of the slides."""
     from mirror_tpu_torch.data.formats import save_feature_file
+    from mirror_tpu_torch.parallel import distributed
 
     fn, dim = extractor or build_extractor(model_name, checkpoint, use_pallas=use_pallas,
                                            quant=quant, device=device)
-    slides = list_slides(patch_root)[fold::k]
-    _logger.info("%d slides (shard %d/%d)", len(slides), fold, k)
+    slides = list_slides(patch_root)[fold::k][distributed.rank()::distributed.world_size()]
+    _logger.info("%d slides (shard %d/%d, rank %d/%d)", len(slides), fold, k,
+                 distributed.rank(), distributed.world_size())
     total_patches = 0
     t_start = time.time()
     for slide_name, slide_dir in slides:
@@ -298,9 +306,12 @@ def main(argv=None):
                    "versions")
     a = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    return extract_features(
-        a.patch_root, a.output_dir, a.model, a.checkpoint, a.batch_size, a.fold, a.k,
-        a.num_threads, a.format, a.skip_existing, a.use_pallas, a.quant, device=a.device)
+    from mirror_tpu_torch.parallel import distributed
+
+    with distributed.session(None, torch.device(a.device)) as device:
+        return extract_features(
+            a.patch_root, a.output_dir, a.model, a.checkpoint, a.batch_size, a.fold, a.k,
+            a.num_threads, a.format, a.skip_existing, a.use_pallas, a.quant, device=device)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,19 @@ The model is rebuilt from the checkpoint's embedded run args. Output columns:
 Slides are every feature file in the directory (or in its class
 subdirectories); RNA rows are matched by the 15-char "Sample ID" prefix.
 Each slide is scored on ``num_wsi_feature_tokens`` patches drawn with the
-same numpy generator as the JAX tool, so the two CSVs agree row for row.
+same numpy generator as the JAX tool, so the two CSVs agree row for row;
+``--whole-slide`` scores EVERY patch instead: the WSI encoder runs as
+``parallel/context_parallel.py::transmil_encode_cp`` and its cls row feeds
+the fusion and head (``MIRRORClassifier.head_from_wsi``).
+
+Under a process group (``torchrun --nproc-per-node R -m
+mirror_tpu_torch.tools.predict ...``, or the ``MIRROR_*`` env of
+``parallel/distributed.py``), as on the JAX tool's multi-device mesh: the
+batch is rounded up to a multiple of the ranks and each rank scores its
+block of every batch, the pinv's scale taken over the whole batch
+(``ops/pinv.py::GlobalScale``); with ``--whole-slide`` every rank encodes
+each slide together, its tokens split over the ranks. Rank 0 gathers the
+rows and writes the CSV.
 """
 
 import argparse
@@ -27,6 +39,8 @@ import pandas as pd
 import torch
 
 from mirror_tpu_torch.data.formats import list_feature_files, load_feature_file
+from mirror_tpu_torch.parallel import distributed
+from mirror_tpu_torch.parallel.context_parallel import transmil_encode_cp, wrap_pad_square
 from mirror_tpu_torch.registry import create_model
 from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args as _run_args
 from mirror_tpu_torch.train.steps import survival_risk
@@ -97,16 +111,12 @@ def predict(
     use_pallas: Optional[bool] = None,
 ) -> list:
     """Score every slide under ``wsi_feature_dir`` on ``device`` and write
-    the CSV. Returns the rows. On the card the kernels run unless
-    ``use_pallas`` is False, or is None and the checkpoint was trained with
-    them off; a checkpoint beyond them (``amp: false``, a head dim above
-    128) is refused before any slide is read."""
-    if whole_slide:
-        raise SystemExit(
-            "--whole-slide needs the context-parallel encoder, which the "
-            "PyTorch port does not have yet; score the token subsample instead"
-        )
-    device = torch.device(device)
+    the CSV (rank 0). Returns the rows (on every rank). On the card the
+    kernels run unless ``use_pallas`` is False, or is None and the
+    checkpoint was trained with them off; a checkpoint beyond them
+    (``amp: false``, a head dim above 128) is refused before any slide is
+    read. The process group, where the env asks for one, lasts the call
+    (``distributed.session``)."""
     payload = load_checkpoint_file(checkpoint)
     state_dict = payload.get("state_dict_ema") if use_ema else None
     if use_ema and not state_dict:
@@ -125,15 +135,34 @@ def predict(
         rna_df = rna_df.loc[~rna_df.index.duplicated(keep="first")]
         rna_dim = rna_df.shape[1]
 
-    model, num_tokens, wsi_only = _rebuild_model(payload, rna_dim, task, device, use_pallas)
-    model.load_state_dict(state_dict)
-    if rna_df is None and not wsi_only:
-        raise SystemExit(
-            "this checkpoint's model fuses RNA (wsi_feature_only was off at "
-            "training time) — pass --rna-feature-csv"
-        )
-    files = _list_slides(wsi_feature_dir, rna_df, wsi_only)
+    with distributed.session(None, torch.device(device)) as device:
+        model, num_tokens, wsi_only = _rebuild_model(payload, rna_dim, task, device,
+                                                     use_pallas)
+        model.load_state_dict(state_dict)
+        if rna_df is None and not wsi_only:
+            raise SystemExit(
+                "this checkpoint's model fuses RNA (wsi_feature_only was off at "
+                "training time) — pass --rna-feature-csv"
+            )
+        files = _list_slides(wsi_feature_dir, rna_df, wsi_only)
+        ranks = distributed.world_size()
+        if not whole_slide and batch_size % ranks:
+            batch_size = -(-batch_size // ranks) * ranks
+            _logger.info("rounded batch size up to %d (multiple of %d ranks)", batch_size, ranks)
+        rows = _score(model, task, files, rna_df, wsi_only, num_tokens, batch_size, seed,
+                      whole_slide, device)
+        if distributed.is_main():  # inside: the session may destroy the group it made
+            pd.DataFrame(rows).to_csv(output, index=False)
+            _logger.info("wrote %d predictions -> %s", len(rows), output)
+    return rows
 
+
+def _score(model, task, files, rna_df, wsi_only, num_tokens, batch_size, seed, whole_slide,
+           device) -> list:
+    """The CSV's rows. Every rank reads every slide of a batch, so the token
+    draws are one stream; each rank then scores its block of the batch (the
+    blocks gathered), or with ``whole_slide`` every rank encodes each slide
+    together and scores the batch's cls rows alike."""
     rng = np.random.default_rng(seed)
     rows = []
     for i in range(0, len(files), batch_size):
@@ -141,19 +170,28 @@ def predict(
         wsi, rna = [], []
         for f in chunk:
             feats = np.asarray(load_feature_file(f), np.float32)
-            idx = rng.choice(feats.shape[0], num_tokens, replace=feats.shape[0] < num_tokens)
-            wsi.append(feats[idx])
+            if whole_slide:
+                tokens = torch.from_numpy(np.array(wrap_pad_square(feats))).to(device)
+                wsi.append(transmil_encode_cp(model.wsi_encoder, tokens)[0].float())
+            else:
+                idx = rng.choice(feats.shape[0], num_tokens, replace=feats.shape[0] < num_tokens)
+                wsi.append(torch.from_numpy(feats[idx]))
             if rna_df is not None and not wsi_only:
                 sid = os.path.basename(f).split(".")[0][:15]
-                rna.append(rna_df.loc[sid].to_numpy(np.float32))
+                rna.append(torch.from_numpy(rna_df.loc[sid].to_numpy(np.float32)))
         n_valid = len(chunk)
-        if n_valid < batch_size:  # keep one batch shape: repeat the last slide
-            wsi += [wsi[-1]] * (batch_size - n_valid)
-            if rna:
-                rna += [rna[-1]] * (batch_size - n_valid)
-        wsi_t = torch.from_numpy(np.stack(wsi)).to(device)
-        rna_t = torch.from_numpy(np.stack(rna)).to(device) if rna else None
-        logits = model(wsi_t, rna_t).float()[:n_valid].cpu()
+        if whole_slide:
+            rna_t = torch.stack(rna).to(device) if rna else None
+            logits = model.head_from_wsi(torch.stack(wsi), rna_t).float().cpu()
+        else:
+            if n_valid < batch_size:  # keep one batch shape: repeat the last slide
+                wsi += [wsi[-1]] * (batch_size - n_valid)
+                if rna:
+                    rna += [rna[-1]] * (batch_size - n_valid)
+            wsi_t = distributed.own_rows(torch.stack(wsi)).to(device)
+            rna_t = distributed.own_rows(torch.stack(rna)).to(device) if rna else None
+            logits = model(wsi_t, rna_t).float().cpu()
+            logits = torch.from_numpy(distributed.allgather_rows(logits.numpy()))[:n_valid]
         risks = survival_risk(logits) if task == "survival" else None
         for j, (f, lg) in enumerate(zip(chunk, logits.numpy())):
             sid = os.path.basename(f).split(".")[0]
@@ -166,9 +204,6 @@ def predict(
                 row.update({f"prob_{c}": float(v) for c, v in enumerate(p)})
                 rows.append(row)
         _logger.info("scored %d/%d slides", min(i + batch_size, len(files)), len(files))
-
-    pd.DataFrame(rows).to_csv(output, index=False)
-    _logger.info("wrote %d predictions -> %s", len(rows), output)
     return rows
 
 
@@ -183,7 +218,8 @@ def main(argv=None):
     p.add_argument("--use-ema", action="store_true", default=False)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--whole-slide", action="store_true", default=False,
-                   help="score EVERY patch (not in the PyTorch port yet)")
+                   help="score EVERY patch (the context-parallel whole-slide encoder) "
+                   "instead of the training-time token subsample")
     p.add_argument("--device", default="cuda",
                    help="torch device; the kernels run on cuda, cpu runs "
                    "their plain versions")

@@ -56,6 +56,7 @@ from mirror_tpu_torch.ops.conv1d import column_sum_in_order
 from mirror_tpu_torch.ops.ppeg import KSIZE, ppeg_bwd_ref, ppeg_ref
 from mirror_tpu_torch.ops.vit_attn import mha_natural_ref
 from test_torch_port_cuda import ppeg_dydx_order
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 LOG2E = 1.4426950408889634
 TILE = 16  # kernel 8's query and key tiles

@@ -43,6 +43,7 @@ from mirror_tpu_torch.ops.nystrom_attn import (
     softmax_attn_bwd_lse_ref,
     softmax_attn_fwd_ref,
 )
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REL = 1e-5
 BF16_FWD, BF16_BWD = 1e-2, 2e-2

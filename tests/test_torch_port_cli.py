@@ -19,6 +19,7 @@ import torch
 from mirror_tpu_torch import config, train_mirror
 from mirror_tpu_torch.registry import create_model
 from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEMPLATE = os.path.join(REPO, "configs", "pretrain", "mirror.template.yaml")

@@ -48,6 +48,7 @@ from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args, to_tensors
 from mirror_tpu_torch.train.optim import make_optimizer
 from mirror_tpu_torch.train.steps import ModelEma, make_clip_eval_step, make_clip_train_step
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEMPLATE = os.path.join(REPO, "configs", "pretrain", "mirror.template.yaml")

@@ -19,6 +19,7 @@ import torch
 
 from mirror_tpu.ops.conv1d_pallas import depthwise_conv1d_seq as jax_conv
 from mirror_tpu_torch.ops.conv1d import depthwise_conv1d_seq
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 BF16_STEP = 2.0 ** -7
 

@@ -39,6 +39,7 @@ from mirror_tpu_torch.ops import conv1d
 from mirror_tpu_torch.ops.conv1d import (band_width, column_sum_groups, column_sum_in_order,
                                          conv_plan, depthwise_conv_seq_bwd_ref,
                                          depthwise_conv_seq_ref)
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 STEP, WARP_ROWS, WARPS = 64, 16, 4
 BF16_STEP = 2.0 ** -7

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from mirror_tpu_torch.ops import copy_floor as cf
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 # (b, h, n, d, gb, tile): the probe's layouts (gb 8 / 4 / 1 / whole batch,
 # the 384-row tile) at small sizes, gb not dividing b, tile not dividing n,

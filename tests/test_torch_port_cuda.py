@@ -1408,3 +1408,75 @@ def test_optimizer_side_on_the_card_matches_the_cpu(dev, opt, clip_mode):
         for key in want:
             scale = want[key].abs().max().item()
             assert (got[key] - want[key]).abs().max().item() <= 1e-5 * scale, key
+
+
+# --------------------------------------------------------------------------
+# context parallelism (parallel/context_parallel.py) on one card
+# --------------------------------------------------------------------------
+
+# (h, m, c, dh, parts): the whole-slide path's landmarks against a rank's
+# columns (the 40,000-patch slide's 40320 rows over 2 ranks), and a ragged
+# one split in 3
+CP_KV_SHAPES = [(8, 384, 20160, 96, 2), (2, 16, 150, 32, 3)]
+
+
+@pytest.mark.parametrize("h,m,c,dh,parts", CP_KV_SHAPES)
+def test_cp_kv_combine_kernel_matches_its_plain_version(dev, h, m, c, dh, parts):
+    """The context-parallel r3 = softmax(q_l k^T) v: KvCombine without a
+    group (kernel 3, then kernel 3c from its residuals) against its plain
+    version on the same inputs, forward and backward, one launch each; and
+    over ``parts`` column blocks as the ranks run it: kernel 3 on each block
+    keeping its row lse, the parts combined (lse_g = logsumexp of the
+    blocks' lse, r3 = sum exp(lse_r - lse_g) o_r in fp32, one rounding),
+    then kernel 3c on each block given the global lse and r3: dk and dv of
+    each block and dq summed over the blocks against the plain backward
+    over all columns (the bars of the attention's tests)."""
+    from mirror_tpu_torch.parallel.context_parallel import KvCombine
+
+    g = torch.Generator().manual_seed(21)
+    q_l = _randn(g, 1, h, m, dh, dev=dev, scale=dh ** -0.5)
+    k, v = _randn(g, 1, h, c, dh, dev=dev), _randn(g, 1, h, c, dh, dev=dev)
+    _common.reset_launch_counts()
+    (gout,), grads = _grads(lambda *t: KvCombine.apply(*t, True), q_l, k, v)
+    assert _common.launch_counts() == {"softmax_attn": 1, "softmax_attn_bwd": 1}
+    want = softmax_attn_ref(q_l, k, v).to(q_l.dtype)
+    with torch.no_grad():
+        _assert_close(KvCombine.apply(q_l, k, v, True), want)
+    for name, got, ref in zip(("dq_l", "dk", "dv"), grads,
+                              softmax_attn_bwd_ref(q_l, k, v, gout)):
+        _assert_rel(got, ref.to(got.dtype), name=name)
+
+    cols = [c * i // parts for i in range(parts + 1)]
+    blocks = [(k[:, :, a:b].contiguous(), v[:, :, a:b].contiguous())
+              for a, b in zip(cols, cols[1:])]
+    fwd = [_launch_fwd(q_l, kb, vb, None, None, 0, keep=True)[:2] for kb, vb in blocks]
+    lse_g = torch.logsumexp(torch.stack([lse for _, lse in fwd]), dim=0)
+    r3 = sum(torch.exp(lse - lse_g).unsqueeze(-1) * o.float() for o, lse in fwd).to(q_l.dtype)
+    _assert_close(r3, want)
+    bwd = [_launch_bwd(q_l, kb, vb, gout, lse_g, r3, None, None)[:3] for kb, vb in blocks]
+    dq = sum(d[0].float() for d in bwd)
+    ref = softmax_attn_bwd_ref(q_l, k, v, gout)
+    _assert_rel(dq, ref[0], name="dq_l summed")
+    _assert_rel(torch.cat([d[1] for d in bwd], 2), ref[1].to(q_l.dtype), name="dk")
+    _assert_rel(torch.cat([d[2] for d in bwd], 2), ref[2].to(q_l.dtype), name="dv")
+
+
+@pytest.mark.parametrize("n,parts", [(4608, 2), (4608, 4), (100, 4)])
+def test_conv1d_kernel_on_halo_extended_blocks(dev, n, parts):
+    """Kernel 9 on each rank's block extended by 16 rows of its neighbours
+    (zeros at the ends of the sequence), its middle rows kept, against the
+    conv of the whole sequence: the context-parallel residual conv. n 100
+    over 4: blocks of 25 rows, just over the halo."""
+    h, dh, ksize = 8, 96, 33
+    halo = ksize // 2
+    g = torch.Generator().manual_seed(22)
+    v = _randn(g, 1, h, n, dh, dev=dev)
+    kern = _randn(g, h, ksize, dev=dev, scale=0.1)
+    want = depthwise_conv1d_seq(v, kern)
+    padded = torch.nn.functional.pad(v, (0, 0, halo, halo))
+    size = n // parts
+    got = torch.cat([depthwise_conv1d_seq(padded[:, :, r * size:(r + 1) * size + 2 * halo]
+                                          .contiguous(), kern)[:, :, halo:halo + size]
+                     for r in range(parts)], dim=2)
+    _assert_close(got, want)
+    _assert_close(want, depthwise_conv_seq_ref(v, kern).to(v.dtype))

@@ -64,6 +64,7 @@ from mirror_tpu_torch.train.steps import (
     smoothed_xent,
     survival_risk,
 )
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBTYPING_YAML = os.path.join(REPO, "configs", "subtyping", "mirror.template.yaml")

@@ -48,6 +48,7 @@ from mirror_tpu_torch.models.feature_extractors import (
 )
 from mirror_tpu_torch.ops import vit_attn
 from mirror_tpu_torch.train.checkpoint import to_tensors
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 EPS = 1e-6  # non-default, as in tests/test_vit_sublayer_kernels.py
 

@@ -25,6 +25,7 @@ from mirror_tpu_torch.data.formats import load_feature_file
 from mirror_tpu_torch.models.feature_extractors import ViTB16, device_normalize
 from mirror_tpu_torch.tools import convert_features, gen_patch_feature
 from mirror_tpu_torch.train.checkpoint import to_tensors
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 # slides of 5, 3 and 4 patches in a {root}/{class}/{slide}/ layout
 SLIDES = {"LUAD/s1": 5, "LUAD/s2": 3, "LUSC/s3": 4}

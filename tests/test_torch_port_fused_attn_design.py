@@ -49,6 +49,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from mirror_tpu_torch.scripts import exp_vit_fused_sublayer as probe
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 LOG2E = 1.4426950408889634

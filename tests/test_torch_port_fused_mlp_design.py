@@ -50,6 +50,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from mirror_tpu_torch.scripts import exp_vit_fused_sublayer as probe
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 ROWS, CHUNK, K1, K2 = 64, 128, 64, 32  # the kernel's tile rows, hidden chunk, K steps

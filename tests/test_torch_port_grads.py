@@ -35,6 +35,7 @@ from mirror_tpu_torch.ops import (
     softmax_matmul_landmark_kv,
     softmax_matmul_landmark_q,
 )
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REL = 1e-5
 

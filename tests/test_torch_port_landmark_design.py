@@ -51,6 +51,7 @@ from mirror_tpu_torch.ops.landmark import (
     landmark_softmax_ref,
 )
 from mirror_tpu_torch.scripts._timing import BOUND_BWD, BOUND_SINGLE_ROUNDING
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 ATOL = 1e-5
 LOG2E = 1.4426950408889634

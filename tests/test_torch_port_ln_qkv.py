@@ -18,6 +18,7 @@ import torch
 
 from mirror_tpu.ops.ln_qkv_pallas import ln_qkv_fused as jax_ln_qkv
 from mirror_tpu_torch.ops.ln_qkv import ln_qkv_fused
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 B, N, D, EPS = 3, 24, 32, 1e-5
 # (heads, dh): inner width h dh = d, and h dh != d (dh is w's, not d / h)

@@ -25,6 +25,7 @@ import torch
 
 from mirror_tpu.ops.ln_qkv_pallas import ln_qkv_fused as jax_ln_qkv
 from mirror_tpu_torch.ops import ln_qkv as lq
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 EPS = 1e-5
 # (b, n, d, heads, dh): h dh = d; h dh != d with dh 24 (3 h dh = 144, not a

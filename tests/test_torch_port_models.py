@@ -30,6 +30,7 @@ from mirror_tpu_torch.models import (
     TransLayer,
 )
 from mirror_tpu_torch.train.checkpoint import to_tensors
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 ATOL = 1e-5
 WSI_IN, RNA_IN, E = 32, 96, 48

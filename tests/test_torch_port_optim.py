@@ -38,6 +38,7 @@ from mirror_tpu_torch.convert import state_dict_from_jax
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train import optim
 from mirror_tpu_torch.train.steps import ModelEma, ema_decay_at
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 LR = 0.1
 

@@ -22,6 +22,7 @@ import torch
 
 from mirror_tpu.ops import pinv_pallas
 from mirror_tpu_torch.ops.pinv import global_scale, moore_penrose_pinv, pinv_exact_bwd_ref
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REL = 1e-5
 

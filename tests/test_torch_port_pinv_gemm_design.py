@@ -49,6 +49,7 @@ from mirror_tpu_torch.ops.pinv import (
     pinv_iterations_ref,
     pinv_sequence,
 )
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 BOUND_GEMM_BF16, BOUND_GEMM_FP32 = 2.0 ** -7, 1e-5
 BOUND_GS = 1e-6

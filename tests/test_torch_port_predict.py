@@ -25,6 +25,7 @@ from mirror_tpu.train.checkpoint import save_checkpoint_file as jax_save
 from mirror_tpu_torch.convert import state_dict_from_jax
 from mirror_tpu_torch.tools.predict import predict
 from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 TINY = dict(wsi_embed_dim=32, rna_embed_dim=96, embed_dim=48, rna_mlp_ratio=2.0)
 N_SLIDES, N_TOKENS = 10, 16
@@ -94,9 +95,14 @@ def test_port_predict_matches_jax_predict(cohort, tmp_path, task, wsi_only):
 
 
 def test_whole_slide_is_refused(cohort, tmp_path):
-    with pytest.raises(SystemExit, match="whole-slide"):
-        predict("unused.pth.tar", "subtyping", cohort["feature_dir"],
-                str(tmp_path / "o.csv"), whole_slide=True, device="cpu")
+    """``--whole-slide`` runs (``test_torch_port_context_parallel.py`` holds
+    it against the JAX tool); on the card a float32 checkpoint is refused
+    for it too, before any slide is read, naming --no-use-pallas."""
+    _, pth = _checkpoints(tmp_path, "subtyping", False)
+    with pytest.raises(ValueError, match="--no-use-pallas"):
+        predict(pth, "subtyping", cohort["feature_dir"], str(tmp_path / "o.csv"),
+                rna_feature_csv=cohort["rna_csv"], whole_slide=True, device="cuda")
+    assert not (tmp_path / "o.csv").exists()
 
 
 def test_port_imports_no_jax():

@@ -37,6 +37,7 @@ from mirror_tpu_torch.scripts import (
     exp_vit_attn_kernel,
 )
 from mirror_tpu_torch.train.harness import CheckpointHistory
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 REL = 1e-5

@@ -24,6 +24,7 @@ from mirror_tpu_torch import selftest
 from mirror_tpu_torch.convert import state_dict_from_jax
 from mirror_tpu_torch.models import NystromAttention
 from mirror_tpu_torch.train.checkpoint import to_tensors
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 # the self-test at a size the CPU runs in seconds: Nystrom dim 64 (8 heads

@@ -38,6 +38,7 @@ from mirror_tpu_torch.models import MIRROR
 from mirror_tpu_torch.train.checkpoint import to_tensors
 from mirror_tpu_torch.train.optim import make_optimizer
 from mirror_tpu_torch.train.steps import make_mirror_train_step
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 B = 2
 WSI_IN, RNA_IN, E = 40, 100, 24

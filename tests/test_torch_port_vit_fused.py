@@ -32,6 +32,7 @@ from mirror_tpu.ops.vit_attn_pallas import attn_block as jax_attn_block
 from mirror_tpu.ops.vit_attn_pallas import mlp_block as jax_mlp_block
 from mirror_tpu_torch.ops import vit_fused
 from mirror_tpu_torch.scripts import exp_vit_fused_sublayer as probe
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 REL = 1e-5

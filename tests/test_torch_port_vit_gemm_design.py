@@ -53,6 +53,7 @@ from mirror_tpu_torch.ops.vit_attn import (
     mlp_block_ref,
     mlp_block_sequence,
 )
+from test_torch_port_runctl import one_intra_op_thread  # noqa: F401 (the fixture)
 
 BOUND_GEMM = 2.0 ** -7
 BOUND_PALLAS_ATTN, BOUND_PALLAS_MLP = 2e-5, 1e-4
