@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the repo root; one CUDA card, nvcc
     python3 chip_smoke.py --ddp-ranks 4   # only the build and phase 5d's group
-                                          # check, one NCCL process a card
+                                          # check, one NCCL process a card, then
+                                          # data 2 x model 2 (phase 5e's check)
     python3 chip_smoke.py --cp-ranks 4    # only the build and phase 10's group
                                           # check, one NCCL process a card
 
@@ -130,6 +131,24 @@ Phases, each printed as it finishes:
    the same bits after the update, then again with
    ``--optimizer-sharding``; the group's init, the first step and the
    step's median of each;
+5e. tensor parallelism (ROADMAP item 16) on 32 of phase 5's slides (2 steps
+   of 16), dropout 0: ``train_mirror.main`` in one process on the card, then
+   as two gloo processes on the one card at ``--model-parallel 2`` (data 1
+   x model 2: the RNA embedding, the block MLPs, both retention heads and
+   the prototypes split over the two ranks; the WSI encoder whole on each,
+   its kernels launched by each), in ONE spawn of ``parallel/worker.py``
+   (``cases``): the losses against the one-process run's (bar
+   ``TP_BOUND_EPOCH_LOSS``), the gathered saved weights at the one-process
+   run's keys and shapes and each leaf's update (the weights less the
+   seeded initial ones) printed, the worst leaf named; the run again with
+   ``--optimizer-sharding``, its weights the same bits (at data 1 ZeRO-1
+   has one range); the launches of rank 0's run under ``train_tp``; then one
+   step with the masking noise and eps injected against the one-process
+   step (gradients gathered whole, at phase 5e's own bars
+   ``TP_BOUND_*``, the worst leaf named), each rank's bytes of
+   parameters, Adam moments and EMA against one process's, the step's
+   median; ``--ddp-ranks 4`` adds data 2 x model 2 over NCCL, with and
+   without ZeRO-1, to phase 5d's four-card check;
 6. feature extraction: 8 synthetic slides of 2,048 224x224 JPEG patches in
    all (``{root}/{class}/{slide}/``), run through
    ``mirror_tpu_torch.tools.gen_patch_feature.main`` three times at batch
@@ -257,6 +276,22 @@ RC_STEPS = 2
 # data parallelism (phase 5d): 2 steps of 16 on 32 of phase 5's slides; the
 # gloo pair's timed steps and its launch's time limit
 DDP_STEPS, DDP_REPS, DDP_TIMEOUT_S = 2, 3, 300.0
+# tensor parallelism (phase 5e): the model ranks of the gloo pair on the one
+# card and of --ddp-ranks 4 (data 2 x model 2)
+TP_MODEL_PARALLEL = 2
+# Phase 5e's bars. Both sides run the same kernels in bf16 on the one card
+# from the same weights and batch; only the split products' sums and the
+# collectives change the order of work. Its injected step read a loss 2.93e-5
+# relative, a worst leaf gradient cosine 0.999715 and a norm ratio 1.00222
+# (NVIDIA H100 80GB HBM3, 700 W, two runs alike): the step is held to 1e-3,
+# 0.999 and 1e-2, a few times those readings and far inside phase 5's
+# card-vs-CPU bars, so a wiring fault (a bias added on each rank, a slice in
+# the wrong place) shows. The 2-step epochs' losses read 2.99e-4 (Adam's
+# first update is near sign(g), so bf16 differences in small gradients move
+# step 2): held to 2e-3. Each leaf's update after the epoch (0.992303 worst)
+# is printed, not gated: it says little near sign(g).
+TP_BOUND_STEP_LOSS, TP_BOUND_GRAD_COS, TP_BOUND_GRAD_NORM = 1e-3, 0.999, 1e-2
+TP_BOUND_EPOCH_LOSS = 2e-3
 RC_TRACE_KERNELS = ("landmark_fwd_kernel", "pinv_gemm_kernel", "softmax_attn_kernel",
                     "attn_bwd_rows_kernel", "ppeg_kernel", "ppeg_bwd_kernel")
 # the CLIP baseline (train_pretrain): 48 of phase 5's slides train (3
@@ -2111,14 +2146,11 @@ def phase_ddp(torch, root: Path, feat_dir: Path, rna_csv: Path, model_kwargs):
     return launches, dict(times=times, pairs=pairs)
 
 
-def ddp_group_check(torch, root: Path, host, args, model_kwargs, ranks: int, backend: str):
-    """``ranks`` processes of ``parallel/worker.py`` over ``backend`` (gloo:
-    all on the one card; nccl: one a card), a global batch of ``B`` split
-    evenly with global negatives, the masking noise and eps injected and
-    dropout 0, against the one-process step on the card from the same
-    weights, batch and draws at phase 5's bars; the ranks' weights the same
-    bits after the update; then again with ``--optimizer-sharding``.
-    Returns the times of each run."""
+def group_reference(torch, host, args, model_kwargs, **spec_extra):
+    """The worker's spec of one step on ``host`` (dropout 0, the masking
+    noise and eps drawn here and injected, global negatives, its gradients
+    dumped) and the one-process step on the card from the same weights,
+    batch and draws: (spec, loss, {leaf: gradient}, bytes of the weights)."""
     import numpy as np
 
     from mirror_tpu_torch import train_mirror
@@ -2138,7 +2170,7 @@ def ddp_group_check(torch, root: Path, host, args, model_kwargs, ranks: int, bac
                 negatives="global", lr=2e-5, loss_weights=tuple(weights),
                 mask_ratios=(args.wsi_mask_ratio, args.rna_mask_ratio),
                 batches=[{k: torch.from_numpy(host[k]) for k in ("wsi", "rna")}],
-                noise=[noise], dump=("grads",), reps=DDP_REPS)
+                noise=[noise], dump=("grads",), reps=DDP_REPS, **spec_extra)
     model = create_model("mirror", device="cuda", generator=torch.Generator().manual_seed(SEED),
                          **kw)
     step = make_mirror_train_step(model, make_optimizer(args, model, 2e-5), weights,
@@ -2147,11 +2179,31 @@ def ddp_group_check(torch, root: Path, host, args, model_kwargs, ranks: int, bac
     ref_loss = float(step(batch, noise={k: v.cuda() for k, v in noise.items()})["loss"])
     ref = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
            if p.grad is not None}
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     del model, step, batch
     torch.cuda.empty_cache()
+    return spec, ref_loss, ref, param_bytes
+
+
+def ddp_group_check(torch, root: Path, host, args, model_kwargs, ranks: int, backend: str,
+                    model_parallel: int = 1):
+    """``ranks`` processes of ``parallel/worker.py`` over ``backend`` (gloo:
+    all on the one card; nccl: one a card), at ``--model-parallel
+    model_parallel``, a global batch of ``B`` split evenly over the data
+    ranks with global negatives, the masking noise and eps injected and
+    dropout 0, against the one-process step on the card from the same
+    weights, batch and draws at phase 5's bars (the gradients gathered
+    whole); the ranks' weights the same bits after the update; then again
+    with ``--optimizer-sharding``. Returns the times of each run."""
+    import numpy as np
+
+    spec, ref_loss, ref, _ = group_reference(torch, host, args, model_kwargs,
+                                             model_parallel=model_parallel)
+    data = ranks // model_parallel
     runs = {}
     for zero1 in (False, True):
-        name = f"{backend}_{ranks}{'_zero1' if zero1 else ''}"
+        name = f"{backend}_{ranks}{f'_mp{model_parallel}' if model_parallel > 1 else ''}" \
+            f"{'_zero1' if zero1 else ''}"
         outs = ddp_ranks(torch, root, name, spec, ["--config", str(PRETRAIN_YAML)]
                          + (["--optimizer-sharding"] if zero1 else []), ranks, backend)
         same = len({o["digests"][0] for o in outs}) == 1 and \
@@ -2169,8 +2221,9 @@ def ddp_group_check(torch, root: Path, host, args, model_kwargs, ranks: int, bac
         def spread(key, fmt):
             return " / ".join(format(v, fmt) for v in runs[name][key])
 
-        say(f"[ddp] {name}: {ranks} processes over {backend}, batch {B} as {ranks} x "
-            f"{B // ranks}, global negatives: loss {loss:.6g} vs one process {ref_loss:.6g} "
+        say(f"[ddp] {name}: {ranks} processes over {backend} (data {data} x model "
+            f"{model_parallel}), batch {B} as {data} x {B // data}, global negatives: loss "
+            f"{loss:.6g} vs one process {ref_loss:.6g} "
             f"(relative {rel:.3g}, bound {BOUND_STEP_LOSS:g}); averaged gradients over "
             f"{len(ref)} leaves, worst cosine {worst:.6f} ({worst_leaf}), norm ratio furthest "
             f"from 1 {worst_ratio:.5f} (bounds {BOUND_GRAD_COS}, {BOUND_GRAD_NORM:g}); the "
@@ -2196,7 +2249,7 @@ def ddp_group_check(torch, root: Path, host, args, model_kwargs, ranks: int, bac
 def phase_ddp_cards(torch, ranks: int) -> None:
     """``chip_smoke.py --ddp-ranks R`` on R cards of one host: the kernels
     built, phase 5's cohort written, and :func:`ddp_group_check` with one
-    process a card over NCCL."""
+    process a card over NCCL; then again at data R / 2 x model 2."""
     from mirror_tpu_torch.config import model_kwargs_from_args, parse_args
     from mirror_tpu_torch.data.datasets import PretrainDataset
     from mirror_tpu_torch.data.loader import Loader
@@ -2213,6 +2266,129 @@ def phase_ddp_cards(torch, ranks: int) -> None:
         dataset = PretrainDataset(str(feat_dir), str(rna_csv), N_TOKENS, splits=str(split_dir))
         host = next(iter(Loader(dataset, B, shuffle=True, seed=SEED, workers=8)))
         ddp_group_check(torch, Path(tmp), host, args, kw, ranks, "nccl")
+        if ranks % TP_MODEL_PARALLEL == 0 and ranks > TP_MODEL_PARALLEL:
+            ddp_group_check(torch, Path(tmp), host, args, kw, ranks, "nccl",
+                            model_parallel=TP_MODEL_PARALLEL)
+
+
+def phase_tp(torch, root: Path, feat_dir: Path, rna_csv: Path, model_kwargs):
+    """Tensor parallelism on the one card (phase 5e in the docstring):
+    ``train_mirror.main`` in one process, then at ``--model-parallel 2`` in
+    two gloo processes, with and without ZeRO-1, and one injected step, in
+    one spawn. Returns rank 0's launches of the model-parallel run."""
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch import train_mirror
+    from mirror_tpu_torch.config import parse_args
+    from mirror_tpu_torch.data.datasets import PretrainDataset
+    from mirror_tpu_torch.data.loader import Loader
+    from mirror_tpu_torch.parallel import worker
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
+
+    t0 = time.perf_counter()
+    mp = TP_MODEL_PARALLEL
+    split_dir = root / "splits_tp"
+    split_dir.mkdir(parents=True)
+    ids = sorted(p.stem[:12] for p in feat_dir.glob("*.npy"))[:DDP_STEPS * B]
+    pd.DataFrame({"train": ids, "val": [None] * len(ids)}).to_csv(split_dir / "splits_0.csv")
+    argv = ["--config", str(PRETRAIN_YAML), "--wsi-feature-dir", str(feat_dir),
+            "--rna-feature-csv", str(rna_csv), "--split-dir", str(split_dir), "--fold-nb", "0",
+            "--output", str(root / "runs"), "--no-val", "--batch-size", str(B), "--epochs", "1",
+            "--log-interval", "1", "--seed", str(SEED), "--workers", "8",
+            "--checkpoint-hist", "1", "--model-kwargs", "wsi_dropout=0.0",
+            "rna_proj_drop_rate=0.0"]
+    run_entry_point(torch, "tp one", train_mirror.main, argv + ["--experiment", "tp_one"],
+                    DDP_STEPS)
+
+    args, _ = parse_args(argv)
+    dataset = PretrainDataset(str(feat_dir), str(rna_csv), N_TOKENS, splits=str(split_dir))
+    host = next(iter(Loader(dataset, B, shuffle=True, seed=SEED, workers=8)))
+    spec, ref_loss, ref, one_bytes = group_reference(torch, host, args, model_kwargs,
+                                                     model_parallel=mp, ema=True,
+                                                     argv=["--config", str(PRETRAIN_YAML)])
+    tp_argv = argv + ["--model-parallel", str(mp)]
+    cases = [dict(cli="mirror_tpu_torch.train_mirror", argv=tp_argv + ["--experiment", "tp"]),
+             dict(cli="mirror_tpu_torch.train_mirror",
+                  argv=tp_argv + ["--optimizer-sharding", "--experiment", "tp_zero1"]),
+             spec]
+    path = root / "tp.spec.pt"
+    torch.save(dict(device="cuda", cases=cases), path)
+    t1 = time.perf_counter()
+    try:
+        outs = worker.launch(path, root / "tp", mp, root / "tp.rdv", DDP_TIMEOUT_S,
+                             env={"MIRROR_DIST_BACKEND": "gloo", "OMP_NUM_THREADS": "4"})
+    except RuntimeError as e:
+        fail(f"[tp] the ranks failed: {str(e)[-3000:]}")
+    spawn_s = time.perf_counter() - t1
+    cli, cli_zero1, step = ([o["cases"][i] for o in outs] for i in range(3))
+    launches = cli[0]["launches"]
+    say(f"[train_tp] train_mirror.main at --model-parallel {mp} in {mp} gloo processes on the "
+        f"one card (data 1 x model {mp}), {DDP_STEPS} steps at batch {B}; rank 0's kernel "
+        f"launches {json.dumps(launches)}; rank 1's {json.dumps(cli[1]['launches'])}")
+    missing = [k for k in FORWARD + BACKWARD if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"[tp] the model-parallel run never launched: {missing}")
+
+    runs = root / "runs" / "pretrain"
+    losses = {d: pd.read_csv(runs / d / "summary.csv").filter(like="loss").iloc[0]
+              for d in ("tp_one", "tp", "tp_zero1")}
+    rel = float(max(abs(losses["tp"][k] - v) / abs(v) for k, v in losses["tp_one"].items()
+                    if v != 0))
+    one, two, two_zero1 = (load_checkpoint_file(str(runs / d / "last.pth.tar"))
+                           for d in ("tp_one", "tp", "tp_zero1"))
+    kw = run_args(one)["model_kwargs"]
+    init = create_model("mirror", device="cpu", generator=torch.Generator().manual_seed(SEED),
+                        **kw).state_dict()
+    shapes_same = {k: v.shape for k, v in two["state_dict"].items()} == \
+        {k: v.shape for k, v in one["state_dict"].items()}
+    worst, worst_leaf, ratio = grad_agreement(
+        *({k: d[k].float() - v.float() for k, v in init.items()}
+          for d in (two["state_dict"], one["state_dict"])))
+    zero1_leaf = first_difference(torch, two["state_dict"], two_zero1["state_dict"])
+    say(f"[tp] losses of the epoch (train_*_loss) at --model-parallel {mp} against one "
+        f"process: worst relative {rel:.3g} (bound {TP_BOUND_EPOCH_LOSS:g}); the saved "
+        f"weights {'at' if shapes_same else 'NOT at'} the one-process keys and shapes; each "
+        f"leaf's update against one process's over {len(init)} leaves (not gated): worst "
+        f"cosine {worst:.6f} ({worst_leaf}), norm ratio furthest from 1 {ratio:.5f}; "
+        f"--optimizer-sharding's weights "
+        f"{'the same bits' if zero1_leaf is None else 'differ first at ' + zero1_leaf}")
+    if not shapes_same:
+        fail("[tp] the model-parallel checkpoint is not at the one-process keys and shapes")
+    if not (np.isfinite(rel) and rel <= TP_BOUND_EPOCH_LOSS):
+        fail(f"[tp] the model-parallel run's losses are {rel:.3g} off one process's")
+    if zero1_leaf is not None:
+        fail(f"[tp] --optimizer-sharding changed the weights first at {zero1_leaf}")
+
+    # the injected step: gradients, bytes a rank, the step's median
+    same = len({o["digests"][0] for o in step}) == 1
+    loss = step[0]["metrics"][0]["loss"]
+    step_rel = abs(loss - ref_loss) / abs(ref_loss)
+    g_worst, g_leaf, g_ratio = grad_agreement(step[0]["grads"], ref)
+    sizes = {"parameters": (one_bytes, [o["param_bytes"] for o in step]),
+             "Adam moments": (2 * one_bytes, [o["optimizer_bytes"] for o in step]),
+             "EMA": (one_bytes, [o["ema_bytes"] for o in step])}
+    medians = " / ".join(f"{o['step_ms']:.3f}" for o in step)
+    say(f"[tp] one injected step at --model-parallel {mp}: loss {loss:.6g} vs one process "
+        f"{ref_loss:.6g} (relative {step_rel:.3g}); gradients gathered whole over "
+        f"{len(ref)} leaves, worst cosine {g_worst:.6f} ({g_leaf}), norm ratio furthest from "
+        f"1 {g_ratio:.5f} (bounds {TP_BOUND_STEP_LOSS:g}, {TP_BOUND_GRAD_COS}, "
+        f"{TP_BOUND_GRAD_NORM:g}); the ranks' weights {'the same bits' if same else 'DIFFER'}; "
+        + "; ".join(f"{k} {' / '.join(f'{b / 2**20:.1f}' for b in per)} MiB a rank vs "
+                    f"{whole / 2**20:.1f} MiB in one process" for k, (whole, per) in sizes.items())
+        + f"; step median {medians} ms of {DDP_REPS} (host clock around a synchronized "
+        f"step); spawn {spawn_s:.1f} s")
+    if not (same and np.isfinite(loss) and step_rel <= TP_BOUND_STEP_LOSS
+            and g_worst >= TP_BOUND_GRAD_COS and abs(g_ratio - 1.0) <= TP_BOUND_GRAD_NORM):
+        fail(f"[tp] the model-parallel step leaves phase 5e's bars (loss {step_rel:.3g}, "
+             f"worst leaf {g_leaf} at cosine {g_worst:.6f}, norm ratio {g_ratio:.5f})")
+    if not all(max(per) < whole for whole, per in sizes.values()):
+        fail(f"[tp] a rank holds as much as one process: {sizes}")
+    say(f"[tp] phase {time.perf_counter() - t0:.1f} s")
+    return launches, dict(loss_rel=rel, update_cos=worst, step_loss_rel=step_rel,
+                          grad_cos=g_worst, bytes=sizes,
+                          step_ms=[o["step_ms"] for o in step], spawn_s=spawn_s)
 
 
 def clip_step_card_vs_cpu(torch, argv, wsi, rna):
@@ -3338,6 +3514,9 @@ def main() -> int:
         train_ddp, _ = phase_ddp(torch, Path(tmp) / "ddp", Path(tmp) / "train" / "features",
                                  Path(tmp) / "train" / "rna.csv",
                                  run_model_kwargs(Path(tmp) / "train"))
+        train_tp, _ = phase_tp(torch, Path(tmp) / "tp", Path(tmp) / "train" / "features",
+                               Path(tmp) / "train" / "rna.csv",
+                               run_model_kwargs(Path(tmp) / "train"))
         with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp_fg:
             featgen = phase_featgen(torch, Path(tmp_fg))
         pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
@@ -3348,8 +3527,9 @@ def main() -> int:
         whole_slide, _, ws_kernels = phase_whole_slide(torch, Path(tmp))
     merge_shapes({k["name"]: k for k in kernels}, ws_kernels)
     # the main paths' launches: predict's, the train step's (implicit and
-    # exact pinv gradient, one step with --grad-checkpointing, and the
-    # one-rank NCCL run of phase 5d), the
+    # exact pinv gradient, one step with --grad-checkpointing, the
+    # one-rank NCCL run of phase 5d and rank 0's model-parallel run of
+    # phase 5e), the
     # CLIP baseline's, feature extraction's (its
     # three runs), the downstream entry points' (and the optimizer side's
     # survival run), the self-test's and encode_slide's (the whole-slide
@@ -3358,7 +3538,7 @@ def main() -> int:
     # ln_qkv and ln_qkv_bwd, library-only as in the JAX package, run on the
     # probes' path (exp_ln_qkv), as do the kernels the probes added
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
-             "train_gradckpt": gradckpt, "train_ddp": train_ddp,
+             "train_gradckpt": gradckpt, "train_ddp": train_ddp, "train_tp": train_tp,
              "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
              "survival": down["survival"], "survival_opt": down["survival_opt"],
              "selftest": selftest_launches, "probes": probe_launches,

@@ -215,7 +215,6 @@ _IGNORED_KEYS = {
 # flags this port does not implement: (dest, what it would need, the
 # ROADMAP item that ports it)
 _UNPORTED = (
-    ("model_parallel", "tensor parallelism", 16),
     ("ckpt_format", "the JAX package's checkpoints", 17),
 )
 # what each task's port runs of --model and --loss; pretrain: train_mirror

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv1d import depthwise_conv_seq_ref
+from ..ops.conv1d import depthwise_conv_seq_plain
 from ..ops.landmark import landmark_softmax
 from ..ops.nystrom_attn import (
     fused_softmax_attn_conv,
@@ -156,7 +156,7 @@ class NystromAttention(nn.Module):
         w = torch.matmul(attn2_inv, r3)
         out = torch.einsum("bhij,bhjd->bihd", attn1, w).to(x.dtype)  # [b, n_pad, h, dh]
         if self.res_conv is not None:
-            res = depthwise_conv_seq_ref(v.transpose(1, 2).to(cdt), self._res_kernel(cdt))
+            res = depthwise_conv_seq_plain(v.transpose(1, 2).to(cdt), self._res_kernel(cdt))
             out = out + res.to(cdt).transpose(1, 2).to(out.dtype)
         out = self.to_out(out.reshape(b, n_pad, h * dh))
         return out[:, -n:]

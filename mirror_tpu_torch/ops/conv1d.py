@@ -152,6 +152,30 @@ class DepthwiseConv1dSeq(torch.autograd.Function):
         return dv, dkern.to(kern.dtype)
 
 
+class PlainConvSeq(torch.autograd.Function):
+    """:func:`depthwise_conv_seq_ref` (fp32 out) with the explicit sums of
+    :func:`depthwise_conv_seq_bwd_ref` as its backward: autograd through
+    torch's CPU fp32 depthwise ``conv2d`` gives a wrong weight gradient at
+    some shapes (4e-2 off at v [1, 4, 256, 8], K 33)."""
+
+    @staticmethod
+    def forward(ctx, v, kern):
+        ctx.save_for_backward(v, kern)
+        return depthwise_conv_seq_ref(v, kern)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, kern = ctx.saved_tensors
+        dv, dkern = depthwise_conv_seq_bwd_ref(v, kern, g)
+        return dv.to(v.dtype), dkern.to(kern.dtype)
+
+
+def depthwise_conv_seq_plain(v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """The plain path's differentiable conv (:class:`PlainConvSeq`): the
+    forward of :func:`depthwise_conv_seq_ref`, in fp32, on any device."""
+    return PlainConvSeq.apply(v, kern)
+
+
 def depthwise_conv1d_seq(v: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     """SAME zero-padded depthwise conv along axis 2: out[..., i, :] =
     sum_j kern[h, j] * v[..., i + j - K//2, :]. v [b, h, n, d]; kern [h, K]

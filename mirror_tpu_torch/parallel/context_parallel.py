@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from ..models.nystrom import NystromAttention
 from ..models.transmil import FeatureTransMIL, _square_pad_tokens
 from ..ops import _common
-from ..ops.conv1d import depthwise_conv1d_seq, depthwise_conv_seq_ref
+from ..ops.conv1d import depthwise_conv1d_seq, depthwise_conv_seq_plain
 from ..ops.nystrom_attn import (
     KERNEL,
     KERNEL_BWD,
@@ -87,11 +87,11 @@ def _combine(o: torch.Tensor, lse: torch.Tensor):
     """(lse_g, r3): the row log-sum-exp over every rank's columns and the
     ranks' attention parts o (each normalised by its own lse) combined in
     fp32, rounded to o's dtype."""
-    if not distributed.multi():
+    if distributed.world_size() == 1:
         return lse, o
     lse_g = torch.logsumexp(torch.stack(distributed.gather_parts(lse)), dim=0)
     part = torch.exp(lse - lse_g).unsqueeze(-1) * o.float()
-    return lse_g, distributed.all_reduce(part).to(o.dtype)
+    return lse_g, distributed.all_reduce(part, axis="world").to(o.dtype)
 
 
 class KvCombine(torch.autograd.Function):
@@ -123,8 +123,8 @@ class KvCombine(torch.autograd.Function):
     def backward(ctx, g):
         q_l, k, v, lse_g, r3 = ctx.saved_tensors
         g = _common.grad_or_zeros(g, r3)
-        if distributed.multi():
-            g = distributed.all_reduce(g).to(r3.dtype)
+        if distributed.world_size() > 1:
+            g = distributed.all_reduce(g, axis="world").to(r3.dtype)
         if ctx.kernels:
             dq, dk, dv, _, _ = _launch_bwd(q_l, k, v, g, lse_g, r3, None, None)
             _common.count_launch(KERNEL_BWD)
@@ -167,7 +167,7 @@ def _cp_core(q, k, v, kern, m: int, iters: int, pinv_grad: str, kernels: bool):
     def conv(x):
         if kernels:
             return depthwise_conv1d_seq(x, kern)
-        return depthwise_conv_seq_ref(x, kern.to(x.dtype)).to(x.dtype)
+        return depthwise_conv_seq_plain(x, kern.to(x.dtype)).to(x.dtype)
 
     halo = kern.shape[1] // 2
     if n_loc >= halo:

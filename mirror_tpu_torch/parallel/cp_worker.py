@@ -69,7 +69,7 @@ def _attention(case: Dict, device: torch.device) -> Dict:
     res = {"out": _gathered(out)}
     if t is not None:
         res["gx"] = _gathered(x.grad)
-        res["grads"] = {n: distributed.all_reduce(p.grad).cpu()
+        res["grads"] = {n: distributed.all_reduce(p.grad, axis="world").cpu()
                         for n, p in attn.named_parameters()}
     return res
 

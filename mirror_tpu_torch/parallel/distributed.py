@@ -28,6 +28,19 @@ computes:
   broadcasts rank 0's parameters when it wraps the model (every rank builds
   the same weights from the seed anyway).
 
+With ``--model-parallel N`` (tensor parallelism, ``tensor_parallel.py``)
+the group is ``create_mesh``'s (data, model) grid, ``reshape(R // N, N)``:
+global rank r is data rank r // N and model rank r % N, a model group is N
+consecutive ranks and a data group the ranks of one model rank, at stride
+N (:func:`set_model_parallel`, which :func:`session` calls). Every helper
+that pools the BATCH (:func:`own_rows`, :func:`process_info`,
+:func:`all_reduce`, :func:`allgather_rows`, :func:`gather_rows`,
+:func:`broadcast_`, :func:`refuse_indivisible`) and :func:`multi` run over
+the data group, so the data-parallel math reads the data rank and size;
+:func:`agree` and :func:`is_main` stay the whole group's, and so do the
+collectives of context parallelism, which runs without a model axis. With
+no model axis the data group is the whole group.
+
 With no group every helper is the identity of one process.
 """
 
@@ -63,19 +76,94 @@ def is_main() -> bool:
     return rank() == 0
 
 
+# the (data, model) layout of the live group: the model axis' size and
+# this rank's two subgroups (None: the whole group, where the axis is all
+# of it)
+_PLAIN = {"model_parallel": 1, "data": None, "model": None}
+_LAYOUT = dict(_PLAIN)
+
+
+def model_parallel() -> int:
+    """N of ``--model-parallel N``: the ranks that share one data rank."""
+    return _LAYOUT["model_parallel"] if initialized() else 1
+
+
+def data_size() -> int:
+    return world_size() // model_parallel()
+
+
+def data_rank() -> int:
+    return rank() // model_parallel()
+
+
+def model_rank() -> int:
+    return rank() % model_parallel()
+
+
+def data_group():
+    """The process group of this rank's data ranks (None: the whole group)."""
+    return _LAYOUT["data"]
+
+
 def multi() -> bool:
-    """More than one rank: the collectives of the data-parallel math run."""
-    return world_size() > 1
+    """More than one data rank: the collectives of the data-parallel math
+    run."""
+    return data_size() > 1
+
+
+def refuse_model_parallel(model_parallel_: int, world: int) -> None:
+    """``create_mesh``'s assertion (``mirror_tpu/parallel/mesh.py:32``) as a
+    refusal by name: N must be at least 1 and divide the world size."""
+    if model_parallel_ < 1 or world % model_parallel_:
+        raise SystemExit(
+            f"--model-parallel {model_parallel_}: tensor parallelism needs a world size that "
+            f"is a multiple of {model_parallel_} (this run has {world} process"
+            f"{'es' if world != 1 else ''}); start a multiple of {max(model_parallel_, 1)} "
+            "ranks, or leave --model-parallel at 1")
+
+
+def set_model_parallel(model_parallel_: int) -> None:
+    """Cut the live group into ``create_mesh``'s grid of data x model ranks
+    (``model_parallel_`` consecutive ranks a data rank). Every rank calls
+    it: each subgroup is made on all of them, in the same order. 1 restores
+    the plain layout."""
+    world = world_size()
+    refuse_model_parallel(model_parallel_, world)
+    mp, r = model_parallel_, rank()
+    _LAYOUT.update(_PLAIN)
+    if mp == 1:
+        return
+    for d in range(world // mp):
+        group = dist.new_group([d * mp + m for m in range(mp)])
+        if r // mp == d:
+            _LAYOUT["model"] = group
+    for m in range(mp):
+        group = dist.new_group(list(range(m, world, mp)))
+        if r % mp == m:
+            _LAYOUT["data"] = group
+    _LAYOUT.update(model_parallel=mp)
+    _logger.info("model-parallel: rank %d is data rank %d/%d, model rank %d/%d", r,
+                 data_rank(), data_size(), model_rank(), mp)
+
+
+def _axis(axis: str):
+    """(process group, this rank's index in it, its size) of ``axis``:
+    ``data``, ``model`` or ``world``."""
+    if axis == "data":
+        return _LAYOUT["data"], data_rank(), data_size()
+    if axis == "model":
+        return _LAYOUT["model"], model_rank(), model_parallel()
+    return None, rank(), world_size()
 
 
 def process_info(process_index: Optional[int] = None,
                  process_count: Optional[int] = None) -> Tuple[int, int]:
-    """(process_index, process_count), defaulting to the live group (0 and
-    1 without one)."""
+    """(process_index, process_count), defaulting to the live group's data
+    rank and size (0 and 1 without one)."""
     if process_index is None:
-        process_index = rank()
+        process_index = data_rank()
     if process_count is None:
-        process_count = world_size()
+        process_count = data_size()
     return process_index, process_count
 
 
@@ -92,8 +180,9 @@ def local_block(chunk: np.ndarray, process_index: int, process_count: int) -> np
 
 def own_rows(x):
     """This rank's rows of a global-batch array or tensor
-    (:func:`local_block` of the live group); ``x`` with one process."""
-    return local_block(x, rank(), world_size())
+    (:func:`local_block` of the live group's data ranks); ``x`` with one
+    process."""
+    return local_block(x, data_rank(), data_size())
 
 
 def _env_contract() -> Optional[Tuple[str, int, int, Optional[int]]]:
@@ -147,14 +236,22 @@ def maybe_initialize(args=None, device: Optional[torch.device] = None) -> torch.
 
 @contextlib.contextmanager
 def session(args, device: torch.device) -> Iterator[torch.device]:
-    """:func:`maybe_initialize` for the length of a run; the group is
-    destroyed on the way out if this call made it."""
+    """:func:`maybe_initialize` for the length of a run, cut into data x
+    model ranks by ``args.model_parallel`` (:func:`set_model_parallel`;
+    refused by name where the world size does not divide by it); the group
+    is destroyed on the way out if this call made it."""
+    mp = int(getattr(args, "model_parallel", 1) or 1)
+    refuse_model_parallel(mp, world_size() if initialized() else (
+        (_env_contract() or (None, 1))[1]))
     made = not initialized()
     device = maybe_initialize(args, device)
     made = made and initialized()
     try:
+        if initialized():
+            set_model_parallel(mp)
         yield device
     finally:
+        _LAYOUT.update(_PLAIN)
         if made:
             dist.destroy_process_group()
 
@@ -168,34 +265,37 @@ def _comm_device() -> torch.device:
 
 
 def allgather_rows(array) -> np.ndarray:
-    """Concatenate every rank's host array (equal shapes) along axis 0 in
-    rank order, the global row order under the blocked layout; the array
-    itself with one process."""
+    """Concatenate every data rank's host array (equal shapes) along axis 0
+    in rank order, the global row order under the blocked layout; the array
+    itself with one data rank."""
     array = np.asarray(array)
     if not multi():
         return array
     dtype = array.dtype
     t = torch.from_numpy(np.ascontiguousarray(array.astype(np.float64) if dtype == bool
                                               else array)).to(_comm_device())
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(data_size())]
+    dist.all_gather(parts, t, group=_LAYOUT["data"])
     return torch.cat(parts).cpu().numpy().astype(dtype)
 
 
-def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced over the ranks (``sum`` or ``max``) in fp32, a new
-    tensor on t's device (under gloo it travels through the CPU); ``t`` in
-    fp32 with one process. Outside autograd."""
-    out = t.detach().float().to(_comm_device() if multi() else t.device, copy=True)
-    if multi():
-        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+def all_reduce(t: torch.Tensor, op: str = "sum", axis: str = "data") -> torch.Tensor:
+    """``t`` reduced over the ranks of ``axis`` (the data ranks, the model
+    ranks or the whole group; ``sum`` or ``max``) in fp32, a new tensor on
+    t's device (under gloo it travels through the CPU); ``t`` in fp32 with
+    one rank on the axis. Outside autograd."""
+    group, _, size = _axis(axis)
+    out = t.detach().float().to(_comm_device() if size > 1 else t.device, copy=True)
+    if size > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                        group=group)
     return out.to(t.device)
 
 
 def agree(flag: bool, device: Optional[torch.device] = None) -> bool:
-    """True on every rank when any rank says True (a one-element MAX
-    all-reduce); ``flag`` with one process."""
-    if not multi():
+    """True on every rank of the whole group when any rank says True (a
+    one-element MAX all-reduce); ``flag`` with one process."""
+    if world_size() == 1:
         return bool(flag)
     t = torch.tensor([1.0 if flag else 0.0], device=device or _comm_device())
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
@@ -204,25 +304,28 @@ def agree(flag: bool, device: Optional[torch.device] = None) -> bool:
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """The global batch of a per-rank tensor, in the autograd graph where x
-    is: :func:`gather_along` its rows (the backward sums the incoming
-    gradient over the ranks, each rank differentiating its own copy of a
-    function of the whole batch, and keeps this rank's rows); ``x`` itself
-    with one process."""
-    return gather_along(x, 0)
+    is: :func:`gather_along` its rows over the data ranks (the backward sums
+    the incoming gradient over them, each rank differentiating its own copy
+    of a function of the whole batch, and keeps this rank's rows); ``x``
+    itself with one data rank."""
+    return gather_along(x, 0, "data")
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int) -> None:
-    """Broadcast ``tensors`` (each rank holds the same shapes) from rank
-    ``src`` in place, one collective per dtype: flattened into one buffer."""
+    """Broadcast ``tensors`` (each rank holds the same shapes) from data
+    rank ``src`` over the data group in place, one collective per dtype:
+    flattened into one buffer."""
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
+    mine = data_rank() == src
     for group in by_dtype.values():
-        flat = torch.cat([t.detach().reshape(-1) for t in group]) if rank() == src else \
+        flat = torch.cat([t.detach().reshape(-1) for t in group]) if mine else \
             torch.empty(sum(t.numel() for t in group), dtype=group[0].dtype,
                         device=group[0].device)
-        dist.broadcast(flat, src=src)
-        if rank() != src:
+        # src is a data rank; the collective takes the global rank
+        dist.broadcast(flat, src=src * model_parallel() + model_rank(), group=_LAYOUT["data"])
+        if not mine:
             for t, piece in zip(group, flat.split([t.numel() for t in group])):
                 t.detach().copy_(piece.view(t.shape))
 
@@ -238,36 +341,40 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int) -> None:
 # is ``context_parallel.KvCombine``'s own (its forward and backward).
 # --------------------------------------------------------------------------
 
-def gather_parts(x: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's ``x`` (equal shapes), in rank order, on x's device.
-    They travel as bytes, so any dtype goes over any backend unchanged,
-    and under gloo through the CPU (:func:`_comm_device`)."""
+def gather_parts(x: torch.Tensor, axis: str = "world") -> List[torch.Tensor]:
+    """Every rank's ``x`` (equal shapes) on ``axis`` (:func:`_axis`), in
+    rank order, on x's device. They travel as bytes, so any dtype goes over
+    any backend unchanged, and under gloo through the CPU
+    (:func:`_comm_device`)."""
+    group, _, size = _axis(axis)
     flat = x.detach().contiguous().reshape(-1).view(torch.uint8).to(_comm_device())
-    parts = [torch.empty_like(flat) for _ in range(world_size())]
-    dist.all_gather(parts, flat)
+    parts = [torch.empty_like(flat) for _ in range(size)]
+    dist.all_gather(parts, flat, group=group)
     return [p.to(x.device).view(x.dtype).view(x.shape) for p in parts]
 
 
 class _GatherAlong(torch.autograd.Function):
-    """Every rank's block concatenated along ``dim`` in rank order; the
-    backward sums the incoming gradient over the ranks (each rank's is a
-    partial) and keeps this rank's block."""
+    """Every rank's block on ``axis`` concatenated along ``dim`` in rank
+    order; the backward sums the incoming gradient over those ranks (each
+    rank's is a partial) and keeps this rank's block."""
 
     @staticmethod
-    def forward(ctx, x, dim: int):
-        ctx.dim, ctx.size = dim, x.shape[dim]
-        return torch.cat(gather_parts(x), dim)
+    def forward(ctx, x, dim: int, axis: str):
+        ctx.dim, ctx.size, ctx.axis = dim, x.shape[dim], axis
+        return torch.cat(gather_parts(x, axis), dim)
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce(g).to(g.dtype)
-        return g.narrow(ctx.dim, rank() * ctx.size, ctx.size).contiguous(), None
+        g = all_reduce(g, axis=ctx.axis).to(g.dtype)
+        index = _axis(ctx.axis)[1]
+        return g.narrow(ctx.dim, index * ctx.size, ctx.size).contiguous(), None, None
 
 
-def gather_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+def gather_along(x: torch.Tensor, dim: int, axis: str = "world") -> torch.Tensor:
     """The tiled all-gather of every rank's block of equal size along
-    ``dim`` (:class:`_GatherAlong`); ``x`` itself with one rank."""
-    return _GatherAlong.apply(x, dim) if multi() else x
+    ``dim`` over ``axis``'s ranks (:class:`_GatherAlong`); ``x`` itself with
+    one rank there."""
+    return _GatherAlong.apply(x, dim, axis) if _axis(axis)[2] > 1 else x
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -307,7 +414,7 @@ class _HaloExchange(torch.autograd.Function):
 def halo_exchange(x: torch.Tensor, dim: int, halo: int) -> torch.Tensor:
     """:class:`_HaloExchange` (``halo`` at most this rank's rows); with one
     rank the block zero-padded by ``halo`` rows on each side."""
-    if multi():
+    if world_size() > 1:
         return _HaloExchange.apply(x, dim, halo)
     pad = [0, 0] * (x.dim() - 1 - dim) + [halo, halo]
     return torch.nn.functional.pad(x, pad)
@@ -317,8 +424,9 @@ def refuse_indivisible(batch_size: int, shrinkable: bool = False) -> None:
     """The JAX CLIs' refusal of a global batch that does not divide over
     the data axis (``train_mirror.py:68-72``; with ``shrinkable``, the
     downstream CLIs' multi-process form, ``parallel/mesh.py:108-112``):
-    ranks cannot be left idle the way a one-process mesh shrinks."""
-    n = world_size()
+    ranks cannot be left idle the way a one-process mesh shrinks. The model
+    axis takes no share of the batch (``fit_mesh_to_batch``, ``mesh.py:110-113``)."""
+    n = data_size()
     if batch_size % n == 0:
         return
     if shrinkable:

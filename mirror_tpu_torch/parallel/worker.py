@@ -14,22 +14,34 @@ MIRROR_PROCESS_ID=0``). ``SPEC`` is a ``torch.save``'d dict:
 - ``batches``: global batches ({"wsi", "rna"}), and for ``mirror`` either
   ``noise`` (one global dict of draws a batch; each rank takes its block)
   or a ``generator_seed`` for the step's own draws;
-- optional ``optimizer_state`` to load before the steps, ``snapshot_after``
-  (after that many steps, the weights and the optimizer's gathered state
-  in the output: a collective), ``dump`` (``weights`` and / or ``grads``:
-  the weights after the last step, the averaged gradients of the last
-  step), ``reps`` (steps timed after the batches, on the last batch).
+- optional ``model_parallel`` (``--model-parallel N``: the model's wide
+  layers split over N ranks a data rank, ``tensor_parallel.shard_model``),
+  ``optimizer_state`` to load before the steps, ``snapshot_after`` (after
+  that many steps, the weights and the optimizer's gathered state in the
+  output: a collective), ``dump`` (``weights`` and / or ``grads``: the
+  weights after the last step, the averaged gradients of the last step),
+  ``reps`` (steps timed after the batches, on the last batch), ``ema`` (a
+  ``ModelEma`` updated by the steps);
+- or ``cases``: a list of such specs, run one after the other in the one
+  group (each with its own layout), or of ``{"cli": module, "argv": [...]}``
+  entries that run a training CLI's ``main`` in the group (a refusal's
+  message is kept as ``refused``; the kernel launches of the run as
+  ``launches``).
 
-Each rank writes ``OUT.<rank>``: the digest of its weights before the
-wrap and after each step, each step's metrics, what ``dump`` asks for,
-and the times (the group's init, the first step, the timed steps' median),
-on the host's clock around steps that end in a device synchronize.
+Each rank writes ``OUT.<rank>``: the digest of its weights (whole leaves,
+gathered over the model ranks) before the wrap and after each step, each
+step's metrics, what ``dump`` asks for (whole leaves too), the bytes of
+its parameters and optimizer state, and the times (the group's init, the
+first step, the timed steps' median), on the host's clock around steps
+that end in a device synchronize; with ``cases``, the list of their
+outputs.
 :func:`start` runs R ranks as subprocesses and :func:`launch` also waits
 for them and gathers their outputs; a rank that fails or outlives the
 timeout fails the launch, and every rank is stopped.
 """
 
 import hashlib
+import importlib
 import os
 import subprocess
 import sys
@@ -39,7 +51,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from . import distributed
+from . import distributed, tensor_parallel
 
 
 def digest(tensors) -> str:
@@ -60,7 +72,7 @@ def run(spec: Dict, device: torch.device) -> Dict:
     from ..losses import MirrorLossWeights
     from ..registry import create_model
     from ..train.optim import make_optimizer
-    from ..train.steps import make_clip_train_step, make_mirror_train_step
+    from ..train.steps import ModelEma, make_clip_train_step, make_mirror_train_step
 
     out: Dict = {}
     generator = None if "state_dict" in spec else torch.Generator().manual_seed(spec["seed"])
@@ -68,11 +80,18 @@ def run(spec: Dict, device: torch.device) -> Dict:
                          **spec["model_kwargs"])
     if "state_dict" in spec:
         model.load_state_dict(spec["state_dict"])
-    out["init_digest"] = digest(model.state_dict().values())
+    tensor_parallel.shard_model(model)
+    dims = tensor_parallel.sharded_dims(model)
+
+    def whole_digest():
+        return digest(tensor_parallel.full_state_dict(model).values())
+
+    out["init_digest"] = whole_digest()
     args, _ = parse_args(list(spec.get("argv", [])), task="pretrain")
     optimizer = make_optimizer(args, model, spec["lr"])
     if spec.get("optimizer_state") is not None:
         optimizer.load_state_dict(spec["optimizer_state"])
+    ema = ModelEma(model) if spec.get("ema") else None
     step_gen = None
     if spec.get("generator_seed") is not None:
         step_gen = torch.Generator(device=device).manual_seed(spec["generator_seed"])
@@ -80,11 +99,11 @@ def run(spec: Dict, device: torch.device) -> Dict:
         wsi_ratio, rna_ratio = spec.get("mask_ratios", (0.75, 0.75))
         step = make_mirror_train_step(model, optimizer,
                                       MirrorLossWeights(*spec.get("loss_weights", ())),
-                                      wsi_ratio, rna_ratio, generator=step_gen,
+                                      wsi_ratio, rna_ratio, generator=step_gen, ema=ema,
                                       negatives=spec["negatives"])
     else:
         step = make_clip_train_step(model, optimizer, spec.get("temperature", 0.1),
-                                    generator=step_gen, negatives=spec["negatives"])
+                                    generator=step_gen, ema=ema, negatives=spec["negatives"])
 
     def run_step(i: int) -> Dict:
         batch = {k: distributed.own_rows(v).to(device) for k, v in spec["batches"][i].items()}
@@ -102,17 +121,24 @@ def run(spec: Dict, device: torch.device) -> Dict:
         if i == 0:
             out["first_step_ms"] = 1e3 * (time.perf_counter() - t0)
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
-        out["digests"].append(digest(model.state_dict().values()))
-        if spec.get("snapshot_after") == i + 1:  # every rank: ZeRO-1 gathers
-            out["snapshot"] = {"weights": {k: v.detach().cpu().clone()
-                                           for k, v in model.state_dict().items()},
+        out["digests"].append(whole_digest())
+        if spec.get("snapshot_after") == i + 1:  # every rank: ZeRO-1 and TP gather
+            out["snapshot"] = {"weights": {k: v.detach().cpu().clone() for k, v in
+                                           tensor_parallel.full_state_dict(model).items()},
                                "optimizer": optimizer.state_dict()}
     dump = spec.get("dump", ())
     if "grads" in dump:
-        out["grads"] = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
-                        if p.grad is not None}
+        out["grads"] = {n: tensor_parallel.gather_along_model(p.grad, dims[n]).cpu().clone()
+                        if n in dims else p.grad.detach().cpu().clone()
+                        for n, p in model.named_parameters() if p.grad is not None}
     if "weights" in dump:
-        out["weights"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        out["weights"] = {k: v.detach().cpu().clone()
+                          for k, v in tensor_parallel.full_state_dict(model).items()}
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    out["optimizer_bytes"] = sum(t.numel() * t.element_size()
+                                 for bufs in optimizer.state.values() for t in bufs)
+    if ema is not None:
+        out["ema_bytes"] = sum(p.numel() * p.element_size() for p in ema.module.parameters())
     times = []
     for _ in range(spec.get("reps", 0)):
         _sync(device)
@@ -124,6 +150,27 @@ def run(spec: Dict, device: torch.device) -> Dict:
         out["step_ms"] = sorted(times)[len(times) // 2]
     out["rank"], out["world"] = distributed.rank(), distributed.world_size()
     return out
+
+
+def run_case(case: Dict, device: torch.device) -> Dict:
+    """One entry of a spec's ``cases``: a train-step spec under its own
+    (data, model) layout, or a CLI's ``main`` on its ``argv`` (its result,
+    or the message of the refusal that stopped it, as ``refused``)."""
+    if "cli" in case:
+        from ..ops import _common
+
+        module = importlib.import_module(case["cli"])
+        _common.reset_launch_counts()
+        try:
+            out = {"result": module.main(list(case["argv"]))}
+        except SystemExit as refusal:
+            out = {"refused": str(refusal)}
+        return dict(out, launches=_common.launch_counts())
+    distributed.set_model_parallel(case.get("model_parallel", 1))
+    try:
+        return run(case, device)
+    finally:
+        distributed.set_model_parallel(1)
 
 
 def rank_env(rank: int, world: int, rendezvous: Path, timeout_s: float) -> Dict[str, str]:
@@ -208,7 +255,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with distributed.session(None, torch.device(spec["device"])) as device:
         init_s = time.perf_counter() - t0
-        out = run(spec, device)
+        if "cases" in spec:
+            out = {"cases": [run_case(case, device) for case in spec["cases"]],
+                   "rank": distributed.rank()}
+        else:
+            out = run_case(spec, device)
     out["init_s"] = init_s
     torch.save(out, f"{out_path}.{out['rank']}")
     return 0

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import yaml
 
+from ..parallel.tensor_parallel import load_full_state_dict
+
 _logger = logging.getLogger(__name__)
 
 # torch state_dict wrapper prefixes (DDP, torch.compile)
@@ -126,15 +128,18 @@ def resume_checkpoint(path: str, model: torch.nn.Module, optimizer=None, ema=Non
     its decay ramp restarts and overwrites the restored EMA), the train
     step generator and, unless ``resume_opt`` is False, the optimizer.
     Returns the start epoch, the saved epoch + 1 (timm's rule; a mid-epoch
-    recovery file also starts at the next epoch)."""
+    recovery file also starts at the next epoch). The file holds whole
+    leaves; a model-sharded model (``parallel/tensor_parallel.py``) takes
+    its rank's slices, at whatever model-parallel size the file was
+    written."""
     payload = load_checkpoint_file(path)
-    model.load_state_dict(payload["state_dict"])
+    load_full_state_dict(model, payload["state_dict"])
     if ema is not None:
         ema_state = payload.get("state_dict_ema")
         if not ema_state:
             _logger.warning("%s has no state_dict_ema: the EMA restarts from the resumed "
                             "weights", path)
-        ema.module.load_state_dict(ema_state or payload["state_dict"])
+        load_full_state_dict(ema.module, ema_state or payload["state_dict"])
         ema.updates = int(payload.get("step", 0))
     if generator is not None and payload.get("rng_state") is not None:
         try:

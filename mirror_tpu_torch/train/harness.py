@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..data.loader import Loader
-from ..parallel import distributed
+from ..parallel import distributed, tensor_parallel
 from .checkpoint import resume_checkpoint, save_checkpoint_file
 from .optim import PlateauController, fast_forward_schedule, make_optimizer, scheduled_epochs
 from .steps import ModelEma
@@ -72,7 +72,7 @@ def contrastive_negatives(args, batch_size: int) -> str:
     (``train_mirror.py:159-176``): ``local`` (each rank's own rows, the
     reference's DDP semantics) or ``global``, the same thing with one
     process; a warning where a rank's block has fewer than 2 rows."""
-    n = distributed.world_size()
+    n = distributed.data_size()
     if args.contrastive_negatives == "local" and n > 1:
         _logger.info("contrastive loss: per-rank LOCAL negatives (parity mode)")
         if batch_size // n < 2:
@@ -156,7 +156,7 @@ def train_one_epoch(args, epoch, train_step, loader, device,
         count += 1
         if batch_idx % args.log_interval == 0 or batch_idx == num_batches - 1:
             vals = {k: float(v) for k, v in metrics.items() if not k.startswith("watch/")}
-            rate = host_batch["wsi"].shape[0] * distributed.world_size() / \
+            rate = host_batch["wsi"].shape[0] * distributed.data_size() / \
                 max(time.time() - end, 1e-9)
             _logger.info(
                 "Train: %d [%4d/%d] Loss: %.4g (%.4g)  %s %.1f samples/s", epoch, batch_idx,
@@ -178,7 +178,7 @@ def gather_eval_outputs(eval_step: Callable, dataset, batch_size: int, args, epo
     ranks, and the logits, labels and extras are gathered in rank order
     (``allgather_rows``), so every rank holds the whole split. Returns
     (logits, labels, {key: values for extra_keys})."""
-    n = distributed.world_size()
+    n = distributed.data_size()
     batch_size = (batch_size + n - 1) // n * n
     loader = Loader(dataset.val(), batch_size, shuffle=False, drop_last=False,
                     pad_last=True, seed=args.seed, workers=args.workers)
@@ -246,20 +246,24 @@ def save_epoch(paths: Sequence[str], model, ema, args, epoch: int,
     ``--model-ema`` and what ``--resume`` restores: the optimizer's state,
     its update count as ``step`` and the train step generator's state.
     Every rank calls it (rank 0 with the paths, the others with none): a
-    ZeRO-1 optimizer's state is gathered from all of them first."""
+    ZeRO-1 optimizer's state is gathered from all of them first, and under
+    tensor parallelism the weights, the EMA and the optimizer's buffers are
+    gathered to the one-rank keys and shapes."""
     sharded = optimizer is not None and optimizer.shard is not None
-    if not paths and not sharded:
+    split = bool(tensor_parallel.sharded_dims(model))
+    if not paths and not sharded and not split:
         return
     state: Dict = {}
     if optimizer is not None:
         state.update(optimizer=optimizer.state_dict(), step=optimizer.count)
+    weights = tensor_parallel.full_state_dict(model)
+    ema_state = tensor_parallel.full_state_dict(ema.module) if ema is not None else None
     if not paths:
         return
     saved_args = {k: v for k, v in vars(args).items() if k != "defaults"}
-    ema_state = ema.module.state_dict() if ema is not None else None
     if generator is not None:
         state["rng_state"] = generator.get_state()
-    save_checkpoint_file(paths[0], model.state_dict(), saved_args, arch=args.model,
+    save_checkpoint_file(paths[0], weights, saved_args, arch=args.model,
                          epoch=epoch, metric=metric, state_dict_ema=ema_state, run_state=state)
     for path in paths[1:]:  # the same payload: copied, not serialized again
         shutil.copyfile(paths[0], path + ".tmp")

@@ -44,6 +44,16 @@ updates its range and broadcasts it; ``state_dict`` gathers every range
 writes, and ``load_state_dict`` takes the rank's range of any such file. ``ZeroRedundancyOptimizer`` cannot wrap the chain: it is not a
 ``torch.optim.Optimizer``.
 
+Under tensor parallelism (``parallel/tensor_parallel.py``) the chain holds
+the rank's slices of the model-sharded leaves (``sharded``: name -> split
+dim): each reduction across a leaf or across leaves sums the slices'
+squares over the model ranks (the global norm of ``--clip-mode norm``,
+AGC's unit-wise norms where a unit is split, lamb's ||p|| and ||u||), so
+every rank clips and scales as one rank holding the whole leaves would;
+ZeRO-1 partitions the rank's own (sliced) leaves over the data ranks; and
+``state_dict`` gathers the slices into the one-rank file, which
+``load_state_dict`` cuts again.
+
 The linear probe (``head_only``) holds only the ``head.*`` parameters, the
 JAX package's ``head_only_mask`` with the frozen updates set to zero;
 :func:`reinit_head` is the probe's head init (train_subtyping.py:48-62 of
@@ -58,7 +68,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel import distributed
+from ..parallel import distributed, tensor_parallel
 
 _logger = logging.getLogger(__name__)
 
@@ -368,7 +378,8 @@ class ChainOptimizer:
                  momentum: float = 0.9, rms_alpha: float = 0.9, amsgrad: bool = False,
                  clip_grad: Optional[float] = None, clip_mode: str = "norm",
                  accum_steps: int = 1, host_lr: Optional[float] = None,
-                 shard: Optional[Tuple[int, int]] = None):
+                 shard: Optional[Tuple[int, int]] = None,
+                 sharded: Optional[Mapping[str, int]] = None):
         if opt not in OPTIMIZERS:
             raise ValueError(f"Unsupported optimizer: {opt}")
         if clip_grad is not None and clip_mode not in ("norm", "value", "agc"):
@@ -393,6 +404,10 @@ class ChainOptimizer:
         self.clip_grad, self.clip_mode = clip_grad, clip_mode
         self.agc_keep = [any(n == s or n.endswith("." + s) for s in AGC_EXCLUDE)
                          for n, _ in decay + no_decay]
+        # tensor parallelism: the split dim of each model-sharded leaf, by name
+        self.tp_dims = {n: d for n, d in (sharded or {}).items() if n in set(self.names)}
+        self.tp_mask = torch.tensor([n in self.tp_dims for n in self.names],
+                                    device=self.params[0].device) if self.tp_dims else None
         self.accum_steps = max(int(accum_steps), 1)
         self.host_lr = None if host_lr is None else float(f32(host_lr))
         self.count = 0  # real updates so far: the schedule's count
@@ -403,6 +418,7 @@ class ChainOptimizer:
         self.state = {}
         self._acc: Optional[List[torch.Tensor]] = None
         self._agc_lengths: Optional[torch.Tensor] = None
+        self._agc_split: Optional[torch.Tensor] = None
 
     def current_lr(self) -> float:
         """The lr of the next real update (the logged lr)."""
@@ -433,7 +449,8 @@ class ChainOptimizer:
         micro-step, the accumulated micro-gradients and the host lr. Under
         ZeRO-1 every rank must call it: the ranges are gathered."""
         def named(tensors):
-            return {n: t.detach().cpu().clone() for n, t in zip(self.names, tensors)}
+            return {n: self._whole(n, t).detach().cpu().clone()
+                    for n, t in zip(self.names, tensors)}
 
         return {"state": {key: named(self._gathered(self.state[key]))
                           for key in self.state},
@@ -452,7 +469,7 @@ class ChainOptimizer:
             raise ValueError(f"optimizer state lacks parameters {missing[:5]}")
 
         def placed(named, names=self.names, params=self.params):
-            return [named[n].to(device=p.device, dtype=torch.float32)
+            return [self._slice(n, named[n]).to(device=p.device, dtype=torch.float32)
                     for n, p in zip(names, params)]
 
         self.state = {key: placed(bufs, self.own_names, self.own)
@@ -463,6 +480,22 @@ class ChainOptimizer:
         self._acc = None if payload.get("acc") is None else placed(payload["acc"])
         host_lr = payload.get("host_lr")
         self.host_lr = None if host_lr is None else float(host_lr)
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of a buffer of ``name`` (gathered from the model
+        ranks where the leaf is split: a collective)."""
+        dim = self.tp_dims.get(name)
+        return t if dim is None else tensor_parallel.gather_along_model(t, dim)
+
+    def _slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        dim = self.tp_dims.get(name)
+        return t if dim is None else tensor_parallel.shard_state({name: t}, {name: dim})[name]
+
+    def _leaf_norms(self, tensors: List[torch.Tensor], lo: int = 0) -> torch.Tensor:
+        """The L2 norm of each of ``tensors`` (the buffers of params[lo:]),
+        of the whole leaf where the model ranks split it."""
+        mask = None if self.tp_mask is None else self.tp_mask[lo:lo + len(tensors)]
+        return tensor_parallel.leaf_norms(tensors, mask)
 
     def _state_keys(self) -> List[str]:
         """The keys of the buffers that an update makes, in its order."""
@@ -528,7 +561,7 @@ class ChainOptimizer:
         if self.clip_mode == "norm":
             # optax clip_by_global_norm: (g / |g|) * c at or above the bar,
             # g untouched below it; no host sync
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = torch.linalg.vector_norm(self._leaf_norms(grads))
             below = norm < c
             out = torch._foreach_div(grads, torch.where(below, 1.0, norm))
             torch._foreach_mul_(out, torch.where(below, 1.0, c))
@@ -550,11 +583,22 @@ class ChainOptimizer:
             self._agc_lengths = torch.tensor(
                 [self.params[i].numel() // u for i, u in zip(idx, units) for _ in range(u)],
                 device=self.params[idx[0]].device)
+            # a unit that the model ranks split: a row of a row-parallel
+            # weight, or a split vector (one unit)
+            split = [self.names[i] in self.tp_dims and
+                     (self.params[i].ndim <= 1 or self.tp_dims[self.names[i]] != 0)
+                     for i in idx]
+            self._agc_split = torch.tensor([s for s, u in zip(split, units) for _ in range(u)],
+                                           device=self.params[idx[0]].device) \
+                if any(split) else None
         lengths = self._agc_lengths
 
         def unit_norms(tensors):
             flat = torch.cat([t.reshape(-1) for t in tensors])
-            return flat, torch.segment_reduce(flat * flat, "sum", lengths=lengths).sqrt()
+            sq = torch.segment_reduce(flat * flat, "sum", lengths=lengths)
+            if self._agc_split is not None:
+                sq = tensor_parallel.sum_over_model(sq, self._agc_split)
+            return flat, sq.sqrt()
 
         flat_g, g_norm = unit_norms([grads[i] for i in idx])
         _, p_norm = unit_norms([self.params[i].float() for i in idx])
@@ -615,8 +659,8 @@ class ChainOptimizer:
             u = torch._foreach_div(mu, bc1)
             torch._foreach_div_(u, den)
             u = self._add_decay(u)
-            p_norm = torch.stack(torch._foreach_norm(self.own))
-            u_norm = torch.stack(torch._foreach_norm(u))
+            p_norm = self._leaf_norms(self.own, self.lo)
+            u_norm = self._leaf_norms(u, self.lo)
             ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
             torch._foreach_mul_(u, list(ratio.unbind()))
             return u
@@ -698,13 +742,14 @@ def make_optimizer(args, model: nn.Module, lr: float, head_only: bool = False,
             "scale_by_layer_decay)", layer_decay)
     shard = None
     if getattr(args, "optimizer_sharding", False) and distributed.multi():
-        shard = (distributed.rank(), distributed.world_size())
+        shard = (distributed.data_rank(), distributed.data_size())
     return ChainOptimizer(
         _trainable(model, head_only), opt, schedule, weight_decay=args.weight_decay,
         betas=betas, eps=eps, momentum=momentum, rms_alpha=rms_alpha, amsgrad=amsgrad,
         clip_grad=getattr(args, "clip_grad", None),
         clip_mode=getattr(args, "clip_mode", "norm"),
-        accum_steps=getattr(args, "grad_accum_steps", 1), host_lr=host_lr, shard=shard)
+        accum_steps=getattr(args, "grad_accum_steps", 1), host_lr=host_lr, shard=shard,
+        sharded=tensor_parallel.sharded_dims(model))
 
 
 @torch.no_grad()

@@ -63,7 +63,7 @@ from ..losses import (
     reduce_over_ranks,
 )
 from ..models.layers import Dropout, DropPath, set_generator
-from ..parallel import distributed
+from ..parallel import distributed, tensor_parallel
 
 LOG_100 = math.log(100.0)
 LOSS_NAMES = ("loss", "alignment_loss", "wsi_retention_loss", "rna_retention_loss",
@@ -72,6 +72,8 @@ LOSS_NAMES = ("loss", "alignment_loss", "wsi_retention_loss", "rna_retention_los
 
 @torch.no_grad()
 def renorm_prototypes(model: nn.Module) -> None:
+    """Each prototype (a row of the [P, D] weight) to unit L2 norm: local
+    under tensor parallelism, where a rank holds whole rows."""
     w = model.prototypes.weight
     w.div_(torch.linalg.vector_norm(w, dim=1, keepdim=True).clamp_min(1e-12))
 
@@ -81,24 +83,34 @@ def clamp_logit_scale(model: nn.Module) -> None:
     model.logit_scale.clamp_(0.0, LOG_100)
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+def _global_norm(named, dims: Dict[str, int]) -> torch.Tensor:
+    """The global L2 norm of the (name, tensor) pairs in fp32, over whole
+    leaves: the slices of a model-sharded model's split leaves (``dims``)
+    summed over the model ranks (``tensor_parallel.leaf_norms``)."""
+    tensors = [t.detach().float() for _, t in named]
+    mask = torch.tensor([n in dims for n, _ in named], device=tensors[0].device) \
+        if dims else None
+    return torch.linalg.vector_norm(tensor_parallel.leaf_norms(tensors, mask))
 
 
-def watch_stats(named_params) -> Dict[str, torch.Tensor]:
+def watch_stats(named_params, dims: Optional[Dict[str, int]] = None
+                ) -> Dict[str, torch.Tensor]:
     """``--wandb-watch``'s stats (``watch_stats`` of the JAX package, the
     ``wandb.watch`` histograms as moments): the L2 norm, mean and
     population std of each gradient and each parameter, in fp32, as device
-    scalars under ``watch/{gradients,parameters}/<name>/{norm,mean,std}``.
+    scalars under ``watch/{gradients,parameters}/<name>/{norm,mean,std}``,
+    each of the whole leaf (a model-sharded leaf, ``dims``, gathered first).
     The harness sums them like the other metrics and hands them to wandb
     only."""
+    dims = dims or {}
     out: Dict[str, torch.Tensor] = {}
     named = [(n, p) for n, p in named_params if p.grad is not None]
     for kind, tensors in (("gradients", [p.grad for _, p in named]),
                           ("parameters", [p for _, p in named])):
         for (name, _), t in zip(named, tensors):
             x = t.detach().float()
+            if name in dims:
+                x = tensor_parallel.gather_along_model(x, dims[name])
             out[f"watch/{kind}/{name}/norm"] = torch.linalg.vector_norm(x)
             out[f"watch/{kind}/{name}/mean"] = x.mean()
             out[f"watch/{kind}/{name}/std"] = x.std(correction=0)
@@ -143,26 +155,29 @@ class ModelEma:
 
 
 def data_parallel(model: nn.Module, find_unused: bool = False) -> nn.Module:
-    """``model`` wrapped in ``DistributedDataParallel`` when a process group
-    is up (on the card with the model's device as its one device), else
-    ``model``. ``find_unused`` for a forward that leaves parameters out (the
-    downstream ``--wsi-feature-only``)."""
+    """``model`` wrapped in ``DistributedDataParallel`` over the data ranks
+    when a process group is up (on the card with the model's device as its
+    one device), else ``model``. ``find_unused`` for a forward that leaves
+    parameters out (the downstream ``--wsi-feature-only``)."""
     if not distributed.initialized():
         return model
     from torch.nn.parallel import DistributedDataParallel
 
     device = next(model.parameters()).device
     kwargs = {"device_ids": [device]} if device.type == "cuda" else {}
-    return DistributedDataParallel(model, find_unused_parameters=find_unused, **kwargs)
+    return DistributedDataParallel(model, find_unused_parameters=find_unused,
+                                   process_group=distributed.data_group(), **kwargs)
 
 
 class RankDraws:
     """A train step's draws. With one process (or none given) the model's
     dropout draws from ``generator`` and :meth:`step` does nothing. With
-    several ranks the dropout draws from a generator of the rank's own, and
-    :meth:`step`, before each step, seeds it from one draw of the shared
-    ``generator`` and the rank when the model has a live dropout (with
-    none the shared stream is the one process's)."""
+    several data ranks the dropout draws from a generator of the rank's
+    own, and :meth:`step`, before each step, seeds it from one draw of the
+    shared ``generator`` and the data rank when the model has a live
+    dropout (with none the shared stream is the one process's). The model
+    ranks of one data rank draw alike: a sharded activation's dropout draws
+    the whole width and keeps its slice (``tensor_parallel``)."""
 
     def __init__(self, model: nn.Module, generator: Optional[torch.Generator]):
         self.generator = generator
@@ -180,7 +195,7 @@ class RankDraws:
             return
         seed = int(torch.randint(0, 2**62, (1,), generator=self.generator,
                                  device=self.generator.device).item())
-        self.own.manual_seed((seed * 1_000_003 + distributed.rank()) % 2**63)
+        self.own.manual_seed((seed * 1_000_003 + distributed.data_rank()) % 2**63)
 
 
 def _update(optimizer, ema: Optional[ModelEma],
@@ -210,8 +225,9 @@ def make_mirror_train_step(model: nn.Module, optimizer,
     adds :func:`watch_stats` of those."""
     draws = RankDraws(model, generator)
     net = data_parallel(model)
-    params = [p for p in model.parameters() if p.requires_grad]
     named = list(model.named_parameters())
+    trained = [(n, p) for n, p in named if p.requires_grad]
+    dims = tensor_parallel.sharded_dims(model)
 
     def train_step(batch: Dict[str, torch.Tensor],
                    noise: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -220,7 +236,7 @@ def make_mirror_train_step(model: nn.Module, optimizer,
         draws.step()
         b = batch["wsi"].shape[0]
         if noise is None and distributed.multi():
-            draws_all = model.draw_noise(b * distributed.world_size(), batch["wsi"].shape[1],
+            draws_all = model.draw_noise(b * distributed.data_size(), batch["wsi"].shape[1],
                                          generator, batch["wsi"].device)
             noise = {k: distributed.own_rows(v) for k, v in draws_all.items()}
         out = net(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio,
@@ -230,12 +246,13 @@ def make_mirror_train_step(model: nn.Module, optimizer,
         losses[0].backward()
         with torch.no_grad():
             metrics = {
-                "grad_norm": _global_norm([p.grad for p in params if p.grad is not None]),
-                "param_norm": _global_norm(params),
+                "grad_norm": _global_norm([(n, p.grad) for n, p in trained
+                                           if p.grad is not None], dims),
+                "param_norm": _global_norm(trained, dims),
                 "lr": optimizer.current_lr(),
             }
             if watch:
-                metrics.update(watch_stats(named))
+                metrics.update(watch_stats(named, dims))
         _update(optimizer, ema, lambda: clamp_logit_scale(model))
         metrics.update(zip(LOSS_NAMES, reduce_over_ranks(losses, loss_weights, b, negatives)))
         metrics["logit_scale"] = torch.exp(model.logit_scale.detach())
@@ -256,7 +273,7 @@ def mirror_eval_losses(model: nn.Module, batch: Dict[str, torch.Tensor],
     block), the batch's ``valid`` takes its padded rows out, and the
     losses are the global ones (``losses.reduce_over_ranks``)."""
     model.eval()
-    b, n = batch["wsi"].shape[0], distributed.world_size()
+    b, n = batch["wsi"].shape[0], distributed.data_size()
     draws_all = model.draw_noise(b * n, batch["wsi"].shape[1], generator, batch["wsi"].device)
     noise = {k: distributed.own_rows(v) for k, v in draws_all.items()}
     out = model(batch["wsi"], batch["rna"], wsi_mask_ratio, rna_mask_ratio, noise=noise)
@@ -279,8 +296,8 @@ def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
     :func:`watch_stats`) are over every parameter."""
     draws = RankDraws(model, generator)
     net = data_parallel(model, find_unused)
-    params = list(model.parameters())
     named = list(model.named_parameters())
+    dims = tensor_parallel.sharded_dims(model)
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -291,12 +308,13 @@ def _make_train_step(model: nn.Module, optimizer, loss_of: Callable,
         with torch.no_grad():
             metrics = {
                 "loss": reported,
-                "grad_norm": _global_norm([p.grad for p in params if p.grad is not None]),
-                "param_norm": _global_norm(params),
+                "grad_norm": _global_norm([(n, p.grad) for n, p in named
+                                           if p.grad is not None], dims),
+                "param_norm": _global_norm(named, dims),
                 "lr": optimizer.current_lr(),
             }
             if watch:
-                metrics.update(watch_stats(named))
+                metrics.update(watch_stats(named, dims))
         _update(optimizer, ema)
         return metrics
 
@@ -367,7 +385,7 @@ def _make_downstream_train_step(model: nn.Module, optimizer, loss_fn: Callable,
         n = valid.float().sum() if valid is not None else \
             torch.tensor(float(logits.shape[0]), device=logits.device)
         sums = distributed.all_reduce(torch.stack([loss.detach().float() * n, n]))
-        share = (distributed.world_size() * n / sums[1].clamp_min(1.0)).to(loss.dtype)
+        share = (distributed.data_size() * n / sums[1].clamp_min(1.0)).to(loss.dtype)
         return loss * share, sums[0] / sums[1].clamp_min(1.0)
 
     return _make_train_step(model, optimizer, loss_of, generator, ema, watch,

@@ -26,7 +26,10 @@ mirror_tpu_torch.train_mirror ...`` or the ``MIRROR_COORDINATOR`` /
 ``MIRROR_NUM_PROCESSES`` / ``MIRROR_PROCESS_ID`` env
 (``parallel/distributed.py``): ``--batch-size`` is the global batch,
 ``--contrastive-negatives`` picks the rank's or the global batch's
-negatives, ``--optimizer-sharding`` shards the optimizer's state (ZeRO-1).
+negatives, ``--optimizer-sharding`` shards the optimizer's state (ZeRO-1),
+and ``--model-parallel N`` splits the wide RNA and head layers over N ranks
+a data rank (``parallel/tensor_parallel.py``; the world size a multiple of
+N).
 Per epoch: one log line per ``--log-interval`` steps with the six loss terms,
 the grad / param norms and the lr, an optional validation pass (and the
 EMA's), ``summary.csv``, and the reference's ``.pth.tar`` checkpoints
@@ -52,7 +55,7 @@ from mirror_tpu_torch.config import (
 from mirror_tpu_torch.data.datasets import PretrainDataset
 from mirror_tpu_torch.data.loader import Loader
 from mirror_tpu_torch.losses import MirrorLossWeights
-from mirror_tpu_torch.parallel import distributed
+from mirror_tpu_torch.parallel import distributed, tensor_parallel
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
@@ -79,7 +82,7 @@ def evaluate(args, model, dataset, loss_weights, epoch, device,
     train step's. Across ranks the batch is rounded up to a multiple of
     the ranks and its tail padded, and each batch is weighted by its
     global valid rows (``train_mirror.py:216-222`` of the JAX package)."""
-    multi, ranks = distributed.multi(), distributed.world_size()
+    multi, ranks = distributed.multi(), distributed.data_size()
     batch = args.validation_batch_size or args.batch_size
     loader = Loader(dataset.val(), (batch + ranks - 1) // ranks * ranks, shuffle=False,
                     drop_last=False, pad_last=multi, seed=args.seed, workers=args.workers)
@@ -131,6 +134,7 @@ def train(args, args_text: str, device: torch.device) -> Dict:
                  sum(p.numel() for p in model.parameters()))
     if args.initial_checkpoint:
         load_pretrained(model, args.initial_checkpoint)
+    tensor_parallel.shard_model(model)
 
     dataset.train()
     loader = Loader(dataset, args.batch_size, shuffle=True, drop_last=True, seed=args.seed,

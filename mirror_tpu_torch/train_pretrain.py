@@ -40,7 +40,7 @@ from mirror_tpu_torch.config import (
 )
 from mirror_tpu_torch.data.datasets import PretrainDataset
 from mirror_tpu_torch.data.loader import Loader
-from mirror_tpu_torch.parallel import distributed
+from mirror_tpu_torch.parallel import distributed, tensor_parallel
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
@@ -54,7 +54,7 @@ def evaluate(args, model, dataset, batch_size: int, epoch: int, device,
     """The mean eval loss over the valid rows of the whole val split (across
     ranks the batch rounded up to a multiple of the ranks, each weighted by
     its global valid rows)."""
-    ranks = distributed.world_size()
+    ranks = distributed.data_size()
     loader = Loader(dataset.val(), (batch_size + ranks - 1) // ranks * ranks, shuffle=False,
                     drop_last=False, pad_last=True, seed=args.seed, workers=args.workers)
     loader.set_epoch(epoch)
@@ -100,6 +100,7 @@ def train(args, args_text: str, device: torch.device) -> Dict:
                  sum(p.numel() for p in model.parameters()))
     if args.initial_checkpoint:
         load_pretrained(model, args.initial_checkpoint)
+    tensor_parallel.shard_model(model)
 
     dataset.train()
     loader = Loader(dataset, args.batch_size, shuffle=True, drop_last=True, seed=args.seed,

@@ -39,7 +39,7 @@ from mirror_tpu_torch.config import (
 )
 from mirror_tpu_torch.data.datasets import SubtypingDataset
 from mirror_tpu_torch.data.loader import Loader
-from mirror_tpu_torch.parallel import distributed
+from mirror_tpu_torch.parallel import distributed, tensor_parallel
 from mirror_tpu_torch.registry import check_kernel_config, create_model
 from mirror_tpu_torch.train import harness
 from mirror_tpu_torch.train.checkpoint import load_pretrained
@@ -78,7 +78,8 @@ def setup(args) -> torch.device:
 
 def build_classifier(args, dataset, num_classes: int, device) -> torch.nn.Module:
     """The classifier at the run's width, its init drawn from the seed, then
-    the warm start, then the linear probe's or ``--init-head``'s head."""
+    the warm start, then the linear probe's or ``--init-head``'s head; then
+    this rank's slices under ``--model-parallel``."""
     model_kwargs = model_kwargs_from_args(args)
     model_kwargs["num_classes"] = num_classes
     model_kwargs["rna_embed_dim"] = dataset.rna_dim
@@ -97,7 +98,7 @@ def build_classifier(args, dataset, num_classes: int, device) -> torch.nn.Module
     elif args.init_head:
         reinit_head(model, generator, scale=args.head_init_scale, bias=args.head_init_bias,
                     std=None)
-    return model
+    return tensor_parallel.shard_model(model)
 
 
 def train_loader_and_optimizer(args, dataset, model):

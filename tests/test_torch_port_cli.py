@@ -119,10 +119,14 @@ def test_train_mirror_trains_on_the_cpu_and_its_checkpoint_reloads(cohort, capsy
     ["--ckpt-format", "orbax"],
 ])
 def test_train_mirror_refuses_unported_flags(cohort, flag):
-    """The flags still to port (items 16 and 17), a loss the port has not,
-    and ``--distributed`` with no rendezvous in the env (torchrun's or
-    ``MIRROR_COORDINATOR``), each refused at start naming the flag."""
+    """The flag still to port (item 17), a loss the port has not,
+    ``--distributed`` with no rendezvous in the env (torchrun's or
+    ``MIRROR_COORDINATOR``), and ``--model-parallel 2`` in one process (it
+    needs a world size that divides by 2), each refused at start naming the
+    flag."""
     name = flag[0]
+    if name == "--model-parallel":
+        name = r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"
     with pytest.raises(SystemExit, match=name):
         train_mirror.main(_argv(cohort, "--device", "cpu", *flag))
 
@@ -187,11 +191,21 @@ UNPORTED_ARGV = {
 }
 
 
-@pytest.mark.parametrize("dest,item", [(dest, item) for dest, _, item in config._UNPORTED])
+@pytest.mark.parametrize("dest,item", [("model_parallel", 16), ("ckpt_format", 17)])
 def test_refusal_names_the_flag_and_its_roadmap_item(dest, item):
-    """Each refused pretrain flag's message names the flag and the ROADMAP
-    item that ports it (items 16, 17), not one range for all."""
+    """The refused pretrain flag's message names the flag and the ROADMAP
+    item that ports it (item 17); ``--model-parallel`` (item 16, ported)
+    passes that check and is refused in one process, where the world size
+    does not divide by 2, by the process group's setup."""
     args, _ = config.parse_args(UNPORTED_ARGV[dest], task="pretrain")
+    if dest == "model_parallel":
+        from mirror_tpu_torch.parallel import distributed
+
+        config.refuse_unported(args)
+        with pytest.raises(SystemExit, match=r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"):
+            with distributed.session(args, torch.device("cpu")):
+                pass
+        return
     with pytest.raises(SystemExit) as refusal:
         config.refuse_unported(args)
     message = str(refusal.value)

@@ -600,14 +600,20 @@ def test_a_batch_that_does_not_divide_over_the_ranks_is_refused(cohort, tmp_path
 @pytest.mark.parametrize("cli", ["train_mirror", "train_pretrain", "train_subtyping",
                                  "train_survival"])
 def test_the_still_unported_flags_are_refused_in_every_cli(cohort, cli, flag, item):
+    """``--ckpt-format`` is still to port (item 17); ``--model-parallel 2``
+    (item 16, ported) is refused in one process, naming the world size it
+    needs."""
     module = {"train_subtyping": train_subtyping}.get(cli) or CLIS[cli][0]
     argv = _survival_argv(cohort, "refused", *flag)
-    if cli == "train_subtyping":
-        argv = argv[:argv.index("--survival-csv")] + ["--classes", "A", "B"] + \
+    if cli == "train_subtyping":  # the survival YAML's loss is not subtyping's
+        argv = argv[:argv.index("--survival-csv")] + ["--classes", "A", "B", "--loss",
+                                                      "ce_loss"] + \
             argv[argv.index("--survival-csv") + 2:]
     elif cli != "train_survival":
         argv = _pretrain_argv(cohort, "refused", *flag)
-    with pytest.raises(SystemExit, match=rf"{flag[0]}.*ROADMAP item {item}"):
+    message = rf"{flag[0]}.*ROADMAP item {item}" if item == 17 else \
+        r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"
+    with pytest.raises(SystemExit, match=message):
         module.main(argv)
 
 
@@ -647,6 +653,7 @@ def test_the_parallel_modules_and_chip_smoke_import_no_jax():
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'mirror_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import mirror_tpu_torch.parallel.distributed, mirror_tpu_torch.parallel.worker\n"
+        "import mirror_tpu_torch.parallel.tensor_parallel\n"
         "import mirror_tpu_torch.train_mirror, mirror_tpu_torch.train_pretrain\n"
         "import mirror_tpu_torch.train_subtyping, mirror_tpu_torch.train_survival\n"
     )
