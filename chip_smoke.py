@@ -215,7 +215,31 @@ Phases, each printed as it finishes:
    two gloo processes on the one card (``parallel/cp_worker.py``): the
    100,000 slide against world 1, the same layer's output and gradient
    (kernels 3c, 9b and 2b through the collectives) against world 1 at
-   phase 5's bars, and both predicts in 2 ranks against one process.
+   phase 5's bars, and both predicts in 2 ranks against one process;
+11. the tools (ROADMAP item 17), run right after phase 7 on its
+   checkpoints: ``tools/export_model.py`` exports phase 7's subtyping
+   checkpoint (``classifier``) and phase 5's pretrain checkpoint
+   (``embed``) on the card at batch 16 (2048 tokens x 768, RNA 10234;
+   the batch 2 seeded slides tiled 8 times), each graph calling the five
+   ``mirror::`` ops; a fresh process that imports only
+   ``mirror_tpu_torch.ops`` loads each ``.pt2`` and runs it on the card
+   (the launches of kernels 1-5 read around one batch: the ``export``
+   path; ms a batch), its outputs against the eager module on the card
+   (bit for bit, else it fails; the difference printed) and against the
+   CPU's plain path on the 2 slides (phase 4's bar); the export time and
+   the artifact's bytes; the host cost of an op's dispatch (``ppeg`` and
+   ``landmark_softmax`` through the op against a direct call of their CUDA
+   implementation, small shapes, in turns); ``split_weights`` on phase 5's
+   ``last.pth.tar``; ``import_jax_checkpoint`` in a process of its own on
+   a msgpack file that flax wrote, importing none of jax, flax, msgpack
+   or ml_dtypes; then
+   ``pretrain_job_launcher`` at k 2 on slot 0 (two jobs at once; the
+   pretrain template on 16 + 16 of phase 5's slides a fold, one step) and
+   ``downstream_tasks_evaluator`` on its run directories (the subtyping
+   template on phase 7's slides, warm-started from each fold), run
+   without this process's ``MIRROR_PLATFORM``, their exit codes, the
+   ``CUDA_VISIBLE_DEVICES`` each job was given and the device each job's
+   model was created on (the card, else it fails) printed.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -226,6 +250,8 @@ import contextlib
 import json
 import logging
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3472,6 +3498,305 @@ def phase_cp_cards(torch, ranks: int) -> None:
         cp_group_check(torch, root, ranks, "nccl", state, big, want)
 
 
+# the tools (phase 11): the exported programs' batch and its two slides
+# (tiled: the pinv's scale is a maximum over the batch, so the 2-slide CPU
+# reference sees the scale the 16-slide program does), their timed runs, the
+# fresh process's time limit; the fold drivers' 2 folds of 16 train and 16
+# validation slides (one step a fold), two jobs at once on the one card
+EXPORT_REF_SLIDES, EXPORT_REPS, EXPORT_TIMEOUT = 2, 5, 600
+LAUNCH_FOLDS, LAUNCH_TRAIN, LAUNCH_VAL, LAUNCH_TIMEOUT = 2, 16, 16, 600
+# a flax msgpack checkpoint, as flax.serialization.msgpack_serialize wrote it:
+# {"arch": "mirror_classifier", "args": "", "ema_state_dict": {}, "epoch": 1,
+#  "metric": -1.0, "opt_state": None, "state_dict": {"head": {"bias": bf16
+#  [0.5, -1, 2], "kernel": float32 arange(6) as [2, 3]}}, "version": 2}
+FLAX_BLOB = bytes.fromhex(
+    "88a461726368b16d6972726f725f636c6173736966696572a461726773a0ae656d615f73746174655f64"
+    "69637480a565706f636801a66d6574726963cbbff0000000000000a96f70745f7374617465c0aa737461"
+    "74655f6469637481a46865616482a462696173c71401939103a862666c6f61743136c406003f80bf0040"
+    "a66b65726e656cc7260193920203a7666c6f61743332c418000000000000803f0000004000004040000080"
+    "400000a040a776657273696f6e02")
+# run by a fresh process: the .pt2 programs loaded with the ops module alone
+# (no model code), each run once on the card with the launch counts set to 0
+# just before and read just after, then timed; outputs and counts written out
+EXPORTED_RUN = r"""
+import json, statistics, sys, time
+import torch
+from mirror_tpu_torch.ops import _common
+root, reps, names = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+wsi, rna = (t.cuda() for t in torch.load(f"{root}/inputs.pt"))
+report = {}
+for name in names:
+    t0 = time.perf_counter()
+    program = torch.export.load(f"{root}/{name}.pt2").module()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _common.reset_launch_counts()
+        out = program(wsi, rna)
+        torch.cuda.synchronize()
+        launches = _common.launch_counts()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            program(wsi, rna)
+            torch.cuda.synchronize()
+            times.append(1000 * (time.perf_counter() - t0))
+    out = out if isinstance(out, tuple) else (out,)
+    torch.save([o.float().cpu() for o in out], f"{root}/{name}.out.pt")
+    report[name] = {"load_s": load_s, "launches": launches, "ms": statistics.median(times)}
+report["model_code_imported"] = "mirror_tpu_torch.models" in sys.modules
+print(json.dumps(report))
+"""
+
+
+def export_inputs(torch):
+    """The exported programs' batch of 16: 2 slides of random features and
+    RNA from SEED, tiled 8 times."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    wsi = torch.randn(EXPORT_REF_SLIDES, N_TOKENS, 768, generator=g)
+    rna = torch.randn(EXPORT_REF_SLIDES, RNA_DIM, generator=g)
+    tiles = B // EXPORT_REF_SLIDES
+    return wsi.repeat(tiles, 1, 1), rna.repeat(tiles, 1)
+
+
+def check_exports(torch, root: Path, exports: dict, wsi, rna):
+    """The programs run by a fresh process against the eager modules on the
+    card and the CPU's plain path on the batch's 2 slides; returns the
+    exported runs' launch counts, summed."""
+    from mirror_tpu_torch.tools.export_model import build_inference_module
+
+    torch.save([wsi, rna], root / "inputs.pt")
+    proc = subprocess.run([sys.executable, "-c", EXPORTED_RUN, str(root), str(EXPORT_REPS),
+                           *exports], cwd=REPO, capture_output=True, text=True,
+                          timeout=EXPORT_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"[export] the fresh process failed:\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    if report["model_code_imported"]:
+        fail("[export] loading the programs imported the model code")
+    wsi_d, rna_d = wsi.cuda(), rna.cuda()  # resident, as in the fresh process
+    launches = {}
+    for name, (mode, ckpt, model) in exports.items():
+        got = torch.load(root / f"{name}.out.pt")
+        run = report[name]
+        missing = [k for k in FORWARD if run["launches"].get(k, 0) == 0]
+        if missing:
+            fail(f"[export] the {name} program never launched {missing}: {run['launches']}")
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        module = build_inference_module(mode, model, str(ckpt), {}, torch.device("cuda"))
+        with torch.no_grad():
+            eager = module(wsi_d, rna_d)
+            eager = [o.float().cpu() for o in (eager if isinstance(eager, tuple) else (eager,))]
+            times = []
+            for _ in range(EXPORT_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                module(wsi_d, rna_d)
+                torch.cuda.synchronize()
+                times.append(1000 * (time.perf_counter() - t0))
+        del module
+        torch.cuda.empty_cache()
+        same = all(torch.equal(a, b) for a, b in zip(got, eager))
+        diff = max((a - b).abs().max().item() for a, b in zip(got, eager))
+        rel = max(rel_err(a, b) for a, b in zip(got, eager))
+        say(f"[export] {name}: loaded in a fresh process (ops module only) in "
+            f"{run['load_s']:.2f} s; one batch of {B} launched {json.dumps(run['launches'])}; "
+            f"{run['ms']:.3f} ms a batch exported vs {statistics.median(times):.3f} ms eager "
+            f"(median of {EXPORT_REPS}, host clock, inputs resident); against the eager module "
+            f"on the card: {'bit for bit' if same else 'not bit for bit'}, max abs "
+            f"difference {diff:.4g}, relative {rel:.4g}")
+        if not same:
+            fail(f"[export] {name}: the program and the eager module disagree")
+        cpu = build_inference_module(mode, model, str(ckpt), {}, torch.device("cpu"))
+        with torch.no_grad():
+            ref = cpu(wsi[:EXPORT_REF_SLIDES], rna[:EXPORT_REF_SLIDES])
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        rels = [rel_err(a[:EXPORT_REF_SLIDES], b) for a, b in zip(got, ref)]
+        say(f"[export] {name}: {EXPORT_REF_SLIDES} slides, the card's program vs the CPU's "
+            f"plain path (bf16): relative errors {[f'{r:.4g}' for r in rels]} (bound "
+            f"{BOUND_LOGITS:g})")
+        if not all(torch.isfinite(a).all() for a in got) or max(rels) > BOUND_LOGITS:
+            fail(f"[export] {name}: the program disagrees with the CPU reference")
+    return launches
+
+
+def dispatch_cost(torch):
+    """Host µs a call of a mirror:: op costs beyond a direct call of its
+    CUDA implementation (the same launch and count, no dispatcher), at
+    shapes whose device time is short, in turns direct, op, op, direct."""
+    from mirror_tpu_torch.ops import landmark, ppeg
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    img = torch.randn(1, 8, 8, 64, device="cuda", generator=g).to(torch.bfloat16)
+    kern = torch.randn(7, 7, 64, device="cuda", generator=g).to(torch.bfloat16)
+    bias = torch.randn(64, device="cuda", generator=g).to(torch.bfloat16)
+    q, k = (torch.randn(1, 1, 64, 64, device="cuda", generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    cases = {"ppeg": (ppeg._ppeg_cuda, ppeg.ppeg_op, (img, kern, bias)),
+             "landmark_softmax": (landmark._landmark_softmax_cuda, landmark.landmark_softmax_op,
+                                  (q, k, 8, 0))}
+    calls, out = 2000, {}
+    for name, (direct, op, args) in cases.items():
+        per_call = {"direct": [], "op": []}
+        for which in ("direct", "op", "op", "direct"):
+            fn = direct if which == "direct" else op
+            for _ in range(50):
+                fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+            per_call[which].append(1e6 * (time.perf_counter() - t0) / calls)
+        d, o = statistics.mean(per_call["direct"]), statistics.mean(per_call["op"])
+        out[name] = o - d
+        say(f"[dispatch] {name}: {o:.2f} µs a call through the op, {d:.2f} µs a direct call "
+            f"of its CUDA implementation (means of 2 runs of {calls}, in turns): the dispatch "
+            f"costs {o - d:.2f} µs a call on the host; readings {json.dumps(per_call)}")
+    return out
+
+
+def two_fold_splits(features: Path, split_dir: Path, train: int, val: int) -> None:
+    """splits_0.csv and splits_1.csv over the cohort's first slides: each
+    fold ``train`` patients to train and ``val`` to validate, the two folds
+    swapped."""
+    import pandas as pd
+
+    patients = sorted(f.name[:12] for f in features.rglob("*.npy"))[:train + val]
+    split_dir.mkdir(parents=True)
+    for fold, (tr, va) in enumerate(((patients[:train], patients[train:]),
+                                     (patients[val:], patients[:val]))):
+        pd.DataFrame({"train": pd.Series(tr), "val": pd.Series(va)}).to_csv(
+            split_dir / f"splits_{fold}.csv")
+
+
+def run_driver(tag: str, argv) -> str:
+    """A fold driver in its own process, without a MIRROR_PLATFORM of this
+    process's environment; fails on a non-zero exit or on a job whose model
+    was not built on the card (the CLIs' "Model ... created on" log line).
+    Prints the slot and environment (CUDA_VISIBLE_DEVICES) each job was
+    given, from the launcher's log, the jobs' devices and the --result
+    count; returns its standard output."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "MIRROR_PLATFORM"}
+    proc = subprocess.run([sys.executable, "-m", f"mirror_tpu_torch.tools.{tag}", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT,
+                          env=env)
+    pinned = [ln.split("launcher:")[-1].split(": ")[0] for ln in proc.stderr.splitlines()
+              if "launcher:job" in ln and "starting on slot" in ln]
+    devices = re.findall(r"Model \S+ created on (\S+),", proc.stderr)
+    say(f"[{tag}] exit code {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+        f"{proc.stdout.count('--result')} --result blocks; jobs: {pinned}; the jobs' models "
+        f"created on {devices}")
+    if proc.returncode != 0 or len(pinned) != LAUNCH_FOLDS or len(devices) != LAUNCH_FOLDS \
+            or any(not d.startswith("cuda") for d in devices):
+        fail(f"[{tag}] failed:\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def write_job_yaml(path: Path, template: Path, **keys) -> str:
+    import yaml
+
+    cfg = yaml.safe_load(template.read_text())
+    cfg.update(keys)
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def phase_tools(torch, root: Path, pretrain_root: Path, down_root: Path):
+    """The tools (ROADMAP item 17; phase 11 in the docstring): the exports
+    of phase 7's subtyping checkpoint (classifier) and phase 5's pretrain
+    checkpoint (embed) at batch 16, run by a fresh process with the ops
+    module alone; the op dispatch's host cost; split_weights;
+    import_jax_checkpoint's chain; the two fold drivers on slot 0. Returns
+    the exported runs' launches (the ``export`` path)."""
+    import importlib.util
+
+    from mirror_tpu_torch.tools import export_model, split_weights
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True)
+    pre_ckpt = pretrain_root / "runs" / "pretrain" / "smoke" / "last.pth.tar"
+    sub_ckpt = down_root / "runs" / "subtyping" / "subtyping" / "last.pth.tar"
+    exports = {"classifier": ("classifier", sub_ckpt, "mirror_classifier"),
+               "embed": ("embed", pre_ckpt, "mirror")}
+    for name, (mode, ckpt, model) in exports.items():
+        t0 = time.perf_counter()
+        manifest = export_model.export_model(mode, model, str(ckpt), str(root / f"{name}.pt2"),
+                                             B, N_TOKENS, 768, RNA_DIM, {}, device="cuda")
+        seconds = time.perf_counter() - t0
+        if sorted(manifest["ops"]) != sorted(f"mirror::{op}" for op in (
+                "landmark_softmax", "pinv", "softmax_attn", "softmax_attn_conv", "ppeg")):
+            fail(f"[export] {name}: the graph calls {manifest['ops']}")
+        say(f"[export] {name} ({model}, {ckpt.name}): exported on the card in {seconds:.1f} s "
+            f"(model build, load and trace), {manifest['bytes']} bytes, ops {manifest['ops']}")
+    wsi, rna = export_inputs(torch)
+    launches = check_exports(torch, root, exports, wsi, rna)
+    dispatch = dispatch_cost(torch)
+
+    paths = split_weights.split_weights(str(pre_ckpt), str(root))
+    for modality, path in zip(("wsi", "rna"), paths):
+        keys = list(load_checkpoint_file(path)["state_dict"])
+        if not keys or any(not k.startswith(f"{modality}_encoder.") for k in keys) \
+                or f"{modality}_encoder.mask_token" in keys:
+            fail(f"[split] {path}: keys {keys[:5]}...")
+        say(f"[split] {Path(path).name}: {len(keys)} tensors, every key under "
+            f"{modality}_encoder., no mask_token")
+
+    (root / "jax.msgpack").write_bytes(FLAX_BLOB)
+    others = ("jax", "flax", "msgpack", "ml_dtypes")
+    proc = subprocess.run(
+        [sys.executable, "-m", "mirror_tpu_torch.tools.import_jax_checkpoint", "--checkpoint",
+         str(root / "jax.msgpack"), "--output", str(root / "jax.pth.tar")], cwd=REPO,
+        capture_output=True, text=True, timeout=EXPORT_TIMEOUT,
+        env=dict(os.environ, PYTHONVERBOSE="1"))
+    imported = sorted({m for m in others for ln in proc.stderr.splitlines()
+                       if ln.startswith(f"import '{m}'")})
+    if proc.returncode != 0 or imported:
+        fail(f"[import] exit code {proc.returncode}, imported {imported}:\n"
+             f"{proc.stderr[-2000:]}")
+    state = load_checkpoint_file(str(root / "jax.pth.tar"))["state_dict"]
+    if not torch.equal(state["head.weight"], torch.arange(6.0).reshape(2, 3).T) or \
+            not torch.equal(state["head.bias"], torch.tensor([0.5, -1.0, 2.0])):
+        fail(f"[import] decoded {state}")
+    has = [m for m in others if importlib.util.find_spec(m) is not None]
+    say(f"[import] python -m mirror_tpu_torch.tools.import_jax_checkpoint read a file flax "
+        f"wrote, in a process of its own (head.weight the kernel's transpose, the bf16 bias "
+        f"as float32); of {list(others)} this machine has {has}, and that process imported "
+        f"none")
+
+    # the fold drivers, slot 0: k 2 folds of train_mirror (the pretrain
+    # template) on phase 5's cohort, then the evaluator's subtyping runs
+    # (the subtyping template) on phase 7's, warm-started from each fold
+    feats = pretrain_root / "features"
+    two_fold_splits(feats, root / "pre_splits", LAUNCH_TRAIN, LAUNCH_VAL)
+    runs = root / "runs"
+    common = dict(epochs=1, batch_size=B, k=LAUNCH_FOLDS, output=str(runs), log_interval=1,
+                  seed=SEED, workers=8)
+    pre_yaml = write_job_yaml(root / "pre.yaml", PRETRAIN_YAML, wsi_feature_dir=str(feats),
+                              rna_feature_csv=str(pretrain_root / "rna.csv"),
+                              split_dir=str(root / "pre_splits"), **common)
+    run_driver("pretrain_job_launcher", ["--config", pre_yaml, "--k", str(LAUNCH_FOLDS),
+                                         "--slots", "0", "--virtual-factor", "2",
+                                         "--output-root", str(runs)])
+    two_fold_splits(down_root / "features", root / "down_splits", LAUNCH_TRAIN, LAUNCH_VAL)
+    sub_yaml = write_job_yaml(root / "sub.yaml", SUBTYPING_YAML,
+                              wsi_feature_dir=str(down_root / "classes"),
+                              rna_feature_csv=str(down_root / "rna.csv"),
+                              split_dir=str(root / "down_splits"), classes=list(CLASSES),
+                              **common)
+    out = run_driver("downstream_tasks_evaluator",
+                     ["--pretrain-root", str(runs / "pretrain"), "--task-configs",
+                      f"subtyping:{sub_yaml}", "--k", str(LAUNCH_FOLDS), "--slots", "0",
+                      "--virtual-factor", "2"])
+    if out.count("--result") != LAUNCH_FOLDS:
+        fail(f"[downstream_tasks_evaluator] {out.count('--result')} results")
+    say(f"[tools] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, dispatch
+
+
 def run_model_kwargs(train_root: Path) -> dict:
     """The model kwargs phase 5's checkpoint was saved with."""
     from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
@@ -3521,6 +3846,8 @@ def main() -> int:
             featgen = phase_featgen(torch, Path(tmp_fg))
         pretrain_ckpt = Path(tmp) / "train" / "runs" / "pretrain" / "smoke" / "last.pth.tar"
         down = phase_downstream(torch, Path(tmp) / "downstream", pretrain_ckpt)
+        export, _ = phase_tools(torch, Path(tmp) / "tools", Path(tmp) / "train",
+                                Path(tmp) / "downstream")
     selftest_launches = phase_selftest(torch)
     probe_launches = phase_probes(torch)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
@@ -3532,16 +3859,18 @@ def main() -> int:
     # phase 5e), the
     # CLIP baseline's, feature extraction's (its
     # three runs), the downstream entry points' (and the optimizer side's
-    # survival run), the self-test's and encode_slide's (the whole-slide
-    # path, the only caller of softmax_attn_q, the pad-0 entry of the
-    # softmax_attn kernel), each counted from 0 just before its run.
+    # survival run), the exported programs' (phase 11: the classifier's and
+    # the embed's batch, in a fresh process), the self-test's and
+    # encode_slide's (the whole-slide path, the only caller of
+    # softmax_attn_q, the pad-0 entry of the softmax_attn kernel), each
+    # counted from 0 just before its run.
     # ln_qkv and ln_qkv_bwd, library-only as in the JAX package, run on the
     # probes' path (exp_ln_qkv), as do the kernels the probes added
     paths = {"predict": serve, "train": train, "train_exact": train_exact,
              "train_gradckpt": gradckpt, "train_ddp": train_ddp, "train_tp": train_tp,
              "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
              "survival": down["survival"], "survival_opt": down["survival_opt"],
-             "selftest": selftest_launches, "probes": probe_launches,
+             "export": export, "selftest": selftest_launches, "probes": probe_launches,
              "whole_slide": whole_slide}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}

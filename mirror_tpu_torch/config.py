@@ -7,13 +7,17 @@ defaults, and the full parser reads the rest of argv, so CLI flags override
 YAML. The flags and dest names are the JAX package's, so its YAML templates
 parse unchanged.
 
-What differs: ``--device`` defaults to ``cuda`` (a YAML ``device: tpu``, the
-JAX package's accelerator, means the card here); ``--use-pallas`` (the
+What differs: ``--device`` defaults to ``cuda``, or to ``cpu`` under
+``MIRROR_PLATFORM=cpu`` (the job launcher's ``cpu`` slot,
+``utils/platform.py``), and a YAML ``device: tpu``, the JAX package's
+accelerator, means that default here; ``--use-pallas`` (the
 default here, on every device) runs the card's kernels on a CUDA device
 and ``--no-use-pallas`` the plain path on any device, as the JAX package's
-dense branch (:func:`model_kwargs_from_args`); and :func:`refuse_unported`
-stops at start on any flag that this port does not implement for the task
-when it is set away from its default, naming it.
+dense branch (:func:`model_kwargs_from_args`); ``--ckpt-format`` keeps the
+JAX parser's choices, but the port always writes the reference's
+``.pth.tar`` and refuses ``orbax``; and :func:`refuse_unported` stops at
+start on a model or loss that this port does not run for the task, naming
+it.
 """
 
 import argparse
@@ -22,6 +26,8 @@ import logging
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import yaml
+
+from .utils.platform import default_device
 
 _logger = logging.getLogger(__name__)
 
@@ -63,8 +69,9 @@ def build_parser(task: str = "pretrain") -> argparse.ArgumentParser:
     g.add_argument("--no-resume-opt", action="store_true", default=False)
     g.add_argument("--ckpt-format", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="the JAX package's serialisation; the port writes the "
-                        "reference's .pth.tar")
+                   help="the JAX package's serialisation; the port always writes the "
+                        "reference's .pth.tar (and reads the JAX package's msgpack "
+                        "files), and refuses orbax")
     g.add_argument("--batch-size", type=int, default=16)
     g.add_argument("--validation-batch-size", type=int, default=None)
     g.add_argument("--grad-accum-steps", type=int, default=1)
@@ -81,7 +88,7 @@ def build_parser(task: str = "pretrain") -> argparse.ArgumentParser:
                         "(through the 6 iterations)")
 
     g = p.add_argument_group("Device")
-    g.add_argument("--device", type=str, default="cuda",
+    g.add_argument("--device", type=str, default=default_device(),
                    help="cuda runs the kernels; cpu runs their plain versions")
     g.add_argument("--distributed", action="store_true", default=False)
     g.add_argument("--amp", action="store_true", default=True)
@@ -212,10 +219,11 @@ _IGNORED_KEYS = {
     "model_ema_force_cpu", "worker_seeding", "epoch_repeats", "in_chans",
 }
 
-# flags this port does not implement: (dest, what it would need, the
-# ROADMAP item that ports it)
-_UNPORTED = (
-    ("ckpt_format", "the JAX package's checkpoints", 17),
+ORBAX_REFUSAL = (
+    "--ckpt-format orbax: the port writes the reference's .pth.tar only, a departure on "
+    "purpose (an Orbax directory's OCDBT store needs tensorstore, which the card's machine "
+    "lacks); `python -m mirror_tpu.tools.import_torch_checkpoint --checkpoint <port "
+    ".pth.tar> --output <dir> --format orbax` makes an Orbax directory with the JAX package"
 )
 # what each task's port runs of --model and --loss; pretrain: train_mirror
 # runs mirror and its loss, train_pretrain mirror_dual (the default mirror
@@ -249,7 +257,7 @@ def parse_args(argv: Optional[Sequence[str]] = None,
                 continue
             defaults[key] = value
         if defaults.get("device") == "tpu":
-            defaults["device"] = "cuda"
+            defaults["device"] = default_device()
         parser.set_defaults(**defaults)
 
     args = parser.parse_args(remaining)
@@ -266,15 +274,11 @@ def parse_args(argv: Optional[Sequence[str]] = None,
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise SystemExit on the first flag that the port does not implement
-    for ``args.task``, set away from its default, naming it."""
-    for dest, what, item in _UNPORTED:
-        value = getattr(args, dest)
-        if value != args.defaults[dest]:
-            raise SystemExit(
-                f"--{dest.replace('_', '-')}={value!r}: {what} is not ported to the "
-                f"PyTorch port yet (ROADMAP item {item}); leave it at its default"
-            )
+    """Raise SystemExit on ``--ckpt-format orbax`` (:data:`ORBAX_REFUSAL`)
+    and on a ``--model`` or ``--loss`` that the port does not run for
+    ``args.task``, naming it."""
+    if args.ckpt_format == "orbax":
+        raise SystemExit(ORBAX_REFUSAL)
     for dest, ported in _PORTED_VALUES[args.task].items():
         value = getattr(args, dest)
         if value not in ported:

@@ -38,6 +38,14 @@ instances beside these, each counted under its own name:
 | moore_penrose_pinv_bwd_stash1, _stash2 | csrc/pinv.cu | exp_pinv_stash.py (make_variant) |
 | vit_fused_attn, vit_fused_mlp, vit_fused_attn_block, vit_fused_mlp_block | csrc/vit_fused.cu (ops/vit_fused.py) | exp_vit_fused_sublayer.py (make_k5, make_k7, make_k8, make_k9) |
 
+The forwards of landmark_softmax, moore_penrose_pinv, softmax_attn (the kv
+entry point and the q one), softmax_attn_conv and ppeg are dispatcher ops
+(``mirror::landmark_softmax``, ``mirror::pinv``, ``mirror::softmax_attn``,
+``mirror::softmax_attn_conv``, ``mirror::ppeg``; ``_common.OP_NAMESPACE``),
+so that an exported program (``tools/export_model.py``) calls them; importing
+this package registers them, which ``torch.export.load`` of such a program
+needs first.
+
 The pinv's implicit gradient is two matrix products outside any kernel, as
 in the JAX package; ``grad="exact"`` runs its exact backward kernel.
 ``ln_qkv_fused`` is library-only, as in the JAX package: no model calls it.

@@ -11,12 +11,22 @@ Counterpart of ``mirror_tpu/ops/_common.py``. It holds three things:
   kernel, a CPU tensor goes to the plain PyTorch version. There is no other
   switch and no fallback: a kernel that fails to build or launch raises.
   The training ops launch their kernels only from their
-  ``torch.autograd.Function``, forward and backward, so no output of a
+  ``torch.autograd.Function``, forward (through its op, below) and
+  backward, or from an exported inference program, so no output of a
   kernel is ever cut off from autograd. The ViT entries (``vit_attn``) are
   inference-only plain functions, like their TPU kernels, which have no
   VJP: they refuse a call that autograd would record;
 - a launch counter per kernel, so a run can show which kernels its main
-  path went through.
+  path went through;
+- :data:`OP_NAMESPACE`, the ``torch.library`` namespace (``mirror``) of the
+  forward kernels that the slide model's inference runs (the landmark
+  softmax, the pinv iterations, the two softmax attentions, PPEG). Each is a
+  ``torch.library.custom_op`` with a CUDA implementation (the kernel's
+  launch and its count), a CPU one (the plain version) and a fake one (the
+  output shapes and dtypes), so ``torch.export`` keeps it as one node of an
+  exported program (``tools/export_model.py``) and a run of that program
+  launches and counts the kernel. The autograd Functions' forwards call
+  these ops; their backwards launch their kernels directly.
 
 The TPU package's shard_map plumbing has no counterpart: every kernel here
 works on the tensors of one device.
@@ -136,6 +146,12 @@ _SCRATCH_SIZES = {
     # clusters of the fused MLP the card holds at once
     "mirror_vit_fused_mlp_clusters": (),
 }
+
+# the dispatcher namespace of the forward kernels' ops (``mirror::``); a
+# second copy of the package in the same process (scripts/_timing.py::
+# load_parent's A/B runs) takes its own top-level name as its namespace,
+# since torch.library refuses to define one op name twice
+OP_NAMESPACE = "mirror" if __name__.split(".")[0] == "mirror_tpu_torch" else __name__.split(".")[0]
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -263,9 +279,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def check_kernel_input(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16) -> None:
-    """Raise unless ``t`` is what the CUDA kernels take: the given shape,
-    dtype, contiguous, 16-byte aligned (the kernels load 16 bytes a
-    thread)."""
+    """Raise unless ``t`` is what the CUDA kernels take: a CUDA tensor of the
+    given shape and dtype, contiguous, 16-byte aligned (the kernels load 16
+    bytes a thread)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: on {t.device}, the kernel takes a CUDA tensor")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.dtype != dtype:

@@ -2,9 +2,11 @@
 
 Counterpart of ``mirror_tpu/ops/landmark_pallas.py::landmark_softmax`` and
 its custom VJP. :class:`LandmarkSoftmax` is the only caller of the kernels:
-on CUDA tensors its forward runs ``csrc/landmark.cu`` and its backward
-``csrc/landmark_bwd.cu``; on CPU tensors they run
-:func:`landmark_softmax_lse_ref` and :func:`landmark_softmax_bwd_lse_ref`.
+on CUDA tensors its forward runs ``csrc/landmark.cu`` (through the op
+``mirror::landmark_softmax``, :func:`landmark_softmax_op`, which an
+exported program also calls) and its backward ``csrc/landmark_bwd.cu``; on
+CPU tensors they run :func:`landmark_softmax_lse_ref` and
+:func:`landmark_softmax_bwd_lse_ref`.
 
 Residuals. The TPU kernel's VJP keeps only (q, k) and recomputes the means
 and the softmax statistics in its backward. Here the forward keeps q_l and
@@ -15,6 +17,8 @@ kernel's recomputed softmax only in its last fp32 bits.
 :func:`landmark_softmax_ref` and :func:`landmark_softmax_bwd_ref` stay the
 JAX-shaped references.
 """
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -136,17 +140,37 @@ def _launch_bwd(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
     return dq, dk
 
 
+@torch.library.custom_op(f"{_common.OP_NAMESPACE}::landmark_softmax", mutates_args=(),
+                         device_types="cpu")
+def landmark_softmax_op(q: torch.Tensor, k: torch.Tensor, m: int,
+                        pad: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mirror::landmark_softmax``: (q_l, k_l, attn2, lse fp32 [b, h, m]);
+    on the CPU :func:`landmark_softmax_lse_ref`."""
+    return landmark_softmax_lse_ref(q, k, m, pad)
+
+
+@landmark_softmax_op.register_kernel("cuda")
+def _landmark_softmax_cuda(q, k, m, pad):
+    out = _launch_fwd(q, k, m, pad)
+    _common.count_launch(KERNEL)
+    return out
+
+
+@landmark_softmax_op.register_fake
+def _landmark_softmax_fake(q, k, m, pad):
+    b, h, _, dh = q.shape
+    return (q.new_empty(b, h, m, dh), q.new_empty(b, h, m, dh), q.new_empty(b, h, m, m),
+            q.new_empty(b, h, m, dtype=torch.float32))
+
+
 class LandmarkSoftmax(torch.autograd.Function):
-    """(q_l, k_l, attn2); saves q_l, k_l and the row log-sum-exp for the
-    backward, which neither recomputes the means nor reads q and k."""
+    """(q_l, k_l, attn2) by :func:`landmark_softmax_op`; saves q_l, k_l and
+    the row log-sum-exp for the backward, which neither recomputes the
+    means nor reads q and k."""
 
     @staticmethod
     def forward(ctx, q, k, m: int, pad: int):
-        if not _common.on_cuda(q, k):
-            q_l, k_l, attn2, lse = landmark_softmax_lse_ref(q, k, m, pad)
-        else:
-            q_l, k_l, attn2, lse = _launch_fwd(q, k, m, pad)
-            _common.count_launch(KERNEL)
+        q_l, k_l, attn2, lse = landmark_softmax_op(q, k, m, pad)
         ctx.n, ctx.pad = q.shape[2], pad
         ctx.save_for_backward(q_l, k_l, lse)
         return q_l, k_l, attn2

@@ -4,7 +4,9 @@ Counterpart of ``mirror_tpu/ops/nystrom_pallas.py``:
 ``softmax_matmul_landmark_kv``, ``softmax_matmul_landmark_q`` and
 ``fused_softmax_attn_conv`` with their custom VJPs. The two autograd
 Functions here are the only callers of the kernels: on CUDA tensors the
-forward runs ``csrc/softmax_attn.cu`` and the backward
+forward runs ``csrc/softmax_attn.cu`` (through the ops
+``mirror::softmax_attn`` and ``mirror::softmax_attn_conv``, which an
+exported program also calls) and the backward
 ``csrc/softmax_attn_bwd.cu`` (each with a WITH_CONV variant for the fused
 residual conv); on CPU tensors they run the plain versions
 :func:`softmax_attn_fwd_ref` (with :func:`depthwise_conv_seq_ref` of
@@ -30,7 +32,7 @@ arithmetic; in bf16 it differs by the rounding of P inside o and of o
 itself. :func:`softmax_attn_bwd_ref` stays the JAX-shaped reference.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -200,19 +202,71 @@ def _launch_bwd(q, k, w, g, lse, o, v, kern):
     return dq, dk, dw, dv, dkern
 
 
+def _unkept(q: torch.Tensor) -> torch.Tensor:
+    """What an op returns for a residual it was not asked to keep."""
+    return q.new_empty(0, dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{_common.OP_NAMESPACE}::softmax_attn", mutates_args=(),
+                         device_types="cpu")
+def softmax_attn_op(q: torch.Tensor, k: torch.Tensor, w: torch.Tensor, pad: int, counter: str,
+                    keep: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mirror::softmax_attn``: (out, lse fp32 [b, h, r], or empty unless
+    ``keep``); ``counter`` names the launch count (the kv and q entry
+    points are counted apart). On the CPU :func:`softmax_attn_fwd_ref`."""
+    out, lse, _ = softmax_attn_fwd_ref(q, k, w, pad)
+    return out, lse if keep else _unkept(q)
+
+
+@softmax_attn_op.register_kernel("cuda")
+def _softmax_attn_cuda(q, k, w, pad, counter, keep):
+    out, lse, _ = _launch_fwd(q, k, w, None, None, pad, keep)
+    _common.count_launch(counter)
+    return out, lse if keep else _unkept(q)
+
+
+@softmax_attn_op.register_fake
+def _softmax_attn_fake(q, k, w, pad, counter, keep):
+    b, h, r, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, r) if keep else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{_common.OP_NAMESPACE}::softmax_attn_conv", mutates_args=(),
+                         device_types="cpu")
+def softmax_attn_conv_op(q: torch.Tensor, k_l: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                         kern: torch.Tensor, pad: int,
+                         keep: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mirror::softmax_attn_conv``: (out, lse fp32 [b, h, n], o_attn), lse
+    and o_attn empty unless ``keep``. On the CPU
+    :func:`softmax_attn_fwd_ref` with the conv."""
+    out, lse, o_attn = softmax_attn_fwd_ref(q, k_l, w, pad, v, kern)
+    return (out, lse, o_attn) if keep else (out, _unkept(q), q.new_empty(0))
+
+
+@softmax_attn_conv_op.register_kernel("cuda")
+def _softmax_attn_conv_cuda(q, k_l, w, v, kern, pad, keep):
+    out, lse, o_attn = _launch_fwd(q, k_l, w, v, kern, pad, keep)
+    _common.count_launch(KERNEL_CONV)
+    return (out, lse, o_attn) if keep else (out, _unkept(q), q.new_empty(0))
+
+
+@softmax_attn_conv_op.register_fake
+def _softmax_attn_conv_fake(q, k_l, w, v, kern, pad, keep):
+    b, h, n, _ = q.shape
+    if not keep:
+        return torch.empty_like(q), _unkept(q), q.new_empty(0)
+    return torch.empty_like(q), q.new_empty(b, h, n, dtype=torch.float32), torch.empty_like(q)
+
+
 class SoftmaxAttn(torch.autograd.Function):
-    """softmax_pad(q k^T) w. Saves (q, k, w) and, as residuals, the row
-    log-sum-exp and the output itself (when ``keep``: autograd records the
-    call). ``counter`` names the launch count of the forward (the kv and q
-    entry points are counted apart)."""
+    """softmax_pad(q k^T) w by :func:`softmax_attn_op`. Saves (q, k, w)
+    and, as residuals, the row log-sum-exp and the output itself (when
+    ``keep``: autograd records the call). ``counter`` names the launch
+    count of the forward."""
 
     @staticmethod
     def forward(ctx, q, k, w, pad: int, counter: str, keep: bool):
-        if not _common.on_cuda(q, k, w):
-            out, lse, _ = softmax_attn_fwd_ref(q, k, w, pad)
-        else:
-            out, lse, _ = _launch_fwd(q, k, w, None, None, pad, keep)
-            _common.count_launch(counter)
+        out, lse = softmax_attn_op(q, k, w, pad, counter, keep)
         if keep:
             ctx.save_for_backward(q, k, w, lse, out)
         return out
@@ -230,8 +284,9 @@ class SoftmaxAttn(torch.autograd.Function):
 
 
 class SoftmaxAttnConv(torch.autograd.Function):
-    """softmax_pad(q k_l^T) w + depthwise_conv_seq(v, kern), one rounding.
-    Saves the inputs and, as residuals (when ``keep``), the row
+    """softmax_pad(q k_l^T) w + depthwise_conv_seq(v, kern), one rounding,
+    by :func:`softmax_attn_conv_op`. Saves the inputs and, as residuals
+    (when ``keep``), the row
     log-sum-exp and o_attn, the attention part before the conv. Gradients:
     dq, dk_l, dw of the attention, dv the flipped conv of g, dkern reduced
     over batch and rows (per-block partials, then a second pass:
@@ -239,11 +294,7 @@ class SoftmaxAttnConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k_l, w, v, kern, pad: int, keep: bool):
-        if not _common.on_cuda(q, k_l, w, v, kern):
-            out, lse, o_attn = softmax_attn_fwd_ref(q, k_l, w, pad, v, kern)
-        else:
-            out, lse, o_attn = _launch_fwd(q, k_l, w, v, kern, pad, keep)
-            _common.count_launch(KERNEL_CONV)
+        out, lse, o_attn = softmax_attn_conv_op(q, k_l, w, v, kern, pad, keep)
         if keep:
             ctx.save_for_backward(q, k_l, w, v, kern, lse, o_attn)
         return out

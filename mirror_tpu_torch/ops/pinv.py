@@ -3,7 +3,9 @@
 Counterpart of ``mirror_tpu/ops/pinv_pallas.py::moore_penrose_pinv_pallas``.
 The global scale is reduced by torch here, outside the kernel, as the TPU
 package leaves it to XLA. On a CUDA tensor the iterations run
-``csrc/pinv.cu``; on a CPU tensor :func:`pinv_iterations_ref`.
+``csrc/pinv.cu``; on a CPU tensor :func:`pinv_iterations_ref`: the op
+``mirror::pinv`` (:func:`pinv_op`), which both Functions' forwards and an
+exported program call.
 
 On the card the iterations are launch sequences of one batched GEMM
 (``mirror_pinv_gemm``, 4 launches a forward iteration, 12 a backward one)
@@ -237,12 +239,28 @@ def pinv_sequence(x: torch.Tensor, s: torch.Tensor, iters: int, ops=CUDA_LAUNCHE
     return zs[iters % 2]
 
 
+@torch.library.custom_op(f"{_common.OP_NAMESPACE}::pinv", mutates_args=(), device_types="cpu")
+def pinv_op(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
+    """``mirror::pinv``: the iterations from the scale ``s`` (an fp32
+    scalar tensor on x's device); on the CPU :func:`pinv_iterations_ref`."""
+    return pinv_iterations_ref(x, s, iters)
+
+
+@pinv_op.register_kernel("cuda")
 def _pinv_kernel(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
     b, h, m, _ = x.shape
     _common.check_kernel_input("x", x, (b, h, m, m))
+    if s.device != x.device or s.dtype != torch.float32 or s.numel() != 1:
+        raise ValueError(f"s: {s.dtype} {tuple(s.shape)} on {s.device}, the kernel takes "
+                         f"an fp32 scalar on {x.device}")
     z = pinv_sequence(x, s, iters)
     _common.count_launch(KERNEL)
     return z
+
+
+@pinv_op.register_fake
+def _pinv_fake(x, s, iters):
+    return torch.empty_like(x)
 
 
 def _step_ref(x, z, eye, xz=None):
@@ -376,8 +394,7 @@ class PinvImplicit(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, iters: int, over_ranks: bool = True):
-        s = global_scale(x.detach(), over_ranks)
-        z = _pinv_kernel(x, s, iters) if _common.on_cuda(x) else pinv_iterations_ref(x, s, iters)
+        z = pinv_op(x, global_scale(x.detach(), over_ranks), iters)
         ctx.save_for_backward(z)
         return z
 
@@ -406,7 +423,7 @@ class PinvExact(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, s, iters: int, stash: int = 4):
-        z = _pinv_kernel(x, s, iters) if _common.on_cuda(x, s) else pinv_iterations_ref(x, s, iters)
+        z = pinv_op(x, s, iters)
         ctx.save_for_backward(x, s)
         ctx.iters, ctx.stash = iters, stash
         return z

@@ -2,8 +2,9 @@
 
 Counterpart of ``mirror_tpu/ops/ppeg_pallas.py::ppeg_fused`` and its custom
 VJP. :class:`PPEGFused` is the only caller of the kernels: on CUDA tensors
-its forward and backward run ``csrc/ppeg.cu``; on CPU tensors
-:func:`ppeg_ref` and :func:`ppeg_bwd_ref`.
+its forward (through the op ``mirror::ppeg``, :func:`ppeg_op`, which an
+exported program also calls) and backward run ``csrc/ppeg.cu``; on CPU
+tensors :func:`ppeg_ref` and :func:`ppeg_bwd_ref`.
 """
 
 import torch
@@ -43,21 +44,35 @@ def ppeg_bwd_ref(img, kern, g):
     return dimg, dk, g32.sum((0, 1, 2))
 
 
+@torch.library.custom_op(f"{_common.OP_NAMESPACE}::ppeg", mutates_args=(), device_types="cpu")
+def ppeg_op(img: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``mirror::ppeg``: the forward; on the CPU :func:`ppeg_ref`."""
+    return ppeg_ref(img, kern, bias)
+
+
+@ppeg_op.register_kernel("cuda")
+def _ppeg_cuda(img, kern, bias):
+    b, H, W, C = img.shape
+    _common.check_kernel_input("img", img, (b, H, W, C))
+    _common.check_kernel_input("kern", kern, (KSIZE, KSIZE, C))
+    _common.check_kernel_input("bias", bias, (C,))
+    out = torch.empty_like(img)
+    _common.launch("mirror_ppeg", img.data_ptr(), kern.data_ptr(), bias.data_ptr(),
+                   out.data_ptr(), b, H, W, C)
+    _common.count_launch(KERNEL)
+    return out
+
+
+@ppeg_op.register_fake
+def _ppeg_fake(img, kern, bias):
+    return torch.empty_like(img)
+
+
 class PPEGFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, kern, bias):
         ctx.save_for_backward(img, kern, bias)
-        if not _common.on_cuda(img, kern, bias):
-            return ppeg_ref(img, kern, bias)
-        b, H, W, C = img.shape
-        _common.check_kernel_input("img", img, (b, H, W, C))
-        _common.check_kernel_input("kern", kern, (KSIZE, KSIZE, C))
-        _common.check_kernel_input("bias", bias, (C,))
-        out = torch.empty_like(img)
-        _common.launch("mirror_ppeg", img.data_ptr(), kern.data_ptr(), bias.data_ptr(),
-                       out.data_ptr(), b, H, W, C)
-        _common.count_launch(KERNEL)
-        return out
+        return ppeg_op(img, kern, bias)
 
     @staticmethod
     def backward(ctx, g):

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from ..ops import conv1d
 from . import _timing as T
+from ..utils.platform import default_device
 
 # the kernels each variant launches, as the profiler names them (csrc/conv1d.cu,
 # common.cuh): dv alone is the forward's kernel; the fused backward's second
@@ -74,7 +75,7 @@ def parse_args(argv):
     p.add_argument("--ksize", type=int, default=33)
     p.add_argument("--steps", type=int, default=20, help="calls per timed sample")
     p.add_argument("--reps", type=int, default=5, help="timed samples (median)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=default_device())
     p.add_argument("--parent", type=Path, default=None,
                    help="a checkout of an earlier tree (its mirror_tpu_torch/), timed in turns")
     return p.parse_args(argv)

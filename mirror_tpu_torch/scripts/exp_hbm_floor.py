@@ -29,6 +29,7 @@ import torch
 
 from ..ops import copy_floor as cf
 from . import _timing as T
+from ..utils.platform import default_device
 
 ROW_TILE = 384  # conv1d_pallas.ROW_TILE, the script's n tile
 
@@ -44,7 +45,7 @@ def parse_args(argv):
                    help="elements of the flat tensor of the elementwise floor")
     p.add_argument("--steps", type=int, default=20, help="calls per timed sample")
     p.add_argument("--reps", type=int, default=5, help="timed samples (median)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=default_device())
     return p.parse_args(argv)
 
 

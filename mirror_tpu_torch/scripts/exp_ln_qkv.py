@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..ops import ln_qkv
 from . import _timing as T
+from ..utils.platform import default_device
 
 EPS = 1e-5
 
@@ -62,7 +63,7 @@ def parse_args(argv):
     p.add_argument("--heads", type=int, default=8)
     p.add_argument("--chain", type=int, default=8, help="calls per timed sample")
     p.add_argument("--reps", type=int, default=5, help="timed samples (median)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=default_device())
     return p.parse_args(argv)
 
 

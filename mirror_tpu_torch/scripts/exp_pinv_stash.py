@@ -29,6 +29,7 @@ import torch
 
 from ..ops import pinv
 from . import _timing as T
+from ..utils.platform import default_device
 
 VARIANTS = {"full": 4, "z+xz": 2, "z": 1}
 # products of [m, m] per call: the forward's 4 per iteration, and the
@@ -45,7 +46,7 @@ def parse_args(argv):
     p.add_argument("--iters", type=int, default=6)
     p.add_argument("--chain", type=int, default=6, help="calls per timed sample")
     p.add_argument("--reps", type=int, default=3, help="timed samples (median)")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=default_device())
     return p.parse_args(argv)
 
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ..ops import vit_attn
 from . import _timing as T
+from ..utils.platform import default_device
 
 B, N, H, DH = 512, 197, 12, 64
 D = H * DH
@@ -96,7 +97,7 @@ def parse_args(argv):
     p.add_argument("--steps", type=int, default=24, help="calls per timed sample")
     p.add_argument("--reps", type=int, default=3, help="timed samples (median)")
     p.add_argument("--variants", nargs="+", default=list(VARIANTS))
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=default_device())
     return p.parse_args(argv)
 
 

@@ -36,6 +36,7 @@ from .models.nystrom import NystromAttention
 from .ops.conv1d import depthwise_conv1d_seq
 from .ops.ppeg import ppeg_fused
 from .registry import init_weights
+from .utils.platform import default_device
 
 METRIC = "cuda_kernel_selftest"
 CONV_TAPS, SEED = 33, 0
@@ -102,14 +103,14 @@ def main(argv=None, **shapes) -> int:
     arguments of :func:`selftest`) says otherwise. Prints the JSON line and
     returns 0 when every mode passed, else 1."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--device", default="cuda",
+    parser.add_argument("--device", default=default_device(),
                         help="cuda (the default: the kernels) or cpu (their plain versions)")
     args = parser.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA card is available; pass --device cpu to "
                          "run the kernels' plain versions on the CPU")
     line = selftest(args.device, **shapes)
-    print(json.dumps(line), flush=True)
+    print(json.dumps(line), flush=True)  # lint: allow-print
     return 0 if line["value"] else 1
 
 

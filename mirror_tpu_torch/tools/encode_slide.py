@@ -35,6 +35,7 @@ from mirror_tpu_torch.models.transmil import FeatureTransMIL
 from mirror_tpu_torch.parallel import distributed
 from mirror_tpu_torch.parallel.context_parallel import transmil_encode_cp, wrap_pad_square
 from mirror_tpu_torch.train.checkpoint import load_checkpoint_file
+from mirror_tpu_torch.utils.platform import default_device
 
 _logger = logging.getLogger("encode_slide")
 HEADS = 8  # the port's TransLayer: 8 heads of embed / 8
@@ -128,7 +129,7 @@ def main(argv=None) -> int:
                    help=f"attention heads: the encoder's {HEADS} (any other is refused)")
     p.add_argument("--skip-existing", action="store_true", default=True)
     p.add_argument("--no-skip-existing", dest="skip_existing", action="store_false")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=default_device(),
                    help="torch device; the kernels run on cuda, cpu runs their plain versions")
     p.add_argument("--use-pallas", action="store_true", default=True,
                    help="the CUDA kernels on a CUDA device (the default)")

@@ -46,6 +46,8 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
+from mirror_tpu_torch.utils.platform import default_device
+
 _logger = logging.getLogger("gen_patch_feature")
 
 IMG_EXTS = (".jpeg", ".jpg", ".png")
@@ -301,7 +303,7 @@ def main(argv=None):
                    help="the JAX tool's dense path: refused, the port has none")
     p.add_argument("--quant", default=None, choices=["int8"],
                    help="W8A8 projections with the natural-layout attention kernel")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=default_device(),
                    help="torch device; the kernels run on cuda, cpu runs their plain "
                    "versions")
     a = p.parse_args(argv)

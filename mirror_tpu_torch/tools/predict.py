@@ -44,6 +44,7 @@ from mirror_tpu_torch.parallel.context_parallel import transmil_encode_cp, wrap_
 from mirror_tpu_torch.registry import create_model
 from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args as _run_args
 from mirror_tpu_torch.train.steps import survival_risk
+from mirror_tpu_torch.utils.platform import default_device
 
 _logger = logging.getLogger("predict")
 
@@ -220,7 +221,7 @@ def main(argv=None):
     p.add_argument("--whole-slide", action="store_true", default=False,
                    help="score EVERY patch (the context-parallel whole-slide encoder) "
                    "instead of the training-time token subsample")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=default_device(),
                    help="torch device; the kernels run on cuda, cpu runs "
                    "their plain versions")
     p.add_argument("--use-pallas", action="store_true", default=None,

@@ -7,9 +7,14 @@ arguments: a yaml string, a dict, or the reference's argparse Namespace),
 ``--resume`` restores (:func:`resume_checkpoint`): ``optimizer`` (the
 chain's buffers keyed by parameter name, its counts, the accumulated
 micro-gradients and the host lr), ``step`` (the update count) and
-``rng_state`` (the train step generator's state). The JAX package's flax msgpack files
-are not read here: ``convert.state_dict_from_jax`` turns their params into
-this payload's ``state_dict``.
+``rng_state`` (the train step generator's state).
+
+:func:`load_checkpoint_file` detects the format, as the JAX package's
+loaders do (``mirror_tpu/train/checkpoint.py:137-145``): a torch zip or
+pickle is this payload; a flax msgpack file, the JAX package's checkpoint,
+is read by ``jax_checkpoint.py`` into it (weights and EMA weights; the optax
+state is dropped, so ``--resume`` refuses one); an Orbax directory is
+refused by name.
 
 :func:`load_pretrained` warm-starts a downstream model from a pretrain
 checkpoint, non-strict (``mirror_tpu/train/checkpoint.py:318-361``).
@@ -25,6 +30,7 @@ import torch
 import yaml
 
 from ..parallel.tensor_parallel import load_full_state_dict
+from . import jax_checkpoint
 
 _logger = logging.getLogger(__name__)
 
@@ -55,9 +61,26 @@ def run_args(payload: Mapping[str, Any]) -> Dict[str, Any]:
     return dict(raw)
 
 
+ORBAX_DIRECTORY_REFUSAL = (
+    "{path} is a directory, an Orbax checkpoint of the JAX package: reading its OCDBT store "
+    "needs tensorstore, which the card's machine lacks. Save it as msgpack with the JAX "
+    "package (mirror_tpu.train.checkpoint: save_checkpoint_file(path, "
+    "load_checkpoint_file(dir))), which the port reads; `python -m "
+    "mirror_tpu.tools.import_torch_checkpoint` goes the other way, from the port's "
+    ".pth.tar to the JAX package"
+)
+
+
 def load_checkpoint_file(path: str) -> Dict[str, Any]:
-    """Read a reference ``.pth.tar`` payload; ``state_dict`` values become
-    tensors. A bare state_dict file is accepted as ``{"state_dict": ...}``."""
+    """Read a reference ``.pth.tar`` payload, or the JAX package's msgpack
+    checkpoint as one (``jax_checkpoint.load_jax_checkpoint``);
+    ``state_dict`` values become tensors. A bare state_dict file is
+    accepted as ``{"state_dict": ...}``. An Orbax directory is refused
+    (:data:`ORBAX_DIRECTORY_REFUSAL`)."""
+    if os.path.isdir(path):
+        raise SystemExit(ORBAX_DIRECTORY_REFUSAL.format(path=path))
+    if jax_checkpoint.is_msgpack_file(path):
+        return jax_checkpoint.load_jax_checkpoint(path)
     with torch.serialization.safe_globals([argparse.Namespace]):
         payload = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(payload, dict):
@@ -91,8 +114,14 @@ def save_checkpoint_file(path: str, state_dict: Mapping[str, Any],
         payload["state_dict_ema"] = {k: v.detach().cpu()
                                      for k, v in to_tensors(state_dict_ema).items()}
     payload.update(run_state or {})
+    save_payload(path, payload)
+
+
+def save_payload(path: str, payload: Mapping[str, Any]) -> None:
+    """``torch.save`` to a tmp file, then a rename: a crash mid-save never
+    leaves a partial file under ``path``."""
     tmp = path + ".tmp"
-    torch.save(payload, tmp)
+    torch.save(dict(payload), tmp)
     os.replace(tmp, path)
 
 
@@ -131,7 +160,14 @@ def resume_checkpoint(path: str, model: torch.nn.Module, optimizer=None, ema=Non
     recovery file also starts at the next epoch). The file holds whole
     leaves; a model-sharded model (``parallel/tensor_parallel.py``) takes
     its rank's slices, at whatever model-parallel size the file was
-    written."""
+    written. The JAX package's msgpack checkpoint is refused: its optax
+    state has no counterpart in the port's optimizer, and
+    ``--initial-checkpoint`` carries its weights."""
+    if not os.path.isdir(path) and jax_checkpoint.is_msgpack_file(path):
+        raise SystemExit(
+            f"--resume {path}: a JAX package checkpoint; its optax opt_state has no "
+            "counterpart in the port's optimizer layout, so the run cannot resume from it. "
+            "--initial-checkpoint starts a run from its weights")
     payload = load_checkpoint_file(path)
     load_full_state_dict(model, payload["state_dict"])
     if ema is not None:

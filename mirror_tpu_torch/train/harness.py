@@ -460,5 +460,5 @@ def run(args, model, train_step, loader, device, eval_fn: Optional[Callable],
             wandb_run.summary.update(results)
             wandb_run.finish()
         if distributed.is_main():
-            print(f"--result\n{json.dumps(results, indent=4)}", flush=True)
+            print(f"--result\n{json.dumps(results, indent=4)}", flush=True)  # lint: allow-print
         return results

@@ -35,9 +35,11 @@ the grad / param norms and the lr, an optional validation pass (and the
 EMA's), ``summary.csv``, and the reference's ``.pth.tar`` checkpoints
 (``last``, ``model_best`` and the best ``--checkpoint-hist``
 ``checkpoint-<epoch>``). At the end the ``--result`` JSON goes to stdout.
-Flags of the JAX entry point that the port does not implement are refused at
-start when set away from their defaults (``config.refuse_unported``), and so
-are the CLIP baseline's model and loss (``train_pretrain`` runs them).
+``--ckpt-format orbax`` and a model or loss that the port does not run are
+refused at start (``config.refuse_unported``), and so are the CLIP
+baseline's model and loss (``train_pretrain`` runs them).
+``--initial-checkpoint`` also takes the JAX package's msgpack file
+(``train/jax_checkpoint.py``).
 """
 
 import logging

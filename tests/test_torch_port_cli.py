@@ -119,14 +119,16 @@ def test_train_mirror_trains_on_the_cpu_and_its_checkpoint_reloads(cohort, capsy
     ["--ckpt-format", "orbax"],
 ])
 def test_train_mirror_refuses_unported_flags(cohort, flag):
-    """The flag still to port (item 17), a loss the port has not,
-    ``--distributed`` with no rendezvous in the env (torchrun's or
-    ``MIRROR_COORDINATOR``), and ``--model-parallel 2`` in one process (it
-    needs a world size that divides by 2), each refused at start naming the
-    flag."""
+    """``--ckpt-format orbax`` (a departure on purpose: the port writes the
+    reference's .pth.tar), a loss the port has not, ``--distributed`` with
+    no rendezvous in the env (torchrun's or ``MIRROR_COORDINATOR``), and
+    ``--model-parallel 2`` in one process (it needs a world size that
+    divides by 2), each refused at start naming the flag."""
     name = flag[0]
     if name == "--model-parallel":
         name = r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"
+    if name == "--ckpt-format":
+        name = r"--ckpt-format orbax: the port writes the reference's \.pth\.tar only"
     with pytest.raises(SystemExit, match=name):
         train_mirror.main(_argv(cohort, "--device", "cpu", *flag))
 
@@ -193,10 +195,11 @@ UNPORTED_ARGV = {
 
 @pytest.mark.parametrize("dest,item", [("model_parallel", 16), ("ckpt_format", 17)])
 def test_refusal_names_the_flag_and_its_roadmap_item(dest, item):
-    """The refused pretrain flag's message names the flag and the ROADMAP
-    item that ports it (item 17); ``--model-parallel`` (item 16, ported)
-    passes that check and is refused in one process, where the world size
-    does not divide by 2, by the process group's setup."""
+    """``--ckpt-format orbax`` (item 17, ported but for Orbax) is refused as
+    a departure on purpose, naming the JAX package's tool that makes an
+    Orbax directory; ``--model-parallel`` (item 16, ported) passes that
+    check and is refused in one process, where the world size does not
+    divide by 2, by the process group's setup."""
     args, _ = config.parse_args(UNPORTED_ARGV[dest], task="pretrain")
     if dest == "model_parallel":
         from mirror_tpu_torch.parallel import distributed
@@ -209,8 +212,9 @@ def test_refusal_names_the_flag_and_its_roadmap_item(dest, item):
     with pytest.raises(SystemExit) as refusal:
         config.refuse_unported(args)
     message = str(refusal.value)
-    assert message.startswith(f"--{dest.replace('_', '-')}="), message
-    assert f"(ROADMAP item {item})" in message, message
+    assert message == config.ORBAX_REFUSAL and item == 17
+    assert message.startswith(f"--{dest.replace('_', '-')} orbax: "), message
+    assert "mirror_tpu.tools.import_torch_checkpoint" in message and "--format orbax" in message
 
 
 def test_train_mirror_refuses_exact_pinv_grad_on_the_card(cohort, capsys):

@@ -365,11 +365,12 @@ def test_train_pretrain_default_run_matches_its_eval(cohort):
 @pytest.mark.parametrize("flag,item", [(["--model-parallel", "2"], 16),
                                        (["--ckpt-format", "orbax"], 17)])
 def test_train_pretrain_refuses_unported_flags_with_their_item(cohort, flag, item):
-    """``--ckpt-format`` names its ROADMAP item; ``--model-parallel 2``
-    (item 16, ported) is refused in one process, naming the world size it
-    needs."""
-    message = rf"{flag[0]}.*ROADMAP item {item}" if item == 17 else \
-        r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"
+    """``--ckpt-format orbax`` (item 17) is refused as a departure on purpose,
+    naming the JAX package's tool that makes an Orbax directory;
+    ``--model-parallel 2`` (item 16, ported) is refused in one process,
+    naming the world size it needs."""
+    message = r"--ckpt-format orbax: .*import_torch_checkpoint .*--format orbax" if item == 17 \
+        else r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"
     with pytest.raises(SystemExit, match=message):
         train_pretrain.main(_argv(cohort, "refused", "--device", "cpu", *flag))
 

@@ -1480,3 +1480,39 @@ def test_conv1d_kernel_on_halo_extended_blocks(dev, n, parts):
                      for r in range(parts)], dim=2)
     _assert_close(got, want)
     _assert_close(want, depthwise_conv_seq_ref(v, kern).to(v.dtype))
+
+
+def test_exported_classifier_on_the_card_launches_its_ops(dev, tmp_path):
+    """The classifier at embed 384 (the dual encoder's widths), exported on
+    the card: its graph calls the five ``mirror::`` forward ops, and the
+    ``.pt2`` after save and load launches each kernel as the eager model
+    does (two Nystrom layers: 2 each of kernels 1-4, 1 of PPEG) and gives
+    the eager model's output bit for bit (the same kernels on the same
+    inputs)."""
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.tools.export_model import mirror_ops
+
+    kw = {k: v for k, v in DUAL_KW.items() if k not in ("pinv_grad",)}
+    model = create_model("mirror_classifier", device="cuda", num_classes=3,
+                         generator=torch.Generator().manual_seed(0), **kw)
+    g = torch.Generator().manual_seed(4)
+    wsi, rna = torch.randn(2, 300, 64, generator=g).cuda(), torch.randn(2, 100, generator=g).cuda()
+    with torch.no_grad():
+        program = torch.export.export(model, (wsi, rna))
+        assert mirror_ops(program) == ["mirror::landmark_softmax", "mirror::pinv",
+                                       "mirror::ppeg", "mirror::softmax_attn",
+                                       "mirror::softmax_attn_conv"]
+        torch.export.save(program, str(tmp_path / "clf.pt2"))
+        loaded = torch.export.load(str(tmp_path / "clf.pt2")).module()
+        _common.reset_launch_counts()
+        eager = model(wsi, rna)
+        eager_launches = _common.launch_counts()
+        _common.reset_launch_counts()
+        out = loaded(wsi, rna)
+        launches = _common.launch_counts()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert launches == eager_launches
+    for name in ("landmark_softmax", "moore_penrose_pinv", "softmax_attn", "softmax_attn_conv"):
+        assert launches.get(name) == 2, (name, launches)
+    assert launches.get("ppeg") == 1, launches

@@ -600,9 +600,10 @@ def test_a_batch_that_does_not_divide_over_the_ranks_is_refused(cohort, tmp_path
 @pytest.mark.parametrize("cli", ["train_mirror", "train_pretrain", "train_subtyping",
                                  "train_survival"])
 def test_the_still_unported_flags_are_refused_in_every_cli(cohort, cli, flag, item):
-    """``--ckpt-format`` is still to port (item 17); ``--model-parallel 2``
-    (item 16, ported) is refused in one process, naming the world size it
-    needs."""
+    """``--ckpt-format orbax`` (item 17) is refused as a departure on
+    purpose, naming the JAX package's tool that makes an Orbax directory;
+    ``--model-parallel 2`` (item 16, ported) is refused in one process,
+    naming the world size it needs."""
     module = {"train_subtyping": train_subtyping}.get(cli) or CLIS[cli][0]
     argv = _survival_argv(cohort, "refused", *flag)
     if cli == "train_subtyping":  # the survival YAML's loss is not subtyping's
@@ -611,8 +612,8 @@ def test_the_still_unported_flags_are_refused_in_every_cli(cohort, cli, flag, it
             argv[argv.index("--survival-csv") + 2:]
     elif cli != "train_survival":
         argv = _pretrain_argv(cohort, "refused", *flag)
-    message = rf"{flag[0]}.*ROADMAP item {item}" if item == 17 else \
-        r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"
+    message = r"--ckpt-format orbax: .*import_torch_checkpoint .*--format orbax" if item == 17 \
+        else r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"
     with pytest.raises(SystemExit, match=message):
         module.main(argv)
 

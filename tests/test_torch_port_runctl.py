@@ -142,11 +142,20 @@ def test_the_port_parsers_match_the_jax_parsers(task, n_options):
 
 
 def test_only_the_multi_device_and_tool_flags_stay_refused():
-    """Only the tools' flag is left (item 17); ``--model-parallel`` (item
-    16) is ported, and one process refuses N > 1 by the world size."""
+    """No flag is left to port: ``--ckpt-format`` (item 17) takes its
+    default, msgpack, and refuses orbax as a departure on purpose;
+    ``--model-parallel`` (item 16) is ported, and one process refuses N > 1
+    by the world size."""
     from mirror_tpu_torch.parallel import distributed
 
-    assert sorted((dest, item) for dest, _, item in config._UNPORTED) == [("ckpt_format", 17)]
+    assert not hasattr(config, "_UNPORTED")
+    for task in config.TASKS:
+        args, _ = config.parse_args(["--ckpt-format", "msgpack"], task=task)
+        config.refuse_unported(args)
+        args, _ = config.parse_args(["--ckpt-format", "orbax"], task=task)
+        with pytest.raises(SystemExit) as refusal:
+            config.refuse_unported(args)
+        assert str(refusal.value) == config.ORBAX_REFUSAL
     with pytest.raises(SystemExit, match=r"--model-parallel 2: tensor parallelism needs a world size that is a multiple of 2 \(this run has 1 process\)"):
         distributed.refuse_model_parallel(2, 1)
 
