@@ -239,7 +239,31 @@ Phases, each printed as it finishes:
    template on phase 7's slides, warm-started from each fold), run
    without this process's ``MIRROR_PLATFORM``, their exit codes, the
    ``CUDA_VISIBLE_DEVICES`` each job was given and the device each job's
-   model was created on (the card, else it fails) printed.
+   model was created on (the card, else it fails) printed;
+12. the float32 and float16 instances of kernels 1-5 and 9 (the compute
+   types of ``--no-amp`` and ``--amp-dtype float16``): (a) right after
+   phase 3b, the bf16 instances' outputs at the train slice's shapes held to
+   the bits of the tree before those instances were added (BF16_DIGESTS),
+   then each float32 and float16 instance, forward and backward, against its
+   plain version in its own type at the train slice's shapes (the encoder's
+   2117 rows with pad 187; PPEG on [16, 46, 46, 768]; the exact pinv at
+   [16, 8, 384, 384]; the conv on [16, 8, 2117, 96]), at their bars, with
+   its median time, its bound (float16 products at 989 TFLOP/s, float32's
+   at the 3xTF32 rate of 165) and the PyTorch call in that type (TF32 off),
+   each a row ``name[float32]`` or ``name[float16]`` of the JSON; (c) after
+   phase 4, ``predict`` on checkpoints whose args say ``amp: false`` and
+   ``amp_dtype: float16`` (16 slides, launches read around each run, two
+   slides against the CPU's float32 plain path) and ``predict
+   --whole-slide`` on two whole slides in each type (kernels 2, 3, 3b, 9,
+   5), then one CP attention layer's gradient at world 1 in each type
+   (3c, 9b and 2b) against its float32 plain path on the card; (b) after
+   phase 5, ``train_mirror.main`` at full width with ``--no-amp`` and with
+   ``--amp-dtype float16`` (4 steps each on phase 5's cohort; the launches
+   of every instance read around each run and no bf16 instance launched;
+   the ``--result`` JSON; the ``.pth.tar`` reloaded in its type), each
+   type's step timed on one resident batch (ms, peak memory), and one
+   batch-2 step against the CPU's float32 plain path (float32: loss 1e-4,
+   gradient cosine 0.9999; float16: phase 5's bars).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -266,8 +290,9 @@ try:
     # the roofline peaks and bound, the error bars and the errors: one copy,
     # the probes' (mirror_tpu_torch/scripts), so both read alike
     from mirror_tpu_torch.scripts._timing import (
-        BOUND_BWD, BOUND_PINV_BWD, BOUND_PINV_BWD_COS, BOUND_SINGLE_ROUNDING, PEAK_BYTES,
-        bound, events_ms, nbytes, rel_err, sum_bound, sum_err)
+        BOUND_BWD, BOUND_F32, BOUND_F32_BWD, BOUND_PINV_BWD, BOUND_PINV_BWD_COS,
+        BOUND_SINGLE_ROUNDING, PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_MMA_FLOPS, bound, events_ms,
+        nbytes, rel_err, sum_bound, sum_err)
 except ModuleNotFoundError as e:
     print(f"chip_smoke: FAIL: {e}: run it from a checkout of the repository",
           file=sys.stderr)
@@ -499,7 +524,8 @@ def run_case(torch, case: Case) -> dict:
     (ms, ms_1), (plain_ms, plain_ms_1) = (median_ms(case.kernel),
                                           median_ms(case.plain, reps=10))
     library_ms, library_ms_1 = median_ms(case.library) if case.library else (None, None)
-    bound_ms, bound_by = bound(case.work["bytes"], case.work["mma"], case.work.get("fp32", 0))
+    bound_ms, bound_by = bound(case.work["bytes"], case.work["mma"], case.work.get("fp32", 0),
+                               case.work.get("mma_peak", PEAK_BF16_FLOPS))
     # a launch sequence's own floor: the bytes its launches move between
     # them through device memory (the pinv's 24 / 71 launches), from the
     # design's count of tensors (not measured): printed, kept out of the JSON
@@ -1499,7 +1525,8 @@ def compute_dtype(torch, model) -> str:
     """The compute dtype a model was built with: its first module's."""
     dtype = next((m.dtype for m in model.modules() if getattr(m, "dtype", None) is not None),
                  torch.float32)
-    return {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype, str(dtype))
+    return {torch.bfloat16: "bf16", torch.float32: "fp32", torch.float16: "fp16"}.get(
+        dtype, str(dtype))
 
 
 def kernel_fed(name: str) -> bool:
@@ -1507,13 +1534,16 @@ def kernel_fed(name: str) -> bool:
     return "res_conv.weight" in name or "to_qkv.weight" in name or "pos_layer.proj" in name
 
 
-def step_card_vs_cpu(torch, tag, make_step, batch, n_leaves):
+def step_card_vs_cpu(torch, tag, make_step, batch, n_leaves, bars=None):
     """One train step at batch 2: the card's kernels against the CPU's plain
     path, same weights and draws, dropout 0. ``make_step(device, generator)``
     builds the model (its weights drawn from ``generator`` when one is
     given) and returns (model, step); ``step(batch)`` runs on ``batch`` moved
     to the device. Holds the loss and the gradients that only the backward
-    kernels feed (res_conv, to_qkv, the PPEG convs: ``n_leaves`` of them)."""
+    kernels feed (res_conv, to_qkv, the PPEG convs: ``n_leaves`` of them),
+    at ``bars`` (loss, gradient cosine, norm ratio; phase 5's by default)."""
+    bound_loss, bound_cos, bound_norm = bars or (BOUND_STEP_LOSS, BOUND_GRAD_COS,
+                                                 BOUND_GRAD_NORM)
     import numpy as np
 
     t0 = time.perf_counter()
@@ -1528,16 +1558,15 @@ def step_card_vs_cpu(torch, tag, make_step, batch, n_leaves):
         metrics = step({k: v.to(device) for k, v in batch.items()})
         grads = {name: p.grad.detach().float().cpu() for name, p in model.named_parameters()
                  if p.grad is not None and kernel_fed(name)}
-        results[device] = (float(metrics["loss"]), grads)
-        ref = compute_dtype(torch, model)
+        results[device] = (float(metrics["loss"]), grads, compute_dtype(torch, model))
         del model, step
-    loss_gpu, g_gpu = results["cuda"]
-    loss_cpu, g_cpu = results["cpu"]
+    loss_gpu, g_gpu, card = results["cuda"]
+    loss_cpu, g_cpu, ref = results["cpu"]
     rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    say(f"[{tag}] one step at batch 2, card kernels (bf16) vs CPU plain path ({ref}): loss "
+    say(f"[{tag}] one step at batch 2, card kernels ({card}) vs CPU plain path ({ref}): loss "
         f"{loss_gpu:.6g} vs {loss_cpu:.6g}, relative error {rel:.4g} (bound "
-        f"{BOUND_STEP_LOSS:g}); {time.perf_counter() - t0:.1f} s")
-    if not np.isfinite(loss_gpu) or rel > BOUND_STEP_LOSS:
+        f"{bound_loss:g}); {time.perf_counter() - t0:.1f} s")
+    if not np.isfinite(loss_gpu) or rel > bound_loss:
         fail(f"[{tag}] the card's train-step loss disagrees with the CPU reference")
     if set(g_gpu) != set(g_cpu) or len(g_gpu) != n_leaves:
         fail(f"[{tag}] kernel-fed gradient leaves differ: {sorted(g_gpu)} vs {sorted(g_cpu)}")
@@ -1548,14 +1577,16 @@ def step_card_vs_cpu(torch, tag, make_step, batch, n_leaves):
         ratio = (a.norm() / b.norm()).item()
         say(f"[{tag}]   grad {name}: cosine {cos:.6f}, norm ratio {ratio:.5f}")
         worst.append(cos)
-        if not (cos >= BOUND_GRAD_COS and abs(ratio - 1.0) <= BOUND_GRAD_NORM):
+        if not (cos >= bound_cos and abs(ratio - 1.0) <= bound_norm):
             fail(f"[{tag}] gradient of {name} on the card disagrees with the CPU reference")
     return min(worst), rel
 
 
-def train_step_card_vs_cpu(torch, model_kwargs, args, wsi, rna):
+def train_step_card_vs_cpu(torch, model_kwargs, args, wsi, rna, tag="train", bars=None,
+                           cpu_float32=False):
     """The MIRROR train step at batch 2, card against CPU, with the same
-    masking noise and VAE eps."""
+    masking noise and VAE eps; with ``cpu_float32`` the CPU's model computes
+    in float32 whatever the card's type."""
     import numpy as np
 
     from mirror_tpu_torch.registry import create_model
@@ -1572,14 +1603,16 @@ def train_step_card_vs_cpu(torch, model_kwargs, args, wsi, rna):
     batch = dict(wsi=torch.from_numpy(wsi[:2]), rna=torch.from_numpy(rna[:2]))
 
     def make_step(device, generator):
-        model = create_model("mirror", device=device, generator=generator, **kw)
+        kw_dev = {k: v for k, v in kw.items() if k != "dtype"} \
+            if cpu_float32 and device == "cpu" else kw
+        model = create_model("mirror", device=device, generator=generator, **kw_dev)
         step = make_mirror_train_step(model, make_optimizer(args, model, 2e-5),
                                       loss_weights_from_args(args), args.wsi_mask_ratio,
                                       args.rna_mask_ratio)
         dev_noise = {k: torch.from_numpy(v).to(device) for k, v in noise.items()}
         return model, lambda b: step(b, noise=dev_noise)
 
-    return step_card_vs_cpu(torch, "train", make_step, batch, 3 * 2 + 6)
+    return step_card_vs_cpu(torch, tag, make_step, batch, 3 * 2 + 6, bars)
 
 
 def time_steps(torch, step, batch, reps=10, warm=2):
@@ -3797,6 +3830,519 @@ def phase_tools(torch, root: Path, pretrain_root: Path, down_root: Path):
     return launches, dispatch
 
 
+# ---- Phase 12: the float32 and float16 instances (--no-amp, --amp-dtype float16) ----
+
+INSTANCE_DTYPES = ("float32", "float16")
+# the bars of an instance against its plain version in its own type
+# (mirror_tpu_torch/scripts/_timing.py says why): float32 BOUND_F32 forward,
+# BOUND_F32_BWD backward and for the pinv; float16 bf16's bars
+INSTANCE_BARS = {"float32": dict(fwd=BOUND_F32, bwd=BOUND_F32_BWD, pinv=BOUND_F32_BWD,
+                                 pinv_bwd=BOUND_F32_BWD),
+                 "float16": dict(fwd=BOUND_SINGLE_ROUNDING, bwd=BOUND_BWD, pinv=BOUND_PINV,
+                                 pinv_bwd=BOUND_PINV_BWD)}
+# One train step at batch 2, the card's kernels in the type against the
+# CPU's float32 plain path, same weights and draws: (loss relative error,
+# gradient cosine, gradient norm ratio). float32 rounds nowhere but the
+# 3xTF32 products (about 2^-21 relative) and the sums' orders, so 1e-4, a
+# cosine of 0.9999 and norms within 1e-3; float16 rounds where bf16 does,
+# with a finer ulp: phase 5's bf16 bars.
+INSTANCE_STEP_BARS = {"float32": (1e-4, 0.9999, 1e-3),
+                      "float16": (2e-2, 0.99, 5e-2)}
+# Two slides scored by predict's model on the card in the type against the
+# CPU's float32 plain path: relative error of the logits within 1e-3
+# (float32: 3xTF32 products through two Nystrom layers and their 6-step
+# pinvs) or phase 4's 5e-2 (float16, as bf16).
+INSTANCE_LOGITS = {"float32": 1e-3, "float16": BOUND_LOGITS}
+# the whole slides predict --whole-slide scores in each type (patches)
+INSTANCE_WS_SLIDES = (3000, 9000)
+# The bf16 instances' outputs at the train slice's shapes (bf16_outputs,
+# seeded inputs), sha256 of their bytes, first 16 hex digits: those of the
+# tree before the float32 and float16 instances were added, read on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6). The bf16 instances must
+# keep those bits.
+BF16_DIGESTS = {
+    "landmark_softmax": "34ff9a41a41da902", "landmark_softmax_bwd": "355c8d6dc0bc859e",
+    "moore_penrose_pinv": "96ba3d40ada30365", "moore_penrose_pinv_bwd": "eca759e0b4cb58c5",
+    "softmax_attn": "72a2d7fc39d08189", "softmax_attn_q": "9b5101e8cf9ee21e",
+    "softmax_attn_conv": "585223618733feef", "softmax_attn_bwd": "8f0847c14b077a1e",
+    "softmax_attn_conv_bwd": "e8a858c908f78585", "ppeg": "879035f57bc475c2",
+    "ppeg_bwd": "7fe20147b1fabf2a", "conv1d": "07347f294b56f1a1",
+    "conv1d_bwd": "c71411e422249180"}
+
+
+def instance_cases(torch, randn, dtype):
+    """Kernels 1-5 and 9 with their backwards, the ``dtype`` instance, at the
+    train slice's shapes (the encoder's 2117 rows with pad 187, b 16, dh 96,
+    384 landmarks; the pinv at [16, 8, 384, 384]; PPEG on [16, 46, 46, 768];
+    the conv on [16, 8, 2117, 96]), each against its plain version in the
+    same type and the PyTorch call for the same function in that type."""
+    import torch.nn.functional as F
+
+    from mirror_tpu_torch.ops import conv1d, landmark, nystrom_attn, pinv, ppeg
+    from mirror_tpu_torch.ops._common import instance
+
+    dn = str(dtype).split(".")[-1]
+    bars, peak = INSTANCE_BARS[dn], PEAK_MMA_FLOPS[dtype]
+    b, n, pad, dh, m = B, N, PAD, DH, M
+    bh = b * HEADS
+    shape = f"b {b}, h {HEADS}, n {n}, pad {pad}, dh {dh}, m {m}, {dn}"
+
+    def r(*s, scale=1.0):
+        return randn(*s, scale=scale, dtype=dtype)
+
+    def name(kernel):
+        return instance(kernel, dtype)
+
+    q = r(b, HEADS, n, dh, scale=dh ** -0.5)
+    k, v = r(b, HEADS, n, dh), r(b, HEADS, n, dh)
+    q_l, k_l, attn2, lse = landmark.landmark_softmax_lse_ref(q, k, m, pad)
+    w = r(b, HEADS, m, dh)
+    kern = r(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
+    attn_mma = 4 * bh * n * m * dh
+    conv_mma = 2 * bh * n * dh * CONV_TAPS
+    k_pad = torch.cat([k.new_zeros(b, HEADS, pad, dh), k], dim=2)
+    v_pad = torch.cat([v.new_zeros(b, HEADS, pad, dh), v], dim=2)
+    gql, gkl, ga2 = r(b, HEADS, m, dh), r(b, HEADS, m, dh), r(b, HEADS, m, m)
+    g3, g4 = r(b, HEADS, m, dh), r(b, HEADS, n, dh)
+    cases = [
+        Case(name("landmark_softmax"), "landmark.cu", "mirror_tpu/ops/landmark_pallas.py:183",
+             shape, lambda: landmark._launch_fwd(q, k, m, pad),
+             lambda: landmark.landmark_softmax_lse_ref(q, k, m, pad), bars["fwd"],
+             ("q_l", "k_l", "attn2", "lse"),
+             dict(bytes=nbytes(q, k, q_l, k_l, attn2, lse), mma=2 * bh * m * m * dh,
+                  mma_peak=peak)),
+        Case(name("landmark_softmax_bwd"), "landmark_bwd.cu",
+             "mirror_tpu/ops/landmark_pallas.py:148", shape,
+             lambda: landmark._launch_bwd(q_l, k_l, lse, n, pad, gql, gkl, ga2),
+             lambda: landmark.landmark_softmax_bwd_lse_ref(q_l, k_l, lse, n, pad, gql, gkl,
+                                                           ga2),
+             bars["bwd"], ("dq", "dk"),
+             dict(bytes=nbytes(q_l, k_l, lse, gql, gkl, ga2, q, k), mma=3 * 2 * bh * m * m * dh,
+                  mma_peak=peak)),
+        Case(name("softmax_attn"), "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:202",
+             f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}, {dn}",
+             lambda: nystrom_attn.softmax_matmul_landmark_kv(q_l, k, v, pad),
+             lambda: nystrom_attn.softmax_attn_ref(q_l, k, v, pad).to(dtype), bars["fwd"],
+             ("out",), dict(bytes=nbytes(q_l, k, v, q_l), mma=attn_mma, mma_peak=peak),
+             library=lambda: F.scaled_dot_product_attention(q_l, k_pad, v_pad, scale=1.0)),
+        Case(name("softmax_attn_q"), "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:208",
+             f"q: r {n}, c {m}, pad 0, {dn}",
+             lambda: nystrom_attn.softmax_matmul_landmark_q(q, k_l, w),
+             lambda: nystrom_attn.softmax_attn_ref(q, k_l, w).to(dtype), bars["fwd"], ("out",),
+             dict(bytes=nbytes(q, k_l, w, q), mma=attn_mma, mma_peak=peak),
+             library=lambda: F.scaled_dot_product_attention(q, k_l, w, scale=1.0)),
+        Case(name("softmax_attn_conv"), "softmax_attn.cu",
+             "mirror_tpu/ops/nystrom_pallas.py:354", shape,
+             lambda: nystrom_attn.fused_softmax_attn_conv(q, k_l, w, v, kern),
+             lambda: (nystrom_attn.softmax_attn_ref(q, k_l, w)
+                      + nystrom_attn.depthwise_conv_seq_ref(v, kern)).to(dtype),
+             bars["fwd"], ("out",),
+             dict(bytes=nbytes(q, k_l, w, v, kern, q), mma=attn_mma + conv_mma, mma_peak=peak)),
+        Case(name("softmax_attn_bwd"), "softmax_attn_bwd.cu",
+             "mirror_tpu/ops/nystrom_pallas.py:152",
+             f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}, {dn}",
+             autograd_kernel(torch, lambda a, b_, c: nystrom_attn.softmax_matmul_landmark_kv(
+                 a, b_, c, pad), (q_l, k, v), (g3,)),
+             lambda: nystrom_attn.softmax_attn_bwd_ref(q_l, k, v, g3, pad), bars["bwd"],
+             ("dq_l", "dk", "dv"),
+             dict(bytes=2 * nbytes(q_l, k, v) + nbytes(g3), mma=5 * 2 * bh * m * n * dh,
+                  mma_peak=peak),
+             library=autograd_kernel(
+                 torch, lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, scale=1.0),
+                 (q_l, k_pad, v_pad), (g3,))),
+        Case(name("softmax_attn_conv_bwd"), ("softmax_attn_bwd.cu", "conv1d.cu"),
+             "mirror_tpu/ops/nystrom_pallas.py:318", shape,
+             autograd_kernel(torch, nystrom_attn.fused_softmax_attn_conv, (q, k_l, w, v, kern),
+                             (g4,)),
+             lambda: (*nystrom_attn.softmax_attn_bwd_ref(q, k_l, w, g4),
+                      *nystrom_attn.depthwise_conv_seq_bwd_ref(v, kern, g4)),
+             bars["bwd"], ("dq", "dk_l", "dw", "dv", "dkern"),
+             dict(bytes=2 * nbytes(q, k_l, w, v, kern) + nbytes(g4),
+                  mma=5 * 2 * bh * n * m * dh + 2 * conv_mma, mma_peak=peak)),
+    ]
+
+    x = torch.softmax(randn(b, HEADS, m, m).float(), -1).to(dtype)
+    s = pinv.global_scale(x)
+    g2 = r(b, HEADS, m, m)
+
+    def pinv_check(z, z_ref):
+        eye = torch.eye(m, device=x.device)
+        err = (x.float() @ z.float() - eye).abs().max().item()
+        err_ref = (x.float() @ z_ref.float() - eye).abs().max().item()
+        say(f"[instance] {name('moore_penrose_pinv')}: |x z - I| max {err:.4g} "
+            f"(plain {err_ref:.4g})")
+        return err <= max(1.5 * err_ref, 0.05)
+
+    cases += [
+        Case(name("moore_penrose_pinv"), "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:239",
+             f"b {b}, h {HEADS}, m {m}, {dn}", lambda: pinv.moore_penrose_pinv(x),
+             lambda: pinv.pinv_iterations_ref(x, s), bars["pinv"], ("z",),
+             dict(bytes=2 * nbytes(x), mma=6 * 4 * 2 * bh * m ** 3, mma_peak=peak),
+             check=pinv_check, library=lambda: pinv_library(torch, x, s, PINV_ITERS)),
+        Case(name(PINV_BWD), "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171",
+             f"b {b}, h {HEADS}, m {m}, {dn}",
+             lambda: pinv._pinv_exact_bwd_kernel(x, s, g2, PINV_ITERS),
+             lambda: pinv.pinv_exact_bwd_ref(x, s, g2, PINV_ITERS), bars["pinv_bwd"],
+             ("gx", "gs"),
+             dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * m ** 3,
+                  mma_peak=peak),
+             library=lambda: pinv_bwd_library(torch, x, s, g2, PINV_ITERS)),
+    ]
+
+    img = r(b, SIDE, SIDE, EMBED)
+    pk, pb = r(7, 7, EMBED, scale=0.1), r(EMBED, scale=0.1)
+    g5 = r(b, SIDE, SIDE, EMBED)
+    conv_w = pk.permute(2, 0, 1).unsqueeze(1).clone()
+    conv_w[:, 0, 3, 3] += 1
+    img_nchw, g5_nchw = img.permute(0, 3, 1, 2), g5.permute(0, 3, 1, 2)
+    cshape = f"[{b}, {SIDE}, {SIDE}, {EMBED}], {dn}"
+    cases += [
+        Case(name("ppeg"), "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:179", cshape,
+             lambda: ppeg.ppeg_fused(img, pk, pb), lambda: ppeg.ppeg_ref(img, pk, pb),
+             bars["fwd"], ("out",),
+             dict(bytes=nbytes(img, pk, pb, img), mma=0, fp32=(2 * 49 + 2) * img.numel()),
+             library=lambda: F.conv2d(img_nchw, conv_w, pb, padding=3, groups=EMBED)),
+        Case(name("ppeg_bwd"), "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:137", cshape,
+             autograd_kernel(torch, ppeg.ppeg_fused, (img, pk, pb), (g5,)),
+             lambda: ppeg.ppeg_bwd_ref(img, pk, g5), bars["bwd"], ("dimg", "dk", "db"),
+             dict(bytes=3 * nbytes(img) + 2 * nbytes(pk) + nbytes(pb), mma=0,
+                  fp32=(2 * 49 * 2 + 2) * img.numel()),
+             library=lambda: torch.ops.aten.convolution_backward(
+                 g5_nchw, img_nchw, conv_w, [EMBED], [1, 1], [3, 3], [1, 1], False, [0, 0],
+                 EMBED, [True, True, True])),
+    ]
+
+    weight = kern.view(HEADS, 1, CONV_TAPS, 1)
+    dv, dkern = torch.empty_like(v), torch.empty(HEADS, CONV_TAPS, device=v.device)
+    partial = conv1d.conv1d_bwd_scratch(v, CONV_TAPS)
+
+    def bwd9():
+        conv1d.conv1d_bwd_into(v, kern, g4, dv, dkern, partial)
+        return dv, dkern
+
+    vshape = f"v [{b}, {HEADS}, {n}, {dh}], K {CONV_TAPS}, {dn}"
+    fmas = 2 * CONV_TAPS * v.numel()
+    cases += [
+        Case(name("conv1d"), "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:258", vshape,
+             lambda: conv1d.depthwise_conv1d_seq(v, kern),
+             lambda: conv1d.depthwise_conv_seq_ref(v, kern).to(dtype), bars["fwd"], ("out",),
+             dict(bytes=nbytes(v, kern, v), mma=fmas, mma_peak=peak),
+             library=lambda: F.conv2d(v, weight, padding=(CONV_TAPS // 2, 0), groups=HEADS)),
+        Case(name("conv1d_bwd"), "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:224", vshape,
+             bwd9, lambda: conv1d.depthwise_conv_seq_bwd_ref(v, kern, g4), bars["bwd"],
+             ("dv", "dkern"), dict(bytes=nbytes(v, kern, g4, v, kern), mma=2 * fmas,
+                                   mma_peak=peak),
+             library=lambda: torch.ops.aten.convolution_backward(
+                 g4, v, weight, None, [1, 1], [CONV_TAPS // 2, 0], [1, 1], False, [0, 0],
+                 HEADS, [True, True, False])),
+    ]
+    return cases
+
+
+def bf16_outputs(torch, ops):
+    """The bf16 instances' outputs at the train slice's shapes from seeded
+    inputs (made by torch.randn on the card and softmax, no product),
+    {kernel: outputs}: kernels 1, 1b, 2, 2b, 3, 3b, 3c, 4, 4b, 5, 5b, 9, 9b
+    through ``ops`` = (landmark, nystrom_attn, pinv, ppeg, conv1d), the ops
+    modules of this tree or of an earlier one (scripts/_timing.py's
+    load_parent), whose launch wrappers take the same arguments."""
+    landmark, nystrom_attn, pinv, ppeg, conv1d = ops
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    bf16 = torch.bfloat16
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf16)
+
+    q = r(B, HEADS, N, DH, scale=DH ** -0.5)
+    k, v = r(B, HEADS, N, DH), r(B, HEADS, N, DH)
+    out = {}
+    res = landmark._launch_fwd(q, k, M, PAD)
+    out["landmark_softmax"] = res
+    grads = (r(B, HEADS, M, DH), r(B, HEADS, M, DH), r(B, HEADS, M, M))
+    out["landmark_softmax_bwd"] = landmark._launch_bwd(res[0], res[1], res[3], N, PAD, *grads)
+    x = torch.softmax(r(B, HEADS, M, M).float(), -1).to(bf16)
+    s = pinv.global_scale(x)
+    out["moore_penrose_pinv"] = (pinv.moore_penrose_pinv(x),)
+    out[PINV_BWD] = pinv._pinv_exact_bwd_kernel(x, s, r(B, HEADS, M, M), PINV_ITERS)
+    q_l, k_l = res[0], res[1]
+    w, kern = r(B, HEADS, M, DH), r(HEADS, CONV_TAPS, scale=CONV_TAPS ** -0.5)
+    o3 = nystrom_attn._launch_fwd(q_l, k, v, None, None, PAD, True)
+    out["softmax_attn"] = o3[:2]
+    out["softmax_attn_q"] = nystrom_attn._launch_fwd(q, k_l, w, None, None, 0, True)[:2]
+    o4 = nystrom_attn._launch_fwd(q, k_l, w, v, kern, 0, True)
+    out["softmax_attn_conv"] = o4
+    g3, g4 = r(B, HEADS, M, DH), r(B, HEADS, N, DH)
+    out["softmax_attn_bwd"] = nystrom_attn._launch_bwd(q_l, k, v, g3, o3[1], o3[0], None,
+                                                       None)[:3]
+    out["softmax_attn_conv_bwd"] = nystrom_attn._launch_bwd(q, k_l, w, g4, o4[1], o4[2], v,
+                                                            kern)
+    img, pk, pb = r(B, SIDE, SIDE, EMBED), r(7, 7, EMBED, scale=0.1), r(EMBED, scale=0.1)
+    out["ppeg"] = (ppeg.ppeg_fused(img, pk, pb),)
+    leaves = [t.clone().requires_grad_() for t in (img, pk, pb)]
+    out["ppeg_bwd"] = torch.autograd.grad(ppeg.ppeg_fused(*leaves), leaves,
+                                          r(B, SIDE, SIDE, EMBED))
+    conv = torch.empty_like(v)
+    conv1d.conv1d_fwd_into(v, kern, conv)
+    out["conv1d"] = (conv,)
+    dv, dkern = torch.empty_like(v), torch.empty(HEADS, CONV_TAPS, device=dev)
+    conv1d.conv1d_bwd_into(v, kern, g4, dv, dkern, conv1d.conv1d_bwd_scratch(v, CONV_TAPS))
+    out["conv1d_bwd"] = (dv, dkern)
+    torch.cuda.synchronize()
+    return out
+
+
+def digests(torch, outputs: dict) -> dict:
+    """sha256 of each kernel's outputs' bytes, first 16 hex digits."""
+    import hashlib
+
+    result = {}
+    for name, tensors in outputs.items():
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        result[name] = h.hexdigest()[:16]
+    return result
+
+
+def phase_instances(torch):
+    """Phase 12a: the float32 and float16 instances against their plain
+    versions, timed, and the bf16 instances held to the bits of the tree
+    before the types were added (BF16_DIGESTS)."""
+    from mirror_tpu_torch.ops import conv1d, landmark, nystrom_attn, pinv, ppeg
+
+    t0 = time.perf_counter()
+    got = digests(torch, bf16_outputs(torch, (landmark, nystrom_attn, pinv, ppeg, conv1d)))
+    differ = sorted(k for k in got if BF16_DIGESTS.get(k) != got[k])
+    say(f"[instance] bf16 outputs at the train slice's shapes, sha256 {json.dumps(got)}; "
+        f"against the tree before the float32 and float16 instances: "
+        f"{'the same bits' if not differ else 'DIFFER in ' + ', '.join(differ)}")
+    if differ:
+        fail(f"the bf16 instances' bits changed: {differ}")
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    results = []
+    for i, dn in enumerate(INSTANCE_DTYPES):
+        g = torch.Generator(device=dev).manual_seed(SEED + 40 + i)
+
+        def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+        for case in instance_cases(torch, randn, getattr(torch, dn)):
+            results.append(run_case(torch, case))
+        torch.cuda.empty_cache()
+    say(f"[instance] phase 12a {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def phase_train_instances(torch, root: Path, train_root: Path):
+    """Phase 12b: train_mirror.main at full width (the pretrain template,
+    batch 16, one epoch of 4 steps) with --no-amp and with --amp-dtype
+    float16 on phase 5's cohort; the launches of every instance read around
+    each run; the .pth.tar reloaded; ms per step and peak memory on one
+    resident batch; one batch-2 step against the CPU's float32 plain path."""
+    import numpy as np
+
+    from mirror_tpu_torch import train_mirror
+    from mirror_tpu_torch.config import parse_args, resolve_lr
+    from mirror_tpu_torch.data.datasets import PretrainDataset
+    from mirror_tpu_torch.data.loader import Loader
+    from mirror_tpu_torch.ops._common import instance
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
+    from mirror_tpu_torch.train.optim import make_optimizer
+    from mirror_tpu_torch.train.steps import make_mirror_train_step
+
+    feat_dir, rna_csv = train_root / "features", train_root / "rna.csv"
+    base = ["--config", str(PRETRAIN_YAML), "--wsi-feature-dir", str(feat_dir),
+            "--rna-feature-csv", str(rna_csv), "--split-dir", str(train_root / "splits"),
+            "--fold-nb", "0", "--output", str(root / "runs"), "--epochs", "1", "--no-val",
+            "--batch-size", str(B), "--log-interval", "1", "--seed", str(SEED),
+            "--workers", "8"]
+    dataset = PretrainDataset(str(feat_dir), str(rna_csv), N_TOKENS,
+                              splits=str(train_root / "splits"))
+    host = next(iter(Loader(dataset, B, shuffle=True, seed=SEED, workers=8)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    launches, stats = {}, {}
+    for dn, flags in (("float32", ["--no-amp"]), ("float16", ["--amp-dtype", "float16"])):
+        dtype, tag = getattr(torch, dn), f"train {dn}"
+        argv = [*base, "--experiment", f"smoke_{dn}", *flags]
+        results, counts = run_entry_point(torch, tag, train_mirror.main, argv, TRAIN_STEPS)
+        launches[dn] = counts
+        if results.get("metric_name") != "loss" or not np.isfinite(results["best_metric"]):
+            fail(f"[{tag}] --result is not what a finished run prints: {results}")
+        missing = [instance(k, dtype) for k in FORWARD + BACKWARD
+                   if counts.get(instance(k, dtype), 0) == 0]
+        other = [k for k in counts if k in FORWARD + BACKWARD]
+        if missing or other:
+            fail(f"[{tag}] the train step never launched {missing}, or launched the bf16 "
+                 f"instances {other}")
+        payload = load_checkpoint_file(str(root / "runs" / "pretrain" / f"smoke_{dn}"
+                                           / "last.pth.tar"))
+        model_kwargs = run_args(payload)["model_kwargs"]
+        model = create_model("mirror", device="cuda", **model_kwargs)
+        model.load_state_dict(payload["state_dict"])
+        got = compute_dtype(torch, model)
+        say(f"[{tag}] last.pth.tar reloads into create_model('mirror'), compute type {got}")
+        if got != {"float32": "fp32", "float16": "fp16"}[dn]:
+            fail(f"[{tag}] the checkpoint's model computes in {got}")
+        del model
+        args, _ = parse_args(argv)
+        model = create_model("mirror", device="cuda",
+                             generator=torch.Generator().manual_seed(SEED), **model_kwargs)
+        step = make_mirror_train_step(
+            model, make_optimizer(args, model, resolve_lr(args, B)),
+            train_mirror.loss_weights_from_args(args), args.wsi_mask_ratio,
+            args.rna_mask_ratio, generator=torch.Generator(device="cuda").manual_seed(SEED))
+        step_ms, lo, hi, peak_gib, metrics = time_steps(torch, step, batch, reps=5)
+        say(f"[{tag}] train step at batch {B}, full width, {dn}: median {step_ms:.3f} ms "
+            f"over 5 (min {lo:.3f}, max {hi:.3f}), {1000 * B / step_ms:.1f} samples/s; "
+            f"peak device memory {peak_gib:.2f} GiB; loss {float(metrics['loss']):.6g}")
+        if not np.isfinite(float(metrics["loss"])):
+            fail(f"[{tag}] the timed step's loss is not finite")
+        del model, step
+        torch.cuda.empty_cache()
+        cos, rel = train_step_card_vs_cpu(torch, model_kwargs, args, host["wsi"], host["rna"],
+                                          tag=tag, bars=INSTANCE_STEP_BARS[dn],
+                                          cpu_float32=True)
+        stats[dn] = dict(step_ms=step_ms, peak_gib=peak_gib, worst_grad_cos=cos,
+                         step_loss_rel=rel)
+    del batch
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def phase_predict_instances(torch, root: Path):
+    """Phase 12c: predict on checkpoints whose args say amp: false and
+    amp_dtype: float16 (16 slides through the kernels, token subsample), two
+    slides against the CPU's float32 plain path; predict --whole-slide on two
+    whole slides in each type (kernels 2, 3, 3b, 9, 5); one CP attention
+    layer's gradient at world 1 in each type (3c, 9b, 2b through
+    nystrom_attention_cp)."""
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch.data.formats import load_feature_file
+    from mirror_tpu_torch.ops import _common
+    from mirror_tpu_torch.ops._common import instance
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.tools.predict import predict
+    from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
+
+    t_phase = time.perf_counter()
+    model = create_model("mirror_classifier", device="cpu",
+                         generator=torch.Generator().manual_seed(SEED), num_classes=2,
+                         **MODEL_KWARGS)
+    sd = model.state_dict()
+    feat_dir, rna_csv, ids = write_cohort(root, B, "DT")
+    ws_dir = root / "ws_features"
+    ws_dir.mkdir()
+    rng = np.random.default_rng(SEED + 5)
+    ws_ids = [f"TCGA-DT-{i:04d}-01Z-00-DX1" for i in range(len(INSTANCE_WS_SLIDES))]
+    for sid, n in zip(ws_ids, INSTANCE_WS_SLIDES):
+        np.save(ws_dir / f"{sid}.npy",
+                rng.standard_normal((n, EMBED), dtype=np.float32).astype(np.float16))
+    launches = {}
+    for dn, amp in (("float32", dict(amp=False)), ("float16", dict(amp=True,
+                                                                    amp_dtype="float16"))):
+        dtype = getattr(torch, dn)
+        args = dict(model="mirror_classifier", model_kwargs=MODEL_KWARGS, num_classes=2,
+                    classes=list(CLASSES), num_wsi_feature_tokens=N_TOKENS, batch_size=B,
+                    wsi_feature_only=False, **amp)
+        ckpt = root / f"model_{dn}.pth.tar"
+        save_checkpoint_file(str(ckpt), sd, args=args)
+        for whole, src, csv in ((False, feat_dir, f"pred_{dn}.csv"),
+                                (True, ws_dir, f"ws_{dn}.csv")):
+            tag = f"predict {dn}{' --whole-slide' if whole else ''}"
+            torch.cuda.synchronize()
+            _common.reset_launch_counts()
+            t0 = time.perf_counter()
+            predict(str(ckpt), "subtyping", str(src), str(root / csv),
+                    rna_feature_csv=str(rna_csv), batch_size=B, seed=SEED, device="cuda",
+                    whole_slide=whole)
+            torch.cuda.synchronize()
+            counts = _common.launch_counts()
+            launches[f"predict_{dn}" + ("_whole_slide" if whole else "")] = counts
+            df = pd.read_csv(root / csv)
+            probs = df[["prob_0", "prob_1"]].to_numpy()
+            say(f"[{tag}] {len(df)} slides in {time.perf_counter() - t0:.2f} s; kernel "
+                f"launches {json.dumps(counts)}")
+            want = [instance(k, dtype) for k in (FORWARD if not whole else
+                                                 ("moore_penrose_pinv", "softmax_attn",
+                                                  "softmax_attn_q", "conv1d", "ppeg"))]
+            missing = [k for k in want if counts.get(k, 0) == 0]
+            if missing or not np.isfinite(probs).all() or \
+                    np.abs(probs.sum(1) - 1.0).max() > 1e-5:
+                fail(f"[{tag}] never launched {missing}, or its probabilities are not finite "
+                     "or do not sum to 1")
+        # two slides: the card's kernels in the type against the CPU's float32 plain path
+        wsi = []
+        for sid in ids[:2]:
+            feats = np.asarray(load_feature_file(str(feat_dir / f"{sid}.npy")), np.float32)
+            wsi.append(feats[rng.choice(feats.shape[0], N_TOKENS,
+                                        replace=feats.shape[0] < N_TOKENS)])
+        rna = pd.read_csv(rna_csv, index_col=0).to_numpy(np.float32)[:2]
+        wsi_t, rna_t = torch.from_numpy(np.stack(wsi)), torch.from_numpy(rna)
+        with torch.no_grad():
+            gpu = create_model("mirror_classifier", device="cuda", num_classes=2,
+                               **dict(MODEL_KWARGS, **({"dtype": dn} if dn != "float32"
+                                                        else {})))
+            gpu.load_state_dict(sd)
+            got = gpu(wsi_t.cuda(), rna_t.cuda()).float().cpu()
+            cpu = create_model("mirror_classifier", device="cpu", num_classes=2,
+                               **MODEL_KWARGS)
+            cpu.load_state_dict(sd)
+            want_logits = cpu(wsi_t, rna_t).float()
+        rel = ((got - want_logits).norm() / want_logits.norm()).item()
+        say(f"[predict {dn}] 2 slides, card kernels ({dn}) vs CPU plain path (fp32): logits "
+            f"{got.tolist()} vs {want_logits.tolist()}, relative error {rel:.4g} (bound "
+            f"{INSTANCE_LOGITS[dn]:g})")
+        if not torch.isfinite(got).all() or rel > INSTANCE_LOGITS[dn]:
+            fail(f"[predict {dn}] the card's logits disagree with the CPU reference")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+        launches[f"cp_grad_{dn}"] = cp_grad_instance(torch, dtype)
+    say(f"[predict instances] phase 12c {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def cp_grad_instance(torch, dtype):
+    """One CP attention layer (phase 10's, in ``dtype``) forward and backward
+    at world 1 through nystrom_attention_cp, launches read around it, the
+    output and dL/dx against the same layer's plain path on the card in
+    float32 (use_pallas=False)."""
+    from mirror_tpu_torch.models.nystrom import NystromAttention
+    from mirror_tpu_torch.ops import _common
+
+    dn = str(dtype).split(".")[-1]
+    kwargs, attn, x, t = ws_attention(torch)
+    state = attn.state_dict()
+    attn = NystromAttention(**dict(kwargs, dtype=dtype))
+    attn.load_state_dict(state)
+    torch.cuda.synchronize()
+    _common.reset_launch_counts()
+    out, dx, _ = cp_attention_here(torch, attn.eval(), x, t)
+    torch.cuda.synchronize()
+    counts = _common.launch_counts()
+    plain = NystromAttention(**dict(kwargs, dtype=None, use_pallas=False))
+    plain.load_state_dict(state)
+    out_ref, dx_ref, _ = cp_attention_here(torch, plain.eval(), x, t)
+    rel, _ = seq_agreement(torch, out, out_ref)
+    a, b = dx.double().ravel(), dx_ref.double().ravel()
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    bound_rel, bound_cos = (1e-3, 0.9999) if dn == "float32" else (BOUND_STEP_LOSS,
+                                                                  BOUND_GRAD_COS)
+    say(f"[cp_grad {dn}] one CP attention layer ({WS_GRAD_N} rows) forward and backward at "
+        f"world 1, kernels in {dn} against the plain path in fp32 on the card: output "
+        f"relative error {rel:.4g} (bound {bound_rel:g}), dL/dx cosine {cos:.6f} (bound "
+        f"{bound_cos}); kernel launches {json.dumps(counts)}")
+    if not (rel <= bound_rel and cos >= bound_cos):
+        fail(f"[cp_grad {dn}] the CP layer's kernels leave their bars")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def run_model_kwargs(train_root: Path) -> dict:
     """The model kwargs phase 5's checkpoint was saved with."""
     from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
@@ -3823,12 +4369,18 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch, backward=False)
     kernels += phase_kernels(torch, backward=True)
+    kernels += phase_instances(torch)
     build_root = REPO / "build"
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
         serve = phase_slice(torch, Path(tmp))
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
+        instance_paths = phase_predict_instances(torch, Path(tmp))
+    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
         train, train_exact, _ = phase_train(torch, Path(tmp) / "train")
+        train_instances, _ = phase_train_instances(torch, Path(tmp) / "instances",
+                                                   Path(tmp) / "train")
+        instance_paths.update({f"train_{dn}": c for dn, c in train_instances.items()})
         clip, _ = phase_pretrain_clip(torch, Path(tmp) / "clip",
                                       Path(tmp) / "train" / "features",
                                       Path(tmp) / "train" / "rna.csv")
@@ -3871,7 +4423,7 @@ def main() -> int:
              "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
              "survival": down["survival"], "survival_opt": down["survival_opt"],
              "export": export, "selftest": selftest_launches, "probes": probe_launches,
-             "whole_slide": whole_slide}
+             "whole_slide": whole_slide, **instance_paths}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

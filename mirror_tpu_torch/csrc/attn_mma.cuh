@@ -1,9 +1,10 @@
 // Tensor-core building blocks of the Nystrom softmax attention kernels
 // (softmax_attn.cu, softmax_attn_bwd.cu), the landmark softmax's
-// (landmark.cu, landmark_bwd.cu) and the ViT attention's: warp-level bf16
-// products on mma.sync m16n8k16 with fp32 accumulators in registers, fed by
-// ldmatrix from padded shared-memory tiles, and the cp.async tile loads of
-// their rings.
+// (landmark.cu, landmark_bwd.cu), the pinv's GEMM (gemm_mma.cuh), the conv
+// (conv1d.cu) and the ViT attention's (last in this file): warp-level
+// products on mma.sync with fp32 accumulators in registers, fed by ldmatrix
+// from padded shared-memory tiles, and the cp.async tile loads of their
+// rings.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t.
 // - The accumulator of a 16 x 8 tile: c[0], c[1] at row g, columns 2t and
@@ -13,7 +14,7 @@
 // - The A operand of a 16 x 16 step: a[0] (row g, k 2t, 2t+1), a[1] (row
 //   g + 8), a[2] (row g, k 8 + 2t), a[3] (row g + 8, k 8 + 2t). Columns
 //   16 kk .. 16 kk + 15 of an accumulator are exactly the A operand of step
-//   kk (to_a_frags), so a probability tile becomes the next product's A
+//   kk (afrag_from_acc), so a probability tile becomes the next product's A
 //   without leaving registers (FlashAttention-2's layout).
 // - The B operand of a 16 x 8 step: b[0] (k 2t, 2t+1; column g), b[1]
 //   (k 8 + 2t). A matrix stored [n][k] (k contiguous: k and w rows against
@@ -25,6 +26,31 @@
 // bytes of padding): the 8 rows of an ldmatrix 8 x 8 matrix then fall in 8
 // different 16-byte bank groups at every dh in 16..128, so no swizzle is
 // needed and one layout serves every instance.
+//
+// Element types (the second half of this file). The Nystrom path's kernels
+// take the JAX package's compute type T: bf16, float16 or float32. The
+// fragment helpers below (AFrag, BFrag, mma_step and the loaders) hide the
+// type, so one kernel body serves all three:
+// - bf16 and float16: mma.sync m16n8k16 with .bf16 or .f16 operands, the
+//   same ldmatrix addressing (both are 16-bit), packs by the intrinsics.
+//   The bf16 instances issue the instructions they issued before the types
+//   were added, in the same order.
+// - float32: mma.sync m16n8k8 .tf32 in the 3xTF32 split. Each operand x
+//   is hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and a b is summed as
+//   a_lo b_hi + a_hi b_lo + a_hi b_hi into the fp32 accumulator (a_lo b_lo,
+//   below 2^-22 relative, is dropped): about 21 bits of each product, where
+//   one TF32 pass keeps 11 (tests/test_torch_port_dtypes.py emulates the
+//   split in numpy and holds it to float64). A 16-deep step of
+//   the other types is two k8 steps. Their fragments (a0 (g, t), a1 (g + 8,
+//   t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g))
+//   are read with a permuted k: logical k t is the tile's column 2 t and k
+//   t + 4 its column 2 t + 1 (A and B alike, so the sum is the same), which
+//   makes a0 / a2 and b0 / b1 adjacent in a k-contiguous row (one 8-byte
+//   load) and an accumulator's (c0, c1) pair exactly an A pair: an fp32 S
+//   tile is P w's A operand with no shuffle, as in the 16-bit types. Tiles
+//   stored n- or m-contiguous (ldmatrix.trans in the 16-bit types) are read
+//   with 4-byte loads. fp32 tiles keep the dh + 8 row stride (32 bytes of
+//   padding): the 8-byte loads of a half-warp then cover the 32 banks once.
 #pragma once
 
 #include "common.cuh"
@@ -49,13 +75,13 @@ __device__ __forceinline__ float fast_exp2(float x) {  // ex2.approx(-inf) = 0
   return y;
 }
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
@@ -84,113 +110,6 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 }
 
-// acc[16 x 8 NT] += A[16 x 16 KT] B[8 NT x 16 KT]^T: A's 16 rows at `a`, B's
-// 8 NT rows at `b`, both k-contiguous with stride ld (S = q k^T, dP = g w^T
-// and their transposes).
-template <int KT, int NT>
-__device__ __forceinline__ void mma_nt(float (&acc)[NT][4], const bf16* a, const bf16* b,
-                                       int ld) {
-  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
-  const int lane = threadIdx.x % 32;
-  const bf16* pa = a + (lane % 16) * ld + (lane / 16) * 8;
-  const bf16* pb = b + ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    unsigned fa[4];
-    ldsm_x4(fa, pa + 16 * kk);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      unsigned fb[4];
-      ldsm_x4(fb, pb + 16 * np * ld + 16 * kk);
-      mma16816(acc[2 * np], fa, fb[0], fb[1]);
-      mma16816(acc[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// The A operand of a warp's 16 rows at `a` (k-contiguous, stride ld), all
-// 16 KT columns, into registers once (ldmatrix), for mma_nt_ra.
-template <int KT>
-__device__ __forceinline__ void load_a_frags(unsigned (&a)[KT][4], const bf16* p, int ld) {
-  const int lane = threadIdx.x % 32;
-  const bf16* pa = p + (lane % 16) * ld + (lane / 16) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) ldsm_x4(a[kk], pa + 16 * kk);
-}
-
-// mma_nt with A already in registers (load_a_frags): the landmark softmax's
-// S = q_l k_l^T and S^T = k_l q_l^T, whose owned rows are multiplied by
-// every walked tile.
-template <int KT, int NT>
-__device__ __forceinline__ void mma_nt_ra(float (&acc)[NT][4], const unsigned (&a)[KT][4],
-                                          const bf16* b, int ld) {
-  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
-  const int lane = threadIdx.x % 32;
-  const bf16* pb = b + ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      unsigned fb[4];
-      ldsm_x4(fb, pb + 16 * np * ld + 16 * kk);
-      mma16816(acc[2 * np], a[kk], fb[0], fb[1]);
-      mma16816(acc[2 * np + 1], a[kk], fb[2], fb[3]);
-    }
-  }
-}
-
-// acc[16 x 8 NT] += A[16 x 16] B[16 x 8 NT], one k-step: A from registers,
-// B stored [k][n] (n contiguous) at `b` with stride ld.
-template <int NT>
-__device__ __forceinline__ void mma_rs_step(float (&acc)[NT][4], const unsigned (&a)[4],
-                                            const bf16* b, int ld) {
-  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
-  const int lane = threadIdx.x % 32;
-  const bf16* pb = b + ((lane % 8) + ((lane / 8) % 2) * 8) * ld + (lane / 16) * 8;
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np) {
-    unsigned fb[4];
-    ldsm_x4_t(fb, pb + 16 * np);
-    mma16816(acc[2 * np], a, fb[0], fb[1]);
-    mma16816(acc[2 * np + 1], a, fb[2], fb[3]);
-  }
-}
-
-// acc[16 x 8 NT] += A[16 x 16 KT] B[16 KT x 8 NT]: A from registers (to_a_frags),
-// B stored [k][n] at `b` (P w, dsim k, P^T g, dsim^T q).
-template <int KT, int NT>
-__device__ __forceinline__ void mma_rs(float (&acc)[NT][4], const unsigned (&a)[KT][4],
-                                       const bf16* b, int ld) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) mma_rs_step<NT>(acc, a[kk], b + 16 * kk * ld, ld);
-}
-
-// The bf16 A operand of a product over the 64 columns of a 16 x 64 fp32 tile.
-__device__ __forceinline__ void to_a_frags(unsigned (&a)[4][4], const float (&x)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// cp.async rows [row0, row0 + rows) of a [n, dh] bf16 matrix into shared
-// memory with stride ld, 16 bytes a thread; rows outside [0, n) are
-// zero-filled (the ragged edge and the conv's SAME padding).
-template <int DH>
-__device__ __forceinline__ void load_rows_async(bf16* dst, int ld, const bf16* src, int row0,
-                                                int rows, int n) {
-  constexpr int chunks = DH / 8;
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr >= 0 && gr < n;
-    cp_async16(dst + r * ld + c, ok ? src + (size_t)gr * DH + c : src, ok);
-  }
-}
-
 // cp.async entries [row0, row0 + BN) of an fp32 vector of n entries, 4
 // bytes a thread; entries past n are zero-filled.
 __device__ __forceinline__ void load_vec_async(float* dst, const float* src, int row0, int n) {
@@ -202,31 +121,353 @@ __device__ __forceinline__ void load_vec_async(float* dst, const float* src, int
   }
 }
 
+// ---- The element-type generic fragments (see the head of this file) ----
+
+// d += a b on one 16 x 8 x 16 step, float16 in, fp32 accumulator
+__device__ __forceinline__ void mma16816_f16(float (&d)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on one 16 x 8 x 8 step, tf32 in, fp32 accumulator
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4], const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away), as a b32
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the 3xTF32 split of x: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// The A operand of one 16 x 16 step: 16-bit types as mma.m16n8k16 takes it
+// (a[0..3] of the head of this file); float as two k8 steps, r[4 h + i] the
+// fp32 value of a_i in k-half h, with the permuted k.
+template <typename T>
+struct AFrag {
+  unsigned r[4];
+};
+template <>
+struct AFrag<float> {
+  float r[8];
+};
+
+// The B operand of one 16 x 8 step (an n8 tile, 16 deep): r[2 h + i] = b_i
+// of k-half h for float.
+template <typename T>
+struct BFrag {
+  unsigned r[2];
+};
+template <>
+struct BFrag<float> {
+  float r[4];
+};
+
+// An A operand ready for the tensor cores: for float its hi / lo split,
+// made once a step and used against every n tile.
+template <typename T>
+struct AOp {
+  unsigned r[4];
+};
+template <>
+struct AOp<float> {
+  unsigned hi[8], lo[8];
+};
+
+template <typename T>
+__device__ __forceinline__ AOp<T> prepare(const AFrag<T>& a) {
+  AOp<T> op;
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) split_tf32(a.r[i], op.hi[i], op.lo[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) op.r[i] = a.r[i];
+  }
+  return op;
+}
+
+// d[16 x 8] += a b over one 16-deep step
+template <typename T>
+__device__ __forceinline__ void mma_step(float (&d)[4], const AOp<T>& a, const BFrag<T>& b) {
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned bh[2], bl[2];
+      split_tf32(b.r[2 * h], bh[0], bl[0]);
+      split_tf32(b.r[2 * h + 1], bh[1], bl[1]);
+      const unsigned ah[4] = {a.hi[4 * h], a.hi[4 * h + 1], a.hi[4 * h + 2], a.hi[4 * h + 3]};
+      const unsigned al[4] = {a.lo[4 * h], a.lo[4 * h + 1], a.lo[4 * h + 2], a.lo[4 * h + 3]};
+      // the small terms first, then the large one
+      mma1688_tf32(d, al, bh[0], bh[1]);
+      mma1688_tf32(d, ah, bl[0], bl[1]);
+      mma1688_tf32(d, ah, bh[0], bh[1]);
+    }
+  } else if constexpr (std::is_same_v<T, f16>) {
+    mma16816_f16(d, a.r, b.r[0], b.r[1]);
+  } else {
+    mma16816(d, a.r, b.r[0], b.r[1]);
+  }
+}
+
+// The A operand of a 16 x 16 block given by f(row, col), row and col in
+// [0, 16), rounded to T (the conv's band, from its taps).
+template <typename T, class F>
+__device__ __forceinline__ AFrag<T> afrag_from(F&& f) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  AFrag<T> a;
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a.r[4 * h] = f(g, 8 * h + 2 * t);
+      a.r[4 * h + 1] = f(g + 8, 8 * h + 2 * t);
+      a.r[4 * h + 2] = f(g, 8 * h + 2 * t + 1);
+      a.r[4 * h + 3] = f(g + 8, 8 * h + 2 * t + 1);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + 8 * (e & 1), col = 8 * (e / 2) + 2 * t;
+      a.r[e] = Elem<T>::pack(f(row, col), f(row, col + 1));
+    }
+  }
+  return a;
+}
+
+// The A operand of a product over columns 16 kk .. 16 kk + 15 of an fp32
+// 16 x 8 NT accumulator tile (its n8 tiles x0 = 2 kk and x1 = 2 kk + 1),
+// rounded to T: P, dsim and their transposes as the next product's A.
+template <typename T>
+__device__ __forceinline__ AFrag<T> afrag_from_acc(const float (&x0)[4], const float (&x1)[4]) {
+  AFrag<T> a;
+  if constexpr (std::is_same_v<T, float>) {
+    a.r[0] = x0[0], a.r[1] = x0[2], a.r[2] = x0[1], a.r[3] = x0[3];
+    a.r[4] = x1[0], a.r[5] = x1[2], a.r[6] = x1[1], a.r[7] = x1[3];
+  } else {
+    a.r[0] = Elem<T>::pack(x0[0], x0[1]);
+    a.r[1] = Elem<T>::pack(x0[2], x0[3]);
+    a.r[2] = Elem<T>::pack(x1[0], x1[1]);
+    a.r[3] = Elem<T>::pack(x1[2], x1[3]);
+  }
+  return a;
+}
+
+// The A operand of a 16 x 16 block stored [row][k] (k contiguous):
+// row(r) points at row r's first column of the block.
+template <typename T, class Row>
+__device__ __forceinline__ AFrag<T> load_a(Row&& row) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  AFrag<T> a;
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 lo = *reinterpret_cast<const float2*>(row(g) + 8 * h + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(row(g + 8) + 8 * h + 2 * t);
+      a.r[4 * h] = lo.x, a.r[4 * h + 1] = hi.x, a.r[4 * h + 2] = lo.y, a.r[4 * h + 3] = hi.y;
+    }
+  } else {
+    ldsm_x4(a.r, row(lane % 16) + (lane / 16) * 8);
+  }
+  return a;
+}
+
+// The A operand of a 16 x 16 block stored [k][row] (rows contiguous, read
+// transposed): krow(r) points at k row r's first element of the block.
+template <typename T, class Row>
+__device__ __forceinline__ AFrag<T> load_a_t(Row&& krow) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  AFrag<T> a;
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* k0 = krow(8 * h + 2 * t);
+      const float* k1 = krow(8 * h + 2 * t + 1);
+      a.r[4 * h] = k0[g], a.r[4 * h + 1] = k0[g + 8], a.r[4 * h + 2] = k1[g];
+      a.r[4 * h + 3] = k1[g + 8];
+    }
+  } else {
+    ldsm_x4_t(a.r, krow((lane % 8) + (lane / 16) * 8) + ((lane / 8) % 2) * 8);
+  }
+  return a;
+}
+
+// The B operands of two n8 tiles (16 columns) of a 16-deep step, B stored
+// [n][k] (k contiguous): nrow(c) points at column c's first k.
+template <typename T, class Row>
+__device__ __forceinline__ void load_b_nk(BFrag<T> (&b)[2], Row&& nrow) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = *reinterpret_cast<const float2*>(nrow(8 * j + g) + 8 * h + 2 * t);
+        b[j].r[2 * h] = v.x, b[j].r[2 * h + 1] = v.y;
+      }
+  } else {
+    unsigned f[4];
+    ldsm_x4(f, nrow((lane % 8) + (lane / 16) * 8) + ((lane / 8) % 2) * 8);
+    b[0].r[0] = f[0], b[0].r[1] = f[1], b[1].r[0] = f[2], b[1].r[1] = f[3];
+  }
+}
+
+// The same, B stored [k][n] (n contiguous): krow(r) points at k row r's
+// first column of the two tiles.
+template <typename T, class Row>
+__device__ __forceinline__ void load_b_kn(BFrag<T> (&b)[2], Row&& krow) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* kr = krow(8 * h + 2 * t + i);
+        b[0].r[2 * h + i] = kr[g];
+        b[1].r[2 * h + i] = kr[8 + g];
+      }
+  } else {
+    unsigned f[4];
+    ldsm_x4_t(f, krow((lane % 8) + ((lane / 8) % 2) * 8) + (lane / 16) * 8);
+    b[0].r[0] = f[0], b[0].r[1] = f[1], b[1].r[0] = f[2], b[1].r[1] = f[3];
+  }
+}
+
+// acc[16 x 8 NT] += A[16 x 16 KT] B[8 NT x 16 KT]^T: A's 16 rows at `a`, B's
+// 8 NT rows at `b`, both k-contiguous with stride ld (S = q k^T, dP = g w^T
+// and their transposes).
+template <int KT, int NT, typename T>
+__device__ __forceinline__ void mma_nt(float (&acc)[NT][4], const T* a, const T* b, int ld) {
+  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const AOp<T> fa = prepare(load_a<T>([&](int r) { return a + r * ld + 16 * kk; }));
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      BFrag<T> fb[2];
+      load_b_nk<T>(fb, [&](int c) { return b + (16 * np + c) * ld + 16 * kk; });
+      mma_step(acc[2 * np], fa, fb[0]);
+      mma_step(acc[2 * np + 1], fa, fb[1]);
+    }
+  }
+}
+
+// The A operand of a warp's 16 rows at `p` (k-contiguous, stride ld), all
+// 16 KT columns, into registers once, for mma_nt_ra.
+template <int KT, typename T>
+__device__ __forceinline__ void load_a_frags(AFrag<T> (&a)[KT], const T* p, int ld) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) a[kk] = load_a<T>([&](int r) { return p + r * ld + 16 * kk; });
+}
+
+// mma_nt with A already in registers (load_a_frags): the landmark softmax's
+// S = q_l k_l^T and S^T = k_l q_l^T, whose owned rows are multiplied by
+// every walked tile.
+template <int KT, int NT, typename T>
+__device__ __forceinline__ void mma_nt_ra(float (&acc)[NT][4], const AFrag<T> (&a)[KT],
+                                          const T* b, int ld) {
+  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const AOp<T> fa = prepare(a[kk]);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      BFrag<T> fb[2];
+      load_b_nk<T>(fb, [&](int c) { return b + (16 * np + c) * ld + 16 * kk; });
+      mma_step(acc[2 * np], fa, fb[0]);
+      mma_step(acc[2 * np + 1], fa, fb[1]);
+    }
+  }
+}
+
+// acc[16 x 8 NT] += A[16 x 16] B[16 x 8 NT], one k-step: A from registers,
+// B stored [k][n] (n contiguous) at `b` with stride ld.
+template <int NT, typename T>
+__device__ __forceinline__ void mma_rs_step(float (&acc)[NT][4], const AFrag<T>& a, const T* b,
+                                            int ld) {
+  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
+  const AOp<T> fa = prepare(a);
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    BFrag<T> fb[2];
+    load_b_kn<T>(fb, [&](int r) { return b + r * ld + 16 * np; });
+    mma_step(acc[2 * np], fa, fb[0]);
+    mma_step(acc[2 * np + 1], fa, fb[1]);
+  }
+}
+
+// acc[16 x 8 NT] += bf(X)[16 x 16 KT] B[16 KT x 8 NT]: X an fp32 16 x 16 KT
+// accumulator tile (P, dsim or their transposes), rounded to T a k-step at a
+// time in registers as the A operand; B stored [k][n] at `b` (P w, dsim k,
+// P^T g, dsim^T q).
+template <int KT, int NT, typename T>
+__device__ __forceinline__ void mma_pv(float (&acc)[NT][4], const float (&x)[2 * KT][4],
+                                       const T* b, int ld) {
+  if constexpr (std::is_same_v<T, float>) {  // each step's fp32 A as it is used
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+      mma_rs_step<NT>(acc, afrag_from_acc<T>(x[2 * kk], x[2 * kk + 1]), b + 16 * kk * ld, ld);
+  } else {  // the 16-bit A operands packed first, as the bf16 kernels always did
+    AFrag<T> a[KT];
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) a[kk] = afrag_from_acc<T>(x[2 * kk], x[2 * kk + 1]);
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) mma_rs_step<NT>(acc, a[kk], b + 16 * kk * ld, ld);
+  }
+}
+
+// cp.async rows [row0, row0 + rows) of a [n, dh] matrix of T into shared
+// memory with stride ld, 16 bytes a thread; rows outside [0, n) are
+// zero-filled (the ragged edge and the conv's SAME padding).
+template <int DH, typename T>
+__device__ __forceinline__ void load_rows_async(T* dst, int ld, const T* src, int row0,
+                                                int rows, int n) {
+  constexpr int V = vec16<T>(), chunks = DH / V;
+  for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
+    const int r = idx / chunks, c = (idx % chunks) * V;
+    const int gr = row0 + r;
+    const bool ok = gr >= 0 && gr < n;
+    cp_async16(dst + r * ld + c, ok ? src + (size_t)gr * DH + c : src, ok);
+  }
+}
+
 // Write a warp's 16 x 8 NT accumulator, each row scaled (rows g and g + 8 by
-// s_lo and s_hi), as bf16 into its 16 staging rows `stage` (stride ld).
-template <int NT>
-__device__ __forceinline__ void stage_bf16(bf16* stage, int ld, const float (&acc)[NT][4],
+// s_lo and s_hi), rounded to T into its 16 staging rows `stage` (stride ld).
+template <int NT, typename T>
+__device__ __forceinline__ void stage_rows(T* stage, int ld, const float (&acc)[NT][4],
                                            float s_lo, float s_hi) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    *reinterpret_cast<unsigned*>(stage + g * ld + 8 * n + 2 * t) =
-        pack_bf16(acc[n][0] * s_lo, acc[n][1] * s_lo);
-    *reinterpret_cast<unsigned*>(stage + (g + 8) * ld + 8 * n + 2 * t) =
-        pack_bf16(acc[n][2] * s_hi, acc[n][3] * s_hi);
+    store2(stage + g * ld + 8 * n + 2 * t, acc[n][0] * s_lo, acc[n][1] * s_lo);
+    store2(stage + (g + 8) * ld + 8 * n + 2 * t, acc[n][2] * s_hi, acc[n][3] * s_hi);
   }
 }
 
-// Copy a warp's 16 staged rows to rows row0.. of a [n, dh] bf16 matrix, 16
+// Copy a warp's 16 staged rows to rows row0.. of a [n, dh] matrix of T, 16
 // bytes a lane; rows past n are skipped. Synchronises the warp around it.
-template <int DH>
-__device__ __forceinline__ void store_staged(bf16* dst, const bf16* stage, int ld, int row0,
-                                             int n) {
-  constexpr int chunks = DH / 8;
+template <int DH, typename T>
+__device__ __forceinline__ void store_staged(T* dst, const T* stage, int ld, int row0, int n) {
+  constexpr int V = vec16<T>(), chunks = DH / V;
   const int lane = threadIdx.x % 32;
   __syncwarp();
   for (int idx = lane; idx < 16 * chunks; idx += 32) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
+    const int r = idx / chunks, c = (idx % chunks) * V;
     if (row0 + r < n)
       *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * DH + c) =
           *reinterpret_cast<const uint4*>(stage + r * ld + c);
@@ -314,14 +555,14 @@ __device__ __forceinline__ void attend_rows(float (&o)[DH / 8][4], const bf16* q
 
   // the normalised probabilities, rounded to bf16: P V's A operand (key
   // tile kk is score n8-tiles 2 kk and 2 kk + 1)
-  unsigned p[kMaxKeyTiles][4];
+  AFrag<bf16> p[kMaxKeyTiles];
 #pragma unroll
   for (int kk = 0; kk < kMaxKeyTiles; ++kk) {
     if (kk < kt) {
-      p[kk][0] = pack_bf16(s[2 * kk][0] * r0, s[2 * kk][1] * r0);
-      p[kk][1] = pack_bf16(s[2 * kk][2] * r1, s[2 * kk][3] * r1);
-      p[kk][2] = pack_bf16(s[2 * kk + 1][0] * r0, s[2 * kk + 1][1] * r0);
-      p[kk][3] = pack_bf16(s[2 * kk + 1][2] * r1, s[2 * kk + 1][3] * r1);
+      p[kk].r[0] = pack_bf16(s[2 * kk][0] * r0, s[2 * kk][1] * r0);
+      p[kk].r[1] = pack_bf16(s[2 * kk][2] * r1, s[2 * kk][3] * r1);
+      p[kk].r[2] = pack_bf16(s[2 * kk + 1][0] * r0, s[2 * kk + 1][1] * r0);
+      p[kk].r[3] = pack_bf16(s[2 * kk + 1][2] * r1, s[2 * kk + 1][3] * r1);
     }
   }
   zero(o);
@@ -333,7 +574,7 @@ __device__ __forceinline__ void attend_rows(float (&o)[DH / 8][4], const bf16* q
 // S = q K^T for the warp's 16 rows against key tile `tile` (16 keys: two
 // n8 tiles), q's A fragments in registers; columns past n at -inf.
 template <int DH>
-__device__ __forceinline__ void score_tile(float (&s)[2][4], const unsigned (&qa)[DH / 16][4],
+__device__ __forceinline__ void score_tile(float (&s)[2][4], const AFrag<bf16> (&qa)[DH / 16],
                                            const bf16* sK, int ld, int tile, int n) {
   const int lane = threadIdx.x % 32, t = lane % 4;
   const bf16* pb =
@@ -343,8 +584,8 @@ __device__ __forceinline__ void score_tile(float (&s)[2][4], const unsigned (&qa
   for (int kk = 0; kk < DH / 16; ++kk) {
     unsigned fb[4];
     ldsm_x4(fb, pb + 16 * kk);
-    mma16816(s[0], qa[kk], fb[0], fb[1]);
-    mma16816(s[1], qa[kk], fb[2], fb[3]);
+    mma16816(s[0], qa[kk].r, fb[0], fb[1]);
+    mma16816(s[1], qa[kk].r, fb[2], fb[3]);
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -367,7 +608,7 @@ template <int DH>
 __device__ __forceinline__ void attend_rows_two_pass(float (&o)[DH / 8][4], const bf16* q16,
                                                      const bf16* sK, const bf16* sV, int ld,
                                                      int n, int kt, float c) {
-  unsigned qa[DH / 16][4];
+  AFrag<bf16> qa[DH / 16];
   load_a_frags<DH / 16>(qa, q16, ld);
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 #pragma unroll 2
@@ -404,12 +645,13 @@ __device__ __forceinline__ void attend_rows_two_pass(float (&o)[DH / 8][4], cons
   for (int tile = 0; tile < kt; ++tile) {
     float s[2][4];
     score_tile<DH>(s, qa, sK, ld, tile, n);
-    unsigned p[4];
-    p[0] = pack_bf16(fast_exp2(fmaf(s[0][0], c, -b0)) * r0, fast_exp2(fmaf(s[0][1], c, -b0)) * r0);
-    p[1] = pack_bf16(fast_exp2(fmaf(s[0][2], c, -b1)) * r1, fast_exp2(fmaf(s[0][3], c, -b1)) * r1);
-    p[2] = pack_bf16(fast_exp2(fmaf(s[1][0], c, -b0)) * r0, fast_exp2(fmaf(s[1][1], c, -b0)) * r0);
-    p[3] = pack_bf16(fast_exp2(fmaf(s[1][2], c, -b1)) * r1, fast_exp2(fmaf(s[1][3], c, -b1)) * r1);
+    AFrag<bf16> p;
+    p.r[0] = pack_bf16(fast_exp2(fmaf(s[0][0], c, -b0)) * r0, fast_exp2(fmaf(s[0][1], c, -b0)) * r0);
+    p.r[1] = pack_bf16(fast_exp2(fmaf(s[0][2], c, -b1)) * r1, fast_exp2(fmaf(s[0][3], c, -b1)) * r1);
+    p.r[2] = pack_bf16(fast_exp2(fmaf(s[1][0], c, -b0)) * r0, fast_exp2(fmaf(s[1][1], c, -b0)) * r0);
+    p.r[3] = pack_bf16(fast_exp2(fmaf(s[1][2], c, -b1)) * r1, fast_exp2(fmaf(s[1][3], c, -b1)) * r1);
     mma_rs_step<DH / 8>(o, p, sV + 16 * tile * ld, ld);
   }
 }
+
 }  // namespace attn

@@ -3,17 +3,107 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 #define MIRROR_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Round a float to bf16 and back: the rounding point of a bf16 result.
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// The element types of the Nystrom path's kernels (the landmark softmax,
+// the pinv, the softmax attention, PPEG, the conv): the compute type of the
+// JAX package's Pallas kernels, bf16, float16 or float32. Every product and
+// sum is accumulated in fp32; a result is rounded to T where the bf16
+// kernel rounds (in float32 that rounding is the identity). Conversions go
+// through the intrinsics only. kCode is the type code of the C entries
+// (ops/_common.py::type_code).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  static constexpr int kCode = 0;
+  __device__ static float to_float(bf16 x) { return __bfloat162float(x); }
+  __device__ static bf16 from_float(float x) { return __float2bfloat16(x); }
+  __device__ static float2 unpack(unsigned u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
+  __device__ static unsigned pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
+    return *reinterpret_cast<unsigned*>(&v);
+  }
+};
+
+template <>
+struct Elem<f16> {
+  static constexpr int kCode = 1;
+  __device__ static float to_float(f16 x) { return __half2float(x); }
+  __device__ static f16 from_float(float x) { return __float2half_rn(x); }
+  __device__ static float2 unpack(unsigned u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+  __device__ static unsigned pack(float lo, float hi) {
+    __half2 v = __float22half2_rn(make_float2(lo, hi));
+    return *reinterpret_cast<unsigned*>(&v);
+  }
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int kCode = 2;
+  __device__ static float to_float(float x) { return x; }
+  __device__ static float from_float(float x) { return x; }
+};
+
+// elements of T in one 16-byte load or store
+template <typename T>
+__host__ __device__ constexpr int vec16() { return 16 / (int)sizeof(T); }
+
+// x rounded to T and back (the identity for float)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return Elem<T>::to_float(Elem<T>::from_float(x));
+}
+
+// Two adjacent elements of T as floats (p 4-byte aligned for 16-bit T, 8
+// for float).
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  if constexpr (std::is_same_v<T, float>)
+    return *reinterpret_cast<const float2*>(p);
+  else
+    return Elem<T>::unpack(*reinterpret_cast<const unsigned*>(p));
+}
+
+// Store (lo, hi) rounded to T at p and p + 1 (aligned as for load2).
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  if constexpr (std::is_same_v<T, float>)
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+  else
+    *reinterpret_cast<unsigned*>(p) = Elem<T>::pack(lo, hi);
+}
+
+// Type code -> element type: f(T()) for the C entries' dtype argument;
+// cudaErrorInvalidValue for a code no kernel takes.
+template <class F>
+cudaError_t by_type(int dtype, F&& f) {
+  switch (dtype) {
+    case 0: return f(bf16());
+    case 1: return f(f16());
+    case 2: return f(float());
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -134,20 +224,16 @@ __device__ __forceinline__ void store_quad(T* p, const float4& x, long long left
   if constexpr (kVec && sizeof(T) == sizeof(float)) {
     *reinterpret_cast<float4*>(p) = x;
   } else if constexpr (kVec) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
     uint2 u;
-    u.x = *reinterpret_cast<unsigned*>(&lo);
-    u.y = *reinterpret_cast<unsigned*>(&hi);
+    u.x = Elem<T>::pack(x.x, x.y);
+    u.y = Elem<T>::pack(x.z, x.w);
     *reinterpret_cast<uint2*>(p) = u;
   } else {
     const float v[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (e < left) {
-        if constexpr (sizeof(T) == sizeof(float))
-          p[e] = v[e];
-        else
-          p[e] = __float2bfloat16(v[e]);
+        p[e] = Elem<T>::from_float(v[e]);
       }
     }
   }

@@ -79,15 +79,26 @@
 //   fewer); the feature loops unrolled by 2; twice the chunks (two waves of
 //   the backward). The kernels now run at the rate of the repository's
 //   streaming copy (csrc/copy_floor.cu).
+//
+// Element types (attn_mma.cuh): v, the taps, g, out and dv are one type T,
+// bf16 (the sentences above), float16 or float32; sums are fp32 and each
+// output is rounded to T once. float16 is bf16's design with .f16 operands;
+// float32 runs the band and Toeplitz products in the 3xTF32 split (its taps
+// are not exact in tf32, so they are split too). A float32 ring of 256
+// rows of d + 8 takes 106 KB at d 96; two (the backward) fit a block's
+// 227 KB up to d 96, so above that the backward splits the features into
+// two parts, each block one part (the grid's z): dv's columns and dkern's
+// feature sums are cut along them, the partials laid out [b chunks parts,
+// h K], so the column sum adds the parts in its fixed order too. The bf16
+// and float16 backwards, and every forward, take one part.
 #include "attn_mma.cuh"
 #include "conv1d.cuh"
 
 namespace {
 
-using attn::ldsm_x4;
-using attn::ldsm_x4_t;
-using attn::mma16816;
-using attn::pack_bf16;
+using attn::AFrag;
+using attn::AOp;
+using attn::BFrag;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -97,6 +108,7 @@ constexpr int kRingRows = kStages * kStep;   // a power of two: rows wrap by a m
 constexpr int kWaveBlocks = 264;             // one wave of the backward: 2 blocks an SM, 132 SMs
 constexpr int kMaxTaps = 65;
 constexpr int kMaxDim = 128;
+constexpr size_t kMaxSmem = 232448;          // a block's shared memory on the H100
 
 // W / 16: the band's (and the Toeplitz product's) 16-column tiles, 16 + K -
 // 1 rounded up to 16 (1 at K 1, 2 up to K 17, 3 up to K 33, 5 at K 65).
@@ -120,220 +132,235 @@ Plan conv_plan(int bh, int n) {
   return {per, (steps + per - 1) / per};
 }
 
-// Shared memory: the taps (bf16), each warp's [16, 16] bf16 output staging
-// tile, then the ring of src (the forward) or the rings of g and v (the
-// backward), which dkern's epilogue reuses for the warps' [16, 16 WT] fp32
-// sums (more than the rings at d 8).
-constexpr size_t kTapBytes = smem_align(kMaxTaps * sizeof(bf16));
-constexpr size_t kStageBytes = kWarps * 16 * 16 * sizeof(bf16);
-constexpr size_t kHeadBytes = kTapBytes + kStageBytes;  // where the rings start
-
-__host__ __device__ size_t ring_bytes(int d) {
-  return smem_align((size_t)kRingRows * (d + 8) * sizeof(bf16));
+// Shared memory: the taps (T), each warp's [16, 16] output staging tile
+// (T), then the ring of src (the forward) or the rings of g and v (the
+// backward), rows of `cols` + 8 elements, which dkern's epilogue reuses for
+// the warps' [16, 16 WT] fp32 sums (more than the rings at d 8).
+template <typename T>
+__host__ __device__ constexpr size_t tap_bytes() { return smem_align(kMaxTaps * sizeof(T)); }
+template <typename T>
+__host__ __device__ constexpr size_t head_bytes() {  // where the rings start
+  return tap_bytes<T>() + kWarps * 16 * 16 * sizeof(T);
 }
 
-size_t smem_bytes(int d, bool dkern, int wt) {
-  if (!dkern) return kHeadBytes + ring_bytes(d);
-  const size_t rings = 2 * ring_bytes(d), sums = (size_t)kWarps * 16 * 16 * wt * sizeof(float);
-  return kHeadBytes + (rings > sums ? rings : sums);
+template <typename T>
+__host__ __device__ size_t ring_bytes(int cols) {
+  return smem_align((size_t)kRingRows * (cols + 8) * sizeof(T));
+}
+
+template <typename T>
+size_t smem_bytes(int cols, bool dkern, int wt) {
+  if (!dkern) return head_bytes<T>() + ring_bytes<T>(cols);
+  const size_t rings = 2 * ring_bytes<T>(cols), sums = (size_t)kWarps * 16 * 16 * wt * sizeof(float);
+  return head_bytes<T>() + (rings > sums ? rings : sums);
+}
+
+// The backward's feature parts: one, or two when its rings of d columns
+// would not fit a block (float32 above d 96); and the columns of a part, a
+// multiple of 8 (the last part may be shorter).
+struct Parts {
+  int parts, cols;
+};
+
+template <typename T>
+Parts feature_parts(int d, int wt) {
+  if (smem_bytes<T>(d, true, wt) <= kMaxSmem) return {1, d};
+  const int cols = ((d + 1) / 2 + 7) / 8 * 8;
+  return {(d + cols - 1) / cols, cols};
 }
 
 __device__ __forceinline__ int ring_row(int c) { return c & (kRingRows - 1); }
 
 // Stage st of the chunk: ring rows of chunk rows [kStep st, kStep st + rows)
-// <- sequence rows row0 + kStep st + r of a [n, d] matrix, zeros outside
-// [0, n); 16 bytes a thread, one cp.async group per stage (the caller
-// commits).
-__device__ __forceinline__ void load_stage(bf16* ring, int ld, const bf16* src, int row0,
-                                           int st, int rows, int n, int d) {
-  const int chunks = d / 8;
+// <- columns [0, cols) of sequence rows row0 + kStep st + r of a [n, d]
+// matrix (src at the part's first column), zeros outside [0, n); 16 bytes a
+// thread, one cp.async group per stage (the caller commits).
+template <typename T>
+__device__ __forceinline__ void load_stage(T* ring, int ld, const T* src, int row0, int st,
+                                           int rows, int n, int cols, int d) {
+  constexpr int V = vec16<T>();
+  const int chunks = cols / V;
   const int base = (st % kStages) * kStep;
   for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
-    const int r = idx / chunks, c = (idx % chunks) * 8;
+    const int r = idx / chunks, c = (idx % chunks) * V;
     const int gr = row0 + st * kStep + r;
     const bool ok = gr >= 0 && gr < n;
     cp_async16(ring + (base + r) * ld + c, ok ? src + (size_t)gr * d + c : src, ok);
   }
 }
 
-// The pad columns d .. d + 7 of every ring row, zeroed once: the k-padding of
-// dkern's features and the unused half of the conv's last n-tile pair when
-// d % 16 == 8 (cp.async never writes them).
-__device__ __forceinline__ void zero_pad(bf16* ring, int ld, int d) {
-  for (int r = threadIdx.x; r < kRingRows; r += kThreads)
-    *reinterpret_cast<uint4*>(ring + r * ld + d) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-__device__ __forceinline__ unsigned pack2(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
+// The pad columns cols .. ld - 1 of every ring row, zeroed once: the
+// k-padding of dkern's features and the unused half of the conv's last
+// n-tile pair when cols % 16 == 8 (cp.async never writes them).
+template <typename T>
+__device__ __forceinline__ void zero_pad(T* ring, int ld, int cols) {
+  constexpr int V = vec16<T>();
+  const int pieces = (ld - cols) / V;
+  for (int i = threadIdx.x; i < kRingRows * pieces; i += kThreads)
+    *reinterpret_cast<uint4*>(ring + (i / pieces) * ld + cols + (i % pieces) * V) =
+        make_uint4(0u, 0u, 0u, 0u);
 }
 
 // The A fragments of Band[16, 16 WT] (Band[r, j] = tap[j - r] for 0 <= j - r
 // < K, else 0), from the K taps in shared memory.
-template <int WT>
-__device__ __forceinline__ void band_frags(unsigned (&a)[WT][4], const bf16* sTap, int ksize) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const bf16 zero = __float2bfloat16(0.f);
-  auto tap = [&](int r, int j) {
-    const int x = j - r;
-    return x >= 0 && x < ksize ? sTap[x] : zero;
-  };
+template <int WT, typename T>
+__device__ __forceinline__ void band_frags(AFrag<T> (&a)[WT], const T* sTap, int ksize) {
 #pragma unroll
-  for (int kk = 0; kk < WT; ++kk) {
-    const int j = 16 * kk + 2 * t;
-    a[kk][0] = pack2(tap(g, j), tap(g, j + 1));
-    a[kk][1] = pack2(tap(g + 8, j), tap(g + 8, j + 1));
-    a[kk][2] = pack2(tap(g, j + 8), tap(g, j + 9));
-    a[kk][3] = pack2(tap(g + 8, j + 8), tap(g + 8, j + 9));
-  }
+  for (int kk = 0; kk < WT; ++kk)
+    a[kk] = attn::afrag_from<T>([&](int r, int j) {
+      const int x = 16 * kk + j - r;
+      return x >= 0 && x < ksize ? Elem<T>::to_float(sTap[x]) : 0.f;
+    });
 }
 
 // The warp's 16 output rows of a step: out[i0 + r] = sum_j Band[r, j]
 // window[c0 + j] for window chunk rows c0 = 64 k + 16 w on; one n-tile pair
-// (16 features) at a time, rounded to bf16 and staged in the warp's [16, 16]
+// (16 features) at a time, rounded to T and staged in the warp's [16, 16]
 // tile, so that each lane stores 16 bytes and a row's 32 bytes (a whole
-// sector) go out in one instruction (stored from the fragments, a 16-byte
+// sector; 64 in float32) go out whole (stored from the fragments, a 16-byte
 // piece of 8 rows an instruction, the conv ran at half the HBM rate); rows
-// past n and the pad columns are skipped.
-template <int WT>
-__device__ __forceinline__ void band_step(const unsigned (&a)[WT][4], const bf16* ring, int ld,
-                                          int c0, bf16* stage, bf16* out, int i0, int n,
+// past n and the pad columns are skipped. out points at the part's first
+// column of a [n, d] matrix.
+template <int WT, typename T>
+__device__ __forceinline__ void band_step(const AFrag<T> (&a)[WT], const T* ring, int ld,
+                                          int c0, T* stage, T* out, int i0, int n, int cols,
                                           int d) {
+  constexpr int V = vec16<T>(), P = 16 / V;  // 16-byte pieces a staged row
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int lrow = (lane % 8) + ((lane / 8) % 2) * 8, lcol = (lane / 16) * 8;
-  const int srow = lane / 2, shalf = lane % 2;  // the 16 bytes this lane stores
-  for (int np = 0; np < (d + 15) / 16; ++np) {
+  for (int np = 0; np < (cols + 15) / 16; ++np) {
     float acc[2][4] = {};
 #pragma unroll
     for (int kk = 0; kk < WT; ++kk) {
-      unsigned fb[4];
-      ldsm_x4_t(fb, ring + ring_row(c0 + 16 * kk + lrow) * ld + 16 * np + lcol);
-      mma16816(acc[0], a[kk], fb[0], fb[1]);
-      mma16816(acc[1], a[kk], fb[2], fb[3]);
+      const AOp<T> fa = attn::prepare(a[kk]);
+      BFrag<T> fb[2];
+      attn::load_b_kn<T>(fb, [&](int r) { return ring + ring_row(c0 + 16 * kk + r) * ld + 16 * np; });
+      attn::mma_step(acc[0], fa, fb[0]);
+      attn::mma_step(acc[1], fa, fb[1]);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      *reinterpret_cast<unsigned*>(stage + g * 16 + 8 * h + 2 * t) =
-          pack_bf16(acc[h][0], acc[h][1]);
-      *reinterpret_cast<unsigned*>(stage + (g + 8) * 16 + 8 * h + 2 * t) =
-          pack_bf16(acc[h][2], acc[h][3]);
+      store2(stage + g * 16 + 8 * h + 2 * t, acc[h][0], acc[h][1]);
+      store2(stage + (g + 8) * 16 + 8 * h + 2 * t, acc[h][2], acc[h][3]);
     }
     __syncwarp();
-    const int col = 16 * np + 8 * shalf;
-    if (i0 + srow < n && col < d)
-      *reinterpret_cast<uint4*>(out + (size_t)(i0 + srow) * d + col) =
-          *reinterpret_cast<const uint4*>(stage + srow * 16 + 8 * shalf);
+#pragma unroll
+    for (int idx = lane; idx < 16 * P; idx += 32) {
+      const int srow = idx / P, piece = idx % P;
+      const int col = 16 * np + V * piece;
+      if (i0 + srow < n && col < cols)
+        *reinterpret_cast<uint4*>(out + (size_t)(i0 + srow) * d + col) =
+            *reinterpret_cast<const uint4*>(stage + srow * 16 + V * piece);
+    }
     __syncwarp();
   }
 }
 
 // The conv of one ring: out = conv(src, taps), the forward (kern as it is)
 // and dv alone (src = g, the taps flipped).
-template <int WT>
+template <int WT, typename T>
 __global__ void __launch_bounds__(kThreads)
-    conv1d_kernel(const bf16* __restrict__ src, const bf16* __restrict__ kern,
-                  bf16* __restrict__ out, int heads, int n, int d, int ksize, int flip,
-                  int steps_per_chunk) {
+    conv1d_kernel(const T* __restrict__ src, const T* __restrict__ kern, T* __restrict__ out,
+                  int heads, int n, int d, int ksize, int flip, int steps_per_chunk) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = d + 8;
-  bf16* sTap = reinterpret_cast<bf16*>(smem);
-  bf16* ring = reinterpret_cast<bf16*>(smem + kHeadBytes);
+  T* sTap = reinterpret_cast<T*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + head_bytes<T>());
   const int bh = blockIdx.y, warp = threadIdx.x / 32;
-  bf16* stage = reinterpret_cast<bf16*>(smem + kTapBytes) + warp * 16 * 16;
+  T* stage = reinterpret_cast<T*>(smem + tap_bytes<T>()) + warp * 16 * 16;
   const int steps = (n + kStep - 1) / kStep, s0 = blockIdx.x * steps_per_chunk;
   const int ns = min(steps_per_chunk, steps - s0), row0 = s0 * kStep - ksize / 2;
   const int last_rows = 16 * WT - 16;  // the last stage: the halo of step ns - 1
   const size_t base = (size_t)bh * n * d;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st <= ns) load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, d);
+    if (st <= ns)
+      load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, d, d);
     cp_async_commit();
   }
   zero_pad(ring, ld, d);
   for (int t = threadIdx.x; t < ksize; t += kThreads)
     sTap[t] = kern[(bh % heads) * ksize + (flip ? ksize - 1 - t : t)];
   __syncthreads();
-  unsigned a[WT][4];
+  AFrag<T> a[WT];
   band_frags<WT>(a, sTap, ksize);
   for (int k = 0; k < ns; ++k) {
     cp_async_wait<kStages - 3>();
     __syncthreads();
     const int st = k + kStages - 1;
-    if (st <= ns) load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, d);
+    if (st <= ns)
+      load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, d, d);
     cp_async_commit();
     band_step<WT>(a, ring, ld, kStep * k + 16 * warp, stage, out + base,
-                  (s0 + k) * kStep + 16 * warp, n, d);
+                  (s0 + k) * kStep + 16 * warp, n, d, d);
   }
 }
 
 // dv (the band product on g with the flipped taps, as conv1d_kernel) and
 // the block's dkern partial (the Toeplitz product of g and v), over one
-// chunk: partial[(b chunks + chunk) h K + h K + t].
-template <int WT>
+// chunk and one feature part (the grid's z, of pcols columns a part):
+// partial[((b chunks + chunk) parts + part) h K + h K + t].
+template <int WT, typename T>
 __global__ void __launch_bounds__(kThreads)
-    conv1d_bwd_kernel(const bf16* __restrict__ v, const bf16* __restrict__ kern,
-                      const bf16* __restrict__ g, bf16* __restrict__ dv,
+    conv1d_bwd_kernel(const T* __restrict__ v, const T* __restrict__ kern,
+                      const T* __restrict__ g, T* __restrict__ dv,
                       float* __restrict__ partial, int heads, int n, int d, int ksize,
-                      int steps_per_chunk) {
+                      int steps_per_chunk, int pcols) {
   constexpr int NT = 2 * WT;  // n8 tiles of s
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + 8, half = ksize / 2;
-  bf16* sTap = reinterpret_cast<bf16*>(smem);
-  bf16* gring = reinterpret_cast<bf16*>(smem + kHeadBytes);
-  bf16* vring = reinterpret_cast<bf16*>(smem + kHeadBytes + ring_bytes(d));
+  const int ld = pcols + 8, half = ksize / 2;
+  const int f0 = blockIdx.z * pcols, cols = min(pcols, d - f0);
+  T* sTap = reinterpret_cast<T*>(smem);
+  T* gring = reinterpret_cast<T*>(smem + head_bytes<T>());
+  T* vring = reinterpret_cast<T*>(smem + head_bytes<T>() + ring_bytes<T>(pcols));
   const int bh = blockIdx.y, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bf16* stage = reinterpret_cast<bf16*>(smem + kTapBytes) + warp * 16 * 16;
+  T* stage = reinterpret_cast<T*>(smem + tap_bytes<T>()) + warp * 16 * 16;
   const int steps = (n + kStep - 1) / kStep, s0 = blockIdx.x * steps_per_chunk;
   const int ns = min(steps_per_chunk, steps - s0), row0 = s0 * kStep - half;
   const int last_rows = 16 * WT - 16;
-  const size_t base = (size_t)bh * n * d;
+  const size_t base = (size_t)bh * n * d + f0;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st <= ns) {
       const int rows = st < ns ? kStep : last_rows;
-      load_stage(gring, ld, g + base, row0, st, rows, n, d);
-      load_stage(vring, ld, v + base, row0, st, rows, n, d);
+      load_stage(gring, ld, g + base, row0, st, rows, n, cols, d);
+      load_stage(vring, ld, v + base, row0, st, rows, n, cols, d);
     }
     cp_async_commit();
   }
-  zero_pad(gring, ld, d);
-  zero_pad(vring, ld, d);
+  zero_pad(gring, ld, cols);
+  zero_pad(vring, ld, cols);
   for (int t = threadIdx.x; t < ksize; t += kThreads)
     sTap[t] = kern[(bh % heads) * ksize + ksize - 1 - t];
   __syncthreads();
-  unsigned a[WT][4];
+  AFrag<T> a[WT];
   band_frags<WT>(a, sTap, ksize);
 
   float csum[NT][4] = {};
-  // ldmatrix lane offsets: the A rows of g (16 rows, two k halves), the B
-  // rows of v (NT rows of s in pairs, two k halves)
-  const int arow = lane % 16, acol = (lane / 16) * 8;
-  const int brow = (lane % 8) + (lane / 16) * 8, bcol = ((lane / 8) % 2) * 8;
   for (int k = 0; k < ns; ++k) {
     cp_async_wait<kStages - 3>();
     __syncthreads();
     const int st = k + kStages - 1;
     if (st <= ns) {
       const int rows = st < ns ? kStep : last_rows;
-      load_stage(gring, ld, g + base, row0, st, rows, n, d);
-      load_stage(vring, ld, v + base, row0, st, rows, n, d);
+      load_stage(gring, ld, g + base, row0, st, rows, n, cols, d);
+      load_stage(vring, ld, v + base, row0, st, rows, n, cols, d);
     }
     cp_async_commit();
     const int c0 = kStep * k + 16 * warp;
-    band_step<WT>(a, gring, ld, c0, stage, dv + base, (s0 + k) * kStep + 16 * warp, n, d);
+    band_step<WT>(a, gring, ld, c0, stage, dv + base, (s0 + k) * kStep + 16 * warp, n, cols,
+                  d);
 
-    // C[r, s] += g[c0 + half + r] . v[c0 + s] over the features
+    // C[r, s] += g[c0 + half + r] . v[c0 + s] over the part's features
     float c[NT][4] = {};
-    for (int f = 0; f < (d + 15) / 16; ++f) {
-      unsigned fa[4];
-      ldsm_x4(fa, gring + ring_row(c0 + half + arow) * ld + 16 * f + acol);
+    for (int f = 0; f < (cols + 15) / 16; ++f) {
+      const AOp<T> fa = attn::prepare(attn::load_a<T>(
+          [&](int r) { return gring + ring_row(c0 + half + r) * ld + 16 * f; }));
 #pragma unroll
       for (int sp = 0; sp < WT; ++sp) {
-        unsigned fb[4];
-        ldsm_x4(fb, vring + ring_row(c0 + 16 * sp + brow) * ld + 16 * f + bcol);
-        mma16816(c[2 * sp], fa, fb[0], fb[1]);
-        mma16816(c[2 * sp + 1], fa, fb[2], fb[3]);
+        BFrag<T> fb[2];
+        attn::load_b_nk<T>(fb, [&](int s) { return vring + ring_row(c0 + 16 * sp + s) * ld + 16 * f; });
+        attn::mma_step(c[2 * sp], fa, fb[0]);
+        attn::mma_step(c[2 * sp + 1], fa, fb[1]);
       }
     }
 #pragma unroll
@@ -360,7 +387,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const int b = bh / heads, h = bh % heads;
-  float* out = partial + (((size_t)b * gridDim.x + blockIdx.x) * heads + h) * ksize;
+  float* out = partial +
+      ((((size_t)b * gridDim.x + blockIdx.x) * gridDim.z + blockIdx.z) * heads + h) * ksize;
   for (int t = threadIdx.x; t < ksize; t += kThreads) {
     float sum = 0.f;
     for (int w = 0; w < kWarps; ++w)
@@ -374,103 +402,133 @@ bool valid(int bh, int heads, int n, int d, int ksize) {
          d <= kMaxDim && ksize > 0 && ksize % 2 == 1 && ksize <= kMaxTaps;
 }
 
-template <int WT>
-cudaError_t launch_conv(const bf16* src, const bf16* kern, bf16* out, int bh, int heads, int n,
-                        int d, int ksize, bool flip, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, false, WT);
-  cudaError_t err = allow_smem(conv1d_kernel<WT>, smem);
+template <int WT, typename T>
+cudaError_t launch_conv(const T* src, const T* kern, T* out, int bh, int heads, int n, int d,
+                        int ksize, bool flip, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T>(d, false, WT);
+  cudaError_t err = allow_smem(conv1d_kernel<WT, T>, smem);
   if (err != cudaSuccess) return err;
   const Plan p = conv_plan(bh, n);
-  conv1d_kernel<WT><<<dim3(p.chunks, bh), kThreads, smem, stream>>>(
+  conv1d_kernel<WT, T><<<dim3(p.chunks, bh), kThreads, smem, stream>>>(
       src, kern, out, heads, n, d, ksize, flip ? 1 : 0, p.steps_per_chunk);
   return cudaGetLastError();
 }
 
-template <int WT>
-cudaError_t launch_conv_bwd(const bf16* v, const bf16* kern, const bf16* g, bf16* dv,
-                            float* partial, int bh, int heads, int n, int d, int ksize,
-                            cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, true, WT);
-  cudaError_t err = allow_smem(conv1d_bwd_kernel<WT>, smem);
+template <int WT, typename T>
+cudaError_t launch_conv_bwd(const T* v, const T* kern, const T* g, T* dv, float* partial,
+                            int bh, int heads, int n, int d, int ksize, cudaStream_t stream) {
+  const Parts f = feature_parts<T>(d, WT);
+  const size_t smem = smem_bytes<T>(f.cols, true, WT);
+  cudaError_t err = allow_smem(conv1d_bwd_kernel<WT, T>, smem);
   if (err != cudaSuccess) return err;
   const Plan p = conv_plan(bh, n);
-  conv1d_bwd_kernel<WT><<<dim3(p.chunks, bh), kThreads, smem, stream>>>(
-      v, kern, g, dv, partial, heads, n, d, ksize, p.steps_per_chunk);
+  conv1d_bwd_kernel<WT, T><<<dim3(p.chunks, bh, f.parts), kThreads, smem, stream>>>(
+      v, kern, g, dv, partial, heads, n, d, ksize, p.steps_per_chunk, f.cols);
   return cudaGetLastError();
 }
 
-cudaError_t conv(const bf16* src, const bf16* kern, bf16* out, int bh, int heads, int n, int d,
+template <typename T>
+cudaError_t conv(const T* src, const T* kern, T* out, int bh, int heads, int n, int d,
                  int ksize, bool flip, cudaStream_t stream) {
   if (!valid(bh, heads, n, d, ksize)) return cudaErrorInvalidValue;
-  cudaError_t (*launch)(const bf16*, const bf16*, bf16*, int, int, int, int, int, bool,
-                        cudaStream_t);
+  cudaError_t (*launch)(const T*, const T*, T*, int, int, int, int, int, bool, cudaStream_t);
   switch (band_tiles(ksize)) {
-    case 1: launch = launch_conv<1>; break;
-    case 2: launch = launch_conv<2>; break;
-    case 3: launch = launch_conv<3>; break;
-    case 4: launch = launch_conv<4>; break;
-    default: launch = launch_conv<5>;
+    case 1: launch = launch_conv<1, T>; break;
+    case 2: launch = launch_conv<2, T>; break;
+    case 3: launch = launch_conv<3, T>; break;
+    case 4: launch = launch_conv<4, T>; break;
+    default: launch = launch_conv<5, T>;
   }
   return launch(src, kern, out, bh, heads, n, d, ksize, flip, stream);
 }
 
-}  // namespace
-
-long long conv1d_bwd_partial_elems(int bh, int n, int ksize) {
-  return (long long)bh * conv_plan(bh, n).chunks * ksize;
+template <typename T>
+int feature_parts_of(int d, int ksize) {
+  return feature_parts<T>(d, band_tiles(ksize)).parts;
 }
 
-cudaError_t conv1d_bwd(const bf16* v, const bf16* kern, const bf16* g, bf16* dv, float* dkern,
+}  // namespace
+
+long long conv1d_bwd_partial_elems(int bh, int n, int d, int ksize, int dtype) {
+  int parts = 1;
+  by_type(dtype, [&](auto e) {
+    parts = feature_parts_of<decltype(e)>(d, ksize);
+    return cudaSuccess;
+  });
+  return (long long)bh * conv_plan(bh, n).chunks * parts * ksize;
+}
+
+template <typename T>
+cudaError_t conv1d_bwd(const T* v, const T* kern, const T* g, T* dv, float* dkern,
                        float* partial, int bh, int heads, int n, int d, int ksize,
                        cudaStream_t stream) {
   if (!valid(bh, heads, n, d, ksize)) return cudaErrorInvalidValue;
-  cudaError_t (*launch)(const bf16*, const bf16*, const bf16*, bf16*, float*, int, int, int,
-                        int, int, cudaStream_t);
+  cudaError_t (*launch)(const T*, const T*, const T*, T*, float*, int, int, int, int, int,
+                        cudaStream_t);
   switch (band_tiles(ksize)) {
-    case 1: launch = launch_conv_bwd<1>; break;
-    case 2: launch = launch_conv_bwd<2>; break;
-    case 3: launch = launch_conv_bwd<3>; break;
-    case 4: launch = launch_conv_bwd<4>; break;
-    default: launch = launch_conv_bwd<5>;
+    case 1: launch = launch_conv_bwd<1, T>; break;
+    case 2: launch = launch_conv_bwd<2, T>; break;
+    case 3: launch = launch_conv_bwd<3, T>; break;
+    case 4: launch = launch_conv_bwd<4, T>; break;
+    default: launch = launch_conv_bwd<5, T>;
   }
   cudaError_t err = launch(v, kern, g, dv, partial, bh, heads, n, d, ksize, stream);
   if (err != cudaSuccess) return err;
-  // dkern[h, t] = the column sum of the partials over batch and chunks
-  return launch_column_sum(partial, bh / heads * conv_plan(bh, n).chunks,
+  // dkern[h, t] = the column sum of the partials over batch, chunks and parts
+  return launch_column_sum(partial,
+                           bh / heads * conv_plan(bh, n).chunks * feature_parts_of<T>(d, ksize),
                            (long long)heads * ksize, dkern, stream);
 }
 
+template cudaError_t conv1d_bwd<bf16>(const bf16*, const bf16*, const bf16*, bf16*, float*,
+                                      float*, int, int, int, int, int, cudaStream_t);
+template cudaError_t conv1d_bwd<f16>(const f16*, const f16*, const f16*, f16*, float*, float*,
+                                     int, int, int, int, int, cudaStream_t);
+template cudaError_t conv1d_bwd<float>(const float*, const float*, const float*, float*,
+                                       float*, float*, int, int, int, int, int, cudaStream_t);
+
 // Elements of the fp32 `partial` scratch that mirror_conv1d_bwd and the
 // conv of mirror_softmax_attn_bwd need.
-MIRROR_EXPORT long long mirror_conv1d_bwd_partial_elems(int bh, int n, int ksize) {
-  return conv1d_bwd_partial_elems(bh, n, ksize);
+MIRROR_EXPORT long long mirror_conv1d_bwd_partial_elems(int bh, int n, int d, int ksize,
+                                                        int dtype) {
+  return conv1d_bwd_partial_elems(bh, n, d, ksize, dtype);
 }
 
-// v, out: bf16 [bh, n, d]; kern: bf16 [heads, ksize]; d a multiple of 8 up
-// to 128, ksize odd up to 65.
+// v, out: [bh, n, d]; kern: [heads, ksize], all of type code dtype
+// (common.cuh's Elem); d a multiple of 8 up to 128, ksize odd up to 65.
 MIRROR_EXPORT int mirror_conv1d(const void* v, const void* kern, void* out, int bh, int heads,
-                                int n, int d, int ksize, cudaStream_t stream) {
-  return (int)conv(static_cast<const bf16*>(v), static_cast<const bf16*>(kern),
-                   static_cast<bf16*>(out), bh, heads, n, d, ksize, false, stream);
+                                int n, int d, int ksize, int dtype, cudaStream_t stream) {
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    return conv(static_cast<const T*>(v), static_cast<const T*>(kern), static_cast<T*>(out), bh,
+                heads, n, d, ksize, false, stream);
+  });
 }
 
-// g, dv: bf16 [bh, n, d]; dkern: fp32 [heads, ksize]; partial: fp32 scratch
-// of mirror_conv1d_bwd_partial_elems(bh, n, ksize) elements.
+// g, dv: [bh, n, d] and kern [heads, ksize] of type code dtype; dkern: fp32
+// [heads, ksize]; partial: fp32 scratch of mirror_conv1d_bwd_partial_elems(bh,
+// n, d, ksize, dtype) elements.
 MIRROR_EXPORT int mirror_conv1d_bwd(const void* v, const void* kern, const void* g, void* dv,
                                     void* dkern, void* partial, int bh, int heads, int n, int d,
-                                    int ksize, cudaStream_t stream) {
-  return (int)conv1d_bwd(static_cast<const bf16*>(v), static_cast<const bf16*>(kern),
-                         static_cast<const bf16*>(g), static_cast<bf16*>(dv),
-                         static_cast<float*>(dkern), static_cast<float*>(partial), bh, heads, n,
-                         d, ksize, stream);
+                                    int ksize, int dtype, cudaStream_t stream) {
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    return conv1d_bwd(static_cast<const T*>(v), static_cast<const T*>(kern),
+                      static_cast<const T*>(g), static_cast<T*>(dv), static_cast<float*>(dkern),
+                      static_cast<float*>(partial), bh, heads, n, d, ksize, stream);
+  });
 }
 
-// dv alone (the backward's first half, no dkern): g, dv bf16 [bh, n, d];
-// kern bf16 [heads, ksize].
+// dv alone (the backward's first half, no dkern): g, dv [bh, n, d] and kern
+// [heads, ksize] of type code dtype.
 MIRROR_EXPORT int mirror_conv1d_bwd_dv(const void* kern, const void* g, void* dv, int bh,
-                                       int heads, int n, int d, int ksize, cudaStream_t stream) {
-  return (int)conv(static_cast<const bf16*>(g), static_cast<const bf16*>(kern),
-                   static_cast<bf16*>(dv), bh, heads, n, d, ksize, true, stream);
+                                       int heads, int n, int d, int ksize, int dtype,
+                                       cudaStream_t stream) {
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    return conv(static_cast<const T*>(g), static_cast<const T*>(kern), static_cast<T*>(dv), bh,
+                heads, n, d, ksize, true, stream);
+  });
 }
 
 // out[j] = sum over p < nparts of parts[p * count + j], fp32, in

@@ -6,13 +6,15 @@
 #include "common.cuh"
 
 // Elements of the fp32 `partial` scratch that conv1d_bwd needs: one dkern
-// partial per (batch, row tile) and (head, tap).
-long long conv1d_bwd_partial_elems(int bh, int n, int ksize);
+// partial per (batch, row tile, feature part) and (head, tap); dtype is the
+// type code of v (common.cuh's Elem).
+long long conv1d_bwd_partial_elems(int bh, int n, int d, int ksize, int dtype);
 
-// dv[bh, i] = sum_t kern[h, t] g[bh, i - t + K/2] (bf16) and dkern[h, t] =
+// dv[bh, i] = sum_t kern[h, t] g[bh, i - t + K/2] (in T) and dkern[h, t] =
 // sum over batch, rows and features of g[i] v[i + t - K/2] (fp32, summed in
-// a fixed order). v, g, dv: bf16 [bh, n, d]; kern: bf16 [heads, ksize]; d a
-// multiple of 8 up to 128, ksize odd up to 65.
-cudaError_t conv1d_bwd(const bf16* v, const bf16* kern, const bf16* g, bf16* dv, float* dkern,
+// a fixed order). v, g, dv: [bh, n, d]; kern: [heads, ksize], all of T
+// (bf16, float16 or float32); d a multiple of 8 up to 128, ksize odd up to 65.
+template <typename T>
+cudaError_t conv1d_bwd(const T* v, const T* kern, const T* g, T* dv, float* dkern,
                        float* partial, int bh, int heads, int n, int d, int ksize,
                        cudaStream_t stream);

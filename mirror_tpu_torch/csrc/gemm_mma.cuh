@@ -1,6 +1,10 @@
-// A batched bf16 GEMM mainloop on mma.sync m16n8k16, fed by a cp.async ring:
-// P = op(A) op(B) with fp32 accumulators left in registers for the caller's
-// epilogue.
+// A batched GEMM mainloop on mma.sync, fed by a cp.async ring: P = op(A)
+// op(B) with fp32 accumulators left in registers for the caller's epilogue.
+// The operands are of one type T: bf16 (the sentences below), float16 (the
+// same design with .f16 operands) or float32 (3xTF32 on m16n8k8, through
+// attn_mma.cuh's fragment helpers, with 4- and 8-byte shared-memory loads
+// where the 16-bit types use ldmatrix; a k step of 32, so that its 3
+// stages take 123 KB, where 64 would take 221 KB).
 //
 // Operand layouts: op(A) is [M, K], stored [M][K] (k contiguous) or, with
 // TA, [K][M] (read transposed); op(B) is [K, N], stored [K][N] or, with TB,
@@ -38,19 +42,17 @@
 
 namespace gemm_mma {
 
-using attn::ldsm_x4;
-using attn::ldsm_x4_t;
-using attn::mma16816;
-
 constexpr int PAD = 8;
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// The block tile: 128 x 128 on 2 x 4 warps of 64 x 32, k steps of 64
-// through 3 stages (110 KB of shared memory, one block an SM). 128 divides
-// m 384 with no ragged edge. Fixed until a second kernel needs another shape.
+// The block tile: 128 x 128 on 2 x 4 warps of 64 x 32, k steps of 64 (32
+// in float32) through 3 stages (110 KB of shared memory, one block an SM;
+// 123 KB in float32). 128 divides m 384 with no ragged edge. Fixed until a
+// second kernel needs another shape.
+template <typename T>
 struct Tile {
-  static constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
+  static constexpr int BM = 128, BN = 128, BK = sizeof(T) == 4 ? 32 : 64, STAGES = 3;
   static constexpr int WARPS_M = 2, WARPS_N = 4;
   static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
   static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // a warp's tile
@@ -58,24 +60,24 @@ struct Tile {
   // elements of one stage's tile of A and of B, in either stored layout
   static constexpr int kTileA = cmax(BM * (BK + PAD), BK * (BM + PAD));
   static constexpr int kTileB = cmax(BN * (BK + PAD), BK * (BN + PAD));
-  static constexpr size_t kSmemBytes = (size_t)STAGES * (kTileA + kTileB) * sizeof(bf16);
+  static constexpr size_t kSmemBytes = (size_t)STAGES * (kTileA + kTileB) * sizeof(T);
   static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK % 16 == 0, "whole mma tiles");
 };
 
 // Copy rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major
 // `rows` x `cols` matrix with row stride ld into dst (row stride COLS +
 // PAD), zeros outside the matrix.
-template <int ROWS, int COLS, int THREADS, bool VEC>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int r0,
-                                          int c0, int rows, int cols, int ld) {
+template <int ROWS, int COLS, int THREADS, bool VEC, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int r0, int c0,
+                                          int rows, int cols, int ld) {
   constexpr int LD = COLS + PAD;
   if constexpr (VEC) {
-    constexpr int CH = COLS / 8;
+    constexpr int V = vec16<T>(), CH = COLS / V;
     static_assert((ROWS * CH) % THREADS == 0, "whole chunks a thread");
 #pragma unroll
     for (int i = 0; i < ROWS * CH / THREADS; ++i) {
       const int idx = threadIdx.x + i * THREADS;
-      const int r = idx / CH, c = (idx % CH) * 8;
+      const int r = idx / CH, c = (idx % CH) * V;
       const int gr = r0 + r, gc = c0 + c;
       const bool ok = gr < rows && gc < cols;
       cp_async16(dst + r * LD + c, ok ? src + (size_t)gr * ld + gc : src, ok);
@@ -84,77 +86,74 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
     for (int idx = threadIdx.x; idx < ROWS * COLS; idx += THREADS) {
       const int r = idx / COLS, c = idx % COLS;
       const int gr = r0 + r, gc = c0 + c;
-      dst[r * LD + c] =
-          gr < rows && gc < cols ? src[(size_t)gr * ld + gc] : __float2bfloat16(0.0f);
+      dst[r * LD + c] = gr < rows && gc < cols ? src[(size_t)gr * ld + gc] : Elem<T>::from_float(0.f);
     }
   }
 }
 
 // acc += op(A)[m0.., :] op(B)[:, n0..] over all of K, for this thread's
 // fragments of the block tile (m0, n0). A and B point at one batch entry;
-// smem holds Tile::kSmemBytes.
-template <bool TA, bool TB, bool VEC>
-__device__ __forceinline__ void mainloop(float (&acc)[Tile::MT][Tile::NT][4], bf16* smem,
-                                         const bf16* __restrict__ A,
-                                         const bf16* __restrict__ B, int M, int N, int K,
-                                         int m0, int n0) {
-  bf16* sa = smem;
-  bf16* sb = smem + Tile::STAGES * Tile::kTileA;
+// smem holds Tile<T>::kSmemBytes.
+template <bool TA, bool TB, bool VEC, typename T>
+__device__ __forceinline__ void mainloop(float (&acc)[Tile<T>::MT][Tile<T>::NT][4], T* smem,
+                                         const T* __restrict__ A, const T* __restrict__ B,
+                                         int M, int N, int K, int m0, int n0) {
+  using Tl = Tile<T>;
+  T* sa = smem;
+  T* sb = smem + Tl::STAGES * Tl::kTileA;
   auto request = [&](int stage, int k0) {
     if constexpr (TA)
-      load_tile<Tile::BK, Tile::BM, Tile::kThreads, VEC>(sa + stage * Tile::kTileA, A, k0, m0, K, M, M);
+      load_tile<Tl::BK, Tl::BM, Tl::kThreads, VEC>(sa + stage * Tl::kTileA, A, k0, m0, K, M, M);
     else
-      load_tile<Tile::BM, Tile::BK, Tile::kThreads, VEC>(sa + stage * Tile::kTileA, A, m0, k0, M, K, K);
+      load_tile<Tl::BM, Tl::BK, Tl::kThreads, VEC>(sa + stage * Tl::kTileA, A, m0, k0, M, K, K);
     if constexpr (TB)
-      load_tile<Tile::BN, Tile::BK, Tile::kThreads, VEC>(sb + stage * Tile::kTileB, B, n0, k0, N, K, K);
+      load_tile<Tl::BN, Tl::BK, Tl::kThreads, VEC>(sb + stage * Tl::kTileB, B, n0, k0, N, K, K);
     else
-      load_tile<Tile::BK, Tile::BN, Tile::kThreads, VEC>(sb + stage * Tile::kTileB, B, k0, n0, K, N, N);
+      load_tile<Tl::BK, Tl::BN, Tl::kThreads, VEC>(sb + stage * Tl::kTileB, B, k0, n0, K, N, N);
   };
-  constexpr int LDA = TA ? Tile::BM + PAD : Tile::BK + PAD;
-  constexpr int LDB = TB ? Tile::BK + PAD : Tile::BN + PAD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp / Tile::WARPS_N) * Tile::WTM, wn = (warp % Tile::WARPS_N) * Tile::WTN;
-  // this lane's ldmatrix row address within a 16 x 16 block, in each layout
-  const int a_off = TA ? ((lane % 8) + (lane / 16) * 8) * LDA + wm + ((lane / 8) % 2) * 8
-                       : (wm + lane % 16) * LDA + (lane / 16) * 8;
-  const int b_off = TB ? (wn + (lane % 8) + (lane / 16) * 8) * LDB + ((lane / 8) % 2) * 8
-                       : ((lane % 8) + ((lane / 8) % 2) * 8) * LDB + wn + (lane / 16) * 8;
+  constexpr int LDA = TA ? Tl::BM + PAD : Tl::BK + PAD;
+  constexpr int LDB = TB ? Tl::BK + PAD : Tl::BN + PAD;
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp / Tl::WARPS_N) * Tl::WTM, wn = (warp % Tl::WARPS_N) * Tl::WTN;
 
-  const int KT = (K + Tile::BK - 1) / Tile::BK;
+  const int KT = (K + Tl::BK - 1) / Tl::BK;
 #pragma unroll
-  for (int s = 0; s < Tile::STAGES - 1; ++s) {
-    if (s < KT) request(s, s * Tile::BK);
+  for (int s = 0; s < Tl::STAGES - 1; ++s) {
+    if (s < KT) request(s, s * Tl::BK);
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<Tile::STAGES - 2>();
+    cp_async_wait<Tl::STAGES - 2>();
     __syncthreads();  // k tile kt has landed everywhere; the stage of kt - 1 is free
-    const int next = kt + Tile::STAGES - 1;
-    if (next < KT) request(next % Tile::STAGES, next * Tile::BK);
+    const int next = kt + Tl::STAGES - 1;
+    if (next < KT) request(next % Tl::STAGES, next * Tl::BK);
     cp_async_commit();  // an empty group past the end keeps the count in step
-    const bf16* a = sa + (kt % Tile::STAGES) * Tile::kTileA + a_off;
-    const bf16* b = sb + (kt % Tile::STAGES) * Tile::kTileB + b_off;
+    const T* a = sa + (kt % Tl::STAGES) * Tl::kTileA;
+    const T* b = sb + (kt % Tl::STAGES) * Tl::kTileB;
 #pragma unroll
-    for (int kk = 0; kk < Tile::BK; kk += 16) {
-      unsigned fa[Tile::MT][4];
+    for (int kk = 0; kk < Tl::BK; kk += 16) {
+      attn::AOp<T> fa[Tl::MT];
 #pragma unroll
-      for (int i = 0; i < Tile::MT; ++i) {
+      for (int i = 0; i < Tl::MT; ++i) {
+        // op(A)'s 16 rows wm + 16 i.. at k kk..: stored [m][k], or [k][m] read transposed
         if constexpr (TA)
-          ldsm_x4_t(fa[i], a + kk * LDA + 16 * i);
+          fa[i] = attn::prepare(attn::load_a_t<T>(
+              [&](int r) { return a + (kk + r) * LDA + wm + 16 * i; }));
         else
-          ldsm_x4(fa[i], a + 16 * i * LDA + kk);
+          fa[i] = attn::prepare(attn::load_a<T>(
+              [&](int r) { return a + (wm + 16 * i + r) * LDA + kk; }));
       }
 #pragma unroll
-      for (int np = 0; np < Tile::NT / 2; ++np) {
-        unsigned fb[4];
+      for (int np = 0; np < Tl::NT / 2; ++np) {
+        attn::BFrag<T> fb[2];
         if constexpr (TB)
-          ldsm_x4(fb, b + 16 * np * LDB + kk);
+          attn::load_b_nk<T>(fb, [&](int c) { return b + (wn + 16 * np + c) * LDB + kk; });
         else
-          ldsm_x4_t(fb, b + kk * LDB + 16 * np);
+          attn::load_b_kn<T>(fb, [&](int r) { return b + (kk + r) * LDB + wn + 16 * np; });
 #pragma unroll
-        for (int i = 0; i < Tile::MT; ++i) {
-          mma16816(acc[i][2 * np], fa[i], fb[0], fb[1]);
-          mma16816(acc[i][2 * np + 1], fa[i], fb[2], fb[3]);
+        for (int i = 0; i < Tl::MT; ++i) {
+          attn::mma_step(acc[i][2 * np], fa[i], fb[0]);
+          attn::mma_step(acc[i][2 * np + 1], fa[i], fb[1]);
         }
       }
     }
@@ -166,19 +165,21 @@ __device__ __forceinline__ void mainloop(float (&acc)[Tile::MT][Tile::NT][4], bf
 // columns that this thread's accumulators hold: k numbers the pairs 0 ..
 // kPairs - 1, row and col are in the whole matrix (the block tile at m0,
 // n0); col is even.
-constexpr int kPairs = 2 * Tile::MT * Tile::NT;
+template <typename T>
+constexpr int kPairs = 2 * Tile<T>::MT * Tile<T>::NT;
 
-template <class F>
-__device__ __forceinline__ void for_each_pair(const float (&acc)[Tile::MT][Tile::NT][4], int m0,
-                                              int n0, F&& f) {
+template <typename T, class F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[Tile<T>::MT][Tile<T>::NT][4],
+                                              int m0, int n0, F&& f) {
+  using Tl = Tile<T>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = m0 + (warp / Tile::WARPS_N) * Tile::WTM + lane / 4;
-  const int col0 = n0 + (warp % Tile::WARPS_N) * Tile::WTN + 2 * (lane % 4);
+  const int row0 = m0 + (warp / Tl::WARPS_N) * Tl::WTM + lane / 4;
+  const int col0 = n0 + (warp % Tl::WARPS_N) * Tl::WTN + 2 * (lane % 4);
 #pragma unroll
-  for (int i = 0; i < Tile::MT; ++i)
+  for (int i = 0; i < Tl::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < Tile::NT; ++j) {
-      const int k = 2 * (i * Tile::NT + j);
+    for (int j = 0; j < Tl::NT; ++j) {
+      const int k = 2 * (i * Tl::NT + j);
       f(k, row0 + 16 * i, col0 + 8 * j, acc[i][j][0], acc[i][j][1]);
       f(k + 1, row0 + 16 * i + 8, col0 + 8 * j, acc[i][j][2], acc[i][j][3]);
     }

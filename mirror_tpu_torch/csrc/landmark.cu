@@ -73,6 +73,13 @@
 // means 48 registers a thread, 256 threads a block; the forward rows 114
 // registers and 39.9 KB of shared memory, 4 blocks (16 warps) an SM; the
 // row and column passes 185 and 176 registers and 72.7 KB, 2 blocks an SM.
+// Element types (attn_mma.cuh): q, k and every output but lse are of the
+// compute type T, bf16 in the sentences above, float16 or float32; the
+// means, S, the statistics and the products' sums are fp32, rounded to T
+// where bf16 is (the means, attn2, dsim, dq and dk; float32's are the
+// identity). float32's products are 3xTF32, a thread's means load 4
+// features, and its tiles double: the forward's 80 KB (dh 96) leave room
+// for 2 blocks an SM, the backward's 144 KB for one.
 #include "landmark.cuh"
 
 namespace {
@@ -80,63 +87,66 @@ namespace {
 using namespace attn;
 using namespace landmark;
 
-// (1) the means, a thread per (batch * head, group, 8 features)
+// (1) the means, a thread per (batch * head, group, 16 bytes of features:
+// 8 of a 16-bit type, 4 of float32)
 constexpr int kMeanThreads = 256;
 
-__device__ __forceinline__ void add8(float (&s)[8], const uint4& v) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+template <typename T>
+__device__ __forceinline__ void add16(float (&s)[vec16<T>()], const uint4& v) {
+  const T* p = reinterpret_cast<const T*>(&v);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(p[e]);
+  for (int e = 0; e < vec16<T>() / 2; ++e) {
+    const float2 f = load2(p + 2 * e);
     s[2 * e] += f.x;
     s[2 * e + 1] += f.y;
   }
 }
 
-__device__ __forceinline__ uint4 pack8(const float (&s)[8], float scale) {
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float (&s)[vec16<T>()], float scale) {
   uint4 v;
-  v.x = pack_bf16(s[0] * scale, s[1] * scale);
-  v.y = pack_bf16(s[2] * scale, s[3] * scale);
-  v.z = pack_bf16(s[4] * scale, s[5] * scale);
-  v.w = pack_bf16(s[6] * scale, s[7] * scale);
+  T* p = reinterpret_cast<T*>(&v);
+#pragma unroll
+  for (int e = 0; e < vec16<T>() / 2; ++e) store2(p + 2 * e, s[2 * e] * scale, s[2 * e + 1] * scale);
   return v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMeanThreads)
-    landmark_means_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          bf16* __restrict__ q_l, bf16* __restrict__ k_l, int bh, int n,
+    landmark_means_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          T* __restrict__ q_l, T* __restrict__ k_l, int bh, int n,
                           int dh, int m, int l, int pad) {
-  const int chunks = dh / 8;
+  constexpr int V = vec16<T>();
+  const int chunks = dh / V;
   const long long idx = (long long)blockIdx.x * kMeanThreads + threadIdx.x;
   if (idx >= (long long)bh * m * chunks) return;
   const int c = (int)(idx % chunks);
   const long long grp = idx / chunks;  // bh * m + group
   const int g = (int)(grp % m);
-  const size_t base = (size_t)(grp / m) * n * dh + (size_t)c * 8;
+  const size_t base = (size_t)(grp / m) * n * dh + (size_t)c * V;
   const uint4* qp = reinterpret_cast<const uint4*>(q + base);
   const uint4* kp = reinterpret_cast<const uint4*>(k + base);
   const int stride = chunks;  // uint4s a row
-  float sq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float sk[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float sq[V] = {}, sk[V] = {};
   const int first = g * l - pad;  // rows before 0 are the pad's zeros
   int r = max(first, 0);
   const int end = min(first + l, n);
   for (; r + 1 < end; r += 2) {
     const uint4 q0 = qp[(size_t)r * stride], q1 = qp[(size_t)(r + 1) * stride];
     const uint4 k0 = kp[(size_t)r * stride], k1 = kp[(size_t)(r + 1) * stride];
-    add8(sq, q0);
-    add8(sq, q1);
-    add8(sk, k0);
-    add8(sk, k1);
+    add16<T>(sq, q0);
+    add16<T>(sq, q1);
+    add16<T>(sk, k0);
+    add16<T>(sk, k1);
   }
   if (r < end) {
-    add8(sq, qp[(size_t)r * stride]);
-    add8(sk, kp[(size_t)r * stride]);
+    add16<T>(sq, qp[(size_t)r * stride]);
+    add16<T>(sk, kp[(size_t)r * stride]);
   }
   const float inv_l = 1.0f / (float)l;
-  const size_t out = (size_t)grp * dh + (size_t)c * 8;
-  *reinterpret_cast<uint4*>(q_l + out) = pack8(sq, inv_l);
-  *reinterpret_cast<uint4*>(k_l + out) = pack8(sk, inv_l);
+  const size_t out = (size_t)grp * dh + (size_t)c * V;
+  *reinterpret_cast<uint4*>(q_l + out) = pack16<T>(sq, inv_l);
+  *reinterpret_cast<uint4*>(k_l + out) = pack16<T>(sk, inv_l);
 }
 
 // (2) forward rows. Shared memory: the q_l tile (its space then stages P,
@@ -148,23 +158,23 @@ __host__ __device__ constexpr int q_stride() {
   return row_stride<DT>() > LDP ? row_stride<DT>() : LDP;
 }
 
-template <int DT>
+template <typename T, int DT>
 __host__ __device__ constexpr size_t fwd_smem() {
-  return ((size_t)BM * q_stride<DT>() + (size_t)kStages * BN * row_stride<DT>()) * sizeof(bf16);
+  return ((size_t)BM * q_stride<DT>() + (size_t)kStages * BN * row_stride<DT>()) * sizeof(T);
 }
 
-template <int DT>
-__global__ void __launch_bounds__(kThreads, 4)
-    landmark_fwd_kernel(const bf16* __restrict__ q_l, const bf16* __restrict__ k_l,
-                        bf16* __restrict__ attn2, float* __restrict__ lse, int m) {
-  constexpr int DH = 16 * DT, LD = row_stride<DT>();
+template <typename T, int DT>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 4)
+    landmark_fwd_kernel(const T* __restrict__ q_l, const T* __restrict__ k_l,
+                        T* __restrict__ attn2, float* __restrict__ lse, int m) {
+  constexpr int DH = 16 * DT, LD = row_stride<DT>(), V = vec16<T>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sRing = sQ + BM * q_stride<DT>();
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sRing = sQ + BM * q_stride<DT>();
 
   const int bh = blockIdx.y, r0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const bf16* kb = k_l + (size_t)bh * m * DH;
+  const T* kb = k_l + (size_t)bh * m * DH;
   const int ntiles = (m + BN - 1) / BN, nsteps = 2 * ntiles;  // two sweeps
   auto issue = [&](int step) {  // k_l tile step % ntiles into ring stage step % kStages
     if (step < nsteps)
@@ -175,9 +185,9 @@ __global__ void __launch_bounds__(kThreads, 4)
   load_rows_async<DH>(sQ, LD, q_l + (size_t)bh * m * DH, r0, BM, m);
   for (int step = 0; step < kStages - 1; ++step) issue(step);  // the q_l tile joins group 0
 
-  unsigned aq[DT][4];
+  AFrag<T> aq[DT];
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, ml2[2] = {0.f, 0.f};
-  bf16* stage = sQ + warp * 16 * LDP;  // free once every warp holds its A fragments
+  T* stage = sQ + warp * 16 * LDP;  // free once every warp holds its A fragments
   const int row_lo = r0 + warp * 16 + g;
   for (int it = 0; it < nsteps; ++it) {
     __syncthreads();  // every warp is done with the stage about to be refilled
@@ -234,15 +244,15 @@ __global__ void __launch_bounds__(kThreads, 4)
       }
       continue;
     }
-    // sweep 2: P in bf16, staged, then 16-byte stores of the warp's 16 rows
+    // sweep 2: P in T, staged, then 16-byte stores of the warp's 16 rows
 #pragma unroll
     for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nn][e] = fast_exp2(fmaf(s[nn][e], kLog2e, -ml2[e / 2]));
-    stage_bf16<8>(stage, LDP, s, 1.f, 1.f);
+    stage_rows<8>(stage, LDP, s, 1.f, 1.f);
     __syncwarp();
-    for (int idx = lane; idx < 16 * (BN / 8); idx += 32) {
-      const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
+    for (int idx = lane; idx < 16 * (BN / V); idx += 32) {
+      const int r = idx / (BN / V), c = (idx % (BN / V)) * V;
       const int row = r0 + warp * 16 + r, col = c0 + c;
       if (row < m && col < m)
         *reinterpret_cast<uint4*>(attn2 + ((size_t)bh * m + row) * m + col) =
@@ -252,37 +262,44 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-template <int DT>
-cudaError_t launch_fwd(const bf16* q_l, const bf16* k_l, bf16* attn2, float* lse, int bh,
-                       int m, cudaStream_t stream) {
-  const size_t smem = fwd_smem<DT>();
-  const cudaError_t err = allow_smem(landmark_fwd_kernel<DT>, smem);
+template <typename T, int DT>
+cudaError_t launch_fwd(const T* q_l, const T* k_l, T* attn2, float* lse, int bh, int m,
+                       cudaStream_t stream) {
+  const size_t smem = fwd_smem<T, DT>();
+  const cudaError_t err = allow_smem(landmark_fwd_kernel<T, DT>, smem);
   if (err != cudaSuccess) return err;
-  landmark_fwd_kernel<DT><<<dim3((m + BM - 1) / BM, bh), kThreads, smem, stream>>>(
+  landmark_fwd_kernel<T, DT><<<dim3((m + BM - 1) / BM, bh), kThreads, smem, stream>>>(
       q_l, k_l, attn2, lse, m);
   return cudaGetLastError();
 }
 
-using FwdFn = cudaError_t (*)(const bf16*, const bf16*, bf16*, float*, int, int, cudaStream_t);
-constexpr FwdFn kFwd[8] = {launch_fwd<1>, launch_fwd<2>, launch_fwd<3>, launch_fwd<4>,
-                           launch_fwd<5>, launch_fwd<6>, launch_fwd<7>, launch_fwd<8>};
+template <typename T>
+cudaError_t launch_all(const T* q, const T* k, T* q_l, T* k_l, T* attn2, float* lse, int bh,
+                       int n, int dh, int m, int l, int pad, cudaStream_t stream) {
+  using FwdFn = cudaError_t (*)(const T*, const T*, T*, float*, int, int, cudaStream_t);
+  constexpr FwdFn kFwd[8] = {launch_fwd<T, 1>, launch_fwd<T, 2>, launch_fwd<T, 3>,
+                             launch_fwd<T, 4>, launch_fwd<T, 5>, launch_fwd<T, 6>,
+                             launch_fwd<T, 7>, launch_fwd<T, 8>};
+  const long long threads = (long long)bh * m * (dh / vec16<T>());
+  landmark_means_kernel<T><<<(unsigned)((threads + kMeanThreads - 1) / kMeanThreads),
+                             kMeanThreads, 0, stream>>>(q, k, q_l, k_l, bh, n, dh, m, l, pad);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return kFwd[dh / 16 - 1](q_l, k_l, attn2, lse, bh, m, stream);
+}
 }  // namespace
 
-// q, k: bf16 [bh, n, dh]; q_l, k_l: bf16 [bh, m, dh]; attn2: bf16 [bh, m, m];
-// lse: fp32 [bh, m], the row log-sum-exp the backward takes.
+// q, k: [bh, n, dh]; q_l, k_l: [bh, m, dh]; attn2: [bh, m, m], all of type
+// code dtype (common.cuh's Elem); lse: fp32 [bh, m], the row log-sum-exp
+// the backward takes.
 MIRROR_EXPORT int mirror_landmark_softmax(const void* q, const void* k, void* q_l, void* k_l,
                                           void* attn2, void* lse, int bh, int n, int dh, int m,
-                                          int l, int pad, cudaStream_t stream) {
+                                          int l, int pad, int dtype, cudaStream_t stream) {
   if (!landmark::shape_ok(n, dh, m, l, pad)) return (int)cudaErrorInvalidValue;
-  bf16* qlp = static_cast<bf16*>(q_l);
-  bf16* klp = static_cast<bf16*>(k_l);
-  const long long threads = (long long)bh * m * (dh / 8);
-  landmark_means_kernel<<<(unsigned)((threads + kMeanThreads - 1) / kMeanThreads),
-                          kMeanThreads, 0, stream>>>(static_cast<const bf16*>(q),
-                                                     static_cast<const bf16*>(k), qlp, klp, bh,
-                                                     n, dh, m, l, pad);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)kFwd[dh / 16 - 1](qlp, klp, static_cast<bf16*>(attn2), static_cast<float*>(lse),
-                                bh, m, stream);
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    return launch_all<T>(static_cast<const T*>(q), static_cast<const T*>(k),
+                         static_cast<T*>(q_l), static_cast<T*>(k_l), static_cast<T*>(attn2),
+                         static_cast<float*>(lse), bh, n, dh, m, l, pad, stream);
+  });
 }

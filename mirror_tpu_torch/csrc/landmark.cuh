@@ -10,7 +10,7 @@ namespace landmark {
 template <int DT>
 __host__ __device__ constexpr int row_stride() { return 16 * DT + 8; }
 
-constexpr int LDP = attn::BN + 8;  // bf16 stride of a staged 64-column tile (P, ga2)
+constexpr int LDP = attn::BN + 8;  // the stride of a staged 64-column tile (P, ga2)
 
 // dh a multiple of 16 up to 128, m a multiple of 8, n + pad = m l
 inline bool shape_ok(int n, int dh, int m, int l, int pad) {

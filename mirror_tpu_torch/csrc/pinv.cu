@@ -70,6 +70,13 @@
 // memory for the call; gs is reduced per (b, h) in a fixed order by one
 // block each and the partials are summed by torch, so the result is the
 // same from run to run.
+//
+// Element types: the iterates, x and the gradients are of the compute type
+// T, bf16 in the sentences above, float16 or float32 (the Pallas kernel's
+// `x.dtype`); every product accumulates in fp32 and rounds to T where the
+// bf16 instance rounds (in float32 that is the identity, so the iterations
+// run in float32 throughout, as pinv_pallas.py:40 does). The GEMM's float32
+// instance is 3xTF32 with k steps of 32 (gemm_mma.cuh).
 #include "gemm_mma.cuh"
 
 namespace {
@@ -79,48 +86,48 @@ using gemm_mma::Tile;
 enum Layout { NN = 0, NT = 1, TN = 2 };
 enum Epilogue { EPI_EYE = 0, EPI_ADD = 1, EPI_ACC32 = 2 };
 
-// Two bf16 values at dst: one 4-byte store (VEC: N is even, so the pair
+// Two values rounded to T at dst: one store (VEC: N is even, so the pair
 // is aligned and whole), else element by element, the second only if `two`.
-template <bool VEC>
-__device__ __forceinline__ void store2(bf16* dst, __nv_bfloat162 v, bool two) {
+template <bool VEC, typename T>
+__device__ __forceinline__ void store2v(T* dst, float lo, float hi, bool two) {
   if (VEC) {
-    *reinterpret_cast<__nv_bfloat162*>(dst) = v;
+    store2(dst, lo, hi);
     return;
   }
-  dst[0] = v.x;
-  if (two) dst[1] = v.y;
+  dst[0] = Elem<T>::from_float(lo);
+  if (two) dst[1] = Elem<T>::from_float(hi);
 }
 
 // P = op(A) op(B) per batch entry, op(A) [M, K], op(B) [K, N]. TA: A is
 // stored [K, M] (op(A) = A^T); TB: B is stored [N, K] (op(B) = B^T). VEC:
 // M, N and K are multiples of 8 (16-byte staging and pair stores).
-template <bool TA, bool TB, int EPI, bool VEC>
-__global__ void __launch_bounds__(Tile::kThreads, 1)
-    pinv_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* C,
-                     bf16* __restrict__ C2, const bf16* prev, float* __restrict__ acc,
-                     int M, int N, int K, float c0, float c1, float d0, float d1) {
+template <typename T, bool TA, bool TB, int EPI, bool VEC>
+__global__ void __launch_bounds__(Tile<T>::kThreads, 1)
+    pinv_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, T* C,
+                     T* __restrict__ C2, const T* prev, float* __restrict__ acc, int M, int N,
+                     int K, float c0, float c1, float d0, float d1) {
+  using Tl = Tile<T>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int batch = blockIdx.z;
-  const int m0 = blockIdx.y * Tile::BM, n0 = blockIdx.x * Tile::BN;
-  float p[Tile::MT][Tile::NT][4];
+  const int m0 = blockIdx.y * Tl::BM, n0 = blockIdx.x * Tl::BN;
+  float p[Tl::MT][Tl::NT][4];
 #pragma unroll
-  for (int i = 0; i < Tile::MT; ++i)
+  for (int i = 0; i < Tl::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < Tile::NT; ++j)
+    for (int j = 0; j < Tl::NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[i][j][e] = 0.f;
-  gemm_mma::mainloop<TA, TB, VEC>(p, reinterpret_cast<bf16*>(smem_raw),
-                                     A + (size_t)batch * M * K, B + (size_t)batch * K * N, M,
-                                     N, K, m0, n0);
+  gemm_mma::mainloop<TA, TB, VEC>(p, reinterpret_cast<T*>(smem_raw), A + (size_t)batch * M * K,
+                                  B + (size_t)batch * K * N, M, N, K, m0, n0);
 
   const size_t base = (size_t)batch * M * N;
   // ADD and ACC32 first read every term they add to, all loads in flight
   // at once: prev may alias C, so the compiler may not move a load of prev
   // above a store to C, and loads interleaved with stores would each wait
   // for device memory in turn
-  float2 q[EPI == EPI_EYE ? 1 : gemm_mma::kPairs];
+  float2 q[EPI == EPI_EYE ? 1 : gemm_mma::kPairs<T>];
   if constexpr (EPI != EPI_EYE) {
-    gemm_mma::for_each_pair(p, m0, n0, [&](int k, int r, int c, float, float) {
+    gemm_mma::for_each_pair<T>(p, m0, n0, [&](int k, int r, int c, float, float) {
       q[k] = make_float2(0.f, 0.f);
       if (r >= M || c >= N) return;
       const size_t o = base + (size_t)r * N + c;
@@ -133,15 +140,15 @@ __global__ void __launch_bounds__(Tile::kThreads, 1)
         }
       } else {
         if (VEC) {
-          q[k] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(prev + o));
+          q[k] = load2(prev + o);
         } else {
-          q[k].x = __bfloat162float(prev[o]);
-          if (c + 1 < N) q[k].y = __bfloat162float(prev[o + 1]);
+          q[k].x = Elem<T>::to_float(prev[o]);
+          if (c + 1 < N) q[k].y = Elem<T>::to_float(prev[o + 1]);
         }
       }
     });
   }
-  gemm_mma::for_each_pair(p, m0, n0, [&](int k, int r, int c, float p0, float p1) {
+  gemm_mma::for_each_pair<T>(p, m0, n0, [&](int k, int r, int c, float p0, float p1) {
     if (r >= M || c >= N) return;
     const size_t o = base + (size_t)r * N + c;
     const bool two = c + 1 < N;  // always, when N is even
@@ -156,58 +163,59 @@ __global__ void __launch_bounds__(Tile::kThreads, 1)
     }
     const float start0 = EPI == EPI_ADD ? q[k].x : c0 * (r == c ? 1.f : 0.f);
     const float start1 = EPI == EPI_ADD ? q[k].y : c0 * (r == c + 1 ? 1.f : 0.f);
-    const __nv_bfloat162 out =
-        __floats2bfloat162_rn(start0 + c1 * round_bf16(p0), start1 + c1 * round_bf16(p1));
-    store2<VEC>(C + o, out, two);
+    // the product rounded to T, then the sum rounded to T (the identity in float32)
+    const float out0 = round_to<T>(start0 + c1 * round_to<T>(p0));
+    const float out1 = round_to<T>(start1 + c1 * round_to<T>(p1));
+    store2v<VEC>(C + o, out0, out1, two);
     if (EPI == EPI_EYE && C2 != nullptr)
-      store2<VEC>(C2 + o,
-                  __floats2bfloat162_rn(d0 * (r == c ? 1.f : 0.f) + d1 * __low2float(out),
-                                        d0 * (r == c + 1 ? 1.f : 0.f) + d1 * __high2float(out)),
-                  two);
+      store2v<VEC>(C2 + o, d0 * (r == c ? 1.f : 0.f) + d1 * out0,
+                   d0 * (r == c + 1 ? 1.f : 0.f) + d1 * out1, two);
   });
 }
 
-// z0 = bf16(x^T / s), through a 32 x 32 shared-memory tile.
-__global__ void pinv_init_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
-                                 bf16* __restrict__ z, int m) {
+// z0 = x^T / s rounded to T, through a 32 x 32 shared-memory tile.
+template <typename T>
+__global__ void pinv_init_kernel(const T* __restrict__ x, const float* __restrict__ s,
+                                 T* __restrict__ z, int m) {
   __shared__ float tile[32][33];
   const size_t base = (size_t)blockIdx.z * m * m;
   const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
   for (int r = threadIdx.y; r < 32; r += blockDim.y) {
     const int gi = i0 + r, gj = j0 + threadIdx.x;
-    if (gi < m && gj < m) tile[r][threadIdx.x] = __bfloat162float(x[base + (size_t)gi * m + gj]);
+    if (gi < m && gj < m) tile[r][threadIdx.x] = Elem<T>::to_float(x[base + (size_t)gi * m + gj]);
   }
   __syncthreads();
   const float scale = *s;
   for (int r = threadIdx.y; r < 32; r += blockDim.y) {
     const int gi = j0 + r, gj = i0 + threadIdx.x;  // z[gi][gj] = x[gj][gi] / s
-    if (gi < m && gj < m) z[base + (size_t)gi * m + gj] = __float2bfloat16(tile[threadIdx.x][r] / scale);
+    if (gi < m && gj < m)
+      z[base + (size_t)gi * m + gj] = Elem<T>::from_float(tile[threadIdx.x][r] / scale);
   }
 }
 
-// out = bf16(c0 I + c1 in) over bh [m, m] matrices (the backward's
+// out = c0 I + c1 in, rounded to T, over bh [m, m] matrices (the backward's
 // t1 = 7I - B, recomputed from the stash as the TPU kernel does).
-__global__ void pinv_eye_axpby_kernel(const bf16* __restrict__ in, bf16* __restrict__ out,
+template <typename T>
+__global__ void pinv_eye_axpby_kernel(const T* __restrict__ in, T* __restrict__ out,
                                       size_t total, int m, float c0, float c1) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
     const size_t e = i % ((size_t)m * m);
     const float eye = (e / m == e % m) ? 1.0f : 0.0f;
-    out[i] = __float2bfloat16(c0 * eye + c1 * __bfloat162float(in[i]));
+    out[i] = Elem<T>::from_float(c0 * eye + c1 * Elem<T>::to_float(in[i]));
   }
 }
 
-// gx = bf16(gx32 + gz^T / s), through a 32 x 32 shared-memory tile of gz.
-__global__ void pinv_bwd_finish_kernel(const float* __restrict__ gx32,
-                                       const bf16* __restrict__ gz,
-                                       const float* __restrict__ s, bf16* __restrict__ gx,
-                                       int m) {
+// gx = gx32 + gz^T / s rounded to T, through a 32 x 32 shared-memory tile of gz.
+template <typename T>
+__global__ void pinv_bwd_finish_kernel(const float* __restrict__ gx32, const T* __restrict__ gz,
+                                       const float* __restrict__ s, T* __restrict__ gx, int m) {
   __shared__ float tile[32][33];
   const size_t base = (size_t)blockIdx.z * m * m;
   const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
   for (int r = threadIdx.y; r < 32; r += blockDim.y) {  // gz rows j0.., columns i0..
     const int gj = j0 + r, gi = i0 + threadIdx.x;
-    if (gi < m && gj < m) tile[r][threadIdx.x] = __bfloat162float(gz[base + (size_t)gj * m + gi]);
+    if (gi < m && gj < m) tile[r][threadIdx.x] = Elem<T>::to_float(gz[base + (size_t)gj * m + gi]);
   }
   __syncthreads();
   const float scale = *s;
@@ -215,7 +223,7 @@ __global__ void pinv_bwd_finish_kernel(const float* __restrict__ gx32,
     const int gi = i0 + r, gj = j0 + threadIdx.x;  // gx[gi][gj] += gz[gj][gi] / s
     if (gi < m && gj < m) {
       const size_t o = base + (size_t)gi * m + gj;
-      gx[o] = __float2bfloat16(gx32[o] + tile[threadIdx.x][r] / scale);
+      gx[o] = Elem<T>::from_float(gx32[o] + tile[threadIdx.x][r] / scale);
     }
   }
 }
@@ -224,15 +232,16 @@ __global__ void pinv_bwd_finish_kernel(const float* __restrict__ gx32,
 // (b, h), each thread a fixed strided subset, then a fixed tree.
 constexpr int kGsThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kGsThreads)
-    pinv_bwd_gs_kernel(const bf16* __restrict__ gz, const bf16* __restrict__ z0,
+    pinv_bwd_gs_kernel(const T* __restrict__ gz, const T* __restrict__ z0,
                        const float* __restrict__ s, float* __restrict__ partial, int m) {
   __shared__ float warp_sums[kGsThreads / 32];
   const size_t base = (size_t)blockIdx.x * m * m;
   const size_t total = (size_t)m * m;
   float sum = 0.0f;
   for (size_t i = threadIdx.x; i < total; i += kGsThreads)
-    sum += __bfloat162float(gz[base + i]) * __bfloat162float(z0[base + i]);
+    sum += Elem<T>::to_float(gz[base + i]) * Elem<T>::to_float(z0[base + i]);
   sum = warp_sum(sum);
   if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = sum;
   __syncthreads();
@@ -243,46 +252,47 @@ __global__ void __launch_bounds__(kGsThreads)
   }
 }
 
-template <bool TA, bool TB, int EPI, bool VEC>
+template <typename T, bool TA, bool TB, int EPI, bool VEC>
 cudaError_t launch_gemm_vec(const void* a, const void* b, void* c, void* c2, const void* prev,
                             void* acc, int bh, int M, int N, int K, float c0, float c1,
                             float d0, float d1, cudaStream_t stream) {
-  auto kernel = pinv_gemm_kernel<TA, TB, EPI, VEC>;
-  const cudaError_t err = allow_smem(kernel, Tile::kSmemBytes);
+  using Tl = Tile<T>;
+  auto kernel = pinv_gemm_kernel<T, TA, TB, EPI, VEC>;
+  const cudaError_t err = allow_smem(kernel, Tl::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM, bh);
-  kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<bf16*>(c),
-      static_cast<bf16*>(c2), static_cast<const bf16*>(prev), static_cast<float*>(acc), M, N,
-      K, c0, c1, d0, d1);
+  const dim3 grid((N + Tl::BN - 1) / Tl::BN, (M + Tl::BM - 1) / Tl::BM, bh);
+  kernel<<<grid, Tl::kThreads, Tl::kSmemBytes, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
+      static_cast<T*>(c2), static_cast<const T*>(prev), static_cast<float*>(acc), M, N, K, c0,
+      c1, d0, d1);
   return cudaGetLastError();
 }
 
-template <bool TA, bool TB, int EPI>
+template <typename T, bool TA, bool TB, int EPI>
 cudaError_t launch_gemm(const void* a, const void* b, void* c, void* c2, const void* prev,
                         void* acc, int bh, int M, int N, int K, float c0, float c1,
                         float d0, float d1, cudaStream_t stream) {
   if (M % 8 == 0 && N % 8 == 0 && K % 8 == 0)
-    return launch_gemm_vec<TA, TB, EPI, true>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1,
-                                              d0, d1, stream);
-  return launch_gemm_vec<TA, TB, EPI, false>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
-                                             d1, stream);
+    return launch_gemm_vec<T, TA, TB, EPI, true>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1,
+                                                 d0, d1, stream);
+  return launch_gemm_vec<T, TA, TB, EPI, false>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1,
+                                                d0, d1, stream);
 }
 
-template <int EPI>
+template <typename T, int EPI>
 cudaError_t launch_gemm_layout(int layout, const void* a, const void* b, void* c, void* c2,
                                const void* prev, void* acc, int bh, int M, int N, int K,
                                float c0, float c1, float d0, float d1, cudaStream_t stream) {
   switch (layout) {
     case NN:
-      return launch_gemm<false, false, EPI>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
-                                            d1, stream);
+      return launch_gemm<T, false, false, EPI>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
+                                               d1, stream);
     case NT:
-      return launch_gemm<false, true, EPI>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
-                                           d1, stream);
+      return launch_gemm<T, false, true, EPI>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
+                                              d1, stream);
     case TN:
-      return launch_gemm<true, false, EPI>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
-                                           d1, stream);
+      return launch_gemm<T, true, false, EPI>(a, b, c, c2, prev, acc, bh, M, N, K, c0, c1, d0,
+                                              d1, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -290,57 +300,72 @@ cudaError_t launch_gemm_layout(int layout, const void* a, const void* b, void* c
 
 }  // namespace
 
+// Every entry below takes the type code dtype (common.cuh's Elem) of its
+// [m, m] matrices; s, acc, gx32 and gs_partial are fp32.
+
 MIRROR_EXPORT int mirror_pinv_init(const void* x, const void* s, void* z, int bh, int m,
-                                   cudaStream_t stream) {
+                                   int dtype, cudaStream_t stream) {
   const dim3 grid((m + 31) / 32, (m + 31) / 32, bh);
-  pinv_init_kernel<<<grid, dim3(32, 8), 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(s), static_cast<bf16*>(z), m);
-  return (int)cudaGetLastError();
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    pinv_init_kernel<T><<<grid, dim3(32, 8), 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(s), static_cast<T*>(z), m);
+    return cudaGetLastError();
+  });
 }
 
 // c = op(a) op(b) with an epilogue. layout: 0 a b, 1 a b^T, 2 a^T b.
-// epilogue: 0 EYE, c = bf16(c0 I + c1 bf16(P)) and (c2 not null)
-// c2 = bf16(d0 I + d1 c); 1 ADD, c = bf16(prev + c1 bf16(P)); 2 ACC32,
-// acc += P in fp32.
+// epilogue: 0 EYE, c = T(c0 I + c1 T(P)) and (c2 not null)
+// c2 = T(d0 I + d1 c); 1 ADD, c = T(prev + c1 T(P)); 2 ACC32,
+// acc += P in fp32 (T(.): rounded to T).
 MIRROR_EXPORT int mirror_pinv_gemm(const void* a, const void* b, void* c, void* c2,
                                    const void* prev, void* acc, int bh, int M, int N, int K,
                                    int layout, int epilogue, float c0, float c1, float d0,
-                                   float d1, cudaStream_t stream) {
-  switch (epilogue) {
-    case EPI_EYE:
-      return (int)launch_gemm_layout<EPI_EYE>(layout, a, b, c, c2, prev, acc, bh, M, N, K,
-                                              c0, c1, d0, d1, stream);
-    case EPI_ADD:
-      return (int)launch_gemm_layout<EPI_ADD>(layout, a, b, c, c2, prev, acc, bh, M, N, K,
-                                              c0, c1, d0, d1, stream);
-    case EPI_ACC32:
-      return (int)launch_gemm_layout<EPI_ACC32>(layout, a, b, c, c2, prev, acc, bh, M, N, K,
+                                   float d1, int dtype, cudaStream_t stream) {
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    switch (epilogue) {
+      case EPI_EYE:
+        return launch_gemm_layout<T, EPI_EYE>(layout, a, b, c, c2, prev, acc, bh, M, N, K, c0,
+                                              c1, d0, d1, stream);
+      case EPI_ADD:
+        return launch_gemm_layout<T, EPI_ADD>(layout, a, b, c, c2, prev, acc, bh, M, N, K, c0,
+                                              c1, d0, d1, stream);
+      case EPI_ACC32:
+        return launch_gemm_layout<T, EPI_ACC32>(layout, a, b, c, c2, prev, acc, bh, M, N, K,
                                                 c0, c1, d0, d1, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }
 
 MIRROR_EXPORT int mirror_pinv_eye_axpby(const void* in, void* out, int bh, int m, float c0,
-                                        float c1, cudaStream_t stream) {
+                                        float c1, int dtype, cudaStream_t stream) {
   const size_t total = (size_t)bh * m * m;
   const int blocks = (int)((total + 255) / 256 < 8192 ? (total + 255) / 256 : 8192);
-  pinv_eye_axpby_kernel<<<blocks, 256, 0, stream>>>(static_cast<const bf16*>(in),
-                                                    static_cast<bf16*>(out), total, m, c0, c1);
-  return (int)cudaGetLastError();
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    pinv_eye_axpby_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const T*>(in),
+                                                         static_cast<T*>(out), total, m, c0, c1);
+    return cudaGetLastError();
+  });
 }
 
 MIRROR_EXPORT int mirror_pinv_bwd_finish(const void* gx32, const void* gz, const void* z0,
                                          const void* s, void* gx, void* gs_partial, int bh,
-                                         int m, cudaStream_t stream) {
+                                         int m, int dtype, cudaStream_t stream) {
   const dim3 grid((m + 31) / 32, (m + 31) / 32, bh);
-  pinv_bwd_finish_kernel<<<grid, dim3(32, 8), 0, stream>>>(
-      static_cast<const float*>(gx32), static_cast<const bf16*>(gz),
-      static_cast<const float*>(s), static_cast<bf16*>(gx), m);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pinv_bwd_gs_kernel<<<bh, kGsThreads, 0, stream>>>(
-      static_cast<const bf16*>(gz), static_cast<const bf16*>(z0),
-      static_cast<const float*>(s), static_cast<float*>(gs_partial), m);
-  return (int)cudaGetLastError();
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    pinv_bwd_finish_kernel<T><<<grid, dim3(32, 8), 0, stream>>>(
+        static_cast<const float*>(gx32), static_cast<const T*>(gz),
+        static_cast<const float*>(s), static_cast<T*>(gx), m);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    pinv_bwd_gs_kernel<T><<<bh, kGsThreads, 0, stream>>>(
+        static_cast<const T*>(gz), static_cast<const T*>(z0), static_cast<const float*>(s),
+        static_cast<float*>(gs_partial), m);
+    return cudaGetLastError();
+  });
 }

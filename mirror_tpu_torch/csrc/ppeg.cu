@@ -34,6 +34,12 @@
 // the taps), so three blocks share an SM; the TPU's channel blocking
 // (_cblk) and 64 MB VMEM limit have no counterpart.
 // The backward's design is at ppeg_bwd_kernel.
+// Element types: img, the taps, the bias, g, out and dimg are of one type
+// T, bf16 (the sentences above), float16 or float32 (the Pallas kernel's
+// `img.dtype`); the math is fp32 FMAs in every type and each output is
+// rounded to T once. A float32 lane loads its channel pair with one 8-byte
+// load, and the staged chunk doubles: the forward's 91 KB leave room for
+// two blocks an SM, the backward's 170 KB for one.
 #include "common.cuh"
 
 namespace {
@@ -68,32 +74,30 @@ constexpr int kFwdThreads = 32 * BH;
 constexpr int kDimgWarps = BH, kDkWarps = KS;
 constexpr int kBwdThreads = 32 * (kDimgWarps + kDkWarps);
 
+template <typename T>
 struct FwdSmem {
-  bf16 img[SBH * SBW * BC];
-  bf16 taps[KS * KS * BC];
+  T img[SBH * SBW * BC];
+  T taps[KS * KS * BC];
 };
 
+template <typename T>
 struct BwdSmem {
-  bf16 g[SBH * SBW * BC];
-  bf16 img[SBH * SBW * BC];
-  bf16 taps[KS * KS * BC];
+  T g[SBH * SBW * BC];
+  T img[SBH * SBW * BC];
+  T taps[KS * KS * BC];
 };
-
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 // Stage rows [y0 - 3, y0 + BH + 3) x columns [x0 - 3, x0 + BW + 3) x
 // channels [c0, c0 + BC) of one image of src into dst, zeros outside:
 // cp.async 16 bytes at a time when C is a multiple of 8, else one element
 // at a time, by the block's THREADS threads.
-template <int THREADS>
-__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* __restrict__ src, int y0,
-                                            int x0, int c0, int H, int W, int C) {
+template <int THREADS, typename T>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* __restrict__ src, int y0, int x0,
+                                            int c0, int H, int W, int C) {
   if (C % 8 == 0) {
-    constexpr int chunks = BC / 8;
+    constexpr int V = vec16<T>(), chunks = BC / V;
     for (int idx = threadIdx.x; idx < SBH * SBW * chunks; idx += THREADS) {
-      const int p = idx / chunks, gc = c0 + (idx % chunks) * 8;
+      const int p = idx / chunks, gc = c0 + (idx % chunks) * V;
       const int gy = y0 + p / SBW - HALO, gx = x0 + p % SBW - HALO;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C;
       cp_async16(dst + p * BC + gc - c0, ok ? src + ((size_t)gy * W + gx) * C + gc : src, ok);
@@ -105,27 +109,19 @@ __device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* __restrict__ 
     const int gy = y0 + p / SBW - HALO, gx = x0 + p % SBW - HALO;
     dst[idx] = gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C
                    ? src[((size_t)gy * W + gx) * C + gc]
-                   : __float2bfloat16(0.0f);
+                   : Elem<T>::from_float(0.0f);
   }
 }
 
 // Channels c and c + 1 (those below C) of v at dst, which points at channel c.
-__device__ __forceinline__ void store_pair(bf16* dst, int c, int C, float2 v) {
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, int c, int C, float2 v) {
   if (C % 2 == 0 && c < C) {
-    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v.x, v.y);
+    store2(dst, v.x, v.y);
     return;
   }
-  if (c < C) dst[0] = __float2bfloat16(v.x);
-  if (c + 1 < C) dst[1] = __float2bfloat16(v.y);
-}
-
-__device__ __forceinline__ void store_pair(float* dst, int c, int C, float2 v) {
-  if (C % 2 == 0 && c < C) {
-    *reinterpret_cast<float2*>(dst) = v;
-    return;
-  }
-  if (c < C) dst[0] = v.x;
-  if (c + 1 < C) dst[1] = v.y;
+  if (c < C) dst[0] = Elem<T>::from_float(v.x);
+  if (c + 1 < C) dst[1] = Elem<T>::from_float(v.y);
 }
 
 __device__ __forceinline__ void fma2(float2& acc, float2 a, float2 b) {
@@ -134,12 +130,11 @@ __device__ __forceinline__ void fma2(float2& acc, float2 a, float2 b) {
 }
 
 // Stage the taps of channels [c0, c0 + BC) as [49][BC], zeros past C.
-template <int THREADS>
-__device__ __forceinline__ void stage_taps(bf16* dst, const bf16* __restrict__ kern, int c0,
-                                           int C) {
+template <int THREADS, typename T>
+__device__ __forceinline__ void stage_taps(T* dst, const T* __restrict__ kern, int c0, int C) {
   for (int idx = threadIdx.x; idx < KS * KS * BC; idx += THREADS) {
     const int gc = c0 + idx % BC;
-    dst[idx] = gc < C ? kern[(size_t)(idx / BC) * C + gc] : __float2bfloat16(0.0f);
+    dst[idx] = gc < C ? kern[(size_t)(idx / BC) * C + gc] : Elem<T>::from_float(0.0f);
   }
 }
 
@@ -149,16 +144,16 @@ __device__ __forceinline__ void stage_taps(bf16* dst, const bf16* __restrict__ k
 // row, one load of the tile feeds the up to 7 outputs whose window holds
 // it; each output still sums its taps in (dy, dx) order. FLIP reads
 // tap[6 - dy][6 - dx] (the backward's dimg).
-template <bool FLIP>
-__device__ __forceinline__ void conv_pairs(float2 (&acc)[BW], const bf16* tile,
-                                           const bf16* taps, int y, int cp) {
+template <bool FLIP, typename T>
+__device__ __forceinline__ void conv_pairs(float2 (&acc)[BW], const T* tile, const T* taps,
+                                           int y, int cp) {
 #pragma unroll 1
   for (int ty = 0; ty < KS; ++ty) {
     float2 tap[KS];
 #pragma unroll
     for (int dx = 0; dx < KS; ++dx)
       tap[dx] = load2(taps + (FLIP ? KS * KS - 1 - (ty * KS + dx) : ty * KS + dx) * BC + cp);
-    const bf16* row = tile + (y + ty) * SBW * BC + cp;
+    const T* row = tile + (y + ty) * SBW * BC + cp;
 #pragma unroll
     for (int xi = 0; xi < SBW; ++xi) {
       const float2 val = load2(row + xi * BC);
@@ -169,16 +164,18 @@ __device__ __forceinline__ void conv_pairs(float2 (&acc)[BW], const bf16* tile,
   }
 }
 
-__global__ void __launch_bounds__(kFwdThreads, 3)
-    ppeg_kernel(const bf16* __restrict__ img, const bf16* __restrict__ kern,
-                const bf16* __restrict__ bias, bf16* __restrict__ out, int H, int W, int C) {
-  __shared__ __align__(16) FwdSmem sm;
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, sizeof(T) == 4 ? 2 : 3)
+    ppeg_kernel(const T* __restrict__ img, const T* __restrict__ kern,
+                const T* __restrict__ bias, T* __restrict__ out, int H, int W, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem<T>& sm = *reinterpret_cast<FwdSmem<T>*>(smem_raw);
   const int c0 = blockIdx.x * BC, band = blockIdx.y;
   const int y0 = band * BH, y = threadIdx.x / 32, cp = 2 * (threadIdx.x % 32);
   const size_t base = (size_t)blockIdx.z * H * W * C;
   stage_taps<kFwdThreads>(sm.taps, kern, c0, C);
-  const float2 b = make_float2(c0 + cp < C ? __bfloat162float(bias[c0 + cp]) : 0.f,
-                               c0 + cp + 1 < C ? __bfloat162float(bias[c0 + cp + 1]) : 0.f);
+  const float2 b = make_float2(c0 + cp < C ? Elem<T>::to_float(bias[c0 + cp]) : 0.f,
+                               c0 + cp + 1 < C ? Elem<T>::to_float(bias[c0 + cp + 1]) : 0.f);
   for (int x0 = 0; x0 < W; x0 += BW) {
     if (x0 > 0) __syncthreads();  // every warp is done with the last chunk
     stage_chunk<kFwdThreads>(sm.img, img + base, y0, x0, c0, H, W, C);
@@ -193,19 +190,20 @@ __global__ void __launch_bounds__(kFwdThreads, 3)
       acc[xo] = make_float2(v.x + b.x, v.y + b.y);
     }
     conv_pairs<false>(acc, sm.img, sm.taps, y, cp);
-    bf16* dst = out + base + ((size_t)(y0 + y) * W + x0) * C + c0 + cp;
+    T* dst = out + base + ((size_t)(y0 + y) * W + x0) * C + c0 + cp;
 #pragma unroll
     for (int xo = 0; xo < BW; ++xo)
       if (x0 + xo < W) store_pair(dst + (size_t)xo * C, c0 + cp, C, acc[xo]);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    ppeg_bwd_kernel(const bf16* __restrict__ img, const bf16* __restrict__ kern,
-                    const bf16* __restrict__ g, bf16* __restrict__ dimg,
+    ppeg_bwd_kernel(const T* __restrict__ img, const T* __restrict__ kern,
+                    const T* __restrict__ g, T* __restrict__ dimg,
                     float* __restrict__ partial, int H, int W, int C) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
+  BwdSmem<T>& sm = *reinterpret_cast<BwdSmem<T>*>(smem_raw);
   const int c0 = blockIdx.x * BC, band = blockIdx.y, b = blockIdx.z;
   const int y0 = band * BH, rows = min(BH, H - y0);
   const size_t base = (size_t)b * H * W * C;
@@ -233,7 +231,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
       for (int xo = 0; xo < BW; ++xo) acc[xo] = load2(sm.g + ((y + HALO) * SBW + xo + HALO) * BC + cp);
       conv_pairs<true>(acc, sm.g, sm.taps, y, cp);
-      bf16* out = dimg + base + ((size_t)(y0 + y) * W + x0) * C + c0 + cp;
+      T* out = dimg + base + ((size_t)(y0 + y) * W + x0) * C + c0 + cp;
 #pragma unroll
       for (int xo = 0; xo < BW; ++xo)
         if (x0 + xo < W) store_pair(out + (size_t)xo * C, c0 + cp, C, acc[xo]);
@@ -241,8 +239,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     }
     // dk's tap row dy: g at (y, x) against the img row y + dy - 3, x + dx - 3
     for (int y = 0; y < rows; ++y) {
-      const bf16* grow = sm.g + ((y + HALO) * SBW + HALO) * BC + cp;
-      const bf16* irow = sm.img + (y + dy) * SBW * BC + cp;
+      const T* grow = sm.g + ((y + HALO) * SBW + HALO) * BC + cp;
+      const T* irow = sm.img + (y + dy) * SBW * BC + cp;
       float2 win[KS];
 #pragma unroll
       for (int i = 0; i < KS - 1; ++i) win[i] = load2(irow + i * BC);
@@ -277,28 +275,39 @@ MIRROR_EXPORT long long mirror_ppeg_bwd_partial_elems(int b, int H, int C) {
 // Backward: dimg (bf16, img's shape) and dkb, fp32 [50, C]: rows 0-48 the
 // taps in [7, 7] order, row 49 the bias. partial: fp32 scratch of
 // mirror_ppeg_bwd_partial_elems(b, H, C) elements.
+// img, kern, g and dimg of type code dtype (common.cuh's Elem); dkb: fp32
+// [50, C] (the 49 taps, then the bias); partial: fp32 scratch.
 MIRROR_EXPORT int mirror_ppeg_bwd(const void* img, const void* kern, const void* g,
                                   void* dimg, void* dkb, void* partial, int b, int H, int W,
-                                  int C, cudaStream_t stream) {
+                                  int C, int dtype, cudaStream_t stream) {
   const int bands = (H + BH - 1) / BH;
-  const size_t smem = sizeof(BwdSmem);
-  cudaError_t err = allow_smem(ppeg_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  ppeg_bwd_kernel<<<dim3((C + BC - 1) / BC, bands, b), kBwdThreads, smem, stream>>>(
-      static_cast<const bf16*>(img), static_cast<const bf16*>(kern),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dimg), static_cast<float*>(partial), H,
-      W, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_column_sum(static_cast<const float*>(partial), b * bands,
-                                (long long)NT * C, static_cast<float*>(dkb), stream);
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    const size_t smem = sizeof(BwdSmem<T>);
+    cudaError_t err = allow_smem(ppeg_bwd_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    ppeg_bwd_kernel<T><<<dim3((C + BC - 1) / BC, bands, b), kBwdThreads, smem, stream>>>(
+        static_cast<const T*>(img), static_cast<const T*>(kern), static_cast<const T*>(g),
+        static_cast<T*>(dimg), static_cast<float*>(partial), H, W, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_column_sum(static_cast<const float*>(partial), b * bands, (long long)NT * C,
+                             static_cast<float*>(dkb), stream);
+  });
 }
 
+// img, kern, bias and out of type code dtype.
 MIRROR_EXPORT int mirror_ppeg(const void* img, const void* kern, const void* bias, void* out,
-                              int b, int H, int W, int C, cudaStream_t stream) {
+                              int b, int H, int W, int C, int dtype, cudaStream_t stream) {
   const dim3 grid((C + BC - 1) / BC, (H + BH - 1) / BH, b);
-  ppeg_kernel<<<grid, kFwdThreads, 0, stream>>>(
-      static_cast<const bf16*>(img), static_cast<const bf16*>(kern),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), H, W, C);
-  return (int)cudaGetLastError();
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    const size_t smem = sizeof(FwdSmem<T>);
+    const cudaError_t err = allow_smem(ppeg_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    ppeg_kernel<T><<<grid, kFwdThreads, smem, stream>>>(
+        static_cast<const T*>(img), static_cast<const T*>(kern), static_cast<const T*>(bias),
+        static_cast<T*>(out), H, W, C);
+    return cudaGetLastError();
+  });
 }

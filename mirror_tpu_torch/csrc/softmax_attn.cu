@@ -10,7 +10,8 @@
 // What it computes, per (batch, head): out = softmax(q k^T) w over the c
 // columns plus `pad` virtual columns whose logit is 0 and whose w row is 0
 // (the Nystrom front pad; _softmax_pad on the TPU), with fp32 statistics,
-// P rounded to bf16 and an fp32 accumulator for P w, rounded once.
+// P rounded to the compute type T (bf16 in the sentences below, which the
+// other types follow) and an fp32 accumulator for P w, rounded once.
 // WITH_CONV adds sum_t kern[h, t] v[i + t - K/2, :] (zero SAME padding, one
 // filter per head shared across dh, no bias) to the fp32 tile before that
 // rounding.
@@ -77,6 +78,14 @@
 // Occupancy (dh 96; ptxas -v, printed by chip_smoke.py): 146 registers a
 // thread (156 with the conv), no spills, and 66.6 KB of shared memory give
 // 3 blocks, 12 warps, an SM; at dh 112 and 128 two blocks.
+// Element types (attn_mma.cuh): T is the compute type of q, k, w, v and the
+// outputs, bf16, float16 or float32, the JAX kernel's `q.dtype`; the
+// statistics and accumulators are fp32 in all three, and P is rounded to T
+// where the bf16 instance rounds it (the identity in float32). float16 is
+// bf16's design with .f16 operands. float32 runs its products in the
+// 3xTF32 split (three m16n8k8 tf32 products per 8-deep step): its tiles
+// take (64 + 4 x 64) (dh + 8) 4 bytes, 133,120 at dh 96, so one block an
+// SM (4 warps), __launch_bounds__ asking for one; the rest is the same.
 #include "attn_mma.cuh"
 
 namespace {
@@ -87,10 +96,17 @@ template <int DT>
 __host__ __device__ constexpr int row_stride() { return 16 * DT + 8; }
 
 // bytes: q tile, the ring (k then w tile a stage), the conv taps
-template <int DT>
+template <typename T, int DT>
 __host__ __device__ constexpr size_t smem_bytes(int ksize) {
-  return (size_t)(BM + kStages * 2 * BN) * row_stride<DT>() * sizeof(bf16) +
+  return (size_t)(BM + kStages * 2 * BN) * row_stride<DT>() * sizeof(T) +
          (size_t)ksize * sizeof(float);
+}
+
+// blocks an SM at the least (__launch_bounds__): float's tiles take twice
+// the shared memory, so one block (133 KB at dh 96)
+template <typename T, int DT>
+__host__ __device__ constexpr int min_blocks() {
+  return sizeof(T) == 4 ? 1 : (DT <= 6 ? 3 : 2);
 }
 
 // rows of v the conv reads: the block's 64 plus K - 1, rounded up so that
@@ -101,23 +117,23 @@ __host__ __device__ constexpr int window_rows(int ksize) {
   return BM - 16 + 16 * ((ksize + 30) / 16);
 }
 
-template <int DT, bool WITH_CONV>
-__global__ void __launch_bounds__(kThreads, DT <= 6 ? 3 : 2)
-    softmax_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ w, const bf16* __restrict__ v,
-                        const bf16* __restrict__ kern, bf16* __restrict__ out,
-                        float* __restrict__ lse, bf16* __restrict__ o_attn, int heads, int R,
+template <typename T, int DT, bool WITH_CONV>
+__global__ void __launch_bounds__(kThreads, min_blocks<T, DT>())
+    softmax_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ w, const T* __restrict__ v,
+                        const T* __restrict__ kern, T* __restrict__ out,
+                        float* __restrict__ lse, T* __restrict__ o_attn, int heads, int R,
                         int C, int pad, int ksize) {
   constexpr int DH = 16 * DT, LD = row_stride<DT>(), NT = 2 * DT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sRing = sQ + BM * LD;  // stage s: k at s * 2 BN rows, w BN rows later
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sRing = sQ + BM * LD;  // stage s: k at s * 2 BN rows, w BN rows later
   float* sTap = reinterpret_cast<float*>(sRing + kStages * 2 * BN * LD);
 
   const int bh = blockIdx.y, r0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const bf16* kb = k + (size_t)bh * C * DH;
-  const bf16* wb = w + (size_t)bh * C * DH;
+  const T* kb = k + (size_t)bh * C * DH;
+  const T* wb = w + (size_t)bh * C * DH;
   const int half = ksize / 2;
 
   load_rows_async<DH>(sQ, LD, q + (size_t)bh * R * DH, r0, BM, R);
@@ -126,19 +142,19 @@ __global__ void __launch_bounds__(kThreads, DT <= 6 ? 3 : 2)
   cp_async_commit();
   if (WITH_CONV)
     for (int i = threadIdx.x; i < ksize; i += kThreads)
-      sTap[i] = __bfloat162float(kern[(bh % heads) * ksize + i]);
+      sTap[i] = Elem<T>::to_float(kern[(bh % heads) * ksize + i]);
 
   float o[NT][4];
   zero(o);
   // running max and sum of rows g and g + 8: the pad columns seen first
   float m[2] = {pad > 0 ? 0.f : -INFINITY, pad > 0 ? 0.f : -INFINITY};
   float l[2] = {(float)pad, (float)pad};
-  const bf16* sQw = sQ + warp * 16 * LD;
+  const T* sQw = sQ + warp * 16 * LD;
   const int ntiles = (C + BN - 1) / BN;
 
   for (int j = 0; j < ntiles; ++j) {
     __syncthreads();  // every warp is done with the stage about to be refilled
-    bf16* nxt = sRing + ((j + 1) % kStages) * 2 * BN * LD;
+    T* nxt = sRing + ((j + 1) % kStages) * 2 * BN * LD;
     if (j + 1 < ntiles) {
       load_rows_async<DH>(nxt, LD, kb, (j + 1) * BN, BN, C);
       load_rows_async<DH>(nxt + BN * LD, LD, wb, (j + 1) * BN, BN, C);
@@ -149,8 +165,8 @@ __global__ void __launch_bounds__(kThreads, DT <= 6 ? 3 : 2)
     cp_async_wait<1>();  // tile j (and q) have landed
     __syncthreads();
 
-    const bf16* sK = sRing + (j % kStages) * 2 * BN * LD;
-    const bf16* sW = sK + BN * LD;
+    const T* sK = sRing + (j % kStages) * 2 * BN * LD;
+    const T* sW = sK + BN * LD;
     const int c0 = j * BN;
     float s[8][4];
     zero(s);
@@ -198,9 +214,7 @@ __global__ void __launch_bounds__(kThreads, DT <= 6 ? 3 : 2)
       o[n][2] *= alpha[1];
       o[n][3] *= alpha[1];
     }
-    unsigned p[4][4];
-    to_a_frags(p, s);
-    mma_rs<4, NT>(o, p, sW, LD);
+    mma_pv<4, NT>(o, s, sW, LD);  // P rounded to T in registers
   }
 
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
@@ -209,90 +223,92 @@ __global__ void __launch_bounds__(kThreads, DT <= 6 ? 3 : 2)
     if (row_lo < R) lse[(size_t)bh * R + row_lo] = m[0] + logf(l[0]);
     if (row_lo + 8 < R) lse[(size_t)bh * R + row_lo + 8] = m[1] + logf(l[1]);
   }
-  bf16* stage = sQ + warp * 16 * LD;  // this warp's q rows: only it read them
+  T* stage = sQ + warp * 16 * LD;  // this warp's q rows: only it read them
   const size_t base = (size_t)bh * R * DH;
   if (!WITH_CONV) {
-    stage_bf16<NT>(stage, LD, o, inv[0], inv[1]);
+    stage_rows<NT>(stage, LD, o, inv[0], inv[1]);
     store_staged<DH>(out + base, stage, LD, r0 + warp * 16, R);
     return;
   }
   if (o_attn != nullptr) {
-    stage_bf16<NT>(stage, LD, o, inv[0], inv[1]);
+    stage_rows<NT>(stage, LD, o, inv[0], inv[1]);
     store_staged<DH>(o_attn + base, stage, LD, r0 + warp * 16, R);
   }
   cp_async_wait<0>();  // the v window
   __syncthreads();
   // conv = band v_window on the tensor cores: the warp's 16 rows need window
   // rows 16 warp .. 16 warp + 15 + K - 1, ksteps steps of 16; band entry
-  // (i, j) is tap j - i (0 outside [0, K)), exact in bf16 like the taps
-  const bf16* sV = sRing + (ntiles % kStages) * 2 * BN * LD + warp * 16 * LD;
+  // (i, j) is tap j - i (0 outside [0, K)), exact in T like the taps
+  const T* sV = sRing + (ntiles % kStages) * 2 * BN * LD + warp * 16 * LD;
   const int ksteps = (ksize + 30) / 16;
   float conv[NT][4];
   zero(conv);
   for (int kk = 0; kk < ksteps; ++kk) {
-    unsigned band[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {  // a[e]: row g + 8 (e & 1), k 16 kk + 8 (e / 2) + 2 t
-      const int tap = 16 * kk + 8 * (e / 2) + 2 * t - (g + 8 * (e & 1));
-      band[e] = pack_bf16(tap >= 0 && tap < ksize ? sTap[tap] : 0.f,
-                          tap + 1 >= 0 && tap + 1 < ksize ? sTap[tap + 1] : 0.f);
-    }
+    const AFrag<T> band = afrag_from<T>([&](int i, int j) {
+      const int tap = 16 * kk + j - i;
+      return tap >= 0 && tap < ksize ? sTap[tap] : 0.f;
+    });
     mma_rs_step<NT>(conv, band, sV + 16 * kk * LD, LD);
   }
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], inv[e / 2], conv[n][e]);
-  stage_bf16<NT>(stage, LD, o, 1.f, 1.f);
+  stage_rows<NT>(stage, LD, o, 1.f, 1.f);
   store_staged<DH>(out + base, stage, LD, r0 + warp * 16, R);
 }
 
-template <int DT, bool WITH_CONV>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* w, const bf16* v, const bf16* kern,
-                   bf16* out, float* lse, bf16* o_attn, int bh, int heads, int R, int C,
-                   int pad, int ksize, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DT>(WITH_CONV ? ksize : 0);
-  cudaError_t err = allow_smem(softmax_attn_kernel<DT, WITH_CONV>, smem);
+template <typename T, int DT, bool WITH_CONV>
+cudaError_t launch(const T* q, const T* k, const T* w, const T* v, const T* kern, T* out,
+                   float* lse, T* o_attn, int bh, int heads, int R, int C, int pad, int ksize,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, DT>(WITH_CONV ? ksize : 0);
+  cudaError_t err = allow_smem(softmax_attn_kernel<T, DT, WITH_CONV>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((R + BM - 1) / BM, bh);
-  softmax_attn_kernel<DT, WITH_CONV><<<grid, kThreads, smem, stream>>>(
+  softmax_attn_kernel<T, DT, WITH_CONV><<<grid, kThreads, smem, stream>>>(
       q, k, w, v, kern, out, lse, o_attn, heads, R, C, pad, ksize);
   return cudaGetLastError();
 }
 
-template <int DT>
-cudaError_t launch_dt(const bf16* q, const bf16* k, const bf16* w, const bf16* v,
-                      const bf16* kern, bf16* out, float* lse, bf16* o_attn, int bh, int heads,
+template <typename T, int DT>
+cudaError_t launch_dt(const void* q, const void* k, const void* w, const void* v,
+                      const void* kern, void* out, float* lse, void* o_attn, int bh, int heads,
                       int R, int C, int pad, int ksize, cudaStream_t stream) {
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
   if (ksize > 0)
-    return launch<DT, true>(q, k, w, v, kern, out, lse, o_attn, bh, heads, R, C, pad, ksize,
-                            stream);
-  return launch<DT, false>(q, k, w, v, kern, out, lse, nullptr, bh, heads, R, C, pad, 0,
-                           stream);
+    return launch<T, DT, true>(in(q), in(k), in(w), in(v), in(kern), static_cast<T*>(out), lse,
+                               static_cast<T*>(o_attn), bh, heads, R, C, pad, ksize, stream);
+  return launch<T, DT, false>(in(q), in(k), in(w), nullptr, nullptr, static_cast<T*>(out), lse,
+                              nullptr, bh, heads, R, C, pad, 0, stream);
 }
 
-using LaunchFn = cudaError_t (*)(const bf16*, const bf16*, const bf16*, const bf16*,
-                                 const bf16*, bf16*, float*, bf16*, int, int, int, int, int,
+using LaunchFn = cudaError_t (*)(const void*, const void*, const void*, const void*,
+                                 const void*, void*, float*, void*, int, int, int, int, int,
                                  int, cudaStream_t);
-constexpr LaunchFn kLaunch[8] = {launch_dt<1>, launch_dt<2>, launch_dt<3>, launch_dt<4>,
-                                 launch_dt<5>, launch_dt<6>, launch_dt<7>, launch_dt<8>};
+template <typename T>
+constexpr LaunchFn kLaunch[8] = {launch_dt<T, 1>, launch_dt<T, 2>, launch_dt<T, 3>,
+                                 launch_dt<T, 4>, launch_dt<T, 5>, launch_dt<T, 6>,
+                                 launch_dt<T, 7>, launch_dt<T, 8>};
 
 }  // namespace
 
 // ksize == 0: no conv (v, kern and o_attn unused, may be null). lse (fp32
-// [bh, r]) and o_attn (bf16 [bh, r, dh]) are the backward's residuals:
-// null when no backward will run. dh a multiple of 16 up to 128, K odd up
-// to 65 (the window must fit one ring stage of 2 x 64 rows).
+// [bh, r]) and o_attn ([bh, r, dh]) are the backward's residuals: null when
+// no backward will run. dh a multiple of 16 up to 128, K odd up to 65 (the
+// window must fit one ring stage of 2 x 64 rows). dtype: the type code of
+// q, k, w, v, kern, out and o_attn (common.cuh's Elem: 0 bf16, 1 float16, 2
+// float32).
 MIRROR_EXPORT int mirror_softmax_attn(const void* q, const void* k, const void* w,
                                       const void* v, const void* kern, void* out, void* lse,
                                       void* o_attn, int bh, int heads, int r, int c, int dh,
-                                      int pad, int ksize, cudaStream_t stream) {
+                                      int pad, int ksize, int dtype, cudaStream_t stream) {
   if (dh % 16 != 0 || dh < 16 || dh > 128 || ksize < 0 || (ksize > 0 && ksize % 2 == 0) ||
       ksize > 65)
     return (int)cudaErrorInvalidValue;
-  return (int)kLaunch[dh / 16 - 1](
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(kern), static_cast<bf16*>(out),
-      static_cast<float*>(lse), static_cast<bf16*>(o_attn), bh, heads, r, c, pad, ksize,
-      stream);
+  return (int)by_type(dtype, [&](auto e) {
+    using T = decltype(e);
+    return kLaunch<T>[dh / 16 - 1](q, k, w, v, kern, out, static_cast<float*>(lse), o_attn, bh,
+                                   heads, r, c, pad, ksize, stream);
+  });
 }

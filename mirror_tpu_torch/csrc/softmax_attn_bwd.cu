@@ -52,6 +52,10 @@
 // Occupancy (dh 96; ptxas -v, printed by chip_smoke.py): 186 registers a
 // thread in the rows kernel and 240 in the cols kernel, no spills, and
 // about 81 KB of shared memory a block give 2 blocks, 8 warps, an SM.
+// Element types: as the forward (softmax_attn.cu), T is the compute type,
+// bf16 in the sentences above; P^T, dsim and dsim^T are rounded to T where
+// the bf16 instance rounds them, and float32's products are 3xTF32. Its
+// tiles take 161 KB at dh 96, one block an SM.
 #include "attn_mma.cuh"
 #include "conv1d.cuh"
 
@@ -64,31 +68,35 @@ __host__ __device__ constexpr int row_stride() { return 16 * DT + 8; }
 
 // bytes of either kernel: two owned tiles, the ring of two walked tiles a
 // stage, and (cols) the walked rows' lse and D a stage
-template <int DT>
+template <typename T, int DT>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)(2 * BM + kStages * 2 * BN) * row_stride<DT>() * sizeof(bf16) +
+  return (size_t)(2 * BM + kStages * 2 * BN) * row_stride<DT>() * sizeof(T) +
          (size_t)kStages * 2 * BN * sizeof(float);
 }
 
+// blocks an SM at the least: float's tiles (161 KB at dh 96) leave room for one
+template <typename T>
+__host__ __device__ constexpr int min_blocks() { return sizeof(T) == 4 ? 1 : 2; }
+
 // (1) rows: D, then dq. One block per 64 rows of one (batch, head).
-template <int DT>
-__global__ void __launch_bounds__(kThreads, 2)
-    attn_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ w, const bf16* __restrict__ g,
-                         const float* __restrict__ lse, const bf16* __restrict__ o,
-                         bf16* __restrict__ dq, float* __restrict__ dvec, int R, int C) {
+template <typename T, int DT>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
+    attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ w, const T* __restrict__ g,
+                         const float* __restrict__ lse, const T* __restrict__ o,
+                         T* __restrict__ dq, float* __restrict__ dvec, int R, int C) {
   constexpr int DH = 16 * DT, LD = row_stride<DT>(), NT = 2 * DT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sQ + BM * LD;
-  bf16* sRing = sG + BM * LD;  // stage s: k at s * 2 BN rows, w BN rows later
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sG = sQ + BM * LD;
+  T* sRing = sG + BM * LD;  // stage s: k at s * 2 BN rows, w BN rows later
   float* sStat = reinterpret_cast<float*>(sRing + kStages * 2 * BN * LD);  // lse, D
 
   const int bh = blockIdx.y, r0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gid = lane / 4, t = lane % 4;
   const size_t rbase = (size_t)bh * R * DH;
-  const bf16* kb = k + (size_t)bh * C * DH;
-  const bf16* wb = w + (size_t)bh * C * DH;
+  const T* kb = k + (size_t)bh * C * DH;
+  const T* wb = w + (size_t)bh * C * DH;
 
   load_rows_async<DH>(sQ, LD, q + rbase, r0, BM, R);
   load_rows_async<DH>(sG, LD, g + rbase, r0, BM, R);
@@ -101,18 +109,27 @@ __global__ void __launch_bounds__(kThreads, 2)
     const bool ok = r0 + row < R;
     float acc = 0.f;
     if (ok) {
-      const bf16* gp = g + rbase + (size_t)(r0 + row) * DH;
-      const bf16* op = o + rbase + (size_t)(r0 + row) * DH;
+      const T* gp = g + rbase + (size_t)(r0 + row) * DH;
+      const T* op = o + rbase + (size_t)(r0 + row) * DH;
       for (int c = 8 * part; c < DH; c += 16) {
-        const uint4 gv = *reinterpret_cast<const uint4*>(gp + c);
-        const uint4 ov = *reinterpret_cast<const uint4*>(op + c);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        if constexpr (sizeof(T) == 2) {  // 16 bytes of each
+          const uint4 gv = *reinterpret_cast<const uint4*>(gp + c);
+          const uint4 ov = *reinterpret_cast<const uint4*>(op + c);
+          const unsigned* g2 = reinterpret_cast<const unsigned*>(&gv);
+          const unsigned* o2 = reinterpret_cast<const unsigned*>(&ov);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 a = __bfloat1622float2(g2[e]), b = __bfloat1622float2(o2[e]);
-          acc = fmaf(a.x, b.x, acc);
-          acc = fmaf(a.y, b.y, acc);
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = Elem<T>::unpack(g2[e]), b = Elem<T>::unpack(o2[e]);
+            acc = fmaf(a.x, b.x, acc);
+            acc = fmaf(a.y, b.y, acc);
+          }
+        } else {  // the same 8 columns, in the same order
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = load2(gp + c + 2 * e), b = load2(op + c + 2 * e);
+            acc = fmaf(a.x, b.x, acc);
+            acc = fmaf(a.y, b.y, acc);
+          }
         }
       }
     }
@@ -130,13 +147,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   float acc[NT][4];
   zero(acc);
-  const bf16* sQw = sQ + warp * 16 * LD;
-  const bf16* sGw = sG + warp * 16 * LD;
+  const T* sQw = sQ + warp * 16 * LD;
+  const T* sGw = sG + warp * 16 * LD;
   const int ntiles = (C + BN - 1) / BN;
   for (int j = 0; j < ntiles; ++j) {
     __syncthreads();  // every warp is done with the stage about to be refilled
     if (j + 1 < ntiles) {
-      bf16* nxt = sRing + ((j + 1) % kStages) * 2 * BN * LD;
+      T* nxt = sRing + ((j + 1) % kStages) * 2 * BN * LD;
       load_rows_async<DH>(nxt, LD, kb, (j + 1) * BN, BN, C);
       load_rows_async<DH>(nxt + BN * LD, LD, wb, (j + 1) * BN, BN, C);
     }
@@ -144,8 +161,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<1>();
     __syncthreads();
 
-    const bf16* sK = sRing + (j % kStages) * 2 * BN * LD;
-    const bf16* sW = sK + BN * LD;
+    const T* sK = sRing + (j % kStages) * 2 * BN * LD;
+    const T* sW = sK + BN * LD;
     const int c0 = j * BN;
     float s[8][4], dp[8][4];
     zero(s);
@@ -161,34 +178,32 @@ __global__ void __launch_bounds__(kThreads, 2)
                             ? fast_exp2((s[n][e] - lse_r[i]) * kLog2e) : 0.f;
         dp[n][e] = p * dp[n][e] - p * d_r[i];
       }
-    unsigned ds[4][4];
-    to_a_frags(ds, dp);
-    mma_rs<4, NT>(acc, ds, sK, LD);
+    mma_pv<4, NT>(acc, dp, sK, LD);  // dsim rounded to T in registers
   }
-  bf16* stage = sQ + warp * 16 * LD;  // this warp's q rows: only it read them
-  stage_bf16<NT>(stage, LD, acc, 1.f, 1.f);
+  T* stage = sQ + warp * 16 * LD;  // this warp's q rows: only it read them
+  stage_rows<NT>(stage, LD, acc, 1.f, 1.f);
   store_staged<DH>(dq + rbase, stage, LD, r0 + warp * 16, R);
 }
 
 // (2) cols: dw and dk. One block per 64 columns of one (batch, head).
-template <int DT>
-__global__ void __launch_bounds__(kThreads, 2)
-    attn_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ w, const bf16* __restrict__ g,
+template <typename T, int DT>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
+    attn_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ w, const T* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ dvec,
-                         bf16* __restrict__ dk, bf16* __restrict__ dw, int R, int C) {
+                         T* __restrict__ dk, T* __restrict__ dw, int R, int C) {
   constexpr int DH = 16 * DT, LD = row_stride<DT>(), NT = 2 * DT;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sW = sK + BM * LD;
-  bf16* sRing = sW + BM * LD;  // stage s: q at s * 2 BN rows, g BN rows later
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sW = sK + BM * LD;
+  T* sRing = sW + BM * LD;  // stage s: q at s * 2 BN rows, g BN rows later
   float* sStat = reinterpret_cast<float*>(sRing + kStages * 2 * BN * LD);  // s: lse, D
 
   const int bh = blockIdx.y, c0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
   const size_t cbase = (size_t)bh * C * DH;
-  const bf16* qb = q + (size_t)bh * R * DH;
-  const bf16* gb = g + (size_t)bh * R * DH;
+  const T* qb = q + (size_t)bh * R * DH;
+  const T* gb = g + (size_t)bh * R * DH;
   const float* lb = lse + (size_t)bh * R;
   const float* db = dvec + (size_t)bh * R;
 
@@ -203,14 +218,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   float adw[NT][4], adk[NT][4];
   zero(adw);
   zero(adk);
-  const bf16* sKw = sK + warp * 16 * LD;
-  const bf16* sWw = sW + warp * 16 * LD;
+  const T* sKw = sK + warp * 16 * LD;
+  const T* sWw = sW + warp * 16 * LD;
   const int ntiles = (R + BN - 1) / BN;
   for (int j = 0; j < ntiles; ++j) {
     __syncthreads();
     if (j + 1 < ntiles) {
       const int s1 = (j + 1) % kStages;
-      bf16* nxt = sRing + s1 * 2 * BN * LD;
+      T* nxt = sRing + s1 * 2 * BN * LD;
       load_rows_async<DH>(nxt, LD, qb, (j + 1) * BN, BN, R);
       load_rows_async<DH>(nxt + BN * LD, LD, gb, (j + 1) * BN, BN, R);
       load_vec_async(sStat + s1 * 2 * BN, lb, (j + 1) * BN, R);
@@ -221,8 +236,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     const int st = j % kStages;
-    const bf16* sQ = sRing + st * 2 * BN * LD;
-    const bf16* sG = sQ + BN * LD;
+    const T* sQ = sRing + st * 2 * BN * LD;
+    const T* sG = sQ + BN * LD;
     const float* sL = sStat + st * 2 * BN;
     const float* sD = sL + BN;
     const int r0 = j * BN;
@@ -245,68 +260,76 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float d = sD[8 * n + 2 * t + (e & 1)];
         dp[n][e] = s[n][e] * dp[n][e] - s[n][e] * d;
       }
-    unsigned pa[4][4], da[4][4];
-    to_a_frags(pa, s);
-    to_a_frags(da, dp);
-    mma_rs<4, NT>(adw, pa, sG, LD);
-    mma_rs<4, NT>(adk, da, sQ, LD);
+    mma_pv<4, NT>(adw, s, sG, LD);  // P^T and dsim^T rounded to T in registers
+    mma_pv<4, NT>(adk, dp, sQ, LD);
   }
   // this warp's k and w rows: only it read them
-  bf16* stage_w = sW + warp * 16 * LD;
-  bf16* stage_k = sK + warp * 16 * LD;
-  stage_bf16<NT>(stage_w, LD, adw, 1.f, 1.f);
+  T* stage_w = sW + warp * 16 * LD;
+  T* stage_k = sK + warp * 16 * LD;
+  stage_rows<NT>(stage_w, LD, adw, 1.f, 1.f);
   store_staged<DH>(dw + cbase, stage_w, LD, c0 + warp * 16, C);
-  stage_bf16<NT>(stage_k, LD, adk, 1.f, 1.f);
+  stage_rows<NT>(stage_k, LD, adk, 1.f, 1.f);
   store_staged<DH>(dk + cbase, stage_k, LD, c0 + warp * 16, C);
 }
 
-template <int DT>
-cudaError_t launch_attn(const bf16* q, const bf16* k, const bf16* w, const bf16* g,
-                        const float* lse, const bf16* o, bf16* dq, bf16* dk, bf16* dw,
-                        float* dvec, int bh, int R, int C, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DT>();
-  cudaError_t err = allow_smem(attn_bwd_rows_kernel<DT>, smem);
+template <typename T, int DT>
+cudaError_t launch_attn(const T* q, const T* k, const T* w, const T* g, const float* lse,
+                        const T* o, T* dq, T* dk, T* dw, float* dvec, int bh, int R, int C,
+                        cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, DT>();
+  cudaError_t err = allow_smem(attn_bwd_rows_kernel<T, DT>, smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_cols_kernel<DT>, smem);
+  err = allow_smem(attn_bwd_cols_kernel<T, DT>, smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_rows_kernel<DT><<<dim3((R + BM - 1) / BM, bh), kThreads, smem, stream>>>(
+  attn_bwd_rows_kernel<T, DT><<<dim3((R + BM - 1) / BM, bh), kThreads, smem, stream>>>(
       q, k, w, g, lse, o, dq, dvec, R, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_cols_kernel<DT><<<dim3((C + BM - 1) / BM, bh), kThreads, smem, stream>>>(
+  attn_bwd_cols_kernel<T, DT><<<dim3((C + BM - 1) / BM, bh), kThreads, smem, stream>>>(
       q, k, w, g, lse, dvec, dk, dw, R, C);
   return cudaGetLastError();
 }
 
-using LaunchFn = cudaError_t (*)(const bf16*, const bf16*, const bf16*, const bf16*,
-                                 const float*, const bf16*, bf16*, bf16*, bf16*, float*, int,
-                                 int, int, cudaStream_t);
-constexpr LaunchFn kLaunch[8] = {launch_attn<1>, launch_attn<2>, launch_attn<3>,
-                                 launch_attn<4>, launch_attn<5>, launch_attn<6>,
-                                 launch_attn<7>, launch_attn<8>};
+template <typename T>
+cudaError_t launch_all(const void* q, const void* k, const void* w, const void* v,
+                       const void* kern, const void* g, const float* lse, const void* o,
+                       void* dq, void* dk, void* dw, void* dv, float* dkern, float* dvec,
+                       float* partial, int bh, int heads, int r, int c, int dh, int ksize,
+                       cudaStream_t stream) {
+  using LaunchFn = cudaError_t (*)(const T*, const T*, const T*, const T*, const float*,
+                                   const T*, T*, T*, T*, float*, int, int, int, cudaStream_t);
+  constexpr LaunchFn kLaunch[8] = {launch_attn<T, 1>, launch_attn<T, 2>, launch_attn<T, 3>,
+                                   launch_attn<T, 4>, launch_attn<T, 5>, launch_attn<T, 6>,
+                                   launch_attn<T, 7>, launch_attn<T, 8>};
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  cudaError_t err = kLaunch[dh / 16 - 1](in(q), in(k), in(w), in(g), lse, in(o), out(dq),
+                                         out(dk), out(dw), dvec, bh, r, c, stream);
+  if (err != cudaSuccess || ksize == 0) return err;
+  return conv1d_bwd<T>(in(v), in(kern), in(g), out(dv), dkern, partial, bh, heads, r, dh, ksize,
+                       stream);
+}
 
 }  // namespace
 
 // ksize == 0: no conv (v, kern, dv, dkern and partial unused, may be null).
-// lse: fp32 [bh, r] and o: bf16 [bh, r, dh], the forward's residuals (o is
-// the output, or o_attn WITH_CONV); dvec: fp32 [bh, r] scratch (D, from the
+// lse: fp32 [bh, r] and o: [bh, r, dh], the forward's residuals (o is the
+// output, or o_attn WITH_CONV); dvec: fp32 [bh, r] scratch (D, from the
 // rows kernel to the cols kernel); partial: fp32 scratch of
-// mirror_conv1d_bwd_partial_elems(bh, r, ksize) elements.
+// mirror_conv1d_bwd_partial_elems(bh, r, dh, ksize, dtype) elements. dtype:
+// the type code of q, k, w, v, kern, g, o and the gradients but dkern
+// (fp32), as mirror_softmax_attn takes it.
 MIRROR_EXPORT int mirror_softmax_attn_bwd(const void* q, const void* k, const void* w,
                                           const void* v, const void* kern, const void* g,
                                           const void* lse, const void* o, void* dq, void* dk,
                                           void* dw, void* dv, void* dkern, void* dvec,
                                           void* partial, int bh, int heads, int r, int c,
-                                          int dh, int ksize, cudaStream_t stream) {
+                                          int dh, int ksize, int dtype, cudaStream_t stream) {
   if (dh % 16 != 0 || dh < 16 || dh > 128) return (int)cudaErrorInvalidValue;
-  const bf16* gp = static_cast<const bf16*>(g);
-  cudaError_t err = kLaunch[dh / 16 - 1](
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(w),
-      gp, static_cast<const float*>(lse), static_cast<const bf16*>(o), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dw), static_cast<float*>(dvec), bh, r, c,
-      stream);
-  if (err != cudaSuccess || ksize == 0) return (int)err;
-  return (int)conv1d_bwd(static_cast<const bf16*>(v), static_cast<const bf16*>(kern), gp,
-                         static_cast<bf16*>(dv), static_cast<float*>(dkern),
-                         static_cast<float*>(partial), bh, heads, r, dh, ksize, stream);
+  return (int)by_type(dtype, [&](auto e) {
+    return launch_all<decltype(e)>(q, k, w, v, kern, g, static_cast<const float*>(lse), o, dq,
+                                   dk, dw, dv, static_cast<float*>(dkern),
+                                   static_cast<float*>(dvec), static_cast<float*>(partial), bh,
+                                   heads, r, c, dh, ksize, stream);
+  });
 }

@@ -128,7 +128,7 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, bf16* __
 
   // O rounded once, staged over the queries, then 16 bytes a lane
   __syncwarp();
-  attn::stage_bf16<DH / 8>(stage, ld, o, 1.f, 1.f);
+  attn::stage_rows<DH / 8>(stage, ld, o, 1.f, 1.f);
   __syncwarp();
   for (int idx = lane; idx < 16 * chunks; idx += 32) {
     const int r = idx / chunks, col = (idx % chunks) * 8;

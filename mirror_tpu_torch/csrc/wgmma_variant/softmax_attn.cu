@@ -226,13 +226,14 @@ constexpr LaunchFn kLaunch[8] = {launch_dt<1>, launch_dt<2>, launch_dt<3>, launc
 // ksize == 0: no conv (v, kern and o_attn unused, may be null). lse (fp32
 // [bh, r]) and o_attn (bf16 [bh, r, dh]) are the backward's residuals:
 // null when no backward will run. dh a multiple of 16 up to 128, K odd up
-// to 65 (the window must fit one ring stage of 2 x 64 rows).
+// to 65 (the window must fit one ring stage of 2 x 64 rows). dtype: the
+// shipped entry's type code; this variant takes bf16 (0) only.
 MIRROR_EXPORT int mirror_softmax_attn(const void* q, const void* k, const void* w,
                                       const void* v, const void* kern, void* out, void* lse,
                                       void* o_attn, int bh, int heads, int r, int c, int dh,
-                                      int pad, int ksize, cudaStream_t stream) {
-  if (dh % 16 != 0 || dh < 16 || dh > 128 || ksize < 0 || (ksize > 0 && ksize % 2 == 0) ||
-      ksize > 65)
+                                      int pad, int ksize, int dtype, cudaStream_t stream) {
+  if (dtype != 0 || dh % 16 != 0 || dh < 16 || dh > 128 || ksize < 0 ||
+      (ksize > 0 && ksize % 2 == 0) || ksize > 65)
     return (int)cudaErrorInvalidValue;
   return (int)kLaunch[dh / 16 - 1](
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(w),

@@ -242,14 +242,15 @@ constexpr LaunchFn kLaunch[8] = {launch_attn<1>, launch_attn<2>, launch_attn<3>,
 // lse: fp32 [bh, r] and o: bf16 [bh, r, dh], the forward's residuals (o is
 // the output, or o_attn WITH_CONV); dvec: fp32 [bh, r] scratch (D, from the
 // rows kernel to the cols kernel); partial: fp32 scratch of
-// mirror_conv1d_bwd_partial_elems(bh, r, ksize) elements.
+// mirror_conv1d_bwd_partial_elems(bh, r, dh, ksize, dtype) elements. dtype:
+// the shipped entry's type code; this variant takes bf16 (0) only.
 MIRROR_EXPORT int mirror_softmax_attn_bwd(const void* q, const void* k, const void* w,
                                           const void* v, const void* kern, const void* g,
                                           const void* lse, const void* o, void* dq, void* dk,
                                           void* dw, void* dv, void* dkern, void* dvec,
                                           void* partial, int bh, int heads, int r, int c,
-                                          int dh, int ksize, cudaStream_t stream) {
-  if (dh % 16 != 0 || dh < 16 || dh > 128) return (int)cudaErrorInvalidValue;
+                                          int dh, int ksize, int dtype, cudaStream_t stream) {
+  if (dtype != 0 || dh % 16 != 0 || dh < 16 || dh > 128) return (int)cudaErrorInvalidValue;
   const bf16* gp = static_cast<const bf16*>(g);
   cudaError_t err = kLaunch[dh / 16 - 1](
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(w),

@@ -17,8 +17,11 @@ One module, two paths:
   the JAX package's ``use_pallas`` branch: nothing is padded (the pad's
   contributions have closed forms inside the kernels), head-major q/k/v go
   through the landmark, pinv, landmark-softmax and conv-fused attention
-  kernels of ``ops``. The kernels take what :func:`kernel_refusal` accepts;
-  ``registry.create_model`` refuses the rest at start;
+  kernels of ``ops``, in the model's compute type (bf16, float16 or
+  float32, as the JAX package runs its Pallas kernels in ``self.dtype or
+  float32``). The kernels take what :func:`kernel_refusal` accepts;
+  ``registry.create_model`` refuses the rest at start, naming
+  ``--no-use-pallas``;
 - on CPU, or with ``use_pallas=False`` on any device, the plain path of the
   JAX package's dense branch: the front pad is materialised, the attention
   matrices are built, and the output is trimmed to the last n rows. With
@@ -42,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import _common
 from ..ops.conv1d import depthwise_conv_seq_plain
 from ..ops.landmark import landmark_softmax
 from ..ops.nystrom_attn import (
@@ -52,20 +56,23 @@ from ..ops.nystrom_attn import (
 from ..ops.pinv import moore_penrose_pinv, moore_penrose_pinv_ref
 from .layers import Dense, Dropout
 
-KERNEL_DTYPE = torch.bfloat16
+# the compute types the CUDA kernels take: bf16 (--amp), float16
+# (--amp-dtype float16) and float32 (--no-amp), as the JAX package's Pallas
+# kernels take the model's dtype
+KERNEL_DTYPES = frozenset(_common.KERNEL_DTYPES)
 
 
 def kernel_refusal(dim_head: int, num_landmarks: int,
                    dtype: Optional[torch.dtype]) -> Optional[str]:
     """What of a NystromAttention configuration the CUDA kernels do not
-    take, or None: they take the compute dtype bf16 only, dh a multiple of
-    16 up to 128 and a landmark count that is a multiple of 8
-    (``ops/landmark.py``, ``ops/nystrom_attn.py``)."""
+    take, or None: they take the compute dtypes of :data:`KERNEL_DTYPES`,
+    dh a multiple of 16 up to 128 and a landmark count that is a multiple of
+    8 (``ops/landmark.py``, ``ops/nystrom_attn.py``)."""
     dtype = dtype or torch.float32
     problems = []
-    if dtype != KERNEL_DTYPE:
-        problems.append(f"compute dtype {dtype} (the kernels take {KERNEL_DTYPE}: --no-amp, or "
-                        "a checkpoint whose args say amp: false, computes in float32)")
+    if dtype not in KERNEL_DTYPES:
+        problems.append(f"compute dtype {dtype} (the kernels take "
+                        f"{', '.join(str(d) for d in _common.KERNEL_DTYPES)})")
     if dim_head % 16 or dim_head > 128:
         problems.append(f"head dim {dim_head} (the kernels take a multiple of 16 up to 128)")
     if num_landmarks % 8:

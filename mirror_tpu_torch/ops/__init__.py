@@ -27,6 +27,13 @@ TPU.
 | ln_qkv | csrc/ln_qkv.cu | ln_qkv_pallas.py::ln_qkv_fused fwd |
 | ln_qkv_bwd | csrc/ln_qkv.cu | the same, bwd (_bwd_call) |
 
+The kernels of the landmark softmax, the pinv, the softmax attention, PPEG
+and the conv (with their backwards and the pinv's GEMM, ``pinv_gemm``) take
+the compute types bf16, float16 and float32 (``_common.KERNEL_DTYPES``);
+the count above is the bf16 instance's, and the others count apart as
+``name[float16]`` and ``name[float32]`` (``_common.instance``). The rest
+take bf16.
+
 The TPU probes of ``scripts/`` (``mirror_tpu_torch.scripts``) add kernel
 instances beside these, each counted under its own name:
 

@@ -17,7 +17,11 @@ Counterpart of ``mirror_tpu/ops/_common.py``. It holds three things:
   inference-only plain functions, like their TPU kernels, which have no
   VJP: they refuse a call that autograd would record;
 - a launch counter per kernel, so a run can show which kernels its main
-  path went through;
+  path went through; the Nystrom path's kernels (the landmark softmax, the
+  pinv, the softmax attention, PPEG, the conv) take the compute types of
+  :data:`KERNEL_DTYPES` and count each type's instance apart
+  (:func:`instance`: ``softmax_attn`` for bf16, ``softmax_attn[float32]``
+  and ``softmax_attn[float16]`` for the others);
 - :data:`OP_NAMESPACE`, the ``torch.library`` namespace (``mirror``) of the
   forward kernels that the slide model's inference runs (the landmark
   softmax, the pinv iterations, the two softmax attentions, PPEG). Each is a
@@ -60,34 +64,38 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signature of every entry point in csrc/ (all return cudaError_t as int)
 _SIGNATURES = {
-    # q, k, q_l, k_l, attn2, lse (fp32), bh, n, dh, m, l, pad, stream
-    "mirror_landmark_softmax": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (the Nystrom path's entries end in `dtype`, the type code of their
+    # non-fp32 tensors: type_code())
+    # q, k, q_l, k_l, attn2, lse (fp32), bh, n, dh, m, l, pad, dtype, stream
+    "mirror_landmark_softmax": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q_l, k_l, lse (fp32), gql, gkl, ga2, dq, dk, dvec (fp32 scratch), bh, n,
-    # dh, m, l, pad, stream
+    # dh, m, l, pad, dtype, stream
     "mirror_landmark_softmax_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _P),
-    # x, s, z, bh, m, stream
-    "mirror_pinv_init": (_P, _P, _P, _I, _I, _P),
+                                    _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, s, z, bh, m, dtype, stream
+    "mirror_pinv_init": (_P, _P, _P, _I, _I, _I, _P),
     # a, b, c, c2, prev, acc (fp32), bh, M, N, K, layout, epilogue, c0, c1,
-    # d0, d1, stream
+    # d0, d1, dtype, stream
     "mirror_pinv_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _P),
-    # in, out, bh, m, c0, c1, stream
-    "mirror_pinv_eye_axpby": (_P, _P, _I, _I, _F, _F, _P),
-    # gx32, gz, z0, s, gx, gs_partial (fp32 [bh]), bh, m, stream
-    "mirror_pinv_bwd_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+                         _F, _F, _F, _F, _I, _P),
+    # in, out, bh, m, c0, c1, dtype, stream
+    "mirror_pinv_eye_axpby": (_P, _P, _I, _I, _F, _F, _I, _P),
+    # gx32, gz, z0, s, gx, gs_partial (fp32 [bh]), bh, m, dtype, stream
+    "mirror_pinv_bwd_finish": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, w, v, kern, out, lse (fp32, or null), o_attn (or null), bh,
-    # heads, r, c, dh, pad, ksize, stream
-    "mirror_softmax_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # heads, r, c, dh, pad, ksize, dtype, stream
+    "mirror_softmax_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P),
     # q, k, w, v, kern, g, lse (fp32), o, dq, dk, dw, dv, dkern (fp32), dvec
-    # (fp32 scratch), partial (scratch), bh, heads, r, c, dh, ksize, stream
+    # (fp32 scratch), partial (scratch), bh, heads, r, c, dh, ksize, dtype,
+    # stream
     "mirror_softmax_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _P),
-    # img, kern, bias, out, b, H, W, C, stream
-    "mirror_ppeg": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+                                _I, _I, _I, _I, _I, _I, _I, _P),
+    # img, kern, bias, out, b, H, W, C, dtype, stream
+    "mirror_ppeg": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # img, kern, g, dimg, dkb (fp32 [50, C]: 49 taps then the bias),
-    # partial (scratch), b, H, W, C, stream
-    "mirror_ppeg_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # partial (scratch), b, H, W, C, dtype, stream
+    "mirror_ppeg_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, ln_s, ln_b (fp32), y, rows, d, eps, stream
     "mirror_vit_ln": (_P, _P, _P, _P, _I, _I, _F, _P),
     # a, b, bias (fp32), resid (residual epilogue only), c, M, N, K,
@@ -95,13 +103,14 @@ _SIGNATURES = {
     "mirror_vit_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, out, b, n, heads, dh, ld_in, ld_out, group, scale, stream
     "mirror_vit_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # v, kern, out, bh, heads, n, d, ksize, stream
-    "mirror_conv1d": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # v, kern, out, bh, heads, n, d, ksize, dtype, stream
+    "mirror_conv1d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # v, kern, g, dv, dkern (fp32), partial (scratch), bh, heads, n, d, ksize,
-    # stream
-    "mirror_conv1d_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # kern, g, dv, bh, heads, n, d, ksize, stream (the backward's dv alone)
-    "mirror_conv1d_bwd_dv": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dtype, stream
+    "mirror_conv1d_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # kern, g, dv, bh, heads, n, d, ksize, dtype, stream (the backward's dv
+    # alone)
+    "mirror_conv1d_bwd_dv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # parts (fp32), nparts, count, out (fp32), stream
     "mirror_column_sum": (_P, _I, _L, _P, _P),
     # src, dst, b, h, n, d, gb, tile, stream
@@ -131,8 +140,9 @@ _SIGNATURES = {
 _SCRATCH_SIZES = {
     # b, H, C
     "mirror_ppeg_bwd_partial_elems": (_I, _I, _I),
-    # bh, n, ksize (the standalone conv's backward, and kernel 4b's conv)
-    "mirror_conv1d_bwd_partial_elems": (_I, _I, _I),
+    # bh, n, d, ksize, dtype (the standalone conv's backward, and kernel 4b's
+    # conv)
+    "mirror_conv1d_bwd_partial_elems": (_I, _I, _I, _I, _I),
     # rows, d, n3: the default number of gw's row ranges
     "mirror_ln_qkv_gw_splits": (_I, _I, _I),
     # rows, d
@@ -259,6 +269,33 @@ def count_launch(kernel: str) -> None:
     _LAUNCHES[kernel] += 1
 
 
+# The compute types of the Nystrom path's kernels, as the JAX package's
+# Pallas kernels take them (the model's `dtype`, bf16 under --amp, float16
+# under --amp-dtype float16, float32 under --no-amp), and each one's code in
+# the C entries (csrc/common.cuh's Elem)
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+_TYPE_CODES = {dt: i for i, dt in enumerate(KERNEL_DTYPES)}
+
+
+def type_code(dtype: torch.dtype) -> int:
+    """The C entries' code of a compute type; TypeError for a type the
+    kernels do not take."""
+    if dtype not in _TYPE_CODES:
+        raise TypeError(f"dtype {dtype}: the kernels take "
+                        f"{', '.join(str(d) for d in KERNEL_DTYPES)}")
+    return _TYPE_CODES[dtype]
+
+
+def instance(kernel: str, dtype: torch.dtype) -> str:
+    """The launch counter of ``kernel``'s instance for ``dtype``: the
+    kernel's own name for bf16 (its first instance), ``name[float32]`` or
+    ``name[float16]`` for the others."""
+    type_code(dtype)
+    if dtype == torch.bfloat16:
+        return kernel
+    return f"{kernel}[{str(dtype).split('.')[-1]}]"
+
+
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
@@ -278,10 +315,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on mixed devices: {sorted(devices)}")
 
 
-def check_kernel_input(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16) -> None:
+def check_kernel_input(name: str, t: torch.Tensor, shape, dtype: torch.dtype) -> None:
     """Raise unless ``t`` is what the CUDA kernels take: a CUDA tensor of the
-    given shape and dtype, contiguous, 16-byte aligned (the kernels load 16
-    bytes a thread)."""
+    given shape and dtype (the call's compute type, or float32 for the
+    statistics and partials), contiguous, 16-byte aligned (the kernels load
+    16 bytes a thread)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: on {t.device}, the kernel takes a CUDA tensor")
     if tuple(t.shape) != tuple(shape):

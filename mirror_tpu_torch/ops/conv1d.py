@@ -77,12 +77,13 @@ def depthwise_conv_seq_bwd_ref(v, kern, g):
 
 
 def _check(v, kern):
-    """The kernels' inputs: v bf16 [b, h, n, d], d a multiple of 8 up to
-    128; kern bf16 [h, K], K odd up to 65."""
-    _common.check_kernel_input("v", v, v.shape)
+    """The kernels' inputs: v [b, h, n, d] of a compute type
+    (``_common.KERNEL_DTYPES``), d a multiple of 8 up to 128; kern [h, K] of
+    v's type, K odd up to 65."""
+    _common.check_kernel_input("v", v, v.shape, v.dtype)
     b, h, n, d = v.shape
     ksize = kern.shape[-1]
-    _common.check_kernel_input("kern", kern, (h, ksize))
+    _common.check_kernel_input("kern", kern, (h, ksize), v.dtype)
     if d % 8 or d > MAX_DIM:
         raise ValueError(f"feature dim {d}: the kernel takes multiples of 8 up to {MAX_DIM}")
     if ksize % 2 == 0 or ksize > MAX_TAPS:
@@ -90,20 +91,22 @@ def _check(v, kern):
 
 
 def conv1d_fwd_into(v, taps, out) -> None:
-    """Launch the forward kernel into ``out`` (CUDA tensors, taps bf16)."""
+    """Launch the forward kernel into ``out`` (CUDA tensors, taps of v's
+    dtype)."""
     _check(v, taps)
     b, h, n, d = v.shape
-    _common.check_kernel_input("out", out, v.shape)
+    _common.check_kernel_input("out", out, v.shape, v.dtype)
     _common.launch("mirror_conv1d", v.data_ptr(), taps.data_ptr(), out.data_ptr(), b * h, h, n,
-                   d, taps.shape[1])
-    _common.count_launch(KERNEL)
+                   d, taps.shape[1], _common.type_code(v.dtype))
+    _common.count_launch(_common.instance(KERNEL, v.dtype))
 
 
 def conv1d_bwd_scratch(v: torch.Tensor, ksize: int) -> torch.Tensor:
     """The fp32 scratch of the backward kernel's dkern partials, as its
     tiling sizes it: [nparts, h K], the rows summed by the second pass."""
-    b, h, n, _ = v.shape
-    elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, ksize)
+    b, h, n, d = v.shape
+    elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, d, ksize,
+                                  _common.type_code(v.dtype))
     return torch.empty(elems // (h * ksize), h * ksize, dtype=torch.float32, device=v.device)
 
 
@@ -112,18 +115,20 @@ def conv1d_bwd_into(v, taps, g, dv, dkern, partial) -> None:
     column sum) into ``dv``, ``dkern`` (fp32 [h, K]) and ``partial``
     (:func:`conv1d_bwd_scratch`)."""
     _check(v, taps)
-    _common.check_kernel_input("g", g, v.shape)
-    _common.check_kernel_input("dv", dv, v.shape)
+    _common.check_kernel_input("g", g, v.shape, v.dtype)
+    _common.check_kernel_input("dv", dv, v.shape, v.dtype)
     b, h, n, d = v.shape
     ksize = taps.shape[1]
     _common.check_kernel_input("dkern", dkern, (h, ksize), torch.float32)
-    elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, ksize)
+    elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, d, ksize,
+                                  _common.type_code(v.dtype))
     if partial.numel() != elems:
         raise ValueError(f"partial: {partial.numel()} elements, the kernel needs {elems}")
     _common.check_kernel_input("partial", partial, partial.shape, torch.float32)
     _common.launch("mirror_conv1d_bwd", v.data_ptr(), taps.data_ptr(), g.data_ptr(),
-                   dv.data_ptr(), dkern.data_ptr(), partial.data_ptr(), b * h, h, n, d, ksize)
-    _common.count_launch(KERNEL_BWD)
+                   dv.data_ptr(), dkern.data_ptr(), partial.data_ptr(), b * h, h, n, d, ksize,
+                   _common.type_code(v.dtype))
+    _common.count_launch(_common.instance(KERNEL_BWD, v.dtype))
 
 
 class DepthwiseConv1dSeq(torch.autograd.Function):
@@ -201,11 +206,11 @@ def conv1d_bwd_dv(g: torch.Tensor, kern: torch.Tensor,
         return dv.copy_(conv1d_bwd_dv_ref(g, taps))
     taps = taps.contiguous()
     _check(g, taps)
-    _common.check_kernel_input("out", dv, g.shape)
+    _common.check_kernel_input("out", dv, g.shape, g.dtype)
     b, h, n, d = g.shape
     _common.launch("mirror_conv1d_bwd_dv", taps.data_ptr(), g.data_ptr(), dv.data_ptr(), b * h,
-                   h, n, d, taps.shape[1])
-    _common.count_launch(KERNEL_BWD_DV)
+                   h, n, d, taps.shape[1], _common.type_code(g.dtype))
+    _common.count_launch(_common.instance(KERNEL_BWD_DV, g.dtype))
     return dv
 
 

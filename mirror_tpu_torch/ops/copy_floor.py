@@ -57,12 +57,12 @@ def copy_floor(x: torch.Tensor, gb: int, tile: Optional[int] = None) -> torch.Te
     if not _common.on_cuda(x):
         return copy_floor_ref(x)
     b, h, n, d = x.shape
-    _common.check_kernel_input("x", x, (b, h, n, d))
+    _common.check_kernel_input("x", x, (b, h, n, d), torch.bfloat16)
     if d % 8:
         raise ValueError(f"d = {d}: the kernel copies 16-byte chunks, so d must be a multiple "
                          "of 8")
     out = torch.empty_like(x)
-    _common.check_kernel_input("out", out, (b, h, n, d))
+    _common.check_kernel_input("out", out, (b, h, n, d), torch.bfloat16)
     _common.launch("mirror_copy_floor", x.data_ptr(), out.data_ptr(), b, h, n, d, gb,
                    tile or n)
     _common.count_launch(KERNEL)

@@ -103,10 +103,12 @@ def _check_shape(dh: int, m: int):
 
 
 def _launch_fwd(q, k, m: int, pad: int):
-    """(q_l, k_l, attn2, lse fp32 [b, h, m]) from csrc/landmark.cu."""
+    """(q_l, k_l, attn2, lse fp32 [b, h, m]) from csrc/landmark.cu, in q's
+    dtype (one of ``_common.KERNEL_DTYPES``)."""
     b, h, n, dh = q.shape
-    _common.check_kernel_input("q", q, (b, h, n, dh))
-    _common.check_kernel_input("k", k, (b, h, n, dh))
+    dt = q.dtype
+    _common.check_kernel_input("q", q, (b, h, n, dh), dt)
+    _common.check_kernel_input("k", k, (b, h, n, dh), dt)
     _check_shape(dh, m)
     q_l = torch.empty(b, h, m, dh, dtype=q.dtype, device=q.device)
     k_l = torch.empty_like(q_l)
@@ -115,6 +117,7 @@ def _launch_fwd(q, k, m: int, pad: int):
     _common.launch(
         "mirror_landmark_softmax", q.data_ptr(), k.data_ptr(), q_l.data_ptr(), k_l.data_ptr(),
         attn2.data_ptr(), lse.data_ptr(), b * h, n, dh, m, (n + pad) // m, pad,
+        _common.type_code(dt),
     )
     return q_l, k_l, attn2, lse
 
@@ -122,12 +125,13 @@ def _launch_fwd(q, k, m: int, pad: int):
 def _launch_bwd(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
     """(dq, dk) [b, h, n, dh] from csrc/landmark_bwd.cu."""
     b, h, m, dh = q_l.shape
-    _common.check_kernel_input("q_l", q_l, (b, h, m, dh))
-    _common.check_kernel_input("k_l", k_l, (b, h, m, dh))
+    dt = q_l.dtype
+    _common.check_kernel_input("q_l", q_l, (b, h, m, dh), dt)
+    _common.check_kernel_input("k_l", k_l, (b, h, m, dh), dt)
     _common.check_kernel_input("lse", lse, (b, h, m), torch.float32)
-    _common.check_kernel_input("gql", gql, (b, h, m, dh))
-    _common.check_kernel_input("gkl", gkl, (b, h, m, dh))
-    _common.check_kernel_input("ga2", ga2, (b, h, m, m))
+    _common.check_kernel_input("gql", gql, (b, h, m, dh), dt)
+    _common.check_kernel_input("gkl", gkl, (b, h, m, dh), dt)
+    _common.check_kernel_input("ga2", ga2, (b, h, m, m), dt)
     _check_shape(dh, m)
     dq = torch.empty(b, h, n, dh, dtype=q_l.dtype, device=q_l.device)
     dk = torch.empty_like(dq)
@@ -135,7 +139,7 @@ def _launch_bwd(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
     _common.launch(
         "mirror_landmark_softmax_bwd", q_l.data_ptr(), k_l.data_ptr(), lse.data_ptr(),
         gql.data_ptr(), gkl.data_ptr(), ga2.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dvec.data_ptr(), b * h, n, dh, m, (n + pad) // m, pad,
+        dvec.data_ptr(), b * h, n, dh, m, (n + pad) // m, pad, _common.type_code(dt),
     )
     return dq, dk
 
@@ -152,7 +156,7 @@ def landmark_softmax_op(q: torch.Tensor, k: torch.Tensor, m: int,
 @landmark_softmax_op.register_kernel("cuda")
 def _landmark_softmax_cuda(q, k, m, pad):
     out = _launch_fwd(q, k, m, pad)
-    _common.count_launch(KERNEL)
+    _common.count_launch(_common.instance(KERNEL, q.dtype))
     return out
 
 
@@ -186,7 +190,7 @@ class LandmarkSoftmax(torch.autograd.Function):
             dq, dk = landmark_softmax_bwd_lse_ref(q_l, k_l, lse, ctx.n, ctx.pad, gql, gkl, ga2)
             return dq, dk, None, None
         dq, dk = _launch_bwd(q_l, k_l, lse, ctx.n, ctx.pad, gql, gkl, ga2)
-        _common.count_launch(KERNEL_BWD)
+        _common.count_launch(_common.instance(KERNEL_BWD, q_l.dtype))
         return dq, dk, None, None
 
 

@@ -299,10 +299,10 @@ def _check(x, ln_scale, ln_bias, w, heads):
     dh = _head_dim(w, heads)
     if w.shape[1] != 3 * heads * dh or dh == 0:
         raise ValueError(f"w {tuple(w.shape)} is not [d, 3 * {heads} heads * dh]")
-    _common.check_kernel_input("x", x, (b, n, d))
+    _common.check_kernel_input("x", x, (b, n, d), torch.bfloat16)
     _common.check_kernel_input("ln_scale", ln_scale, (d,), torch.float32)
     _common.check_kernel_input("ln_bias", ln_bias, (d,), torch.float32)
-    _common.check_kernel_input("w", w, (d, 3 * heads * dh))
+    _common.check_kernel_input("w", w, (d, 3 * heads * dh), torch.bfloat16)
     if d % 8 or d > MAX_DIM:
         raise ValueError(f"feature dim {d}: the kernel takes multiples of 8 up to {MAX_DIM}")
     if dh % 8:
@@ -335,7 +335,7 @@ class LnQkv(torch.autograd.Function):
         else:
             _check(x, s, lb, w, heads)
             for name, g in (("gq", gq), ("gk", gk), ("gv", gv)):
-                _common.check_kernel_input(name, g, like.shape)
+                _common.check_kernel_input(name, g, like.shape, x.dtype)
             gx, gw, gs, gb = bwd_sequence(x, s, lb, w, gq, gk, gv, heads, eps)
             _common.count_launch(KERNEL_BWD)
         return gx, gs.to(s.dtype), gb.to(lb.dtype), gw, None, None

@@ -128,16 +128,17 @@ def softmax_attn_bwd_lse_ref(q, k, w, g, lse, o):
 
 def _check(q, k, w, r, c):
     b, h, _, dh = q.shape
-    _common.check_kernel_input("q", q, (b, h, r, dh))
-    _common.check_kernel_input("k", k, (b, h, c, dh))
-    _common.check_kernel_input("w", w, (b, h, c, dh))
+    _common.check_kernel_input("q", q, (b, h, r, dh), q.dtype)
+    _common.check_kernel_input("k", k, (b, h, c, dh), q.dtype)
+    _common.check_kernel_input("w", w, (b, h, c, dh), q.dtype)
     if dh % 16 or dh > 128:
         raise ValueError(f"dh = {dh}: the kernel takes multiples of 16 up to 128")
 
 
-def _check_conv(v, kern, shape):
-    _common.check_kernel_input("v", v, shape)
-    _common.check_kernel_input("kern", kern, (shape[1], kern.shape[1]))
+def _check_conv(v, kern, q):
+    shape = q.shape
+    _common.check_kernel_input("v", v, shape, q.dtype)
+    _common.check_kernel_input("kern", kern, (shape[1], kern.shape[1]), q.dtype)
     ksize = kern.shape[1]
     if ksize % 2 == 0 or ksize > 65:
         raise ValueError(f"conv taps = {ksize}: the kernel takes odd K up to 65")
@@ -161,7 +162,7 @@ def _launch_fwd(q, k, w, v: Optional[torch.Tensor], kern: Optional[torch.Tensor]
     _check(q, k, w, r, c)
     ksize = 0
     if v is not None:
-        _check_conv(v, kern, q.shape)
+        _check_conv(v, kern, q)
         ksize = kern.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty(b, h, r, dtype=torch.float32, device=q.device) if keep else None
@@ -169,6 +170,7 @@ def _launch_fwd(q, k, w, v: Optional[torch.Tensor], kern: Optional[torch.Tensor]
     _common.launch(
         "mirror_softmax_attn", q.data_ptr(), k.data_ptr(), w.data_ptr(), _ptr(v), _ptr(kern),
         out.data_ptr(), _ptr(lse), _ptr(o_attn), b * h, h, r, c, dh, pad, ksize,
+        _common.type_code(q.dtype),
     )
     return out, lse, o_attn
 
@@ -179,25 +181,26 @@ def _launch_bwd(q, k, w, g, lse, o, v, kern):
     b, h, r, dh = q.shape
     c = k.shape[2]
     _check(q, k, w, r, c)
-    _common.check_kernel_input("g", g, q.shape)
+    _common.check_kernel_input("g", g, q.shape, q.dtype)
     _common.check_kernel_input("lse", lse, (b, h, r), torch.float32)
-    _common.check_kernel_input("o", o, q.shape)
+    _common.check_kernel_input("o", o, q.shape, q.dtype)
     dq, dk, dw = torch.empty_like(q), torch.empty_like(k), torch.empty_like(w)
     dvec = torch.empty(b * h, r, dtype=torch.float32, device=q.device)
     dv = dkern = partial = None
     ksize = 0
     if v is not None:
-        _check_conv(v, kern, q.shape)
+        _check_conv(v, kern, q)
         ksize = kern.shape[1]
         dv = torch.empty_like(v)
         dkern = torch.empty(h, ksize, dtype=torch.float32, device=q.device)
-        elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, r, ksize)
+        elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, r, dh, ksize,
+                                      _common.type_code(q.dtype))
         partial = torch.empty(elems, dtype=torch.float32, device=q.device)
     _common.launch(
         "mirror_softmax_attn_bwd", q.data_ptr(), k.data_ptr(), w.data_ptr(), _ptr(v),
         _ptr(kern), g.data_ptr(), lse.data_ptr(), o.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dw.data_ptr(), _ptr(dv), _ptr(dkern), dvec.data_ptr(), _ptr(partial), b * h, h, r, c,
-        dh, ksize,
+        dh, ksize, _common.type_code(q.dtype),
     )
     return dq, dk, dw, dv, dkern
 
@@ -221,7 +224,7 @@ def softmax_attn_op(q: torch.Tensor, k: torch.Tensor, w: torch.Tensor, pad: int,
 @softmax_attn_op.register_kernel("cuda")
 def _softmax_attn_cuda(q, k, w, pad, counter, keep):
     out, lse, _ = _launch_fwd(q, k, w, None, None, pad, keep)
-    _common.count_launch(counter)
+    _common.count_launch(_common.instance(counter, q.dtype))
     return out, lse if keep else _unkept(q)
 
 
@@ -246,7 +249,7 @@ def softmax_attn_conv_op(q: torch.Tensor, k_l: torch.Tensor, w: torch.Tensor, v:
 @softmax_attn_conv_op.register_kernel("cuda")
 def _softmax_attn_conv_cuda(q, k_l, w, v, kern, pad, keep):
     out, lse, o_attn = _launch_fwd(q, k_l, w, v, kern, pad, keep)
-    _common.count_launch(KERNEL_CONV)
+    _common.count_launch(_common.instance(KERNEL_CONV, q.dtype))
     return (out, lse, o_attn) if keep else (out, _unkept(q), q.new_empty(0))
 
 
@@ -279,7 +282,7 @@ class SoftmaxAttn(torch.autograd.Function):
             dq, dk, dw = softmax_attn_bwd_lse_ref(q, k, w, g, lse, o)
             return dq.to(q.dtype), dk.to(k.dtype), dw.to(w.dtype), None, None, None
         dq, dk, dw, _, _ = _launch_bwd(q, k, w, g, lse, o, None, None)
-        _common.count_launch(KERNEL_BWD)
+        _common.count_launch(_common.instance(KERNEL_BWD, q.dtype))
         return dq, dk, dw, None, None, None
 
 
@@ -308,7 +311,7 @@ class SoftmaxAttnConv(torch.autograd.Function):
             dv, dkern = depthwise_conv_seq_bwd_ref(v, kern, g)
         else:
             dq, dk, dw, dv, dkern = _launch_bwd(q, k_l, w, g, lse, o_attn, v, kern)
-            _common.count_launch(KERNEL_CONV_BWD)
+            _common.count_launch(_common.instance(KERNEL_CONV_BWD, q.dtype))
         return (dq.to(q.dtype), dk.to(k_l.dtype), dw.to(w.dtype), dv.to(v.dtype),
                 dkern.to(kern.dtype), None, None)
 

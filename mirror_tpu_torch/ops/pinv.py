@@ -133,12 +133,13 @@ def _launch_gemm(a, b, c=None, c2=None, prev=None, acc=None, layout=_NN, epilogu
                  c1=1.0, d0=0.0, d1=0.0):
     """One launch of the batched [m, m] GEMM P = op(a) op(b) (``mirror_pinv_gemm``):
     EYE writes c = bf16(c0 I + c1 bf16(P)) (and c2 = bf16(d0 I + d1 c)), ADD
-    c = bf16(prev + c1 bf16(P)), ACC32 acc += P in fp32."""
+    c = bf16(prev + c1 bf16(P)), ACC32 acc += P in fp32; bf16 there stands
+    for a's dtype, the compute type."""
     m = a.shape[-1]
     ptrs = [t.data_ptr() if t is not None else None for t in (a, b, c, c2, prev, acc)]
     _common.launch("mirror_pinv_gemm", *ptrs, a.numel() // (m * m), m, m, m, layout, epilogue,
-                   c0, c1, d0, d1)
-    _common.count_launch(KERNEL_GEMM)
+                   c0, c1, d0, d1, _common.type_code(a.dtype))
+    _common.count_launch(_common.instance(KERNEL_GEMM, a.dtype))
 
 
 def gemm_ref(a, b, c=None, c2=None, prev=None, acc=None, layout=_NN, epilogue=_EYE, c0=0.0,
@@ -170,7 +171,7 @@ def gemm_ref(a, b, c=None, c2=None, prev=None, acc=None, layout=_NN, epilogue=_E
 def _launch_init(x, s, z):
     m = x.shape[-1]
     _common.launch("mirror_pinv_init", x.data_ptr(), s.data_ptr(), z.data_ptr(),
-                   x.numel() // (m * m), m)
+                   x.numel() // (m * m), m, _common.type_code(x.dtype))
 
 
 def init_ref(x, s, z):
@@ -181,7 +182,7 @@ def init_ref(x, s, z):
 def _launch_eye_axpby(inp, out, c0, c1):
     m = inp.shape[-1]
     _common.launch("mirror_pinv_eye_axpby", inp.data_ptr(), out.data_ptr(),
-                   inp.numel() // (m * m), m, c0, c1)
+                   inp.numel() // (m * m), m, c0, c1, _common.type_code(inp.dtype))
 
 
 def eye_axpby_ref(inp, out, c0, c1):
@@ -193,7 +194,8 @@ def eye_axpby_ref(inp, out, c0, c1):
 def _launch_bwd_finish(gx32, gz, z0, s, gx, gs_partial):
     m = gz.shape[-1]
     _common.launch("mirror_pinv_bwd_finish", gx32.data_ptr(), gz.data_ptr(), z0.data_ptr(),
-                   s.data_ptr(), gx.data_ptr(), gs_partial.data_ptr(), gz.numel() // (m * m), m)
+                   s.data_ptr(), gx.data_ptr(), gs_partial.data_ptr(), gz.numel() // (m * m), m,
+                   _common.type_code(gz.dtype))
 
 
 def bwd_finish_ref(gx32, gz, z0, s, gx, gs_partial):
@@ -249,12 +251,12 @@ def pinv_op(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
 @pinv_op.register_kernel("cuda")
 def _pinv_kernel(x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
     b, h, m, _ = x.shape
-    _common.check_kernel_input("x", x, (b, h, m, m))
+    _common.check_kernel_input("x", x, (b, h, m, m), x.dtype)
     if s.device != x.device or s.dtype != torch.float32 or s.numel() != 1:
         raise ValueError(f"s: {s.dtype} {tuple(s.shape)} on {s.device}, the kernel takes "
                          f"an fp32 scalar on {x.device}")
     z = pinv_sequence(x, s, iters)
-    _common.count_launch(KERNEL)
+    _common.count_launch(_common.instance(KERNEL, x.dtype))
     return z
 
 
@@ -382,10 +384,11 @@ def _pinv_exact_bwd_kernel(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, it
                            stash: int = 4):
     """:func:`pinv_exact_bwd_sequence` on the card."""
     b, h, m, _ = x.shape
-    _common.check_kernel_input("x", x, (b, h, m, m))
-    _common.check_kernel_input("g", g, (b, h, m, m))
+    _common.check_kernel_input("x", x, (b, h, m, m), x.dtype)
+    _common.check_kernel_input("g", g, (b, h, m, m), x.dtype)
     gx, gs = pinv_exact_bwd_sequence(x, s, g, iters, stash)
-    _common.count_launch(KERNEL_BWD if stash == 4 else f"{KERNEL_BWD}_stash{stash}")
+    _common.count_launch(_common.instance(
+        KERNEL_BWD if stash == 4 else f"{KERNEL_BWD}_stash{stash}", x.dtype))
     return gx, gs
 
 

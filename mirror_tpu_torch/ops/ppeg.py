@@ -53,13 +53,13 @@ def ppeg_op(img: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.
 @ppeg_op.register_kernel("cuda")
 def _ppeg_cuda(img, kern, bias):
     b, H, W, C = img.shape
-    _common.check_kernel_input("img", img, (b, H, W, C))
-    _common.check_kernel_input("kern", kern, (KSIZE, KSIZE, C))
-    _common.check_kernel_input("bias", bias, (C,))
+    _common.check_kernel_input("img", img, (b, H, W, C), img.dtype)
+    _common.check_kernel_input("kern", kern, (KSIZE, KSIZE, C), img.dtype)
+    _common.check_kernel_input("bias", bias, (C,), img.dtype)
     out = torch.empty_like(img)
     _common.launch("mirror_ppeg", img.data_ptr(), kern.data_ptr(), bias.data_ptr(),
-                   out.data_ptr(), b, H, W, C)
-    _common.count_launch(KERNEL)
+                   out.data_ptr(), b, H, W, C, _common.type_code(img.dtype))
+    _common.count_launch(_common.instance(KERNEL, img.dtype))
     return out
 
 
@@ -82,14 +82,17 @@ class PPEGFused(torch.autograd.Function):
             dimg, dk, db = ppeg_bwd_ref(img, kern, g)
             return dimg, dk.to(kern.dtype), db.to(bias.dtype)
         b, H, W, C = img.shape
-        _common.check_kernel_input("g", g, img.shape)
+        _common.check_kernel_input("img", img, img.shape, img.dtype)
+        _common.check_kernel_input("kern", kern, (KSIZE, KSIZE, C), img.dtype)
+        _common.check_kernel_input("g", g, img.shape, img.dtype)
         dimg = torch.empty_like(img)
         dkb = torch.empty(KSIZE * KSIZE + 1, C, dtype=torch.float32, device=img.device)
         elems = _common.scratch_elems("mirror_ppeg_bwd_partial_elems", b, H, C)
         partial = torch.empty(elems, dtype=torch.float32, device=img.device)
         _common.launch("mirror_ppeg_bwd", img.data_ptr(), kern.data_ptr(), g.data_ptr(),
-                       dimg.data_ptr(), dkb.data_ptr(), partial.data_ptr(), b, H, W, C)
-        _common.count_launch(KERNEL_BWD)
+                       dimg.data_ptr(), dkb.data_ptr(), partial.data_ptr(), b, H, W, C,
+                       _common.type_code(img.dtype))
+        _common.count_launch(_common.instance(KERNEL_BWD, img.dtype))
         dk = dkb[:KSIZE * KSIZE].reshape(KSIZE, KSIZE, C).to(kern.dtype)
         return dimg, dk, dkb[KSIZE * KSIZE].to(bias.dtype)
 

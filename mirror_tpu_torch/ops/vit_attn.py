@@ -169,7 +169,7 @@ def mha_natural(q, k, v, heads: int, images: Optional[int] = None):
     _check_width("feature dim", d)
     _check_attention(n, d // heads)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _common.check_kernel_input(name, t, (b, n, d))
+        _common.check_kernel_input(name, t, (b, n, d), torch.bfloat16)
     if images is None:
         return _attention(q, k, v, b, heads, d // heads, d, 1, KERNEL_MHA)
     return _attention(q, k, v, b, heads, d // heads, d, images * heads, KERNEL_MHA_GROUPED)
@@ -185,7 +185,7 @@ def mha_headmajor(q, k, v, group: int = 1):
     z, n, dh = q.shape
     _check_attention(n, dh)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _common.check_kernel_input(name, t, (z, n, dh))
+        _common.check_kernel_input(name, t, (z, n, dh), torch.bfloat16)
     return _attention(q, k, v, z, 1, dh, dh, group, KERNEL_MHA_HEADMAJOR)
 
 
@@ -300,9 +300,9 @@ def attn_block_qkv(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads: int, eps: float = 1
     b, n, d = x.shape
     _check_ln_width(d)
     _check_attention(n, d // heads)
-    _common.check_kernel_input("x", x, (b, n, d))
-    _common.check_kernel_input("wqkv", wqkv, (d, 3 * d))
-    _common.check_kernel_input("wo", wo, (d, d))
+    _common.check_kernel_input("x", x, (b, n, d), torch.bfloat16)
+    _common.check_kernel_input("wqkv", wqkv, (d, 3 * d), torch.bfloat16)
+    _common.check_kernel_input("wo", wo, (d, d), torch.bfloat16)
     out = attn_block_sequence(x, _vector("ln_s", ln_s, d), _vector("ln_b", ln_b, d), wqkv,
                               _vector("bqkv", bqkv, 3 * d), wo, _vector("bo", bo, d), heads,
                               eps)
@@ -319,7 +319,7 @@ def attn_block(x, ln_s, ln_b, wq, wk, wv, bqkv, wo, bo, heads: int, eps: float =
         return attn_block_ref(*args, heads, eps)
     d = x.shape[-1]
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
-        _common.check_kernel_input(name, w, (d, d))
+        _common.check_kernel_input(name, w, (d, d), torch.bfloat16)
     _refuse_grad("attn_block", *args)
     wqkv = torch.cat((wq, wk, wv), dim=1)  # [d, 3d]: one product for q|k|v
     return attn_block_qkv(x, ln_s, ln_b, wqkv, bqkv, wo, bo, heads, eps)
@@ -336,9 +336,9 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, eps: float = 1e-12):
     m = w1.shape[-1]
     _check_ln_width(d)
     _check_width("MLP width", m)
-    _common.check_kernel_input("x", x, (b, n, d))
-    _common.check_kernel_input("w1", w1, (d, m))
-    _common.check_kernel_input("w2", w2, (m, d))
+    _common.check_kernel_input("x", x, (b, n, d), torch.bfloat16)
+    _common.check_kernel_input("w1", w1, (d, m), torch.bfloat16)
+    _common.check_kernel_input("w2", w2, (m, d), torch.bfloat16)
     out = mlp_block_sequence(x, _vector("ln_s", ln_s, d), _vector("ln_b", ln_b, d), w1,
                              _vector("b1", b1, m), w2, _vector("b2", b2, d), eps)
     _common.count_launch(KERNEL_MLP_BLOCK)

@@ -120,9 +120,9 @@ def _attn(x, ln, wqkv, bqkv, wo, bo, heads, eps, group, kernel):
                          f"head or two, and a cluster has at most {MAX_HEADS} CTAs")
     if group < 1:
         raise ValueError(f"group {group}: a cluster walks at least one image")
-    _common.check_kernel_input("x", x, (b, n, d))
-    _common.check_kernel_input("wqkv", wqkv, (d, 3 * d))
-    _common.check_kernel_input("wo", wo, (d, d))
+    _common.check_kernel_input("x", x, (b, n, d), torch.bfloat16)
+    _common.check_kernel_input("wqkv", wqkv, (d, 3 * d), torch.bfloat16)
+    _common.check_kernel_input("wo", wo, (d, d), torch.bfloat16)
     ln_ptrs = _ln_pointers(ln, d)
     bqkv, bo = _vector("bqkv", bqkv, 3 * d), _vector("bo", bo, d)
     smem = _common.scratch_elems("mirror_vit_fused_attn_smem", n, dh, heads)
@@ -155,9 +155,9 @@ def _mlp(x, ln, w1, b1, w2, b2, eps, group, kernel):
                          f"takes at most {MAX_MLP_WIDTH}")
     if group < 1:
         raise ValueError(f"group {group}: a quad of CTAs walks at least one image")
-    _common.check_kernel_input("x", x, (b, n, d))
-    _common.check_kernel_input("w1", w1, (d, m))
-    _common.check_kernel_input("w2", w2, (m, d))
+    _common.check_kernel_input("x", x, (b, n, d), torch.bfloat16)
+    _common.check_kernel_input("w1", w1, (d, m), torch.bfloat16)
+    _common.check_kernel_input("w2", w2, (m, d), torch.bfloat16)
     ln_ptrs = _ln_pointers(ln, d)
     b1, b2 = _vector("b1", b1, m), _vector("b2", b2, d)
     out = torch.empty_like(x)

@@ -112,7 +112,7 @@ class KvCombine(torch.autograd.Function):
         ctx.kernels = kernels and _common.on_cuda(q_l, k, v)
         if ctx.kernels:
             o, lse, _ = _launch_fwd(q_l, k, v, None, None, 0, keep=True)
-            _common.count_launch(KERNEL)
+            _common.count_launch(_common.instance(KERNEL, q_l.dtype))
         else:
             o, lse, _ = softmax_attn_fwd_ref(q_l, k, v)
         lse_g, r3 = _combine(o, lse)
@@ -127,7 +127,7 @@ class KvCombine(torch.autograd.Function):
             g = distributed.all_reduce(g, axis="world").to(r3.dtype)
         if ctx.kernels:
             dq, dk, dv, _, _ = _launch_bwd(q_l, k, v, g, lse_g, r3, None, None)
-            _common.count_launch(KERNEL_BWD)
+            _common.count_launch(_common.instance(KERNEL_BWD, q_l.dtype))
             return dq, dk, dv, None
         dq, dk, dv = softmax_attn_bwd_lse_ref(q_l, k, v, g, lse_g, r3)
         return dq.to(q_l.dtype), dk.to(k.dtype), dv.to(v.dtype), None

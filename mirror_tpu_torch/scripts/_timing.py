@@ -34,6 +34,12 @@ from ..ops import _common
 # of their kind: the matrix products at the bf16 tensor-core rate, the
 # conv taps and the other fp32 arithmetic at the fp32 rate.
 PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# The products of the other compute types' instances: float16 at the bf16
+# rate (989 TFLOP/s); float32 at the 3xTF32 rate, a third of TF32's 495
+# TFLOP/s, the fastest float32-accurate product the card has (one TF32 pass
+# keeps about three digits).
+PEAK_MMA_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float16: PEAK_BF16_FLOPS,
+                  torch.float32: 495e12 / 3}
 
 # Bounds on the relative Frobenius error of a kernel against its plain
 # version. Outputs rounded once to bf16 after an fp32 sum taken in another
@@ -61,6 +67,14 @@ BOUND_PINV_BWD, BOUND_PINV_BWD_COS = 5e-2, 0.999
 # kernel rounds the sum to bf16 (gw, dkern for bf16 taps), 1e-4 where it
 # stays fp32 (the same bf16 products summed in another order).
 BOUND_SUM_BF16, BOUND_SUM_FP32 = 1e-2, 1e-4
+# The float32 instances (--no-amp) against their plain versions in float32:
+# nothing is rounded but the products' 3xTF32 split (about 2^-21 relative a
+# product), with sums in another order and ex2.approx (2 ulp), so 1e-4
+# (relative Frobenius) forward; 1e-3 backward, where dsim = P dP - P D
+# cancels and dq, dk sum such terms; 1e-3 for the pinv's 6 iterations and
+# its exact backward. The float16 instances (--amp-dtype float16) round
+# where bf16 does, with a finer ulp (2^-11 against 2^-8): bf16's bars.
+BOUND_F32, BOUND_F32_BWD = 1e-4, 1e-3
 
 
 def device_from_arg(name: str) -> torch.device:
@@ -111,10 +125,12 @@ def median_ms(fn: Callable, device: torch.device, runs: int, reps: int = 5,
     return statistics.median(events_ms(fn, runs) for _ in range(reps))
 
 
-def bound(n_bytes: float, mma_flops: float = 0.0, fp32_flops: float = 0.0):
+def bound(n_bytes: float, mma_flops: float = 0.0, fp32_flops: float = 0.0,
+          mma_peak: float = PEAK_BF16_FLOPS):
     """(least ms the card could take, what bounds it): the larger of the
-    bytes over the bandwidth and the operations over their peak."""
-    ops = max(mma_flops / PEAK_BF16_FLOPS, fp32_flops / PEAK_FP32_FLOPS)
+    bytes over the bandwidth and the operations over their peak (the
+    products' at ``mma_peak``: :data:`PEAK_MMA_FLOPS` of their type)."""
+    ops = max(mma_flops / mma_peak, fp32_flops / PEAK_FP32_FLOPS)
     if n_bytes / PEAK_BYTES >= ops:
         return n_bytes / PEAK_BYTES * 1e3, "bytes"
     return ops * 1e3, "operations"

@@ -18,8 +18,9 @@ ranks (``parallel/context_parallel.py``), and rank 0 writes the files.
 
 The checkpoint is the port's ``.pth.tar``: a pretrain state dict with
 ``wsi_encoder.*`` keys, or the encoder's keys at the top level. On the card
-the kernels take bf16 only: ``--dtype float32`` (the JAX tool's default)
-is refused there at start; ``--no-use-pallas`` runs the plain path.
+the kernels run in either ``--dtype`` (float32, the JAX tool's default, or
+bfloat16); an encoder beyond them (a head dim above 128) is refused there
+at start, and ``--no-use-pallas`` runs the plain path.
 """
 
 import argparse
@@ -65,7 +66,7 @@ def refuse_kernel_path(state: dict, dtype: torch.dtype, use_pallas: bool,
     why = kernel_refusal(embed // HEADS, embed // 2, dtype)
     if why:
         raise SystemExit(f"the Nystrom attention's CUDA kernels do not take {why}: pass "
-                         "--dtype bfloat16, or --no-use-pallas for the plain path")
+                         "--no-use-pallas for the plain path")
 
 
 def build_encoder(state: dict, dtype: torch.dtype, use_pallas: bool,
@@ -124,7 +125,7 @@ def main(argv=None) -> int:
                    help="'cls': [D] slide embedding; 'full': [1+n, D] normed sequence (cls "
                    "row 0, then one row per REAL patch: the wrap-pad rows are trimmed)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="compute dtype; the kernels on the card take bfloat16")
+                   help="compute dtype; the kernels on the card take either")
     p.add_argument("--heads", type=int, default=HEADS,
                    help=f"attention heads: the encoder's {HEADS} (any other is refused)")
     p.add_argument("--skip-existing", action="store_true", default=True)

@@ -114,9 +114,10 @@ def predict(
     """Score every slide under ``wsi_feature_dir`` on ``device`` and write
     the CSV (rank 0). Returns the rows (on every rank). On the card the
     kernels run unless ``use_pallas`` is False, or is None and the
-    checkpoint was trained with them off; a checkpoint beyond them
-    (``amp: false``, a head dim above 128) is refused before any slide is
-    read. The process group, where the env asks for one, lasts the call
+    checkpoint was trained with them off. They run in the checkpoint's
+    compute type (its args' ``amp`` and ``amp_dtype``: bf16, float16 or,
+    with ``amp: false``, float32); a checkpoint beyond them (a head dim above
+    128) is refused before any slide is read. The process group, where the env asks for one, lasts the call
     (``distributed.session``)."""
     payload = load_checkpoint_file(checkpoint)
     state_dict = payload.get("state_dict_ema") if use_ema else None

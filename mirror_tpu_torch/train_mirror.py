@@ -11,8 +11,12 @@ reference's CLI), with its flags and YAML:
 
 It trains on the card (``--device cuda``, the default) through the port's
 kernels, forward and backward; ``--device cpu`` or ``--no-use-pallas`` runs
-their plain versions. A configuration beyond the kernels (``--no-amp``, a
-head dim above 128) is refused at start unless ``--no-use-pallas``. The
+their plain versions. The kernels run in the compute type of ``--amp``
+(bf16, the default), ``--amp-dtype float16`` or ``--no-amp`` (float32),
+as the JAX package runs its Pallas kernels; float16 takes no loss scaler,
+as there. A configuration beyond the kernels (a head dim above 128, a
+landmark count that is not a multiple of 8) is refused at start unless
+``--no-use-pallas``. The
 optimizer side is the JAX package's (``train/optim.py``): every ``--opt``,
 the timm schedules and plateau, clipping, ``--layer-decay``,
 ``--model-ema`` and ``--grad-accum-steps``; so is the run control

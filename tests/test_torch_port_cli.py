@@ -257,7 +257,7 @@ def test_train_mirror_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("flags,why", [
-    (["--no-amp"], "compute dtype torch.float32"),
+    (["--model-kwargs", "embed_dim=792"], "396 landmarks"),
     (["--model-kwargs", "embed_dim=1536"], "head dim 192"),
 ])
 def test_train_mirror_refuses_what_the_kernels_do_not_take(cohort, monkeypatch, flags, why):
@@ -273,26 +273,45 @@ def test_train_mirror_refuses_what_the_kernels_do_not_take(cohort, monkeypatch, 
     assert why in str(err.value)
 
 
-def test_predict_refuses_a_float32_checkpoint_on_the_card(tmp_path):
-    """A checkpoint whose args say amp: false is refused by predict on the
-    card before any slide is read; --no-use-pallas is the way through."""
-    from mirror_tpu_torch.tools.predict import predict
+def test_predict_refuses_a_float32_checkpoint_on_the_card(tmp_path, monkeypatch):
+    """A checkpoint whose args say amp: false is taken by predict on the
+    card: its model keeps the kernel path in float32 (the kernels take it
+    since they take float32). A head-dim-192 checkpoint is refused before
+    any slide is read; --no-use-pallas is the way through. The card's model
+    is built on the CPU, checked as create_model checks it."""
+    from mirror_tpu_torch import registry
+    from mirror_tpu_torch.tools import predict as predict_mod
+    from mirror_tpu_torch.tools.predict import _rebuild_model, predict
     from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
 
+    def create_on_cpu(name, device="cuda", **kwargs):
+        registry.check_kernel_config(name, device, **kwargs)
+        return registry.create_model(name, device="cpu", **kwargs)
+
     path = str(tmp_path / "fp32.pth.tar")
+    save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier", "model_kwargs": {
+        "wsi_embed_dim": 48, "rna_embed_dim": 16, "embed_dim": 384, "rna_encoder_depth": 1}})
+    with monkeypatch.context() as mp:
+        mp.setattr(predict_mod, "create_model", create_on_cpu)
+        model, _, _ = _rebuild_model(load_checkpoint_file(path), None, "subtyping", "cuda")
+    attn = model.wsi_encoder.layer1.attn
+    assert attn.use_pallas is True and attn.dtype in (None, torch.float32)
+
+    path = str(tmp_path / "dh192.pth.tar")
     save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier",
-                                    "model_kwargs": {"wsi_embed_dim": 768}})
-    with pytest.raises(ValueError, match="--no-use-pallas"):
+                                    "model_kwargs": {"wsi_embed_dim": 768, "embed_dim": 1536}})
+    with pytest.raises(ValueError, match="--no-use-pallas") as err:
         predict(path, "subtyping", str(tmp_path / "none"), str(tmp_path / "out.csv"),
                 device="cuda")
+    assert "head dim 192" in str(err.value)
 
 
 def test_predict_keeps_the_checkpoints_use_pallas(tmp_path, monkeypatch):
     """A checkpoint trained with --no-use-pallas --no-amp keeps the plain
     path by default (as the JAX tool's setdefault does); --use-pallas, given,
-    overrides it and is refused for the float32 checkpoint. The card's
-    refusal is checked as create_model makes it; the model is built on the
-    CPU."""
+    overrides it and passes for the float32 checkpoint, whose type the
+    kernels take. The card's check is made as create_model makes it; the
+    model is built on the CPU."""
     from mirror_tpu_torch import registry
     from mirror_tpu_torch.tools import predict as predict_mod
     from mirror_tpu_torch.tools.predict import _rebuild_model
@@ -305,13 +324,13 @@ def test_predict_keeps_the_checkpoints_use_pallas(tmp_path, monkeypatch):
 
     path = str(tmp_path / "plain.pth.tar")
     save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier", "model_kwargs": {
-        "wsi_embed_dim": 48, "rna_embed_dim": 16, "embed_dim": 48, "rna_encoder_depth": 1,
-        "use_pallas": False}})
+        "wsi_embed_dim": 48, "rna_embed_dim": 16, "embed_dim": 384, "rna_encoder_depth": 1,
+        "use_pallas": False}})  # embed 384: 8 heads of 48, 192 landmarks
     payload = load_checkpoint_file(path)
     model, _, _ = _rebuild_model(payload, None, "subtyping", "cuda")
     assert model.wsi_encoder.layer1.attn.use_pallas is False
-    with pytest.raises(ValueError, match="--no-use-pallas"):
-        _rebuild_model(payload, None, "subtyping", "cuda", use_pallas=True)
+    model, _, _ = _rebuild_model(payload, None, "subtyping", "cuda", use_pallas=True)
+    assert model.wsi_encoder.layer1.attn.use_pallas is True
 
 
 def test_train_mirror_no_use_pallas_runs_the_plain_path(cohort, monkeypatch):

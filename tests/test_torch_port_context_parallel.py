@@ -472,12 +472,20 @@ def test_wrap_pad_square_matches_jax():
 
 
 def test_encode_slide_refuses_float32_on_the_card_by_name(setup):
-    """The JAX tool's default dtype with the kernels on the card: refused
-    before any slide is read, naming both ways through."""
+    """The JAX tool's default dtype (float32) with the kernels on the card
+    passes the start check, since the kernels take float32; an encoder
+    beyond them (head dim 192) is refused before any slide is read, naming
+    --no-use-pallas."""
     root = setup["paths"]["root"]
     argv = ["--wsi-feature-dir", str(root / "none"), "--checkpoint", str(root / "enc.pth.tar"),
             "--output", str(root / "never")]
-    with pytest.raises(SystemExit, match=r"--dtype bfloat16.*--no-use-pallas"):
-        encode_slide.main(argv + ["--device", "cuda"])
+    cuda = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        encode_slide.refuse_kernel_path({"_fc1.0.weight": torch.empty(128, 40)}, dtype, True,
+                                        cuda)
+    wide = {"_fc1.0.weight": torch.empty(1536, 768)}
+    with pytest.raises(SystemExit, match=r"head dim 192.*--no-use-pallas"):
+        encode_slide.refuse_kernel_path(wide, torch.float32, True, cuda)
+    encode_slide.refuse_kernel_path(wide, torch.float32, False, cuda)  # the plain path
     with pytest.raises(SystemExit, match="--heads 4"):
         encode_slide.main(argv + ["--heads", "4", "--device", "cpu"])

@@ -6,7 +6,9 @@ the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Inputs are bf16, the kernels' type. Bounds, with their reasons:
+Inputs are bf16, the kernels' first type, except where a test names
+float32 or float16 (the instances of --no-amp and --amp-dtype float16, with
+their own bars, below). Bounds, with their reasons:
 - outputs rounded once to bf16 after an fp32 sum taken in another order
   (landmark means and softmax, attention, PPEG): max abs error <= 1e-2 of
   the reference's largest magnitude (a bf16 ulp is 2^-8 = 3.9e-3 relative;
@@ -78,9 +80,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _randn(gen, *shape, dev, scale=1.0):
+def _randn(gen, *shape, dev, scale=1.0, dtype=torch.bfloat16):
     x = torch.randn(*shape, generator=gen) * scale
-    return x.to(device=dev, dtype=torch.bfloat16)
+    return x.to(device=dev, dtype=dtype)
 
 
 def _assert_close(out, ref, rel=1e-2):
@@ -501,11 +503,17 @@ def test_pinv_exact_bwd_kernel(dev, b, h, m, iters):
 
 
 def test_pinv_exact_bwd_kernel_refuses_fp32(dev):
+    """float32 is one of the kernel's types now (test_pinv_instances holds
+    it); float64, and a gradient of another type, are refused by name."""
     x = torch.softmax(torch.randn(1, 2, 32, 32, device=dev), -1)
+    gx, _ = _pinv_exact_bwd_kernel(x, global_scale(x), torch.ones_like(x), 6)
+    assert gx.dtype == torch.float32
+    with pytest.raises(TypeError, match="float64"):
+        _pinv_exact_bwd_kernel(x.double(), global_scale(x), torch.ones_like(x).double(), 6)
     with pytest.raises(TypeError):
-        _pinv_exact_bwd_kernel(x, global_scale(x), torch.ones_like(x), 6)
-    with pytest.raises(TypeError):
-        moore_penrose_pinv(x.requires_grad_(), grad="exact")
+        _pinv_exact_bwd_kernel(x, global_scale(x), torch.ones_like(x).half(), 6)
+    with pytest.raises(TypeError, match="float64"):
+        moore_penrose_pinv(x.double().requires_grad_(), grad="exact")
 
 
 # --- the pinv's GEMM alone (csrc/pinv.cu, gemm_mma.cuh) against gemm_ref
@@ -1516,3 +1524,162 @@ def test_exported_classifier_on_the_card_launches_its_ops(dev, tmp_path):
     for name in ("landmark_softmax", "moore_penrose_pinv", "softmax_attn", "softmax_attn_conv"):
         assert launches.get(name) == 2, (name, launches)
     assert launches.get("ppeg") == 1, launches
+
+
+# --- the float32 and float16 instances of kernels 1-5 and 9 (the compute
+# types of --no-amp and --amp-dtype float16), each against its plain version
+# on the same inputs in the same type. Bars, as relative Frobenius errors:
+# float16 rounds where bf16 does with a finer ulp (2^-11 against 2^-8), so
+# it takes bf16's bars (1e-2 forward, 2e-2 backward); float32 rounds
+# nowhere but the products' 3xTF32 split (about 2^-21 relative a product),
+# the sums' order and ex2.approx (2 ulp), so 1e-4 forward and 1e-3 backward
+# (dsim = P dP - P D cancels, and dq, dk sum such terms). The pinv is held
+# by function as in bf16, and in float32 also at 1e-3.
+INSTANCE_DTYPES = [torch.float32, torch.float16]
+INSTANCE_BARS = {torch.float32: (1e-4, 1e-3), torch.float16: (1e-2, 2e-2)}
+
+
+def _name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+@pytest.mark.parametrize("dtype", INSTANCE_DTYPES, ids=_name)
+@pytest.mark.parametrize("b,h,n,dh,m", [(1, 2, 45, 16, 8), (2, 8, 2117, 96, 384),
+                                        (1, 2, 70, 48, 40), (1, 2, 300, 128, 64)])
+def test_landmark_softmax_instances(dev, dtype, b, h, n, dh, m):
+    fwd_bar, bwd_bar = INSTANCE_BARS[dtype]
+    g = torch.Generator().manual_seed(30)
+    q = _randn(g, b, h, n, dh, dev=dev, dtype=dtype, scale=dh ** -0.5)
+    k = _randn(g, b, h, n, dh, dev=dev, dtype=dtype)
+    pad = (m - n % m) % m
+    _common.reset_launch_counts()
+    out = landmark.landmark_softmax_op(q, k, m, pad)
+    assert _common.launch_counts() == {f"landmark_softmax[{_name(dtype)}]": 1}
+    ref = landmark.landmark_softmax_lse_ref(q, k, m, pad)
+    for name, got, want in zip(("q_l", "k_l", "attn2", "lse"), out, ref):
+        assert got.dtype == want.dtype, name
+        _assert_rel(got, want, bound=fwd_bar, name=name)
+    grads = [_randn(g, b, h, m, dh, dev=dev, dtype=dtype),
+             _randn(g, b, h, m, dh, dev=dev, dtype=dtype),
+             _randn(g, b, h, m, m, dev=dev, dtype=dtype)]
+    q_l, k_l, _, lse = ref
+    got = landmark._launch_bwd(q_l, k_l, lse, n, pad, *grads)
+    want = landmark.landmark_softmax_bwd_lse_ref(q_l, k_l, lse, n, pad, *grads)
+    for name, a, r in zip(("dq", "dk"), got, want):
+        assert a.dtype == dtype, name
+        _assert_rel(a, r, bound=bwd_bar, name=name)
+
+
+@pytest.mark.parametrize("dtype", INSTANCE_DTYPES, ids=_name)
+@pytest.mark.parametrize("b,h,r,c,dh,pad,conv", [
+    (1, 2, 8, 40, 16, 24, False), (2, 3, 70, 130, 32, 0, False),
+    (2, 8, 384, 2117, 96, 187, False), (2, 8, 2117, 384, 96, 0, False),
+    (1, 2, 10, 8, 16, 0, True), (2, 8, 2117, 384, 96, 0, True), (1, 2, 300, 64, 128, 0, True)])
+def test_softmax_attn_instances(dev, dtype, b, h, r, c, dh, pad, conv):
+    """Kernels 3, 3b, 4 and their backwards 3c, 4b (its conv: 9b's) in one
+    type: the forward with its residuals, then the backward from the plain
+    version's residuals."""
+    fwd_bar, bwd_bar = INSTANCE_BARS[dtype]
+    g = torch.Generator().manual_seed(31)
+    q = _randn(g, b, h, r, dh, dev=dev, dtype=dtype, scale=dh ** -0.5)
+    k, w = (_randn(g, b, h, c, dh, dev=dev, dtype=dtype) for _ in range(2))
+    v = _randn(g, b, h, r, dh, dev=dev, dtype=dtype) if conv else None
+    kern = _randn(g, h, 33, dev=dev, dtype=dtype, scale=0.1) if conv else None
+    out, lse, o_attn = _launch_fwd(q, k, w, v, kern, pad, keep=True)
+    ref_out, ref_lse, ref_o = softmax_attn_fwd_ref(q, k, w, pad, v, kern)
+    _assert_rel(out, ref_out, bound=fwd_bar, name="out")
+    _assert_rel(lse, ref_lse, bound=fwd_bar, name="lse")
+    if conv:
+        _assert_rel(o_attn, ref_o, bound=fwd_bar, name="o_attn")
+    gout = _randn(g, b, h, r, dh, dev=dev, dtype=dtype)
+    got = _launch_bwd(q, k, w, gout, ref_lse, ref_o, v, kern)
+    want = [t.to(dtype) for t in softmax_attn_bwd_lse_ref(q, k, w, gout, ref_lse, ref_o)]
+    if conv:
+        dv, dkern = depthwise_conv_seq_bwd_ref(v, kern, gout)
+        want += [dv.to(dtype), dkern]
+    for name, a, ref in zip(("dq", "dk", "dw", "dv", "dkern"), got, want):
+        _assert_rel(a, ref, bound=bwd_bar, name=name)
+
+
+@pytest.mark.parametrize("dtype", INSTANCE_DTYPES, ids=_name)
+@pytest.mark.parametrize("b,h,m", [(1, 2, 32), (2, 8, 384), (1, 2, 100)])
+def test_pinv_instances(dev, dtype, b, h, m):
+    """Kernel 2 held by function (|x z - I| no worse than 1.5x the plain
+    version's, or 0.05) and, in float32, at 1e-3 of it; kernel 2b at the
+    bf16 instance's bars against its plain version."""
+    g = torch.Generator().manual_seed(32)
+    x = torch.softmax(torch.randn(b, h, m, m, generator=g), -1).to(dev, dtype)
+    s = global_scale(x)
+    _common.reset_launch_counts()
+    z = moore_penrose_pinv(x)
+    assert _common.launch_counts() == {f"moore_penrose_pinv[{_name(dtype)}]": 1,
+                                       f"pinv_gemm[{_name(dtype)}]": _gemm_launches(6)}
+    z_ref = pinv_iterations_ref(x, s)
+    eye = torch.eye(m, device=dev)
+    err = (x.float() @ z.float() - eye).abs().max().item()
+    err_ref = (x.float() @ z_ref.float() - eye).abs().max().item()
+    assert err <= max(1.5 * err_ref, 0.05), (err, err_ref)
+    if dtype == torch.float32:
+        _assert_rel(z, z_ref, bound=1e-3, name="z")
+    gz = torch.randn(b, h, m, m, generator=g).to(dev, dtype)
+    gx, gs = _pinv_exact_bwd_kernel(x, s, gz, 6)
+    gx_ref, gs_ref = pinv_exact_bwd_ref(x, s, gz, 6)
+    assert gx.dtype == dtype
+    _assert_rel(gx, gx_ref, bound=BOUND_PINV_BWD, name="gx")
+    assert abs(gs.item() - gs_ref.item()) <= BOUND_PINV_BWD * abs(gs_ref.item())
+
+
+@pytest.mark.parametrize("dtype", INSTANCE_DTYPES, ids=_name)
+@pytest.mark.parametrize("b,H,W,C", [(2, 46, 46, 768), (1, 5, 7, 32), (1, 9, 9, 20)])
+def test_ppeg_instances(dev, dtype, b, H, W, C):
+    fwd_bar, bwd_bar = INSTANCE_BARS[dtype]
+    g = torch.Generator().manual_seed(33)
+    img = _randn(g, b, H, W, C, dev=dev, dtype=dtype)
+    kern = _randn(g, 7, 7, C, dev=dev, dtype=dtype, scale=0.1)
+    bias = _randn(g, C, dev=dev, dtype=dtype, scale=0.1)
+    _common.reset_launch_counts()
+    (gout,), grads = _grads(ppeg_fused, img, kern, bias)
+    assert _common.launch_counts() == {f"ppeg[{_name(dtype)}]": 1,
+                                       f"ppeg_bwd[{_name(dtype)}]": 1}
+    _assert_rel(ppeg_fused(img, kern, bias), ppeg_ref(img, kern, bias), bound=fwd_bar,
+                name="out")
+    dimg, dk, db = ppeg_bwd_ref(img, kern, gout)
+    for name, a, ref in zip(("dimg", "dk", "db"), grads, (dimg, dk.to(dtype), db.to(dtype))):
+        assert a.dtype == dtype, name
+        _assert_rel(a, ref, bound=bwd_bar, name=name)
+
+
+@pytest.mark.parametrize("dtype", INSTANCE_DTYPES, ids=_name)
+@pytest.mark.parametrize("b,h,n,d,ksize", [(2, 8, 2117, 96, 33), (1, 2, 40, 8, 7),
+                                           (1, 2, 300, 128, 33), (1, 2, 130, 104, 65),
+                                           (1, 3, 10, 16, 33)])
+def test_conv1d_instances(dev, dtype, b, h, n, d, ksize):
+    """Kernels 9 and 9b: d 104 and 128 take the float32 backward's two
+    feature parts (its two rings of d columns would not fit a block)."""
+    fwd_bar, bwd_bar = INSTANCE_BARS[dtype]
+    g = torch.Generator().manual_seed(34)
+    v = _randn(g, b, h, n, d, dev=dev, dtype=dtype)
+    kern = _randn(g, h, ksize, dev=dev, dtype=dtype, scale=0.1)
+    _common.reset_launch_counts()
+    (gout,), (dv, dkern) = _grads(depthwise_conv1d_seq, v, kern)
+    assert _common.launch_counts() == {f"conv1d[{_name(dtype)}]": 1,
+                                       f"conv1d_bwd[{_name(dtype)}]": 1}
+    _assert_rel(depthwise_conv1d_seq(v, kern), depthwise_conv_seq_ref(v, kern).to(dtype),
+                bound=fwd_bar, name="out")
+    dv_ref, dkern_ref = depthwise_conv_seq_bwd_ref(v, kern, gout)
+    _assert_rel(dv, dv_ref.to(dtype), bound=bwd_bar, name="dv")
+    _assert_rel(dkern, dkern_ref.to(dtype), bound=bwd_bar, name="dkern")
+
+
+def test_instances_refuse_what_the_kernels_do_not_take(dev):
+    """float64, and operands of two types, are refused by name; nothing
+    falls back to a plain version."""
+    x = torch.randn(1, 2, 45, 16, device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
+        landmark.landmark_softmax_op(x, x, 8, 3)
+    y = torch.randn(1, 5, 7, 32, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        ppeg_fused(y, y.new_zeros(7, 7, 32).half(), y.new_zeros(32))
+    q = torch.randn(1, 2, 8, 16, device=dev)
+    with pytest.raises(TypeError, match="float16"):
+        _launch_fwd(q, q.half(), q, None, None, 0, keep=False)

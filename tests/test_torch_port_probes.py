@@ -393,7 +393,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("name", ["mirror", "mirror_classifier"])
 @pytest.mark.parametrize("kwargs,why", [
-    ({}, "compute dtype torch.float32"),  # --no-amp: no dtype, fp32
+    ({"dtype": "float64"}, "compute dtype torch.float64"),  # a type no kernel takes
     ({"dtype": "bfloat16", "embed_dim": 1536}, "head dim 192"),
     ({"dtype": "bfloat16", "embed_dim": 792}, "396 landmarks"),
 ])
@@ -406,6 +406,24 @@ def test_kernel_config_is_refused_on_the_card_by_name(name, kwargs, why):
     registry.check_kernel_config(name, "cuda", use_pallas=False, **kwargs)
     with pytest.raises(ValueError, match="--no-use-pallas"):
         registry.create_model(name, device="cuda", **kwargs)
+
+
+@pytest.mark.parametrize("name", ["mirror", "mirror_classifier"])
+@pytest.mark.parametrize("kwargs", [{}, {"dtype": "float16"}],
+                         ids=["float32", "float16"])  # --no-amp; --amp-dtype float16
+def test_kernel_config_accepts_float32_and_float16_on_the_card(name, kwargs):
+    """The kernels take the compute types of --no-amp and --amp-dtype
+    float16 as they take bf16: the check passes, and every Nystrom
+    attention of the model keeps the kernel path in that type."""
+    from mirror_tpu_torch.models.nystrom import NystromAttention
+
+    registry.check_kernel_config(name, "cuda", **kwargs)
+    with torch.device("meta"):
+        model = registry._REGISTRY[name](**kwargs)
+    attns = [m for m in model.modules() if isinstance(m, NystromAttention)]
+    assert attns and all(a.use_pallas for a in attns)
+    want = getattr(torch, kwargs["dtype"]) if kwargs else None
+    assert all(a.dtype == want for a in attns)
 
 
 def test_the_templates_width_passes_the_kernel_check():
