@@ -263,7 +263,22 @@ Phases, each printed as it finishes:
    the ``--result`` JSON; the ``.pth.tar`` reloaded in its type), each
    type's step timed on one resident batch (ms, peak memory), and one
    batch-2 step against the CPU's float32 plain path (float32: loss 1e-4,
-   gradient cosine 0.9999; float16: phase 5's bars).
+   gradient cosine 0.9999; float16: phase 5's bars);
+13. every Nystrom width the JAX package serves, after phase 10: (a) kernels
+   1, 3, 3b, 4 and 9 at embed 1536's serving shapes ([16, 8, 2117, 192],
+   768 landmarks, pad 187: the 1536-wide tile features of UNI2-h,
+   Prov-GigaPath's tile encoder, H-optimus-0) and embed 792's (dh 99, 396
+   landmarks, pad 259) against their plain versions in bf16 (timed, with
+   SDPA and ``conv2d`` as the library calls; kernels 2 and 5 too, at m and
+   C of the width), float32 (3, 3b and 4 timed) and float16 (checked), each
+   shape a ``by_shape`` entry of its kernel's row; (b) on checkpoints of the
+   subtyping template at each width, ``predict`` (16 slides in bf16: the
+   rate and the batch's peak memory; 4 in float32 and float16) and
+   ``predict --whole-slide`` (a 3,000-patch slide in each type), launches
+   read around each run, two slides against the CPU's float32 plain path at
+   phase 4's bar; at embed 1536 ``encode_slide`` on a 15,000-patch slide, the
+   exported classifier against its eager module bit for bit, and
+   ``train_mirror`` refused at start, naming the backward kernels.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -1364,9 +1379,9 @@ def merge_shapes(merged: dict, results) -> None:
         if r["name"] not in merged:
             merged[r["name"]] = dict(r, checked=[r["shape"]], by_shape=[])
             continue
-        first = merged[r["name"]]
-        first["checked"].append(r["shape"])
-        first["by_shape"].append({k: r[k] for k in keep})
+        first = merged[r["name"]]  # a run_case result, or a line merged before
+        first.setdefault("checked", [first["shape"]]).append(r["shape"])
+        first.setdefault("by_shape", []).append({k: r[k] for k in keep})
         first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
         first["rel_fro_err"] = max(first["rel_fro_err"], r["rel_fro_err"])
 
@@ -3840,6 +3855,7 @@ INSTANCE_BARS = {"float32": dict(fwd=BOUND_F32, bwd=BOUND_F32_BWD, pinv=BOUND_F3
                                  pinv_bwd=BOUND_F32_BWD),
                  "float16": dict(fwd=BOUND_SINGLE_ROUNDING, bwd=BOUND_BWD, pinv=BOUND_PINV,
                                  pinv_bwd=BOUND_PINV_BWD)}
+INSTANCE_BARS["bfloat16"] = INSTANCE_BARS["float16"]  # phase 13's bf16 rows: phase 3's bars
 # One train step at batch 2, the card's kernels in the type against the
 # CPU's float32 plain path, same weights and draws: (loss relative error,
 # gradient cosine, gradient norm ratio). float32 rounds nowhere but the
@@ -3870,12 +3886,14 @@ BF16_DIGESTS = {
     "conv1d_bwd": "c71411e422249180"}
 
 
-def instance_cases(torch, randn, dtype):
-    """Kernels 1-5 and 9 with their backwards, the ``dtype`` instance, at the
-    train slice's shapes (the encoder's 2117 rows with pad 187, b 16, dh 96,
-    384 landmarks; the pinv at [16, 8, 384, 384]; PPEG on [16, 46, 46, 768];
-    the conv on [16, 8, 2117, 96]), each against its plain version in the
-    same type and the PyTorch call for the same function in that type."""
+def instance_cases(torch, randn, dtype, embed=EMBED, backward=True):
+    """Kernels 1-5 and 9 with (``backward``) their backwards, the ``dtype``
+    instance, at the shapes of a model of width ``embed`` (8 heads of embed
+    / 8, embed / 2 landmarks; the train slice's by default: the encoder's
+    2117 rows with pad 187, b 16, dh 96, 384 landmarks; the pinv at [16, 8,
+    384, 384]; PPEG on [16, 46, 46, 768]; the conv on [16, 8, 2117, 96]),
+    each against its plain version in the same type and the PyTorch call for
+    the same function in that type."""
     import torch.nn.functional as F
 
     from mirror_tpu_torch.ops import conv1d, landmark, nystrom_attn, pinv, ppeg
@@ -3883,9 +3901,11 @@ def instance_cases(torch, randn, dtype):
 
     dn = str(dtype).split(".")[-1]
     bars, peak = INSTANCE_BARS[dn], PEAK_MMA_FLOPS[dtype]
-    b, n, pad, dh, m = B, N, PAD, DH, M
+    b, n, dh, m = B, N, embed // HEADS, embed // 2
+    pad = (m - n % m) % m
     bh = b * HEADS
-    shape = f"b {b}, h {HEADS}, n {n}, pad {pad}, dh {dh}, m {m}, {dn}"
+    width = "" if embed == EMBED else f"embed {embed}: "
+    shape = f"{width}b {b}, h {HEADS}, n {n}, pad {pad}, dh {dh}, m {m}, {dn}"
 
     def r(*s, scale=1.0):
         return randn(*s, scale=scale, dtype=dtype)
@@ -3902,8 +3922,27 @@ def instance_cases(torch, randn, dtype):
     conv_mma = 2 * bh * n * dh * CONV_TAPS
     k_pad = torch.cat([k.new_zeros(b, HEADS, pad, dh), k], dim=2)
     v_pad = torch.cat([v.new_zeros(b, HEADS, pad, dh), v], dim=2)
-    gql, gkl, ga2 = r(b, HEADS, m, dh), r(b, HEADS, m, dh), r(b, HEADS, m, m)
-    g3, g4 = r(b, HEADS, m, dh), r(b, HEADS, n, dh)
+    x = torch.softmax(randn(b, HEADS, m, m).float(), -1).to(dtype)
+    s = pinv.global_scale(x)
+    img = r(b, SIDE, SIDE, embed)
+    pk, pb = r(7, 7, embed, scale=0.1), r(embed, scale=0.1)
+    conv_w = pk.permute(2, 0, 1).unsqueeze(1).clone()
+    conv_w[:, 0, 3, 3] += 1
+    img_nchw = img.permute(0, 3, 1, 2)
+    weight = kern.view(HEADS, 1, CONV_TAPS, 1)
+    pshape = f"{width}b {b}, h {HEADS}, m {m}, {dn}"
+    cshape = f"[{b}, {SIDE}, {SIDE}, {embed}], {dn}"
+    vshape = f"v [{b}, {HEADS}, {n}, {dh}], K {CONV_TAPS}, {dn}"
+    fmas = 2 * CONV_TAPS * v.numel()
+
+    def pinv_check(z, z_ref):
+        eye = torch.eye(m, device=x.device)
+        err = (x.float() @ z.float() - eye).abs().max().item()
+        err_ref = (x.float() @ z_ref.float() - eye).abs().max().item()
+        say(f"[instance] {name('moore_penrose_pinv')} (m {m}): |x z - I| max {err:.4g} "
+            f"(plain {err_ref:.4g})")
+        return err <= max(1.5 * err_ref, 0.05)
+
     cases = [
         Case(name("landmark_softmax"), "landmark.cu", "mirror_tpu/ops/landmark_pallas.py:183",
              shape, lambda: landmark._launch_fwd(q, k, m, pad),
@@ -3911,22 +3950,14 @@ def instance_cases(torch, randn, dtype):
              ("q_l", "k_l", "attn2", "lse"),
              dict(bytes=nbytes(q, k, q_l, k_l, attn2, lse), mma=2 * bh * m * m * dh,
                   mma_peak=peak)),
-        Case(name("landmark_softmax_bwd"), "landmark_bwd.cu",
-             "mirror_tpu/ops/landmark_pallas.py:148", shape,
-             lambda: landmark._launch_bwd(q_l, k_l, lse, n, pad, gql, gkl, ga2),
-             lambda: landmark.landmark_softmax_bwd_lse_ref(q_l, k_l, lse, n, pad, gql, gkl,
-                                                           ga2),
-             bars["bwd"], ("dq", "dk"),
-             dict(bytes=nbytes(q_l, k_l, lse, gql, gkl, ga2, q, k), mma=3 * 2 * bh * m * m * dh,
-                  mma_peak=peak)),
         Case(name("softmax_attn"), "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:202",
-             f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}, {dn}",
+             f"{width}kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}, {dn}",
              lambda: nystrom_attn.softmax_matmul_landmark_kv(q_l, k, v, pad),
              lambda: nystrom_attn.softmax_attn_ref(q_l, k, v, pad).to(dtype), bars["fwd"],
              ("out",), dict(bytes=nbytes(q_l, k, v, q_l), mma=attn_mma, mma_peak=peak),
              library=lambda: F.scaled_dot_product_attention(q_l, k_pad, v_pad, scale=1.0)),
         Case(name("softmax_attn_q"), "softmax_attn.cu", "mirror_tpu/ops/nystrom_pallas.py:208",
-             f"q: r {n}, c {m}, pad 0, {dn}",
+             f"{width}q: r {n}, c {m}, pad 0, {dn}",
              lambda: nystrom_attn.softmax_matmul_landmark_q(q, k_l, w),
              lambda: nystrom_attn.softmax_attn_ref(q, k_l, w).to(dtype), bars["fwd"], ("out",),
              dict(bytes=nbytes(q, k_l, w, q), mma=attn_mma, mma_peak=peak),
@@ -3938,9 +3969,48 @@ def instance_cases(torch, randn, dtype):
                       + nystrom_attn.depthwise_conv_seq_ref(v, kern)).to(dtype),
              bars["fwd"], ("out",),
              dict(bytes=nbytes(q, k_l, w, v, kern, q), mma=attn_mma + conv_mma, mma_peak=peak)),
+        Case(name("moore_penrose_pinv"), "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:239", pshape,
+             lambda: pinv.moore_penrose_pinv(x), lambda: pinv.pinv_iterations_ref(x, s),
+             bars["pinv"], ("z",),
+             dict(bytes=2 * nbytes(x), mma=6 * 4 * 2 * bh * m ** 3, mma_peak=peak),
+             check=pinv_check, library=lambda: pinv_library(torch, x, s, PINV_ITERS)),
+        Case(name("ppeg"), "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:179", cshape,
+             lambda: ppeg.ppeg_fused(img, pk, pb), lambda: ppeg.ppeg_ref(img, pk, pb),
+             bars["fwd"], ("out",),
+             dict(bytes=nbytes(img, pk, pb, img), mma=0, fp32=(2 * 49 + 2) * img.numel()),
+             library=lambda: F.conv2d(img_nchw, conv_w, pb, padding=3, groups=embed)),
+        Case(name("conv1d"), "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:258", vshape,
+             lambda: conv1d.depthwise_conv1d_seq(v, kern),
+             lambda: conv1d.depthwise_conv_seq_ref(v, kern).to(dtype), bars["fwd"], ("out",),
+             dict(bytes=nbytes(v, kern, v), mma=fmas, mma_peak=peak),
+             library=lambda: F.conv2d(v, weight, padding=(CONV_TAPS // 2, 0), groups=HEADS)),
+    ]
+    if not backward:
+        return cases
+
+    gql, gkl, ga2 = r(b, HEADS, m, dh), r(b, HEADS, m, dh), r(b, HEADS, m, m)
+    g2, g3, g4 = r(b, HEADS, m, m), r(b, HEADS, m, dh), r(b, HEADS, n, dh)
+    g5 = r(b, SIDE, SIDE, embed)
+    g5_nchw = g5.permute(0, 3, 1, 2)
+    dv, dkern = torch.empty_like(v), torch.empty(HEADS, CONV_TAPS, device=v.device)
+    partial = conv1d.conv1d_bwd_scratch(v, CONV_TAPS)
+
+    def bwd9():
+        conv1d.conv1d_bwd_into(v, kern, g4, dv, dkern, partial)
+        return dv, dkern
+
+    return cases + [
+        Case(name("landmark_softmax_bwd"), "landmark_bwd.cu",
+             "mirror_tpu/ops/landmark_pallas.py:148", shape,
+             lambda: landmark._launch_bwd(q_l, k_l, lse, n, pad, gql, gkl, ga2),
+             lambda: landmark.landmark_softmax_bwd_lse_ref(q_l, k_l, lse, n, pad, gql, gkl,
+                                                           ga2),
+             bars["bwd"], ("dq", "dk"),
+             dict(bytes=nbytes(q_l, k_l, lse, gql, gkl, ga2, q, k), mma=3 * 2 * bh * m * m * dh,
+                  mma_peak=peak)),
         Case(name("softmax_attn_bwd"), "softmax_attn_bwd.cu",
              "mirror_tpu/ops/nystrom_pallas.py:152",
-             f"kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}, {dn}",
+             f"{width}kv: r {m}, c {n}, pad {pad}, b {b}, dh {dh}, {dn}",
              autograd_kernel(torch, lambda a, b_, c: nystrom_attn.softmax_matmul_landmark_kv(
                  a, b_, c, pad), (q_l, k, v), (g3,)),
              lambda: nystrom_attn.softmax_attn_bwd_ref(q_l, k, v, g3, pad), bars["bwd"],
@@ -3959,75 +4029,21 @@ def instance_cases(torch, randn, dtype):
              bars["bwd"], ("dq", "dk_l", "dw", "dv", "dkern"),
              dict(bytes=2 * nbytes(q, k_l, w, v, kern) + nbytes(g4),
                   mma=5 * 2 * bh * n * m * dh + 2 * conv_mma, mma_peak=peak)),
-    ]
-
-    x = torch.softmax(randn(b, HEADS, m, m).float(), -1).to(dtype)
-    s = pinv.global_scale(x)
-    g2 = r(b, HEADS, m, m)
-
-    def pinv_check(z, z_ref):
-        eye = torch.eye(m, device=x.device)
-        err = (x.float() @ z.float() - eye).abs().max().item()
-        err_ref = (x.float() @ z_ref.float() - eye).abs().max().item()
-        say(f"[instance] {name('moore_penrose_pinv')}: |x z - I| max {err:.4g} "
-            f"(plain {err_ref:.4g})")
-        return err <= max(1.5 * err_ref, 0.05)
-
-    cases += [
-        Case(name("moore_penrose_pinv"), "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:239",
-             f"b {b}, h {HEADS}, m {m}, {dn}", lambda: pinv.moore_penrose_pinv(x),
-             lambda: pinv.pinv_iterations_ref(x, s), bars["pinv"], ("z",),
-             dict(bytes=2 * nbytes(x), mma=6 * 4 * 2 * bh * m ** 3, mma_peak=peak),
-             check=pinv_check, library=lambda: pinv_library(torch, x, s, PINV_ITERS)),
-        Case(name(PINV_BWD), "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171",
-             f"b {b}, h {HEADS}, m {m}, {dn}",
+        Case(name(PINV_BWD), "pinv.cu", "mirror_tpu/ops/pinv_pallas.py:171", pshape,
              lambda: pinv._pinv_exact_bwd_kernel(x, s, g2, PINV_ITERS),
              lambda: pinv.pinv_exact_bwd_ref(x, s, g2, PINV_ITERS), bars["pinv_bwd"],
              ("gx", "gs"),
              dict(bytes=3 * nbytes(x) + nbytes(s), mma=(12 * PINV_ITERS - 1) * 2 * bh * m ** 3,
                   mma_peak=peak),
              library=lambda: pinv_bwd_library(torch, x, s, g2, PINV_ITERS)),
-    ]
-
-    img = r(b, SIDE, SIDE, EMBED)
-    pk, pb = r(7, 7, EMBED, scale=0.1), r(EMBED, scale=0.1)
-    g5 = r(b, SIDE, SIDE, EMBED)
-    conv_w = pk.permute(2, 0, 1).unsqueeze(1).clone()
-    conv_w[:, 0, 3, 3] += 1
-    img_nchw, g5_nchw = img.permute(0, 3, 1, 2), g5.permute(0, 3, 1, 2)
-    cshape = f"[{b}, {SIDE}, {SIDE}, {EMBED}], {dn}"
-    cases += [
-        Case(name("ppeg"), "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:179", cshape,
-             lambda: ppeg.ppeg_fused(img, pk, pb), lambda: ppeg.ppeg_ref(img, pk, pb),
-             bars["fwd"], ("out",),
-             dict(bytes=nbytes(img, pk, pb, img), mma=0, fp32=(2 * 49 + 2) * img.numel()),
-             library=lambda: F.conv2d(img_nchw, conv_w, pb, padding=3, groups=EMBED)),
         Case(name("ppeg_bwd"), "ppeg.cu", "mirror_tpu/ops/ppeg_pallas.py:137", cshape,
              autograd_kernel(torch, ppeg.ppeg_fused, (img, pk, pb), (g5,)),
              lambda: ppeg.ppeg_bwd_ref(img, pk, g5), bars["bwd"], ("dimg", "dk", "db"),
              dict(bytes=3 * nbytes(img) + 2 * nbytes(pk) + nbytes(pb), mma=0,
                   fp32=(2 * 49 * 2 + 2) * img.numel()),
              library=lambda: torch.ops.aten.convolution_backward(
-                 g5_nchw, img_nchw, conv_w, [EMBED], [1, 1], [3, 3], [1, 1], False, [0, 0],
-                 EMBED, [True, True, True])),
-    ]
-
-    weight = kern.view(HEADS, 1, CONV_TAPS, 1)
-    dv, dkern = torch.empty_like(v), torch.empty(HEADS, CONV_TAPS, device=v.device)
-    partial = conv1d.conv1d_bwd_scratch(v, CONV_TAPS)
-
-    def bwd9():
-        conv1d.conv1d_bwd_into(v, kern, g4, dv, dkern, partial)
-        return dv, dkern
-
-    vshape = f"v [{b}, {HEADS}, {n}, {dh}], K {CONV_TAPS}, {dn}"
-    fmas = 2 * CONV_TAPS * v.numel()
-    cases += [
-        Case(name("conv1d"), "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:258", vshape,
-             lambda: conv1d.depthwise_conv1d_seq(v, kern),
-             lambda: conv1d.depthwise_conv_seq_ref(v, kern).to(dtype), bars["fwd"], ("out",),
-             dict(bytes=nbytes(v, kern, v), mma=fmas, mma_peak=peak),
-             library=lambda: F.conv2d(v, weight, padding=(CONV_TAPS // 2, 0), groups=HEADS)),
+                 g5_nchw, img_nchw, conv_w, [embed], [1, 1], [3, 3], [1, 1], False, [0, 0],
+                 embed, [True, True, True])),
         Case(name("conv1d_bwd"), "conv1d.cu", "mirror_tpu/ops/conv1d_pallas.py:224", vshape,
              bwd9, lambda: conv1d.depthwise_conv_seq_bwd_ref(v, kern, g4), bars["bwd"],
              ("dv", "dkern"), dict(bytes=nbytes(v, kern, g4, v, kern), mma=2 * fmas,
@@ -4036,7 +4052,6 @@ def instance_cases(torch, randn, dtype):
                  g4, v, weight, None, [1, 1], [CONV_TAPS // 2, 0], [1, 1], False, [0, 0],
                  HEADS, [True, True, False])),
     ]
-    return cases
 
 
 def bf16_outputs(torch, ops):
@@ -4343,6 +4358,285 @@ def cp_grad_instance(torch, dtype):
     return counts
 
 
+# phase 13: every Nystrom width the JAX package serves. (embed, tile feature
+# width): embed 1536 on 1536-wide tile features (UNI2-h, Prov-GigaPath's tile
+# encoder, H-optimus-0): 8 heads of 192, 768 landmarks, front pad 187 at 2117
+# rows; embed 792 on Phikon's 768-wide features: 8 heads of 99, 396
+# landmarks, pad 259. The rest is the subtyping template (MODEL_KWARGS).
+WIDTHS = ((1536, 1536), (792, 768))
+# predict's slides a width (bf16: the rate), and in float32 and float16 (the
+# launches); the whole slides (patches): encode_slide's at embed 1536, and
+# predict --whole-slide's in each type at each width
+WIDTH_SLIDES, WIDTH_TYPE_SLIDES = 16, 4
+WIDTH_WS_PATCHES, WIDTH_WS_SMALL = 15000, 3000
+WIDTH_TYPES = (("bfloat16", dict(amp=True, amp_dtype="bfloat16")),
+               ("float32", dict(amp=False)),
+               ("float16", dict(amp=True, amp_dtype="float16")))
+
+
+def width_kwargs(embed: int, wsi_dim: int) -> dict:
+    return dict(MODEL_KWARGS, embed_dim=embed, wsi_embed_dim=wsi_dim)
+
+
+def phase_width_kernels(torch):
+    """Phase 13a: kernels 1-5 and 9 at embed 1536's and embed 792's serving
+    shapes (:func:`instance_cases` at those widths, forward only) in bf16
+    (timed, with the library calls), float32 (3, 3b and 4 timed, the others
+    checked) and float16 (checked): each against its plain version in its
+    type at the instances' bars."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    results = []
+    for embed, _ in WIDTHS:
+        for i, dn in enumerate(("bfloat16", "float32", "float16")):
+            g = torch.Generator(device=dev).manual_seed(SEED + 50 + i + embed)
+
+            def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+                return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+            for case in instance_cases(torch, randn, getattr(torch, dn), embed, backward=False):
+                timed = dn == "bfloat16" or (dn == "float32" and "softmax_attn" in case.name)
+                results.append(run_case(torch, case) if timed else check_case(torch, case))
+            torch.cuda.empty_cache()
+    say(f"[widths] phase 13a {time.perf_counter() - t0:.1f} s")
+    return [r for r in results if r is not None]
+
+
+def check_case(torch, case: Case) -> None:
+    """A case's kernel against its plain version, errors only (no times)."""
+    out = case.kernel()
+    ref = case.plain()
+    torch.cuda.synchronize()
+    errs = errors(torch, out, ref)
+    per_output = ", ".join(f"{o} {a:.4g}/{r:.4g}" for o, (a, r) in zip(case.outputs, errs))
+    say(f"[widths] {case.name} ({case.shape}): max abs / rel Frobenius err {per_output} "
+        f"(bound {case.tol:g})")
+    ok = case.check(out, ref) if case.check is not None else True
+    if not ok or not all(rel <= case.tol for _, rel in errs):
+        fail(f"{case.name} ({case.shape}) disagrees with its plain version beyond its bound")
+
+
+def write_width_cohort(root: Path, wsi_dim: int, n_slides: int, whole: int):
+    """n_slides slides of 500-2500 patches of wsi_dim features (fp16 .npy),
+    an RNA CSV of 10234 genes, and one whole slide of ``whole`` patches in a
+    folder of its own (with its RNA row); numpy seeded from SEED."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(SEED + wsi_dim)
+    feat_dir, ws_dir = root / "features", root / "whole"
+    feat_dir.mkdir(parents=True)
+    ws_dir.mkdir()
+    ids = [f"TCGA-WD-{i:04d}-01Z-00-DX1" for i in range(n_slides)]
+    for sid in ids:
+        n = int(rng.integers(500, 2501))
+        np.save(feat_dir / f"{sid}.npy",
+                rng.standard_normal((n, wsi_dim), dtype=np.float32).astype(np.float16))
+    np.save(ws_dir / f"{ids[0]}.npy", rng.standard_normal((whole, wsi_dim), dtype=np.float32)
+            .astype(np.float16))
+    pd.DataFrame(rng.standard_normal((n_slides, RNA_DIM), dtype=np.float32),
+                 index=[s[:15] for s in ids],
+                 columns=[f"gene_{j}" for j in range(RNA_DIM)]).to_csv(root / "rna.csv")
+    return feat_dir, ws_dir, root / "rna.csv", ids
+
+
+def run_predict(torch, tag, ckpt, src, out_csv, rna_csv, whole, n_slides, want):
+    """predict on the card with the counts set to 0 just before and read just
+    after; the CSV checked; returns (counts, seconds, peak GiB)."""
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch.ops import _common
+    from mirror_tpu_torch.tools.predict import predict
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _common.reset_launch_counts()
+    t0 = time.perf_counter()
+    predict(str(ckpt), "subtyping", str(src), str(out_csv), rna_feature_csv=str(rna_csv),
+            batch_size=B, seed=SEED, device="cuda", whole_slide=whole)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _common.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    df = pd.read_csv(out_csv)
+    probs = df[["prob_0", "prob_1"]].to_numpy()
+    missing = [k for k in want if counts.get(k, 0) == 0]
+    say(f"[{tag}] {len(df)} slides in {seconds:.2f} s ({len(df) / seconds:.2f} slides/s, "
+        f"checkpoint load, file reads and CSV included), peak device memory {peak:.2f} GiB; "
+        f"kernel launches {json.dumps(counts)}")
+    if len(df) != n_slides or missing or not np.isfinite(probs).all() or \
+            np.abs(probs.sum(1) - 1.0).max() > 1e-5:
+        fail(f"[{tag}] {len(df)} rows, never launched {missing}, or its probabilities are not "
+             "finite or do not sum to 1")
+    return counts, seconds, peak
+
+
+def phase_widths(torch, root: Path):
+    """Phase 13b: predict (16 slides in bf16, 4 in float32 and float16; two
+    slides against the CPU's float32 plain path) and predict --whole-slide
+    (one slide in each type) on embed-1536 and embed-792 checkpoints;
+    encode_slide on a 15,000-patch slide at embed 1536; the exported
+    embed-1536 classifier against its eager module, bit for bit; the
+    training CLI at embed 1536 refused at start. Returns the launches of
+    each run by path."""
+    import numpy as np
+    import pandas as pd
+
+    from mirror_tpu_torch import train_mirror
+    from mirror_tpu_torch.data.formats import load_feature_file
+    from mirror_tpu_torch.ops import _common
+    from mirror_tpu_torch.ops._common import instance
+    from mirror_tpu_torch.registry import create_model
+    from mirror_tpu_torch.tools import encode_slide, export_model
+    from mirror_tpu_torch.tools.export_model import build_inference_module
+    from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
+
+    t_phase = time.perf_counter()
+    paths = {}
+    for embed, wsi_dim in WIDTHS:
+        t0 = time.perf_counter()
+        kwargs = width_kwargs(embed, wsi_dim)
+        model = create_model("mirror_classifier", device="cpu", num_classes=2,
+                             generator=torch.Generator().manual_seed(SEED + embed), **kwargs)
+        sd = model.state_dict()
+        del model
+        sub = root / f"embed{embed}"
+        feat_dir, ws_dir, rna_csv, ids = write_width_cohort(
+            sub, wsi_dim, WIDTH_SLIDES, WIDTH_WS_SMALL)
+        ckpts = {}
+        for dn, amp in WIDTH_TYPES:
+            args = dict(model="mirror_classifier", model_kwargs=kwargs, num_classes=2,
+                        classes=list(CLASSES), num_wsi_feature_tokens=N_TOKENS, batch_size=B,
+                        wsi_feature_only=False, **amp)
+            ckpts[dn] = sub / f"model_{dn}.pth.tar"
+            save_checkpoint_file(str(ckpts[dn]), sd, args=args)
+        n_params = sum(t.numel() for t in sd.values())
+        say(f"[widths] embed {embed} (8 heads of {embed // 8}, {embed // 2} landmarks, "
+            f"{wsi_dim}-wide tile features): {n_params} random parameters in 3 checkpoints, "
+            f"{WIDTH_SLIDES} slides and a {WIDTH_WS_SMALL}-patch slide, set-up "
+            f"{time.perf_counter() - t0:.1f} s")
+        few = sub / "few"
+        few.mkdir()
+        for sid in ids[:WIDTH_TYPE_SLIDES]:
+            (few / f"{sid}.npy").symlink_to(feat_dir / f"{sid}.npy")
+        for dn, _ in WIDTH_TYPES:
+            dtype = getattr(torch, dn)
+            src, n_sl = (feat_dir, WIDTH_SLIDES) if dn == "bfloat16" else \
+                (few, WIDTH_TYPE_SLIDES)
+            counts, seconds, peak = run_predict(
+                torch, f"widths predict embed {embed} {dn}", ckpts[dn], src,
+                sub / f"pred_{dn}.csv", rna_csv, False, n_sl,
+                [instance(k, dtype) for k in FORWARD])
+            paths[f"widths_predict_{embed}_{dn}"] = counts
+            if dn == "bfloat16":
+                say(f"[widths] predict at embed {embed}: {WIDTH_SLIDES / seconds:.2f} slides/s "
+                    f"(bf16, one batch of {B}), peak device memory {peak:.2f} GiB")
+            counts, _, _ = run_predict(
+                torch, f"widths predict --whole-slide embed {embed} {dn}", ckpts[dn], ws_dir,
+                sub / f"ws_{dn}.csv", rna_csv, True, 1,
+                [instance(k, dtype) for k in ("moore_penrose_pinv", "softmax_attn",
+                                              "softmax_attn_q", "conv1d", "ppeg")])
+            paths[f"widths_whole_slide_{embed}_{dn}"] = counts
+        # two slides: the card's bf16 kernels against the CPU's float32 plain path
+        rng = np.random.default_rng(SEED)
+        wsi = []
+        for sid in ids[:2]:
+            feats = np.asarray(load_feature_file(str(feat_dir / f"{sid}.npy")), np.float32)
+            wsi.append(feats[rng.choice(feats.shape[0], N_TOKENS,
+                                        replace=feats.shape[0] < N_TOKENS)])
+        rna = pd.read_csv(rna_csv, index_col=0).to_numpy(np.float32)[:2]
+        wsi_t, rna_t = torch.from_numpy(np.stack(wsi)), torch.from_numpy(rna)
+        with torch.no_grad():
+            gpu = create_model("mirror_classifier", device="cuda", num_classes=2,
+                               dtype="bfloat16", **kwargs)
+            gpu.load_state_dict(sd)
+            got = gpu(wsi_t.cuda(), rna_t.cuda()).float().cpu()
+            del gpu
+            cpu = create_model("mirror_classifier", device="cpu", num_classes=2, **kwargs)
+            cpu.load_state_dict(sd)
+            want = cpu(wsi_t, rna_t).float()
+            del cpu
+        rel = ((got - want).norm() / want.norm()).item()
+        say(f"[widths] embed {embed}, 2 slides, card kernels (bf16) vs CPU plain path (fp32): "
+            f"logits {got.tolist()} vs {want.tolist()}, relative error {rel:.4g} (bound "
+            f"{BOUND_LOGITS:g})")
+        if not torch.isfinite(got).all() or rel > BOUND_LOGITS:
+            fail(f"[widths] embed {embed}: the card's logits disagree with the CPU reference")
+        torch.cuda.empty_cache()
+        if embed != 1536:
+            continue
+        # encode_slide: a 15,000-patch slide, every patch
+        big = sub / "big"
+        big.mkdir()
+        np.save(big / f"{ids[0]}.npy", np.random.default_rng(SEED + 7).standard_normal(
+            (WIDTH_WS_PATCHES, wsi_dim), dtype=np.float32).astype(np.float16))
+        torch.cuda.synchronize()
+        _common.reset_launch_counts()
+        t0 = time.perf_counter()
+        encode_slide.main(["--wsi-feature-dir", str(big), "--checkpoint", str(ckpts["bfloat16"]),
+                           "--output", str(sub / "emb"), "--save", "cls", "--dtype", "bfloat16"])
+        torch.cuda.synchronize()
+        counts = _common.launch_counts()
+        paths["widths_encode_slide"] = counts
+        emb = np.load(sub / "emb" / f"{ids[0]}.npy")
+        say(f"[widths] encode_slide at embed {embed}: one {WIDTH_WS_PATCHES}-patch slide in "
+            f"{time.perf_counter() - t0:.2f} s (encoder build and read included); kernel "
+            f"launches {json.dumps(counts)}")
+        want = {"moore_penrose_pinv": 2, "softmax_attn": 2, "softmax_attn_q": 2, "conv1d": 2,
+                "ppeg": 1, PINV_GEMM: 2 * 4 * PINV_ITERS}
+        if counts != want or emb.shape != (embed,) or not np.isfinite(emb).all():
+            fail(f"[widths] encode_slide: launches {counts} (expected {want}) or its "
+                 f"embedding {emb.shape} is not finite")
+        # the exported classifier against the eager module, bit for bit
+        t0 = time.perf_counter()
+        pt2 = sub / "classifier.pt2"
+        manifest = export_model.export_model("classifier", "mirror_classifier",
+                                             str(ckpts["bfloat16"]), str(pt2), B, N_TOKENS,
+                                             wsi_dim, RNA_DIM, {}, device="cuda")
+        program = torch.export.load(str(pt2)).module()
+        g = torch.Generator().manual_seed(SEED + 13)
+        wsi_e = torch.randn(B, N_TOKENS, wsi_dim, generator=g).cuda()
+        rna_e = torch.randn(B, RNA_DIM, generator=g).cuda()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            _common.reset_launch_counts()
+            exported = program(wsi_e, rna_e)
+            torch.cuda.synchronize()
+            counts = _common.launch_counts()
+            eager = build_inference_module("classifier", "mirror_classifier",
+                                           str(ckpts["bfloat16"]), {}, torch.device("cuda"))(
+                wsi_e, rna_e)
+        paths["widths_export"] = counts
+        same = torch.equal(exported, eager)
+        say(f"[widths] export_model at embed {embed}: exported and loaded in "
+            f"{time.perf_counter() - t0:.1f} s, ops {manifest['ops']}; one batch of {B} "
+            f"launched {json.dumps(counts)}; against the eager module: "
+            f"{'bit for bit' if same else 'DIFFERENT'} (max abs difference "
+            f"{(exported.float() - eager.float()).abs().max().item():.4g})")
+        # (export_model traces the checkpoint's model in float32: its instances)
+        missing = [k for k in FORWARD if counts.get(instance(k, torch.float32), 0) == 0]
+        if not same or missing:
+            fail(f"[widths] the exported embed-{embed} classifier differs from the eager "
+                 f"module, or never launched {missing}")
+        del program, exported, eager
+        torch.cuda.empty_cache()
+    # training at embed 1536 stops at start, naming the backward kernels
+    argv = ["--config", str(PRETRAIN_YAML), "--wsi-feature-dir", str(root / "none"),
+            "--model-kwargs", "embed_dim=1536", "wsi_embed_dim=1536"]
+    try:
+        train_mirror.main(argv)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = ""
+    say(f"[widths] train_mirror at embed 1536: {refused or 'NOT refused'}")
+    if "backward kernels (1b, 3c, 4b, 9b)" not in refused or "--no-use-pallas" not in refused:
+        fail("[widths] train_mirror at embed 1536 was not refused by name at start")
+    say(f"[widths] phase 13b {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def run_model_kwargs(train_root: Path) -> dict:
     """The model kwargs phase 5's checkpoint was saved with."""
     from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
@@ -4405,6 +4699,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
         whole_slide, _, ws_kernels = phase_whole_slide(torch, Path(tmp))
     merge_shapes({k["name"]: k for k in kernels}, ws_kernels)
+    merge_shapes({k["name"]: k for k in kernels}, phase_width_kernels(torch))
+    with tempfile.TemporaryDirectory(dir=build_root, prefix="chip_smoke_") as tmp:
+        width_paths = phase_widths(torch, Path(tmp))
     # the main paths' launches: predict's, the train step's (implicit and
     # exact pinv gradient, one step with --grad-checkpointing, the
     # one-rank NCCL run of phase 5d and rank 0's model-parallel run of
@@ -4423,7 +4720,7 @@ def main() -> int:
              "pretrain_clip": clip, "featgen": featgen, "subtyping": down["subtyping"],
              "survival": down["survival"], "survival_opt": down["survival_opt"],
              "export": export, "selftest": selftest_launches, "probes": probe_launches,
-             "whole_slide": whole_slide, **instance_paths}
+             "whole_slide": whole_slide, **instance_paths, **width_paths}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -23,9 +23,10 @@
 //   loads with ldmatrix.trans.
 //
 // Tiles live in shared memory with a row stride of dh + 8 elements (16
-// bytes of padding): the 8 rows of an ldmatrix 8 x 8 matrix then fall in 8
-// different 16-byte bank groups at every dh in 16..128, so no swizzle is
-// needed and one layout serves every instance.
+// bytes of padding; dh rounded up to 16, or a 128-column chunk above 128):
+// the 8 rows of an ldmatrix 8 x 8 matrix then fall in 8 different 16-byte
+// bank groups at every such width, so no swizzle is needed and one layout
+// serves every instance.
 //
 // Element types (the second half of this file). The Nystrom path's kernels
 // take the JAX package's compute type T: bf16, float16 or float32. The
@@ -473,6 +474,126 @@ __device__ __forceinline__ void store_staged(T* dst, const T* stage, int ld, int
           *reinterpret_cast<const uint4*>(stage + r * ld + c);
   }
   __syncwarp();
+}
+
+// ---- Any head dim (the forward kernels 1, 3, 3b, 4 since they take every dh) ----
+//
+// A tile of W columns (W a multiple of 16) holds columns [col0, col0 + W)
+// of a [n, dh] matrix; the columns at or past dh are zero in shared memory,
+// so they add nothing to a product over dh, and are never stored. Rows
+// whose 16-byte pieces are aligned (dh a multiple of vec16<T>(), col0 a
+// multiple of it) move by cp.async and 16-byte stores, as load_rows_async
+// and store_staged move them; any other dh moves element by element (a
+// synchronous load: the caller's ring still orders it, since a stage is
+// only written after the __syncthreads that frees it).
+
+constexpr int kLoadAhead = 8;  // element loads a thread keeps in flight
+
+template <typename T>
+__device__ __forceinline__ bool rows_aligned(int dh) {
+  return dh % vec16<T>() == 0;
+}
+
+// Rows [row0, row0 + rows) of columns [col0, col0 + W) of a [n, dh] matrix
+// into shared memory with stride ld; rows outside [0, n) and columns at or
+// past dh are zero.
+template <int W, typename T>
+__device__ __forceinline__ void load_cols(T* dst, int ld, const T* src, int dh, int col0,
+                                          int row0, int rows, int n) {
+  static_assert(W % 16 == 0, "tiles are whole 16-column k steps");
+  if (rows_aligned<T>(dh)) {
+    constexpr int V = vec16<T>(), chunks = W / V;
+    for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
+      const int r = idx / chunks, c = (idx % chunks) * V;
+      const int gr = row0 + r;
+      const bool ok = gr >= 0 && gr < n && col0 + c < dh;
+      cp_async16(dst + r * ld + c, ok ? src + (size_t)gr * dh + col0 + c : src, ok);
+    }
+  } else {  // kLoadAhead loads in flight a thread, then their stores
+    const T zero = Elem<T>::from_float(0.f);
+    for (int first = threadIdx.x; first < rows * W; first += kLoadAhead * kThreads) {
+      T x[kLoadAhead];
+#pragma unroll
+      for (int u = 0; u < kLoadAhead; ++u) {
+        const int idx = first + u * kThreads, r = idx / W, c = idx % W, gr = row0 + r;
+        x[u] = idx < rows * W && gr >= 0 && gr < n && col0 + c < dh
+                   ? src[(size_t)gr * dh + col0 + c] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadAhead; ++u) {
+        const int idx = first + u * kThreads;
+        if (idx < rows * W) dst[(idx / W) * ld + idx % W] = x[u];
+      }
+    }
+  }
+}
+
+// Copy a warp's 16 staged rows (W columns) to columns [col0, col0 + W) of
+// rows row0.. of a [n, dh] matrix; rows past n and columns at or past dh
+// are skipped. Synchronises the warp around it.
+template <int W, typename T>
+__device__ __forceinline__ void store_cols(T* dst, const T* stage, int ld, int row0, int n,
+                                           int dh, int col0) {
+  const int lane = threadIdx.x % 32;
+  __syncwarp();
+  if (rows_aligned<T>(dh)) {
+    constexpr int V = vec16<T>(), chunks = W / V;
+    for (int idx = lane; idx < 16 * chunks; idx += 32) {
+      const int r = idx / chunks, c = (idx % chunks) * V;
+      if (row0 + r < n && col0 + c < dh)
+        *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * dh + col0 + c) =
+            *reinterpret_cast<const uint4*>(stage + r * ld + c);
+    }
+  } else {
+    for (int idx = lane; idx < 16 * W; idx += 32) {
+      const int r = idx / W, c = idx % W;
+      if (row0 + r < n && col0 + c < dh) dst[(size_t)(row0 + r) * dh + col0 + c] = stage[r * ld + c];
+    }
+  }
+  __syncwarp();
+}
+
+// mma_nt over the first kt of KT k-steps (kt at run time, a tile's live
+// columns of dh): S summed over a chunk of dh.
+template <int KT, int NT, typename T>
+__device__ __forceinline__ void mma_nt_kt(float (&acc)[NT][4], const T* a, const T* b, int ld,
+                                          int kt) {
+  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    if (kk < kt) {
+      const AOp<T> fa = prepare(load_a<T>([&](int r) { return a + r * ld + 16 * kk; }));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        BFrag<T> fb[2];
+        load_b_nk<T>(fb, [&](int c) { return b + (16 * np + c) * ld + 16 * kk; });
+        mma_step(acc[2 * np], fa, fb[0]);
+        mma_step(acc[2 * np + 1], fa, fb[1]);
+      }
+    }
+  }
+}
+
+// mma_pv over the first nt of NT / 2 n-tile pairs (nt at run time, a
+// slice's live columns of dh); the pairs past nt keep their zeros.
+template <int KT, int NT, typename T>
+__device__ __forceinline__ void mma_pv_nt(float (&acc)[NT][4], const float (&x)[2 * KT][4],
+                                          const T* b, int ld, int nt) {
+  static_assert(NT % 2 == 0, "n-subtiles come in pairs");
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const AOp<T> fa = prepare(afrag_from_acc<T>(x[2 * kk], x[2 * kk + 1]));
+    const T* bk = b + 16 * kk * ld;
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      if (np < nt) {
+        BFrag<T> fb[2];
+        load_b_kn<T>(fb, [&](int r) { return bk + r * ld + 16 * np; });
+        mma_step(acc[2 * np], fa, fb[0]);
+        mma_step(acc[2 * np + 1], fa, fb[1]);
+      }
+    }
+  }
 }
 
 // The exact softmax attention of one warp's 16 query rows against kt key

@@ -90,7 +90,12 @@
 // two parts, each block one part (the grid's z): dv's columns and dkern's
 // feature sums are cut along them, the partials laid out [b chunks parts,
 // h K], so the column sum adds the parts in its fixed order too. The bf16
-// and float16 backwards, and every forward, take one part.
+// and float16 backwards take one part.
+//
+// Any d (the forward and dv alone): a d above kMaxDim is cut into feature
+// parts of kMaxDim columns, one a block (the grid's z), each convolved on
+// its own; rows that are not whole 16-byte pieces (d % 8 != 0 in the
+// 16-bit types) load into the ring and store element by element.
 #include "attn_mma.cuh"
 #include "conv1d.cuh"
 
@@ -171,16 +176,43 @@ Parts feature_parts(int d, int wt) {
 
 __device__ __forceinline__ int ring_row(int c) { return c & (kRingRows - 1); }
 
+// The forward's ring row stride for a part of pcols columns: pcols rounded
+// up to 8, plus the 8 pad columns (d + 8 at every d the backward takes).
+__host__ __device__ constexpr int fwd_row(int pcols) { return (pcols + 7) / 8 * 8 + 8; }
+
 // Stage st of the chunk: ring rows of chunk rows [kStep st, kStep st + rows)
 // <- columns [0, cols) of sequence rows row0 + kStep st + r of a [n, d]
 // matrix (src at the part's first column), zeros outside [0, n); 16 bytes a
 // thread, one cp.async group per stage (the caller commits).
+// A d that is not a whole number of 16-byte pieces (a forward's rows are
+// then not 16-byte aligned) loads element by element, synchronously, every
+// column of the ring row, zeros past cols (the ring's order still holds: a
+// stage is written only after the __syncthreads that frees it).
 template <typename T>
 __device__ __forceinline__ void load_stage(T* ring, int ld, const T* src, int row0, int st,
                                            int rows, int n, int cols, int d) {
   constexpr int V = vec16<T>();
-  const int chunks = cols / V;
   const int base = (st % kStages) * kStep;
+  if (d % V != 0) {  // attn::kLoadAhead loads in flight a thread, then their stores
+    constexpr int U = attn::kLoadAhead;
+    const T zero = Elem<T>::from_float(0.f);
+    for (int first = threadIdx.x; first < rows * ld; first += U * kThreads) {
+      T x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = first + u * kThreads, r = idx / ld, c = idx % ld;
+        const int gr = row0 + st * kStep + r;
+        x[u] = idx < rows * ld && gr >= 0 && gr < n && c < cols ? src[(size_t)gr * d + c] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = first + u * kThreads;
+        if (idx < rows * ld) ring[(base + idx / ld) * ld + idx % ld] = x[u];
+      }
+    }
+    return;
+  }
+  const int chunks = cols / V;
   for (int idx = threadIdx.x; idx < rows * chunks; idx += kThreads) {
     const int r = idx / chunks, c = (idx % chunks) * V;
     const int gr = row0 + st * kStep + r;
@@ -224,7 +256,7 @@ __device__ __forceinline__ void band_frags(AFrag<T> (&a)[WT], const T* sTap, int
 template <int WT, typename T>
 __device__ __forceinline__ void band_step(const AFrag<T> (&a)[WT], const T* ring, int ld,
                                           int c0, T* stage, T* out, int i0, int n, int cols,
-                                          int d) {
+                                          int d, bool vec) {
   constexpr int V = vec16<T>(), P = 16 / V;  // 16-byte pieces a staged row
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   for (int np = 0; np < (cols + 15) / 16; ++np) {
@@ -243,26 +275,38 @@ __device__ __forceinline__ void band_step(const AFrag<T> (&a)[WT], const T* ring
       store2(stage + (g + 8) * 16 + 8 * h + 2 * t, acc[h][2], acc[h][3]);
     }
     __syncwarp();
+    if (vec) {
 #pragma unroll
-    for (int idx = lane; idx < 16 * P; idx += 32) {
-      const int srow = idx / P, piece = idx % P;
-      const int col = 16 * np + V * piece;
-      if (i0 + srow < n && col < cols)
-        *reinterpret_cast<uint4*>(out + (size_t)(i0 + srow) * d + col) =
-            *reinterpret_cast<const uint4*>(stage + srow * 16 + V * piece);
+      for (int idx = lane; idx < 16 * P; idx += 32) {
+        const int srow = idx / P, piece = idx % P;
+        const int col = 16 * np + V * piece;
+        if (i0 + srow < n && col < cols)
+          *reinterpret_cast<uint4*>(out + (size_t)(i0 + srow) * d + col) =
+              *reinterpret_cast<const uint4*>(stage + srow * 16 + V * piece);
+      }
+    } else {  // rows not 16-byte aligned: element by element
+      for (int idx = lane; idx < 16 * 16; idx += 32) {
+        const int srow = idx / 16, col = 16 * np + idx % 16;
+        if (i0 + srow < n && col < cols)
+          out[(size_t)(i0 + srow) * d + col] = stage[srow * 16 + idx % 16];
+      }
     }
     __syncwarp();
   }
 }
 
 // The conv of one ring: out = conv(src, taps), the forward (kern as it is)
-// and dv alone (src = g, the taps flipped).
+// and dv alone (src = g, the taps flipped), over one chunk and one feature
+// part of at most kMaxDim columns (the grid's z; one part up to d 128).
 template <int WT, typename T>
 __global__ void __launch_bounds__(kThreads)
     conv1d_kernel(const T* __restrict__ src, const T* __restrict__ kern, T* __restrict__ out,
-                  int heads, int n, int d, int ksize, int flip, int steps_per_chunk) {
+                  int heads, int n, int d, int ksize, int flip, int steps_per_chunk,
+                  int pcols) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = d + 8;
+  const int ld = fwd_row(pcols);
+  const int f0 = blockIdx.z * pcols, cols = min(pcols, d - f0);
+  const bool vec = d % vec16<T>() == 0;
   T* sTap = reinterpret_cast<T*>(smem);
   T* ring = reinterpret_cast<T*>(smem + head_bytes<T>());
   const int bh = blockIdx.y, warp = threadIdx.x / 32;
@@ -270,14 +314,14 @@ __global__ void __launch_bounds__(kThreads)
   const int steps = (n + kStep - 1) / kStep, s0 = blockIdx.x * steps_per_chunk;
   const int ns = min(steps_per_chunk, steps - s0), row0 = s0 * kStep - ksize / 2;
   const int last_rows = 16 * WT - 16;  // the last stage: the halo of step ns - 1
-  const size_t base = (size_t)bh * n * d;
+  const size_t base = (size_t)bh * n * d + f0;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st <= ns)
-      load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, d, d);
+      load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, cols, d);
     cp_async_commit();
   }
-  zero_pad(ring, ld, d);
+  if (vec) zero_pad(ring, ld, cols);  // (the element loads write the pad's zeros)
   for (int t = threadIdx.x; t < ksize; t += kThreads)
     sTap[t] = kern[(bh % heads) * ksize + (flip ? ksize - 1 - t : t)];
   __syncthreads();
@@ -288,10 +332,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int st = k + kStages - 1;
     if (st <= ns)
-      load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, d, d);
+      load_stage(ring, ld, src + base, row0, st, st < ns ? kStep : last_rows, n, cols, d);
     cp_async_commit();
     band_step<WT>(a, ring, ld, kStep * k + 16 * warp, stage, out + base,
-                  (s0 + k) * kStep + 16 * warp, n, d, d);
+                  (s0 + k) * kStep + 16 * warp, n, cols, d, vec);
   }
 }
 
@@ -348,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
     const int c0 = kStep * k + 16 * warp;
     band_step<WT>(a, gring, ld, c0, stage, dv + base, (s0 + k) * kStep + 16 * warp, n, cols,
-                  d);
+                  d, true);
 
     // C[r, s] += g[c0 + half + r] . v[c0 + s] over the part's features
     float c[NT][4] = {};
@@ -397,20 +441,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-bool valid(int bh, int heads, int n, int d, int ksize) {
-  return bh > 0 && heads > 0 && bh % heads == 0 && n > 0 && d > 0 && d % 8 == 0 &&
-         d <= kMaxDim && ksize > 0 && ksize % 2 == 1 && ksize <= kMaxTaps;
+// The forward (and dv alone) take any d; the backward d a multiple of 8 up
+// to kMaxDim.
+bool valid_fwd(int bh, int heads, int n, int d, int ksize) {
+  return bh > 0 && heads > 0 && bh % heads == 0 && n > 0 && d > 0 && ksize > 0 &&
+         ksize % 2 == 1 && ksize <= kMaxTaps;
+}
+
+bool valid_bwd(int bh, int heads, int n, int d, int ksize) {
+  return valid_fwd(bh, heads, n, d, ksize) && d % 8 == 0 && d <= kMaxDim;
 }
 
 template <int WT, typename T>
 cudaError_t launch_conv(const T* src, const T* kern, T* out, int bh, int heads, int n, int d,
                         int ksize, bool flip, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(d, false, WT);
+  const int pcols = d < kMaxDim ? d : kMaxDim, parts = (d + pcols - 1) / pcols;
+  const size_t smem = smem_bytes<T>(fwd_row(pcols) - 8, false, WT);
   cudaError_t err = allow_smem(conv1d_kernel<WT, T>, smem);
   if (err != cudaSuccess) return err;
   const Plan p = conv_plan(bh, n);
-  conv1d_kernel<WT, T><<<dim3(p.chunks, bh), kThreads, smem, stream>>>(
-      src, kern, out, heads, n, d, ksize, flip ? 1 : 0, p.steps_per_chunk);
+  conv1d_kernel<WT, T><<<dim3(p.chunks, bh, parts), kThreads, smem, stream>>>(
+      src, kern, out, heads, n, d, ksize, flip ? 1 : 0, p.steps_per_chunk, pcols);
   return cudaGetLastError();
 }
 
@@ -430,7 +481,7 @@ cudaError_t launch_conv_bwd(const T* v, const T* kern, const T* g, T* dv, float*
 template <typename T>
 cudaError_t conv(const T* src, const T* kern, T* out, int bh, int heads, int n, int d,
                  int ksize, bool flip, cudaStream_t stream) {
-  if (!valid(bh, heads, n, d, ksize)) return cudaErrorInvalidValue;
+  if (!valid_fwd(bh, heads, n, d, ksize)) return cudaErrorInvalidValue;
   cudaError_t (*launch)(const T*, const T*, T*, int, int, int, int, int, bool, cudaStream_t);
   switch (band_tiles(ksize)) {
     case 1: launch = launch_conv<1, T>; break;
@@ -462,7 +513,7 @@ template <typename T>
 cudaError_t conv1d_bwd(const T* v, const T* kern, const T* g, T* dv, float* dkern,
                        float* partial, int bh, int heads, int n, int d, int ksize,
                        cudaStream_t stream) {
-  if (!valid(bh, heads, n, d, ksize)) return cudaErrorInvalidValue;
+  if (!valid_bwd(bh, heads, n, d, ksize)) return cudaErrorInvalidValue;
   cudaError_t (*launch)(const T*, const T*, const T*, T*, float*, int, int, int, int, int,
                         cudaStream_t);
   switch (band_tiles(ksize)) {
@@ -495,7 +546,8 @@ MIRROR_EXPORT long long mirror_conv1d_bwd_partial_elems(int bh, int n, int d, in
 }
 
 // v, out: [bh, n, d]; kern: [heads, ksize], all of type code dtype
-// (common.cuh's Elem); d a multiple of 8 up to 128, ksize odd up to 65.
+// (common.cuh's Elem); any d >= 1 (parts of at most 128 features a block
+// above 128), ksize odd up to 65.
 MIRROR_EXPORT int mirror_conv1d(const void* v, const void* kern, void* out, int bh, int heads,
                                 int n, int d, int ksize, int dtype, cudaStream_t stream) {
   return (int)by_type(dtype, [&](auto e) {

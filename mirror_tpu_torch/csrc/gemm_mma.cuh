@@ -82,11 +82,22 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
       const bool ok = gr < rows && gc < cols;
       cp_async16(dst + r * LD + c, ok ? src + (size_t)gr * ld + gc : src, ok);
     }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += THREADS) {
-      const int r = idx / COLS, c = idx % COLS;
-      const int gr = r0 + r, gc = c0 + c;
-      dst[r * LD + c] = gr < rows && gc < cols ? src[(size_t)gr * ld + gc] : Elem<T>::from_float(0.f);
+  } else {  // attn::kLoadAhead loads in flight a thread, then their stores
+    constexpr int U = attn::kLoadAhead, PER = ROWS * COLS / THREADS;
+    static_assert((ROWS * COLS) % THREADS == 0 && PER % U == 0, "whole elements a thread");
+    for (int i0 = 0; i0 < PER; i0 += U) {
+      T x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = threadIdx.x + (i0 + u) * THREADS;
+        const int gr = r0 + idx / COLS, gc = c0 + idx % COLS;
+        x[u] = gr < rows && gc < cols ? src[(size_t)gr * ld + gc] : Elem<T>::from_float(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = threadIdx.x + (i0 + u) * THREADS;
+        dst[(idx / COLS) * LD + idx % COLS] = x[u];
+      }
     }
   }
 }

@@ -313,7 +313,7 @@ MIRROR_EXPORT int mirror_landmark_softmax_bwd(const void* q_l, const void* k_l, 
                                               void* dq, void* dk, void* dvec, int bh, int n,
                                               int dh, int m, int l, int pad, int dtype,
                                               cudaStream_t stream) {
-  if (!landmark::shape_ok(n, dh, m, l, pad)) return (int)cudaErrorInvalidValue;
+  if (!landmark::bwd_shape_ok(n, dh, m, l, pad)) return (int)cudaErrorInvalidValue;
   return (int)by_type(dtype, [&](auto e) {
     using T = decltype(e);
     return launch_dh<T>(dh, static_cast<const T*>(q_l), static_cast<const T*>(k_l),

@@ -19,8 +19,11 @@ One module, two paths:
   through the landmark, pinv, landmark-softmax and conv-fused attention
   kernels of ``ops``, in the model's compute type (bf16, float16 or
   float32, as the JAX package runs its Pallas kernels in ``self.dtype or
-  float32``). The kernels take what :func:`kernel_refusal` accepts;
-  ``registry.create_model`` refuses the rest at start, naming
+  float32``). The forward kernels take every head dim and landmark count
+  and refuse only float64 (:func:`kernel_refusal`); the backward kernels
+  take a head dim that is a multiple of 16 up to 128 and a landmark count
+  that is a multiple of 8, so the training CLIs refuse the other widths
+  at start (``registry.check_kernel_config``). Each refusal names
   ``--no-use-pallas``;
 - on CPU, or with ``use_pallas=False`` on any device, the plain path of the
   JAX package's dense branch: the front pad is materialised, the attention
@@ -62,21 +65,29 @@ from .layers import Dense, Dropout
 KERNEL_DTYPES = frozenset(_common.KERNEL_DTYPES)
 
 
-def kernel_refusal(dim_head: int, num_landmarks: int,
-                   dtype: Optional[torch.dtype]) -> Optional[str]:
+def kernel_refusal(dim_head: int, num_landmarks: int, dtype: Optional[torch.dtype],
+                   training: bool = False) -> Optional[str]:
     """What of a NystromAttention configuration the CUDA kernels do not
-    take, or None: they take the compute dtypes of :data:`KERNEL_DTYPES`,
-    dh a multiple of 16 up to 128 and a landmark count that is a multiple of
-    8 (``ops/landmark.py``, ``ops/nystrom_attn.py``)."""
+    take, or None. The forward kernels (1-5, 9) take the compute dtypes of
+    :data:`KERNEL_DTYPES` at every head dim and landmark count. With
+    ``training``, also what the backward kernels (1b, 3c, 4b, 9b) do not
+    take: a head dim that is not a multiple of 16 up to 128, or a landmark
+    count that is not a multiple of 8 (``ops/landmark.py::bwd_refusal``,
+    ``ops/nystrom_attn.py::bwd_refusal``)."""
     dtype = dtype or torch.float32
     problems = []
     if dtype not in KERNEL_DTYPES:
         problems.append(f"compute dtype {dtype} (the kernels take "
                         f"{', '.join(str(d) for d in _common.KERNEL_DTYPES)})")
-    if dim_head % 16 or dim_head > 128:
-        problems.append(f"head dim {dim_head} (the kernels take a multiple of 16 up to 128)")
-    if num_landmarks % 8:
-        problems.append(f"{num_landmarks} landmarks (the kernels take a multiple of 8)")
+    if training:
+        widths = []
+        if dim_head % 16 or dim_head > 128:
+            widths.append(f"head dim {dim_head} (they take a multiple of 16 up to 128)")
+        if num_landmarks % 8:
+            widths.append(f"{num_landmarks} landmarks (they take a multiple of 8)")
+        if widths:
+            problems.append("training: the backward kernels (1b, 3c, 4b, 9b) do not take "
+                            + " and ".join(widths))
     return "; ".join(problems) or None
 
 

@@ -76,16 +76,27 @@ def depthwise_conv_seq_bwd_ref(v, kern, g):
     return dv, dkern
 
 
-def _check(v, kern):
+def bwd_refusal(d: int):
+    """What of the feature dim the backward kernel (9b) does not take, or
+    None: it takes multiples of 8 up to MAX_DIM; the forward takes any."""
+    if d % 8 or d > MAX_DIM:
+        return (f"feature dim {d}: the conv's backward kernel (9b) takes multiples of 8 up to "
+                f"{MAX_DIM}; train at this width with --no-use-pallas")
+    return None
+
+
+def _check(v, kern, backward: bool = False):
     """The kernels' inputs: v [b, h, n, d] of a compute type
-    (``_common.KERNEL_DTYPES``), d a multiple of 8 up to 128; kern [h, K] of
-    v's type, K odd up to 65."""
+    (``_common.KERNEL_DTYPES``), any d for the forward (parts of at most
+    MAX_DIM features a block), what :func:`bwd_refusal` takes for the
+    backward; kern [h, K] of v's type, K odd up to 65."""
+    why = bwd_refusal(v.shape[-1]) if backward else None
+    if why:
+        raise ValueError(why)
     _common.check_kernel_input("v", v, v.shape, v.dtype)
     b, h, n, d = v.shape
     ksize = kern.shape[-1]
     _common.check_kernel_input("kern", kern, (h, ksize), v.dtype)
-    if d % 8 or d > MAX_DIM:
-        raise ValueError(f"feature dim {d}: the kernel takes multiples of 8 up to {MAX_DIM}")
     if ksize % 2 == 0 or ksize > MAX_TAPS:
         raise ValueError(f"conv taps = {ksize}: the kernel takes odd K up to {MAX_TAPS}")
 
@@ -114,7 +125,7 @@ def conv1d_bwd_into(v, taps, g, dv, dkern, partial) -> None:
     """Launch the backward kernel (dv and the dkern partials, then their
     column sum) into ``dv``, ``dkern`` (fp32 [h, K]) and ``partial``
     (:func:`conv1d_bwd_scratch`)."""
-    _check(v, taps)
+    _check(v, taps, backward=True)
     _common.check_kernel_input("g", g, v.shape, v.dtype)
     _common.check_kernel_input("dv", dv, v.shape, v.dtype)
     b, h, n, d = v.shape
@@ -151,6 +162,7 @@ class DepthwiseConv1dSeq(torch.autograd.Function):
             dv, dkern = depthwise_conv_seq_bwd_ref(v, taps, g)
             return dv.to(v.dtype), dkern.to(kern.dtype)
         h, ksize = taps.shape
+        _check(v, taps, backward=True)
         dv = torch.empty_like(v)
         dkern = torch.empty(h, ksize, dtype=torch.float32, device=v.device)
         conv1d_bwd_into(v, taps.contiguous(), g, dv, dkern, conv1d_bwd_scratch(v, ksize))

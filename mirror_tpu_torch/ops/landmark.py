@@ -96,10 +96,15 @@ def landmark_softmax_bwd_lse_ref(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2)
     return dq, dk
 
 
-def _check_shape(dh: int, m: int):
+def bwd_refusal(dh: int, m: int):
+    """What of (dh, m) the backward kernel (``csrc/landmark_bwd.cu``, 1b)
+    does not take, or None: it takes dh a multiple of 16 up to 128 and m a
+    multiple of 8. The forward takes any dh and m."""
     if dh % 16 or dh > 128 or m % 8:
-        raise ValueError(f"dh = {dh}, m = {m}: the kernels take dh a multiple of 16 up to "
-                         "128 and m a multiple of 8")
+        return (f"dh = {dh}, m = {m}: the landmark softmax's backward kernel (1b) takes dh a "
+                "multiple of 16 up to 128 and m a multiple of 8; train at this width with "
+                "--no-use-pallas")
+    return None
 
 
 def _launch_fwd(q, k, m: int, pad: int):
@@ -109,7 +114,6 @@ def _launch_fwd(q, k, m: int, pad: int):
     dt = q.dtype
     _common.check_kernel_input("q", q, (b, h, n, dh), dt)
     _common.check_kernel_input("k", k, (b, h, n, dh), dt)
-    _check_shape(dh, m)
     q_l = torch.empty(b, h, m, dh, dtype=q.dtype, device=q.device)
     k_l = torch.empty_like(q_l)
     attn2 = torch.empty(b, h, m, m, dtype=q.dtype, device=q.device)
@@ -123,8 +127,12 @@ def _launch_fwd(q, k, m: int, pad: int):
 
 
 def _launch_bwd(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
-    """(dq, dk) [b, h, n, dh] from csrc/landmark_bwd.cu."""
+    """(dq, dk) [b, h, n, dh] from csrc/landmark_bwd.cu; a shape beyond it
+    raises by name (:func:`bwd_refusal`), never reaching the plain version."""
     b, h, m, dh = q_l.shape
+    why = bwd_refusal(dh, m)
+    if why:
+        raise ValueError(why)
     dt = q_l.dtype
     _common.check_kernel_input("q_l", q_l, (b, h, m, dh), dt)
     _common.check_kernel_input("k_l", k_l, (b, h, m, dh), dt)
@@ -132,7 +140,6 @@ def _launch_bwd(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
     _common.check_kernel_input("gql", gql, (b, h, m, dh), dt)
     _common.check_kernel_input("gkl", gkl, (b, h, m, dh), dt)
     _common.check_kernel_input("ga2", ga2, (b, h, m, m), dt)
-    _check_shape(dh, m)
     dq = torch.empty(b, h, n, dh, dtype=q_l.dtype, device=q_l.device)
     dk = torch.empty_like(dq)
     dvec = torch.empty(b * h, m, dtype=torch.float32, device=q_l.device)

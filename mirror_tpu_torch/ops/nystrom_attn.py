@@ -127,12 +127,22 @@ def softmax_attn_bwd_lse_ref(q, k, w, g, lse, o):
 
 
 def _check(q, k, w, r, c):
+    """The forward kernel's inputs: any dh (up to 128 a block a 64-row
+    tile, above it one a tile and 128-column slice of the output)."""
     b, h, _, dh = q.shape
     _common.check_kernel_input("q", q, (b, h, r, dh), q.dtype)
     _common.check_kernel_input("k", k, (b, h, c, dh), q.dtype)
     _common.check_kernel_input("w", w, (b, h, c, dh), q.dtype)
+
+
+def bwd_refusal(dh: int):
+    """What of dh the backward kernel (``csrc/softmax_attn_bwd.cu``: 3c,
+    and 4b with ``csrc/conv1d.cu``'s 9b) does not take, or None: it takes
+    dh a multiple of 16 up to 128."""
     if dh % 16 or dh > 128:
-        raise ValueError(f"dh = {dh}: the kernel takes multiples of 16 up to 128")
+        return (f"dh = {dh}: the softmax attention's backward kernels (3c, 4b) take dh a "
+                "multiple of 16 up to 128; train at this width with --no-use-pallas")
+    return None
 
 
 def _check_conv(v, kern, q):
@@ -177,9 +187,13 @@ def _launch_fwd(q, k, w, v: Optional[torch.Tensor], kern: Optional[torch.Tensor]
 
 def _launch_bwd(q, k, w, g, lse, o, v, kern):
     """(dq, dk, dw, dv, dkern fp32) from csrc/softmax_attn_bwd.cu, from the
-    forward's residuals lse and o; dv and dkern are None without the conv."""
+    forward's residuals lse and o; dv and dkern are None without the conv.
+    A dh beyond the kernel raises by name (:func:`bwd_refusal`)."""
     b, h, r, dh = q.shape
     c = k.shape[2]
+    why = bwd_refusal(dh)
+    if why:
+        raise ValueError(why)
     _check(q, k, w, r, c)
     _common.check_kernel_input("g", g, q.shape, q.dtype)
     _common.check_kernel_input("lse", lse, (b, h, r), torch.float32)

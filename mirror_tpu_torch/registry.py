@@ -12,7 +12,9 @@ The model is built on ``device`` (the card by default) without drawing any
 weights. With a ``generator`` it gets the reference's init drawn from it;
 without one its weights are left for ``load_state_dict``. On the card with
 ``use_pallas`` (the default) it is refused first when a Nystrom attention
-of the configuration is beyond the kernels (:func:`check_kernel_config`).
+of the configuration is beyond the forward kernels (float64); the training
+CLIs also refuse, at start, the widths beyond the backward kernels
+(:func:`check_kernel_config`).
 """
 
 import logging
@@ -60,19 +62,21 @@ def create_model(name: str, device="cuda", generator: Optional[torch.Generator] 
     return model
 
 
-def _refuse_kernel_path(model: nn.Module) -> None:
+def _refuse_kernel_path(model: nn.Module, training: bool = False) -> None:
     for mod in model.modules():
         if isinstance(mod, NystromAttention) and mod.use_pallas:
-            why = kernel_refusal(mod.dim_head, mod.num_landmarks, mod.dtype)
+            why = kernel_refusal(mod.dim_head, mod.num_landmarks, mod.dtype, training)
             if why:
                 raise ValueError(
                     f"the Nystrom attention's CUDA kernels do not take {why}; run the plain "
                     "path on the card with --no-use-pallas (use_pallas=False)")
 
 
-def check_kernel_config(name: str, device="cuda", **kwargs: Any) -> None:
+def check_kernel_config(name: str, device="cuda", training: bool = True,
+                        **kwargs: Any) -> None:
     """Raise ValueError, naming --no-use-pallas, when ``create_model(name,
-    device, **kwargs)`` would give the card's kernels what they do not take.
+    device, **kwargs)`` would give the card's kernels what they do not take,
+    with ``training`` (the training CLIs' check) its backward kernels too.
     A pure function of the configuration: the model is built on the meta
     device, nothing is allocated, and ``device`` may be a string."""
     if name not in _REGISTRY:
@@ -81,7 +85,7 @@ def check_kernel_config(name: str, device="cuda", **kwargs: Any) -> None:
         return
     with torch.device("meta"):
         model = _REGISTRY[name](**kwargs)
-    _refuse_kernel_path(model)
+    _refuse_kernel_path(model, training)
 
 
 @torch.no_grad()

@@ -19,8 +19,8 @@ ranks (``parallel/context_parallel.py``), and rank 0 writes the files.
 The checkpoint is the port's ``.pth.tar``: a pretrain state dict with
 ``wsi_encoder.*`` keys, or the encoder's keys at the top level. On the card
 the kernels run in either ``--dtype`` (float32, the JAX tool's default, or
-bfloat16); an encoder beyond them (a head dim above 128) is refused there
-at start, and ``--no-use-pallas`` runs the plain path.
+bfloat16) at every width (embed 1536: 8 heads of 192, 768 landmarks);
+``--no-use-pallas`` runs the plain path.
 """
 
 import argparse
@@ -58,8 +58,9 @@ def wsi_encoder_state(checkpoint_path: str) -> dict:
 
 def refuse_kernel_path(state: dict, dtype: torch.dtype, use_pallas: bool,
                        device: torch.device) -> None:
-    """On the card with the kernels, refuse by name what they do not take
-    (``models/nystrom.py::kernel_refusal``), before any slide is read."""
+    """On the card with the kernels, refuse by name what the forward
+    kernels do not take (``models/nystrom.py::kernel_refusal``: float64,
+    at any width), before any slide is read."""
     if device.type != "cuda" or not use_pallas:
         return
     embed = state["_fc1.0.weight"].shape[0]

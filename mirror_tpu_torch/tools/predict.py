@@ -116,8 +116,9 @@ def predict(
     kernels run unless ``use_pallas`` is False, or is None and the
     checkpoint was trained with them off. They run in the checkpoint's
     compute type (its args' ``amp`` and ``amp_dtype``: bf16, float16 or,
-    with ``amp: false``, float32); a checkpoint beyond them (a head dim above
-    128) is refused before any slide is read. The process group, where the env asks for one, lasts the call
+    with ``amp: false``, float32) at every width the JAX package serves
+    (embed 1536: 8 heads of 192, 768 landmarks; embed 792: 99, 396). The
+    process group, where the env asks for one, lasts the call
     (``distributed.session``)."""
     payload = load_checkpoint_file(checkpoint)
     state_dict = payload.get("state_dict_ema") if use_ema else None

@@ -14,9 +14,10 @@ kernels, forward and backward; ``--device cpu`` or ``--no-use-pallas`` runs
 their plain versions. The kernels run in the compute type of ``--amp``
 (bf16, the default), ``--amp-dtype float16`` or ``--no-amp`` (float32),
 as the JAX package runs its Pallas kernels; float16 takes no loss scaler,
-as there. A configuration beyond the kernels (a head dim above 128, a
-landmark count that is not a multiple of 8) is refused at start unless
-``--no-use-pallas``. The
+as there. A width beyond the backward kernels (a head dim above 128 or
+not a multiple of 16, a landmark count that is not a multiple of 8) is
+refused at start unless ``--no-use-pallas``; the forward kernels, which
+serving runs, take every width. The
 optimizer side is the JAX package's (``train/optim.py``): every ``--opt``,
 the timm schedules and plateau, clipping, ``--layer-decay``,
 ``--model-ema`` and ``--grad-accum-steps``; so is the run control

@@ -257,13 +257,15 @@ def test_train_mirror_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("flags,why", [
-    (["--model-kwargs", "embed_dim=792"], "396 landmarks"),
+    (["--model-kwargs", "embed_dim=792"], "head dim 99 (they take a multiple of 16 up to 128) "
+                                          "and 396 landmarks"),
     (["--model-kwargs", "embed_dim=1536"], "head dim 192"),
 ])
 def test_train_mirror_refuses_what_the_kernels_do_not_take(cohort, monkeypatch, flags, why):
-    """On the card (the device check passed), a configuration beyond the
-    kernels stops at start, before the cohort is read, naming
-    --no-use-pallas."""
+    """On the card (the device check passed), a width beyond the backward
+    kernels stops training at start, before the cohort is read, naming
+    them and --no-use-pallas (the forward kernels take it: predict serves
+    it)."""
     from mirror_tpu_torch.train import harness
 
     monkeypatch.setattr(harness, "device_from_arg", lambda name: torch.device("cuda"))
@@ -271,21 +273,23 @@ def test_train_mirror_refuses_what_the_kernels_do_not_take(cohort, monkeypatch, 
     with pytest.raises(ValueError, match="--no-use-pallas") as err:
         train_mirror.main(argv)
     assert why in str(err.value)
+    assert "training: the backward kernels (1b, 3c, 4b, 9b) do not take" in str(err.value)
 
 
 def test_predict_refuses_a_float32_checkpoint_on_the_card(tmp_path, monkeypatch):
     """A checkpoint whose args say amp: false is taken by predict on the
     card: its model keeps the kernel path in float32 (the kernels take it
-    since they take float32). A head-dim-192 checkpoint is refused before
-    any slide is read; --no-use-pallas is the way through. The card's model
-    is built on the CPU, checked as create_model checks it."""
+    since they take float32), and so is a head-dim-192 one (embed 1536: the
+    forward kernels take every width). A float64 checkpoint is refused
+    before any slide is read; --no-use-pallas is the way through. The
+    card's model is built on the CPU, checked as create_model checks it."""
     from mirror_tpu_torch import registry
     from mirror_tpu_torch.tools import predict as predict_mod
     from mirror_tpu_torch.tools.predict import _rebuild_model, predict
     from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
 
     def create_on_cpu(name, device="cuda", **kwargs):
-        registry.check_kernel_config(name, device, **kwargs)
+        registry.check_kernel_config(name, device, training=False, **kwargs)
         return registry.create_model(name, device="cpu", **kwargs)
 
     path = str(tmp_path / "fp32.pth.tar")
@@ -300,10 +304,20 @@ def test_predict_refuses_a_float32_checkpoint_on_the_card(tmp_path, monkeypatch)
     path = str(tmp_path / "dh192.pth.tar")
     save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier",
                                     "model_kwargs": {"wsi_embed_dim": 768, "embed_dim": 1536}})
+    with monkeypatch.context() as mp:
+        mp.setattr(predict_mod, "create_model", create_on_cpu)
+        model, _, _ = _rebuild_model(load_checkpoint_file(path), None, "subtyping", "cuda")
+    attn = model.wsi_encoder.layer1.attn
+    assert attn.use_pallas is True and (attn.dim_head, attn.num_landmarks) == (192, 768)
+
+    path = str(tmp_path / "f64.pth.tar")
+    save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier",
+                                    "model_kwargs": {"wsi_embed_dim": 768, "embed_dim": 1536,
+                                                     "dtype": "float64"}})
     with pytest.raises(ValueError, match="--no-use-pallas") as err:
         predict(path, "subtyping", str(tmp_path / "none"), str(tmp_path / "out.csv"),
                 device="cuda")
-    assert "head dim 192" in str(err.value)
+    assert "compute dtype torch.float64" in str(err.value)
 
 
 def test_predict_keeps_the_checkpoints_use_pallas(tmp_path, monkeypatch):
@@ -318,7 +332,7 @@ def test_predict_keeps_the_checkpoints_use_pallas(tmp_path, monkeypatch):
     from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
 
     def create_on_cpu(name, device="cuda", **kwargs):
-        registry.check_kernel_config(name, device, **kwargs)
+        registry.check_kernel_config(name, device, training=False, **kwargs)
         return registry.create_model(name, device="cpu", **kwargs)
     monkeypatch.setattr(predict_mod, "create_model", create_on_cpu)
 

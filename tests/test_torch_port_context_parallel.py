@@ -473,9 +473,10 @@ def test_wrap_pad_square_matches_jax():
 
 def test_encode_slide_refuses_float32_on_the_card_by_name(setup):
     """The JAX tool's default dtype (float32) with the kernels on the card
-    passes the start check, since the kernels take float32; an encoder
-    beyond them (head dim 192) is refused before any slide is read, naming
-    --no-use-pallas."""
+    passes the start check, since the kernels take float32, and so does an
+    encoder at embed 1536 (head dim 192: the forward kernels take every
+    width); a type beyond them (float64) is refused before any slide is
+    read, naming --no-use-pallas."""
     root = setup["paths"]["root"]
     argv = ["--wsi-feature-dir", str(root / "none"), "--checkpoint", str(root / "enc.pth.tar"),
             "--output", str(root / "never")]
@@ -484,8 +485,10 @@ def test_encode_slide_refuses_float32_on_the_card_by_name(setup):
         encode_slide.refuse_kernel_path({"_fc1.0.weight": torch.empty(128, 40)}, dtype, True,
                                         cuda)
     wide = {"_fc1.0.weight": torch.empty(1536, 768)}
-    with pytest.raises(SystemExit, match=r"head dim 192.*--no-use-pallas"):
-        encode_slide.refuse_kernel_path(wide, torch.float32, True, cuda)
-    encode_slide.refuse_kernel_path(wide, torch.float32, False, cuda)  # the plain path
+    for dtype in (torch.float32, torch.bfloat16):
+        encode_slide.refuse_kernel_path(wide, dtype, True, cuda)
+    with pytest.raises(SystemExit, match=r"compute dtype torch.float64.*--no-use-pallas"):
+        encode_slide.refuse_kernel_path(wide, torch.float64, True, cuda)
+    encode_slide.refuse_kernel_path(wide, torch.float64, False, cuda)  # the plain path
     with pytest.raises(SystemExit, match="--heads 4"):
         encode_slide.main(argv + ["--heads", "4", "--device", "cpu"])

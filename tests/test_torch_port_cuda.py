@@ -955,8 +955,11 @@ def test_conv1d_and_ln_qkv_backward_repeat_bitwise(dev):
 
 def test_conv1d_and_ln_qkv_refuse_bad_inputs(dev):
     x = torch.zeros(1, 2, 20, 12, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # d not a multiple of 8
-        depthwise_conv1d_seq(x, x.new_zeros(2, 33))
+    # d 12, not a multiple of 8: the forward takes any d, its backward (9b) not
+    out = depthwise_conv1d_seq(x.clone().requires_grad_(), x.new_zeros(2, 33))
+    assert out.shape == x.shape and not out.float().abs().sum().item()
+    with pytest.raises(ValueError, match="9b"):
+        out.float().sum().backward()
     with pytest.raises(ValueError):  # an even number of taps
         depthwise_conv1d_seq(x[..., :8].contiguous(), x.new_zeros(2, 32))
     y = torch.zeros(1, 5, 64, device=dev, dtype=torch.bfloat16)
@@ -1683,3 +1686,53 @@ def test_instances_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 2, 8, 16, device=dev)
     with pytest.raises(TypeError, match="float16"):
         _launch_fwd(q, q.half(), q, None, None, 0, keep=False)
+
+
+# --- every width the JAX package serves: the forward kernels 1, 3, 3b, 4, 9
+# at any head dim and landmark count ---
+
+WIDTH_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+WIDTH_BARS = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
+WIDTH_N = {12: 50, 396: 700, 768: 800}  # pads 10, 92, 736
+
+
+@pytest.mark.parametrize("dtype", WIDTH_DTYPES, ids=_name)
+@pytest.mark.parametrize("m", [12, 396, 768])
+@pytest.mark.parametrize("dh", [6, 24, 99, 136, 192, 256, 320])
+def test_forward_kernels_at_every_width(dev, dh, m, dtype):
+    """Ragged head dims (6, 24, 99: zero-filled columns, element loads and
+    stores where a row is not a whole number of 16-byte pieces), head dims
+    above 128 (the output's dh split over 128-column blocks), landmark counts
+    not a multiple of 8: kernels 1, 3 (with its pad and lse), 3b, 4 (with
+    lse and o_attn) and 9, each launched once, against their plain
+    versions in the same type, at the instances' forward bars."""
+    bar = WIDTH_BARS[dtype]
+    n, b, h = WIDTH_N[m], 1, 2
+    pad = (m - n % m) % m
+    g = torch.Generator().manual_seed(dh + m)
+    q = _randn(g, b, h, n, dh, dev=dev, dtype=dtype, scale=dh ** -0.5)
+    k, v = (_randn(g, b, h, n, dh, dev=dev, dtype=dtype) for _ in range(2))
+    w = _randn(g, b, h, m, dh, dev=dev, dtype=dtype)
+    kern = _randn(g, h, 33, dev=dev, dtype=dtype, scale=33 ** -0.5)
+    _common.reset_launch_counts()
+    got = landmark.landmark_softmax_op(q, k, m, pad)
+    assert _common.launch_counts() == {_common.instance("landmark_softmax", dtype): 1}
+    ref = landmark.landmark_softmax_lse_ref(q, k, m, pad)
+    for name, a, r in zip(("q_l", "k_l", "attn2", "lse"), got, ref):
+        _assert_rel(a, r, bound=bar, name=name)
+    q_l, k_l = ref[0], ref[1]
+    for name, args, pad_c in (("kv", (q_l, k, v, None, None), pad),
+                              ("q", (q, k_l, w, None, None), 0),
+                              ("conv", (q, k_l, w, v, kern), 0)):
+        out, lse, o_attn = _launch_fwd(*args, pad_c, keep=True)
+        ref_out, ref_lse, ref_o = softmax_attn_fwd_ref(*args[:3], pad_c, *args[3:])
+        _assert_rel(out, ref_out, bound=bar, name=f"{name} out")
+        _assert_rel(lse, ref_lse, bound=bar, name=f"{name} lse")
+        if o_attn is not None:
+            _assert_rel(o_attn, ref_o, bound=bar, name=f"{name} o_attn")
+        # without the residuals (serving): the same output
+        assert torch.equal(_launch_fwd(*args, pad_c, keep=False)[0], out), name
+    _common.reset_launch_counts()
+    conv = depthwise_conv1d_seq(v, kern)
+    assert _common.launch_counts() == {_common.instance("conv1d", dtype): 1}
+    _assert_rel(conv, depthwise_conv_seq_ref(v, kern).to(dtype), bound=bar, name="conv")

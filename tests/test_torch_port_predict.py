@@ -96,12 +96,23 @@ def test_port_predict_matches_jax_predict(cohort, tmp_path, task, wsi_only):
 
 def test_whole_slide_is_refused(cohort, tmp_path):
     """``--whole-slide`` runs (``test_torch_port_context_parallel.py`` holds
-    it against the JAX tool); on the card a float32 checkpoint is refused
-    for it too, before any slide is read, naming --no-use-pallas."""
+    it against the JAX tool); on the card the tiny float32 checkpoint (embed
+    48: head dim 6, 24 landmarks) passes the kernels' check, since the
+    forward kernels take every width, and a float64 one is refused for it,
+    before any slide is read, naming --no-use-pallas."""
+    from mirror_tpu_torch import registry
+    from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
+
+    registry.check_kernel_config("mirror_classifier", "cuda", training=False, **TINY)
     _, pth = _checkpoints(tmp_path, "subtyping", False)
-    with pytest.raises(ValueError, match="--no-use-pallas"):
+    payload = load_checkpoint_file(pth)
+    args = dict(run_args(payload))
+    args["model_kwargs"] = dict(args["model_kwargs"], dtype="float64")
+    save_checkpoint_file(pth, payload["state_dict"], args=args)
+    with pytest.raises(ValueError, match="--no-use-pallas") as err:
         predict(pth, "subtyping", cohort["feature_dir"], str(tmp_path / "o.csv"),
                 rna_feature_csv=cohort["rna_csv"], whole_slide=True, device="cuda")
+    assert "compute dtype torch.float64" in str(err.value)
     assert not (tmp_path / "o.csv").exists()
 
 

@@ -391,21 +391,54 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 # --- repair: the kernel path refuses at start what the kernels do not take ---
 
 
+BACKWARD_REFUSAL = "training: the backward kernels (1b, 3c, 4b, 9b) do not take"
+
+
 @pytest.mark.parametrize("name", ["mirror", "mirror_classifier"])
 @pytest.mark.parametrize("kwargs,why", [
     ({"dtype": "float64"}, "compute dtype torch.float64"),  # a type no kernel takes
-    ({"dtype": "bfloat16", "embed_dim": 1536}, "head dim 192"),
-    ({"dtype": "bfloat16", "embed_dim": 792}, "396 landmarks"),
+    # widths the forward kernels take and the backward kernels do not
+    ({"dtype": "bfloat16", "embed_dim": 1536}, f"{BACKWARD_REFUSAL} head dim 192"),
+    ({"dtype": "bfloat16", "embed_dim": 792}, "head dim 99 (they take a multiple of 16 up to "
+                                              "128) and 396 landmarks"),
 ])
 def test_kernel_config_is_refused_on_the_card_by_name(name, kwargs, why):
+    """The training CLIs' check (``training``, the default) refuses by
+    name; create_model (serving) refuses float64 and takes the widths."""
     with pytest.raises(ValueError, match="--no-use-pallas") as err:
         registry.check_kernel_config(name, "cuda", **kwargs)
     assert why in str(err.value)
     # the same model is not refused on the CPU, nor on the card's plain path
     registry.check_kernel_config(name, "cpu", **kwargs)
     registry.check_kernel_config(name, "cuda", use_pallas=False, **kwargs)
-    with pytest.raises(ValueError, match="--no-use-pallas"):
-        registry.create_model(name, device="cuda", **kwargs)
+    if "dtype" in why:
+        with pytest.raises(ValueError, match="--no-use-pallas"):
+            registry.create_model(name, device="cuda", **kwargs)
+    else:
+        registry.check_kernel_config(name, "cuda", training=False, **kwargs)
+
+
+@pytest.mark.parametrize("name", ["mirror", "mirror_classifier"])
+@pytest.mark.parametrize("embed,dtype", [(1536, "bfloat16"), (792, "float32"),
+                                         (264, "float16"), (48, "bfloat16")],
+                         ids=["1536", "792", "264", "48"])
+def test_kernel_config_accepts_wide_and_ragged_widths_on_the_card(name, embed, dtype):
+    """The forward kernels take every head dim and landmark count: a
+    serving model at embed 1536 (dh 192, m 768), 792 (99, 396), 264 (33,
+    132) or 48 (6, 24) passes create_model's check on the card and keeps
+    the kernel path in every Nystrom attention, at those widths. (Embed
+    1040, dh 130, builds in neither package: the RNA encoder's 12 heads do
+    not divide it; the kernels are held at dh 130 directly.)"""
+    from mirror_tpu_torch.models.nystrom import NystromAttention
+
+    kwargs = {"dtype": dtype, "embed_dim": embed}
+    registry.check_kernel_config(name, "cuda", training=False, **kwargs)
+    with torch.device("meta"):
+        model = registry._REGISTRY[name](**kwargs)
+    registry._refuse_kernel_path(model)
+    attns = [m for m in model.modules() if isinstance(m, NystromAttention)]
+    assert attns and all(a.use_pallas for a in attns)
+    assert all((a.dim_head, a.num_landmarks) == (embed // 8, embed // 2) for a in attns)
 
 
 @pytest.mark.parametrize("name", ["mirror", "mirror_classifier"])
