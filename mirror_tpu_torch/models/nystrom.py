@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import _common
+from ..ops import _common, conv1d, landmark, nystrom_attn
 from ..ops.conv1d import depthwise_conv_seq_plain
 from ..ops.landmark import landmark_softmax
 from ..ops.nystrom_attn import (
@@ -71,23 +71,19 @@ def kernel_refusal(dim_head: int, num_landmarks: int, dtype: Optional[torch.dtyp
     take, or None. The forward kernels (1-5, 9) take the compute dtypes of
     :data:`KERNEL_DTYPES` at every head dim and landmark count. With
     ``training``, also what the backward kernels (1b, 3c, 4b, 9b) do not
-    take: a head dim that is not a multiple of 16 up to 128, or a landmark
-    count that is not a multiple of 8 (``ops/landmark.py::bwd_refusal``,
-    ``ops/nystrom_attn.py::bwd_refusal``)."""
+    take, as each op's ``bwd_refusal`` states it."""
     dtype = dtype or torch.float32
     problems = []
     if dtype not in KERNEL_DTYPES:
         problems.append(f"compute dtype {dtype} (the kernels take "
                         f"{', '.join(str(d) for d in _common.KERNEL_DTYPES)})")
     if training:
-        widths = []
-        if dim_head % 16 or dim_head > 128:
-            widths.append(f"head dim {dim_head} (they take a multiple of 16 up to 128)")
-        if num_landmarks % 8:
-            widths.append(f"{num_landmarks} landmarks (they take a multiple of 8)")
+        widths = [why for why in (landmark.bwd_refusal(dim_head, num_landmarks),
+                                  nystrom_attn.bwd_refusal(dim_head),
+                                  conv1d.bwd_refusal(dim_head)) if why]
         if widths:
             problems.append("training: the backward kernels (1b, 3c, 4b, 9b) do not take "
-                            + " and ".join(widths))
+                            "this width: " + "; ".join(widths))
     return "; ".join(problems) or None
 
 

@@ -274,6 +274,8 @@ def count_launch(kernel: str) -> None:
 # under --amp-dtype float16, float32 under --no-amp), and each one's code in
 # the C entries (csrc/common.cuh's Elem)
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# ends the backward kernels' refusals of a width (ops' ``bwd_refusal``)
+BWD_HINT = "train at this width with --no-use-pallas"
 _TYPE_CODES = {dt: i for i, dt in enumerate(KERNEL_DTYPES)}
 
 

@@ -80,8 +80,7 @@ def bwd_refusal(d: int):
     """What of the feature dim the backward kernel (9b) does not take, or
     None: it takes multiples of 8 up to MAX_DIM; the forward takes any."""
     if d % 8 or d > MAX_DIM:
-        return (f"feature dim {d}: the conv's backward kernel (9b) takes multiples of 8 up to "
-                f"{MAX_DIM}; train at this width with --no-use-pallas")
+        return f"feature dim {d}: the conv's backward kernel (9b) takes multiples of 8 up to {MAX_DIM}"
     return None
 
 
@@ -92,7 +91,7 @@ def _check(v, kern, backward: bool = False):
     backward; kern [h, K] of v's type, K odd up to 65."""
     why = bwd_refusal(v.shape[-1]) if backward else None
     if why:
-        raise ValueError(why)
+        raise ValueError(f"{why}; {_common.BWD_HINT}")
     _common.check_kernel_input("v", v, v.shape, v.dtype)
     b, h, n, d = v.shape
     ksize = kern.shape[-1]
@@ -121,16 +120,18 @@ def conv1d_bwd_scratch(v: torch.Tensor, ksize: int) -> torch.Tensor:
     return torch.empty(elems // (h * ksize), h * ksize, dtype=torch.float32, device=v.device)
 
 
-def conv1d_bwd_into(v, taps, g, dv, dkern, partial) -> None:
+def conv1d_bwd_into(v, taps, g, dv, dkern, partial=None) -> None:
     """Launch the backward kernel (dv and the dkern partials, then their
     column sum) into ``dv``, ``dkern`` (fp32 [h, K]) and ``partial``
-    (:func:`conv1d_bwd_scratch`)."""
+    (:func:`conv1d_bwd_scratch`, allocated here when None)."""
     _check(v, taps, backward=True)
     _common.check_kernel_input("g", g, v.shape, v.dtype)
     _common.check_kernel_input("dv", dv, v.shape, v.dtype)
     b, h, n, d = v.shape
     ksize = taps.shape[1]
     _common.check_kernel_input("dkern", dkern, (h, ksize), torch.float32)
+    if partial is None:
+        partial = conv1d_bwd_scratch(v, ksize)
     elems = _common.scratch_elems("mirror_conv1d_bwd_partial_elems", b * h, n, d, ksize,
                                   _common.type_code(v.dtype))
     if partial.numel() != elems:
@@ -161,11 +162,9 @@ class DepthwiseConv1dSeq(torch.autograd.Function):
         if not _common.on_cuda(v, kern, g):
             dv, dkern = depthwise_conv_seq_bwd_ref(v, taps, g)
             return dv.to(v.dtype), dkern.to(kern.dtype)
-        h, ksize = taps.shape
-        _check(v, taps, backward=True)
         dv = torch.empty_like(v)
-        dkern = torch.empty(h, ksize, dtype=torch.float32, device=v.device)
-        conv1d_bwd_into(v, taps.contiguous(), g, dv, dkern, conv1d_bwd_scratch(v, ksize))
+        dkern = torch.empty(taps.shape, dtype=torch.float32, device=v.device)
+        conv1d_bwd_into(v, taps.contiguous(), g, dv, dkern)
         return dv, dkern.to(kern.dtype)
 
 

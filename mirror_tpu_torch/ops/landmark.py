@@ -102,8 +102,7 @@ def bwd_refusal(dh: int, m: int):
     multiple of 8. The forward takes any dh and m."""
     if dh % 16 or dh > 128 or m % 8:
         return (f"dh = {dh}, m = {m}: the landmark softmax's backward kernel (1b) takes dh a "
-                "multiple of 16 up to 128 and m a multiple of 8; train at this width with "
-                "--no-use-pallas")
+                "multiple of 16 up to 128 and m a multiple of 8")
     return None
 
 
@@ -132,7 +131,7 @@ def _launch_bwd(q_l, k_l, lse, n: int, pad: int, gql, gkl, ga2):
     b, h, m, dh = q_l.shape
     why = bwd_refusal(dh, m)
     if why:
-        raise ValueError(why)
+        raise ValueError(f"{why}; {_common.BWD_HINT}")
     dt = q_l.dtype
     _common.check_kernel_input("q_l", q_l, (b, h, m, dh), dt)
     _common.check_kernel_input("k_l", k_l, (b, h, m, dh), dt)

@@ -141,7 +141,7 @@ def bwd_refusal(dh: int):
     dh a multiple of 16 up to 128."""
     if dh % 16 or dh > 128:
         return (f"dh = {dh}: the softmax attention's backward kernels (3c, 4b) take dh a "
-                "multiple of 16 up to 128; train at this width with --no-use-pallas")
+                "multiple of 16 up to 128")
     return None
 
 
@@ -193,7 +193,7 @@ def _launch_bwd(q, k, w, g, lse, o, v, kern):
     c = k.shape[2]
     why = bwd_refusal(dh)
     if why:
-        raise ValueError(why)
+        raise ValueError(f"{why}; {_common.BWD_HINT}")
     _check(q, k, w, r, c)
     _common.check_kernel_input("g", g, q.shape, q.dtype)
     _common.check_kernel_input("lse", lse, (b, h, r), torch.float32)

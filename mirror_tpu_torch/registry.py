@@ -72,20 +72,19 @@ def _refuse_kernel_path(model: nn.Module, training: bool = False) -> None:
                     "path on the card with --no-use-pallas (use_pallas=False)")
 
 
-def check_kernel_config(name: str, device="cuda", training: bool = True,
-                        **kwargs: Any) -> None:
-    """Raise ValueError, naming --no-use-pallas, when ``create_model(name,
-    device, **kwargs)`` would give the card's kernels what they do not take,
-    with ``training`` (the training CLIs' check) its backward kernels too.
-    A pure function of the configuration: the model is built on the meta
-    device, nothing is allocated, and ``device`` may be a string."""
+def check_kernel_config(name: str, device="cuda", **kwargs: Any) -> None:
+    """The training CLIs' check: raise ValueError, naming --no-use-pallas,
+    when training ``create_model(name, device, **kwargs)`` would give the
+    card's kernels, forward or backward, what they do not take. A pure
+    function of the configuration: the model is built on the meta device,
+    nothing is allocated, and ``device`` may be a string."""
     if name not in _REGISTRY:
         raise ValueError(f"Unknown model '{name}'; available: {list_models()}")
     if torch.device(device).type != "cuda":
         return
     with torch.device("meta"):
         model = _REGISTRY[name](**kwargs)
-    _refuse_kernel_path(model, training)
+    _refuse_kernel_path(model, training=True)
 
 
 @torch.no_grad()

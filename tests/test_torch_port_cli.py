@@ -257,9 +257,10 @@ def test_train_mirror_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("flags,why", [
-    (["--model-kwargs", "embed_dim=792"], "head dim 99 (they take a multiple of 16 up to 128) "
-                                          "and 396 landmarks"),
-    (["--model-kwargs", "embed_dim=1536"], "head dim 192"),
+    (["--model-kwargs", "embed_dim=792"], "dh = 99, m = 396: the landmark softmax's backward "
+                                          "kernel (1b)"),
+    (["--model-kwargs", "embed_dim=1536"], "dh = 192: the softmax attention's backward kernels "
+                                           "(3c, 4b)"),
 ])
 def test_train_mirror_refuses_what_the_kernels_do_not_take(cohort, monkeypatch, flags, why):
     """On the card (the device check passed), a width beyond the backward
@@ -289,8 +290,9 @@ def test_predict_refuses_a_float32_checkpoint_on_the_card(tmp_path, monkeypatch)
     from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
 
     def create_on_cpu(name, device="cuda", **kwargs):
-        registry.check_kernel_config(name, device, training=False, **kwargs)
-        return registry.create_model(name, device="cpu", **kwargs)
+        model = registry.create_model(name, device="cpu", **kwargs)
+        registry._refuse_kernel_path(model)
+        return model
 
     path = str(tmp_path / "fp32.pth.tar")
     save_checkpoint_file(path, {}, {"amp": False, "model": "mirror_classifier", "model_kwargs": {
@@ -332,8 +334,9 @@ def test_predict_keeps_the_checkpoints_use_pallas(tmp_path, monkeypatch):
     from mirror_tpu_torch.train.checkpoint import save_checkpoint_file
 
     def create_on_cpu(name, device="cuda", **kwargs):
-        registry.check_kernel_config(name, device, training=False, **kwargs)
-        return registry.create_model(name, device="cpu", **kwargs)
+        model = registry.create_model(name, device="cpu", **kwargs)
+        registry._refuse_kernel_path(model)
+        return model
     monkeypatch.setattr(predict_mod, "create_model", create_on_cpu)
 
     path = str(tmp_path / "plain.pth.tar")

@@ -100,10 +100,13 @@ def test_whole_slide_is_refused(cohort, tmp_path):
     48: head dim 6, 24 landmarks) passes the kernels' check, since the
     forward kernels take every width, and a float64 one is refused for it,
     before any slide is read, naming --no-use-pallas."""
+    import torch
+
     from mirror_tpu_torch import registry
     from mirror_tpu_torch.train.checkpoint import load_checkpoint_file, run_args
 
-    registry.check_kernel_config("mirror_classifier", "cuda", training=False, **TINY)
+    with torch.device("meta"):
+        registry._refuse_kernel_path(registry._REGISTRY["mirror_classifier"](**TINY))
     _, pth = _checkpoints(tmp_path, "subtyping", False)
     payload = load_checkpoint_file(pth)
     args = dict(run_args(payload))

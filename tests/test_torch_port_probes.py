@@ -398,13 +398,14 @@ BACKWARD_REFUSAL = "training: the backward kernels (1b, 3c, 4b, 9b) do not take"
 @pytest.mark.parametrize("kwargs,why", [
     ({"dtype": "float64"}, "compute dtype torch.float64"),  # a type no kernel takes
     # widths the forward kernels take and the backward kernels do not
-    ({"dtype": "bfloat16", "embed_dim": 1536}, f"{BACKWARD_REFUSAL} head dim 192"),
-    ({"dtype": "bfloat16", "embed_dim": 792}, "head dim 99 (they take a multiple of 16 up to "
-                                              "128) and 396 landmarks"),
+    ({"dtype": "bfloat16", "embed_dim": 1536}, f"{BACKWARD_REFUSAL} this width: dh = 192, "
+                                               "m = 768"),
+    ({"dtype": "bfloat16", "embed_dim": 792}, "dh = 99: the softmax attention's backward "
+                                              "kernels (3c, 4b) take dh a multiple of 16"),
 ])
 def test_kernel_config_is_refused_on_the_card_by_name(name, kwargs, why):
-    """The training CLIs' check (``training``, the default) refuses by
-    name; create_model (serving) refuses float64 and takes the widths."""
+    """The training CLIs' check refuses by name; create_model's (serving)
+    refuses float64 and takes the widths."""
     with pytest.raises(ValueError, match="--no-use-pallas") as err:
         registry.check_kernel_config(name, "cuda", **kwargs)
     assert why in str(err.value)
@@ -415,7 +416,8 @@ def test_kernel_config_is_refused_on_the_card_by_name(name, kwargs, why):
         with pytest.raises(ValueError, match="--no-use-pallas"):
             registry.create_model(name, device="cuda", **kwargs)
     else:
-        registry.check_kernel_config(name, "cuda", training=False, **kwargs)
+        with torch.device("meta"):
+            registry._refuse_kernel_path(registry._REGISTRY[name](**kwargs))
 
 
 @pytest.mark.parametrize("name", ["mirror", "mirror_classifier"])
@@ -432,7 +434,6 @@ def test_kernel_config_accepts_wide_and_ragged_widths_on_the_card(name, embed, d
     from mirror_tpu_torch.models.nystrom import NystromAttention
 
     kwargs = {"dtype": dtype, "embed_dim": embed}
-    registry.check_kernel_config(name, "cuda", training=False, **kwargs)
     with torch.device("meta"):
         model = registry._REGISTRY[name](**kwargs)
     registry._refuse_kernel_path(model)
